@@ -1,0 +1,46 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Each wrapper runs its plain version for CPU tensors and launches its kernel
+(or raises) for CUDA tensors; it counts its kernel launches in a plain
+integer attribute, `wrapper.launches`.  The CUDA library is built and
+loaded only when a kernel is first launched (`_build.py`).
+"""
+
+from .cache_update import cache_slot_write_bkt, cache_slot_write_bkt_plain
+from .decode_attention import (
+    decode_attention_stacked, decode_attention_stacked_plain,
+)
+from .flash_attention import (
+    flash_attention_masked, flash_attention_masked_fwd,
+    flash_attention_masked_plain,
+)
+
+# id → (wrapper, plain version, kernel source, TPU kernel it replaces)
+KERNELS = {
+    "K1": (flash_attention_masked_fwd, flash_attention_masked_plain,
+           "prot2text_tpu_torch/kernels/csrc/flash_attention.cu",
+           "prot2text_tpu/kernels/flash_attention.py:704"),
+    "K2": (decode_attention_stacked, decode_attention_stacked_plain,
+           "prot2text_tpu_torch/kernels/csrc/decode_attention.cu",
+           "prot2text_tpu/kernels/decode_attention.py:66"),
+    "K3": (cache_slot_write_bkt, cache_slot_write_bkt_plain,
+           "prot2text_tpu_torch/kernels/csrc/cache_update.cu",
+           "prot2text_tpu/kernels/cache_update.py:176"),
+}
+
+
+def launch_counts() -> dict:
+    return {kid: w.launches for kid, (w, *_) in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for w, *_ in KERNELS.values():
+        w.launches = 0
+
+
+__all__ = [
+    "KERNELS", "cache_slot_write_bkt", "cache_slot_write_bkt_plain",
+    "decode_attention_stacked", "decode_attention_stacked_plain",
+    "flash_attention_masked", "flash_attention_masked_fwd",
+    "flash_attention_masked_plain", "launch_counts", "reset_launch_counts",
+]

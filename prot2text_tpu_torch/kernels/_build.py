@@ -1,0 +1,146 @@
+"""Build and load the port's CUDA kernels (one shared library, plain C ABI).
+
+Every `csrc/*.cu` is compiled by nvcc for Hopper (`sm_90a`) into ONE shared
+library, `_build/libp2t_kernels_<hash>.so`, where the hash covers the
+sources, the headers and the flags.  The build runs at first use, under an
+exclusive file lock (concurrent processes wait for one build instead of
+racing), so a fresh checkout needs nothing but `nvcc`: no PyTorch headers
+are compiled (seconds, not minutes).  The library is loaded with ctypes;
+every pointer and the CUDA stream are passed as `c_void_p`, and every entry
+point returns `cudaGetLastError()` after its launch, which `check()` turns
+into an exception.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package, and this sandbox-independent code must not look for nvcc until a
+kernel is launched on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",            # registers / shared memory / spills → log
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+# C entry points → argtypes; each returns an int cudaError_t
+SIGNATURES = {
+    # q, k, v, kv_start, kv_len, o, lse, strides[12], B, H, Hkv, Sq, Skv, D,
+    # causal, dtype, stream
+    "p2t_flash_masked_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # qg, ck(layer), cv(layer), kv_mask, k_new, v_new, out, B, Hkv, rep, T,
+    # D, dtype, stream
+    "p2t_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _P],
+    # cache, src, n_rows, T, index, row_bytes, stream
+    "p2t_cache_slot_write": [_P, _P, _L, _L, _L, _I, _P],
+}
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def find_nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built from source")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libp2t_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the library unless this exact source set is already built.
+    Returns its path; the nvcc/ptxas report goes to `<lib>.log`."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if so.exists():
+                return so
+            cu, _ = _sources()
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+                   *map(str, cu)]
+            t0 = time.time()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log = (f"$ {' '.join(cmd)}\n# {time.time() - t0:.1f} s, "
+                   f"rc {res.returncode}\n{res.stdout}{res.stderr}")
+            so.with_suffix(".log").write_text(log)
+            if res.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            os.replace(tmp, so)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return so
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.p2t_error_string.argtypes = [ctypes.c_int]
+    lib.p2t_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = library().p2t_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def dtype_code(dtype) -> int:
+    key = str(dtype).removeprefix("torch.")
+    if key not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    return DTYPE_CODES[key]
+
+
+def stream_of(t) -> int:
+    """Raw cudaStream_t of the current PyTorch stream on t's device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

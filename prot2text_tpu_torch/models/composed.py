@@ -1,0 +1,148 @@
+"""Composed protein→text model (counterpart of
+prot2text_tpu/models/composed.py:52-163, reference
+modeling_esm2llama_instruct.py:71-268): ESM2 encoder + modality adapter +
+Llama with placeholder-token fusion.  The legacy, RGCN and ESMC-Qwen arcs
+are not ported yet (ROADMAP.md §1 items 7, 8 and 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .adapters import (
+    ModalityAdapterConfig, init_modality_adapter_params, modality_adapter,
+)
+from .decoder import (
+    contiguous_lengths, cross_entropy_loss, decoder_forward, decoder_logits,
+    embed_tokens,
+)
+from .esm2 import ESM2Config, esm2_encode, init_esm2_params
+from .fusion import count_check, placeholder_merge
+from .llama import LlamaConfig, init_llama_params
+from .weights import ParamTree
+
+
+@dataclasses.dataclass
+class ModelOutput:
+    loss: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+    hidden_states: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Esm2LlamaInstructConfig:
+    esm_config: ESM2Config
+    adapter_config: ModalityAdapterConfig
+    llama_config: LlamaConfig
+    placeholder_id: int = 128003
+
+
+class Esm2LlamaInstructForCausalLM(nn.Module):
+    """ESM2 + ModalityAdapter + Llama with placeholder-token fusion.
+
+    `params`: a ParamTree (e.g. `models.weights.params_from_jax(...)`) or a
+    nested dict of tensors with the JAX tree {"esm_encoder", "adapter",
+    "llama_decoder"}; None draws random weights on `device` from
+    `generator` (N(0, 0.02), as the JAX init).
+
+    Attention has one route, the JAX package's `attn_impl="auto"`: plain
+    encoder attention, K1 in the prefill, K2 + K3 in decode."""
+
+    def __init__(self, config: Esm2LlamaInstructConfig, params=None, *,
+                 device="cpu", dtype=torch.float32, generator=None):
+        super().__init__()
+        self.config = config
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            kw = dict(generator=generator, device=device, dtype=dtype)
+            params = {
+                "esm_encoder": init_esm2_params(config.esm_config, **kw),
+                "adapter": init_modality_adapter_params(
+                    config.adapter_config, **kw),
+                "llama_decoder": init_llama_params(config.llama_config, **kw),
+            }
+        tree = params if isinstance(params, ParamTree) else ParamTree(params)
+        for name in ("esm_encoder", "adapter", "llama_decoder"):
+            self.add_module(name, getattr(tree, name))
+
+    def params(self) -> dict:
+        return {name: getattr(self, name).tree()
+                for name in ("esm_encoder", "adapter", "llama_decoder")}
+
+    @staticmethod
+    def apply(config: Esm2LlamaInstructConfig, params, *, input_ids=None,
+              attention_mask=None, labels=None, protein_input_ids=None,
+              protein_attention_mask=None, protein_inputs_embeds=None,
+              return_encoder_outputs: bool = False,
+              return_adapter_outputs: bool = False,
+              return_decoder_inputs: bool = False,
+              deterministic: bool = True):
+        enc = esm2_encode(config.esm_config, params["esm_encoder"],
+                          protein_input_ids, protein_attention_mask,
+                          inputs_embeds=protein_inputs_embeds)
+        if return_encoder_outputs:
+            return enc
+        adapted = modality_adapter(config.adapter_config, params["adapter"],
+                                   enc, deterministic=deterministic)
+        if return_adapter_outputs:
+            return adapted, protein_attention_mask
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        dec = params["llama_decoder"]
+        text_embeds = embed_tokens(dec, input_ids)
+        inputs_embeds = placeholder_merge(
+            text_embeds, input_ids, adapted, protein_attention_mask,
+            config.placeholder_id)
+        if return_decoder_inputs:
+            return inputs_embeds, attention_mask
+        core = config.llama_config.core()
+        B, S = input_ids.shape
+        positions = torch.arange(S, device=input_ids.device).expand(B, S)
+        h, _ = decoder_forward(
+            core, dec, inputs_embeds=inputs_embeds, positions=positions,
+            attn_lengths=contiguous_lengths(attention_mask))
+        logits = decoder_logits(core, dec, h)
+        loss = None if labels is None else cross_entropy_loss(logits, labels)
+        return ModelOutput(loss=loss, logits=logits, hidden_states=h)
+
+    @torch.no_grad()
+    def forward(self, **kw):
+        return self.apply(self.config, self.params(), **kw)
+
+    @torch.no_grad()
+    def generate(self, inputs, attention_mask=None, protein_input_ids=None,
+                 protein_attention_mask=None, protein_inputs_embeds=None,
+                 generator=None, **gen_kwargs):
+        """Prompt-only inputs; returns ONLY the new tokens (B,
+        max_new_tokens).  A `stats` dict is passed on to
+        `infer.generate.generate`.  Raises ValueError when a row's
+        placeholder count differs from its protein-token count."""
+        from ..infer.generate import resolve_generation_config, run_generation
+
+        if protein_attention_mask is not None and not bool(count_check(
+                inputs, self.config.placeholder_id,
+                protein_attention_mask).all()):
+            raise ValueError("Number of placeholder tokens must match number "
+                             "of protein tokens")
+        params = self.params()
+        inputs_embeds, attention_mask = self.apply(
+            self.config, params, input_ids=inputs,
+            attention_mask=attention_mask,
+            protein_input_ids=protein_input_ids,
+            protein_attention_mask=protein_attention_mask,
+            protein_inputs_embeds=protein_inputs_embeds,
+            return_decoder_inputs=True)
+        kv_bits = gen_kwargs.pop("kv_bits", None)
+        stats = gen_kwargs.pop("stats", None)
+        lc = self.config.llama_config
+        gen_cfg = resolve_generation_config(lc.eos_token_id, lc.pad_token_id,
+                                            gen_kwargs)
+        return run_generation(
+            lc.core(), params["llama_decoder"], inputs_embeds=inputs_embeds,
+            attention_mask=attention_mask, gen_cfg=gen_cfg,
+            generator=generator, kv_bits=kv_bits, stats=stats)

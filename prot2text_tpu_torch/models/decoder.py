@@ -1,0 +1,266 @@
+"""Shared causal-decoder core for Llama-3.x (counterpart of
+prot2text_tpu/models/decoder.py).
+
+Numerics follow the JAX package (HF LlamaForCausalLM parity): fp32 RMSNorm,
+GQA with half-split rotary, fp32 softmax, SwiGLU MLP, logits in fp32.
+
+Attention runs through the port's kernels:
+  * prefill / no-cache forward → K1 (`kernels/flash_attention.py`), causal
+    with the per-row contiguous key run from `contiguous_lengths`;
+  * single-token decode → K2 (`kernels/decode_attention.py`) reads the
+    stacked (L, B, Hkv, T, D) cache READ-ONLY and folds the current token in
+    as an extra logit column; after the layer loop K3
+    (`kernels/cache_update.py`) writes slot `cache_index` of all L layers at
+    once.  Writing a layer's slot before K2 runs would count the token twice.
+The layer loop is a Python loop over views of the stacked weights (no
+per-layer copies).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.cache_update import cache_slot_write_bkt
+from ..kernels.decode_attention import decode_attention_stacked
+from ..kernels.flash_attention import flash_attention_masked
+from .transformer import apply_rope, layer_views, linear, rms_norm
+from .weights import dense, normal_
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int
+    hidden_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    intermediate_size: int
+    head_dim: int
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    qk_norm: bool = False
+    rope_scaling: Optional[str] = None  # None | "llama3"
+    rope_scaling_factor: float = 8.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_position: int = 8192
+
+
+def init_decoder_params(cfg: DecoderConfig, *, generator, device,
+                        dtype=torch.float32):
+    """Random params with the JAX init's tree and law (N(0, 0.02) kernels and
+    embeddings, unit norm scales), drawn on `device`."""
+    if cfg.qk_norm:
+        raise NotImplementedError("qk-norm decoders (Qwen3) are not ported "
+                                  "yet (ROADMAP.md §1 item 7)")
+    h, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    qd = cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+
+    def stacked(din, dout):
+        return {"kernel": normal_((L, din, dout), **kw)}
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    params = {
+        "embed_tokens": normal_((cfg.vocab_size, h), **kw),
+        "layers": {
+            "input_ln": {"scale": ones(L, h)},
+            "q_proj": stacked(h, qd),
+            "k_proj": stacked(h, kvd),
+            "v_proj": stacked(h, kvd),
+            "o_proj": stacked(qd, h),
+            "post_attn_ln": {"scale": ones(L, h)},
+            "gate_proj": stacked(h, m),
+            "up_proj": stacked(h, m),
+            "down_proj": stacked(m, h),
+        },
+        "final_ln": {"scale": ones(h)},
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense(h, cfg.vocab_size, bias=False, **kw)
+    return params
+
+
+def _rope_inv_freq_scale(cfg: DecoderConfig, inv_freq):
+    """HF `_compute_llama3_parameters` smooth frequency interpolation."""
+    if cfg.rope_scaling != "llama3":
+        return inv_freq
+    factor = cfg.rope_scaling_factor
+    low = cfg.rope_low_freq_factor
+    high = cfg.rope_high_freq_factor
+    old_len = cfg.rope_original_max_position
+    low_wavelen = old_len / low
+    high_wavelen = old_len / high
+    wavelen = 2 * math.pi / inv_freq
+    scaled = torch.where(wavelen > low_wavelen, inv_freq / factor, inv_freq)
+    smooth = (old_len / wavelen - low) / (high - low)
+    smoothed = (1 - smooth) / factor * inv_freq + smooth * inv_freq
+    is_medium = (wavelen >= high_wavelen) & (wavelen <= low_wavelen)
+    return torch.where(is_medium, smoothed, scaled)
+
+
+def decoder_rope_cos_sin(cfg: DecoderConfig, positions):
+    """positions: (B, S) or (S,) int → cos/sin fp32 with optional scaling."""
+    D = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, D, 2, dtype=torch.float32, device=positions.device)
+        / D))
+    inv_freq = _rope_inv_freq_scale(cfg, inv_freq)
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def embed_tokens(params, input_ids):
+    return params["embed_tokens"][input_ids]
+
+
+def contiguous_lengths(attention_mask):
+    """(B, S) 0/1 mask with one contiguous valid run per row → (kv_start,
+    kv_len) int32; fully masked rows get kv_len=1 (outputs ignored)."""
+    m = attention_mask.to(torch.int32)
+    kv_len = m.sum(dim=1).clamp(min=1)
+    kv_start = torch.argmax(m, dim=1)
+    return kv_start.to(torch.int32), kv_len.to(torch.int32)
+
+
+def _mlp(cfg, lp, x):
+    xn = rms_norm(lp["post_attn_ln"], x, cfg.rms_norm_eps)
+    gate = F.silu(linear(lp["gate_proj"], xn).float())
+    up = linear(lp["up_proj"], xn).float()
+    return x + linear(lp["down_proj"], (gate * up).to(xn.dtype))
+
+
+def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
+                    attn_lengths, kv_cache=None, layers=None):
+    """Causal forward over a whole sequence.  `attn_lengths` = (kv_start,
+    kv_len) from `contiguous_lengths`; attention is K1, causal on sequence
+    index.  With `kv_cache` ({"k","v"} (L, B, Hkv, T, D)), each layer's k/v
+    are written into slots [0, S) and attention reads them back from the
+    cache (the JAX prefill's cache_index=0 slab write).  Returns (h,
+    kv_cache)."""
+    B, S, _ = inputs_embeds.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cos, sin = decoder_rope_cos_sin(cfg, positions)
+    kv_start, kv_len = attn_lengths
+    scaling = D ** -0.5
+    if layers is None:
+        layers = layer_views(params["layers"], cfg.num_layers)
+    h = inputs_embeds
+    for li, lp in enumerate(layers):
+        xn = rms_norm(lp["input_ln"], h, cfg.rms_norm_eps)
+        q = linear(lp["q_proj"], xn).view(B, S, H, D).transpose(1, 2)
+        k = linear(lp["k_proj"], xn).view(B, S, Hkv, D).transpose(1, 2)
+        v = linear(lp["v_proj"], xn).view(B, S, Hkv, D).transpose(1, 2)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if kv_cache is not None:
+            kv_cache["k"][li, :, :, :S] = k
+            kv_cache["v"][li, :, :, :S] = v
+            k = kv_cache["k"][li, :, :, :S]
+            v = kv_cache["v"][li, :, :, :S]
+        q = (q.float() * scaling).to(q.dtype)
+        a = flash_attention_masked(q, k, v, kv_start, kv_len, causal=True)
+        a = a.transpose(1, 2).reshape(B, S, H * D)
+        h = h + linear(lp["o_proj"], a)
+        h = _mlp(cfg, lp, h)
+    return rms_norm(params["final_ln"], h, cfg.rms_norm_eps), kv_cache
+
+
+def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
+                        kv_mask, positions, kv_cache, cache_index: int,
+                        layers=None, prefix_kv=None):
+    """One token per row, lockstep (every row writes slot `cache_index`).
+
+    token_embeds (B, 1, H); kv_mask (B, T) int32 over ALREADY-written slots
+    (slot `cache_index` must still be 0 — the current token is K2's extra
+    column); positions (B, 1) rope positions.  Returns (h (B, 1, H),
+    kv_cache) with slot `cache_index` of every layer written by K3."""
+    if not isinstance(cache_index, int):
+        raise NotImplementedError(
+            "per-row cache slots (continuous batching) are not ported yet "
+            "(ROADMAP.md §1 item 11, kernel K4)")
+    if prefix_kv is not None:
+        raise NotImplementedError("shared-prefix KV (serving dedup) is not "
+                                  "ported yet (ROADMAP.md §1 item 11, "
+                                  "kernel K9)")
+    if "k_scale" in kv_cache:
+        raise NotImplementedError("int8 KV cache is not ported yet "
+                                  "(ROADMAP.md §1 item 11, kernel K7)")
+    B = token_embeds.shape[0]
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rep = H // Hkv
+    ck_all, cv_all = kv_cache["k"], kv_cache["v"]
+    L = ck_all.shape[0]
+    if layers is None:
+        layers = layer_views(params["layers"], L)
+    cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
+    scaling = D ** -0.5
+    k_new = torch.empty((L, B, Hkv, D), dtype=ck_all.dtype,
+                        device=ck_all.device)
+    v_new = torch.empty_like(k_new)
+    x = token_embeds
+    for li, lp in enumerate(layers):
+        xn = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
+        q = linear(lp["q_proj"], xn).reshape(B, H, D)
+        k = linear(lp["k_proj"], xn).reshape(B, Hkv, D)
+        v = linear(lp["v_proj"], xn).reshape(B, Hkv, D)
+        q = apply_rope(q[:, :, None, :], cos, sin).reshape(B, H, D)
+        k = apply_rope(k.reshape(B, Hkv, 1, D), cos, sin).reshape(B, Hkv, D)
+        q = (q.float() * scaling).to(q.dtype)
+        qg = q.reshape(B, Hkv, rep, D)
+        a = decode_attention_stacked(qg, ck_all, cv_all, kv_mask,
+                                     k.to(qg.dtype), v.to(qg.dtype), li)
+        x = x + linear(lp["o_proj"], a.to(x.dtype).reshape(B, 1, H * D))
+        x = _mlp(cfg, lp, x)
+        k_new[li] = k
+        v_new[li] = v
+    cache_slot_write_bkt(ck_all, k_new, cache_index)
+    cache_slot_write_bkt(cv_all, v_new, cache_index)
+    h = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
+    return h, kv_cache
+
+
+def matmul_f32_out(x, w):
+    """x @ w with an fp32 result from bf16/f32 operands — the JAX
+    `preferred_element_type=jnp.float32` head.  CUDA: cuBLAS's fp32-output
+    GEMM (`torch.mm(..., out_dtype=torch.float32)`), so the bf16 weight is
+    never upcast in memory; CPU: the operands are upcast."""
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return torch.matmul(x.float(), w.float())
+    lead = x.shape[:-1]
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
+                 out_dtype=torch.float32)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def decoder_logits(cfg: DecoderConfig, params, hidden_states):
+    if cfg.tie_word_embeddings:
+        w = params["embed_tokens"].T
+    elif "kernel" not in params["lm_head"]:
+        raise NotImplementedError("quantized lm_head is not ported yet "
+                                  "(ROADMAP.md §1 item 12)")
+    else:
+        w = params["lm_head"]["kernel"]
+    return matmul_f32_out(hidden_states, w.to(hidden_states.dtype))
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Shifted causal LM loss, mean over valid label positions."""
+    logits = logits[:, :-1].float()
+    labels = labels[:, 1:]
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    ll = torch.where(valid, ll, 0.0)
+    return -(ll.sum() / valid.sum().clamp(min=1))

@@ -1,0 +1,113 @@
+"""Shared transformer primitives (counterpart of
+prot2text_tpu/models/transformer.py): plain functions over nested dicts of
+tensors.  Params keep the JAX layout — `kernel` is (in, out), so
+`y = x @ kernel + bias`, and layer stacks keep a leading (L, ...) dim.
+Norms, softmax and rope run in fp32 whatever the compute dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+def linear(p, x):
+    """y = x @ kernel (+ bias), float/bf16 `kernel` leaves only."""
+    if "kernel" not in p:
+        found = [k for k in p if k.startswith("kernel")]
+        raise NotImplementedError(
+            f"quantized linear leaves {found} are not ported yet "
+            "(ROADMAP.md §1 item 12, weight quantization)")
+    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def layer_views(layers: dict, num_layers: int):
+    """Per-layer dicts of views into the stacked (L, ...) leaves."""
+    def view(sub, li):
+        return {k: (view(v, li) if isinstance(v, dict) else v[li])
+                for k, v in sub.items()}
+
+    return [view(layers, li) for li in range(num_layers)]
+
+
+def layer_norm(p, x, eps: float = 1e-5):
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def rms_norm(p, x, eps: float = 1e-6):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def gelu_erf(x):
+    """Exact-erf GELU (HF modeling_esm gelu, torch nn.GELU default)."""
+    x32 = x.float()
+    y = x32 * 0.5 * (1.0 + torch.erf(x32 / math.sqrt(2.0)))
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (GPT-NeoX half-split layout)
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions: (..., seq) int → cos/sin (..., seq, head_dim) fp32."""
+    inv_freq = 1.0 / (theta ** (
+        torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=positions.device) / head_dim))
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, H, S, D); cos/sin: (B, S, D) or (S, D)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None, None], sin[None, None]
+    else:
+        cos, sin = cos[:, None], sin[:, None]
+    x32 = x.float()
+    return (x32 * cos + rotate_half(x32) * sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention helpers
+
+
+def repeat_kv(x, n_rep: int):
+    """(B, Hkv, S, D) → (B, Hkv*n_rep, S, D) for GQA."""
+    if n_rep == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def make_attention_bias(attention_mask, dtype=torch.float32,
+                        causal: bool = False, q_positions=None,
+                        kv_positions=None):
+    """Additive bias (B, 1, Sq, Skv) from a (B, Skv) 0/1 key mask; causal
+    also needs absolute q/kv positions (B, Sq)/(B, Skv)."""
+    neg = torch.finfo(dtype).min
+    ok = attention_mask[:, None, None, :].bool()
+    if causal:
+        ok = ok & (kv_positions[:, None, None, :]
+                   <= q_positions[:, None, :, None])
+    zero = torch.zeros((), dtype=dtype, device=attention_mask.device)
+    return torch.where(ok, zero, torch.full_like(zero, neg))

@@ -1,0 +1,66 @@
+"""The port never imports JAX: a fresh interpreter imports the package,
+every module of the ported slice and chip_smoke.py, and `jax` must stay out
+of sys.modules."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "prot2text_tpu_torch",
+    "prot2text_tpu_torch.core.device",
+    "prot2text_tpu_torch.core.dtypes",
+    "prot2text_tpu_torch.kernels",
+    "prot2text_tpu_torch.kernels._build",
+    "prot2text_tpu_torch.kernels.attention",
+    "prot2text_tpu_torch.kernels.cache_update",
+    "prot2text_tpu_torch.kernels.decode_attention",
+    "prot2text_tpu_torch.kernels.flash_attention",
+    "prot2text_tpu_torch.models",
+    "prot2text_tpu_torch.models.adapters",
+    "prot2text_tpu_torch.models.composed",
+    "prot2text_tpu_torch.models.decoder",
+    "prot2text_tpu_torch.models.esm2",
+    "prot2text_tpu_torch.models.fusion",
+    "prot2text_tpu_torch.models.llama",
+    "prot2text_tpu_torch.models.transformer",
+    "prot2text_tpu_torch.models.weights",
+    "prot2text_tpu_torch.infer",
+    "prot2text_tpu_torch.infer.generate",
+    "prot2text_tpu_torch.infer.kvcache",
+    "prot2text_tpu_torch.cli.generate_instruct",
+    "chip_smoke",
+]
+
+SCRIPT = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not bad, bad
+print("ok", len(sys.argv) - 1)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", SCRIPT, *MODULES], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == f"ok {len(MODULES)}"
+
+
+def test_chip_smoke_refuses_without_gpu_and_prints_no_result():
+    """Without a card the smoke test fails and prints no contract line."""
+    import torch
+
+    if torch.cuda.is_available():
+        import pytest
+
+        pytest.skip("a GPU is present")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
