@@ -7,15 +7,22 @@ Phases (any failure raises and the script exits non-zero):
   1. setup: versions, the card's name and power limit, the CUDA kernels'
      build from `prot2text_tpu_torch/kernels/csrc` (timed);
   2. kernels: each hand-written kernel (K1 flash prefill, K2 decode
-     attention, K3 cache slot write) against its plain PyTorch version on
-     the same bf16 inputs computed in fp32, at the slice's own shapes, with
-     median CUDA-event times of both;
-  3. slice: ESM2-3B → adapter → Llama-3.1-8B (full width and depth, bf16,
-     random weights from a seeded CUDA generator) generates 256 tokens for
-     4 proteins through `Esm2LlamaInstructForCausalLM.generate`; the launch
-     counters must show every kernel on that path;
-  4. plumbing: a tiny f32 model on `cuda` (kernels) against the same model
-     on `cpu` (plain versions): prefill and first decode-step logits.
+     attention, K3 cache slot write, K5 flash backward) against its plain
+     PyTorch version on the same bf16 inputs computed in fp32, at the
+     paths' own shapes, with median CUDA-event times of both;
+  3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
+     bf16, random weights from a seeded CUDA generator) generates 256
+     tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
+     the launch counters must show every kernel on that path;
+  4. training: stage-2 LoRA SFT of ESMC-600M + adapter + Qwen3-14B (full
+     width and depth, bf16 towers, f32 LoRA r=32 and adapter) built and
+     stepped as `cli/train_instruct.py` does: 3 AdamW steps of 4
+     accumulated B=1 micro-batches at S >= 1024; exact K1/K5 launch
+     counts, frozen towers untouched, LoRA B moved; then one more step
+     under `torch.profiler` for the device-time breakdown;
+  5. plumbing: tiny f32 models on `cuda` (kernels) against the same models
+     on `cpu` (plain versions): prefill and first decode-step logits, and
+     one SFT step's loss and LoRA gradients.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device contract `{"ok": true, "device": {...}}`.
@@ -23,6 +30,7 @@ last line is the device contract `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import statistics
@@ -77,6 +85,7 @@ def check_kernels(torch, dev, card):
         decode_attention_stacked, decode_attention_stacked_plain,
     )
     from prot2text_tpu_torch.kernels.flash_attention import (
+        flash_attention_masked_bwd, flash_attention_masked_bwd_plain,
         flash_attention_masked_fwd, flash_attention_masked_plain,
     )
 
@@ -157,6 +166,65 @@ def check_kernels(torch, dev, card):
     log(f"K3 cache slot write L={L} B={B} Hkv={Hkv} T={T} D={D} bf16: "
         f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
     rows["K3"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+
+    # K1 again, then K5, at the Qwen3-14B training shape (rep 5, causal,
+    # kv_start > 0 and a padded tail) for S = 1152, the S the training
+    # buckets give, and S = 1280; q/k/v/dO laid out as the decoder hands
+    # them over (views of (B, S, H, D) buffers); then a D=64 case (rep 3).
+    # K1: o atol/rtol 2e-2, lse atol 1e-3 as above.  K5 per gradient:
+    # max|kernel - plain| <= 2e-2 * max|plain|
+    errs = []
+    for B, H, Hkv, S, D, start, tail in ((1, 40, 8, 1152, 128, 37, 50),
+                                         (1, 40, 8, 1280, 128, 37, 50),
+                                         (2, 18, 6, 512, 64, 11, 20)):
+        def bshd(h, scale=1.0):
+            return randn(B, S, h, D, scale=scale).transpose(1, 2)
+
+        q, k, v = bshd(H, D ** -0.5), bshd(Hkv), bshd(Hkv)
+        do = bshd(H, D ** -0.5)
+        kv_start = torch.full((B,), start, dtype=torch.int32, device=dev)
+        kv_len = torch.full((B,), S - start - tail, dtype=torch.int32,
+                            device=dev)
+        o, lse = flash_attention_masked_fwd(q, k, v, kv_start, kv_len,
+                                            causal=True)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_masked_plain(
+            q.float(), k.float(), v.float(), kv_start, kv_len, causal=True)
+        e_o = (o.float() - o_ref).abs().max().item()
+        e_lse = (lse - lse_ref).abs().max().item()
+        torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0.0)
+        rows["K1"]["max_abs_err"] = max(rows["K1"]["max_abs_err"], e_o)
+        rows["K1"]["lse_max_abs_err"] = max(rows["K1"]["lse_max_abs_err"],
+                                            e_lse)
+        log(f"K1 flash forward B={B} H={H} Hkv={Hkv} S={S} D={D} causal "
+            f"bf16 (training layout): max|o-plain|={e_o:.3e} (atol/rtol "
+            f"2e-2) max|lse-plain|={e_lse:.3e} (atol 1e-3)")
+        del o_ref, lse_ref
+        got = flash_attention_masked_bwd(q, k, v, o, lse, do, kv_start,
+                                         kv_len, causal=True)
+        torch.cuda.synchronize()
+        want = flash_attention_masked_bwd_plain(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            kv_start, kv_len, causal=True)
+        parts = []
+        for name, gr, w in zip(("dq", "dk", "dv"), got, want):
+            err, top = (gr.float() - w).abs().max().item(), w.abs().max().item()
+            require(err <= 2e-2 * top, f"K5 {name} at D={D}: max|err| {err} "
+                    f"> 2e-2 * max|plain| {top}")
+            errs.append(err)
+            parts.append(f"{name} {err:.3e} (max|plain| {top:.3e})")
+        log(f"K5 flash backward B={B} H={H} Hkv={Hkv} S={S} D={D} causal "
+            f"bf16: max|kernel-plain| " + ", ".join(parts))
+        if S == 1280:
+            ms = cuda_ms(torch, lambda: flash_attention_masked_bwd(
+                q, k, v, o, lse, do, kv_start, kv_len, causal=True))
+            plain_ms = cuda_ms(torch, lambda: flash_attention_masked_bwd_plain(
+                q, k, v, o, lse, do, kv_start, kv_len, causal=True))
+            log(f"K5 at B={B} H={H} S={S} D={D}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms [{card}]")
+        del q, k, v, do, o, lse, got, want
+    rows["K5"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
     return rows
 
 
@@ -271,7 +339,7 @@ def run_slice(torch, dev, card):
     require(steps == st["steps"],
             f"tokens imply {steps} decode steps, generate ran {st['steps']}")
     L = model.config.llama_config.num_layers
-    want = {"K1": L, "K2": L * steps, "K3": 2 * steps}
+    want = {"K1": L, "K2": L * steps, "K3": 2 * steps, "K5": 0}
     require(counts == want, f"launch counts {counts} != expected {want}")
     require(steps > 0, "no decode step ran")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -294,7 +362,176 @@ def run_slice(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the same tiny f32 model on cuda (kernels) and cpu (plain)
+# phase 4: stage-2 SFT at full width through the CLI's own setup
+
+FUNCTIONS = ("Binds ATP and transfers its gamma-phosphate to serine.",
+             "Component of the large ribosomal subunit.",
+             "Transports potassium ions across the inner membrane.",
+             "Unknown function.")
+
+
+def train_records(n: int, lengths, seed: int):
+    """n CSV-style rows (the `Prot2TextLightDataset` record) built with
+    numpy: random residues of `lengths` and short descriptions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"AlphaFoldDB": f"P{i:05d}", "Full Name": f"Protein {i}",
+             "taxon": "Homo sapiens",
+             "sequence": "".join(rng.choice(list(AMINO),
+                                            int(rng.integers(*lengths)))),
+             "function": FUNCTIONS[i % len(FUNCTIONS)]} for i in range(n)]
+
+
+def kernel_breakdown(torch, prof, wall_s: float) -> str:
+    """Device time of one profiled step by kernel family, from the CUDA
+    kernel events of `torch.profiler`, and the host's CUDA API calls
+    (launches, synchronisations, copies) that pace it."""
+    fam = {"GEMM": 0.0, "K1": 0.0, "K5": 0.0, "rest": 0.0}
+    by_name, api = {}, {}
+    n_kernels = 0
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(("cuda", "cu")) and not e.name.startswith(
+                    "cudnn"):
+                n, t = api.get(e.name, (0, 0.0))
+                api[e.name] = (n + 1, t + us)
+            continue
+        n_kernels += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        if "flash_masked_fwd" in e.name:
+            fam["K1"] += us
+        elif "flash_masked_bwd" in e.name:
+            fam["K5"] += us
+        elif re.search(r"gemm|xmma|nvjet|cutlass|cublas", e.name, re.I):
+            fam["GEMM"] += us
+        else:
+            fam["rest"] += us
+    busy = sum(fam.values()) / 1e6
+    if busy == 0:
+        return "profiled step: the profiler recorded no device kernels"
+    lines = [f"profiled step: wall {wall_s * 1e3:.1f} ms, device busy "
+             f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall_s:.3f}, "
+             f"{n_kernels} device events; " +
+             ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e6 / busy:.1%})"
+                       for k, v in fam.items())]
+    lines.append("  host CUDA API: " + ", ".join(
+        f"{name} {n}x {t / 1e3:.1f} ms" for name, (n, t) in
+        sorted(api.items(), key=lambda kv: -kv[1][1])[:6]))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        lines.append(f"  {us / 1e3:9.2f} ms  {name[:110]}")
+    return "\n".join(lines)
+
+
+def run_training(torch, dev, card):
+    from prot2text_tpu.data.chat import ByteTextTokenizer
+    from prot2text_tpu.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.cli.train_instruct import (
+        BUCKETS as TRAIN_BUCKETS, build_parser, build_training, to_device,
+    )
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.lora import lora_param_count
+    from prot2text_tpu_torch.models.weights import tree_leaves
+
+    accum, steps = 4, 3
+    tok = ByteTextTokenizer()
+    args = build_parser().parse_args([
+        "--train_csv", "unused", "--device", "cuda", "--random_seed", "0",
+        "--gradient_accumulation_steps", str(accum), "--learning_rate",
+        "2e-4", "--weight_decay", "0.01"])
+    t0 = time.perf_counter()
+    run = build_training(args, tok, dev, total_steps=steps)
+    torch.cuda.synchronize()
+    towers = {k: run.frozen[k] for k in ("esm_encoder", "llm_decoder")}
+    frozen = tree_leaves(towers)
+    n_frozen = sum(t.numel() for t in frozen)
+    params = run.state.params
+    log(f"train model ESMC-600M + adapter + Qwen3-14B: frozen bf16 "
+        f"{n_frozen / 1e9:.3f} B params, LoRA f32 "
+        f"{lora_param_count(params['lora_esm']) / 1e6:.1f} M (ESMC) + "
+        f"{lora_param_count(params['lora_llm']) / 1e6:.1f} M (Qwen3), adapter "
+        f"f32 {lora_param_count(params['adapter']) / 1e6:.1f} M; built on "
+        f"{dev} in {time.perf_counter() - t0:.1f} s")
+    # the towers must come out untouched: no in-place op (version counters)
+    # and bit-equal strided samples of every leaf
+    stamp = [(t._version, t.view(-1)[::max(1, t.numel() // 2**20)].clone())
+             for t in frozen]
+
+    collater = LightCollator(
+        tokenizer=tok, mode="train", placeholder_token=tok.placeholder_token,
+        buckets=Buckets(**TRAIN_BUCKETS))
+    records = train_records(accum * (steps + 1), (380, 451), seed=0)
+    batches = [to_device(collater(records[i * accum:(i + 1) * accum]), dev,
+                         accum) for i in range(steps + 1)]
+    S = batches[0]["input_ids"].shape[-1]
+    require(S >= 1024, f"training sequence {S} < 1024")
+    log(f"batches: {accum} x B=1 micro-batches of S={S} (protein width "
+        f"{batches[0]['protein_input_ids'].shape[-1]}), valid tokens per "
+        f"step {[int(b['attention_mask'].sum()) for b in batches[:steps]]}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = run.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = run.step_fn(state, run.frozen, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = launch_counts()
+    L = run.step_kw["decoder_core"].num_layers
+    micro = steps * accum
+    want = {"K1": 2 * L * micro, "K2": 0, "K3": 0, "K5": L * micro}
+    log(f"launches in the training run: {counts} (K1 = forward + "
+        f"recomputation per layer and micro-step, K5 = one per layer and "
+        f"micro-step)")
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    require(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
+            f"non-finite loss {losses}")
+    require(state.step == steps, f"step counter {state.step}")
+    for t, (version, sample) in zip(frozen, stamp):
+        require(t._version == version and torch.equal(
+            t.view(-1)[::max(1, t.numel() // 2**20)], sample),
+            "a frozen tower weight changed")
+    bs = [x for name in ("lora_esm", "lora_llm")
+          for x in _lora_b(params[name])]
+    require(all(b.abs().max().item() > 0 for b in bs),
+            "a LoRA B is still zero after a step with lr > 0")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    positions = accum * S
+    for i, (dt, loss) in enumerate(zip(times, losses)):
+        valid = int(batches[i]["attention_mask"].sum())
+        log(f"train step {i + 1} [{card}]: loss {loss:.4f}, {dt:.3f} s = "
+            f"{positions / dt:.1f} positions/s ({valid / dt:.1f} valid "
+            f"tokens/s)")
+    log(f"train peak device memory {peak:.2f} GiB [{card}]; LoRA B moved "
+        f"in all {len(bs)} targets; frozen towers bit-identical")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, loss = run.step_fn(state, run.frozen, batches[steps], gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(kernel_breakdown(torch, prof, wall) + f" [{card}]")
+    return counts
+
+
+def _lora_b(tree):
+    if isinstance(tree, dict):
+        if "B" in tree:
+            return [tree["B"]]
+        return [b for v in tree.values() for b in _lora_b(v)]
+    return []
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the same tiny f32 models on cuda (kernels) and cpu (plain)
 
 
 def run_plumbing(torch, dev):
@@ -322,6 +559,75 @@ def run_plumbing(torch, dev):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0.0)
         log(f"plumbing f32 cuda vs cpu, {name} logits: max abs diff "
             f"{err:.3e} (atol 1e-4)")
+
+
+def run_train_plumbing(torch, dev):
+    """One SFT step of tiny f32 ESMC + Qwen3 (head_dim 64: K1/K5 at D=64 on
+    the card) on cuda and on cpu from the same weights and batch: loss atol
+    1e-4, LoRA/adapter gradients rtol 1e-3 of each leaf's largest entry.
+    Adapter dropout 0: the two devices' generators give different masks."""
+    from prot2text_tpu.data.chat import ByteTextTokenizer
+    from prot2text_tpu.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.cli.train_instruct import BUCKETS as TB
+    from prot2text_tpu_torch.cli.train_instruct import to_device
+    from prot2text_tpu_torch.models.adapters import (
+        ModalityAdapterConfig, init_modality_adapter_params,
+    )
+    from prot2text_tpu_torch.models.esmc import ESMCConfig, init_esmc_params
+    from prot2text_tpu_torch.models.lora import LoraConfig, init_lora_params
+    from prot2text_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3_params
+    from prot2text_tpu_torch.models.weights import tree_leaves, tree_map
+    from prot2text_tpu_torch.train.optim import TrainState, adamw_constant
+    from prot2text_tpu_torch.train.sft import SFTConfig, make_sft_train_step
+
+    tok = ByteTextTokenizer()
+    esm_cfg = ESMCConfig.tiny()
+    qwen = Qwen3Config(vocab_size=tok.vocab_size, hidden_size=128,
+                       num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                       intermediate_size=256)
+    ad_cfg = ModalityAdapterConfig(esm_cfg.d_model, 64, qwen.hidden_size,
+                                   dropout_rate=0.0)
+    lora = LoraConfig(r=8, alpha=16)
+    g = torch.Generator().manual_seed(2)
+    kw = dict(generator=g, device="cpu")
+    frozen = {"esm_encoder": init_esmc_params(esm_cfg, **kw),
+              "llm_decoder": init_qwen3_params(qwen, **kw)}
+    trainable = {"lora_esm": init_lora_params(lora, frozen["esm_encoder"],
+                                              generator=g),
+                 "lora_llm": init_lora_params(lora, frozen["llm_decoder"],
+                                              generator=g),
+                 "adapter": init_modality_adapter_params(ad_cfg, **kw)}
+    for b in _lora_b(trainable):          # non-zero B: A gets a gradient
+        b.normal_(0.0, 0.05, generator=g)
+    collate = LightCollator(tokenizer=tok, mode="train",
+                            placeholder_token=tok.placeholder_token,
+                            buckets=Buckets(**TB))
+    host = collate(train_records(2, (30, 60), seed=3))
+    step_kw = dict(esm_config=esm_cfg, adapter_config=ad_cfg,
+                   decoder_core=qwen.core(),
+                   cfg=SFTConfig(lora=lora, placeholder_id=tok.placeholder_id))
+    out = []
+    for d in (torch.device("cpu"), dev):
+        params = tree_map(lambda t: t.to(d, copy=True).requires_grad_(),
+                          trainable)
+        fz = tree_map(lambda t: t.to(d), frozen)
+        step = make_sft_train_step(tx=adamw_constant(1e-3), **step_kw)
+        _, loss = step(TrainState.create(params, adamw_constant(1e-3)), fz,
+                       to_device(host, d, 1),
+                       torch.Generator(device=d).manual_seed(0))
+        out.append((loss.item(), [p.grad.cpu() for p in
+                                  tree_leaves(params)]))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    require(abs(l_cpu - l_gpu) <= 1e-4,
+            f"SFT loss cuda {l_gpu} vs cpu {l_cpu} (atol 1e-4)")
+    worst = 0.0
+    for a, b in zip(g_gpu, g_cpu):
+        err = ((a - b).abs() / (b.abs() + b.abs().max() * 1e-3)).max().item()
+        worst = max(worst, err)
+    require(worst <= 1e-3, f"SFT grads cuda vs cpu: rel err {worst} > 1e-3")
+    log(f"plumbing f32 SFT step cuda vs cpu: loss {l_gpu:.6f} vs "
+        f"{l_cpu:.6f} (atol 1e-4), {len(g_cpu)} gradients within rtol "
+        f"{worst:.2e} (1e-3 of |grad| + 1e-3 of the leaf's max)")
 
 
 def main() -> int:
@@ -356,15 +662,22 @@ def main() -> int:
                 log(f"  {fn}: {line.split(':', 1)[1].strip()}")
 
     rows = check_kernels(torch, dev, card)
-    for kid, n in run_slice(torch, dev, card).items():
-        rows[kid]["launches"] = n
+    paths = {"generate": run_slice(torch, dev, card)}
+    gc.collect()                 # free the generation model before training
+    torch.cuda.empty_cache()
+    paths["train"] = run_training(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     run_plumbing(torch, dev)
+    run_train_plumbing(torch, dev)
 
     out = []
     for kid, (_, _, src, tpu) in KERNELS.items():
         r = rows[kid]
+        by_path = {p: c.get(kid, 0) for p, c in paths.items()}
         out.append({"name": kid, "route": "cuda", "source": src,
-                    "replaces": tpu, "launches": r["launches"],
+                    "replaces": tpu, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"]})
     log(json.dumps({"kernels": out}))

@@ -23,34 +23,23 @@ import time
 import numpy as np
 import torch
 
-from prot2text_tpu.data.chat import ByteTextTokenizer
 from prot2text_tpu.data.collate import Buckets, InstructCollator
 from prot2text_tpu.data.sampler import DataLoader, ShardedSampler
 
 from ..core.device import resolve_device
-from ..core.dtypes import str2bool, str2dtype
+from ..core.dtypes import str2bool
 from ..models.adapters import ModalityAdapterConfig
 from ..models.composed import (
     Esm2LlamaInstructConfig, Esm2LlamaInstructForCausalLM,
 )
 from ..models.esm2 import ESM2Config
 from ..models.llama import LlamaConfig
+from .common import add_common_args, common_unported, refuse, text_tokenizer
 
 
 def build_parser():
     p = argparse.ArgumentParser("generate_instruct")
-    # shared flags of prot2text_tpu/cli/common.py add_common_args
-    p.add_argument("--model_dtype", type=str2dtype, default="bf16")
-    p.add_argument("--random_seed", type=int, default=42)
-    p.add_argument("--fsdp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--attn_impl", type=str, default="auto",
-                   choices=["auto", "xla", "flash", "ring"])
-    p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
-    p.add_argument("--load_model_checkpoint_path", type=str, default=None)
-    p.add_argument("--save_every_epochs", type=int, default=1)
-    p.add_argument("--log_every", type=int, default=10)
+    add_common_args(p)
     # generate_instruct flags
     p.add_argument("--data_root", type=str, required=True)
     p.add_argument("--test_csv", type=str, required=True)
@@ -84,7 +73,7 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     """NotImplementedError for every flag value the port lacks."""
-    todo = [
+    refuse([
         (args.use_graph, "--use_graph (RGCN arc)", "§1 item 13"),
         (args.kv_bits is not None, "--kv_bits (int8 KV cache)",
          "§1 item 11, kernel K7"),
@@ -97,30 +86,8 @@ def refuse_unported(args) -> None:
          or args.llama_checkpoint_dir is not None,
          "--esm_checkpoint_dir/--llama_checkpoint_dir (HF weight loader)",
          "§1 item 1"),
-        (max(args.fsdp, args.tp, args.sp) > 1, "--fsdp/--tp/--sp > 1",
-         "§1 item 14"),
-        (args.attn_impl != "auto", f"--attn_impl {args.attn_impl}",
-         "§1 items 2-6 (only 'auto' is ported)"),
-        (isinstance(args.model_dtype, str),
-         f"--model_dtype {args.model_dtype} (weight quantization)",
-         "§1 item 12"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md {item})")
-
-
-def text_tokenizer(args):
-    """HF tokenizer from a local path, else the offline byte tokenizer."""
-    if args.tokenizer_path:
-        from transformers import AutoTokenizer
-
-        tok = AutoTokenizer.from_pretrained(args.tokenizer_path)
-        if tok.pad_token_id is None:
-            tok.pad_token = "<|reserved_special_token_0|>"
-        return tok
-    return ByteTextTokenizer()
+        *common_unported(args),
+    ])
 
 
 def build_model(args, tok, device) -> Esm2LlamaInstructForCausalLM:

@@ -11,7 +11,8 @@ from .decode_attention import (
     decode_attention_stacked, decode_attention_stacked_plain,
 )
 from .flash_attention import (
-    flash_attention_masked, flash_attention_masked_fwd,
+    flash_attention_masked, flash_attention_masked_bwd,
+    flash_attention_masked_bwd_plain, flash_attention_masked_fwd,
     flash_attention_masked_plain,
 )
 
@@ -26,6 +27,9 @@ KERNELS = {
     "K3": (cache_slot_write_bkt, cache_slot_write_bkt_plain,
            "prot2text_tpu_torch/kernels/csrc/cache_update.cu",
            "prot2text_tpu/kernels/cache_update.py:176"),
+    "K5": (flash_attention_masked_bwd, flash_attention_masked_bwd_plain,
+           "prot2text_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+           "prot2text_tpu/kernels/flash_attention.py:582"),
 }
 
 
@@ -41,6 +45,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS", "cache_slot_write_bkt", "cache_slot_write_bkt_plain",
     "decode_attention_stacked", "decode_attention_stacked_plain",
-    "flash_attention_masked", "flash_attention_masked_fwd",
+    "flash_attention_masked", "flash_attention_masked_bwd",
+    "flash_attention_masked_bwd_plain", "flash_attention_masked_fwd",
     "flash_attention_masked_plain", "launch_counts", "reset_launch_counts",
 ]

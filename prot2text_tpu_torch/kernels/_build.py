@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (one shared library, plain C ABI).
 
-Every `csrc/*.cu` is compiled by nvcc for Hopper (`sm_90a`) into ONE shared
-library, `_build/libp2t_kernels_<hash>.so`, where the hash covers the
-sources, the headers and the flags.  The build runs at first use, under an
-exclusive file lock (concurrent processes wait for one build instead of
-racing), so a fresh checkout needs nothing but `nvcc`: no PyTorch headers
-are compiled (seconds, not minutes).  The library is loaded with ctypes;
+Every `csrc/*.cu` is compiled by nvcc for Hopper (`sm_90a`) — one nvcc
+process per source, all started together, so the build takes the longest
+file's time rather than the sum — and linked into ONE shared library,
+`_build/libp2t_kernels_<hash>.so`, where the hash covers the sources, the
+headers and the flags.  The build runs at first use, under an exclusive
+file lock (concurrent processes wait for one build instead of racing), so a
+fresh checkout needs nothing but `nvcc`: no PyTorch headers are compiled
+(seconds, not minutes).  The library is loaded with ctypes;
 every pointer and the CUDA stream are passed as `c_void_p`, and every entry
 point returns `cudaGetLastError()` after its launch, which `check()` turns
 into an exception.
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",            # registers / shared memory / spills → log
 )
 
@@ -44,6 +46,9 @@ SIGNATURES = {
     # causal, dtype, stream
     "p2t_flash_masked_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, do, lse, delta, kv_start, kv_len, dq, dk, dv, strides[21],
+    # B, H, Hkv, Sq, Skv, D, causal, dtype, stream
+    "p2t_flash_masked_bwd": [_P] * 12 + [_I] * 8 + [_P],
     # qg, ck(layer), cv(layer), kv_mask, k_new, v_new, out, B, Hkv, rep, T,
     # D, dtype, stream
     "p2t_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
@@ -97,15 +102,36 @@ def build() -> Path:
             if so.exists():
                 return so
             cu, _ = _sources()
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
-                   *map(str, cu)]
+            nvcc = find_nvcc()
+            tag = f"{so.stem}.{os.getpid()}"
+            tmp = BUILD_DIR / f"{tag}.tmp.so"
+            objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
             t0 = time.time()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log = (f"$ {' '.join(cmd)}\n# {time.time() - t0:.1f} s, "
-                   f"rc {res.returncode}\n{res.stdout}{res.stderr}")
+            jobs = []
+            for src, obj in zip(cu, objs):
+                cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj),
+                       str(src)]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            log, ok = [], True
+            for cmd, proc in jobs:
+                out, err = proc.communicate()
+                log.append(f"$ {' '.join(cmd)}\n# rc {proc.returncode}\n"
+                           f"{out}{err}")
+                ok = ok and proc.returncode == 0
+            if ok:
+                cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                log.append(f"$ {' '.join(cmd)}\n# rc {res.returncode}\n"
+                           f"{res.stdout}{res.stderr}")
+                ok = res.returncode == 0
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            log = (f"# {len(cu)} sources in {time.time() - t0:.1f} s, "
+                   f"{'ok' if ok else 'FAILED'}\n" + "\n".join(log))
             so.with_suffix(".log").write_text(log)
-            if res.returncode != 0:
+            if not ok:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed:\n{log}")
             os.replace(tmp, so)

@@ -1,11 +1,17 @@
-"""K1: bias-free masked flash-attention forward (CUDA C++, sm_90a).
+"""K1 and K5: bias-free masked flash attention, forward and backward
+(CUDA C++, sm_90a).
 
-Replaces prot2text_tpu/kernels/flash_attention.py `flash_attention_masked`
-(forward: `_fwd_masked_kernel` / `_flash_masked_fwd_impl`).  The kernel is
-`csrc/flash_attention.cu`; its header states what bounds it on the card and
-what the design does about that.  `flash_attention_masked_plain` is the
-plain PyTorch version of the same function: CPU tensors run it, and the
-chip smoke test holds the kernel against it.
+Replaces prot2text_tpu/kernels/flash_attention.py `flash_attention_masked`:
+K1 is its forward (`_fwd_masked_kernel` / `_flash_masked_fwd_impl`), kernel
+`csrc/flash_attention.cu`; K5 its backward (`_flash_masked_bwd_impl` with
+`_bwd_masked_dq_kernel` / `_bwd_masked_dkv_kernel`), kernel
+`csrc/flash_attention_bwd.cu`.  Each header states what bounds the kernel
+on the card and what the design does about that.
+`flash_attention_masked_plain` / `flash_attention_masked_bwd_plain` are the
+plain PyTorch versions of the same functions: CPU tensors run them, and the
+chip smoke test holds the kernels against them.  `flash_attention_masked`
+is differentiable: a `torch.autograd.Function` whose forward is K1 and whose
+backward is K5, as the JAX `custom_vjp` pairs the two Pallas kernels.
 
 Contract (as the JAX kernel): q (B, H, Sq, D) pre-scaled; k, v (B, Hkv, Skv,
 D) with Hkv dividing H; kv_start/kv_len (B,) int32 — the valid keys of row
@@ -26,6 +32,18 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 
 
+def _visible(kv_start, kv_len, Sq, Skv, causal, device):
+    """(B, 1, Sq|1, Skv) bool: key col lies in row b's run [and col <= row]."""
+    cols = torch.arange(Skv, device=device)
+    start = kv_start.to(torch.int64)[:, None]
+    ok = (cols >= start) & (cols < start + kv_len.to(torch.int64)[:, None])
+    ok = ok[:, None, None, :]
+    if causal:
+        rows = torch.arange(Sq, device=device)
+        ok = ok & (cols[None, :] <= rows[:, None])[None, None]
+    return ok
+
+
 def flash_attention_masked_plain(q, k, v, kv_start, kv_len, causal=False):
     """Plain PyTorch K1 → (o (B, H, Sq, D) in q's dtype, lse (B, H, Sq) f32).
     fp32 logits, -1e30 masking, weights rounded to v's dtype before P·V."""
@@ -35,13 +53,7 @@ def flash_attention_masked_plain(q, k, v, kv_start, kv_len, causal=False):
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.repeat_interleave(rep, dim=1)
     logits = torch.matmul(q.float(), kf.transpose(-1, -2))   # (B,H,Sq,Skv)
-    cols = torch.arange(Skv, device=q.device)
-    start = kv_start.to(torch.int64)[:, None]
-    ok = (cols >= start) & (cols < start + kv_len.to(torch.int64)[:, None])
-    ok = ok[:, None, None, :]
-    if causal:
-        rows = torch.arange(Sq, device=q.device)
-        ok = ok & (cols[None, :] <= rows[:, None])[None, None]
+    ok = _visible(kv_start, kv_len, Sq, Skv, causal, q.device)
     logits = torch.where(ok, logits, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(logits - m), 0.0)
@@ -55,13 +67,13 @@ def flash_attention_masked_plain(q, k, v, kv_start, kv_len, causal=False):
 def _check(q, k, v, kv_start, kv_len):
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"K1 kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"K1/K5 need CUDA tensors, got {dev}")
     for name, t in (("k", k), ("v", v), ("kv_start", kv_start),
                     ("kv_len", kv_len)):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
     if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"K1 takes bfloat16 or float32, got {q.dtype}")
+        raise TypeError(f"K1/K5 take bfloat16 or float32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -71,7 +83,7 @@ def _check(q, k, v, kv_start, kv_len):
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if D not in HEAD_DIMS:
-        raise ValueError(f"K1 head_dim must be one of {HEAD_DIMS}, got {D}")
+        raise ValueError(f"K1/K5 head_dim must be one of {HEAD_DIMS}, got {D}")
     if Sq == 0 or k.shape[2] == 0:
         raise ValueError("empty sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -111,8 +123,99 @@ def flash_attention_masked_fwd(q, k, v, kv_start, kv_len, *,
 flash_attention_masked_fwd.launches = 0
 
 
+def flash_attention_masked_bwd_plain(q, k, v, o, lse, do, kv_start, kv_len,
+                                     causal=False):
+    """Plain PyTorch K5 → (dq, dk, dv) in the inputs' dtypes: P recomputed
+    in fp32 from the lse and masked explicitly, Δ = rowsum(dO∘O), dS =
+    P∘(dP − Δ); dk/dv are computed per query head (repeat_kv) and summed
+    over each GQA group."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    logits = torch.matmul(qf, kf.transpose(-1, -2))          # (B,H,Sq,Skv)
+    ok = _visible(kv_start, kv_len, Sq, Skv, causal, q.device)
+    p = torch.where(ok, torch.exp(logits - lse[..., None]), 0.0)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = dk.view(B, Hkv, rep, Skv, D).sum(dim=2)
+    dv = dv.view(B, Hkv, rep, Skv, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_masked_bwd(q, k, v, o, lse, do, kv_start, kv_len, *,
+                               causal: bool = False):
+    """K5 → (dq, dk, dv) with the layouts of q, k, v.  CPU tensors run the
+    plain version; CUDA tensors launch the dQ and dK/dV kernels (or
+    raise).  q/k/v/kv_start/kv_len follow K1's contract; o and lse are K1's
+    outputs, do the gradient of o.  Strided inputs are taken as they come
+    (K1's o and the dO autograd hands back are views of (B, Sq, H, D)
+    buffers); only a head dim that is not contiguous is copied."""
+    if q.device.type == "cpu":
+        return flash_attention_masked_bwd_plain(q, k, v, o, lse, do, kv_start,
+                                                kv_len, causal)
+    _check(q, k, v, kv_start, kv_len)
+    B, H, Sq, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    if do.device != q.device or o.device != q.device:
+        raise ValueError("o and do must lie on q's device")
+    if do.dtype != q.dtype or o.dtype != q.dtype:
+        raise TypeError("o and do must have q's dtype")
+    if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq)
+            or not lse.is_contiguous()):
+        raise ValueError("lse must be a contiguous (B, H, Sq) float32 tensor")
+    if do.stride(-1) != 1:          # e.g. the expanded gradient of a sum
+        do = do.contiguous()
+    # Δ = rowsum(dO∘O): one fp32 torch reduction, as XLA computed it beside
+    # the TPU kernels; the dQ and dK/dV kernels both read it
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    strides = (ctypes.c_int64 * 21)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
+    lib = _build.library()
+    err = lib.p2t_flash_masked_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kv_start.data_ptr(),
+        kv_len.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ctypes.addressof(strides), B, H, k.shape[1], Sq, k.shape[2], D,
+        int(causal), _build.dtype_code(q.dtype), _build.stream_of(q))
+    _build.check(err, "p2t_flash_masked_bwd")
+    flash_attention_masked_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_masked_bwd.launches = 0
+
+
+class _FlashAttentionMasked(torch.autograd.Function):
+    """K1 forward, K5 backward (the JAX `_flash_masked` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_start, kv_len, causal):
+        o, lse = flash_attention_masked_fwd(q, k, v, kv_start, kv_len,
+                                            causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse, kv_start, kv_len)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_start, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_masked_bwd(
+            q, k, v, o, lse, do, kv_start, kv_len, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_masked(q, k, v, kv_start, kv_len, *,
                            causal: bool = False):
-    """K1's output only (the JAX `flash_attention_masked` forward)."""
-    return flash_attention_masked_fwd(q, k, v, kv_start, kv_len,
-                                      causal=causal)[0]
+    """The JAX `flash_attention_masked`: K1's output, differentiable in q, k
+    and v through K5."""
+    return _FlashAttentionMasked.apply(q, k, v, kv_start, kv_len, causal)

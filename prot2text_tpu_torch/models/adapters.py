@@ -1,8 +1,9 @@
 """Modality adapter (counterpart of prot2text_tpu/models/adapters.py:31-113).
 
-fc1 → GELU → fc2 → GELU → L2-normalize, inference only: the dropout
-layers between them are training-time (training: ROADMAP.md §1 item 10).
-The RGCN adapter is not ported yet (§1 item 13)."""
+fc1 → GELU → dropout → fc2 → GELU → dropout → L2-normalize; the dropouts
+act in training mode only (`deterministic=False`), drawing their masks
+from an explicit `torch.Generator`.  The RGCN adapter is not ported yet
+(ROADMAP.md §1 item 13)."""
 
 from __future__ import annotations
 
@@ -36,13 +37,26 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     return (x32 / norm.clamp(min=eps)).to(x.dtype)
 
 
+def _dropout(x, rate: float, generator, deterministic: bool):
+    """Inverted dropout (prot2text_tpu/models/adapters.py:64): keep with
+    probability 1 - rate, scale kept values by 1/(1 - rate).  The mask is
+    drawn from `generator`; it cannot reproduce `jax.random`'s bits."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def modality_adapter(cfg: ModalityAdapterConfig, params, hidden_states, *,
-                     deterministic: bool = True):
-    """(B, S, input_dim) → (B, S, output_dim), L2-normalized per token."""
-    if not deterministic and cfg.dropout_rate > 0.0:
-        raise NotImplementedError("adapter dropout is training-time; "
-                                  "training is not ported yet (ROADMAP.md "
-                                  "§1 item 10)")
+                     deterministic: bool = True, generator=None):
+    """(B, S, input_dim) → (B, S, output_dim), L2-normalized per token.
+    Training mode (`deterministic=False`) needs a `generator` on the
+    activations' device for the dropout masks."""
+    if not deterministic and cfg.dropout_rate > 0.0 and generator is None:
+        raise ValueError("training-mode adapter dropout needs a generator")
     h = gelu_erf(linear(params["fc1"], hidden_states))
+    h = _dropout(h, cfg.dropout_rate, generator, deterministic)
     h = gelu_erf(linear(params["fc2"], h))
+    h = _dropout(h, cfg.dropout_rate, generator, deterministic)
     return l2_normalize(h)

@@ -1,19 +1,26 @@
-"""Shared causal-decoder core for Llama-3.x (counterpart of
+"""Shared causal-decoder core for Llama-3.x and Qwen3 (counterpart of
 prot2text_tpu/models/decoder.py).
 
-Numerics follow the JAX package (HF LlamaForCausalLM parity): fp32 RMSNorm,
-GQA with half-split rotary, fp32 softmax, SwiGLU MLP, logits in fp32.
+Numerics follow the JAX package (HF LlamaForCausalLM / Qwen3ForCausalLM
+parity): fp32 RMSNorm, optional per-head q/k RMSNorm (Qwen3), GQA with
+half-split rotary, fp32 softmax, SwiGLU MLP, logits in fp32.
 
-Attention runs through the port's kernels:
-  * prefill / no-cache forward → K1 (`kernels/flash_attention.py`), causal
-    with the per-row contiguous key run from `contiguous_lengths`;
+Attention runs through the port's kernels, one route at every S:
+  * prefill / no-cache forward → `kernels.flash_attention.
+    flash_attention_masked`, causal with the per-row contiguous key run from
+    `contiguous_lengths`: K1 forward and, when gradients flow (training),
+    K5 backward.  The JAX package sends S < 1024 or S not divisible by 128
+    to XLA under `attn_impl="auto"` (prot2text_tpu/kernels/attention.py:
+    111-138), a v5e measurement; the port has no such switch;
   * single-token decode → K2 (`kernels/decode_attention.py`) reads the
     stacked (L, B, Hkv, T, D) cache READ-ONLY and folds the current token in
     as an extra logit column; after the layer loop K3
     (`kernels/cache_update.py`) writes slot `cache_index` of all L layers at
     once.  Writing a layer's slot before K2 runs would count the token twice.
 The layer loop is a Python loop over views of the stacked weights (no
-per-layer copies).
+per-layer copies).  Training adds LoRA side paths on the seven projections
+(`lora=`) and per-layer recomputation (`remat=True`, the JAX
+`jax.checkpoint` around each block).
 """
 
 from __future__ import annotations
@@ -24,11 +31,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.cache_update import cache_slot_write_bkt
 from ..kernels.decode_attention import decode_attention_stacked
 from ..kernels.flash_attention import flash_attention_masked
-from .transformer import apply_rope, layer_views, linear, rms_norm
+from .lora import lora_at
+from .transformer import (
+    apply_rope, layer_views, linear, linear_lora, rms_norm,
+)
 from .weights import dense, normal_
 
 
@@ -56,9 +67,6 @@ def init_decoder_params(cfg: DecoderConfig, *, generator, device,
                         dtype=torch.float32):
     """Random params with the JAX init's tree and law (N(0, 0.02) kernels and
     embeddings, unit norm scales), drawn on `device`."""
-    if cfg.qk_norm:
-        raise NotImplementedError("qk-norm decoders (Qwen3) are not ported "
-                                  "yet (ROADMAP.md §1 item 7)")
     h, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qd = cfg.num_heads * cfg.head_dim
     kvd = cfg.num_kv_heads * cfg.head_dim
@@ -85,6 +93,9 @@ def init_decoder_params(cfg: DecoderConfig, *, generator, device,
         },
         "final_ln": {"scale": ones(h)},
     }
+    if cfg.qk_norm:
+        params["layers"]["q_norm"] = {"scale": ones(L, cfg.head_dim)}
+        params["layers"]["k_norm"] = {"scale": ones(L, cfg.head_dim)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense(h, cfg.vocab_size, bias=False, **kw)
     return params
@@ -133,46 +144,74 @@ def contiguous_lengths(attention_mask):
     return kv_start.to(torch.int32), kv_len.to(torch.int32)
 
 
-def _mlp(cfg, lp, x):
+def _mlp(cfg, lp, x, proj=None):
+    proj = proj or (lambda name, x_: linear(lp[name], x_))
     xn = rms_norm(lp["post_attn_ln"], x, cfg.rms_norm_eps)
-    gate = F.silu(linear(lp["gate_proj"], xn).float())
-    up = linear(lp["up_proj"], xn).float()
-    return x + linear(lp["down_proj"], (gate * up).to(xn.dtype))
+    gate = F.silu(proj("gate_proj", xn).float())
+    up = proj("up_proj", xn).float()
+    return x + proj("down_proj", (gate * up).to(xn.dtype))
+
+
+def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin, kv_start,
+           kv_len, kv_cache, li):
+    B, S, _ = h.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def proj(name, x_):
+        lo = lora_at(ll.get(name)) if ll is not None else None
+        return linear_lora(lp[name], lo, x_, lora_scale)
+
+    xn = rms_norm(lp["input_ln"], h, cfg.rms_norm_eps)
+    q = proj("q_proj", xn).view(B, S, H, D).transpose(1, 2)
+    k = proj("k_proj", xn).view(B, S, Hkv, D).transpose(1, 2)
+    v = proj("v_proj", xn).view(B, S, Hkv, D).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_norm(lp["q_norm"], q, cfg.rms_norm_eps)
+        k = rms_norm(lp["k_norm"], k, cfg.rms_norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if kv_cache is not None:
+        kv_cache["k"][li, :, :, :S] = k
+        kv_cache["v"][li, :, :, :S] = v
+        k = kv_cache["k"][li, :, :, :S]
+        v = kv_cache["v"][li, :, :, :S]
+    q = (q.float() * D ** -0.5).to(q.dtype)
+    a = flash_attention_masked(q, k, v, kv_start, kv_len, causal=True)
+    a = a.transpose(1, 2).reshape(B, S, H * D)
+    h = h + proj("o_proj", a)
+    return _mlp(cfg, lp, h, proj)
 
 
 def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
-                    attn_lengths, kv_cache=None, layers=None):
+                    attn_lengths, kv_cache=None, layers=None, lora=None,
+                    lora_scale: float = 1.0, remat: bool = False):
     """Causal forward over a whole sequence.  `attn_lengths` = (kv_start,
-    kv_len) from `contiguous_lengths`; attention is K1, causal on sequence
-    index.  With `kv_cache` ({"k","v"} (L, B, Hkv, T, D)), each layer's k/v
-    are written into slots [0, S) and attention reads them back from the
-    cache (the JAX prefill's cache_index=0 slab write).  Returns (h,
+    kv_len) from `contiguous_lengths`; attention is K1 (K5 backward),
+    causal on sequence index.  With `kv_cache` ({"k","v"} (L, B, Hkv, T,
+    D)), each layer's k/v are written into slots [0, S) and attention reads
+    them back from the cache (the JAX prefill's cache_index=0 slab write).
+    `lora`: an optional LoRA tree over `params` (models/lora.py), applied
+    as side paths scaled by `lora_scale`; `remat=True` recomputes each
+    layer in the backward pass (training; not with a cache).  Returns (h,
     kv_cache)."""
-    B, S, _ = inputs_embeds.shape
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if remat and kv_cache is not None:
+        raise ValueError("remat recomputes layers; it takes no kv_cache")
     cos, sin = decoder_rope_cos_sin(cfg, positions)
     kv_start, kv_len = attn_lengths
-    scaling = D ** -0.5
     if layers is None:
         layers = layer_views(params["layers"], cfg.num_layers)
+    lora_layers = (layer_views(lora["layers"], cfg.num_layers)
+                   if lora is not None else [None] * len(layers))
     h = inputs_embeds
-    for li, lp in enumerate(layers):
-        xn = rms_norm(lp["input_ln"], h, cfg.rms_norm_eps)
-        q = linear(lp["q_proj"], xn).view(B, S, H, D).transpose(1, 2)
-        k = linear(lp["k_proj"], xn).view(B, S, Hkv, D).transpose(1, 2)
-        v = linear(lp["v_proj"], xn).view(B, S, Hkv, D).transpose(1, 2)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if kv_cache is not None:
-            kv_cache["k"][li, :, :, :S] = k
-            kv_cache["v"][li, :, :, :S] = v
-            k = kv_cache["k"][li, :, :, :S]
-            v = kv_cache["v"][li, :, :, :S]
-        q = (q.float() * scaling).to(q.dtype)
-        a = flash_attention_masked(q, k, v, kv_start, kv_len, causal=True)
-        a = a.transpose(1, 2).reshape(B, S, H * D)
-        h = h + linear(lp["o_proj"], a)
-        h = _mlp(cfg, lp, h)
+    for li, (lp, ll) in enumerate(zip(layers, lora_layers)):
+        args = (cfg, lp, ll, lora_scale, h, cos, sin, kv_start, kv_len,
+                kv_cache, li)
+        if remat:
+            # the block draws no random numbers: no RNG state to replay
+            h = checkpoint(_block, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _block(*args)
     return rms_norm(params["final_ln"], h, cfg.rms_norm_eps), kv_cache
 
 
@@ -214,6 +253,9 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         q = linear(lp["q_proj"], xn).reshape(B, H, D)
         k = linear(lp["k_proj"], xn).reshape(B, Hkv, D)
         v = linear(lp["v_proj"], xn).reshape(B, Hkv, D)
+        if cfg.qk_norm:
+            q = rms_norm(lp["q_norm"], q, cfg.rms_norm_eps)
+            k = rms_norm(lp["k_norm"], k, cfg.rms_norm_eps)
         q = apply_rope(q[:, :, None, :], cos, sin).reshape(B, H, D)
         k = apply_rope(k.reshape(B, Hkv, 1, D), cos, sin).reshape(B, Hkv, D)
         q = (q.float() * scaling).to(q.dtype)
@@ -230,17 +272,36 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     return h, kv_cache
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """x @ w with an fp32 result from bf16 operands on CUDA: cuBLAS's
+    fp32-output GEMM (`torch.mm(..., out_dtype=torch.float32)`), so the bf16
+    weight is never upcast in memory.  `mm.dtype` has no derivative in
+    torch 2.11, so the backward is written out: dX = dY·Wᵀ with dY rounded
+    to x's dtype.  The weight (a frozen head) gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        lead = x.shape[:-1]
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*lead, y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        (w,) = ctx.saved_tensors
+        return torch.matmul(dy.to(w.dtype), w.t()), None
+
+
 def matmul_f32_out(x, w):
     """x @ w with an fp32 result from bf16/f32 operands — the JAX
-    `preferred_element_type=jnp.float32` head.  CUDA: cuBLAS's fp32-output
-    GEMM (`torch.mm(..., out_dtype=torch.float32)`), so the bf16 weight is
-    never upcast in memory; CPU: the operands are upcast."""
+    `preferred_element_type=jnp.float32` head.  CUDA bf16: `_MatmulF32Out`
+    (w must be frozen); CPU or f32: the operands are upcast."""
     if x.dtype == torch.float32 or not x.is_cuda:
         return torch.matmul(x.float(), w.float())
-    lead = x.shape[:-1]
-    y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype),
-                 out_dtype=torch.float32)
-    return y.reshape(*lead, y.shape[-1])
+    if w.requires_grad:
+        raise ValueError("the bf16 fp32-output head trains only its input; "
+                         "its weight must be frozen")
+    return _MatmulF32Out.apply(x, w.to(x.dtype))
 
 
 def decoder_logits(cfg: DecoderConfig, params, hidden_states):

@@ -24,10 +24,23 @@ def linear(p, x):
     return y
 
 
+def linear_lora(p, lora, x, scale: float = 1.0):
+    """y = x·W (+ bias) + scale·(x·A)·B — the LoRA low-rank side path
+    (prot2text_tpu/models/transformer.py:184).  `lora` is None or {"A": (din,
+    r), "B": (r, dout)}, cast to x's dtype as in JAX; W+ΔW never exists."""
+    y = linear(p, x)
+    if lora is None:
+        return y
+    xa = torch.matmul(x, lora["A"].to(x.dtype))
+    return y + scale * torch.matmul(xa, lora["B"].to(x.dtype))
+
+
 def layer_views(layers: dict, num_layers: int):
-    """Per-layer dicts of views into the stacked (L, ...) leaves."""
+    """Per-layer dicts of views into the stacked (L, ...) leaves (`None`
+    leaves, as in LoRA trees, stay `None`)."""
     def view(sub, li):
-        return {k: (view(v, li) if isinstance(v, dict) else v[li])
+        return {k: (view(v, li) if isinstance(v, dict)
+                    else None if v is None else v[li])
                 for k, v in sub.items()}
 
     return [view(layers, li) for li in range(num_layers)]

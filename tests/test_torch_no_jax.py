@@ -10,8 +10,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "prot2text_tpu_torch",
+    "prot2text_tpu_torch.core.checkpoint",
     "prot2text_tpu_torch.core.device",
     "prot2text_tpu_torch.core.dtypes",
+    "prot2text_tpu_torch.core.observe",
     "prot2text_tpu_torch.kernels",
     "prot2text_tpu_torch.kernels._build",
     "prot2text_tpu_torch.kernels.attention",
@@ -23,14 +25,22 @@ MODULES = [
     "prot2text_tpu_torch.models.composed",
     "prot2text_tpu_torch.models.decoder",
     "prot2text_tpu_torch.models.esm2",
+    "prot2text_tpu_torch.models.esmc",
     "prot2text_tpu_torch.models.fusion",
     "prot2text_tpu_torch.models.llama",
+    "prot2text_tpu_torch.models.lora",
+    "prot2text_tpu_torch.models.qwen3",
     "prot2text_tpu_torch.models.transformer",
     "prot2text_tpu_torch.models.weights",
     "prot2text_tpu_torch.infer",
     "prot2text_tpu_torch.infer.generate",
     "prot2text_tpu_torch.infer.kvcache",
+    "prot2text_tpu_torch.train",
+    "prot2text_tpu_torch.train.optim",
+    "prot2text_tpu_torch.train.sft",
+    "prot2text_tpu_torch.cli.common",
     "prot2text_tpu_torch.cli.generate_instruct",
+    "prot2text_tpu_torch.cli.train_instruct",
     "chip_smoke",
 ]
 
