@@ -7,9 +7,11 @@ Phases (any failure raises and the script exits non-zero):
   1. setup: versions, the card's name and power limit, the CUDA kernels'
      build from `prot2text_tpu_torch/kernels/csrc` (timed);
   2. kernels: each hand-written kernel (K1 flash prefill, K2 decode
-     attention, K3 cache slot write, K5 flash backward) against its plain
-     PyTorch version on the same bf16 inputs computed in fp32, at the
-     paths' own shapes, with median CUDA-event times of both;
+     attention, K3 cache slot write, K4 decode attention + per-row slot
+     write, K5 flash backward, K6 bias flash prefill, K9a K4 over a shared
+     prefix) against its plain PyTorch version on the same bf16 inputs
+     computed in fp32, at the paths' own shapes, with median CUDA-event
+     times of both;
   3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
@@ -20,9 +22,17 @@ Phases (any failure raises and the script exits non-zero):
      accumulated B=1 micro-batches at S >= 1024; exact K1/K5 launch
      counts, frozen towers untouched, LoRA B moved; then one more step
      under `torch.profiler` for the device-time breakdown;
+  4b. serving: ESMC-600M + adapter + Qwen3-14B (full width and depth,
+     bf16, random weights) built by `cli/serve.py build_server` serve 16
+     records through the CLI's own loop (`cli/serve.py serve`: shared
+     prefix with dedup, 8 slots, sync_every 8, 128 new tokens where the
+     CLI defaults to 256); exact K1/K6/K9a launch counts from the engine's
+     own counters; then a short run with the shared prefix off (K4) and a
+     short profiled one;
   5. plumbing: tiny f32 models on `cuda` (kernels) against the same models
-     on `cpu` (plain versions): prefill and first decode-step logits, and
-     one SFT step's loss and LoRA gradients.
+     on `cpu` (plain versions): prefill and first decode-step logits, one
+     SFT step's loss and LoRA gradients, and a serving engine's install
+     logits and tokens (K1, K4, K6, K9a).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device contract `{"ok": true, "device": {...}}`.
@@ -228,6 +238,141 @@ def check_kernels(torch, dev, card):
     return rows
 
 
+def check_serve_kernels(torch, dev, card):
+    """K4, K9a and K6 against their plain versions at the serving shapes
+    of Qwen3-14B (B 8, Hkv 8, rep 5, D 128; the pool's T for the CLI's
+    default 256 new tokens; the byte tokenizer's 250-token shared prefix
+    padded to Pc 256, and Pc 128), bf16: attention atol/rtol 2e-2, written
+    caches bit-exact."""
+    from prot2text_tpu_torch.kernels.decode_attention import (
+        decode_attention_stacked_write, decode_attention_stacked_write_plain,
+        decode_attention_stacked_write_prefix,
+        decode_attention_stacked_write_prefix_plain,
+    )
+    from prot2text_tpu_torch.kernels.flash_attention import (
+        flash_attention_bias_fwd, flash_attention_bias_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
+
+    L, B, Hkv, rep, T, D = 40, 8, 8, 5, 1936, 128
+    ck, cv = randn(L, B, Hkv, T, D), randn(L, B, Hkv, T, D)
+    qg = randn(B, Hkv, rep, D, scale=D ** -0.5)
+    kn, vn = randn(B, Hkv, D), randn(B, Hkv, D)
+    # left-padded 512-wide suffix windows plus decoded columns; rows 6 and
+    # 7 are inactive and both write the scratch column T - 1
+    pads = torch.tensor([0, 37, 100, 250, 5, 0, 60, 200], device=dev)
+    ends = torch.tensor([612, 540, 700, 513, 640, 800, 530, 600],
+                        device=dev)
+    cols = torch.arange(T, device=dev)
+    kv_mask = ((cols >= pads[:, None]) & (cols < ends[:, None])).to(
+        torch.int32)
+    slots = ends.clone()
+    slots[6:] = T - 1
+    kv_mask[torch.arange(B, device=dev), slots] = 0
+
+    def k4(ck_, cv_, li):
+        return decode_attention_stacked_write(qg, ck_, cv_, kv_mask, kn, vn,
+                                              li, slots)
+
+    def k4_plain(ck_, cv_, li):
+        return decode_attention_stacked_write_plain(
+            qg.float(), ck_, cv_, kv_mask, kn.float(), vn.float(), li, slots)
+
+    def check_write(name, kern, plain, plain_bf16):
+        errs = []
+        for li in (0, 23, L - 1):
+            gk, gv = ck.clone(), cv.clone()
+            a = kern(gk, gv, li)
+            torch.cuda.synchronize()
+            wk, wv = ck.clone(), cv.clone()
+            want = plain(wk, wv, li)
+            torch.testing.assert_close(a.float(), want, atol=2e-2, rtol=2e-2)
+            require(torch.equal(gk, wk) and torch.equal(gv, wv),
+                    f"{name}: the written cache is not bit-exact")
+            errs.append((a.float() - want).abs().max().item())
+            del gk, gv, wk, wv
+        ms = cuda_ms(torch, lambda: kern(ck, cv, 23), iters=50)
+        plain_ms = cuda_ms(torch, lambda: plain_bf16(ck, cv, 23), iters=20)
+        return max(errs), ms, plain_ms
+
+    err, ms, plain_ms = check_write(
+        "K4", k4, k4_plain,
+        lambda ck_, cv_, li: decode_attention_stacked_write_plain(
+            qg, ck_, cv_, kv_mask, kn, vn, li, slots))
+    log(f"K4 decode attention + slot write L={L} B={B} Hkv={Hkv} rep={rep} "
+        f"T={T} D={D} bf16 (slots distinct, two rows on the scratch "
+        f"column): max|a-plain|={err:.3e} (atol/rtol 2e-2), caches "
+        f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer "
+        f"[{card}]")
+    rows["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    for Pc in (128, 256):
+        pk, pv = randn(L, 1, Hkv, Pc, D), randn(L, 1, Hkv, Pc, D)
+        pmask = (torch.arange(Pc, device=dev) >= Pc - min(Pc, 250)).to(
+            torch.int32).expand(B, Pc).clone()
+        pmask[6] = 0                      # a full-prompt row in the pool
+
+        def k9(ck_, cv_, li):
+            return decode_attention_stacked_write_prefix(
+                qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask)
+
+        def k9_plain(ck_, cv_, li):
+            return decode_attention_stacked_write_prefix_plain(
+                qg.float(), ck_, cv_, kv_mask, kn.float(), vn.float(), li,
+                slots, pk.float(), pv.float(), pmask)
+
+        err, ms, plain_ms = check_write(
+            "K9a", k9, k9_plain,
+            lambda ck_, cv_, li: decode_attention_stacked_write_prefix_plain(
+                qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask))
+        log(f"K9a decode attention + slot write + shared prefix Pc={Pc} "
+            f"(row 6 gated off) L={L} B={B} T={T} bf16: "
+            f"max|a-plain|={err:.3e} (atol/rtol 2e-2), caches bit-exact; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer [{card}]")
+        # the row keeps the worst error and the serving shape's times
+        worst = max(err, rows.get("K9a", {}).get("max_abs_err", 0.0))
+        rows["K9a"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    del ck, cv
+
+    # K6: the prefix install's attention, R 8 rows, Sq 512 suffix columns
+    # after the Pc 256 seeded prefix, left-padded rows
+    R, H, Hkv, Sq, Pc, Ps = 8, 40, 8, 512, 256, 250
+    q = randn(R, Sq, H, D, scale=D ** -0.5).transpose(1, 2)
+    k, v = randn(R, Hkv, Pc + Sq, D), randn(R, Hkv, Pc + Sq, D)
+    idx = torch.arange(Sq, device=dev)
+    pads = torch.tensor([0, 37, 100, 250, 5, 0, 60, 200], device=dev)
+    ok = ((idx[None, :] <= idx[:, None])[None, None]
+          & (idx >= pads[:, None])[:, None, None, :])
+    okp = (torch.arange(Pc, device=dev) >= Pc - Ps).expand(R, 1, Sq, Pc)
+    bias = torch.where(torch.cat([okp, ok], dim=-1), 0.0,
+                       torch.finfo(torch.float32).min)
+    o, lse = flash_attention_bias_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_bias_plain(q.float(), k.float(),
+                                                v.float(), bias)
+    err = (o.float() - o_ref).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0.0)
+    ms = cuda_ms(torch, lambda: flash_attention_bias_fwd(q, k, v, bias))
+    plain_ms = cuda_ms(torch, lambda: flash_attention_bias_plain(q, k, v,
+                                                                 bias))
+    log(f"K6 bias flash prefill R={R} H={H} Hkv={Hkv} Sq={Sq} Skv={Pc + Sq} "
+        f"D={D} bf16, bias (R,1,Sq,Skv), left-padded rows: "
+        f"max|o-plain|={err:.3e} (atol/rtol 2e-2) max|lse-plain|="
+        f"{err_lse:.3e} (atol 1e-3); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms per layer [{card}]")
+    rows["K6"] = dict(max_abs_err=err, lse_max_abs_err=err_lse, ms=ms,
+                      plain_ms=plain_ms)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the full-width slice through the entry point a user calls
 
@@ -339,7 +484,8 @@ def run_slice(torch, dev, card):
     require(steps == st["steps"],
             f"tokens imply {steps} decode steps, generate ran {st['steps']}")
     L = model.config.llama_config.num_layers
-    want = {"K1": L, "K2": L * steps, "K3": 2 * steps, "K5": 0}
+    want = {"K1": L, "K2": L * steps, "K3": 2 * steps, "K4": 0, "K5": 0,
+            "K6": 0, "K9a": 0}
     require(counts == want, f"launch counts {counts} != expected {want}")
     require(steps > 0, "no decode step ran")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -383,11 +529,19 @@ def train_records(n: int, lengths, seed: int):
              "function": FUNCTIONS[i % len(FUNCTIONS)]} for i in range(n)]
 
 
-def kernel_breakdown(torch, prof, wall_s: float) -> str:
-    """Device time of one profiled step by kernel family, from the CUDA
-    kernel events of `torch.profiler`, and the host's CUDA API calls
-    (launches, synchronisations, copies) that pace it."""
-    fam = {"GEMM": 0.0, "K1": 0.0, "K5": 0.0, "rest": 0.0}
+TRAIN_FAMILIES = (("K1", "flash_masked_fwd"), ("K5", "flash_masked_bwd"))
+SERVE_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"),
+                  ("K4/K9a", "decode_attention_write"))
+
+
+def kernel_breakdown(torch, prof, wall_s: float,
+                     families=TRAIN_FAMILIES) -> str:
+    """Device time of a profiled window by kernel family (the port's kernels
+    by name, cuBLAS GEMMs, the rest), from the CUDA kernel events of
+    `torch.profiler`, and the host's CUDA API calls (launches,
+    synchronisations, copies) that pace it."""
+    fam = {label: 0.0 for label, _ in families}
+    fam.update(GEMM=0.0, rest=0.0)
     by_name, api = {}, {}
     n_kernels = 0
     for e in prof.events():
@@ -400,18 +554,15 @@ def kernel_breakdown(torch, prof, wall_s: float) -> str:
             continue
         n_kernels += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        if "flash_masked_fwd" in e.name:
-            fam["K1"] += us
-        elif "flash_masked_bwd" in e.name:
-            fam["K5"] += us
-        elif re.search(r"gemm|xmma|nvjet|cutlass|cublas", e.name, re.I):
-            fam["GEMM"] += us
-        else:
-            fam["rest"] += us
+        label = next((lb for lb, key in families if key in e.name), None)
+        if label is None:
+            label = ("GEMM" if re.search(r"gemm|xmma|nvjet|cutlass|cublas",
+                                         e.name, re.I) else "rest")
+        fam[label] += us
     busy = sum(fam.values()) / 1e6
     if busy == 0:
-        return "profiled step: the profiler recorded no device kernels"
-    lines = [f"profiled step: wall {wall_s * 1e3:.1f} ms, device busy "
+        return "profiled window: the profiler recorded no device kernels"
+    lines = [f"profiled window: wall {wall_s * 1e3:.1f} ms, device busy "
              f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall_s:.3f}, "
              f"{n_kernels} device events; " +
              ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e6 / busy:.1%})"
@@ -485,7 +636,8 @@ def run_training(torch, dev, card):
     counts = launch_counts()
     L = run.step_kw["decoder_core"].num_layers
     micro = steps * accum
-    want = {"K1": 2 * L * micro, "K2": 0, "K3": 0, "K5": L * micro}
+    want = {"K1": 2 * L * micro, "K2": 0, "K3": 0, "K4": 0,
+            "K5": L * micro, "K6": 0, "K9a": 0}
     log(f"launches in the training run: {counts} (K1 = forward + "
         f"recomputation per layer and micro-step, K5 = one per layer and "
         f"micro-step)")
@@ -528,6 +680,194 @@ def _lora_b(tree):
             return [tree["B"]]
         return [b for v in tree.values() for b in _lora_b(v)]
     return []
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: continuous-batching serving at full width through the CLI's loop
+
+
+def serve_args(*extra):
+    from prot2text_tpu_torch.cli.serve import build_parser
+
+    return build_parser().parse_args([
+        "--test_csv", "unused", "--device", "cuda", "--random_seed", "0",
+        "--max_new_tokens", "128", *extra])
+
+
+def serve_batches(args, tok, n: int, seed: int):
+    """n CSV-style records of 200-450 residues collated by the CLI's own
+    collator, `max_slots` per batch, as its DataLoader batches them."""
+    from prot2text_tpu_torch.cli.serve import make_collator
+
+    collate = make_collator(args, tok)
+    records = train_records(n, (200, 451), seed=seed)
+    return [collate(records[i:i + args.max_slots])
+            for i in range(0, n, args.max_slots)]
+
+
+def serve_once(torch, args, tok, cfg, params, batches, dev, label, card):
+    """One run of the CLI's serving loop with every launch count at 0 just
+    before it; returns (ServeRun, launch counts)."""
+    from prot2text_tpu_torch.cli.serve import serve
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run = serve(args, tok, cfg, params, batches, dev)
+    counts = launch_counts()
+    eng = run.engine
+    n = len(run.results)
+    installs = sum(eng.installs.values())
+    encode_s = run.seconds - eng.install_s - eng.decode_s
+    log(f"serve {label} [{card}]: {n} requests in {run.seconds:.3f} s = "
+        f"{n / run.seconds * 3600:.0f} descriptions/hour; decode "
+        f"{eng.decode_s / eng.steps * 1e3:.3f} ms/step over {eng.steps} "
+        f"steps at B={args.max_slots} ("
+        f"{sum(run.n_tokens.values()) / eng.decode_s:.1f} tokens/s); "
+        f"prefill {eng.install_s / installs * 1e3:.2f} ms per install over "
+        f"{installs} installs {eng.installs}; encode + prefix prefill + "
+        f"host {encode_s * 1e3:.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"serve {label} launches: {counts}; shared prefix "
+        f"{run.prefix_len} tokens (Pc {eng.prefix_cols}); pool T "
+        f"{eng.state['kv_mask'].shape[1]}")
+    require(n == sum(len(b["name"]) for b in batches),
+            f"served {n} of the submitted requests")
+    require(all(1 <= c <= args.max_new_tokens for c in run.n_tokens.values()),
+            f"token counts out of range: {run.n_tokens}")
+    require(not bool(eng.state["active"].any()), "a slot is still active")
+    return run, counts
+
+
+def run_serve(torch, dev, card):
+    from prot2text_tpu.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.cli.serve import build_server, refuse_unported
+    from prot2text_tpu_torch.models.weights import tree_leaves
+
+    tok = ByteTextTokenizer()
+    args = serve_args()
+    refuse_unported(args)
+    t0 = time.perf_counter()
+    cfg, params = build_server(args, tok, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    L = cfg.llm_config.num_layers
+    log(f"serve model ESMC-600M + adapter + Qwen3-14B bf16: "
+        f"{n_params / 1e9:.3f} B params, random init on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    batches = serve_batches(args, tok, 16, seed=5)
+    run, counts = serve_once(torch, args, tok, cfg, params, batches, dev,
+                             "shared prefix + dedup, 16 x 128 tokens", card)
+    eng = run.engine
+    require(run.prefix_len >= 16, f"shared prefix {run.prefix_len} < 16")
+    want = {"K1": L * (1 + eng.installs["full"]), "K2": 0, "K3": 0, "K4": 0,
+            "K5": 0, "K6": L * eng.installs["prefix"], "K9a": L * eng.steps}
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    require(eng.installs["prefix"] > 0, "no prefix install ran")
+    paths = {"serve": counts}
+    del run, eng                 # free the pool before the next run's peak
+    gc.collect()
+
+    # the same loop with the shared prefix off: full-prompt installs (K1)
+    # and per-row decode through K4
+    args_np = serve_args("--shared_prefix", "false", "--max_new_tokens",
+                         "32")
+    run_np, counts_np = serve_once(
+        torch, args_np, tok, cfg, params, serve_batches(args_np, tok, 8, 6),
+        dev, "no shared prefix, 8 x 32 tokens", card)
+    eng = run_np.engine
+    want = {"K1": L * eng.installs["full"], "K2": 0, "K3": 0,
+            "K4": L * eng.steps, "K5": 0, "K6": 0, "K9a": 0}
+    require(counts_np == want,
+            f"launch counts {counts_np} != expected {want}")
+    paths["serve_no_prefix"] = counts_np
+    del run_np, eng
+    gc.collect()
+
+    # one short default-path run under torch.profiler: where the time goes
+    args_p = serve_args("--max_new_tokens", "24")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    batches_p = serve_batches(args_p, tok, 8, 7)
+    with torch.profiler.profile(activities=acts) as prof:
+        run_p, _ = serve_once(torch, args_p, tok, cfg, params, batches_p,
+                              dev, "profiled, 8 x 24 tokens", card)
+    log(kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
+        + f" [{card}]")
+    return paths
+
+
+def run_serve_plumbing(torch, dev):
+    """A tiny f32 serving engine on cuda (K1, K4, K6, K9a) and on cpu (plain
+    versions) from the same weights: the shared prefix's KV and one prefix
+    install's logits within 1e-4; every request's greedy tokens identical,
+    with the shared prefix (dedup, a pool mixing prefix and full-prompt
+    requests) and without it."""
+    from prot2text_tpu_torch.infer import serving
+    from prot2text_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3_params
+    from prot2text_tpu_torch.models.weights import tree_map
+
+    import numpy as np
+
+    qwen = Qwen3Config(vocab_size=300, hidden_size=128, num_layers=2,
+                       num_heads=10, num_kv_heads=2, head_dim=64,
+                       intermediate_size=256)
+    cfg = qwen.core()
+    params = init_qwen3_params(
+        qwen, generator=torch.Generator().manual_seed(3), device="cpu")
+    rng = np.random.default_rng(8)
+    prefix = rng.standard_normal((21, 128)).astype(np.float32)
+    reqs = [(f"r{i}", rng.standard_normal((int(n), 128)).astype(np.float32),
+             int(m)) for i, (n, m) in enumerate(((5, 9), (17, 6), (30, 12),
+                                                 (3, 7), (11, 8)))]
+
+    def engine(d, prefix_embeds):
+        return serving.ContinuousBatcher(
+            cfg, tree_map(lambda t: t.to(d), params), max_slots=3,
+            max_len=64 + 12, prompt_pad=(32, 64), eos_token_id=-1,
+            cache_dtype=torch.float32, sync_every=4,
+            shared_prefix_embeds=prefix_embeds,
+            prefix_dedup=prefix_embeds is not None)
+
+    logits, pkv, toks = [], [], []
+    for d in (torch.device("cpu"), dev):
+        eng = engine(d, prefix)
+        pkv.append({k: v.cpu() for k, v in eng.prefix_kv.items()})
+        emb = torch.zeros((2, 32, 128), device=d)
+        mask = torch.zeros((2, 32), dtype=torch.int32, device=d)
+        for i, (_, e, _) in enumerate(reqs[:2]):
+            emb[i, 32 - len(e):] = torch.from_numpy(e).to(d)
+            mask[i, 32 - len(e):] = 1
+        idx = torch.tensor([0, 1], device=d)
+        _, lg = serving._prefill_install_pool(
+            cfg, eng.state, eng.params, emb, mask, idx,
+            torch.tensor([len(reqs[0][1]), len(reqs[1][1])], device=d),
+            torch.tensor([9, 6], device=d), eng.generator, eng.prefix_kv,
+            eos_token_id=-1, prefix_cols=eng.prefix_cols,
+            prefix_len=eng.prefix_len, dedup=True, layers=eng.layers)
+        logits.append(lg.cpu())
+        out = {}
+        for pfx in (prefix, None):
+            eng = engine(d, pfx)
+            for i, (rid, e, m) in enumerate(reqs):
+                full = pfx is not None and i == 2     # a full-prompt row
+                eng.submit(rid, np.concatenate([pfx, e]) if full else e,
+                           max_new_tokens=m,
+                           use_prefix=False if full else None)
+            out[pfx is not None] = dict(eng.run())
+        toks.append(out)
+    for k in ("k", "v"):
+        torch.testing.assert_close(pkv[1][k], pkv[0][k], atol=1e-4, rtol=0)
+    err = (logits[1] - logits[0]).abs().max().item()
+    torch.testing.assert_close(logits[1], logits[0], atol=1e-4, rtol=0.0)
+    require(toks[1] == toks[0], f"serving tokens cuda {toks[1]} != cpu "
+            f"{toks[0]}")
+    log(f"plumbing f32 serving cuda vs cpu: prefix install logits max abs "
+        f"diff {err:.3e} (atol 1e-4), prefix KV within 1e-4, greedy tokens "
+        f"of {len(reqs)} requests identical with and without the shared "
+        f"prefix")
 
 
 # ---------------------------------------------------------------------------
@@ -662,19 +1002,28 @@ def main() -> int:
                 log(f"  {fn}: {line.split(':', 1)[1].strip()}")
 
     rows = check_kernels(torch, dev, card)
+    rows.update(check_serve_kernels(torch, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
     paths = {"generate": run_slice(torch, dev, card)}
     gc.collect()                 # free the generation model before training
     torch.cuda.empty_cache()
     paths["train"] = run_training(torch, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(run_serve(torch, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
     run_plumbing(torch, dev)
     run_train_plumbing(torch, dev)
+    run_serve_plumbing(torch, dev)
 
     out = []
     for kid, (_, _, src, tpu) in KERNELS.items():
         r = rows[kid]
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
+        require(sum(by_path.values()) > 0,
+                f"{kid} was launched no time on any path")
         out.append({"name": kid, "route": "cuda", "source": src,
                     "replaces": tpu, "launches": sum(by_path.values()),
                     "launches_by_path": by_path,

@@ -9,11 +9,15 @@ loaded only when a kernel is first launched (`_build.py`).
 from .cache_update import cache_slot_write_bkt, cache_slot_write_bkt_plain
 from .decode_attention import (
     decode_attention_stacked, decode_attention_stacked_plain,
+    decode_attention_stacked_write, decode_attention_stacked_write_plain,
+    decode_attention_stacked_write_prefix,
+    decode_attention_stacked_write_prefix_plain,
 )
 from .flash_attention import (
-    flash_attention_masked, flash_attention_masked_bwd,
-    flash_attention_masked_bwd_plain, flash_attention_masked_fwd,
-    flash_attention_masked_plain,
+    flash_attention_bias, flash_attention_bias_fwd,
+    flash_attention_bias_plain, flash_attention_masked,
+    flash_attention_masked_bwd, flash_attention_masked_bwd_plain,
+    flash_attention_masked_fwd, flash_attention_masked_plain,
 )
 
 # id → (wrapper, plain version, kernel source, TPU kernel it replaces)
@@ -27,9 +31,20 @@ KERNELS = {
     "K3": (cache_slot_write_bkt, cache_slot_write_bkt_plain,
            "prot2text_tpu_torch/kernels/csrc/cache_update.cu",
            "prot2text_tpu/kernels/cache_update.py:176"),
+    "K4": (decode_attention_stacked_write,
+           decode_attention_stacked_write_plain,
+           "prot2text_tpu_torch/kernels/csrc/decode_attention_write.cu",
+           "prot2text_tpu/kernels/decode_attention.py:182"),
     "K5": (flash_attention_masked_bwd, flash_attention_masked_bwd_plain,
            "prot2text_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
            "prot2text_tpu/kernels/flash_attention.py:582"),
+    "K6": (flash_attention_bias_fwd, flash_attention_bias_plain,
+           "prot2text_tpu_torch/kernels/csrc/flash_attention_bias.cu",
+           "prot2text_tpu/kernels/flash_attention.py:465"),
+    "K9a": (decode_attention_stacked_write_prefix,
+            decode_attention_stacked_write_prefix_plain,
+            "prot2text_tpu_torch/kernels/csrc/decode_attention_write.cu",
+            "prot2text_tpu/kernels/decode_attention.py:703"),
 }
 
 
@@ -45,6 +60,10 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS", "cache_slot_write_bkt", "cache_slot_write_bkt_plain",
     "decode_attention_stacked", "decode_attention_stacked_plain",
+    "decode_attention_stacked_write", "decode_attention_stacked_write_plain",
+    "decode_attention_stacked_write_prefix",
+    "decode_attention_stacked_write_prefix_plain", "flash_attention_bias",
+    "flash_attention_bias_fwd", "flash_attention_bias_plain",
     "flash_attention_masked", "flash_attention_masked_bwd",
     "flash_attention_masked_bwd_plain", "flash_attention_masked_fwd",
     "flash_attention_masked_plain", "launch_counts", "reset_launch_counts",

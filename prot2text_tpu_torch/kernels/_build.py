@@ -55,6 +55,12 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _P],
     # cache, src, n_rows, T, index, row_bytes, stream
     "p2t_cache_slot_write": [_P, _P, _L, _L, _L, _I, _P],
+    # qg, ck(layer), cv(layer), kv_mask, k_new, v_new, slots, pk(layer),
+    # pv(layer), pmask, out, B, Hkv, rep, T, Pc, D, dtype, stream
+    "p2t_decode_attention_write": [_P] * 11 + [_I] * 7 + [_P],
+    # q, k, v, bias, o, lse, strides[15], B, H, Hkv, Sq, Skv, D, dtype,
+    # stream
+    "p2t_flash_bias_fwd": [_P] * 7 + [_I] * 7 + [_P],
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

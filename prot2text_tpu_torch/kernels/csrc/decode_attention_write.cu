@@ -1,0 +1,302 @@
+// K4 and K9a: grouped-query decode attention over layer `li` of the stacked
+// (L, B, Hkv, T, D) KV cache, fused with the in-place write of each row's
+// current k/v into its own cache slot `slots[b]`; K9a adds a read-only
+// shared-prefix operand (L, 1, Hkv, Pc, D) that every row may attend.
+//
+// Replaces prot2text_tpu/kernels/decode_attention.py
+// decode_attention_stacked_write (_kernel_write, K4) and
+// decode_attention_stacked_write_prefix (_kernel_write_p, K9a).  Semantics
+// kept: q is pre-scaled; logits are fp32; columns with kv_mask == 0 (and,
+// K9a, prefix columns with pmask == 0) are excluded; the current token's
+// k/v are one extra logit column; the softmax runs over [prefix ‖ cache ‖
+// current] in one pass; weights are rounded to the cache dtype before P·V
+// and their sum stays fp32.  The TPU kernels read-modified-wrote a 16-row
+// tile group through an aliased output; here the block writes exactly the
+// one slot row of its own (b, kv head) slab after its last read of the
+// layer, so the write cannot race a read (no other block touches that
+// slab, and the slot column is masked anyway).  Masked columns are never
+// read at all, so a stale, scratch or uninitialised column cannot leak a
+// NaN into the output.  Slots may repeat across rows (every inactive
+// serving row writes the scratch column T - 1): each row owns its slab.
+//
+// Bound: bytes.  A step reads the valid cache columns of every (b, kv head)
+// once per layer (B=8, Hkv=8, ~700 valid columns, D=128, bf16: ~23 MB) for
+// ~2 FLOP per byte, plus 2*B*Hkv*D*2 bytes of writes.  Design: K2's — one
+// block per (b, kv head) handles all `rep` query heads of the group, an
+// online softmax walks the columns in chunks of 256 (one column per thread
+// for q·k with 16-byte loads, one head-dim element per thread for P·V).
+// Known limits, left to a later PR: B*Hkv = 64 blocks at the serving shape
+// fill half of the H100's 132 SMs (split the columns across blocks with a
+// combine pass); and K9a's prefix slab is read by every one of the B blocks
+// of a kv head, the redundancy the TPU kernel avoided by fetching the
+// constant-index prefix block once per layer (L2 catches most of it here:
+// a layer's prefix is Hkv*Pc*D*2*2 bytes, 1 MB at Pc=256).
+#include <float.h>
+
+#include "common.cuh"
+
+namespace {
+
+using p2t::from_float;
+using p2t::load8;
+using p2t::round_to;
+using p2t::to_float;
+using p2t::warp_max;
+using p2t::warp_sum;
+
+constexpr int kThreads = 256;
+constexpr int kChunk = kThreads;     // columns per softmax chunk
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRep = kWarps;      // query heads per kv head (GQA group)
+
+template <typename T>
+struct WriteParams {
+  const T* qg;          // (B, Hkv, rep, D), pre-scaled
+  T* ck;                // layer slice (B, Hkv, T, D), slot row written
+  T* cv;
+  const int32_t* kv_mask;   // (B, T) 0/1
+  const T* k_new;       // (B, Hkv, D)
+  const T* v_new;
+  const int32_t* slots; // (B,) slot per row
+  const T* pk;          // prefix layer slice (Hkv, Pc, D); K9a only
+  const T* pv;
+  const int32_t* pmask; // (B, Pc) 0/1; K9a only
+  T* out;               // (B, Hkv, rep, D)
+  int Hkv, rep, T_len, Pc;
+};
+
+template <typename T, int D, bool kPrefix>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_write_kernel(const WriteParams<T> p) {
+  static_assert(kThreads % D == 0 && D % 8 == 0, "unsupported head_dim");
+  constexpr int kGroups = kThreads / D;        // head rows in flight per d
+  constexpr int kRows = (kMaxRep + kGroups - 1) / kGroups;
+
+  __shared__ float q_s[kMaxRep][D];
+  __shared__ float p_s[kMaxRep][kChunk];
+  __shared__ float red_s[kMaxRep][kWarps];
+  __shared__ float m_s[kMaxRep], l_s[kMaxRep], alpha_s[kMaxRep];
+  __shared__ int valid_s[kChunk];
+
+  const int bg = blockIdx.x;                   // b * Hkv + kv head
+  const int b = bg / p.Hkv;
+  const int h = bg - b * p.Hkv;
+  const int rep = p.rep;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int Pc = kPrefix ? p.Pc : 0;
+  const int n_cols = Pc + p.T_len;             // [prefix ‖ cache]
+
+  const T* q = p.qg + (int64_t)bg * rep * D;
+  for (int i = tid; i < rep * D; i += kThreads)
+    q_s[i / D][i % D] = to_float(q[i]);
+  __syncthreads();
+
+  // the current token's column starts the online softmax: m = its logit,
+  // l = exp(0) = 1, acc = its v.  Warp r computes head r's logit.
+  if (warp < rep) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32)
+      s = fmaf(q_s[warp][d], to_float(p.k_new[(int64_t)bg * D + d]), s);
+    s = warp_sum(s);
+    if (lane == 0) {
+      m_s[warp] = s;
+      l_s[warp] = 1.f;
+    }
+  }
+  __syncthreads();
+
+  const int d = tid % D;
+  const int g0 = tid / D;
+  float acc[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = g0 + kGroups * i;
+    acc[i] = r < rep ? to_float(p.v_new[(int64_t)bg * D + d]) : 0.f;
+  }
+
+  T* kb = p.ck + (int64_t)bg * p.T_len * D;
+  T* vb = p.cv + (int64_t)bg * p.T_len * D;
+  const int32_t* mb = p.kv_mask + (int64_t)b * p.T_len;
+  const T* pkb = kPrefix ? p.pk + (int64_t)h * Pc * D : nullptr;
+  const T* pvb = kPrefix ? p.pv + (int64_t)h * Pc * D : nullptr;
+  const int32_t* pmb = kPrefix ? p.pmask + (int64_t)b * Pc : nullptr;
+
+  for (int t0 = 0; t0 < n_cols; t0 += kChunk) {
+    const int t = t0 + tid;
+    bool valid = false;
+    const T* krow = nullptr;
+    if (t < n_cols) {
+      if (kPrefix && t < Pc) {
+        valid = pmb[t] != 0;
+        krow = pkb + (int64_t)t * D;
+      } else {
+        valid = mb[t - Pc] != 0;
+        krow = kb + (int64_t)(t - Pc) * D;
+      }
+    }
+    valid_s[tid] = valid;
+    float s[kMaxRep];
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) s[r] = 0.f;
+    if (valid) {
+#pragma unroll 2
+      for (int d0 = 0; d0 < D; d0 += 8) {
+        float kf[8];
+        load8(krow + d0, kf);
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r) {
+          if (r < rep) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              s[r] = fmaf(q_s[r][d0 + e], kf[e], s[r]);
+          }
+        }
+      }
+    }
+    // chunk max per head → new running max and the rescale factor
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r < rep) {
+        const float x = warp_max(valid ? s[r] : -FLT_MAX);
+        if (lane == 0) red_s[r][warp] = x;
+      }
+    }
+    __syncthreads();
+    if (tid < rep) {
+      float cm = red_s[tid][0];
+      for (int w = 1; w < kWarps; ++w) cm = fmaxf(cm, red_s[tid][w]);
+      const float m_new = fmaxf(m_s[tid], cm);
+      alpha_s[tid] = expf(m_s[tid] - m_new);
+      m_s[tid] = m_new;
+    }
+    __syncthreads();
+    // weights (explicitly 0 where masked) and their chunk sums
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r < rep) {
+        const float w = valid ? expf(s[r] - m_s[r]) : 0.f;
+        p_s[r][tid] = round_to<T>(w);
+        const float ws = warp_sum(w);
+        if (lane == 0) red_s[r][warp] = ws;
+      }
+    }
+    __syncthreads();
+    if (tid < rep) {
+      float sum = 0.f;
+      for (int w = 0; w < kWarps; ++w) sum += red_s[tid][w];
+      l_s[tid] = l_s[tid] * alpha_s[tid] + sum;
+    }
+    // acc = acc * alpha + P·V over the chunk's valid columns
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = g0 + kGroups * i;
+      if (r < rep) acc[i] *= alpha_s[r];
+    }
+    const int n = min(kChunk, n_cols - t0);
+    for (int c = 0; c < n; ++c) {
+      if (!valid_s[c]) continue;             // block-uniform branch
+      const int tc = t0 + c;
+      const T* vrow = (kPrefix && tc < Pc) ? pvb + (int64_t)tc * D
+                                           : vb + (int64_t)(tc - Pc) * D;
+      const float v = to_float(vrow[d]);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = g0 + kGroups * i;
+        if (r < rep) acc[i] = fmaf(p_s[r][c], v, acc[i]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = g0 + kGroups * i;
+    if (r < rep)
+      p.out[((int64_t)bg * rep + r) * D + d] = from_float<T>(acc[i] / l_s[r]);
+  }
+
+  // every read of this (b, kv head) slab ended at the loop's last barrier:
+  // store the current token's k/v into row slots[b] of the layer.  An
+  // out-of-range slot is not written (the wrappers' plain versions raise
+  // on it; the serving engine never produces one).
+  const int slot = p.slots[b];
+  if (slot >= 0 && slot < p.T_len) {
+    for (int i = tid; i < 2 * D; i += kThreads) {
+      if (i < D)
+        kb[(int64_t)slot * D + i] = p.k_new[(int64_t)bg * D + i];
+      else
+        vb[(int64_t)slot * D + i - D] = p.v_new[(int64_t)bg * D + i - D];
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const WriteParams<T>& p, int B, cudaStream_t stream) {
+  const dim3 grid(B * p.Hkv);
+  if (p.Pc > 0)
+    decode_attention_write_kernel<T, D, true>
+        <<<grid, kThreads, 0, stream>>>(p);
+  else
+    decode_attention_write_kernel<T, D, false>
+        <<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(int D, const WriteParams<T>& p, int B,
+                       cudaStream_t s) {
+  switch (D) {
+    case 16: return launch<T, 16>(p, B, s);
+    case 32: return launch<T, 32>(p, B, s);
+    case 64: return launch<T, 64>(p, B, s);
+    case 128: return launch<T, 128>(p, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t run(const void* qg, void* ck, void* cv, const void* kv_mask,
+                const void* k_new, const void* v_new, const void* slots,
+                const void* pk, const void* pv, const void* pmask, void* out,
+                int B, int Hkv, int rep, int T_len, int Pc, int D,
+                cudaStream_t s) {
+  WriteParams<T> p;
+  p.qg = static_cast<const T*>(qg);
+  p.ck = static_cast<T*>(ck);
+  p.cv = static_cast<T*>(cv);
+  p.kv_mask = static_cast<const int32_t*>(kv_mask);
+  p.k_new = static_cast<const T*>(k_new);
+  p.v_new = static_cast<const T*>(v_new);
+  p.slots = static_cast<const int32_t*>(slots);
+  p.pk = static_cast<const T*>(pk);
+  p.pv = static_cast<const T*>(pv);
+  p.pmask = static_cast<const int32_t*>(pmask);
+  p.out = static_cast<T*>(out);
+  p.Hkv = Hkv; p.rep = rep; p.T_len = T_len; p.Pc = Pc;
+  return dispatch_d<T>(D, p, B, s);
+}
+
+}  // namespace
+
+// ck/cv: the layer's (B, Hkv, T, D) slice; pk/pv: the layer's (Hkv, Pc, D)
+// prefix slice and pmask (B, Pc), all ignored when Pc == 0 (K4)
+extern "C" int p2t_decode_attention_write(
+    const void* qg, void* ck, void* cv, const void* kv_mask,
+    const void* k_new, const void* v_new, const void* slots, const void* pk,
+    const void* pv, const void* pmask, void* out, int B, int Hkv, int rep,
+    int T_len, int Pc, int D, int dtype, void* stream) {
+  if (B <= 0 || Hkv <= 0 || rep <= 0 || rep > kMaxRep || T_len <= 0 ||
+      Pc < 0 || (Pc > 0 && (pk == nullptr || pv == nullptr ||
+                            pmask == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == p2t::kBFloat16)
+    return (int)run<__nv_bfloat16>(qg, ck, cv, kv_mask, k_new, v_new, slots,
+                                   pk, pv, pmask, out, B, Hkv, rep, T_len, Pc,
+                                   D, s);
+  if (dtype == p2t::kFloat32)
+    return (int)run<float>(qg, ck, cv, kv_mask, k_new, v_new, slots, pk, pv,
+                           pmask, out, B, Hkv, rep, T_len, Pc, D, s);
+  return (int)cudaErrorInvalidValue;
+}

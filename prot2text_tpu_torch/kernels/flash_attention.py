@@ -1,5 +1,5 @@
-"""K1 and K5: bias-free masked flash attention, forward and backward
-(CUDA C++, sm_90a).
+"""K1 and K5: bias-free masked flash attention, forward and backward; K6:
+flash attention with an additive bias, forward (CUDA C++, sm_90a).
 
 Replaces prot2text_tpu/kernels/flash_attention.py `flash_attention_masked`:
 K1 is its forward (`_fwd_masked_kernel` / `_flash_masked_fwd_impl`), kernel
@@ -13,11 +13,17 @@ chip smoke test holds the kernels against them.  `flash_attention_masked`
 is differentiable: a `torch.autograd.Function` whose forward is K1 and whose
 backward is K5, as the JAX `custom_vjp` pairs the two Pallas kernels.
 
-Contract (as the JAX kernel): q (B, H, Sq, D) pre-scaled; k, v (B, Hkv, Skv,
-D) with Hkv dividing H; kv_start/kv_len (B,) int32 — the valid keys of row
-b are [kv_start[b], kv_start[b] + kv_len[b]), and `causal` additionally
-requires col <= row on sequence index.  Masked weights are exactly 0; a row
-with no valid key gives o = 0 and lse = -1e30.
+K6 replaces the forward of `flash_attention_tpu` (`_fwd_kernel` /
+`_flash_fwd`), kernel `csrc/flash_attention_bias.cu`: the serving prefix
+install attends [seeded prefix ‖ suffix] cache columns through an explicit
+fp32 bias (`flash_attention_bias`).  Its backward (K6b) is not ported: a
+call that would need a gradient raises.
+
+Contract of K1/K5 (as the JAX kernel): q (B, H, Sq, D) pre-scaled; k, v (B,
+Hkv, Skv, D) with Hkv dividing H; kv_start/kv_len (B,) int32 — the valid
+keys of row b are [kv_start[b], kv_start[b] + kv_len[b]), and `causal`
+additionally requires col <= row on sequence index. Masked weights are
+exactly 0; a row with no valid key gives o = 0 and lse = -1e30.
 """
 
 from __future__ import annotations
@@ -219,3 +225,102 @@ def flash_attention_masked(q, k, v, kv_start, kv_len, *,
     """The JAX `flash_attention_masked`: K1's output, differentiable in q, k
     and v through K5."""
     return _FlashAttentionMasked.apply(q, k, v, kv_start, kv_len, causal)
+
+
+# ---------------------------------------------------------------------------
+# K6: additive-bias flash attention, forward
+
+
+def flash_attention_bias_plain(q, k, v, bias):
+    """Plain PyTorch K6 → (o (B, H, Sq, D) in q's dtype, lse (B, H, Sq) f32).
+    q (B, H, Sq, D) pre-scaled; k, v (B, Hkv, Skv, D); bias fp32 additive,
+    broadcastable to (B, H, Sq, Skv).  As the TPU kernel: the running max
+    starts at -1e30, so a row whose logits all lie below it (bias
+    finfo(f32).min everywhere) gets o = 0 and lse = -1e30; the weights are
+    rounded to v's dtype before P·V."""
+    rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.repeat_interleave(rep, dim=1)
+    logits = torch.matmul(q.float(), kf.transpose(-1, -2)) + bias.float()
+    m = logits.amax(dim=-1, keepdim=True).clamp(min=NEG_INF)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.matmul(p.to(v.dtype).float(), vf.float()) / safe
+    return o.to(q.dtype), (m + torch.log(safe))[..., 0]
+
+
+def _check_bias(q, k, v, bias):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"K6 needs CUDA tensors, got {dev}")
+    for name, t in (("k", k), ("v", v), ("bias", bias)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K6 takes bfloat16 or float32, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"K6's bias must be float32, got {bias.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"K6 head_dim must be one of {HEAD_DIMS}, got {D}")
+    if Sq == 0 or Skv == 0:
+        raise ValueError("empty sequence")
+    if (bias.dim() != 4 or bias.shape[0] not in (1, B)
+            or bias.shape[1] not in (1, H) or bias.shape[2] not in (1, Sq)
+            or bias.shape[3] != Skv):
+        raise ValueError(f"bias {tuple(bias.shape)} must broadcast as (B|1, "
+                         f"H|1, Sq|1, Skv) = ({B}, {H}, {Sq}, {Skv})")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+
+
+def flash_attention_bias_fwd(q, k, v, bias):
+    """K6 → (o (B, H, Sq, D), lse (B, H, Sq) f32).  CPU tensors run the
+    plain version; CUDA tensors launch the kernel (or raise).  The bias is
+    read through its broadcast strides; on CUDA, o is a (B, H, Sq, D) view
+    of a (B, Sq, H, D) buffer, as K1's."""
+    if q.device.type == "cpu":
+        return flash_attention_bias_plain(q, k, v, bias)
+    _check_bias(q, k, v, bias)
+    B, H, Sq, D = q.shape
+    b = bias.expand(B, bias.shape[1], Sq, k.shape[2])
+    b_sh = b.stride(1) if b.shape[1] == H and H > 1 else 0
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 15)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *o.stride()[:3],
+                                    b.stride(0), b_sh, b.stride(2))
+    lib = _build.library()
+    err = lib.p2t_flash_bias_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), ctypes.addressof(strides), B, H, k.shape[1], Sq,
+        k.shape[2], D, _build.dtype_code(q.dtype), _build.stream_of(q))
+    _build.check(err, "p2t_flash_bias_fwd")
+    flash_attention_bias_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_bias_fwd.launches = 0
+
+
+def flash_attention_bias(q, k, v, bias):
+    """The forward of the JAX `flash_attention_tpu` (K6): o only.  Its
+    backward, K6b, is not ported yet (ROADMAP.md §2): a call that would
+    need a gradient raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias)):
+        raise NotImplementedError(
+            "the backward of the additive-bias flash attention (K6b) is not "
+            "ported yet (ROADMAP.md §2)")
+    return flash_attention_bias_fwd(q, k, v, bias)[0]

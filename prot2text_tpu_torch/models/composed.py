@@ -1,8 +1,13 @@
-"""Composed protein→text model (counterpart of
-prot2text_tpu/models/composed.py:52-163, reference
-modeling_esm2llama_instruct.py:71-268): ESM2 encoder + modality adapter +
-Llama with placeholder-token fusion.  The legacy, RGCN and ESMC-Qwen arcs
-are not ported yet (ROADMAP.md §1 items 7, 8 and 13).
+"""Composed protein→text models (counterpart of
+prot2text_tpu/models/composed.py):
+  * `Esm2LlamaInstructForCausalLM` (:52-163, reference
+    modeling_esm2llama_instruct.py:71-268): ESM2 encoder + modality adapter
+    + Llama with placeholder-token fusion;
+  * `ESMCQwen` (:462-576, reference esmc_qwen_arc.py:31-273): ESMC encoder
+    + modality adapter + Qwen3, the serving CLI's model.  Its `generate`
+    (and `cli/generate_instruct_light.py`) is not ported yet (ROADMAP.md §1
+    item 7).
+The legacy and RGCN arcs are not ported yet (ROADMAP.md §1 items 8 and 13).
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ from .decoder import (
     embed_tokens,
 )
 from .esm2 import ESM2Config, esm2_encode, init_esm2_params
+from .esmc import ESMCConfig, esmc_encode, init_esmc_params
 from .fusion import count_check, placeholder_merge
 from .llama import LlamaConfig, init_llama_params
+from .qwen3 import Qwen3Config, init_qwen3_params
 from .weights import ParamTree
 
 
@@ -146,3 +153,102 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
             lc.core(), params["llama_decoder"], inputs_embeds=inputs_embeds,
             attention_mask=attention_mask, gen_cfg=gen_cfg,
             generator=generator, kv_bits=kv_bits, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# ESMCQwen
+
+
+@dataclasses.dataclass(frozen=True)
+class ESMCQwenConfig:
+    """Reference models/esmc_config.py:5-22."""
+
+    esm_config: ESMCConfig
+    adapter_config: ModalityAdapterConfig
+    llm_config: Qwen3Config
+    placeholder_id: int = 151669  # added special token in the Qwen vocab
+    llm_model_name: str = "Qwen/Qwen3-14B"
+    esm_model_name: str = "esmc_600m"
+
+
+class ESMCQwen(nn.Module):
+    """ESMC + ModalityAdapter + Qwen3 over pre-tokenized proteins.
+
+    `params`: a ParamTree or a nested dict of tensors with the JAX tree
+    {"esm_encoder", "adapter", "llm_decoder"}; None draws random weights on
+    `device` from `generator`.  Attention: plain encoder attention, K1 in
+    the decoder's forward."""
+
+    PARTS = ("esm_encoder", "adapter", "llm_decoder")
+
+    def __init__(self, config: ESMCQwenConfig, params=None, *,
+                 device="cpu", dtype=torch.float32, generator=None):
+        super().__init__()
+        self.config = config
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            kw = dict(generator=generator, device=device, dtype=dtype)
+            params = {
+                "esm_encoder": init_esmc_params(config.esm_config, **kw),
+                "adapter": init_modality_adapter_params(
+                    config.adapter_config, **kw),
+                "llm_decoder": init_qwen3_params(config.llm_config, **kw),
+            }
+        tree = params if isinstance(params, ParamTree) else ParamTree(params)
+        for name in self.PARTS:
+            self.add_module(name, getattr(tree, name))
+
+    def params(self) -> dict:
+        return {name: getattr(self, name).tree() for name in self.PARTS}
+
+    @staticmethod
+    def apply(config: ESMCQwenConfig, params, *, protein_input_ids,
+              protein_attention_mask, input_ids=None, attention_mask=None,
+              labels=None, return_encoder_outputs: bool = False,
+              return_decoder_inputs: bool = False,
+              deterministic: bool = True, generator=None):
+        """The JAX `ESMCQwen.apply`: protein ids (B, P) right-padded, prompt
+        ids (B, S) left-padded.  `return_encoder_outputs` → (adapter
+        output,); `return_decoder_inputs` → (inputs_embeds, attention_mask),
+        the serving CLI's hand-off to the engine; else a ModelOutput."""
+        enc = esmc_encode(config.esm_config, params["esm_encoder"],
+                          protein_input_ids, protein_attention_mask)
+        adapted = modality_adapter(config.adapter_config, params["adapter"],
+                                   enc, deterministic=deterministic,
+                                   generator=generator)
+        if return_encoder_outputs:
+            return (adapted,)
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        dec = params["llm_decoder"]
+        inputs_embeds = placeholder_merge(
+            embed_tokens(dec, input_ids), input_ids, adapted,
+            protein_attention_mask, config.placeholder_id)
+        if return_decoder_inputs:
+            return inputs_embeds, attention_mask
+        core = config.llm_config.core()
+        B, S = input_ids.shape
+        positions = torch.arange(S, device=input_ids.device).expand(B, S)
+        h, _ = decoder_forward(
+            core, dec, inputs_embeds=inputs_embeds, positions=positions,
+            attn_lengths=contiguous_lengths(attention_mask))
+        logits = decoder_logits(core, dec, h)
+        loss = None if labels is None else cross_entropy_loss(logits, labels)
+        return ModelOutput(loss=loss, logits=logits, hidden_states=h)
+
+    @torch.no_grad()
+    def forward(self, *, protein_input_ids, protein_attention_mask, **kw):
+        """`apply` on this model's params, after the reference's check that
+        every row has one placeholder per valid protein token
+        (esmc_qwen_arc.py:137-141)."""
+        if (kw.get("input_ids") is not None
+                and not kw.get("return_encoder_outputs", False)
+                and not bool(count_check(kw["input_ids"],
+                                         self.config.placeholder_id,
+                                         protein_attention_mask).all())):
+            raise ValueError("Number of placeholder tokens must match number "
+                             "of protein tokens")
+        return self.apply(self.config, self.params(),
+                          protein_input_ids=protein_input_ids,
+                          protein_attention_mask=protein_attention_mask, **kw)

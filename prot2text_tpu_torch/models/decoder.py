@@ -5,18 +5,31 @@ Numerics follow the JAX package (HF LlamaForCausalLM / Qwen3ForCausalLM
 parity): fp32 RMSNorm, optional per-head q/k RMSNorm (Qwen3), GQA with
 half-split rotary, fp32 softmax, SwiGLU MLP, logits in fp32.
 
-Attention runs through the port's kernels, one route at every S:
-  * prefill / no-cache forward → `kernels.flash_attention.
-    flash_attention_masked`, causal with the per-row contiguous key run from
-    `contiguous_lengths`: K1 forward and, when gradients flow (training),
-    K5 backward.  The JAX package sends S < 1024 or S not divisible by 128
-    to XLA under `attn_impl="auto"` (prot2text_tpu/kernels/attention.py:
-    111-138), a v5e measurement; the port has no such switch;
-  * single-token decode → K2 (`kernels/decode_attention.py`) reads the
-    stacked (L, B, Hkv, T, D) cache READ-ONLY and folds the current token in
-    as an extra logit column; after the layer loop K3
-    (`kernels/cache_update.py`) writes slot `cache_index` of all L layers at
-    once.  Writing a layer's slot before K2 runs would count the token twice.
+Attention runs through the port's kernels:
+  * prefill / no-cache forward with `attn_lengths` → `kernels.
+    flash_attention.flash_attention_masked`, causal with the per-row
+    contiguous key run from `contiguous_lengths`: K1 forward and, when
+    gradients flow (training), K5 backward.  The JAX package sends S < 1024
+    or S not divisible by 128 to XLA under `attn_impl="auto"`
+    (prot2text_tpu/kernels/attention.py:111-138), a v5e measurement; the
+    port has no such switch;
+  * forward with an explicit additive `bias` and a cache offset (the
+    serving engine's prefix install: suffix rows written at [cache_index,
+    cache_index + S), attention over the whole cache width) → K6,
+    `flash_attention_bias`, the counterpart of the JAX
+    `attention(impl="flash")` that reaches `flash_attention_tpu` on the TPU
+    (prot2text_tpu/kernels/attention.py:226-236);
+  * single-token decode with a host-int slot (lockstep generation) → K2
+    (`kernels/decode_attention.py`) reads the stacked (L, B, Hkv, T, D)
+    cache READ-ONLY and folds the current token in as an extra logit
+    column; after the layer loop K3 (`kernels/cache_update.py`) writes slot
+    `cache_index` of all L layers at once.  Writing a layer's slot before
+    K2 runs would count the token twice.  This is the JAX default split
+    write for scalar slots (prot2text_tpu/models/decoder.py:1008-1011);
+  * single-token decode with per-row slots (continuous batching) → K4,
+    attention fused with each row's in-place slot write per layer; with a
+    batch-broadcast shared prefix → K9a (prot2text_tpu/models/decoder.py:
+    1012-1054).
 The layer loop is a Python loop over views of the stacked weights (no
 per-layer copies).  Training adds LoRA side paths on the seven projections
 (`lora=`) and per-layer recomputation (`remat=True`, the JAX
@@ -34,8 +47,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.cache_update import cache_slot_write_bkt
-from ..kernels.decode_attention import decode_attention_stacked
-from ..kernels.flash_attention import flash_attention_masked
+from ..kernels.decode_attention import (
+    decode_attention_stacked, decode_attention_stacked_write,
+    decode_attention_stacked_write_prefix,
+)
+from ..kernels.flash_attention import (
+    flash_attention_bias, flash_attention_masked,
+)
 from .lora import lora_at
 from .transformer import (
     apply_rope, layer_views, linear, linear_lora, rms_norm,
@@ -152,8 +170,10 @@ def _mlp(cfg, lp, x, proj=None):
     return x + proj("down_proj", (gate * up).to(xn.dtype))
 
 
-def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin, kv_start,
-           kv_len, kv_cache, li):
+def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
+           attn_lengths, bias, kv_cache, cache_index, li):
+    """One decoder layer: attention through K1 over `attn_lengths`, or
+    through K6 over the whole cache with `bias`."""
     B, S, _ = h.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -171,41 +191,65 @@ def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin, kv_start,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if kv_cache is not None:
-        kv_cache["k"][li, :, :, :S] = k
-        kv_cache["v"][li, :, :, :S] = v
-        k = kv_cache["k"][li, :, :, :S]
-        v = kv_cache["v"][li, :, :, :S]
+        end = cache_index + S
+        kv_cache["k"][li, :, :, cache_index:end] = k
+        kv_cache["v"][li, :, :, cache_index:end] = v
+        # K1 reads back slots [0, S); K6 the whole width, seeded columns
+        # [0, cache_index) included
+        width = S if bias is None else kv_cache["k"].shape[3]
+        k = kv_cache["k"][li, :, :, :width]
+        v = kv_cache["v"][li, :, :, :width]
     q = (q.float() * D ** -0.5).to(q.dtype)
-    a = flash_attention_masked(q, k, v, kv_start, kv_len, causal=True)
+    if bias is None:
+        a = flash_attention_masked(q, k, v, *attn_lengths, causal=True)
+    else:
+        a = flash_attention_bias(q, k, v, bias)
     a = a.transpose(1, 2).reshape(B, S, H * D)
     h = h + proj("o_proj", a)
     return _mlp(cfg, lp, h, proj)
 
 
 def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
-                    attn_lengths, kv_cache=None, layers=None, lora=None,
+                    attn_lengths=None, bias=None, kv_cache=None,
+                    cache_index: int = 0, layers=None, lora=None,
                     lora_scale: float = 1.0, remat: bool = False):
-    """Causal forward over a whole sequence.  `attn_lengths` = (kv_start,
-    kv_len) from `contiguous_lengths`; attention is K1 (K5 backward),
-    causal on sequence index.  With `kv_cache` ({"k","v"} (L, B, Hkv, T,
-    D)), each layer's k/v are written into slots [0, S) and attention reads
-    them back from the cache (the JAX prefill's cache_index=0 slab write).
+    """Causal forward over a whole sequence.  Exactly one of:
+      * `attn_lengths` = (kv_start, kv_len) from `contiguous_lengths`:
+        attention is K1 (K5 backward), causal on sequence index; with
+        `kv_cache` each layer's k/v go to slots [0, S) and attention reads
+        them back (the JAX prefill's cache_index=0 slab write);
+      * `bias`, fp32 additive (B, 1|H, S|1, T), with `kv_cache` ({"k","v"}
+        (L, B, Hkv, T, D)): each layer writes its k/v at [cache_index,
+        cache_index + S) and attention is K6 over the cache's whole width
+        T, so columns seeded before the call are attended too (the serving
+        prefix install, prot2text_tpu/infer/serving.py:172-185).  Forward
+        only (K6b is not ported).
     `lora`: an optional LoRA tree over `params` (models/lora.py), applied
     as side paths scaled by `lora_scale`; `remat=True` recomputes each
     layer in the backward pass (training; not with a cache).  Returns (h,
     kv_cache)."""
+    if (attn_lengths is None) == (bias is None):
+        raise ValueError("pass exactly one of attn_lengths and bias")
     if remat and kv_cache is not None:
         raise ValueError("remat recomputes layers; it takes no kv_cache")
+    if attn_lengths is not None and cache_index != 0:
+        raise ValueError("attn_lengths attends slots [0, S): it takes "
+                         "cache_index 0")
+    if bias is not None:
+        if kv_cache is None:
+            raise ValueError("bias attends a cache's columns: pass kv_cache")
+        if bias.shape[-1] != kv_cache["k"].shape[3]:
+            raise ValueError(f"bias covers {bias.shape[-1]} key columns, "
+                             f"the cache {kv_cache['k'].shape[3]}")
     cos, sin = decoder_rope_cos_sin(cfg, positions)
-    kv_start, kv_len = attn_lengths
     if layers is None:
         layers = layer_views(params["layers"], cfg.num_layers)
     lora_layers = (layer_views(lora["layers"], cfg.num_layers)
                    if lora is not None else [None] * len(layers))
     h = inputs_embeds
     for li, (lp, ll) in enumerate(zip(layers, lora_layers)):
-        args = (cfg, lp, ll, lora_scale, h, cos, sin, kv_start, kv_len,
-                kv_cache, li)
+        args = (cfg, lp, ll, lora_scale, h, cos, sin, attn_lengths, bias,
+                kv_cache, cache_index, li)
         if remat:
             # the block draws no random numbers: no RNG state to replay
             h = checkpoint(_block, *args, use_reentrant=False,
@@ -216,25 +260,30 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
 
 
 def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
-                        kv_mask, positions, kv_cache, cache_index: int,
-                        layers=None, prefix_kv=None):
-    """One token per row, lockstep (every row writes slot `cache_index`).
+                        kv_mask, positions, kv_cache, cache_index,
+                        layers=None, prefix_kv=None, prefix_bias=None):
+    """One token per row.
 
     token_embeds (B, 1, H); kv_mask (B, T) int32 over ALREADY-written slots
-    (slot `cache_index` must still be 0 — the current token is K2's extra
-    column); positions (B, 1) rope positions.  Returns (h (B, 1, H),
-    kv_cache) with slot `cache_index` of every layer written by K3."""
-    if not isinstance(cache_index, int):
-        raise NotImplementedError(
-            "per-row cache slots (continuous batching) are not ported yet "
-            "(ROADMAP.md §1 item 11, kernel K4)")
-    if prefix_kv is not None:
-        raise NotImplementedError("shared-prefix KV (serving dedup) is not "
-                                  "ported yet (ROADMAP.md §1 item 11, "
-                                  "kernel K9)")
+    (the slot being written must still be 0 — the current token is the
+    attention's extra column); positions (B, 1) rope positions.
+    `cache_index` picks the route:
+      * a host int (lockstep: every row writes that slot) → K2 per layer,
+        then K3 writes slot `cache_index` of every layer;
+      * a (B,) integer tensor (per-row slots, continuous batching) → K4 per
+        layer, which attends and writes row b's k/v into slot
+        cache_index[b] of that layer in place.
+    `prefix_kv` ({"k","v"} (L, 1, Hkv, Pc, D)), the batch-broadcast shared
+    prefix, with `prefix_bias` (B, 1, 1, Pc) fp32 additive over its columns,
+    routes either kind of slot through K9a; the per-row prefix mask is
+    `prefix_bias >= -1e30`, as in the JAX step.  Returns (h (B, 1, H),
+    kv_cache), the cache updated in place."""
     if "k_scale" in kv_cache:
         raise NotImplementedError("int8 KV cache is not ported yet "
-                                  "(ROADMAP.md §1 item 11, kernel K7)")
+                                  "(ROADMAP.md §1 item 11, kernels K7 and "
+                                  "K9b)")
+    if prefix_kv is not None and prefix_bias is None:
+        raise ValueError("prefix_kv requires prefix_bias")
     B = token_embeds.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     rep = H // Hkv
@@ -242,11 +291,15 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     L = ck_all.shape[0]
     if layers is None:
         layers = layer_views(params["layers"], L)
+    lockstep = isinstance(cache_index, int) and prefix_kv is None
+    if prefix_kv is not None:
+        pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
     cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
     scaling = D ** -0.5
-    k_new = torch.empty((L, B, Hkv, D), dtype=ck_all.dtype,
-                        device=ck_all.device)
-    v_new = torch.empty_like(k_new)
+    if lockstep:
+        k_new = torch.empty((L, B, Hkv, D), dtype=ck_all.dtype,
+                            device=ck_all.device)
+        v_new = torch.empty_like(k_new)
     x = token_embeds
     for li, lp in enumerate(layers):
         xn = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
@@ -260,14 +313,24 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         k = apply_rope(k.reshape(B, Hkv, 1, D), cos, sin).reshape(B, Hkv, D)
         q = (q.float() * scaling).to(q.dtype)
         qg = q.reshape(B, Hkv, rep, D)
-        a = decode_attention_stacked(qg, ck_all, cv_all, kv_mask,
-                                     k.to(qg.dtype), v.to(qg.dtype), li)
+        k, v = k.to(qg.dtype), v.to(qg.dtype)
+        if prefix_kv is not None:
+            a = decode_attention_stacked_write_prefix(
+                qg, ck_all, cv_all, kv_mask, k, v, li, cache_index,
+                prefix_kv["k"], prefix_kv["v"], pmask)
+        elif lockstep:
+            a = decode_attention_stacked(qg, ck_all, cv_all, kv_mask, k, v,
+                                         li)
+            k_new[li] = k
+            v_new[li] = v
+        else:
+            a = decode_attention_stacked_write(qg, ck_all, cv_all, kv_mask,
+                                               k, v, li, cache_index)
         x = x + linear(lp["o_proj"], a.to(x.dtype).reshape(B, 1, H * D))
         x = _mlp(cfg, lp, x)
-        k_new[li] = k
-        v_new[li] = v
-    cache_slot_write_bkt(ck_all, k_new, cache_index)
-    cache_slot_write_bkt(cv_all, v_new, cache_index)
+    if lockstep:
+        cache_slot_write_bkt(ck_all, k_new, cache_index)
+        cache_slot_write_bkt(cv_all, v_new, cache_index)
     h = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
     return h, kv_cache
 

@@ -1,0 +1,210 @@
+"""K4 (decode attention + per-row slot write) and K9a (K4 plus a shared,
+read-only prefix operand): the port's plain versions against the JAX
+Pallas kernels in interpret mode (f32: attention atol 1e-5, the cache after
+the write bit-exact); K9a against K4 on the same prefix physically
+replicated into every row; the CUDA kernels against the plain versions on
+the card (f32 1e-4, bf16 2e-2, caches bit-exact)."""
+
+import numpy as np
+import pytest
+import torch
+
+from prot2text_tpu_torch.kernels.decode_attention import (
+    decode_attention_stacked_write, decode_attention_stacked_write_plain,
+    decode_attention_stacked_write_prefix,
+    decode_attention_stacked_write_prefix_plain,
+)
+
+ATOL = 1e-5
+L, B, Hkv, T, Pc = 3, 4, 2, 32, 16
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _slots(kind):
+    return {"distinct": np.array([5, 17, 9, T - 1], np.int32),
+            # every inactive serving row writes the scratch column T - 1
+            "repeated": np.array([T - 1, 3, T - 1, T - 1], np.int32),
+            "scalar": 12}[kind]
+
+
+def _inputs(rep, D, slots, seed=0):
+    rng = np.random.default_rng(seed)
+    ck = rng.standard_normal((L, B, Hkv, T, D)).astype(np.float32)
+    cv = rng.standard_normal((L, B, Hkv, T, D)).astype(np.float32)
+    q = (rng.standard_normal((B, Hkv, rep, D)) * D ** -0.5).astype(np.float32)
+    kn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    vn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    mask = rng.integers(0, 2, (B, T)).astype(np.int32)
+    mask[-1] = 0                 # an empty cache row: only the new token
+    mask[np.arange(B), np.broadcast_to(slots, (B,))] = 0   # slot unwritten
+    pk = rng.standard_normal((L, 1, Hkv, Pc, D)).astype(np.float32)
+    pv = rng.standard_normal((L, 1, Hkv, Pc, D)).astype(np.float32)
+    # per-row prefix validity: full, left-padded, none (a full-prompt
+    # request in a dedup pool), full
+    pmask = np.ones((B, Pc), np.int32)
+    pmask[1, :Pc // 2] = 0
+    pmask[2] = 0
+    return q, ck, cv, mask, kn, vn, pk, pv, pmask
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _slots_t(slots):
+    return slots if isinstance(slots, int) else torch.from_numpy(slots)
+
+
+CASES = [(1, 16), (4, 64), (5, 128)]
+
+
+@pytest.mark.parametrize("rep,D", CASES)
+@pytest.mark.parametrize("kind", ["distinct", "repeated", "scalar"])
+def test_k4_plain_matches_pallas_interpret(rep, D, kind):
+    import jax.numpy as jnp
+
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_write as j_write,
+    )
+
+    slots = _slots(kind)
+    q, ck, cv, mask, kn, vn, *_ = _inputs(rep, D, slots)
+    layer = 1
+    wa, wk, wv = j_write(*(jnp.asarray(a) for a in (q, ck, cv, mask, kn,
+                                                     vn)),
+                         layer, jnp.asarray(slots), interpret=True)
+    tq, tck, tcv, tmask, tkn, tvn = _torch(q, ck, cv, mask, kn, vn)
+    got = decode_attention_stacked_write(tq, tck, tcv, tmask, tkn, tvn,
+                                         layer, _slots_t(slots))
+    np.testing.assert_allclose(got.numpy(), np.asarray(wa), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_array_equal(tck.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(tcv.numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("rep,D", CASES)
+@pytest.mark.parametrize("kind", ["distinct", "scalar"])
+def test_k9a_plain_matches_pallas_interpret(rep, D, kind):
+    import jax.numpy as jnp
+
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_write_prefix as j_write_p,
+    )
+
+    slots = _slots(kind)
+    q, ck, cv, mask, kn, vn, pk, pv, pmask = _inputs(rep, D, slots, seed=1)
+    layer = 2
+    wa, wk, wv = j_write_p(
+        *(jnp.asarray(a) for a in (q, ck, cv, mask, kn, vn)), layer,
+        jnp.asarray(slots), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(pmask), interpret=True)
+    tq, tck, tcv, tmask, tkn, tvn, tpk, tpv, tpm = _torch(
+        q, ck, cv, mask, kn, vn, pk, pv, pmask)
+    got = decode_attention_stacked_write_prefix(
+        tq, tck, tcv, tmask, tkn, tvn, layer, _slots_t(slots), tpk, tpv, tpm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(wa), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_array_equal(tck.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(tcv.numpy(), np.asarray(wv))
+
+
+def test_k9a_equals_k4_on_replicated_prefix():
+    """The prefix read as a shared operand equals the prefix physically
+    seeded into every row's cache (slots shifted by Pc); a row whose pmask
+    is all zero equals a prefix-free run."""
+    slots = _slots("distinct")
+    q, ck, cv, mask, kn, vn, pk, pv, pmask = _torch(
+        *_inputs(4, 64, slots, seed=2))
+    layer = 0
+    ckr = torch.cat([pk.expand(L, B, -1, -1, -1), ck], dim=3)
+    cvr = torch.cat([pv.expand(L, B, -1, -1, -1), cv], dim=3)
+    ck0, cv0 = ck.clone(), cv.clone()
+    want = decode_attention_stacked_write_plain(
+        q, ckr, cvr, torch.cat([pmask, mask], dim=1), kn, vn, layer,
+        torch.from_numpy(slots) + Pc)
+    got = decode_attention_stacked_write_prefix_plain(
+        q, ck, cv, mask, kn, vn, layer, torch.from_numpy(slots), pk, pv,
+        pmask)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=ATOL)
+    assert torch.equal(ck, ckr[:, :, :, Pc:]) and torch.equal(
+        cv, cvr[:, :, :, Pc:])
+    alone = decode_attention_stacked_write_plain(
+        q, ck0, cv0, mask, kn, vn, layer, torch.from_numpy(slots))
+    torch.testing.assert_close(got[2], alone[2], atol=ATOL, rtol=ATOL)
+
+
+def test_masked_columns_never_leak_nan():
+    """A stale or scratch column holding NaN takes no part when masked."""
+    slots = _slots("repeated")
+    q, ck, cv, mask, kn, vn, pk, pv, pmask = _torch(
+        *_inputs(4, 16, slots, seed=3))
+    for c in (ck, cv):            # (L, Hkv, B, T, D) view: mask is (B, T)
+        c.permute(0, 2, 1, 3, 4)[:, :, mask == 0] = float("nan")
+    pk[:, :, :, (pmask == 0).all(0)] = float("nan")
+    a = decode_attention_stacked_write(q, ck, cv, mask, kn, vn, 1,
+                                       torch.from_numpy(slots))
+    assert torch.isfinite(a).all()
+    a = decode_attention_stacked_write_prefix(
+        q, ck, cv, mask, kn, vn, 1, torch.from_numpy(slots), pk, pv, pmask)
+    assert torch.isfinite(a).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rep,D", [(5, 128), (4, 64), (8, 16)])
+@pytest.mark.parametrize("prefix", [False, True])
+def test_kernels_match_plain_on_cuda(cuda, dtype, atol, rep, D, prefix):
+    slots = _slots("repeated")
+    arrays = _inputs(rep, D, slots, seed=4)
+    q, ck, cv, mask, kn, vn, pk, pv, pmask = (
+        t.to(cuda) for t in _torch(*arrays))
+    q, ck, cv, kn, vn, pk, pv = (t.to(dtype) for t in (q, ck, cv, kn, vn,
+                                                        pk, pv))
+    # a NaN in a masked column must not reach the kernel's output
+    ck.permute(0, 2, 1, 3, 4)[:, :, mask == 0] = float("nan")
+    s = torch.from_numpy(slots).to(cuda)
+    for layer in (0, L - 1):
+        gk, gv, wk, wv = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        if prefix:
+            got = decode_attention_stacked_write_prefix(
+                q, gk, gv, mask, kn, vn, layer, s, pk, pv, pmask)
+            want = decode_attention_stacked_write_prefix_plain(
+                q.float(), wk, wv, mask, kn.float(), vn.float(), layer, s,
+                pk.float(), pv.float(), pmask)
+        else:
+            got = decode_attention_stacked_write(q, gk, gv, mask, kn, vn,
+                                                 layer, s)
+            want = decode_attention_stacked_write_plain(
+                q.float(), wk, wv, mask, kn.float(), vn.float(), layer, s)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want, atol=atol, rtol=atol)
+        assert torch.equal(gk.nan_to_num(7.0), wk.nan_to_num(7.0))
+        assert torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+def test_scalar_slot_and_launch_counts_on_cuda(cuda):
+    q, ck, cv, mask, kn, vn, pk, pv, pmask = (
+        t.to(cuda).to(torch.bfloat16) if t.is_floating_point() else
+        t.to(cuda) for t in _torch(*_inputs(5, 128, 12, seed=5)))
+    n4 = decode_attention_stacked_write.launches
+    n9 = decode_attention_stacked_write_prefix.launches
+    wk, wv = ck.clone(), cv.clone()
+    decode_attention_stacked_write(q, ck, cv, mask, kn, vn, 1, 12)
+    decode_attention_stacked_write_plain(q, wk, wv, mask, kn, vn, 1, 12)
+    decode_attention_stacked_write_prefix(q, ck, cv, mask, kn, vn, 2, 12,
+                                          pk, pv, pmask)
+    decode_attention_stacked_write_prefix_plain(q, wk, wv, mask, kn, vn, 2,
+                                                12, pk, pv, pmask)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, wk) and torch.equal(cv, wv)
+    assert decode_attention_stacked_write.launches == n4 + 1
+    assert decode_attention_stacked_write_prefix.launches == n9 + 1

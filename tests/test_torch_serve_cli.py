@@ -1,0 +1,163 @@
+"""The port's serving CLI on a tiny CSV on the CPU (and, where there is one,
+on the GPU through K1/K6/K9a, or K4 with --shared_prefix false): the JSON
+it writes, its descriptions/hour line, the shared prefix it discovers; a
+checkpoint written by the port's training CLI served through
+--load_sft_checkpoint_dir; the flags it refuses; the missing-GPU error."""
+
+import json
+import os
+
+import pytest
+import torch
+
+from prot2text_tpu.data.chat import ByteTextTokenizer
+from prot2text_tpu_torch.cli import serve as cli
+from prot2text_tpu_torch.cli.train_instruct import main as train_main
+from prot2text_tpu_torch.models.lora import LoraConfig, merge_lora
+
+CSV_ROWS = """AlphaFoldDB,Full Name,taxon,sequence,function
+P00001,Cytochrome c,Homo sapiens,MGDVEKGKKIFIMKCSQCHTVEK,Electron carrier protein.
+P00002,Lysozyme C,Gallus gallus,KVFGRCELAAAMKRHGLDNYRGY,Hydrolyzes peptidoglycan.
+P00003,Myoglobin,Physeter catodon,MVLSEGEWQLVLHVWAKVEADVAGHGQDILIRLF,Oxygen storage.
+P00004,Ubiquitin,Homo sapiens,MQIFVKTLTGKTITLEVEPSDTI,Protein degradation signal.
+P00005,Insulin,Homo sapiens,MALWMRLLPLLALLALWGPDPAAAFVNQHLCGSHLVEAL,Hormone.
+"""
+
+
+@pytest.fixture(scope="module")
+def csv_path(tmp_path_factory):
+    p = tmp_path_factory.mktemp("data") / "test.csv"
+    p.write_text(CSV_ROWS)
+    return str(p)
+
+
+def _args(csv_path, out, *extra, device="cpu", dtype="fp32"):
+    return ["--test_csv", csv_path, "--device", device,
+            "--debug_tiny_model", "true", "--model_dtype", dtype,
+            "--max_slots", "2", "--max_new_tokens", "5",
+            "--prompt_pad", "128,256,512", "--output_dir", str(out), *extra]
+
+
+@pytest.mark.parametrize("extra", [[], ["--prefix_dedup", "false"],
+                                   ["--shared_prefix", "false"]],
+                         ids=["dedup", "replicated", "no_prefix"])
+def test_serve_cpu_end_to_end(csv_path, tmp_path, capsys, extra):
+    results = cli.main(_args(csv_path, tmp_path, *extra))
+    out = capsys.readouterr().out
+    assert "descriptions/hour" in out
+    assert ("shared prompt prefix" in out) == (extra != ["--shared_prefix",
+                                                         "false"])
+    with open(tmp_path / "generation_serve_0.json") as f:
+        saved = json.load(f)
+    assert saved == results and len(saved) == 5
+    assert saved["P00001"]["true"] == "Electron carrier protein."
+    assert all(isinstance(r["pred"], str) for r in saved.values())
+
+
+def test_prefix_modes_serve_the_same_greedy_tokens(csv_path, tmp_path):
+    """Shared prefix (dedup or replicated) or none, the greedy predictions
+    are the same: the prefix is an exact shortcut."""
+    preds = [cli.main(_args(csv_path, tmp_path / str(i), *extra))
+             for i, extra in enumerate(([], ["--prefix_dedup", "false"],
+                                        ["--shared_prefix", "false"]))]
+    assert preds[0] == preds[1] == preds[2]
+
+
+def test_serves_a_training_cli_checkpoint(csv_path, tmp_path):
+    """Two SFT steps of the port's training CLI (the first, at the warmup's
+    lr 0, leaves LoRA B at zero), then serving with its LoRA merged into
+    the towers built in --model_dtype and with its adapter."""
+    ckpt = tmp_path / "ck"
+    train_main(["--train_csv", csv_path, "--device", "cpu",
+                "--debug_tiny_model", "true", "--model_dtype", "fp32",
+                "--gradient_accumulation_steps", "1", "--num_epochs", "1",
+                "--debug_trim_train_split", "2", "--learning_rate", "1e-2",
+                "--checkpoint_dir", str(ckpt)])
+    (run,) = os.listdir(ckpt)
+    sft_dir = str(ckpt / run)
+    args = cli.build_parser().parse_args(_args(
+        csv_path, tmp_path / "res", "--load_sft_checkpoint_dir", sft_dir))
+    tok = ByteTextTokenizer()
+    cfg, params = cli.build_server(args, tok, torch.device("cpu"))
+    base_args = cli.build_parser().parse_args(_args(csv_path, tmp_path))
+    _, base = cli.build_server(base_args, tok, torch.device("cpu"))
+    from prot2text_tpu_torch.core.checkpoint import restore_checkpoint
+
+    sft = restore_checkpoint(sft_dir)
+    want = merge_lora(LoraConfig(r=32, alpha=64), base["llm_decoder"],
+                      sft["lora_llm"])
+    got = params["llm_decoder"]["layers"]["q_proj"]["kernel"]
+    assert torch.equal(got, want["layers"]["q_proj"]["kernel"])
+    assert not torch.equal(got, base["llm_decoder"]["layers"]["q_proj"][
+        "kernel"])
+    assert torch.equal(params["adapter"]["fc1"]["kernel"],
+                       sft["adapter"]["fc1"]["kernel"])
+    results = cli.main(_args(csv_path, tmp_path / "res",
+                             "--load_sft_checkpoint_dir", sft_dir))
+    assert len(results) == 5
+
+
+BASE = ["--test_csv", "unused.csv", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--kv_bits", "8"], "item 11, kernels K7/K9b"),
+    (["--prompt_lookup_tokens", "3"], "item 11, kernels K8/K9c"),
+    (["--medusa_path", "heads.npz"], "item 11, kernels K8/K9c"),
+    (["--load_peft_adapter_dir", "peft"], "item 11"),
+    (["--llm_checkpoint_dir", "qwen3"], "item 1"),
+    (["--tp", "2"], "item 14"),
+    (["--fsdp", "2"], "item 14"),
+    (["--sp", "2"], "item 14"),
+    (["--model_dtype", "int8"], "item 12"),
+    (["--model_dtype", "int4"], "item 12"),
+    (["--attn_impl", "ring"], "item 14"),
+])
+def test_unported_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+        cli.main(BASE + flags)
+
+
+def test_cuda_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cli.main(BASE[:2] + ["--device", "cuda"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_prefix", ["true", "false"])
+def test_serve_cuda_launches_its_kernels(csv_path, tmp_path, shared_prefix):
+    """bf16 on the card: with the shared prefix (dedup), K1 runs for the
+    prefix prefill, K6 per layer and prefix install, K9a per layer and
+    decode step; without it, K1 per layer and install and K4 per layer and
+    decode step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    args = cli.build_parser().parse_args(_args(
+        csv_path, tmp_path, "--shared_prefix", shared_prefix,
+        device="cuda", dtype="bf16"))
+    tok = ByteTextTokenizer()
+    dev = torch.device("cuda")
+    cfg, params = cli.build_server(args, tok, dev)
+    batches = [cli.make_collator(args, tok)(
+        [dict(zip(CSV_ROWS.splitlines()[0].split(","), line.split(",")))
+         for line in CSV_ROWS.strip().splitlines()[1 + i:3 + i]])
+        for i in (0, 2, 4)]
+    reset_launch_counts()
+    run = cli.serve(args, tok, cfg, params, batches, dev)
+    counts = launch_counts()
+    eng, L = run.engine, cfg.llm_config.num_layers
+    assert len(run.results) == 5
+    if shared_prefix == "true":
+        assert run.prefix_len >= 16
+        assert counts["K9a"] == L * eng.steps and counts["K4"] == 0
+        assert counts["K6"] == L * eng.installs["prefix"]
+        assert counts["K1"] == L * (1 + eng.installs["full"])
+    else:
+        assert counts["K4"] == L * eng.steps and counts["K9a"] == 0
+        assert counts["K6"] == 0
+        assert counts["K1"] == L * eng.installs["full"]
+    assert counts["K2"] == counts["K3"] == counts["K5"] == 0
