@@ -9,9 +9,14 @@ Phases (any failure raises and the script exits non-zero):
   2. kernels: each hand-written kernel (K1 flash prefill, K2 decode
      attention, K3 cache slot write, K4 decode attention + per-row slot
      write, K5 flash backward, K6 bias flash prefill, K9a K4 over a shared
-     prefix) against its plain PyTorch version on the same bf16 inputs
-     computed in fp32, at the paths' own shapes, with median CUDA-event
-     times of both;
+     prefix; on the int8 cache K7 decode + slot write, K9b K7 over an int8
+     prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix)
+     against its plain PyTorch version on the same bf16 inputs computed in
+     fp32, at the paths' own shapes, with median CUDA-event times of both,
+     the bound (the larger of the bytes at the HBM rate and the operations
+     at the bf16 peak) and, where one PyTorch call computes the same
+     function, that call's time on operands built outside the timed region
+     (the port never calls it);
   3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
@@ -29,10 +34,20 @@ Phases (any failure raises and the script exits non-zero):
      CLI defaults to 256); exact K1/K6/K9a launch counts from the engine's
      own counters; then a short run with the shared prefix off (K4) and a
      short profiled one;
+  4c. int8 and speculative serving through the same model and loop: (a)
+     `--kv_bits 8 --prompt_lookup_tokens 4` with the deduplicated prefix,
+     16 x 128 (K9c per verify round); (b) `--kv_bits 8`, the same 16
+     requests (K9b per decode step, beside 4b's bf16 pool); (c) `--kv_bits
+     8 --shared_prefix false --prompt_lookup_tokens 4 --spec_break_even 100
+     --spec_probe_every 2`, 8 x 32 (K8 per verify round and K7 per plain
+     step of the controller's fallback); (d) `--prompt_lookup_tokens 4` on
+     the bf16 pool, 8 x 32 (K6 per verify round); exact launch counts;
+     then two short profiled int8 runs, plain and speculative;
   5. plumbing: tiny f32 models on `cuda` (kernels) against the same models
      on `cpu` (plain versions): prefill and first decode-step logits, one
-     SFT step's loss and LoRA gradients, and a serving engine's install
-     logits and tokens (K1, K4, K6, K9a).
+     SFT step's loss and LoRA gradients, a serving engine's install logits
+     and tokens (K1, K4, K6, K9a), a speculative bf16-pool engine's tokens,
+     and an int8 engine's decode-step and verify-round logits (K7, K8).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device contract `{"ok": true, "device": {...}}`.
@@ -83,6 +98,90 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# the card's peaks for the bound column (NVIDIA's H100 SXM data sheet, dense)
+PEAK_FLOPS = 989e12          # bf16 tensor-core operations per second
+PEAK_BYTES = 3.35e12         # HBM bytes per second
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations at
+    the bf16 peak and the bytes (each input read once, each output written
+    once) at the HBM rate, and which of the two it is."""
+    t_ops, t_mem = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_mem),
+                bound_by="operations" if t_ops > t_mem else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def causal_run_pairs(torch, kv_start, kv_len, S: int) -> int:
+    """(query, key) pairs a causal masked-run attention computes: query i
+    of row b sees keys j in [kv_start[b], kv_start[b] + kv_len[b]), j <= i."""
+    i = torch.arange(S, device=kv_start.device)[None, :]
+    s, n = kv_start[:, None].long(), kv_len[:, None].long()
+    return int((torch.minimum(i, s + n - 1) - s + 1).clamp(min=0).sum())
+
+
+def decode_bound(torch, mask, pmask, Hkv, rows, D, itemsize, scale_bytes,
+                 fixed_bytes):
+    """A decode-attention call's bound: each valid cache column of a row
+    (k and v, D elements of `itemsize` bytes, plus `scale_bytes` of scales
+    per head) read once; the prefix's columns valid for any row read once
+    (the operand is shared); 4·D operations per (query row, valid column)
+    per kv head; `fixed_bytes` for q, the output, the new tokens, masks
+    and the slot writes."""
+    col = Hkv * (2 * D * itemsize + scale_bytes)
+    cols = int(mask.sum())
+    pcols = 0 if pmask is None else int((pmask > 0).any(dim=0).sum())
+    pvalid = 0 if pmask is None else int(pmask.sum())
+    flops = 4.0 * D * rows * Hkv * (cols + pvalid)
+    return bound(flops, (cols + pcols) * col + fixed_bytes)
+
+
+def expect(**nonzero) -> dict:
+    """Every registered kernel's expected launch count: 0 unless given."""
+    from prot2text_tpu_torch.kernels import KERNELS
+
+    return {k: nonzero.get(k, 0) for k in KERNELS}
+
+
+def sdpa_ms(torch, q, k, v, mask) -> float:
+    """The library yardstick: one `F.scaled_dot_product_attention` call
+    (q pre-scaled, grouped-query heads) on operands built beforehand."""
+    import torch.nn.functional as F
+
+    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True))
+
+
+def decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, li, pk=None,
+                      pv=None, pmask=None) -> float:
+    """SDPA over a pre-built [prefix ‖ cache ‖ current] operand: what one
+    library call computes of K2/K4/K9a (their slot writes aside)."""
+    B, Hkv, rep, D = qg.shape
+    k = torch.cat([ck[li], kn[:, :, None]], dim=2)
+    v = torch.cat([cv[li], vn[:, :, None]], dim=2)
+    m = torch.cat([kv_mask > 0, torch.ones((B, 1), dtype=torch.bool,
+                                           device=qg.device)], dim=1)
+    if pk is not None:
+        k = torch.cat([pk[li].expand(B, -1, -1, -1), k], dim=2)
+        v = torch.cat([pv[li].expand(B, -1, -1, -1), v], dim=2)
+        m = torch.cat([pmask > 0, m], dim=1)
+    return sdpa_ms(torch, qg.reshape(B, Hkv * rep, 1, D), k, v,
+                   m[:, None, None, :])
+
+
+def run_mask(torch, kv_start, kv_len, S: int):
+    """(B, 1, S, S) boolean mask of K1's causal key runs, for SDPA."""
+    i = torch.arange(S, device=kv_start.device)
+    s, n = kv_start[:, None, None].long(), kv_len[:, None, None].long()
+    j = i[None, None, :]
+    return ((j >= s) & (j < s + n) & (j <= i[None, :, None]))[:, None]
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel vs plain at the slice's shapes
 
@@ -130,12 +229,16 @@ def check_kernels(torch, dev, card):
         q, k, v, kv_start, kv_len, causal=True))
     plain_ms = cuda_ms(torch, lambda: flash_attention_masked_plain(
         q, k, v, kv_start, kv_len, causal=True))
+    lib_ms = sdpa_ms(torch, q, k, v, run_mask(torch, kv_start, kv_len, S))
+    bd = bound(4.0 * D * H * causal_run_pairs(torch, kv_start, kv_len, S),
+               nbytes(q, k, v, o, lse, kv_start, kv_len))
     log(f"K1 flash prefill B={B} H={H} Hkv={Hkv} S={S} D={D} bf16: "
         f"max|o-plain|={err_o:.3e} (atol/rtol 2e-2) "
         f"max|lse-plain|={err_lse:.3e} (atol 1e-3); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms [{card}]")
+        f"plain {plain_ms:.4f} ms, SDPA (boolean run mask) {lib_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
     rows["K1"] = dict(max_abs_err=err_o, lse_max_abs_err=err_lse, ms=ms,
-                      plain_ms=plain_ms)
+                      plain_ms=plain_ms, library_ms=lib_ms, **bd)
 
     # K2: decode attention over the 8B cache at T = 1024 + 256
     L, B, Hkv, rep, T, D = 32, 4, 8, 4, 1280, 128
@@ -158,10 +261,15 @@ def check_kernels(torch, dev, card):
         qg, ck, cv, kv_mask, kn, vn, 7), iters=50)
     plain_ms = cuda_ms(torch, lambda: decode_attention_stacked_plain(
         qg, ck, cv, kv_mask, kn, vn, 7), iters=50)
+    lib_ms = decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, 7)
+    bd = decode_bound(torch, kv_mask, None, Hkv, rep, D, 2, 0,
+                      2 * nbytes(qg) + nbytes(kn, vn, kv_mask))
     log(f"K2 decode attention L={L} B={B} Hkv={Hkv} rep={rep} T={T} D={D} "
         f"bf16: max|a-plain|={max(errs):.3e} (atol/rtol 2e-2); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms per layer [{card}]")
-    rows["K2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer [{card}]")
+    rows["K2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, **bd)
 
     # K3: slot write into the same cache, bit-exact
     new = randn(L, B, Hkv, D)
@@ -173,9 +281,16 @@ def check_kernels(torch, dev, card):
                  iters=50)
     plain_ms = cuda_ms(torch, lambda: cache_slot_write_bkt_plain(
         ck, new, 1100), iters=50)
+    idx = torch.tensor([1100], device=dev)
+    new5 = new[:, :, :, None, :]
+    lib_ms = cuda_ms(torch, lambda: ck.index_copy_(3, idx, new5), iters=50)
+    bd = bound(0.0, 2 * nbytes(new))        # read the new rows, write them
     log(f"K3 cache slot write L={L} B={B} Hkv={Hkv} T={T} D={D} bf16: "
-        f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
-    rows["K3"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+        f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"index_copy_ {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}) [{card}]")
+    rows["K3"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, **bd)
 
     # K1 again, then K5, at the Qwen3-14B training shape (rep 5, causal,
     # kv_start > 0 and a padded tail) for S = 1152, the S the training
@@ -231,10 +346,25 @@ def check_kernels(torch, dev, card):
                 q, k, v, o, lse, do, kv_start, kv_len, causal=True))
             plain_ms = cuda_ms(torch, lambda: flash_attention_masked_bwd_plain(
                 q, k, v, o, lse, do, kv_start, kv_len, causal=True))
+            # the library's backward of the same SDPA call (its forward,
+            # which keeps the graph, runs outside the timed region)
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qr, kr, vr, attn_mask=run_mask(torch, kv_start, kv_len, S),
+                scale=1.0, enable_gqa=True)
+            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qr, kr, vr), do, retain_graph=True))
+            del qr, kr, vr, out
+            # recomputed q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k and dSᵀ·q: 10·D per pair
+            bd = bound(10.0 * D * H * causal_run_pairs(torch, kv_start,
+                                                       kv_len, S),
+                       nbytes(q, k, v, o, lse, do, *got))
             log(f"K5 at B={B} H={H} S={S} D={D}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms [{card}]")
+                f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
         del q, k, v, do, o, lse, got, want
-    rows["K5"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    rows["K5"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, **bd)
     return rows
 
 
@@ -305,12 +435,18 @@ def check_serve_kernels(torch, dev, card):
         "K4", k4, k4_plain,
         lambda ck_, cv_, li: decode_attention_stacked_write_plain(
             qg, ck_, cv_, kv_mask, kn, vn, li, slots))
+    # q, the output, the new k/v (read, then written at the slots), mask
+    fixed = 2 * nbytes(qg) + 2 * nbytes(kn, vn) + nbytes(kv_mask, slots)
+    lib_ms = decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, 23)
+    bd = decode_bound(torch, kv_mask, None, Hkv, rep, D, 2, 0, fixed)
     log(f"K4 decode attention + slot write L={L} B={B} Hkv={Hkv} rep={rep} "
         f"T={T} D={D} bf16 (slots distinct, two rows on the scratch "
         f"column): max|a-plain|={err:.3e} (atol/rtol 2e-2), caches "
-        f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer "
-        f"[{card}]")
-    rows["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) "
+        f"per layer [{card}]")
+    rows["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, **bd)
 
     for Pc in (128, 256):
         pk, pv = randn(L, 1, Hkv, Pc, D), randn(L, 1, Hkv, Pc, D)
@@ -331,13 +467,20 @@ def check_serve_kernels(torch, dev, card):
             "K9a", k9, k9_plain,
             lambda ck_, cv_, li: decode_attention_stacked_write_prefix_plain(
                 qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask))
+        lib_ms = decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, 23,
+                                   pk, pv, pmask)
+        bd = decode_bound(torch, kv_mask, pmask, Hkv, rep, D, 2, 0,
+                          fixed + nbytes(pmask))
         log(f"K9a decode attention + slot write + shared prefix Pc={Pc} "
             f"(row 6 gated off) L={L} B={B} T={T} bf16: "
             f"max|a-plain|={err:.3e} (atol/rtol 2e-2), caches bit-exact; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer [{card}]")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}) per layer [{card}]")
         # the row keeps the worst error and the serving shape's times
         worst = max(err, rows.get("K9a", {}).get("max_abs_err", 0.0))
-        rows["K9a"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+        rows["K9a"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, **bd)
     del ck, cv
 
     # K6: the prefix install's attention, R 8 rows, Sq 512 suffix columns
@@ -363,13 +506,112 @@ def check_serve_kernels(torch, dev, card):
     ms = cuda_ms(torch, lambda: flash_attention_bias_fwd(q, k, v, bias))
     plain_ms = cuda_ms(torch, lambda: flash_attention_bias_plain(q, k, v,
                                                                  bias))
+    # SDPA takes a float mask in the query's dtype: cast before timing
+    lib_ms = sdpa_ms(torch, q, k, v, bias.to(q.dtype))
+    pairs = int((bias > -1e30).sum()) * H            # unmasked (q, k) pairs
+    bd = bound(4.0 * D * pairs, nbytes(q, k, v, bias, o, lse))
     log(f"K6 bias flash prefill R={R} H={H} Hkv={Hkv} Sq={Sq} Skv={Pc + Sq} "
         f"D={D} bf16, bias (R,1,Sq,Skv), left-padded rows: "
         f"max|o-plain|={err:.3e} (atol/rtol 2e-2) max|lse-plain|="
         f"{err_lse:.3e} (atol 1e-3); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms per layer [{card}]")
+        f"{plain_ms:.4f} ms, SDPA (additive bias) {lib_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer [{card}]")
     rows["K6"] = dict(max_abs_err=err, lse_max_abs_err=err_lse, ms=ms,
-                      plain_ms=plain_ms)
+                      plain_ms=plain_ms, library_ms=lib_ms, **bd)
+    return rows
+
+
+def check_int8_kernels(torch, dev, card):
+    """K7, K9b, K8 and K9c against their plain versions at the int8
+    serving shapes of Qwen3-14B: B 8, Hkv 8, rep 5, D 128, T 1856 (the
+    int8 pool under speculation with 128 new tokens), 535 valid columns per
+    row, distinct slots and two inactive rows on one scratch slot (T - 1
+    for decode, T - 64 for verify, the engine's rules), Pc 256 with 250
+    real tokens and row 6 gated off, G 5 (γ 4).  bf16 qg against the plain
+    version on the same values in fp32: attention atol/rtol 2e-2; the int8
+    caches and scales bit-exact after the write."""
+    from prot2text_tpu_torch.kernels import decode_attention as da
+    from prot2text_tpu_torch.models.quant import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(8765)
+    L, B, Hkv, rep, T, D, Pc, Ps = 40, 8, 8, 5, 1856, 128, 256, 250
+    rows = {}
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=g, device=dev) * 0.028 + 0.002
+
+    cache = [ints(L, B, Hkv, T, D), ints(L, B, Hkv, T, D),
+             scales(L, B, Hkv, T), scales(L, B, Hkv, T)]
+    prefix = [ints(L, 1, Hkv, Pc, D), ints(L, 1, Hkv, Pc, D),
+              scales(L, 1, Hkv, Pc), scales(L, 1, Hkv, Pc)]
+    pmask = (torch.arange(Pc, device=dev) >= Pc - Ps).to(
+        torch.int32).expand(B, Pc).clone()
+    pmask[6] = 0                          # a full-prompt row in the pool
+    pads = torch.tensor([0, 37, 100, 250, 5, 0, 60, 200], device=dev)
+    ends = pads + 535
+    cols = torch.arange(T, device=dev)
+    kv_mask = ((cols >= pads[:, None]) & (cols < ends[:, None])).to(
+        torch.int32)
+    cases = (("K7", da.decode_attention_stacked_write_q,
+              da.decode_attention_stacked_write_q_plain, 1, False),
+             ("K9b", da.decode_attention_stacked_write_q_prefix,
+              da.decode_attention_stacked_write_q_prefix_plain, 1, True),
+             ("K8", da.decode_attention_stacked_verify_qc,
+              da.decode_attention_stacked_verify_qc_plain, 5, False),
+             ("K9c", da.decode_attention_stacked_verify_qc_prefix,
+              da.decode_attention_stacked_verify_qc_prefix_plain, 5, True))
+    for name, kern, plain, G, with_prefix in cases:
+        slots = ends.to(torch.int32)
+        slots[6:] = T - 1 if G == 1 else T - 64
+        qg = (torch.randn(B, Hkv, G * rep, D, generator=g, device=dev)
+              * D ** -0.5).to(torch.bfloat16)
+        kq, ks = quantize_kv(torch.randn(B, Hkv, G, D, generator=g,
+                                         device=dev))
+        vq, vs = quantize_kv(torch.randn(B, Hkv, G, D, generator=g,
+                                         device=dev))
+        new = [kq, vq, ks, vs]
+        if G == 1:
+            new = [x[:, :, 0].contiguous() for x in new]
+        pargs = (*prefix, pmask) if with_prefix else ()
+        errs = []
+        for li in (0, 23, L - 1):
+            gcache = [t.clone() for t in cache]
+            a = kern(qg, *gcache, kv_mask, *new, li, slots, *pargs)
+            torch.cuda.synchronize()
+            wcache = [t.clone() for t in cache]
+            want = plain(qg.float(), *wcache, kv_mask, *new, li, slots,
+                         *pargs)
+            require(bool(torch.isfinite(a).all()), f"{name}: non-finite")
+            torch.testing.assert_close(a.float(), want, atol=2e-2, rtol=2e-2)
+            require(all(torch.equal(x, y) for x, y in zip(gcache, wcache)),
+                    f"{name}: the written int8 cache or scales differ")
+            errs.append((a.float() - want).abs().max().item())
+            del gcache, wcache
+        ms = cuda_ms(torch, lambda: kern(qg, *cache, kv_mask, *new, 23,
+                                         slots, *pargs), iters=50)
+        plain_ms = cuda_ms(torch, lambda: plain(qg, *cache, kv_mask, *new,
+                                                23, slots, *pargs), iters=20)
+        # q, the output, the new tokens' values and scales (read, then
+        # written into the cache as int8 + two fp32 scales), the masks
+        fixed = (2 * nbytes(qg) + nbytes(*new, kv_mask, slots)
+                 + B * Hkv * G * (2 * D + 8)
+                 + (nbytes(pmask) if with_prefix else 0))
+        bd = decode_bound(torch, kv_mask, pmask if with_prefix else None,
+                          Hkv, G * rep, D, 1, 8, fixed)
+        log(f"{name} int8 {'verify G=5' if G > 1 else 'decode'}"
+            f"{' + prefix Pc=256 (row 6 gated off)' if with_prefix else ''}"
+            f" L={L} B={B} Hkv={Hkv} rep={rep} T={T} D={D}, 535 valid "
+            f"columns per row, rows 6-7 on one scratch slot: "
+            f"max|a-plain|={max(errs):.3e} (atol/rtol 2e-2), int8 caches "
+            f"and scales bit-exact; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}) per layer; no library call [{card}]")
+        rows[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                          library_ms=None, **bd)
     return rows
 
 
@@ -388,11 +630,11 @@ def make_batch(torch, dev, tok, n: int, lengths, seed: int):
     does → dict of int64 tensors on `dev`."""
     import numpy as np
 
-    from prot2text_tpu.data.chat import (
+    from prot2text_tpu_torch.data.chat import (
         SYSTEM_MESSAGE, llama3_chat_prompt, protein_user_message,
     )
-    from prot2text_tpu.data.collate import Buckets, InstructCollator
-    from prot2text_tpu.data.tokenization import esm2_tokenizer
+    from prot2text_tpu_torch.data.collate import Buckets, InstructCollator
+    from prot2text_tpu_torch.data.tokenization import esm2_tokenizer
 
     rng = np.random.default_rng(seed)
     ptok = esm2_tokenizer()
@@ -453,7 +695,7 @@ def generate(torch, model, batch, max_new_tokens: int):
 
 
 def run_slice(torch, dev, card):
-    from prot2text_tpu.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
     from prot2text_tpu_torch.infer.generate import decode_steps_taken
     from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
     from prot2text_tpu_torch.models import ESM2Config, LlamaConfig
@@ -484,8 +726,7 @@ def run_slice(torch, dev, card):
     require(steps == st["steps"],
             f"tokens imply {steps} decode steps, generate ran {st['steps']}")
     L = model.config.llama_config.num_layers
-    want = {"K1": L, "K2": L * steps, "K3": 2 * steps, "K4": 0, "K5": 0,
-            "K6": 0, "K9a": 0}
+    want = expect(K1=L, K2=L * steps, K3=2 * steps)
     require(counts == want, f"launch counts {counts} != expected {want}")
     require(steps > 0, "no decode step ran")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -531,6 +772,7 @@ def train_records(n: int, lengths, seed: int):
 
 TRAIN_FAMILIES = (("K1", "flash_masked_fwd"), ("K5", "flash_masked_bwd"))
 SERVE_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"),
+                  ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
                   ("K4/K9a", "decode_attention_write"))
 
 
@@ -576,8 +818,8 @@ def kernel_breakdown(torch, prof, wall_s: float,
 
 
 def run_training(torch, dev, card):
-    from prot2text_tpu.data.chat import ByteTextTokenizer
-    from prot2text_tpu.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.collate import Buckets, LightCollator
     from prot2text_tpu_torch.cli.train_instruct import (
         BUCKETS as TRAIN_BUCKETS, build_parser, build_training, to_device,
     )
@@ -636,8 +878,7 @@ def run_training(torch, dev, card):
     counts = launch_counts()
     L = run.step_kw["decoder_core"].num_layers
     micro = steps * accum
-    want = {"K1": 2 * L * micro, "K2": 0, "K3": 0, "K4": 0,
-            "K5": L * micro, "K6": 0, "K9a": 0}
+    want = expect(K1=2 * L * micro, K5=L * micro)
     log(f"launches in the training run: {counts} (K1 = forward + "
         f"recomputation per layer and micro-step, K5 = one per layer and "
         f"micro-step)")
@@ -720,10 +961,18 @@ def serve_once(torch, args, tok, cfg, params, batches, dev, label, card):
     n = len(run.results)
     installs = sum(eng.installs.values())
     encode_s = run.seconds - eng.install_s - eng.decode_s
+    parts = []
+    if eng.plain_steps:
+        parts.append(f"{(eng.decode_s - eng.verify_s) / eng.plain_steps * 1e3:.3f}"
+                     f" ms/step over {eng.plain_steps} plain steps")
+    if eng.verify_rounds:
+        parts.append(f"{eng.verify_s / eng.verify_rounds * 1e3:.3f} ms/round "
+                     f"over {eng.verify_rounds} verify rounds accepting "
+                     f"{eng.acceptance():.3f} tokens per round per active "
+                     f"slot ({eng.spec_fallbacks} plain fallbacks)")
     log(f"serve {label} [{card}]: {n} requests in {run.seconds:.3f} s = "
         f"{n / run.seconds * 3600:.0f} descriptions/hour; decode "
-        f"{eng.decode_s / eng.steps * 1e3:.3f} ms/step over {eng.steps} "
-        f"steps at B={args.max_slots} ("
+        f"{'; '.join(parts)} at B={args.max_slots} ("
         f"{sum(run.n_tokens.values()) / eng.decode_s:.1f} tokens/s); "
         f"prefill {eng.install_s / installs * 1e3:.2f} ms per install over "
         f"{installs} installs {eng.installs}; encode + prefix prefill + "
@@ -741,7 +990,7 @@ def serve_once(torch, args, tok, cfg, params, batches, dev, label, card):
 
 
 def run_serve(torch, dev, card):
-    from prot2text_tpu.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
     from prot2text_tpu_torch.cli.serve import build_server, refuse_unported
     from prot2text_tpu_torch.models.weights import tree_leaves
 
@@ -762,8 +1011,8 @@ def run_serve(torch, dev, card):
                              "shared prefix + dedup, 16 x 128 tokens", card)
     eng = run.engine
     require(run.prefix_len >= 16, f"shared prefix {run.prefix_len} < 16")
-    want = {"K1": L * (1 + eng.installs["full"]), "K2": 0, "K3": 0, "K4": 0,
-            "K5": 0, "K6": L * eng.installs["prefix"], "K9a": L * eng.steps}
+    want = expect(K1=L * (1 + eng.installs["full"]),
+                  K6=L * eng.installs["prefix"], K9a=L * eng.steps)
     require(counts == want, f"launch counts {counts} != expected {want}")
     require(eng.installs["prefix"] > 0, "no prefix install ran")
     paths = {"serve": counts}
@@ -778,8 +1027,7 @@ def run_serve(torch, dev, card):
         torch, args_np, tok, cfg, params, serve_batches(args_np, tok, 8, 6),
         dev, "no shared prefix, 8 x 32 tokens", card)
     eng = run_np.engine
-    want = {"K1": L * eng.installs["full"], "K2": 0, "K3": 0,
-            "K4": L * eng.steps, "K5": 0, "K6": 0, "K9a": 0}
+    want = expect(K1=L * eng.installs["full"], K4=L * eng.steps)
     require(counts_np == want,
             f"launch counts {counts_np} != expected {want}")
     paths["serve_no_prefix"] = counts_np
@@ -796,6 +1044,95 @@ def run_serve(torch, dev, card):
                               dev, "profiled, 8 x 24 tokens", card)
     log(kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
         + f" [{card}]")
+    del run_p, prof
+    gc.collect()
+    paths.update(run_serve_int8(torch, dev, card, tok, cfg, params, batches))
+    return paths
+
+
+def run_serve_int8(torch, dev, card, tok, cfg, params, batches):
+    """Phase 4c: the int8 pool and prompt-lookup speculation through the
+    CLI's loop on the model phase 4b built, with exact launch counts from
+    the engine's own counters (`plain_steps`, `verify_rounds`,
+    `installs`)."""
+    L = cfg.llm_config.num_layers
+    paths = {}
+
+    def once(label, path, flags, batches_, want_fn):
+        args = serve_args(*flags)
+        run, counts = serve_once(torch, args, tok, cfg, params, batches_, dev,
+                                 label, card)
+        eng = run.engine
+        want = want_fn(eng)
+        require(counts == want, f"{path}: launch counts {counts} != "
+                f"expected {want}")
+        paths[path] = counts
+        stats = (eng.plain_steps, eng.verify_rounds, eng.spec_fallbacks,
+                 eng.state["k"].dtype)
+        del run, eng
+        gc.collect()
+        return stats
+
+    def prefix_installs(eng, **more):
+        return expect(K1=L * (1 + eng.installs["full"]),
+                      K6=L * eng.installs["prefix"], **more)
+
+    # (a) the int8 pool with the deduplicated prefix and γ 4: fused verify
+    plain, rounds, _, dt = once(
+        "int8 + prompt lookup 4, shared prefix + dedup, 16 x 128 tokens",
+        "serve_kv8_spec", ("--kv_bits", "8", "--prompt_lookup_tokens", "4"),
+        batches, lambda e: prefix_installs(e, K9c=L * e.verify_rounds))
+    require(dt == torch.int8 and plain == 0 and rounds > 0,
+            f"run a: pool {dt}, {plain} plain steps, {rounds} rounds")
+    # (b) the int8 pool, plain decode, on the requests 4b served in bf16
+    plain, rounds, _, _ = once(
+        "int8, shared prefix + dedup, 16 x 128 tokens", "serve_kv8",
+        ("--kv_bits", "8"), batches,
+        lambda e: prefix_installs(e, K9b=L * e.plain_steps))
+    require(plain > 0 and rounds == 0, f"run b: {plain} steps, {rounds}")
+    # (c) no prefix; the controller falls back to plain steps and probes
+    args_c = serve_args("--max_new_tokens", "32")
+    plain, rounds, fallbacks, _ = once(
+        "int8 + prompt lookup 4, no prefix, controller (break-even 100, "
+        "probe every 2), 8 x 32 tokens", "serve_kv8_spec_controller",
+        ("--kv_bits", "8", "--shared_prefix", "false",
+         "--prompt_lookup_tokens", "4", "--spec_break_even", "100",
+         "--spec_probe_every", "2", "--max_new_tokens", "32"),
+        serve_batches(args_c, tok, 8, 6),
+        lambda e: expect(K1=L * e.installs["full"], K7=L * e.plain_steps,
+                         K8=L * e.verify_rounds))
+    require(plain > 0 and rounds > 0 and fallbacks > 0,
+            f"run c: {plain} plain steps, {rounds} rounds, {fallbacks} "
+            f"fallbacks")
+    # (d) speculation on the bf16 pool: the verify is K6 over the pool
+    plain, rounds, _, dt = once(
+        "bf16 + prompt lookup 4, shared prefix + dedup, 8 x 32 tokens",
+        "serve_spec_bf16", ("--prompt_lookup_tokens", "4",
+                            "--max_new_tokens", "32"),
+        serve_batches(args_c, tok, 8, 7),
+        lambda e: expect(K1=L * (1 + e.installs["full"]),
+                         K6=L * (e.installs["prefix"] + e.verify_rounds),
+                         K9a=L * e.plain_steps))
+    require(dt == torch.bfloat16 and rounds > 0,
+            f"run d: pool {dt}, {rounds} rounds")
+
+    # two short profiled runs of the int8 pool, plain decode and
+    # speculative: where a step's and a round's device time goes
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for label, flags in (("int8", ()), ("int8 + prompt lookup 4",
+                                        ("--prompt_lookup_tokens", "4"))):
+        args_p = serve_args("--kv_bits", "8", "--max_new_tokens", "24",
+                            *flags)
+        batches_p = serve_batches(args_p, tok, 8, 7)
+        with torch.profiler.profile(activities=acts) as prof:
+            run_p, _ = serve_once(torch, args_p, tok, cfg, params, batches_p,
+                                  dev, f"profiled {label}, 8 x 24 tokens",
+                                  card)
+        log(kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
+            + f" [{card}]")
+        del run_p, prof
+        gc.collect()
     return paths
 
 
@@ -823,13 +1160,27 @@ def run_serve_plumbing(torch, dev):
              int(m)) for i, (n, m) in enumerate(((5, 9), (17, 6), (30, 12),
                                                  (3, 7), (11, 8)))]
 
-    def engine(d, prefix_embeds):
+    def engine(d, prefix_embeds, **kw):
         return serving.ContinuousBatcher(
             cfg, tree_map(lambda t: t.to(d), params), max_slots=3,
             max_len=64 + 12, prompt_pad=(32, 64), eos_token_id=-1,
             cache_dtype=torch.float32, sync_every=4,
             shared_prefix_embeds=prefix_embeds,
-            prefix_dedup=prefix_embeds is not None)
+            prefix_dedup=prefix_embeds is not None, **kw)
+
+    def serve_all(d, **kw):
+        """Every request's greedy tokens, with the shared prefix (dedup,
+        one full-prompt request in the pool) and without it."""
+        out = {}
+        for pfx in (prefix, None):
+            eng = engine(d, pfx, **kw)
+            for i, (rid, e, m) in enumerate(reqs):
+                full = pfx is not None and i == 2     # a full-prompt row
+                eng.submit(rid, np.concatenate([pfx, e]) if full else e,
+                           max_new_tokens=m,
+                           use_prefix=False if full else None)
+            out[pfx is not None] = dict(eng.run())
+        return out
 
     logits, pkv, toks = [], [], []
     for d in (torch.device("cpu"), dev):
@@ -848,16 +1199,7 @@ def run_serve_plumbing(torch, dev):
             eos_token_id=-1, prefix_cols=eng.prefix_cols,
             prefix_len=eng.prefix_len, dedup=True, layers=eng.layers)
         logits.append(lg.cpu())
-        out = {}
-        for pfx in (prefix, None):
-            eng = engine(d, pfx)
-            for i, (rid, e, m) in enumerate(reqs):
-                full = pfx is not None and i == 2     # a full-prompt row
-                eng.submit(rid, np.concatenate([pfx, e]) if full else e,
-                           max_new_tokens=m,
-                           use_prefix=False if full else None)
-            out[pfx is not None] = dict(eng.run())
-        toks.append(out)
+        toks.append(serve_all(d))
     for k in ("k", "v"):
         torch.testing.assert_close(pkv[1][k], pkv[0][k], atol=1e-4, rtol=0)
     err = (logits[1] - logits[0]).abs().max().item()
@@ -869,13 +1211,88 @@ def run_serve_plumbing(torch, dev):
         f"of {len(reqs)} requests identical with and without the shared "
         f"prefix")
 
+    # prompt-lookup speculation on the (f32) bf16-kind pool: the verify
+    # rounds go through K6 on the card; tokens identical across devices
+    # and to plain serving (speculation is an exact shortcut in f32)
+    spec = [serve_all(d, prompt_lookup_tokens=3)
+            for d in (torch.device("cpu"), dev)]
+    require(spec[1] == spec[0], f"speculative serving tokens cuda "
+            f"{spec[1]} != cpu {spec[0]}")
+    require(spec[0] == toks[0], "speculative serving changed the greedy "
+            "tokens")
+    log(f"plumbing f32 speculative serving (γ 3) cuda vs cpu: greedy tokens "
+        f"of {len(reqs)} requests identical, and equal to plain serving")
+
+    # the int8 pool computes in bf16: one decode step's (K7 on the card)
+    # and one verify round's (K8) logits over the same installed state.
+    # Tolerance 5e-2 of the largest logit: bf16 keeps 8 significant bits
+    # (2^-8 relative per rounding) and the devices round ~a dozen bf16
+    # products per layer at other points; an int8 value may also sit one
+    # level apart where its fp32 pre-image lies at a half-integer.  Token
+    # equality is not asserted: bf16 argmax near a tie is arbitrary
+    got = []
+    for d in (torch.device("cpu"), dev):
+        eng = engine(d, None, kv_bits=8, prompt_lookup_tokens=3)
+        require(eng._spec_fused, "the int8 plumbing engine must verify "
+                "through the fused chunk kernel")
+        for rid, e, m in reqs[:3]:
+            eng.submit(rid, e, max_new_tokens=m)
+        list(eng._fill_free_slots())
+        got.append([t.float().cpu() for t in int8_round_logits(torch, eng)]
+                   + [eng.state["last_tok"].cpu()])
+    require(torch.equal(got[1][2], got[0][2]), "int8 installs drew other "
+            "first tokens on cuda and cpu")
+    for i, name in enumerate(("decode step", "verify round")):
+        a, b = got[1][i], got[0][i]
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        require(bool(torch.isfinite(a).all()) and err <= 5e-2 * top,
+                f"int8 {name} logits cuda vs cpu: max|diff| {err} > 5e-2 "
+                f"x max|logit| {top}")
+        log(f"plumbing int8 pool {name} logits cuda vs cpu: max abs diff "
+            f"{err:.3e} (<= 5e-2 x max|logit| {top:.3e})")
+
+
+def int8_round_logits(torch, eng):
+    """One decode step's and one verify round's logits over copies of an
+    int8 engine's pool, computed as `_decode_all` and `_spec_rounds` do
+    (bf16 activations; the verify is the fused chunk kernel's path)."""
+    from prot2text_tpu_torch.infer.serving import FUSED_SCRATCH, ngram_drafts
+    from prot2text_tpu_torch.models.decoder import (
+        decoder_decode_step, decoder_logits, decoder_verify_chunk,
+    )
+
+    st, cfg, p = eng.state, eng.cfg, eng.params
+    T = st["kv_mask"].shape[1]
+
+    def pool():
+        return {k: st[k].clone() for k in ("k", "v", "k_scale", "v_scale")}
+
+    emb = p["embed_tokens"][st["last_tok"]][:, None].to(torch.bfloat16)
+    h, _ = decoder_decode_step(
+        cfg, p, token_embeds=emb, kv_mask=st["kv_mask"],
+        positions=(st["pos"] + 1)[:, None], kv_cache=pool(),
+        cache_index=torch.where(st["active"], st["next_slot"], T - 1),
+        layers=eng.layers)
+    step = decoder_logits(cfg, p, h)[:, 0]
+    drafts = ngram_drafts(st["hist"], st["hist_len"], gamma=eng.spec_gamma,
+                          ngram=eng.spec_ngram)
+    chunk = torch.cat([st["last_tok"][:, None], drafts], dim=1)
+    pos = (st["pos"] + 1)[:, None] + torch.arange(chunk.shape[1],
+                                                  device=chunk.device)
+    h, _ = decoder_verify_chunk(
+        cfg, p, token_embeds=p["embed_tokens"][chunk].to(torch.bfloat16),
+        kv_mask=st["kv_mask"], positions=pos, kv_cache=pool(),
+        cache_index=torch.where(st["active"], st["next_slot"],
+                                T - FUSED_SCRATCH), layers=eng.layers)
+    return step, decoder_logits(cfg, p, h)
+
 
 # ---------------------------------------------------------------------------
 # phase 5: the same tiny f32 models on cuda (kernels) and cpu (plain)
 
 
 def run_plumbing(torch, dev):
-    from prot2text_tpu.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
     from prot2text_tpu_torch.models import ESM2Config, LlamaConfig
 
     tok = ByteTextTokenizer()
@@ -906,8 +1323,8 @@ def run_train_plumbing(torch, dev):
     the card) on cuda and on cpu from the same weights and batch: loss atol
     1e-4, LoRA/adapter gradients rtol 1e-3 of each leaf's largest entry.
     Adapter dropout 0: the two devices' generators give different masks."""
-    from prot2text_tpu.data.chat import ByteTextTokenizer
-    from prot2text_tpu.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.collate import Buckets, LightCollator
     from prot2text_tpu_torch.cli.train_instruct import BUCKETS as TB
     from prot2text_tpu_torch.cli.train_instruct import to_device
     from prot2text_tpu_torch.models.adapters import (
@@ -1005,6 +1422,9 @@ def main() -> int:
     rows.update(check_serve_kernels(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
+    rows.update(check_int8_kernels(torch, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
     paths = {"generate": run_slice(torch, dev, card)}
     gc.collect()                 # free the generation model before training
     torch.cuda.empty_cache()
@@ -1028,7 +1448,9 @@ def main() -> int:
                     "replaces": tpu, "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"]})
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,6 @@ built with nvcc at first use and loaded with ctypes (`kernels/_build.py`).
 Each kernel wrapper runs its plain PyTorch version for CPU tensors, so the
 whole package runs (slowly) on the CPU for tests against the JAX reference.
 
-The shared host-side data code (`prot2text_tpu.data`) imports no JAX and is
-used as is; nothing in this package imports `jax`.
+The host-side data code is the port's own copy (`data/`, numpy only);
+nothing in this package imports `jax` or the JAX package.
 """

@@ -10,7 +10,7 @@ import sys
 import numpy as np
 import torch
 
-from prot2text_tpu.data.chat import ByteTextTokenizer
+from ..data.chat import ByteTextTokenizer
 
 from ..core.dtypes import str2dtype
 from ..models.adapters import (

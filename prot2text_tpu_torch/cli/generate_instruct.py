@@ -23,8 +23,8 @@ import time
 import numpy as np
 import torch
 
-from prot2text_tpu.data.collate import Buckets, InstructCollator
-from prot2text_tpu.data.sampler import DataLoader, ShardedSampler
+from ..data.collate import Buckets, InstructCollator
+from ..data.sampler import DataLoader, ShardedSampler
 
 from ..core.device import resolve_device
 from ..core.dtypes import str2bool
@@ -60,7 +60,8 @@ def build_parser():
     p.add_argument("--top_p", type=float, default=None)
     p.add_argument("--prompt_lookup_tokens", type=int, default=0)
     p.add_argument("--prompt_lookup_ngram", type=int, default=2)
-    p.add_argument("--kv_bits", type=int, default=None)
+    p.add_argument("--kv_bits", type=int, default=None,
+                   help="8 = int8 KV cache (decode through kernel K7)")
     p.add_argument("--edge_budget", type=int, default=16384)
     p.add_argument("--output_dir", type=str, default="./generation_results")
     p.add_argument("--output_identifier", type=str, default="instruct")
@@ -75,10 +76,9 @@ def refuse_unported(args) -> None:
     """NotImplementedError for every flag value the port lacks."""
     refuse([
         (args.use_graph, "--use_graph (RGCN arc)", "§1 item 13"),
-        (args.kv_bits is not None, "--kv_bits (int8 KV cache)",
-         "§1 item 11, kernel K7"),
         (args.num_beams > 1, "--num_beams > 1 (beam search)", "§1 item 9"),
-        (args.prompt_lookup_tokens > 0, "--prompt_lookup_tokens",
+        (args.prompt_lookup_tokens > 0,
+         "--prompt_lookup_tokens (lockstep infer/speculative.py)",
          "§1 item 11"),
         (args.load_checkpoint_dir is not None, "--load_checkpoint_dir",
          "§1 item 10, checkpoints"),
@@ -135,7 +135,7 @@ def main(argv=None):
     rank = torch.distributed.get_rank() if dist else 0
     world = torch.distributed.get_world_size() if dist else 1
 
-    from prot2text_tpu.data.dataset import Prot2TextInstructDataset
+    from ..data.dataset import Prot2TextInstructDataset
 
     dataset = Prot2TextInstructDataset(
         root_dir=args.data_root, csv_path=args.test_csv,
@@ -164,7 +164,8 @@ def main(argv=None):
             args.random_seed + 1)
     gen_kwargs = dict(max_new_tokens=args.max_new_tokens,
                       do_sample=args.do_sample, temperature=args.temperature,
-                      top_k=args.top_k, top_p=args.top_p)
+                      top_k=args.top_k, top_p=args.top_p,
+                      kv_bits=args.kv_bits)
     pad_id = model.config.llama_config.pad_token_id
 
     results = {}

@@ -11,7 +11,11 @@ HF warper pipeline (temperature/top-k/top-p) per token.  With
 batch's prompts — the chat template's header — is prefilled once and every
 request verified against it prefills only its suffix (kernel K6); with
 --prefix_dedup (the default) the pool holds no copy of that prefix and
-decode reads its one copy (K9a); otherwise decode is K4.
+decode reads its one copy (K9a); otherwise decode is K4.  --kv_bits 8 keeps
+the pool in int8 (decode K9b with the deduplicated prefix, K7 without);
+--prompt_lookup_tokens γ verifies γ n-gram drafts per slot per round (K9c
+or K8 on the int8 pool, K6 on the bf16 one), and --spec_break_even turns
+on the controller that falls back to plain rounds.
 
 Same flags as the JAX CLI, plus --device (default "cuda"; a missing GPU is
 an error, never a silent CPU run).  --load_sft_checkpoint_dir restores a
@@ -36,9 +40,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from prot2text_tpu.data.collate import Buckets, LightCollator
-from prot2text_tpu.data.dataset import Prot2TextLightDataset
-from prot2text_tpu.data.sampler import DataLoader, ShardedSampler
+from ..data.collate import Buckets, LightCollator
+from ..data.dataset import Prot2TextLightDataset
+from ..data.sampler import DataLoader, ShardedSampler
 
 from ..core.checkpoint import restore_checkpoint
 from ..core.device import resolve_device
@@ -88,16 +92,21 @@ def build_parser():
     p.add_argument("--top_p", type=float, default=None)
     p.add_argument("--max_sequence_length", type=int, default=512)
     p.add_argument("--prompt_lookup_tokens", type=int, default=0,
-                   help="speculative serving (not ported yet; 0 = off)")
+                   help="speculative serving: n-gram drafts per slot, "
+                        "verified per row (greedy only; 0 = off)")
     p.add_argument("--prompt_lookup_ngram", type=int, default=2)
     p.add_argument("--medusa_path", type=str, default=None,
                    help="Medusa draft heads (not ported yet)")
     p.add_argument("--spec_break_even", type=float, default=0.0,
-                   help="adaptive speculation threshold (acts only with "
-                        "speculative serving, which is not ported yet)")
-    p.add_argument("--spec_probe_every", type=int, default=8)
+                   help="adaptive speculation: fall back to plain decode "
+                        "while accepted tokens per verify round and active "
+                        "slot stay below this (0 = always speculate)")
+    p.add_argument("--spec_probe_every", type=int, default=8,
+                   help="while falling back, re-probe speculation every N "
+                        "plain dispatches")
     p.add_argument("--kv_bits", type=int, default=None,
-                   help="8 = int8 KV cache pool (not ported yet)")
+                   help="8 = int8 KV cache pool (half the cache bytes per "
+                        "slot)")
     p.add_argument("--shared_prefix", type=str2bool, default=True,
                    help="prefix-shared KV: discover the common chat-template "
                         "token prefix from the first batch, compute its KV "
@@ -119,14 +128,9 @@ def build_parser():
 def refuse_unported(args) -> None:
     """NotImplementedError for every flag value the port lacks."""
     refuse([
-        (args.kv_bits is not None, "--kv_bits (int8 KV cache pool)",
-         "§1 item 11, kernels K7/K9b"),
-        (args.prompt_lookup_tokens > 0,
-         "--prompt_lookup_tokens (speculative serving)",
-         "§1 item 11, kernels K8/K9c"),
         (args.medusa_path is not None,
          "--medusa_path (Medusa speculative serving)",
-         "§1 item 11, kernels K8/K9c"),
+         "§1 item 11, Medusa serving with cli/train_draft.py"),
         (args.load_peft_adapter_dir is not None,
          "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 11"),
         (args.llm_checkpoint_dir is not None,
@@ -265,6 +269,11 @@ def serve(args, tok, cfg: ESMCQwenConfig, params, batches: Iterable[dict],
         sync_every=args.sync_every, gen_cfg=gen_cfg,
         generator=torch.Generator(device=device).manual_seed(
             args.random_seed),
+        kv_bits=args.kv_bits,
+        prompt_lookup_tokens=args.prompt_lookup_tokens,
+        prompt_lookup_ngram=args.prompt_lookup_ngram,
+        spec_break_even=args.spec_break_even,
+        spec_probe_every=args.spec_probe_every,
         shared_prefix_embeds=prefix_embeds,
         prefix_dedup=args.prefix_dedup and prefix_embeds is not None)
 
@@ -336,9 +345,14 @@ def main(argv=None):
     with open(out_path, "w") as f:
         json.dump(run.results, f, indent=2)
     n = len(run.results)
+    eng = run.engine
+    spec = ""
+    if eng.verify_rounds:
+        spec = (f", {eng.verify_rounds} verify rounds accepting "
+                f"{eng.acceptance():.2f} tokens per round per active slot")
     print(f"{n} proteins in {run.seconds:.1f}s "
           f"({n / run.seconds * 3600:.0f} descriptions/hour, continuous "
-          f"batching, {run.engine.steps} decode steps) → {out_path}")
+          f"batching, {eng.plain_steps} decode steps{spec}) → {out_path}")
     return run.results
 
 

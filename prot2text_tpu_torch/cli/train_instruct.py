@@ -28,9 +28,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from prot2text_tpu.data.collate import Buckets, LightCollator
-from prot2text_tpu.data.dataset import Prot2TextLightDataset
-from prot2text_tpu.data.sampler import DataLoader, ShardedSampler, prefetch
+from ..data.collate import Buckets, LightCollator
+from ..data.dataset import Prot2TextLightDataset
+from ..data.sampler import DataLoader, ShardedSampler, prefetch
 
 from ..core.checkpoint import (
     restore_checkpoint, save_checkpoint, timestamped_dir,

@@ -7,8 +7,9 @@ t, tokens after EOS are pad, greedy = argmax over fp32 logits, sampling
 applies temperature → top-k → top-p.
 
 The decode loop is a host-driven Python loop: one prefill (K1 inside), then
-one `decoder_decode_step` per token (K2 per layer, K3 once per step) and
-one host sync per token for the all-finished check.  The slot written at
+one `decoder_decode_step` per token (K2 per layer, K3 once per step; K7
+per layer on an int8 cache) and one host sync per token for the
+all-finished check.  The slot written at
 step t is still 0 in `kv_mask` while K2 runs; it is set afterwards.
 """
 
@@ -90,7 +91,8 @@ def run_generation(cfg, params, *, inputs_embeds, attention_mask, gen_cfg,
         raise NotImplementedError("beam search (num_beams > 1) is not ported "
                                   "yet (ROADMAP.md §1 item 9)")
     if gen_cfg.prompt_lookup_tokens > 0:
-        raise NotImplementedError("prompt-lookup speculative decoding is not "
+        raise NotImplementedError("lockstep prompt-lookup speculative "
+                                  "decoding (infer/speculative.py) is not "
                                   "ported yet (ROADMAP.md §1 item 11)")
     return generate(cfg, params, inputs_embeds=inputs_embeds,
                     attention_mask=attention_mask, gen_cfg=gen_cfg,
@@ -103,7 +105,10 @@ def generate(cfg: DecoderConfig, params, *, inputs_embeds, attention_mask,
              gen_cfg: GenerationConfig, generator=None, cache_dtype=None,
              kv_bits=None, stats: Optional[dict] = None):
     """inputs_embeds (B, P, H) left-padded prompt embeddings, attention_mask
-    (B, P) → (B, max_new_tokens) int64, pad-filled after EOS.
+    (B, P) → (B, max_new_tokens) int64, pad-filled after EOS.  kv_bits=8
+    keeps the cache in int8 with per-(head, token) scales (its width
+    rounded up to a multiple of 32, as in the JAX package): the prefill
+    quantizes into it and every decode step runs K7 with the scalar slot.
 
     `stats`, when given, is filled with "prefill_s" and "decode_s" (host
     seconds, each ended by a device synchronize), "steps" (decode steps
@@ -113,6 +118,8 @@ def generate(cfg: DecoderConfig, params, *, inputs_embeds, attention_mask,
     B, P, _ = inputs_embeds.shape
     N = gen_cfg.max_new_tokens
     T = P + N
+    if kv_bits is not None:
+        T = -(-T // 32) * 32
     dev = inputs_embeds.device
     if stats is not None:
         _sync(dev)

@@ -10,8 +10,15 @@ from .cache_update import cache_slot_write_bkt, cache_slot_write_bkt_plain
 from .decode_attention import (
     decode_attention_stacked, decode_attention_stacked_plain,
     decode_attention_stacked_write, decode_attention_stacked_write_plain,
+    decode_attention_stacked_verify_qc,
+    decode_attention_stacked_verify_qc_plain,
+    decode_attention_stacked_verify_qc_prefix,
+    decode_attention_stacked_verify_qc_prefix_plain,
     decode_attention_stacked_write_prefix,
     decode_attention_stacked_write_prefix_plain,
+    decode_attention_stacked_write_q, decode_attention_stacked_write_q_plain,
+    decode_attention_stacked_write_q_prefix,
+    decode_attention_stacked_write_q_prefix_plain,
 )
 from .flash_attention import (
     flash_attention_bias, flash_attention_bias_fwd,
@@ -45,6 +52,22 @@ KERNELS = {
             decode_attention_stacked_write_prefix_plain,
             "prot2text_tpu_torch/kernels/csrc/decode_attention_write.cu",
             "prot2text_tpu/kernels/decode_attention.py:703"),
+    "K7": (decode_attention_stacked_write_q,
+           decode_attention_stacked_write_q_plain,
+           "prot2text_tpu_torch/kernels/csrc/decode_attention_write_q.cu",
+           "prot2text_tpu/kernels/decode_attention.py:307"),
+    "K8": (decode_attention_stacked_verify_qc,
+           decode_attention_stacked_verify_qc_plain,
+           "prot2text_tpu_torch/kernels/csrc/decode_attention_verify.cu",
+           "prot2text_tpu/kernels/decode_attention.py:525"),
+    "K9b": (decode_attention_stacked_write_q_prefix,
+            decode_attention_stacked_write_q_prefix_plain,
+            "prot2text_tpu_torch/kernels/csrc/decode_attention_write_q.cu",
+            "prot2text_tpu/kernels/decode_attention.py:843"),
+    "K9c": (decode_attention_stacked_verify_qc_prefix,
+            decode_attention_stacked_verify_qc_prefix_plain,
+            "prot2text_tpu_torch/kernels/csrc/decode_attention_verify.cu",
+            "prot2text_tpu/kernels/decode_attention.py:1041"),
 }
 
 
@@ -62,7 +85,14 @@ __all__ = [
     "decode_attention_stacked", "decode_attention_stacked_plain",
     "decode_attention_stacked_write", "decode_attention_stacked_write_plain",
     "decode_attention_stacked_write_prefix",
-    "decode_attention_stacked_write_prefix_plain", "flash_attention_bias",
+    "decode_attention_stacked_write_prefix_plain",
+    "decode_attention_stacked_verify_qc",
+    "decode_attention_stacked_verify_qc_plain",
+    "decode_attention_stacked_verify_qc_prefix",
+    "decode_attention_stacked_verify_qc_prefix_plain",
+    "decode_attention_stacked_write_q", "decode_attention_stacked_write_q_plain",
+    "decode_attention_stacked_write_q_prefix",
+    "decode_attention_stacked_write_q_prefix_plain", "flash_attention_bias",
     "flash_attention_bias_fwd", "flash_attention_bias_plain",
     "flash_attention_masked", "flash_attention_masked_bwd",
     "flash_attention_masked_bwd_plain", "flash_attention_masked_fwd",

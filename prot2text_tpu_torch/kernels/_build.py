@@ -61,6 +61,11 @@ SIGNATURES = {
     # q, k, v, bias, o, lse, strides[15], B, H, Hkv, Sq, Skv, D, dtype,
     # stream
     "p2t_flash_bias_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # qg, ck, cv, sk, sv (layer), kv_mask, kq, vq, ks, vs, slots, pk, pv,
+    # psk, psv (layer), pmask, out, B, Hkv, rep, T, Pc, D, dtype, stream
+    "p2t_decode_attention_write_q": [_P] * 17 + [_I] * 7 + [_P],
+    # the same pointers, then B, Hkv, rep, G, T, Pc, D, dtype, stream
+    "p2t_decode_attention_verify": [_P] * 17 + [_I] * 8 + [_P],
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

@@ -1,5 +1,6 @@
 """K2, K4 and K9a: grouped-query decode attention over the stacked KV cache
-(CUDA C++).
+(CUDA C++); K7, K9b, K8 and K9c, their int8-cache counterparts (after the
+bf16 section below).
 
 K2 replaces prot2text_tpu/kernels/decode_attention.py
 `decode_attention_stacked` (`_kernel`), kernel `csrc/decode_attention.cu`:
@@ -255,3 +256,353 @@ def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
         T, Pc, D, _build.dtype_code(qg.dtype), _build.stream_of(qg))
     _build.check(err, "p2t_decode_attention_write")
     return out
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache: K7 and K9b (one token per row), K8 and K9c (a G-token
+# speculative chunk per row), kernels csrc/decode_attention_write_q.cu and
+# csrc/decode_attention_verify.cu over the shared body in
+# csrc/decode_attention_q.cuh.
+#
+# Contract (as the JAX kernels): qg (B, Hkv, G·rep, D) pre-scaled, row
+# g·rep + r = chunk token g, head replica r (G = 1: (B, Hkv, rep, D));
+# ck_all/cv_all (L, B, Hkv, T, D) int8 and sk_all/sv_all (L, B, Hkv, T)
+# fp32, all four updated IN PLACE (JAX donates them and returns the
+# updated copies); kv_mask (B, T) 0/1 over already-written columns (the
+# columns written now must be 0); k_new_q/v_new_q the current tokens'
+# exact-integer fp32 values from `models.quant.quantize_kv`, (B, Hkv, D)
+# for K7/K9b and (B, Hkv, G, D) for K8/K9c, with k_new_s/v_new_s scales
+# (B, Hkv[, G]); `layer` a host int; slots a scalar or (B,) first written
+# column per row.  The prefix variants add pk_all/pv_all (L, 1, Hkv, Pc, D)
+# int8 with psk_all/psv_all (L, 1, Hkv, Pc) fp32, read-only, and pmask
+# (B, Pc).  Returns the attention in qg's dtype.
+#
+# Numerics, kept by the plain versions so that in fp32 they match the JAX
+# kernels in interpret mode: int8 → float exact; a cache column's logit is
+# the fp32 q·k_int times its k scale; its weight times its v scale is
+# rounded to bf16 before ·V; the current tokens' own columns stay fp32
+# (K7/K9b: q·(kq·ks); K8/K9c: (q·kq)·ks; chunk columns causal by token).
+# ---------------------------------------------------------------------------
+
+MAX_CHUNK = 32                  # K8/K9c: chunk tokens G
+MAX_ROWS = 256                  # query rows G·rep (csrc kQMaxRows)
+
+
+def _attend_q_plain(qg, ck, cv, sk, sv, mask, kq, vq, ks, vs, *,
+                    dequant_first: bool):
+    """[cache columns ‖ chunk columns] attention over one layer: ck/cv
+    (B, Hkv, T, D) int8, sk/sv (B, Hkv, T), mask (B, T); kq/vq
+    (B, Hkv, G, D), ks/vs (B, Hkv, G).  Masked cache columns take no
+    weight and their values are zeroed."""
+    G = kq.shape[2]
+    GR = qg.shape[2]
+    rep = GR // G
+    q = qg.float()
+    ok = mask[:, None, :] > 0                                  # (B, 1, T)
+    ckf = torch.where(ok[..., None], ck, 0).float()
+    cvf = torch.where(ok[..., None], cv, 0).float()
+    logits = torch.einsum("bkrd,bktd->bkrt", q, ckf) * torch.where(
+        ok, sk, 0)[:, :, None, :]
+    logits = torch.where(ok[:, :, None, :], logits, NEG)
+    if dequant_first:
+        ln = torch.einsum("bkrd,bkgd->bkrg", q, kq * ks[..., None])
+    else:
+        ln = torch.einsum("bkrd,bkgd->bkrg", q, kq) * ks[:, :, None, :]
+    rowg = torch.arange(GR, device=qg.device)[:, None] // rep
+    colg = torch.arange(G, device=qg.device)[None, :]
+    ln = torch.where(colg <= rowg, ln, NEG)
+    m = torch.maximum(logits.amax(dim=-1), ln.amax(dim=-1))
+    el = torch.exp(logits - m[..., None])
+    en = torch.exp(ln - m[..., None])
+    denom = el.sum(dim=-1) + en.sum(dim=-1)
+    w = (el * torch.where(ok, sv, 0)[:, :, None, :]).to(torch.bfloat16)
+    a = torch.einsum("bkrt,bktd->bkrd", w.float(), cvf)
+    a = a + torch.einsum("bkrg,bkgd->bkrd", en * vs[:, :, None, :], vq)
+    return (a / denom[..., None]).to(qg.dtype)
+
+
+def _write_chunk_plain(ck_all, cv_all, sk_all, sv_all, kq, vq, ks, vs,
+                       layer, slots):
+    """Columns slots[b] + g of layer `layer` ← the chunk's int8 k/v and
+    scales, in place."""
+    B, _, G, _ = kq.shape
+    T = ck_all.shape[3]
+    cols = _slots(slots, B, ck_all.device).long()[:, None] + torch.arange(
+        G, device=ck_all.device)
+    if int(cols.min()) < 0 or int(cols.max()) >= T:
+        raise ValueError(f"written columns must lie in [0, {T})")
+    bidx = torch.arange(B, device=ck_all.device)[:, None]
+    ck_all[layer, bidx, :, cols] = kq.transpose(1, 2).to(torch.int8)
+    cv_all[layer, bidx, :, cols] = vq.transpose(1, 2).to(torch.int8)
+    sk_all[layer, bidx, :, cols] = ks.transpose(1, 2).float()
+    sv_all[layer, bidx, :, cols] = vs.transpose(1, 2).float()
+
+
+def _with_prefix(ck, cv, sk, sv, mask, pk_all, pv_all, psk_all, psv_all,
+                 pmask, layer):
+    """The prefix's columns broadcast to every row and concatenated before
+    the cache's: one softmax over [prefix ‖ cache ‖ chunk]."""
+    B = mask.shape[0]
+    return (torch.cat([pk_all[layer].expand(B, -1, -1, -1), ck], dim=2),
+            torch.cat([pv_all[layer].expand(B, -1, -1, -1), cv], dim=2),
+            torch.cat([psk_all[layer].expand(B, -1, -1), sk], dim=2),
+            torch.cat([psv_all[layer].expand(B, -1, -1), sv], dim=2),
+            torch.cat([pmask, mask], dim=1))
+
+
+def decode_attention_stacked_write_q_plain(qg, ck_all, cv_all, sk_all,
+                                           sv_all, kv_mask, k_new_q, v_new_q,
+                                           k_new_s, v_new_s, layer: int,
+                                           slots):
+    """Plain K7: attention over the int8 layer + the current token, then
+    the token's int8 k/v and scales written at slots[b] in place."""
+    args = (k_new_q[:, :, None], v_new_q[:, :, None], k_new_s[:, :, None],
+            v_new_s[:, :, None])
+    a = _attend_q_plain(qg, ck_all[layer], cv_all[layer], sk_all[layer],
+                        sv_all[layer], kv_mask, *args, dequant_first=True)
+    _write_chunk_plain(ck_all, cv_all, sk_all, sv_all, *args, layer, slots)
+    return a
+
+
+def decode_attention_stacked_write_q_prefix_plain(
+        qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+        k_new_s, v_new_s, layer: int, slots, pk_all, pv_all, psk_all,
+        psv_all, pmask):
+    """Plain K9b: K7 with the int8 prefix's columns first."""
+    args = (k_new_q[:, :, None], v_new_q[:, :, None], k_new_s[:, :, None],
+            v_new_s[:, :, None])
+    cat = _with_prefix(ck_all[layer], cv_all[layer], sk_all[layer],
+                       sv_all[layer], kv_mask, pk_all, pv_all, psk_all,
+                       psv_all, pmask, layer)
+    a = _attend_q_plain(qg, *cat, *args, dequant_first=True)
+    _write_chunk_plain(ck_all, cv_all, sk_all, sv_all, *args, layer, slots)
+    return a
+
+
+def decode_attention_stacked_verify_qc_plain(qg, ck_all, cv_all, sk_all,
+                                             sv_all, kv_mask, k_new_q,
+                                             v_new_q, k_new_s, v_new_s,
+                                             layer: int, slots):
+    """Plain K8: G·rep rows over [int8 layer ‖ causal chunk], then the
+    chunk's G int8 rows and scales written at [slots[b], slots[b] + G)."""
+    args = (k_new_q, v_new_q, k_new_s, v_new_s)
+    a = _attend_q_plain(qg, ck_all[layer], cv_all[layer], sk_all[layer],
+                        sv_all[layer], kv_mask, *args, dequant_first=False)
+    _write_chunk_plain(ck_all, cv_all, sk_all, sv_all, *args, layer, slots)
+    return a
+
+
+def decode_attention_stacked_verify_qc_prefix_plain(
+        qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+        k_new_s, v_new_s, layer: int, slots, pk_all, pv_all, psk_all,
+        psv_all, pmask):
+    """Plain K9c: K8 with the int8 prefix's columns first."""
+    args = (k_new_q, v_new_q, k_new_s, v_new_s)
+    cat = _with_prefix(ck_all[layer], cv_all[layer], sk_all[layer],
+                       sv_all[layer], kv_mask, pk_all, pv_all, psk_all,
+                       psv_all, pmask, layer)
+    a = _attend_q_plain(qg, *cat, *args, dequant_first=False)
+    _write_chunk_plain(ck_all, cv_all, sk_all, sv_all, *args, layer, slots)
+    return a
+
+
+def _check_q(name, qg, ck_all, cv_all, sk_all, sv_all, kv_mask, kq, vq, ks,
+             vs, layer, G, prefix):
+    dev = qg.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if qg.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: qg must be bfloat16 or float32, got "
+                        f"{qg.dtype}")
+    if ck_all.dim() != 5 or cv_all.shape != ck_all.shape:
+        raise ValueError(f"{name}: ck_all/cv_all must be (L, B, Hkv, T, D) "
+                         f"alike")
+    L, B, Hkv, T, D = ck_all.shape
+    GR = qg.shape[2] if qg.dim() == 4 else -1
+    if qg.shape != (B, Hkv, GR, D) or GR % G or not 1 <= G <= MAX_CHUNK \
+            or GR > MAX_ROWS:
+        raise ValueError(f"{name}: qg {tuple(qg.shape)} vs cache "
+                         f"{tuple(ck_all.shape)} and G={G}")
+    want = [("ck_all", ck_all, torch.int8, (L, B, Hkv, T, D)),
+            ("cv_all", cv_all, torch.int8, (L, B, Hkv, T, D)),
+            ("sk_all", sk_all, torch.float32, (L, B, Hkv, T)),
+            ("sv_all", sv_all, torch.float32, (L, B, Hkv, T)),
+            ("kv_mask", kv_mask, torch.int32, (B, T)),
+            ("k_new_q", kq, torch.float32, (B, Hkv, G, D)),
+            ("v_new_q", vq, torch.float32, (B, Hkv, G, D)),
+            ("k_new_s", ks, torch.float32, (B, Hkv, G)),
+            ("v_new_s", vs, torch.float32, (B, Hkv, G))]
+    if prefix is not None:
+        pk_all, pv_all, psk_all, psv_all, pmask = prefix
+        Pc = pk_all.shape[3] if pk_all.dim() == 5 else 0
+        if Pc == 0:
+            raise ValueError(f"{name}: prefix must be (L, 1, Hkv, Pc>0, D)")
+        want += [("pk_all", pk_all, torch.int8, (L, 1, Hkv, Pc, D)),
+                 ("pv_all", pv_all, torch.int8, (L, 1, Hkv, Pc, D)),
+                 ("psk_all", psk_all, torch.float32, (L, 1, Hkv, Pc)),
+                 ("psv_all", psv_all, torch.float32, (L, 1, Hkv, Pc)),
+                 ("pmask", pmask, torch.int32, (B, Pc))]
+    for n, t, dt, shape in want:
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be a contiguous {dt} tensor "
+                             f"of shape {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not qg.is_contiguous():
+        raise ValueError(f"{name}: qg must be contiguous")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim must be in {HEAD_DIMS}, got {D}")
+    if not 0 <= layer < L:
+        raise ValueError(f"{name}: layer {layer} out of range [0, {L})")
+
+
+def _launch_q(entry, qg, ck_all, cv_all, sk_all, sv_all, kv_mask, kq, vq,
+              ks, vs, layer, slots, prefix, G):
+    L, B, Hkv, T, D = ck_all.shape
+    out = torch.empty_like(qg)
+
+    def at(t):                       # layer `layer` of a stacked tensor
+        return t.data_ptr() + layer * t.stride(0) * t.element_size()
+
+    if prefix is None:
+        pptr = [None] * 5
+        Pc = 0
+    else:
+        pk_all, pv_all, psk_all, psv_all, pmask = prefix
+        pptr = [at(pk_all), at(pv_all), at(psk_all), at(psv_all),
+                pmask.data_ptr()]
+        Pc = pk_all.shape[3]
+    lib = _build.library()
+    dims = [B, Hkv, qg.shape[2] // G] + ([G] if entry.endswith("verify")
+                                         else [])
+    err = getattr(lib, entry)(
+        qg.data_ptr(), at(ck_all), at(cv_all), at(sk_all), at(sv_all),
+        kv_mask.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), slots.data_ptr(), *pptr, out.data_ptr(), *dims, T, Pc,
+        D, _build.dtype_code(qg.dtype), _build.stream_of(qg))
+    _build.check(err, entry)
+    return out
+
+
+def decode_attention_stacked_write_q(qg, ck_all, cv_all, sk_all, sv_all,
+                                     kv_mask, k_new_q, v_new_q, k_new_s,
+                                     v_new_s, layer: int, slots):
+    """K7: int8-cache decode attention + in-place int8 slot write of row
+    b's current token at slots[b] (a scalar slot is broadcast: lockstep
+    generation).  CPU tensors run the plain version; CUDA tensors launch
+    the kernel (or raise).  A slot outside [0, T) is not written (the plain
+    version raises on one)."""
+    if qg.device.type == "cpu":
+        return decode_attention_stacked_write_q_plain(
+            qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+            k_new_s, v_new_s, layer, slots)
+    layer = int(layer)
+    args = (k_new_q[:, :, None], v_new_q[:, :, None], k_new_s[:, :, None],
+            v_new_s[:, :, None])
+    _check_q("K7", qg, ck_all, cv_all, sk_all, sv_all, kv_mask, *args, layer,
+             1, None)
+    out = _launch_q("p2t_decode_attention_write_q", qg, ck_all, cv_all,
+                    sk_all, sv_all, kv_mask, *args, layer,
+                    _slots(slots, qg.shape[0], qg.device), None, 1)
+    decode_attention_stacked_write_q.launches += 1
+    return out
+
+
+decode_attention_stacked_write_q.launches = 0
+
+
+def decode_attention_stacked_write_q_prefix(
+        qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+        k_new_s, v_new_s, layer: int, slots, pk_all, pv_all, psk_all,
+        psv_all, pmask):
+    """K9b: K7 plus the int8 shared prefix, read-only, gated per row by
+    pmask.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel (or raise)."""
+    if qg.device.type == "cpu":
+        return decode_attention_stacked_write_q_prefix_plain(
+            qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+            k_new_s, v_new_s, layer, slots, pk_all, pv_all, psk_all,
+            psv_all, pmask)
+    layer = int(layer)
+    args = (k_new_q[:, :, None], v_new_q[:, :, None], k_new_s[:, :, None],
+            v_new_s[:, :, None])
+    prefix = (pk_all, pv_all, psk_all, psv_all, pmask)
+    _check_q("K9b", qg, ck_all, cv_all, sk_all, sv_all, kv_mask, *args,
+             layer, 1, prefix)
+    out = _launch_q("p2t_decode_attention_write_q", qg, ck_all, cv_all,
+                    sk_all, sv_all, kv_mask, *args, layer,
+                    _slots(slots, qg.shape[0], qg.device), prefix, 1)
+    decode_attention_stacked_write_q_prefix.launches += 1
+    return out
+
+
+decode_attention_stacked_write_q_prefix.launches = 0
+
+
+def _chunk_slots(slots, B, G, T, slots_max, device):
+    """(B,) int32 chunk starts on `device`; raises unless every chunk ends
+    inside the cache (slots[b] + G <= T).  `slots_max`, when the caller
+    knows it, spares the device→host read of the largest start."""
+    slots = _slots(slots, B, device)
+    hi = int(slots.max()) if slots_max is None else int(slots_max)
+    if hi + G > T:
+        raise ValueError(f"chunk start {hi} + G={G} exceeds the cache width "
+                         f"T={T}")
+    return slots
+
+
+def decode_attention_stacked_verify_qc(qg, ck_all, cv_all, sk_all, sv_all,
+                                       kv_mask, k_new_q, v_new_q, k_new_s,
+                                       v_new_s, layer: int, slots, *,
+                                       slots_max=None):
+    """K8: chunk-verify attention over the int8 cache + in-place write of
+    the chunk's G int8 rows and scales at [slots[b], slots[b] + G).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel (or
+    raise, also when a chunk would end past the cache)."""
+    if qg.device.type == "cpu":
+        return decode_attention_stacked_verify_qc_plain(
+            qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+            k_new_s, v_new_s, layer, slots)
+    layer = int(layer)
+    G = k_new_q.shape[2]
+    args = (k_new_q, v_new_q, k_new_s, v_new_s)
+    _check_q("K8", qg, ck_all, cv_all, sk_all, sv_all, kv_mask, *args, layer,
+             G, None)
+    slots = _chunk_slots(slots, qg.shape[0], G, ck_all.shape[3], slots_max,
+                         qg.device)
+    out = _launch_q("p2t_decode_attention_verify", qg, ck_all, cv_all,
+                    sk_all, sv_all, kv_mask, *args, layer, slots, None, G)
+    decode_attention_stacked_verify_qc.launches += 1
+    return out
+
+
+decode_attention_stacked_verify_qc.launches = 0
+
+
+def decode_attention_stacked_verify_qc_prefix(
+        qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+        k_new_s, v_new_s, layer: int, slots, pk_all, pv_all, psk_all,
+        psv_all, pmask, *, slots_max=None):
+    """K9c: K8 plus the int8 shared prefix, read-only, gated per row by
+    pmask.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel (or raise)."""
+    if qg.device.type == "cpu":
+        return decode_attention_stacked_verify_qc_prefix_plain(
+            qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
+            k_new_s, v_new_s, layer, slots, pk_all, pv_all, psk_all,
+            psv_all, pmask)
+    layer = int(layer)
+    G = k_new_q.shape[2]
+    args = (k_new_q, v_new_q, k_new_s, v_new_s)
+    prefix = (pk_all, pv_all, psk_all, psv_all, pmask)
+    _check_q("K9c", qg, ck_all, cv_all, sk_all, sv_all, kv_mask, *args,
+             layer, G, prefix)
+    slots = _chunk_slots(slots, qg.shape[0], G, ck_all.shape[3], slots_max,
+                         qg.device)
+    out = _launch_q("p2t_decode_attention_verify", qg, ck_all, cv_all,
+                    sk_all, sv_all, kv_mask, *args, layer, slots, prefix, G)
+    decode_attention_stacked_verify_qc_prefix.launches += 1
+    return out
+
+
+decode_attention_stacked_verify_qc_prefix.launches = 0

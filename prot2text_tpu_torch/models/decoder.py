@@ -29,7 +29,12 @@ Attention runs through the port's kernels:
   * single-token decode with per-row slots (continuous batching) → K4,
     attention fused with each row's in-place slot write per layer; with a
     batch-broadcast shared prefix → K9a (prot2text_tpu/models/decoder.py:
-    1012-1054).
+    1012-1054);
+  * on an int8 cache (`init_kv_cache(kv_bits=8)`): forward passes quantize
+    each layer's k/v and attend the dequantized cache through K1/K6;
+    single-token decode, per-row or lockstep, runs K7 (K9b with the
+    shared prefix); the speculative chunk verify (`decoder_verify_chunk`)
+    runs K8 (K9c).
 The layer loop is a Python loop over views of the stacked weights (no
 per-layer copies).  Training adds LoRA side paths on the seven projections
 (`lora=`) and per-layer recomputation (`remat=True`, the JAX
@@ -48,13 +53,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.cache_update import cache_slot_write_bkt
 from ..kernels.decode_attention import (
-    decode_attention_stacked, decode_attention_stacked_write,
-    decode_attention_stacked_write_prefix,
+    HEAD_DIMS, MAX_CHUNK, MAX_ROWS, decode_attention_stacked,
+    decode_attention_stacked_verify_qc,
+    decode_attention_stacked_verify_qc_prefix, decode_attention_stacked_write,
+    decode_attention_stacked_write_prefix, decode_attention_stacked_write_q,
+    decode_attention_stacked_write_q_prefix,
 )
 from ..kernels.flash_attention import (
     flash_attention_bias, flash_attention_masked,
 )
 from .lora import lora_at
+from .quant import quantize_kv
 from .transformer import (
     apply_rope, layer_views, linear, linear_lora, rms_norm,
 )
@@ -170,10 +179,35 @@ def _mlp(cfg, lp, x, proj=None):
     return x + proj("down_proj", (gate * up).to(xn.dtype))
 
 
+def _write_columns(kv_cache, li, vals, cache_index, S):
+    """Layer `li` of every cache tensor (k, v and, int8, their scales)
+    takes `vals` at columns [cache_index, cache_index + S): a host int
+    writes one slab for all rows; a (B,) tensor writes row b's chunk at
+    [cache_index[b], cache_index[b] + S) by scatter (the JAX one-hot
+    einsum is a TPU workaround for per-row dynamic indices)."""
+    if isinstance(cache_index, int):
+        for name, x in vals.items():
+            kv_cache[name][li, :, :, cache_index:cache_index + S] = x
+        return
+    B = vals["k"].shape[0]
+    dev = vals["k"].device
+    bidx = torch.arange(B, device=dev)[:, None]
+    cols = cache_index.long()[:, None] + torch.arange(S, device=dev)
+    for name, x in vals.items():                 # x (B, Hkv, S[, D])
+        kv_cache[name][li, bidx, :, cols] = x.transpose(1, 2)
+
+
+def _dequant(q, scale, dtype):
+    """int8 cache values → `dtype` (the JAX `(q * s).astype(x.dtype)`)."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
-           attn_lengths, bias, kv_cache, cache_index, li):
+           attn_lengths, bias, kv_cache, cache_index, li, prefix_kv=None,
+           prefix_bias=None):
     """One decoder layer: attention through K1 over `attn_lengths`, or
-    through K6 over the whole cache with `bias`."""
+    through K6 over the whole cache (after the shared prefix's columns,
+    when given) with `bias`."""
     B, S, _ = h.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -191,14 +225,39 @@ def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if kv_cache is not None:
-        end = cache_index + S
-        kv_cache["k"][li, :, :, cache_index:end] = k
-        kv_cache["v"][li, :, :, cache_index:end] = v
+        quantized = "k_scale" in kv_cache
+        if quantized:
+            # int8 cache: quantize per (head, token), store values and
+            # scales, attend over the dequantized cache — prefill sees
+            # exactly what later decode steps read
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            vals = {"k": kq.to(torch.int8), "v": vq.to(torch.int8),
+                    "k_scale": ks, "v_scale": vs}
+        else:
+            vals = {"k": k, "v": v}
+        _write_columns(kv_cache, li, vals, cache_index, S)
         # K1 reads back slots [0, S); K6 the whole width, seeded columns
         # [0, cache_index) included
         width = S if bias is None else kv_cache["k"].shape[3]
         k = kv_cache["k"][li, :, :, :width]
         v = kv_cache["v"][li, :, :, :width]
+        if quantized:
+            k = _dequant(k, kv_cache["k_scale"][li, :, :, :width], h.dtype)
+            v = _dequant(v, kv_cache["v_scale"][li, :, :, :width], h.dtype)
+    if prefix_kv is not None:
+        # the batch-broadcast shared prefix's columns go first, in ONE
+        # concatenation, so the softmax is that of a physically seeded
+        # prefix
+        pk, pv = prefix_kv["k"][li], prefix_kv["v"][li]   # (1, Hkv, Pc, D)
+        if "k_scale" in prefix_kv:
+            pk = _dequant(pk, prefix_kv["k_scale"][li], k.dtype)
+            pv = _dequant(pv, prefix_kv["v_scale"][li], v.dtype)
+        k = torch.cat([pk.to(k.dtype).expand(B, -1, -1, -1), k], dim=2)
+        v = torch.cat([pv.to(v.dtype).expand(B, -1, -1, -1), v], dim=2)
+        Pc = pk.shape[2]
+        bias = torch.cat([prefix_bias.float().expand(B, 1, S, Pc),
+                          bias.expand(B, 1, S, bias.shape[-1])], dim=-1)
     q = (q.float() * D ** -0.5).to(q.dtype)
     if bias is None:
         a = flash_attention_masked(q, k, v, *attn_lengths, causal=True)
@@ -211,8 +270,9 @@ def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
 
 def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
                     attn_lengths=None, bias=None, kv_cache=None,
-                    cache_index: int = 0, layers=None, lora=None,
-                    lora_scale: float = 1.0, remat: bool = False):
+                    cache_index=0, layers=None, lora=None,
+                    lora_scale: float = 1.0, remat: bool = False,
+                    prefix_kv=None, prefix_bias=None):
     """Causal forward over a whole sequence.  Exactly one of:
       * `attn_lengths` = (kv_start, kv_len) from `contiguous_lengths`:
         attention is K1 (K5 backward), causal on sequence index; with
@@ -222,8 +282,16 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
         (L, B, Hkv, T, D)): each layer writes its k/v at [cache_index,
         cache_index + S) and attention is K6 over the cache's whole width
         T, so columns seeded before the call are attended too (the serving
-        prefix install, prot2text_tpu/infer/serving.py:172-185).  Forward
-        only (K6b is not ported).
+        prefix install, prot2text_tpu/infer/serving.py:172-185).  A (B,)
+        `cache_index` writes row b's chunk at its own columns (the bf16
+        speculative verify, prot2text_tpu/infer/serving.py:503-515).
+        `prefix_kv` ({"k","v"[, scales]} (L, 1, Hkv, Pc, D)) with
+        `prefix_bias` (B, 1, 1, Pc) prepends the batch-broadcast shared
+        prefix's columns to every layer's attention operand and bias.
+        Forward only (K6b is not ported).
+    An int8 `kv_cache` ({"k","v","k_scale","v_scale"}, `init_kv_cache(
+    kv_bits=8)`) stores each layer's k/v quantized per (head, token) and
+    attends over its dequantized copy in the activations' dtype.
     `lora`: an optional LoRA tree over `params` (models/lora.py), applied
     as side paths scaled by `lora_scale`; `remat=True` recomputes each
     layer in the backward pass (training; not with a cache).  Returns (h,
@@ -232,7 +300,8 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
         raise ValueError("pass exactly one of attn_lengths and bias")
     if remat and kv_cache is not None:
         raise ValueError("remat recomputes layers; it takes no kv_cache")
-    if attn_lengths is not None and cache_index != 0:
+    if attn_lengths is not None and not (isinstance(cache_index, int)
+                                         and cache_index == 0):
         raise ValueError("attn_lengths attends slots [0, S): it takes "
                          "cache_index 0")
     if bias is not None:
@@ -241,6 +310,8 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
         if bias.shape[-1] != kv_cache["k"].shape[3]:
             raise ValueError(f"bias covers {bias.shape[-1]} key columns, "
                              f"the cache {kv_cache['k'].shape[3]}")
+    if prefix_kv is not None and (bias is None or prefix_bias is None):
+        raise ValueError("prefix_kv requires bias and prefix_bias")
     cos, sin = decoder_rope_cos_sin(cfg, positions)
     if layers is None:
         layers = layer_views(params["layers"], cfg.num_layers)
@@ -249,7 +320,7 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
     h = inputs_embeds
     for li, (lp, ll) in enumerate(zip(layers, lora_layers)):
         args = (cfg, lp, ll, lora_scale, h, cos, sin, attn_lengths, bias,
-                kv_cache, cache_index, li)
+                kv_cache, cache_index, li, prefix_kv, prefix_bias)
         if remat:
             # the block draws no random numbers: no RNG state to replay
             h = checkpoint(_block, *args, use_reentrant=False,
@@ -276,14 +347,18 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     `prefix_kv` ({"k","v"} (L, 1, Hkv, Pc, D)), the batch-broadcast shared
     prefix, with `prefix_bias` (B, 1, 1, Pc) fp32 additive over its columns,
     routes either kind of slot through K9a; the per-row prefix mask is
-    `prefix_bias >= -1e30`, as in the JAX step.  Returns (h (B, 1, H),
-    kv_cache), the cache updated in place."""
-    if "k_scale" in kv_cache:
-        raise NotImplementedError("int8 KV cache is not ported yet "
-                                  "(ROADMAP.md §1 item 11, kernels K7 and "
-                                  "K9b)")
+    `prefix_bias >= -1e30`, as in the JAX step.
+    An int8 cache ("k_scale" in kv_cache) quantizes each layer's current
+    k/v per head (`models/quant.quantize_kv`) and runs K7 per layer — K9b
+    with an int8 prefix (which then carries its scales) — for either kind
+    of slot: the kernel attends and writes the token's int8 values and
+    scales in place (prot2text_tpu/models/decoder.py:861-930).  Returns
+    (h (B, 1, H), kv_cache), the cache updated in place."""
     if prefix_kv is not None and prefix_bias is None:
         raise ValueError("prefix_kv requires prefix_bias")
+    quantized = "k_scale" in kv_cache
+    if quantized and prefix_kv is not None and "k_scale" not in prefix_kv:
+        raise ValueError("an int8 cache takes an int8 prefix (with scales)")
     B = token_embeds.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     rep = H // Hkv
@@ -291,7 +366,8 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     L = ck_all.shape[0]
     if layers is None:
         layers = layer_views(params["layers"], L)
-    lockstep = isinstance(cache_index, int) and prefix_kv is None
+    lockstep = (isinstance(cache_index, int) and prefix_kv is None
+                and not quantized)
     if prefix_kv is not None:
         pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
     cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
@@ -312,25 +388,121 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         q = apply_rope(q[:, :, None, :], cos, sin).reshape(B, H, D)
         k = apply_rope(k.reshape(B, Hkv, 1, D), cos, sin).reshape(B, Hkv, D)
         q = (q.float() * scaling).to(q.dtype)
-        qg = q.reshape(B, Hkv, rep, D)
-        k, v = k.to(qg.dtype), v.to(qg.dtype)
-        if prefix_kv is not None:
-            a = decode_attention_stacked_write_prefix(
-                qg, ck_all, cv_all, kv_mask, k, v, li, cache_index,
-                prefix_kv["k"], prefix_kv["v"], pmask)
-        elif lockstep:
-            a = decode_attention_stacked(qg, ck_all, cv_all, kv_mask, k, v,
-                                         li)
-            k_new[li] = k
-            v_new[li] = v
+        qg = q.reshape(B, Hkv, rep, D).contiguous()
+        if quantized:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            qargs = (qg, ck_all, cv_all, kv_cache["k_scale"],
+                     kv_cache["v_scale"], kv_mask, kq.contiguous(),
+                     vq.contiguous(), ks.contiguous(), vs.contiguous(), li,
+                     cache_index)
+            if prefix_kv is not None:
+                a = decode_attention_stacked_write_q_prefix(
+                    *qargs, prefix_kv["k"], prefix_kv["v"],
+                    prefix_kv["k_scale"], prefix_kv["v_scale"], pmask)
+            else:
+                a = decode_attention_stacked_write_q(*qargs)
         else:
-            a = decode_attention_stacked_write(qg, ck_all, cv_all, kv_mask,
-                                               k, v, li, cache_index)
+            k, v = k.to(qg.dtype), v.to(qg.dtype)
+            if prefix_kv is not None:
+                a = decode_attention_stacked_write_prefix(
+                    qg, ck_all, cv_all, kv_mask, k, v, li, cache_index,
+                    prefix_kv["k"], prefix_kv["v"], pmask)
+            elif lockstep:
+                a = decode_attention_stacked(qg, ck_all, cv_all, kv_mask, k,
+                                             v, li)
+                k_new[li] = k
+                v_new[li] = v
+            else:
+                a = decode_attention_stacked_write(qg, ck_all, cv_all,
+                                                   kv_mask, k, v, li,
+                                                   cache_index)
         x = x + linear(lp["o_proj"], a.to(x.dtype).reshape(B, 1, H * D))
         x = _mlp(cfg, lp, x)
     if lockstep:
         cache_slot_write_bkt(ck_all, k_new, cache_index)
         cache_slot_write_bkt(cv_all, v_new, cache_index)
+    h = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
+    return h, kv_cache
+
+
+def supports_verify_chunk_step(cfg: DecoderConfig, kv_cache, G: int) -> bool:
+    """Eligibility of the fused chunk-verify path (`decoder_verify_chunk`):
+    an int8 cache, a head dim the kernels take, G <= 32 chunk tokens of at
+    most 256 query rows, and T a multiple of 32 with room for the TPU
+    rule's 64 scratch columns (prot2text_tpu/models/decoder.py:1153-1206,
+    single-device part; its mesh and VMEM checks are TPU-only)."""
+    T = kv_cache["k"].shape[3]
+    rep = cfg.num_heads // cfg.num_kv_heads
+    return ("k_scale" in kv_cache and cfg.head_dim in HEAD_DIMS
+            and 1 <= G <= MAX_CHUNK and G * rep <= MAX_ROWS
+            and T % 32 == 0 and T >= 64)
+
+
+def decoder_verify_chunk(cfg: DecoderConfig, params, *, token_embeds,
+                         kv_mask, positions, kv_cache, cache_index,
+                         layers=None, prefix_kv=None, prefix_bias=None):
+    """Fused G-token chunk verify for speculative serving over an int8
+    cache (prot2text_tpu/models/decoder.py:1209-1398): token_embeds
+    (B, G, H); kv_mask (B, T) over already-written columns (the chunk's own
+    must be 0); positions (B, G); cache_index (B,) chunk starts.  Per
+    layer, the chunk's k/v are quantized and K8 (K9c with the int8
+    `prefix_kv` and `prefix_bias`) attends [prefix ‖ cache ‖ causal chunk]
+    for all G·rep query rows (row g·rep + r) and writes the chunk's G int8
+    rows and scales in place.  Callers gate on
+    `supports_verify_chunk_step`.  Returns (h (B, G, H), kv_cache)."""
+    if prefix_kv is not None and prefix_bias is None:
+        raise ValueError("prefix_kv requires prefix_bias")
+    B, G, _ = token_embeds.shape
+    if not supports_verify_chunk_step(cfg, kv_cache, G):
+        raise ValueError("decoder_verify_chunk needs an int8 cache the "
+                         "chunk-verify kernels take (supports_verify_chunk_"
+                         "step)")
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rep = H // Hkv
+    if layers is None:
+        layers = layer_views(params["layers"], cfg.num_layers)
+    slots = torch.as_tensor(cache_index).to(token_embeds.device)
+    # the largest chunk start, read once per call for every layer's bound
+    # check (one device→host read instead of one per layer)
+    slots_max = int(slots.max())
+    if prefix_kv is not None:
+        pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
+        pargs = (prefix_kv["k"], prefix_kv["v"], prefix_kv["k_scale"],
+                 prefix_kv["v_scale"], pmask)
+    cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, G, D)
+    scaling = D ** -0.5
+    x = token_embeds
+    for li, lp in enumerate(layers):
+        xn = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
+        q = linear(lp["q_proj"], xn).reshape(B, G, H, D)
+        k = linear(lp["k_proj"], xn).reshape(B, G, Hkv, D)
+        v = linear(lp["v_proj"], xn).reshape(B, G, Hkv, D)
+        if cfg.qk_norm:
+            q = rms_norm(lp["q_norm"], q, cfg.rms_norm_eps)
+            k = rms_norm(lp["k_norm"], k, cfg.rms_norm_eps)
+        q = apply_rope(q.transpose(1, 2), cos, sin)        # (B, H, G, D)
+        k = apply_rope(k.transpose(1, 2), cos, sin)        # (B, Hkv, G, D)
+        q = (q.float() * scaling).to(q.dtype)
+        # kernel row order g·rep + r: (B, H, G, D) → (B, Hkv, G·rep, D)
+        qg = q.reshape(B, Hkv, rep, G, D).transpose(2, 3).reshape(
+            B, Hkv, G * rep, D).contiguous()
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v.transpose(1, 2))
+        qargs = (qg, kv_cache["k"], kv_cache["v"], kv_cache["k_scale"],
+                 kv_cache["v_scale"], kv_mask, kq.contiguous(),
+                 vq.contiguous(), ks.contiguous(), vs.contiguous(), li,
+                 slots)
+        if prefix_kv is not None:
+            a = decode_attention_stacked_verify_qc_prefix(
+                *qargs, *pargs, slots_max=slots_max)
+        else:
+            a = decode_attention_stacked_verify_qc(*qargs,
+                                                   slots_max=slots_max)
+        a = a.reshape(B, Hkv, G, rep, D).transpose(1, 2).reshape(
+            B, G, H * D)
+        x = x + linear(lp["o_proj"], a.to(x.dtype))
+        x = _mlp(cfg, lp, x)
     h = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
     return h, kv_cache
 

@@ -69,6 +69,17 @@ def test_generate_instruct_cpu_end_to_end(instruct_root, csv_path, tmp_path):
     assert data["P00001"]["true"] == "Electron carrier protein."
 
 
+def test_generate_instruct_kv_bits_8_cpu(instruct_root, csv_path, tmp_path):
+    """--kv_bits 8 (formerly refused) generates through the int8 cache."""
+    out = main(["--data_root", instruct_root, "--test_csv", csv_path,
+                "--device", "cpu", "--debug_tiny_model", "true",
+                "--model_dtype", "fp32", "--batch_size", "2",
+                "--max_new_tokens", "4", "--kv_bits", "8",
+                "--output_dir", str(tmp_path / "res")])
+    assert len(out) == 4
+    assert all(set(v) == {"true", "pred"} for v in out.values())
+
+
 @pytest.mark.cuda
 def test_generate_instruct_cuda_end_to_end(instruct_root, csv_path,
                                            tmp_path):
@@ -93,7 +104,6 @@ BASE = ["--data_root", "unused", "--test_csv", "unused.csv",
 
 @pytest.mark.parametrize("flags", [
     ["--use_graph", "true"],
-    ["--kv_bits", "8"],
     ["--num_beams", "2"],
     ["--prompt_lookup_tokens", "3"],
     ["--load_checkpoint_dir", "ckpt"],

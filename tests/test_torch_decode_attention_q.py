@@ -1,0 +1,329 @@
+"""The int8 KV cache: `quantize_kv` and `init_kv_cache(kv_bits=8)` against
+the JAX package, and K7, K9b (one token per row) and K8, K9c (a G-token
+speculative chunk per row), whose plain versions are held against the JAX
+Pallas kernels in interpret mode (f32 qg: attention atol 1e-5; int8 caches
+and scales bit-exact after the write); K9b/K9c against K7/K8 on the same
+prefix physically placed in the cache; the CUDA kernels against the plain
+versions on the card (bf16 2e-2, caches and scales bit-exact)."""
+
+import numpy as np
+import pytest
+import torch
+
+from prot2text_tpu_torch.infer.kvcache import init_kv_cache
+from prot2text_tpu_torch.kernels.decode_attention import (
+    decode_attention_stacked_verify_qc,
+    decode_attention_stacked_verify_qc_plain,
+    decode_attention_stacked_verify_qc_prefix,
+    decode_attention_stacked_verify_qc_prefix_plain,
+    decode_attention_stacked_write_q, decode_attention_stacked_write_q_plain,
+    decode_attention_stacked_write_q_prefix,
+    decode_attention_stacked_write_q_prefix_plain,
+)
+from prot2text_tpu_torch.models.decoder import DecoderConfig
+from prot2text_tpu_torch.models.quant import quantize_kv
+
+ATOL = 1e-5
+L, B, Hkv, T = 2, 4, 2, 96
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def test_quantize_kv_bit_exact_with_jax():
+    """Values and scales bit-exact, with an all-zero vector (scale
+    1e-8/127, values 0) and exact .5 ties (round half to even)."""
+    import jax.numpy as jnp
+
+    from prot2text_tpu.models.quant import quantize_kv as j_quantize
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((3, 2, 5, 64)) * 3).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    # max |x| = 127 → scale 1, so x/scale lands on exact .5 ties
+    x[1, 1, 2] = np.linspace(-127, 127, 64).astype(np.float32)
+    x[1, 1, 2, :6] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5]
+    x[1, 1, 2, 6] = 127.0
+    q, s = quantize_kv(torch.from_numpy(x))
+    jq, js = j_quantize(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert q.dtype == torch.float32 and s.shape == (3, 2, 5)
+    np.testing.assert_array_equal(q[1, 1, 2, :6].numpy(),
+                                  [0, 2, 2, -0, -2, -2])
+    assert (q[0, 0, 0] == 0).all() and s[0, 0, 0] == np.float32(1e-8) / 127
+
+
+def test_init_kv_cache_int8():
+    cfg = DecoderConfig(vocab_size=8, hidden_size=16, num_layers=3,
+                        num_heads=4, num_kv_heads=2, intermediate_size=32,
+                        head_dim=64)
+    c = init_kv_cache(cfg, 2, 64, device="cpu", dtype=torch.bfloat16,
+                      kv_bits=8)
+    assert set(c) == {"k", "v", "k_scale", "v_scale"}
+    for n in ("k", "v"):
+        assert c[n].dtype == torch.int8 and c[n].shape == (3, 2, 2, 64, 64)
+        assert (c[n] == 0).all()
+    for n in ("k_scale", "v_scale"):
+        assert c[n].dtype == torch.float32 and c[n].shape == (3, 2, 2, 64)
+        assert (c[n] == 1.0).all()
+    with pytest.raises(ValueError, match="kv_bits"):
+        init_kv_cache(cfg, 2, 64, device="cpu", kv_bits=4)
+
+
+def _cache(rng, D, Pc):
+    """An int8 pool and prefix with positive per-column scales."""
+    ck = rng.integers(-127, 128, (L, B, Hkv, T, D)).astype(np.int8)
+    cv = rng.integers(-127, 128, (L, B, Hkv, T, D)).astype(np.int8)
+    sk = rng.uniform(0.002, 0.03, (L, B, Hkv, T)).astype(np.float32)
+    sv = rng.uniform(0.002, 0.03, (L, B, Hkv, T)).astype(np.float32)
+    pk = rng.integers(-127, 128, (L, 1, Hkv, Pc, D)).astype(np.int8)
+    pv = rng.integers(-127, 128, (L, 1, Hkv, Pc, D)).astype(np.int8)
+    psk = rng.uniform(0.002, 0.03, (L, 1, Hkv, Pc)).astype(np.float32)
+    psv = rng.uniform(0.002, 0.03, (L, 1, Hkv, Pc)).astype(np.float32)
+    # per-row prefix validity: full, left-padded, none (a full-prompt
+    # request in a dedup pool), full
+    pmask = np.ones((B, Pc), np.int32)
+    pmask[1, :Pc // 2] = 0
+    pmask[2] = 0
+    return [ck, cv, sk, sv], [pk, pv, psk, psv, pmask]
+
+
+def _new(rng, rep, D, G):
+    """qg (B, Hkv, G·rep, D) pre-scaled f32 and the chunk's quantized
+    k/v (B, Hkv, G[, D]) from `quantize_kv`.  qg holds multiples of 2^-8,
+    so every q·k_int is exact in fp32 whatever the summation order: the
+    two frameworks' logits agree bit for bit, and the bf16 rounding of the
+    weights cannot flip on an order-of-summation difference."""
+    q = np.round(rng.standard_normal((B, Hkv, G * rep, D)) * D ** -0.5
+                 * 256).astype(np.float32) / 256
+    kq, ks = quantize_kv(torch.from_numpy(
+        rng.standard_normal((B, Hkv, G, D)).astype(np.float32)))
+    vq, vs = quantize_kv(torch.from_numpy(
+        rng.standard_normal((B, Hkv, G, D)).astype(np.float32)))
+    return q, [kq.numpy(), vq.numpy(), ks.numpy(), vs.numpy()]
+
+
+def _mask(rng, starts, G):
+    mask = rng.integers(0, 2, (B, T)).astype(np.int32)
+    mask[-1] = 0                 # an empty cache row: only the new tokens
+    for b, s in enumerate(np.broadcast_to(starts, (B,))):
+        mask[b, s:s + G] = 0     # the written columns are still unwritten
+    return mask
+
+
+def _t(arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _j(arrays):
+    import jax.numpy as jnp
+
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _check(got, want, caches):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want[0]), atol=ATOL,
+                               rtol=ATOL)
+    for t, w in zip(caches, want[1:]):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(w))
+
+
+SLOTS = {"distinct": np.array([5, 40, 9, 63], np.int32),
+         # every inactive serving row writes the scratch column
+         "repeated": np.array([T - 1, 3, T - 1, T - 1], np.int32),
+         "scalar": 12}
+
+
+@pytest.mark.parametrize("rep,D", [(1, 64), (5, 128)])
+@pytest.mark.parametrize("kind", ["distinct", "repeated", "scalar"])
+def test_k7_plain_matches_pallas_interpret(rep, D, kind):
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_write_q as j_k7,
+    )
+
+    rng = np.random.default_rng([rep, D, len(kind)])
+    slots = SLOTS[kind]
+    cache, _ = _cache(rng, D, 32)
+    q, new = _new(rng, rep, D, 1)
+    new = [new[0][:, :, 0], new[1][:, :, 0], new[2][:, :, 0],
+           new[3][:, :, 0]]
+    mask = _mask(rng, slots, 1)
+    layer = 1
+    want = j_k7(*_j([q, *cache, mask, *new]), layer, np.asarray(slots),
+                interpret=True)
+    tc = _t(cache)
+    got = decode_attention_stacked_write_q(
+        torch.from_numpy(q), *tc, torch.from_numpy(mask), *_t(new), layer,
+        slots if kind == "scalar" else torch.from_numpy(slots))
+    _check(got, want, tc)
+
+
+@pytest.mark.parametrize("rep,D,Pc", [(1, 64, 32), (5, 128, 128),
+                                      (5, 64, 32)])
+@pytest.mark.parametrize("kind", ["distinct", "scalar"])
+def test_k9b_plain_matches_pallas_interpret(rep, D, Pc, kind):
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_write_q_prefix as j_k9b,
+    )
+
+    rng = np.random.default_rng([rep, D, Pc, len(kind)])
+    slots = SLOTS[kind]
+    cache, prefix = _cache(rng, D, Pc)
+    q, new = _new(rng, rep, D, 1)
+    new = [x[:, :, 0] for x in new]
+    mask = _mask(rng, slots, 1)
+    layer = 0
+    want = j_k9b(*_j([q, *cache, mask, *new]), layer, np.asarray(slots),
+                 *_j(prefix), interpret=True)
+    tc = _t(cache)
+    got = decode_attention_stacked_write_q_prefix(
+        torch.from_numpy(q), *tc, torch.from_numpy(mask), *_t(new), layer,
+        slots if kind == "scalar" else torch.from_numpy(slots),
+        *_t(prefix))
+    _check(got, want, tc)
+
+
+def _placed(cache, prefix, mask):
+    """The prefix physically placed in front of every row's cache."""
+    ck, cv, sk, sv = cache
+    pk, pv, psk, psv, pmask = prefix
+    cat = [torch.cat([p.expand(L, B, *p.shape[2:]), c], dim=3)
+           for p, c in ((pk, ck), (pv, cv), (psk, sk), (psv, sv))]
+    return cat, torch.cat([pmask, mask], dim=1)
+
+
+@pytest.mark.parametrize("G", [1, 5])
+def test_prefix_variants_equal_placed_prefix(G):
+    """K9b/K9c on a prefix read as a shared operand equal K7/K8 on the
+    same prefix physically placed in the cache (slots shifted by Pc), and
+    write the same cache columns."""
+    rng = np.random.default_rng(G)
+    Pc = 32
+    cache, prefix = _cache(rng, 64, Pc)
+    q, new = _new(rng, 5, 64, G)
+    slots = np.array([5, 40, 9, 60], np.int32)
+    mask = torch.from_numpy(_mask(rng, slots, G))
+    tc, tp = _t(cache), _t(prefix)
+    placed, pmask = _placed(tc, tp, mask)
+    tq, tn = torch.from_numpy(q), _t(new)
+    s = torch.from_numpy(slots)
+    if G == 1:
+        tn = [x[:, :, 0] for x in tn]
+        got = decode_attention_stacked_write_q_prefix_plain(
+            tq, *tc, mask, *tn, 1, s, *tp)
+        want = decode_attention_stacked_write_q_plain(
+            tq, *placed, pmask, *tn, 1, s + Pc)
+    else:
+        got = decode_attention_stacked_verify_qc_prefix_plain(
+            tq, *tc, mask, *tn, 1, s, *tp)
+        want = decode_attention_stacked_verify_qc_plain(
+            tq, *placed, pmask, *tn, 1, s + Pc)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=ATOL)
+    for c, p in zip(tc, placed):
+        assert torch.equal(c, p[:, :, :, Pc:])
+
+
+# chunk starts: distinct; one crossing a 32-column boundary (30 + G);
+# inactive rows on the scratch tail T - 64 (the serving engine's rule)
+VERIFY_SLOTS = np.array([5, 30, T - 64, T - 64], np.int32)
+
+
+@pytest.mark.parametrize("G", [2, 5, 8])
+@pytest.mark.parametrize("rep,D", [(1, 64), (5, 128)])
+def test_k8_plain_matches_pallas_interpret(G, rep, D):
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_verify_qc as j_k8,
+    )
+
+    rng = np.random.default_rng(100 * G + rep)
+    cache, _ = _cache(rng, D, 32)
+    q, new = _new(rng, rep, D, G)
+    mask = _mask(rng, VERIFY_SLOTS, G)
+    layer = 1
+    want = j_k8(*_j([q, *cache, mask, *new]), layer,
+                np.asarray(VERIFY_SLOTS), interpret=True)
+    tc = _t(cache)
+    got = decode_attention_stacked_verify_qc(
+        torch.from_numpy(q), *tc, torch.from_numpy(mask), *_t(new), layer,
+        torch.from_numpy(VERIFY_SLOTS))
+    _check(got, want, tc)
+
+
+@pytest.mark.parametrize("G,Pc", [(2, 32), (5, 128), (8, 32)])
+def test_k9c_plain_matches_pallas_interpret(G, Pc):
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_verify_qc_prefix as j_k9c,
+    )
+
+    rng = np.random.default_rng(7 * G + Pc)
+    cache, prefix = _cache(rng, 128, Pc)
+    q, new = _new(rng, 5, 128, G)
+    mask = _mask(rng, VERIFY_SLOTS, G)
+    layer = 0
+    want = j_k9c(*_j([q, *cache, mask, *new]), layer,
+                 np.asarray(VERIFY_SLOTS), *_j(prefix), interpret=True)
+    tc = _t(cache)
+    got = decode_attention_stacked_verify_qc_prefix(
+        torch.from_numpy(q), *tc, torch.from_numpy(mask), *_t(new), layer,
+        torch.from_numpy(VERIFY_SLOTS), *_t(prefix))
+    _check(got, want, tc)
+
+
+def test_chunk_past_the_cache_raises():
+    rng = np.random.default_rng(3)
+    cache, _ = _cache(rng, 64, 32)
+    q, new = _new(rng, 1, 64, 4)
+    with pytest.raises(ValueError, match="written columns"):
+        decode_attention_stacked_verify_qc(
+            torch.from_numpy(q), *_t(cache),
+            torch.zeros((B, T), dtype=torch.int32), *_t(new), 0,
+            torch.tensor([0, 0, 0, T - 3], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,rep,D", [(1, 5, 128), (1, 8, 64), (5, 5, 128),
+                                     (8, 5, 128), (3, 1, 16)])
+@pytest.mark.parametrize("prefix", [False, True])
+def test_kernels_match_plain_on_cuda(cuda, G, rep, D, prefix):
+    """bf16 qg: attention within 2e-2 of the fp32 plain version on the same
+    inputs; int8 caches and scales bit-exact after the write."""
+    rng = np.random.default_rng(11 * G + D)
+    cache, pfx = _cache(rng, D, 32)
+    q, new = _new(rng, rep, D, G)
+    slots = VERIFY_SLOTS if G > 1 else SLOTS["repeated"]
+    mask = torch.from_numpy(_mask(rng, slots, G)).to(cuda)
+    tn = [t.to(cuda) for t in _t(new)]
+    if G == 1:
+        tn = [x[:, :, 0].contiguous() for x in tn]
+    tq = torch.from_numpy(q).to(cuda)
+    tp = [t.to(cuda) for t in _t(pfx)]
+    s = torch.from_numpy(slots).to(cuda)
+    kern = {(1, False): decode_attention_stacked_write_q,
+            (1, True): decode_attention_stacked_write_q_prefix,
+            (0, False): decode_attention_stacked_verify_qc,
+            (0, True): decode_attention_stacked_verify_qc_prefix}[
+                (int(G == 1), prefix)]
+    plain = {(1, False): decode_attention_stacked_write_q_plain,
+             (1, True): decode_attention_stacked_write_q_prefix_plain,
+             (0, False): decode_attention_stacked_verify_qc_plain,
+             (0, True): decode_attention_stacked_verify_qc_prefix_plain}[
+                 (int(G == 1), prefix)]
+    for layer in (0, L - 1):
+        gc = [t.to(cuda) for t in _t(cache)]
+        wc = [t.clone() for t in gc]
+        n0 = kern.launches
+        got = kern(tq.bfloat16(), *gc, mask, *tn, layer, s,
+                   *(tp if prefix else ()))
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 1
+        want = plain(tq.bfloat16().float(), *wc, mask, *tn, layer, s,
+                     *(tp if prefix else ()))
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+        for a, b in zip(gc, wc):
+            assert torch.equal(a, b)

@@ -199,8 +199,9 @@ def test_sampling_is_seeded_and_unported_modes_raise():
         tm.generate(**batch, max_new_tokens=3, num_beams=2)
     with pytest.raises(NotImplementedError, match="prompt-lookup"):
         tm.generate(**batch, max_new_tokens=3, prompt_lookup_tokens=2)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tm.generate(**batch, max_new_tokens=3, kv_bits=8)
+    # the int8 KV cache is ported: it decodes (K7's plain version here)
+    t8 = tm.generate(**batch, max_new_tokens=3, kv_bits=8)
+    assert t8.shape == (2, 3) and int(t8.max()) < 264
     bad = dict(batch, protein_attention_mask=torch.ones_like(
         batch["protein_attention_mask"]))
     with pytest.raises(ValueError, match="placeholder"):

@@ -1,6 +1,7 @@
-"""The port never imports JAX: a fresh interpreter imports the package,
-every module of the ported slice and chip_smoke.py, and `jax` must stay out
-of sys.modules."""
+"""The port never imports JAX nor the JAX package: a fresh interpreter
+imports the package, every module of the ported slice and chip_smoke.py,
+and neither `jax` nor `prot2text_tpu` (or any of their submodules) may be
+in sys.modules afterwards."""
 
 import os
 import subprocess
@@ -14,6 +15,12 @@ MODULES = [
     "prot2text_tpu_torch.core.device",
     "prot2text_tpu_torch.core.dtypes",
     "prot2text_tpu_torch.core.observe",
+    "prot2text_tpu_torch.data",
+    "prot2text_tpu_torch.data.chat",
+    "prot2text_tpu_torch.data.collate",
+    "prot2text_tpu_torch.data.dataset",
+    "prot2text_tpu_torch.data.sampler",
+    "prot2text_tpu_torch.data.tokenization",
     "prot2text_tpu_torch.kernels",
     "prot2text_tpu_torch.kernels._build",
     "prot2text_tpu_torch.kernels.attention",
@@ -29,6 +36,7 @@ MODULES = [
     "prot2text_tpu_torch.models.fusion",
     "prot2text_tpu_torch.models.llama",
     "prot2text_tpu_torch.models.lora",
+    "prot2text_tpu_torch.models.quant",
     "prot2text_tpu_torch.models.qwen3",
     "prot2text_tpu_torch.models.transformer",
     "prot2text_tpu_torch.models.weights",
@@ -50,7 +58,9 @@ SCRIPT = """
 import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "prot2text_tpu")
+             or m.startswith(("jax.", "prot2text_tpu.")))
 assert not bad, bad
 print("ok", len(sys.argv) - 1)
 """

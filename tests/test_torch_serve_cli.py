@@ -1,6 +1,8 @@
 """The port's serving CLI on a tiny CSV on the CPU (and, where there is one,
 on the GPU through K1/K6/K9a, or K4 with --shared_prefix false): the JSON
-it writes, its descriptions/hour line, the shared prefix it discovers; a
+it writes, its descriptions/hour line, the shared prefix it discovers; the
+int8 pool and prompt-lookup speculation (--kv_bits 8,
+--prompt_lookup_tokens, the controller flags); a
 checkpoint written by the port's training CLI served through
 --load_sft_checkpoint_dir; the flags it refuses; the missing-GPU error."""
 
@@ -54,6 +56,35 @@ def test_serve_cpu_end_to_end(csv_path, tmp_path, capsys, extra):
     assert all(isinstance(r["pred"], str) for r in saved.values())
 
 
+@pytest.mark.parametrize("extra", [
+    ["--kv_bits", "8"], ["--prompt_lookup_tokens", "3"],
+    ["--kv_bits", "8", "--prompt_lookup_tokens", "3"],
+    ["--kv_bits", "8", "--prompt_lookup_tokens", "3", "--shared_prefix",
+     "false", "--spec_break_even", "100", "--spec_probe_every", "2"]],
+    ids=["kv8", "spec", "kv8_spec", "kv8_spec_controller"])
+def test_serve_int8_and_speculative_cpu(csv_path, tmp_path, capsys, extra):
+    """--kv_bits 8 and --prompt_lookup_tokens (formerly refused) serve every
+    record and write the JSON; speculative runs print their acceptance."""
+    results = cli.main(_args(csv_path, tmp_path, *extra))
+    out = capsys.readouterr().out
+    assert "descriptions/hour" in out
+    assert ("verify rounds accepting" in out) == (
+        "--prompt_lookup_tokens" in extra)
+    with open(tmp_path / "generation_serve_0.json") as f:
+        saved = json.load(f)
+    assert saved == results and len(saved) == 5
+    assert all(isinstance(r["pred"], str) for r in saved.values())
+
+
+def test_speculative_serving_keeps_the_greedy_tokens(csv_path, tmp_path):
+    """On the bf16 pool in fp32, prompt-lookup speculation is an exact
+    shortcut: the same greedy predictions as plain serving."""
+    plain = cli.main(_args(csv_path, tmp_path / "plain"))
+    spec = cli.main(_args(csv_path, tmp_path / "spec",
+                          "--prompt_lookup_tokens", "3"))
+    assert spec == plain
+
+
 def test_prefix_modes_serve_the_same_greedy_tokens(csv_path, tmp_path):
     """Shared prefix (dedup or replicated) or none, the greedy predictions
     are the same: the prefix is an exact shortcut."""
@@ -101,9 +132,7 @@ BASE = ["--test_csv", "unused.csv", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--kv_bits", "8"], "item 11, kernels K7/K9b"),
-    (["--prompt_lookup_tokens", "3"], "item 11, kernels K8/K9c"),
-    (["--medusa_path", "heads.npz"], "item 11, kernels K8/K9c"),
+    (["--medusa_path", "heads.npz"], "item 11, Medusa serving"),
     (["--load_peft_adapter_dir", "peft"], "item 11"),
     (["--llm_checkpoint_dir", "qwen3"], "item 1"),
     (["--tp", "2"], "item 14"),

@@ -261,11 +261,27 @@ def test_engine_refusals():
     ).tree()
     kw = dict(max_slots=1, max_len=12, prompt_pad=8,
               cache_dtype=torch.float32)
-    for bad, match in ((dict(kv_bits=8), "item 11"),
-                       (dict(prompt_lookup_tokens=3), "K8"),
-                       (dict(medusa_params={"w": None}), "item 11")):
-        with pytest.raises(NotImplementedError, match=match):
-            tserv.ContinuousBatcher(tcfg, tparams, **kw, **bad)
+    # the int8 pool and prompt-lookup speculation are ported: they build
+    # the JAX engine's state (T a multiple of 32, 64 scratch columns under
+    # speculation on an int8 pool); Medusa still refuses
+    eng = tserv.ContinuousBatcher(tcfg, tparams, **kw, kv_bits=8)
+    assert eng.state["k"].dtype == torch.int8
+    assert eng.state["k_scale"].shape == eng.state["k"].shape[:4]
+    assert eng.state["kv_mask"].shape[1] == 32
+    eng = tserv.ContinuousBatcher(tcfg, tparams, **kw, kv_bits=8,
+                                  prompt_lookup_tokens=3)
+    assert eng.state["kv_mask"].shape[1] == 96 and eng._spec_fused
+    eng = tserv.ContinuousBatcher(tcfg, tparams, **kw,
+                                  prompt_lookup_tokens=3)
+    assert eng.state["hist"].shape == (1, 12 - 8 + 3 + 2)
+    assert not eng._spec_fused
+    with pytest.raises(NotImplementedError, match="item 11: Medusa"):
+        tserv.ContinuousBatcher(tcfg, tparams, **kw,
+                                medusa_params={"w": None})
+    with pytest.raises(ValueError, match="greedy-only"):
+        tserv.ContinuousBatcher(
+            tcfg, tparams, **kw, prompt_lookup_tokens=3,
+            gen_cfg=GenerationConfig(do_sample=True))
     with pytest.raises(ValueError, match="prefix_dedup"):
         tserv.ContinuousBatcher(tcfg, tparams, **kw, prefix_dedup=True)
     eng = tserv.ContinuousBatcher(tcfg, tparams, **kw, eos_token_id=-1)

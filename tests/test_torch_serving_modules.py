@@ -286,13 +286,36 @@ def test_decode_step_scalar_slot_keeps_lockstep_split_write():
         assert torch.equal(c0[n], c1[n])
 
 
-def test_decode_step_int8_cache_names_its_kernels():
+def test_decode_step_int8_cache_names_its_kernels(monkeypatch):
+    """An int8 cache routes every layer's decode through K7 (per-row slots)
+    or K9b (with an int8 shared prefix), never the bf16 kernels, and the
+    token's int8 values and scales land in its slot."""
+    from prot2text_tpu_torch.infer.kvcache import init_kv_cache
+
     _, tcfg, params = _qwen(16)
-    cache = {n: torch.zeros(2, 1, 2, 8, 16) for n in ("k", "v")}
-    cache.update({n: torch.ones(2, 1, 2, 8) for n in ("k_scale", "v_scale")})
-    with pytest.raises(NotImplementedError, match="K7 and K9b"):
+    calls = []
+    for name in ("decode_attention_stacked",
+                 "decode_attention_stacked_write",
+                 "decode_attention_stacked_write_prefix",
+                 "decode_attention_stacked_write_q",
+                 "decode_attention_stacked_write_q_prefix"):
+        fn = getattr(td, name)
+        monkeypatch.setattr(td, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    pcache = init_kv_cache(tcfg.core(), 1, 8, device="cpu", kv_bits=8)
+    for prefix in (None, pcache):
+        calls.clear()
+        cache = init_kv_cache(tcfg.core(), 1, 8, device="cpu", kv_bits=8)
+        kw = {} if prefix is None else dict(
+            prefix_kv=prefix, prefix_bias=torch.zeros(1, 1, 1, 8))
         td.decoder_decode_step(
-            tcfg.core(), _t(params), token_embeds=torch.zeros(1, 1, 64),
+            tcfg.core(), _t(params), token_embeds=torch.ones(1, 1, 64),
             kv_mask=torch.zeros(1, 8, dtype=torch.int32),
             positions=torch.zeros(1, 1, dtype=torch.long), kv_cache=cache,
-            cache_index=torch.zeros(1, dtype=torch.long))
+            cache_index=torch.full((1,), 3, dtype=torch.long), **kw)
+        kernel = ("decode_attention_stacked_write_q" if prefix is None
+                  else "decode_attention_stacked_write_q_prefix")
+        assert calls == [kernel] * 2
+        assert cache["k"].dtype == torch.int8
+        assert int(cache["k"][:, 0, :, 3].abs().amax()) == 127
+        assert bool((cache["k_scale"][:, 0, :, 3] != 1.0).all())
