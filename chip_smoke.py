@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
      attention, K3 cache slot write, K4 decode attention + per-row slot
      write, K5 flash backward, K6 bias flash prefill, K9a K4 over a shared
      prefix; on the int8 cache K7 decode + slot write, K9b K7 over an int8
-     prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix)
+     prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix;
+     K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections)
      against its plain PyTorch version on the same bf16 inputs computed in
      fp32, at the paths' own shapes, with median CUDA-event times of both,
      the bound (the larger of the bytes at the HBM rate and the operations
@@ -34,7 +35,7 @@ Phases (any failure raises and the script exits non-zero):
      CLI defaults to 256); exact K1/K6/K9a launch counts from the engine's
      own counters; then a short run with the shared prefix off (K4) and a
      short profiled one;
-  4c. int8 and speculative serving through the same model and loop: (a)
+  4c. int8-KV and speculative serving through the same model and loop: (a)
      `--kv_bits 8 --prompt_lookup_tokens 4` with the deduplicated prefix,
      16 x 128 (K9c per verify round); (b) `--kv_bits 8`, the same 16
      requests (K9b per decode step, beside 4b's bf16 pool); (c) `--kv_bits
@@ -43,11 +44,21 @@ Phases (any failure raises and the script exits non-zero):
      step of the controller's fallback); (d) `--prompt_lookup_tokens 4` on
      the bf16 pool, 8 x 32 (K6 per verify round); exact launch counts;
      then two short profiled int8 runs, plain and speculative;
+  4d. weight-quantized serving (the bf16 model freed first): the towers
+     built by `build_server` with `--model_dtype int4` (bf16, then int4
+     nibble planes) serve (e) `--kv_bits 8`, 16 x 128 (K10 per projection
+     and head, K9b) and (g) `--kv_bits 8 --prompt_lookup_tokens 4`, 8 x 32
+     (K10 at 40 rows, K9c), then a short profiled run; `--model_dtype int8`
+     serves (f) the 16 requests of (e) on the bf16 pool (K14, K9a); exact
+     K10/K14 counts from the engine's counters (`quant_launches`), each
+     build's and run's peak;
   5. plumbing: tiny f32 models on `cuda` (kernels) against the same models
      on `cpu` (plain versions): prefill and first decode-step logits, one
      SFT step's loss and LoRA gradients, a serving engine's install logits
      and tokens (K1, K4, K6, K9a), a speculative bf16-pool engine's tokens,
-     and an int8 engine's decode-step and verify-round logits (K7, K8).
+     an int8 engine's decode-step and verify-round logits (K7, K8), and
+     int4 and int8 weight engines' decode-step and verify-round logits
+     and tokens (K10, K14).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device contract `{"ok": true, "device": {...}}`.
@@ -96,6 +107,20 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, calls: int = 10) -> float:
+    """Median device time of one fn() in milliseconds, from a CUDA graph of
+    `calls` back-to-back calls: the host's per-call launch cost (Python
+    checks, allocations, the ctypes call), which exceeds a microsecond-scale
+    kernel, is left out of the window."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(torch, graph.replay) / calls
 
 
 # the card's peaks for the bound column (NVIDIA's H100 SXM data sheet, dense)
@@ -615,6 +640,105 @@ def check_int8_kernels(torch, dev, card):
     return rows
 
 
+# Qwen3-14B's projections (K, N) and the rows the serving path gives them:
+# 8 (a decode step at B 8), 40 (a γ-4 verify round), the head at 8
+QUANT_SHAPES = (("q/o", 5120, 5120, (8, 40)), ("k/v", 5120, 1024, (8, 40)),
+                ("gate/up", 5120, 17408, (8, 40)),
+                ("down", 17408, 5120, (8, 40)), ("head", 5120, 151936, (8,)))
+
+
+def check_quant_kernels(torch, dev, card):
+    """K10 (int4 nibble planes) and K14 (int8) against their plain versions
+    at Qwen3-14B's projection shapes, bf16 x against the fp32 plain version
+    on the same values: max|kernel - plain| <= 2e-2 · max|plain| (the int
+    values are exact in bf16; only the output's bf16 rounding and the order
+    of the fp32 sums differ); the stacked entry point at layer 2 of a
+    3-layer buffer.  The library column is one `torch.matmul` of x with the
+    weight dequantized to bf16 before the timed region (the port never
+    calls it).  Times are device time per call from CUDA graphs
+    (`graph_ms`); at these sizes an eager call's host cost exceeds the
+    kernel's, and the eager time is printed beside it.  The row keeps the
+    gate/up shape's times at R 8, the step's largest projection, and the
+    largest absolute error of any shape."""
+    from prot2text_tpu_torch.kernels import quant_matmul as qm
+    from prot2text_tpu_torch.models.quant import dequantize_kernel
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+    rows = {}
+    for kid, bits, kern, stacked, plain in (
+            ("K10", 4, qm.quant_matmul_int4_planes,
+             qm.quant_matmul_int4_planes_stacked,
+             qm.quant_matmul_int4_planes_plain),
+            ("K14", 8, qm.quant_matmul_int8, qm.quant_matmul_int8_stacked,
+             qm.quant_matmul_int8_plain)):
+        lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+        key = "kernel_q4p" if bits == 4 else "kernel_q"
+        worst = 0.0
+        for name, K, N, Rs in QUANT_SHAPES:
+            q = torch.randint(lo, hi, (K, N), generator=g, device=dev,
+                              dtype=torch.int8)
+            w = qm.pack_int4_planes(q) if bits == 4 else q
+            del q
+            scale = torch.rand((1, N), generator=g, device=dev) * 0.03 + 2e-3
+            wd = dequantize_kernel({key: w, "scale": scale}, torch.bfloat16)
+            for R in Rs:
+                x = torch.randn((R, K), generator=g, device=dev).to(
+                    torch.bfloat16)
+                y = kern(x, w, scale)
+                torch.cuda.synchronize()
+                want = plain(x.float(), w, scale)
+                err = (y.float() - want).abs().max().item()
+                top = want.abs().max().item()
+                require(bool(torch.isfinite(y).all()) and err <= 2e-2 * top,
+                        f"{kid} {name} R={R}: max|err| {err} > 2e-2 * "
+                        f"max|plain| {top}")
+                worst = max(worst, err)
+                ms = graph_ms(torch, lambda: kern(x, w, scale))
+                plain_ms = graph_ms(torch, lambda: plain(x, w, scale),
+                                    calls=2)
+                lib_ms = graph_ms(torch, lambda: torch.matmul(x, wd))
+                host_ms = cuda_ms(torch, lambda: kern(x, w, scale), iters=20)
+                # W, its scales and x read once, y written once
+                bd = bound(2.0 * R * K * N,
+                           nbytes(w, scale, x) + R * N * x.element_size())
+                log(f"{kid} {'int4 planes' if bits == 4 else 'int8'} {name} "
+                    f"R={R} K={K} N={N} bf16 x: max|y-plain|/max|plain| "
+                    f"{err / top:.3e} (2e-2); device time per call (CUDA "
+                    f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"torch.matmul on the bf16 dequantized weight "
+                    f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                    f"({bd['bound_by']}) = {bd['bound_ms'] / ms:.1%}; one "
+                    f"eager call with its host cost {host_ms:.4f} ms "
+                    f"[{card}]")
+                if name == "gate/up" and R == 8:
+                    rows[kid] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, **bd)
+                del x, y, want
+            del w, scale, wd
+        # the stacked entry point reads layer 2 of an (L, ...) buffer in place
+        K, N = 5120, 5120
+        q = torch.randint(lo, hi, (3, K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = qm.pack_int4_planes(q) if bits == 4 else q
+        scale = torch.rand((3, 1, N), generator=g, device=dev) * 0.03 + 2e-3
+        x = torch.randn((40, K), generator=g, device=dev).to(torch.bfloat16)
+        y = stacked(x, w, scale, 2)
+        torch.cuda.synchronize()
+        want = plain(x.float(), w[2], scale[2])
+        err = (y.float() - want).abs().max().item()
+        top = want.abs().max().item()
+        require(err <= 2e-2 * top, f"{kid} stacked layer 2: max|err| {err} "
+                f"> 2e-2 * max|plain| {top}")
+        worst = max(worst, err)
+        log(f"{kid} stacked entry, layer 2 of (3, {w.shape[1]}, {N}), R=40: "
+            f"max|y-plain|/max|plain| {err / top:.3e} (2e-2)")
+        rows[kid]["max_abs_err"] = worst
+        del q, w, scale, x, y, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the full-width slice through the entry point a user calls
 
@@ -773,7 +897,8 @@ def train_records(n: int, lengths, seed: int):
 TRAIN_FAMILIES = (("K1", "flash_masked_fwd"), ("K5", "flash_masked_bwd"))
 SERVE_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"),
                   ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
-                  ("K4/K9a", "decode_attention_write"))
+                  ("K4/K9a", "decode_attention_write"),
+                  ("K10/K14", "quant_m"))
 
 
 def kernel_breakdown(torch, prof, wall_s: float,
@@ -1136,6 +1261,128 @@ def run_serve_int8(torch, dev, card, tok, cfg, params, batches):
     return paths
 
 
+def quant_launches(eng, cfg, batches) -> int:
+    """K10 (int4) or K14 (int8) launches of one serving run, from the
+    engine's counters: 7 stacked projections per layer and 1 head per
+    decoder dispatch (a plain step at B rows, a verify round at B·G rows;
+    both <= 256), 1 head per install (<= 8 rows), the 7·L projections of
+    the shared prefix's prefill when its Pc <= 256 rows, and the protein
+    encoder's 4 projections per layer for a batch of <= 256 (B × protein
+    width) rows.  The installs' prefills (R × a bucket of >= 384 rows)
+    take the dequantized matmul."""
+    import numpy as np
+
+    L = cfg.llm_config.num_layers
+    dispatches = eng.plain_steps + eng.verify_rounds
+    n = dispatches * (7 * L + 1) + sum(eng.installs.values())
+    if 0 < eng.prefix_cols <= 256:
+        n += 7 * L
+    n += sum(4 * cfg.esm_config.n_layers for b in batches
+             if np.asarray(b["protein_input_ids"]).size <= 256)
+    return n
+
+
+def run_serve_quant(torch, dev, card):
+    """Phase 4d: weight-quantized serving, ESMC-600M + adapter + Qwen3-14B
+    with both towers quantized by `build_server` (bf16 → int4 nibble planes
+    or int8), through the CLI's loop, with exact launch counts: (e) int4 +
+    int8 pool, the CLI's defaults, 16 × 128 (K10, K9b); (g) int4 + int8
+    pool + γ 4, 8 × 32 (K10 at 40 rows, K9c); a short profiled int4 run;
+    then (f) int8 weights on the bf16 pool, the 16 requests of (e) (K14,
+    K9a).  Each model's build peak and each run's serving peak are read
+    after a reset."""
+    from prot2text_tpu_torch.cli.serve import build_server, refuse_unported
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.models.quant import quantized_bytes
+    from prot2text_tpu_torch.models.weights import tree_leaves
+
+    tok = ByteTextTokenizer()
+    batches = serve_batches(serve_args(), tok, 16, seed=5)
+    args_s = serve_args("--max_new_tokens", "32")
+    require(min(int(b) for b in args_s.prompt_pad.split(",")) > 256,
+            "the launch formula assumes install prefills above 256 rows")
+    paths = {}
+    for dtype in ("int4", "int8"):
+        args = serve_args("--model_dtype", dtype)
+        refuse_unported(args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, params = build_server(args, tok, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        L = cfg.llm_config.num_layers
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"serve model ESMC-600M + adapter + Qwen3-14B --model_dtype "
+            f"{dtype}: {n_params / 1e9:.3f} B stored values; towers "
+            f"{quantized_bytes(params['esm_encoder']) / 2**30:.3f} GiB "
+            f"(ESMC) + {quantized_bytes(params['llm_decoder']) / 2**30:.3f} "
+            f"GiB (Qwen3), adapter "
+            f"{quantized_bytes(params['adapter']) / 2**30:.3f} GiB; built "
+            f"(bf16, then quantized) in {build_s:.1f} s, build peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        kid = "K10" if dtype == "int4" else "K14"
+
+        def once(label, path, flags, batches_, want_fn):
+            args_ = serve_args("--model_dtype", dtype, *flags)
+            run, counts = serve_once(torch, args_, tok, cfg, params,
+                                     batches_, dev, label, card)
+            eng = run.engine
+            want = want_fn(eng)
+            want[kid] = quant_launches(eng, cfg, batches_)
+            require(counts == want, f"{path}: launch counts {counts} != "
+                    f"expected {want}")
+            paths[path] = counts
+            stats = (eng.plain_steps, eng.verify_rounds)
+            del run, eng
+            gc.collect()
+            return stats
+
+        if dtype == "int4":
+            plain, rounds = once(
+                "int4 weights + int8 pool, shared prefix + dedup, 16 x 128 "
+                "tokens", "serve_int4_kv8", ("--kv_bits", "8"), batches,
+                lambda e: expect(K1=L * (1 + e.installs["full"]),
+                                 K6=L * e.installs["prefix"],
+                                 K9b=L * e.plain_steps))
+            require(plain > 0 and rounds == 0, f"run e: {plain} steps")
+            plain, rounds = once(
+                "int4 weights + int8 pool + prompt lookup 4, 8 x 32 tokens",
+                "serve_int4_kv8_spec", ("--kv_bits", "8",
+                                        "--prompt_lookup_tokens", "4",
+                                        "--max_new_tokens", "32"),
+                serve_batches(args_s, tok, 8, 6),
+                lambda e: expect(K1=L * (1 + e.installs["full"]),
+                                 K6=L * e.installs["prefix"],
+                                 K9c=L * e.verify_rounds))
+            require(plain == 0 and rounds > 0, f"run g: {rounds} rounds")
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            args_p = serve_args("--model_dtype", dtype, "--kv_bits", "8",
+                                "--max_new_tokens", "24")
+            batches_p = serve_batches(args_p, tok, 8, 7)
+            with torch.profiler.profile(activities=acts) as prof:
+                run_p, _ = serve_once(torch, args_p, tok, cfg, params,
+                                      batches_p, dev,
+                                      "profiled int4 + int8 pool, 8 x 24",
+                                      card)
+            log(kernel_breakdown(torch, prof, run_p.seconds,
+                                 SERVE_FAMILIES) + f" [{card}]")
+            del run_p, prof
+        else:
+            plain, rounds = once(
+                "int8 weights, bf16 pool, shared prefix + dedup, 16 x 128 "
+                "tokens", "serve_int8_weights", (), batches,
+                lambda e: expect(K1=L * (1 + e.installs["full"]),
+                                 K6=L * e.installs["prefix"],
+                                 K9a=L * e.plain_steps))
+            require(plain > 0 and rounds == 0, f"run f: {plain} steps")
+        del cfg, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def run_serve_plumbing(torch, dev):
     """A tiny f32 serving engine on cuda (K1, K4, K6, K9a) and on cpu (plain
     versions) from the same weights: the shared prefix's KV and one prefix
@@ -1287,6 +1534,131 @@ def int8_round_logits(torch, eng):
     return step, decoder_logits(cfg, p, h)
 
 
+def run_serve_quant_plumbing(torch, dev):
+    """Tiny f32 int4 and int8 serving engines (γ 3 on the f32 pool) on cuda
+    (K10/K14, K4, K6, K1) and on cpu (plain versions) from the same
+    quantized weights.  On the random decoder, whose residual stream the
+    projections carry (embeddings of std 0.02), one decode step's and one
+    verify round's last hidden states and logits agree within 5e-3 of their
+    largest |value|: both devices round x to bf16 at each projection, so an
+    fp32 activation that the two compute 1e-7 apart on a bf16 rounding tie
+    enters one projection one bf16 ulp (2^-8 relative) apart, which moves a
+    K = 128 product by ~2^-8/sqrt(128) of its size, while one wrong scale
+    column moves its outputs by their own size.  Then the successor model of
+    tests/test_torch_serving_quant.py (embeddings scaled 20-fold, the head
+    maps each token to its successor: decisive greedy steps) serves every
+    request's greedy tokens identically on both devices, plain and
+    speculative."""
+    from prot2text_tpu_torch.infer import serving
+    from prot2text_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3_params
+    from prot2text_tpu_torch.models.quant import quantize_params
+    from prot2text_tpu_torch.models.weights import tree_map
+
+    import numpy as np
+
+    qwen = Qwen3Config(vocab_size=300, hidden_size=128, num_layers=2,
+                       num_heads=10, num_kv_heads=2, head_dim=64,
+                       intermediate_size=256)
+    cfg = qwen.core()
+    g = torch.Generator().manual_seed(4)
+    rand = init_qwen3_params(qwen, generator=g, device="cpu")
+    succ = dict(rand)
+    E = rand["embed_tokens"]
+    head = torch.zeros((128, 300))
+    head[:, torch.randperm(300, generator=g)] = E.T * 20.0
+    succ["lm_head"] = {"kernel": head}
+    succ["embed_tokens"] = E * 20.0
+
+    def requests(params):
+        rng = np.random.default_rng(9)
+        return [(f"r{i}", params["embed_tokens"][torch.from_numpy(
+            rng.integers(0, 300, int(n)))].numpy(), int(m))
+            for i, (n, m) in enumerate(((5, 9), (17, 6), (30, 12), (3, 7)))]
+
+    for bits in (4, 8):
+        params = {name: quantize_params(p, bits=bits)
+                  for name, p in (("rand", rand), ("succ", succ))}
+        rounds, toks = [], []
+        for d in (torch.device("cpu"), dev):
+            def engine(name, gamma):
+                return serving.ContinuousBatcher(
+                    cfg, tree_map(lambda t: t.to(d), params[name]),
+                    max_slots=3, max_len=64 + 12, prompt_pad=(32, 64),
+                    eos_token_id=-1, cache_dtype=torch.float32, sync_every=4,
+                    prompt_lookup_tokens=gamma)
+
+            eng = engine("rand", 3)
+            for rid, e, m in requests(rand)[:3]:
+                eng.submit(rid, e, max_new_tokens=m)
+            list(eng._fill_free_slots())
+            rounds.append([t.cpu() for t in f32_round_logits(torch, eng)])
+            out = []
+            for gamma in (0, 3):
+                eng = engine("succ", gamma)
+                for rid, e, m in requests(succ):
+                    eng.submit(rid, e, max_new_tokens=m)
+                out.append(dict(eng.run()))
+            toks.append(out)
+        for i, name in enumerate(("decode step hidden", "decode step logits",
+                                  "verify round hidden",
+                                  "verify round logits")):
+            a, b = rounds[1][i], rounds[0][i]
+            err, top = (a - b).abs().max().item(), b.abs().max().item()
+            require(bool(torch.isfinite(a).all()) and err <= 5e-3 * top,
+                    f"int{bits} {name} cuda vs cpu: max|diff| {err} "
+                    f"> 5e-3 x max|value| {top}")
+            log(f"plumbing f32 int{bits} weights {name} cuda vs cpu: max abs "
+                f"diff {err:.3e} = {err / top:.3e} of max|value| {top:.3e} "
+                f"(<= 5e-3)")
+        require(toks[1] == toks[0], f"int{bits} serving tokens cuda "
+                f"{toks[1]} != cpu {toks[0]}")
+        require(toks[0][0] == toks[0][1], f"int{bits}: speculation changed "
+                "the greedy tokens")
+        log(f"plumbing f32 int{bits} weights serving cuda vs cpu: greedy "
+            f"tokens of 4 requests identical, plain and γ 3")
+
+
+def f32_round_logits(torch, eng):
+    """One decode step's and one verify round's last hidden states and
+    logits, (h, logits, h, logits), over copies of an f32 engine's pool,
+    computed as `_decode_all` and `_spec_rounds` do on a float pool (the
+    verify: `decoder_forward` with a bias over the pool)."""
+    from prot2text_tpu_torch.infer.serving import NEG, ngram_drafts
+    from prot2text_tpu_torch.models.decoder import (
+        decoder_decode_step, decoder_forward, decoder_logits,
+    )
+
+    st, cfg, p = eng.state, eng.cfg, eng.params
+    T = st["kv_mask"].shape[1]
+
+    def pool():
+        return {k: st[k].clone() for k in ("k", "v")}
+
+    emb = p["embed_tokens"][st["last_tok"]][:, None]
+    h, _ = decoder_decode_step(
+        cfg, p, token_embeds=emb, kv_mask=st["kv_mask"],
+        positions=(st["pos"] + 1)[:, None], kv_cache=pool(),
+        cache_index=torch.where(st["active"], st["next_slot"], T - 1),
+        layers=eng.layers)
+    h_step, step = h[:, 0], decoder_logits(cfg, p, h)[:, 0]
+    drafts = ngram_drafts(st["hist"], st["hist_len"], gamma=eng.spec_gamma,
+                          ngram=eng.spec_ngram)
+    chunk = torch.cat([st["last_tok"][:, None], drafts], dim=1)
+    G = chunk.shape[1]
+    cols = torch.arange(T, device=chunk.device)
+    start = torch.where(st["active"], st["next_slot"], T - G)
+    pos = (st["pos"] + 1)[:, None] + torch.arange(G, device=chunk.device)
+    st_ = start[:, None, None, None]
+    rows = torch.arange(G, device=chunk.device)[None, None, :, None]
+    ok = ((st["kv_mask"][:, None, None, :] > 0)
+          | ((cols >= st_) & (cols <= st_ + rows)))
+    h, _ = decoder_forward(
+        cfg, p, inputs_embeds=p["embed_tokens"][chunk], positions=pos,
+        bias=torch.where(ok, 0.0, NEG), kv_cache=pool(), cache_index=start,
+        layers=eng.layers)
+    return h_step, step, h, decoder_logits(cfg, p, h)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the same tiny f32 models on cuda (kernels) and cpu (plain)
 
@@ -1425,6 +1797,9 @@ def main() -> int:
     rows.update(check_int8_kernels(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
+    rows.update(check_quant_kernels(torch, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
     paths = {"generate": run_slice(torch, dev, card)}
     gc.collect()                 # free the generation model before training
     torch.cuda.empty_cache()
@@ -1432,11 +1807,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(run_serve(torch, dev, card))
+    gc.collect()                 # free the bf16 serving model first
+    torch.cuda.empty_cache()
+    paths.update(run_serve_quant(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
     run_plumbing(torch, dev)
     run_train_plumbing(torch, dev)
     run_serve_plumbing(torch, dev)
+    run_serve_quant_plumbing(torch, dev)
 
     out = []
     for kid, (_, _, src, tpu) in KERNELS.items():

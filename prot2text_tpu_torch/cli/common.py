@@ -12,7 +12,7 @@ import torch
 
 from ..data.chat import ByteTextTokenizer
 
-from ..core.dtypes import str2dtype
+from ..core.dtypes import compute_dtype, str2dtype
 from ..models.adapters import (
     ModalityAdapterConfig, init_modality_adapter_params,
 )
@@ -46,17 +46,18 @@ def refuse(todo) -> None:
                 f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def common_unported(args) -> list:
-    """The common flags' unported values, for `refuse`."""
+def common_unported(args, quantized: bool = False) -> list:
+    """The common flags' unported values, for `refuse`; `quantized=True`
+    (the serve CLI) accepts --model_dtype int8/int4."""
     return [
         (max(args.fsdp, args.tp, args.sp) > 1, "--fsdp/--tp/--sp > 1",
          "§1 item 14"),
         (args.attn_impl == "ring", "--attn_impl ring", "§1 item 14"),
         (args.attn_impl in ("xla", "flash"), f"--attn_impl {args.attn_impl}",
          "§1 items 2-6 (only 'auto' is ported)"),
-        (isinstance(args.model_dtype, str),
-         f"--model_dtype {args.model_dtype} (weight quantization)",
-         "§1 item 12"),
+        (isinstance(args.model_dtype, str) and not quantized,
+         f"--model_dtype {args.model_dtype} (weight quantization outside "
+         f"serving: QLoRA)", "§1 item 12"),
     ]
 
 
@@ -110,7 +111,9 @@ def build_models(args, tok, device):
     """(esm_cfg, llm_cfg, adapter_cfg, {"esm_encoder", "llm_decoder"},
     adapter): ESMC + Qwen3 towers in `--model_dtype` (random N(0, 0.02)
     from `--random_seed`, or ESMC from `--esm_checkpoint_path`) and an f32
-    modality adapter, all on `device`."""
+    modality adapter, all on `device`.  For --model_dtype int8/int4 the
+    towers are built in bf16 and the caller quantizes them (the serve CLI,
+    after merging a LoRA); `args` is left as it is."""
     if args.debug_tiny_model:
         esm_cfg = ESMCConfig.tiny()
         llm_cfg = Qwen3Config(
@@ -125,7 +128,7 @@ def build_models(args, tok, device):
         llm_cfg = Qwen3Config.qwen3_14b()
         adapter_cfg = ModalityAdapterConfig(esm_cfg.d_model, 2048,
                                             llm_cfg.hidden_size)
-    dtype = args.model_dtype
+    dtype = compute_dtype(args.model_dtype)
     gen = torch.Generator(device=device).manual_seed(args.random_seed)
     kw = dict(generator=gen, device=device)
     if args.esm_checkpoint_path:

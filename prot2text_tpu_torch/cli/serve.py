@@ -17,15 +17,24 @@ the pool in int8 (decode K9b with the deduplicated prefix, K7 without);
 or K8 on the int8 pool, K6 on the bf16 one), and --spec_break_even turns
 on the controller that falls back to plain rounds.
 
+--model_dtype int8 or int4 quantizes both frozen towers' projections per
+output channel (`models/quant.quantize_params`: int8, or int4 nibble
+planes) after building them in bf16; the activations, the adapter and the
+KV pool stay in bf16, and the decoder's projections at few rows run K14
+(int8) or K10 (int4), the prefills' dequantized weights `torch.matmul`.
+
 Same flags as the JAX CLI, plus --device (default "cuda"; a missing GPU is
 an error, never a silent CPU run).  --load_sft_checkpoint_dir restores a
 checkpoint of the port's `cli/train_instruct.py` and merges its LoRA into
-the towers, built in --model_dtype first (the JAX CLI merges after its
-quantize step; ROADMAP.md §3).  Values the port does not have yet raise
+the towers, built in --model_dtype (bf16 for int8/int4) first and
+quantized after (the JAX CLI merges after its quantize step and fails;
+ROADMAP.md §3).  Values the port does not have yet raise
 NotImplementedError naming their ROADMAP item.  Output: one JSON file
 {name: {"true", "pred"}} and a descriptions/hour line.
 
     python -m prot2text_tpu_torch.cli.serve --test_csv test.csv --device cuda
+    python -m prot2text_tpu_torch.cli.serve --test_csv test.csv \
+        --model_dtype int4 --kv_bits 8
 """
 
 from __future__ import annotations
@@ -46,11 +55,12 @@ from ..data.sampler import DataLoader, ShardedSampler
 
 from ..core.checkpoint import restore_checkpoint
 from ..core.device import resolve_device
-from ..core.dtypes import str2bool
+from ..core.dtypes import QUANTIZED, compute_dtype, str2bool
 from ..infer.generate import GenerationConfig
 from ..infer.serving import ContinuousBatcher
 from ..models.composed import ESMCQwen, ESMCQwenConfig
 from ..models.lora import LoraConfig, merge_lora
+from ..models.quant import quantize_params, quantized_bytes
 from .common import (
     add_common_args, build_models, common_unported, refuse, text_tokenizer,
 )
@@ -135,15 +145,16 @@ def refuse_unported(args) -> None:
          "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 11"),
         (args.llm_checkpoint_dir is not None,
          "--llm_checkpoint_dir (HF weight loader)", "§1 item 1"),
-        *common_unported(args),
+        *common_unported(args, quantized=True),
     ])
 
 
 def build_server(args, tok, device):
     """(ESMCQwenConfig, params {"esm_encoder", "adapter", "llm_decoder"}) as
-    `main` builds them from its flags: the towers in --model_dtype through
-    `cli/common.py build_models`, then the SFT checkpoint's LoRA merged into
-    them and its adapter in place of the random one."""
+    `main` builds them from its flags: the towers in --model_dtype (bf16
+    for int8/int4) through `cli/common.py build_models`, then the SFT
+    checkpoint's LoRA merged into them and its adapter in place of the
+    random one, then, for int8/int4, both towers quantized."""
     esm_cfg, llm_cfg, adapter_cfg, frozen, adapter = build_models(
         args, tok, device)
     if args.load_sft_checkpoint_dir:
@@ -155,6 +166,10 @@ def build_server(args, tok, device):
         frozen["llm_decoder"] = merge_lora(
             lora_cfg, frozen["llm_decoder"], sft["lora_llm"])
         adapter = sft["adapter"]
+    bits = QUANTIZED.get(args.model_dtype)
+    if bits:
+        for name in ("esm_encoder", "llm_decoder"):
+            frozen[name] = quantize_params(frozen[name], bits=bits)
     placeholder_id = getattr(tok, "placeholder_id", 151669)
     cfg = ESMCQwenConfig(esm_config=esm_cfg, adapter_config=adapter_cfg,
                          llm_config=llm_cfg, placeholder_id=placeholder_id)
@@ -265,7 +280,7 @@ def serve(args, tok, cfg: ESMCQwenConfig, params, batches: Iterable[dict],
         llm_cfg.core(), params["llm_decoder"], max_slots=args.max_slots,
         max_len=max(buckets) + args.max_new_tokens,
         prompt_pad=buckets if len(buckets) > 1 else buckets[0],
-        eos_token_id=eos_id, cache_dtype=args.model_dtype,
+        eos_token_id=eos_id, cache_dtype=compute_dtype(args.model_dtype),
         sync_every=args.sync_every, gen_cfg=gen_cfg,
         generator=torch.Generator(device=device).manual_seed(
             args.random_seed),
@@ -337,6 +352,11 @@ def main(argv=None):
         sampler=ShardedSampler(len(dataset), shuffle=False),
         drop_last=False)
     cfg, params = build_server(args, tok, device)
+    if args.model_dtype in QUANTIZED:
+        print(f"[serve] --model_dtype {args.model_dtype}: towers "
+              f"{quantized_bytes(params['esm_encoder'])} + "
+              f"{quantized_bytes(params['llm_decoder'])} bytes (ESMC + "
+              f"decoder)")
     run = serve(args, tok, cfg, params, loader, device)
 
     os.makedirs(args.output_dir, exist_ok=True)

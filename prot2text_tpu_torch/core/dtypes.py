@@ -18,8 +18,9 @@ _DTYPES = {
     "float16": torch.float16,
     "fp16": torch.float16,
 }
-# weight-quantized dtypes of the JAX package that the port does not have yet
-QUANTIZED = {"int8", "int4"}
+# weight-quantized dtypes: the towers are built in bf16 and quantized
+# (`models/quant.quantize_params`); only the serve CLI takes them
+QUANTIZED = {"int8": 8, "int4": 4}
 
 
 def str2bool(v) -> bool:
@@ -34,8 +35,8 @@ def str2bool(v) -> bool:
 
 
 def str2dtype(v):
-    """"bf16"/"fp32"/... → torch.dtype; "int8"/"int4" are returned as the
-    string so the caller can refuse them with a pointer to the ROADMAP."""
+    """"bf16"/"fp32"/... → torch.dtype; "int8"/"int4" (weight
+    quantization) are returned as the string."""
     if not isinstance(v, str):
         return v
     key = v.lower().removeprefix("torch.").removeprefix("jnp.")
@@ -44,3 +45,9 @@ def str2dtype(v):
     if key not in _DTYPES:
         raise argparse.ArgumentTypeError(f"Unsupported dtype {v!r}")
     return _DTYPES[key]
+
+
+def compute_dtype(model_dtype) -> torch.dtype:
+    """The float dtype the towers are built and run in: `model_dtype`
+    itself, or bf16 for the quantized "int8"/"int4"."""
+    return torch.bfloat16 if model_dtype in QUANTIZED else model_dtype

@@ -415,7 +415,9 @@ class ContinuousBatcher:
     """Greedy continuous-batching engine over `decoder_decode_step`.
 
     cfg/params: the decoder core + its params (bf16 or f32 tensors on one
-        device, which the engine runs on).
+        device, which the engine runs on; a weight-quantized tree from
+        `models/quant.quantize_params` runs its projections through K10/K14
+        and its activations in `cache_dtype`).
     max_slots: concurrent sequences (the pool width).
     max_len: cache width per slot (largest prompt_pad + longest answer).
     prompt_pad: prefill width(s).  An int gives one width; a tuple gives

@@ -26,8 +26,16 @@ from .flash_attention import (
     flash_attention_masked_bwd, flash_attention_masked_bwd_plain,
     flash_attention_masked_fwd, flash_attention_masked_plain,
 )
+from .quant_matmul import (
+    quant_matmul_int4_planes, quant_matmul_int4_planes_plain,
+    quant_matmul_int4_planes_stacked, quant_matmul_int4_planes_stacked_plain,
+    quant_matmul_int8, quant_matmul_int8_plain, quant_matmul_int8_stacked,
+    quant_matmul_int8_stacked_plain,
+)
 
-# id → (wrapper, plain version, kernel source, TPU kernel it replaces)
+# id → (wrapper, plain version, kernel source, TPU kernel it replaces); a
+# kernel with two entry points (unstacked and stacked) lists both wrappers,
+# and its launch count is their sum
 KERNELS = {
     "K1": (flash_attention_masked_fwd, flash_attention_masked_plain,
            "prot2text_tpu_torch/kernels/csrc/flash_attention.cu",
@@ -68,16 +76,31 @@ KERNELS = {
             decode_attention_stacked_verify_qc_prefix_plain,
             "prot2text_tpu_torch/kernels/csrc/decode_attention_verify.cu",
             "prot2text_tpu/kernels/decode_attention.py:1041"),
+    "K10": ((quant_matmul_int4_planes, quant_matmul_int4_planes_stacked),
+            (quant_matmul_int4_planes_plain,
+             quant_matmul_int4_planes_stacked_plain),
+            "prot2text_tpu_torch/kernels/csrc/quant_matmul.cu",
+            "prot2text_tpu/kernels/quant_matmul.py:346/:620"),
+    "K14": ((quant_matmul_int8, quant_matmul_int8_stacked),
+            (quant_matmul_int8_plain, quant_matmul_int8_stacked_plain),
+            "prot2text_tpu_torch/kernels/csrc/quant_matmul.cu",
+            "prot2text_tpu/kernels/quant_matmul.py:98/:683"),
 }
 
 
+def _wrappers(w) -> tuple:
+    return w if isinstance(w, tuple) else (w,)
+
+
 def launch_counts() -> dict:
-    return {kid: w.launches for kid, (w, *_) in KERNELS.items()}
+    return {kid: sum(f.launches for f in _wrappers(w))
+            for kid, (w, *_) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for w, *_ in KERNELS.values():
-        w.launches = 0
+        for f in _wrappers(w):
+            f.launches = 0
 
 
 __all__ = [
@@ -96,5 +119,10 @@ __all__ = [
     "flash_attention_bias_fwd", "flash_attention_bias_plain",
     "flash_attention_masked", "flash_attention_masked_bwd",
     "flash_attention_masked_bwd_plain", "flash_attention_masked_fwd",
-    "flash_attention_masked_plain", "launch_counts", "reset_launch_counts",
+    "flash_attention_masked_plain", "launch_counts",
+    "quant_matmul_int4_planes", "quant_matmul_int4_planes_plain",
+    "quant_matmul_int4_planes_stacked",
+    "quant_matmul_int4_planes_stacked_plain", "quant_matmul_int8",
+    "quant_matmul_int8_plain", "quant_matmul_int8_stacked",
+    "quant_matmul_int8_stacked_plain", "reset_launch_counts",
 ]

@@ -66,6 +66,9 @@ SIGNATURES = {
     "p2t_decode_attention_write_q": [_P] * 17 + [_I] * 7 + [_P],
     # the same pointers, then B, Hkv, rep, G, T, Pc, D, dtype, stream
     "p2t_decode_attention_verify": [_P] * 17 + [_I] * 8 + [_P],
+    # x, w (layer), scale (layer), out, partial, R, K, N, bits, splits,
+    # dtype, stream
+    "p2t_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

@@ -35,6 +35,11 @@ Attention runs through the port's kernels:
     single-token decode, per-row or lockstep, runs K7 (K9b with the
     shared prefix); the speculative chunk verify (`decoder_verify_chunk`)
     runs K8 (K9c).
+Weight-quantized towers (`models/quant.quantize_params`: int4 nibble
+planes or int8) multiply through `transformer.linear`, which sends
+projections of few rows (the decode and verify steps, the head) to K10/K14
+on each layer's view of the stacked buffers, read in place; a quantized LM
+head gives the fp32 logits of its x-dtype output.
 The layer loop is a Python loop over views of the stacked weights (no
 per-layer copies).  Training adds LoRA side paths on the seven projections
 (`lora=`) and per-layer recomputation (`remat=True`, the JAX
@@ -543,8 +548,10 @@ def decoder_logits(cfg: DecoderConfig, params, hidden_states):
     if cfg.tie_word_embeddings:
         w = params["embed_tokens"].T
     elif "kernel" not in params["lm_head"]:
-        raise NotImplementedError("quantized lm_head is not ported yet "
-                                  "(ROADMAP.md §1 item 12)")
+        # the quantized head (K10/K14 at few rows): fp32 logits of an
+        # output rounded to the activations' dtype, as JAX's `linear(...)
+        # .astype(float32)` (prot2text_tpu/models/decoder.py:1404-1421)
+        return linear(params["lm_head"], hidden_states).float()
     else:
         w = params["lm_head"]["kernel"]
     return matmul_f32_out(hidden_states, w.to(hidden_states.dtype))

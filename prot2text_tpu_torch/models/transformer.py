@@ -11,17 +11,55 @@ import math
 
 import torch
 
+from ..kernels.quant_matmul import (
+    QUANT_KERNEL_ROWS, quant_matmul_int4_planes, quant_matmul_int8,
+)
+from .quant import dequantize_kernel
+
+
 def linear(p, x):
-    """y = x @ kernel (+ bias), float/bf16 `kernel` leaves only."""
-    if "kernel" not in p:
-        found = [k for k in p if k.startswith("kernel")]
-        raise NotImplementedError(
-            f"quantized linear leaves {found} are not ported yet "
-            "(ROADMAP.md §1 item 12, weight quantization)")
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    """y = x @ kernel (+ bias) (prot2text_tpu/models/transformer.py:35).
+
+    Quantized leaves (`models/quant.quantize_params`): activations are
+    flattened to rows first (`:69-79`); at most `QUANT_KERNEL_ROWS` rows
+    take K10 (`kernel_q4p`, int4 nibble planes) or K14 (`kernel_q`, int8),
+    which round x to bf16 and apply the scale in an fp32 epilogue; more rows
+    (prefill, the protein encoder) dequantize the weight to x's dtype and
+    take `torch.matmul`, the counterpart of the JAX XLA route.  JAX sends
+    int8 to an XLA mixed-dtype dot at every row count; PyTorch has no fused
+    bf16 × int8 product, so the port takes K14 (ROADMAP.md §3).  The
+    other int4 formats (`kernel_q4`, `kernel_q4w`: kernel K11) and the
+    tensor-parallel repacks (`*_tp{n}`) raise."""
+    if "kernel" in p:
+        y = torch.matmul(x, p["kernel"].to(x.dtype))
+    else:
+        y = _quant_linear(p, x)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
+
+
+def _quant_linear(p, x):
+    found = [k for k in p if k.startswith("kernel")]
+    if any("_tp" in k for k in found):
+        raise NotImplementedError(
+            f"tensor-parallel int4 leaves {found} are not ported yet "
+            "(ROADMAP.md §1 item 14)")
+    if "kernel_q4p" in p:
+        kernel, w = quant_matmul_int4_planes, p["kernel_q4p"]
+    elif "kernel_q" in p:
+        kernel, w = quant_matmul_int8, p["kernel_q"]
+    else:
+        raise NotImplementedError(
+            f"quantized linear leaves {found}: the split-half and bf16-pair "
+            "int4 formats are kernel K11, not ported yet (ROADMAP.md §2)")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[0] <= QUANT_KERNEL_ROWS:
+        y = kernel(x2.contiguous(), w, p["scale"])
+    else:
+        y = torch.matmul(x2, dequantize_kernel(p, x.dtype))
+    return y.reshape(*lead, y.shape[-1])
 
 
 def linear_lora(p, lora, x, scale: float = 1.0):

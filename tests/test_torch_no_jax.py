@@ -27,6 +27,7 @@ MODULES = [
     "prot2text_tpu_torch.kernels.cache_update",
     "prot2text_tpu_torch.kernels.decode_attention",
     "prot2text_tpu_torch.kernels.flash_attention",
+    "prot2text_tpu_torch.kernels.quant_matmul",
     "prot2text_tpu_torch.models",
     "prot2text_tpu_torch.models.adapters",
     "prot2text_tpu_torch.models.composed",

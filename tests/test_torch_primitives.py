@@ -45,9 +45,22 @@ def test_linear_layer_norm_rms_norm_gelu(rng):
 
 
 def test_linear_refuses_quantized_leaves():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.linear({"kernel_q": torch.zeros(4, 4, dtype=torch.int8),
-                    "scale": torch.ones(1, 4)}, torch.zeros(2, 4))
+    """int8 (`kernel_q`) and int4 nibble-plane (`kernel_q4p`) leaves are
+    ported (K14, K10); the other int4 formats (kernel K11) and the
+    tensor-parallel repacks still raise, naming their ROADMAP item."""
+    x = torch.zeros(2, 16)
+    for leaf, pattern in (
+            ({"kernel_q4": torch.zeros(8, 4, dtype=torch.int8)},
+             r"K11.*ROADMAP\.md §2"),
+            ({"kernel_q4w": torch.zeros(2, 4, dtype=torch.int32)},
+             r"K11.*ROADMAP\.md §2"),
+            ({"kernel_q4p_tp2": torch.zeros(2, 4, dtype=torch.int32)},
+             r"ROADMAP\.md §1 item 14")):
+        with pytest.raises(NotImplementedError, match=pattern):
+            ttr.linear({**leaf, "scale": torch.ones(1, 4)}, x)
+    y = ttr.linear({"kernel_q": torch.ones(16, 4, dtype=torch.int8),
+                    "scale": torch.full((1, 4), 0.5)}, x + 1.0)
+    assert torch.equal(y, torch.full((2, 4), 8.0))
 
 
 @pytest.mark.parametrize("cos_rank", [2, 3])

@@ -2,9 +2,10 @@
 on the GPU through K1/K6/K9a, or K4 with --shared_prefix false): the JSON
 it writes, its descriptions/hour line, the shared prefix it discovers; the
 int8 pool and prompt-lookup speculation (--kv_bits 8,
---prompt_lookup_tokens, the controller flags); a
-checkpoint written by the port's training CLI served through
---load_sft_checkpoint_dir; the flags it refuses; the missing-GPU error."""
+--prompt_lookup_tokens, the controller flags); weight-quantized towers
+(--model_dtype int8/int4); a checkpoint written by the port's training CLI
+served through --load_sft_checkpoint_dir, in bf16 and merged before the
+int4 quantization; the flags it refuses; the missing-GPU error."""
 
 import json
 import os
@@ -128,6 +129,57 @@ def test_serves_a_training_cli_checkpoint(csv_path, tmp_path):
     assert len(results) == 5
 
 
+def test_serves_a_training_cli_checkpoint_int4(csv_path, tmp_path):
+    """--model_dtype int4 with --load_sft_checkpoint_dir: the towers are
+    built in bf16, the LoRA merged, then quantized (the JAX CLI quantizes
+    first and its merge refuses the integer base), so the served tree is
+    quantize_params(merge_lora(bf16 towers)); then the CLI serves."""
+    from prot2text_tpu_torch.core.checkpoint import restore_checkpoint
+    from prot2text_tpu_torch.models.quant import quantize_params
+
+    ckpt = tmp_path / "ck"
+    train_main(["--train_csv", csv_path, "--device", "cpu",
+                "--debug_tiny_model", "true", "--model_dtype", "fp32",
+                "--gradient_accumulation_steps", "1", "--num_epochs", "1",
+                "--debug_trim_train_split", "2", "--learning_rate", "1e-2",
+                "--checkpoint_dir", str(ckpt)])
+    (run,) = os.listdir(ckpt)
+    sft_dir = str(ckpt / run)
+    tok = ByteTextTokenizer()
+    cpu = torch.device("cpu")
+    args = cli.build_parser().parse_args(_args(
+        csv_path, tmp_path / "res", "--load_sft_checkpoint_dir", sft_dir,
+        dtype="int4"))
+    _, params = cli.build_server(args, tok, cpu)
+    _, bf16 = cli.build_server(cli.build_parser().parse_args(_args(
+        csv_path, tmp_path, dtype="bf16")), tok, cpu)
+    sft = restore_checkpoint(sft_dir)
+    lcfg = LoraConfig(r=32, alpha=64)
+    for tower, lora in (("llm_decoder", "lora_llm"),
+                        ("esm_encoder", "lora_esm")):
+        want = quantize_params(merge_lora(lcfg, bf16[tower], sft[lora]),
+                               bits=4)
+        got = params[tower]
+
+        def check(g, w):
+            if isinstance(w, dict):
+                assert set(g) == set(w)
+                for k in w:
+                    check(g[k], w[k])
+            else:
+                assert g.dtype == w.dtype and torch.equal(g, w)
+
+        check(got, want)
+    assert not torch.equal(
+        params["llm_decoder"]["layers"]["q_proj"]["kernel_q4p"],
+        quantize_params(bf16["llm_decoder"], bits=4)["layers"]["q_proj"][
+            "kernel_q4p"])
+    results = cli.main(_args(csv_path, tmp_path / "res",
+                             "--load_sft_checkpoint_dir", sft_dir,
+                             dtype="int4"))
+    assert len(results) == 5
+
+
 BASE = ["--test_csv", "unused.csv", "--device", "cpu"]
 
 
@@ -142,9 +194,34 @@ BASE = ["--test_csv", "unused.csv", "--device", "cpu"]
     (["--model_dtype", "int4"], "item 12"),
     (["--attn_impl", "ring"], "item 14"),
 ])
-def test_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-        cli.main(BASE + flags)
+def test_unported_flags_raise(csv_path, tmp_path, capsys, flags, item):
+    """Each unported flag raises, naming its ROADMAP item.  --model_dtype
+    int8/int4 (item 12's serving half) is ported: those two cases now run
+    a tiny CPU serve that quantizes both towers, prints their bytes and
+    writes its JSON."""
+    if flags[0] != "--model_dtype":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md §1 {item}"):
+            cli.main(BASE + flags)
+        return
+    dtype = flags[1]
+    results = cli.main(_args(csv_path, tmp_path, dtype=dtype))
+    out = capsys.readouterr().out
+    assert f"--model_dtype {dtype}: towers" in out
+    assert "descriptions/hour" in out
+    with open(tmp_path / "generation_serve_0.json") as f:
+        saved = json.load(f)
+    assert saved == results and len(saved) == 5
+    args = cli.build_parser().parse_args(_args(csv_path, tmp_path,
+                                               dtype=dtype))
+    assert args.model_dtype == dtype          # build_server leaves args be
+    _, params = cli.build_server(args, ByteTextTokenizer(),
+                                 torch.device("cpu"))
+    key = "kernel_q4p" if dtype == "int4" else "kernel_q"
+    assert key in params["llm_decoder"]["layers"]["q_proj"]
+    assert key in params["llm_decoder"]["lm_head"]
+    assert key in params["esm_encoder"]["layers"]["qkv"]
+    assert params["llm_decoder"]["embed_tokens"].dtype == torch.bfloat16
 
 
 def test_cuda_without_gpu_raises():
