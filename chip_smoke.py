@@ -8,8 +8,9 @@ Phases (any failure raises and the script exits non-zero):
      build from `prot2text_tpu_torch/kernels/csrc` (timed);
   2. kernels: each hand-written kernel (K1 flash prefill, K2 decode
      attention, K3 cache slot write, K4 decode attention + per-row slot
-     write, K5 flash backward, K6 bias flash prefill, K9a K4 over a shared
-     prefix; on the int8 cache K7 decode + slot write, K9b K7 over an int8
+     write, K5 flash backward, K6 bias flash prefill, also at
+     ESMC-600M's training shapes, K6b its backward at ESMC-600M's SFT
+     shapes, K9a K4 over a shared prefix; on the int8 cache K7 decode + slot write, K9b K7 over an int8
      prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix;
      K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections)
      against its plain PyTorch version on the same bf16 inputs computed in
@@ -24,10 +25,19 @@ Phases (any failure raises and the script exits non-zero):
      the launch counters must show every kernel on that path;
   4. training: stage-2 LoRA SFT of ESMC-600M + adapter + Qwen3-14B (full
      width and depth, bf16 towers, f32 LoRA r=32 and adapter) built and
-     stepped as `cli/train_instruct.py` does: 3 AdamW steps of 4
+     stepped as `cli/train_instruct.py` does: 2 AdamW steps of 4
      accumulated B=1 micro-batches at S >= 1024; exact K1/K5 launch
-     counts, frozen towers untouched, LoRA B moved; then one more step
-     under `torch.profiler` for the device-time breakdown;
+     counts, frozen towers untouched, LoRA B moved; then one micro-step
+     under `torch.profiler` for the device-time breakdown; then
+     `--attn_impl flash` on the same towers: one micro-batch's loss and
+     LoRA-ESM gradients against "auto" (and ESMC's alone against an f32
+     copy of the tower), 2 steps with exact K1/K5/K6/K6b counts, one
+     profiled micro-step;
+  4e. stage-1 contrastive training through `cli/train_contrast.py`'s
+     `build_contrast` on phase 4's towers at the CLI's defaults (batch 8
+     x accumulation 8, 2 segments, text tower layer 16) and `--attn_impl
+     flash`: 2 steps with exact K1/K6 counts, the adapter moved, the
+     towers untouched, one profiled step;
   4b. serving: ESMC-600M + adapter + Qwen3-14B (full width and depth,
      bf16, random weights) built by `cli/serve.py build_server` serve 16
      records through the CLI's own loop (`cli/serve.py serve`: shared
@@ -54,7 +64,9 @@ Phases (any failure raises and the script exits non-zero):
      build's and run's peak;
   5. plumbing: tiny f32 models on `cuda` (kernels) against the same models
      on `cpu` (plain versions): prefill and first decode-step logits, one
-     SFT step's loss and LoRA gradients, a serving engine's install logits
+     SFT step's loss and LoRA gradients at `--attn_impl` auto and flash
+     (K6/K6b), one contrastive step's loss and adapter gradients (K1, K6),
+     a serving engine's install logits
      and tokens (K1, K4, K6, K9a), a speculative bf16-pool engine's tokens,
      an int8 engine's decode-step and verify-round logits (K7, K8), and
      int4 and int8 weight engines' decode-step and verify-round logits
@@ -546,6 +558,111 @@ def check_serve_kernels(torch, dev, card):
     return rows
 
 
+def check_bias_bwd_kernel(torch, dev, card):
+    """K6 forward and K6b against their plain versions at ESMC-600M's
+    training shapes, bf16, q/k/v/dO laid out as ESMC hands them over
+    (transposes of (B, S, H, D) buffers), H 18, D 64, a (B, 1, 1, S)
+    key-padding bias of ragged valid runs.  K6's o and lse at B 1 with S
+    512 (the width of phase 4's proteins) and S 1024 (the largest protein
+    bucket), and at the contrastive batch B 8, S 512 with a run per row,
+    at the gates of the serving check (o atol/rtol 2e-2, lse atol 1e-3).
+    K6b from K6's o and lse at the two B 1 shapes, per gradient
+    max|kernel - plain| <= 2e-2 * max|plain|, timed at S 512.  Returns
+    the K6b row and K6's worst max|o - plain| here."""
+    from prot2text_tpu_torch.kernels.flash_attention import (
+        flash_attention_bias_bwd, flash_attention_bias_bwd_plain,
+        flash_attention_bias_fwd, flash_attention_bias_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(6161)
+    bf16 = torch.bfloat16
+    H, D = 18, 64
+    errs, row, fwd_errs = [], None, []
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
+
+    def bshd(B, S, scale=1.0):
+        return randn(B, S, H, D, scale=scale).transpose(1, 2)
+
+    def key_padding(S, valid):
+        keep = torch.arange(S, device=dev) < valid[:, None]
+        return torch.where(keep, 0.0, torch.finfo(torch.float32).min).view(
+            len(valid), 1, 1, S)
+
+    def check_fwd(q, k, v, bias, what):
+        o, lse = flash_attention_bias_fwd(q, k, v, bias)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_bias_plain(q.float(), k.float(),
+                                                    v.float(), bias)
+        err = (o.float() - o_ref).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0.0)
+        fwd_errs.append(err)
+        log(f"K6 bias flash forward {what} H={H} D={D} bf16, key-padding "
+            f"bias (B,1,1,S): max|o-plain|={err:.3e} (atol/rtol 2e-2) "
+            f"max|lse-plain|={err_lse:.3e} (atol 1e-3)")
+        return o, lse
+
+    # the contrastive batch: 8 rows of ragged protein lengths in bucket 512
+    valid = torch.tensor([443, 380, 451, 512, 397, 129, 65, 1], device=dev)
+    q, k, v = bshd(8, 512, D ** -0.5), bshd(8, 512), bshd(8, 512)
+    check_fwd(q, k, v, key_padding(512, valid),
+              f"B=8 S=512 (valid keys {valid.tolist()})")
+    del q, k, v
+
+    for S, n_valid in ((1024, 1024 - 187), (512, 443)):
+        B = 1
+        q, k, v = bshd(B, S, D ** -0.5), bshd(B, S), bshd(B, S)
+        do = bshd(B, S, D ** -0.5)
+        bias = key_padding(S, torch.tensor([n_valid], device=dev))
+        o, lse = check_fwd(q, k, v, bias,
+                           f"B={B} S={S} ({n_valid} valid keys)")
+        got = flash_attention_bias_bwd(q, k, v, bias, o, lse, do)
+        torch.cuda.synchronize()
+        want = flash_attention_bias_bwd_plain(
+            q.float(), k.float(), v.float(), bias, o.float(), lse, do.float())
+        parts = []
+        for name, gr, w in zip(("dq", "dk", "dv"), got, want):
+            err, top = (gr.float() - w).abs().max().item(), w.abs().max().item()
+            require(err <= 2e-2 * top, f"K6b {name} at S={S}: max|err| {err} "
+                    f"> 2e-2 * max|plain| {top}")
+            errs.append(err)
+            parts.append(f"{name} {err:.3e} (max|plain| {top:.3e})")
+        ms = cuda_ms(torch, lambda: flash_attention_bias_bwd(
+            q, k, v, bias, o, lse, do))
+        # recomputed q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k and dSᵀ·q: 10·D per (query,
+        # key) pair; this data needs the unmasked pairs only
+        full = 10.0 * D * B * H * S * S
+        bd = bound(10.0 * D * B * H * S * n_valid,
+                   nbytes(q, k, v, o, lse, do, bias, *got))
+        msg = (f"K6b bias flash backward B={B} H={H} S={S} D={D} bf16, "
+               f"key-padding bias (1,1,1,S) over {n_valid} valid keys: "
+               f"max|kernel-plain| " + ", ".join(parts) + f"; kernel "
+               f"{ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+               f"({bd['bound_by']}; all S² pairs "
+               f"{full / PEAK_FLOPS * 1e3:.4f} ms)")
+        if S == 512:
+            plain_ms = cuda_ms(torch, lambda: flash_attention_bias_bwd_plain(
+                q, k, v, bias, o, lse, do))
+            # the library's backward of the same SDPA call (float mask in
+            # the query's dtype; its forward, which keeps the graph, runs
+            # outside the timed region)
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qr, kr, vr, attn_mask=bias.to(bf16), scale=1.0)
+            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qr, kr, vr), do, retain_graph=True))
+            del qr, kr, vr, out
+            msg += (f", plain {plain_ms:.4f} ms, SDPA backward "
+                    f"{lib_ms:.4f} ms")
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+        log(msg + f" [{card}]")
+        del q, k, v, do, o, lse, got, want
+    return {"K6b": dict(max_abs_err=max(errs), **row)}, max(fwd_errs)
+
+
 def check_int8_kernels(torch, dev, card):
     """K7, K9b, K8 and K9c against their plain versions at the int8
     serving shapes of Qwen3-14B: B 8, Hkv 8, rep 5, D 128, T 1856 (the
@@ -894,7 +1011,8 @@ def train_records(n: int, lengths, seed: int):
              "function": FUNCTIONS[i % len(FUNCTIONS)]} for i in range(n)]
 
 
-TRAIN_FAMILIES = (("K1", "flash_masked_fwd"), ("K5", "flash_masked_bwd"))
+TRAIN_FAMILIES = (("K1", "flash_masked_fwd"), ("K5", "flash_masked_bwd"),
+                  ("K6", "flash_bias_fwd"), ("K6b", "flash_bias_bwd"))
 SERVE_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"),
                   ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
                   ("K4/K9a", "decode_attention_write"),
@@ -945,21 +1063,24 @@ def kernel_breakdown(torch, prof, wall_s: float,
 def run_training(torch, dev, card):
     from prot2text_tpu_torch.data.chat import ByteTextTokenizer
     from prot2text_tpu_torch.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.cli.common import build_models
     from prot2text_tpu_torch.cli.train_instruct import (
         BUCKETS as TRAIN_BUCKETS, build_parser, build_training, to_device,
     )
     from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
     from prot2text_tpu_torch.models.lora import lora_param_count
     from prot2text_tpu_torch.models.weights import tree_leaves
+    from prot2text_tpu_torch.train.sft import make_sft_train_step
 
-    accum, steps = 4, 3
+    accum, steps = 4, 2
     tok = ByteTextTokenizer()
     args = build_parser().parse_args([
         "--train_csv", "unused", "--device", "cuda", "--random_seed", "0",
         "--gradient_accumulation_steps", str(accum), "--learning_rate",
         "2e-4", "--weight_decay", "0.01"])
     t0 = time.perf_counter()
-    run = build_training(args, tok, dev, total_steps=steps)
+    models = build_models(args, tok, dev)
+    run = build_training(args, tok, dev, total_steps=steps, models=models)
     torch.cuda.synchronize()
     towers = {k: run.frozen[k] for k in ("esm_encoder", "llm_decoder")}
     frozen = tree_leaves(towers)
@@ -979,9 +1100,10 @@ def run_training(torch, dev, card):
     collater = LightCollator(
         tokenizer=tok, mode="train", placeholder_token=tok.placeholder_token,
         buckets=Buckets(**TRAIN_BUCKETS))
-    records = train_records(accum * (steps + 1), (380, 451), seed=0)
+    # steps + 1 profiled batches for "auto", as many again for "flash"
+    records = train_records(2 * accum * (steps + 1), (380, 451), seed=0)
     batches = [to_device(collater(records[i * accum:(i + 1) * accum]), dev,
-                         accum) for i in range(steps + 1)]
+                         accum) for i in range(2 * (steps + 1))]
     S = batches[0]["input_ids"].shape[-1]
     require(S >= 1024, f"training sequence {S} < 1024")
     log(f"batches: {accum} x B=1 micro-batches of S={S} (protein width "
@@ -1029,14 +1151,243 @@ def run_training(torch, dev, card):
     log(f"train peak device memory {peak:.2f} GiB [{card}]; LoRA B moved "
         f"in all {len(bs)} targets; frozen towers bit-identical")
 
+    # one micro-step under the profiler: its trace costs the host about
+    # half a millisecond per device event to read back
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof_fn = make_sft_train_step(tx=run.tx, **run.step_kw)
+    mb = {k: v[0] for k, v in batches[steps].items()}
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, loss = prof_fn(state, run.frozen, mb, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log("one micro-step " + kernel_breakdown(torch, prof, wall)
+        + f" [{card}]")
+    del prof
+    run.state = state
+    counts_flash = run_training_flash(torch, run, batches[steps + 1:], gen,
+                                      accum, stamp, card)
+    return {"train": counts, "train_flash": counts_flash}, models, stamp
+
+
+def run_training_flash(torch, run, batches, gen, accum, stamp, card):
+    """Phase 4, --attn_impl flash on the towers phase 4 built: ESMC's
+    attention through K6 and K6b, the decoder's through K1 and K5.  First
+    one micro-batch's loss and LoRA-ESM gradients at "flash" against
+    "auto" from one state (both compute the same function; bf16 towers,
+    so they agree to the bf16 rounding of the attention outputs), then
+    len(batches) - 1 steps with exact launch counts and one profiled
+    micro-step."""
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.esmc import esmc_encode
+    from prot2text_tpu_torch.models.weights import tree_leaves, tree_map
+    from prot2text_tpu_torch.train.sft import make_sft_train_step, sft_loss
+
+    step_kw = {**run.step_kw, "attn_impl": "flash"}
+    params = run.state.params
+    mb = {k: v[0] for k, v in batches[0].items()}
+    kw = {k: v for k, v in run.step_kw.items() if k != "attn_impl"}
+    lora_esm = tree_leaves(params["lora_esm"])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # the whole model: the same loss; the LoRA-ESM gradients agree to the
+    # bf16 noise of 76 bf16 layers (a gross-error gate)
+    res = {}
+    for impl in ("auto", "flash"):
+        loss = sft_loss(params, run.frozen, mb, deterministic=True,
+                        attn_impl=impl, **kw)
+        grads = torch.autograd.grad(loss, lora_esm)
+        res[impl] = (loss.item(), torch.cat([g.flatten() for g in grads]))
+    (l_a, g_a), (l_f, g_f) = res["auto"], res["flash"]
+    r_model = rel(g_f, g_a)
+    log(f"train --attn_impl flash vs auto, one micro-batch from one state "
+        f"(bf16 towers): loss {l_f:.6f} vs {l_a:.6f} (|diff| "
+        f"{abs(l_f - l_a):.3e}, gate 1e-2 * |loss|), LoRA-ESM gradient "
+        f"||g_flash - g_auto|| / ||g_auto|| = {r_model:.3e} (gross-error "
+        f"gate 0.25) over {g_a.numel()} entries [{card}]")
+    require(abs(l_f - l_a) <= 1e-2 * abs(l_a),
+            f"flash loss {l_f} vs auto {l_a}")
+    require(r_model <= 0.25, f"flash LoRA-ESM gradient rel. diff {r_model}")
+    del res, g_a, g_f, grads, loss
+
+    # ESMC alone, the vector-Jacobian product of one fixed cotangent into
+    # the LoRA-ESM leaves: both bf16 routes against the plain route on an
+    # f32 copy of the tower; flash (fp32 P in K6b) must be no farther
+    # from it than auto (bf16 autograd products) is, within 1.5x + 2e-3
+    cfg_e, scale = run.step_kw["esm_config"], run.step_kw["cfg"].lora.scale
+    esm16 = run.frozen["esm_encoder"]
+    esm32 = tree_map(lambda t: t.float(), esm16)
+    ids, am = mb["protein_input_ids"], mb["protein_attention_mask"]
+    dh = torch.randn((*ids.shape, cfg_e.d_model), device=ids.device,
+                     generator=torch.Generator(device=ids.device)
+                     .manual_seed(3))
+    vjp = {}
+    for name, tower, impl, dt in (("f32", esm32, "xla", torch.float32),
+                                  ("auto", esm16, "auto", torch.bfloat16),
+                                  ("flash", esm16, "flash", torch.bfloat16)):
+        h = esmc_encode(cfg_e, tower, ids, am, attn_impl=impl,
+                        lora=params["lora_esm"], lora_scale=scale)
+        grads = torch.autograd.grad(h, lora_esm, dh.to(dt))
+        vjp[name] = torch.cat([g.float().flatten() for g in grads])
+    del esm32, h, grads
+    r_a, r_f = rel(vjp["auto"], vjp["f32"]), rel(vjp["flash"], vjp["f32"])
+    log(f"ESMC-600M alone, LoRA-ESM vector-Jacobian product of one bf16 "
+        f"tower route against the plain route on an f32 copy: flash "
+        f"(K6/K6b) {r_f:.3e}, auto (plain, bf16 autograd) {r_a:.3e} "
+        f"relative L2 (gate: flash <= 1.5 * auto + 2e-3) [{card}]")
+    require(r_f <= 1.5 * r_a + 2e-3,
+            f"flash VJP rel. err {r_f} > 1.5 * auto's {r_a} + 2e-3")
+    del vjp
+
+    step_fn = make_sft_train_step(tx=run.tx, grad_accum=accum, **step_kw)
+    state, steps = run.state, len(batches) - 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, run.frozen, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = launch_counts()
+    L = run.step_kw["decoder_core"].num_layers
+    L_esm = run.step_kw["esm_config"].n_layers
+    micro = steps * accum
+    want = expect(K1=2 * L * micro, K5=L * micro, K6=2 * L_esm * micro,
+                  K6b=L_esm * micro)
+    log(f"launches in the flash training run: {counts} (K1 and K6 = "
+        f"forward + recomputation per layer and micro-step, K5 and K6b = "
+        f"one per layer and micro-step)")
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    require(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
+            f"non-finite loss {losses}")
+    frozen = tree_leaves({k: run.frozen[k] for k in ("esm_encoder",
+                                                     "llm_decoder")})
+    for t, (version, sample) in zip(frozen, stamp):
+        require(t._version == version and torch.equal(
+            t.view(-1)[::max(1, t.numel() // 2**20)], sample),
+            "a frozen tower weight changed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    S = batches[0]["input_ids"].shape[-1]
+    for i, (dt, loss) in enumerate(zip(times, losses)):
+        log(f"train --attn_impl flash step {i + 1} [{card}]: loss "
+            f"{loss:.4f}, {dt:.3f} s = {accum * S / dt:.1f} positions/s")
+    log(f"train --attn_impl flash peak device memory {peak:.2f} GiB "
+        f"[{card}]; frozen towers bit-identical")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof_fn = make_sft_train_step(tx=run.tx, **step_kw)
+    mb = {k: v[0] for k, v in batches[steps].items()}
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, loss = prof_fn(state, run.frozen, mb, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log("train --attn_impl flash, one micro-step "
+        + kernel_breakdown(torch, prof, wall) + f" [{card}]")
+    run.state = state
+    return counts
+
+
+CONTRAST_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"))
+
+
+def run_contrast(torch, dev, card, models, stamp):
+    """Phase 4e: stage-1 contrastive training of the adapter at full width
+    through `cli/train_contrast.py`'s own setup (`build_contrast`: its
+    adapter init, per-epoch cosine schedule and step) at the CLI's
+    defaults (batch 8 x accumulation 8, 2 segments, output_llm_layer 16)
+    and --attn_impl flash, on the bf16 towers phase 4 built
+    (`build_models` draws from one seeded generator in a fixed order, so
+    the same args would build the same towers).  The records make one
+    batch per epoch, so the schedule's epoch-1 learning rate (0, warmup)
+    gives way to the peak at step 2.  2 steps with exact launch counts
+    (K1 per text-tower layer and micro-step, K6 per ESMC layer and
+    micro-step, no backward kernel: the towers run without a gradient),
+    the adapter moved, the towers bit-identical, then one profiled
+    step."""
+    from prot2text_tpu_torch.cli import train_contrast as tcli
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.weights import tree_leaves
+
+    tok = ByteTextTokenizer()
+    args = tcli.build_parser().parse_args([
+        "--train_csv", "unused", "--device", "cuda", "--random_seed", "0",
+        "--attn_impl", "flash"])
+    accum, bsz, steps = (args.gradient_accumulation_steps, args.batch_size,
+                         2)
+    t0 = time.perf_counter()
+    crun = tcli.build_contrast(args, tok, dev, steps_per_epoch=1,
+                               models=models)
+    collater = LightCollator(
+        tokenizer=tok, mode="train", placeholder_token=tok.placeholder_token,
+        buckets=Buckets(**tcli.BUCKETS))
+    n = accum * bsz
+    records = train_records(n * (steps + 1), (380, 451), seed=11)
+    batches = [tcli.to_device(collater(records[i * n:(i + 1) * n]), dev,
+                              accum) for i in range(steps + 1)]
+    torch.cuda.synchronize()
+    cfg = crun.step_kw["cfg"]
+    log(f"contrast setup (build_contrast on phase 4's towers, {n} records "
+        f"per step) in {time.perf_counter() - t0:.1f} s: {accum} x B={bsz} "
+        f"micro-batches, protein width "
+        f"{batches[0]['protein_input_ids'].shape[-1]}, description width "
+        f"{batches[0]['description_input_ids'].shape[-1]}, text tower "
+        f"layers {cfg.output_llm_layer}, {cfg.num_segments} segments")
+    before = [t.detach().clone() for t in tree_leaves(crun.state.params)]
+    frozen = tree_leaves({k: crun.frozen[k] for k in ("esm_encoder",
+                                                      "llm_decoder")})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = crun.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = crun.step_fn(state, crun.frozen, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = launch_counts()
+    L_esm = crun.step_kw["esm_config"].n_layers
+    micro = steps * accum
+    want = expect(K1=cfg.output_llm_layer * micro, K6=L_esm * micro)
+    log(f"launches in the contrastive run: {counts} (K1 = one per text "
+        f"tower layer and micro-step, K6 = one per ESMC layer and "
+        f"micro-step)")
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    require(all(map(lambda x: x == x and 0 < x < float("inf"), losses)),
+            f"contrastive loss not finite and positive: {losses}")
+    require(state.step == steps, f"step counter {state.step}")
+    moved = max((a.detach() - b).abs().max().item()
+                for a, b in zip(tree_leaves(state.params), before))
+    require(moved > 0, "the adapter did not move")
+    for t, (version, sample) in zip(frozen, stamp):
+        require(t._version == version and torch.equal(
+            t.view(-1)[::max(1, t.numel() // 2**20)], sample),
+            "a frozen tower weight changed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (dt, loss) in enumerate(zip(times, losses)):
+        log(f"contrast step {i + 1} [{card}]: loss {loss:.4f}, {dt:.3f} s "
+            f"= {n / dt:.1f} sequences/s")
+    log(f"contrast peak device memory {peak:.2f} GiB [{card}]; adapter "
+        f"moved (max |delta| {moved:.3e}), frozen towers bit-identical")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state, loss = run.step_fn(state, run.frozen, batches[steps], gen)
+        state, loss = crun.step_fn(state, crun.frozen, batches[steps], gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log(kernel_breakdown(torch, prof, wall) + f" [{card}]")
+    log("contrast " + kernel_breakdown(torch, prof, wall, CONTRAST_FAMILIES)
+        + f" [{card}]")
     return counts
 
 
@@ -1160,13 +1511,13 @@ def run_serve(torch, dev, card):
     gc.collect()
 
     # one short default-path run under torch.profiler: where the time goes
-    args_p = serve_args("--max_new_tokens", "24")
+    args_p = serve_args("--max_new_tokens", "12")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     batches_p = serve_batches(args_p, tok, 8, 7)
     with torch.profiler.profile(activities=acts) as prof:
         run_p, _ = serve_once(torch, args_p, tok, cfg, params, batches_p,
-                              dev, "profiled, 8 x 24 tokens", card)
+                              dev, "profiled, 8 x 12 tokens", card)
     log(kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
         + f" [{card}]")
     del run_p, prof
@@ -1247,12 +1598,12 @@ def run_serve_int8(torch, dev, card, tok, cfg, params, batches):
             torch.profiler.ProfilerActivity.CUDA]
     for label, flags in (("int8", ()), ("int8 + prompt lookup 4",
                                         ("--prompt_lookup_tokens", "4"))):
-        args_p = serve_args("--kv_bits", "8", "--max_new_tokens", "24",
+        args_p = serve_args("--kv_bits", "8", "--max_new_tokens", "12",
                             *flags)
         batches_p = serve_batches(args_p, tok, 8, 7)
         with torch.profiler.profile(activities=acts) as prof:
             run_p, _ = serve_once(torch, args_p, tok, cfg, params, batches_p,
-                                  dev, f"profiled {label}, 8 x 24 tokens",
+                                  dev, f"profiled {label}, 8 x 12 tokens",
                                   card)
         log(kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
             + f" [{card}]")
@@ -1359,12 +1710,12 @@ def run_serve_quant(torch, dev, card):
             acts = [torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]
             args_p = serve_args("--model_dtype", dtype, "--kv_bits", "8",
-                                "--max_new_tokens", "24")
+                                "--max_new_tokens", "12")
             batches_p = serve_batches(args_p, tok, 8, 7)
             with torch.profiler.profile(activities=acts) as prof:
                 run_p, _ = serve_once(torch, args_p, tok, cfg, params,
                                       batches_p, dev,
-                                      "profiled int4 + int8 pool, 8 x 24",
+                                      "profiled int4 + int8 pool, 8 x 12",
                                       card)
             log(kernel_breakdown(torch, prof, run_p.seconds,
                                  SERVE_FAMILIES) + f" [{card}]")
@@ -1735,28 +2086,90 @@ def run_train_plumbing(torch, dev):
     step_kw = dict(esm_config=esm_cfg, adapter_config=ad_cfg,
                    decoder_core=qwen.core(),
                    cfg=SFTConfig(lora=lora, placeholder_id=tok.placeholder_id))
-    out = []
-    for d in (torch.device("cpu"), dev):
-        params = tree_map(lambda t: t.to(d, copy=True).requires_grad_(),
-                          trainable)
-        fz = tree_map(lambda t: t.to(d), frozen)
-        step = make_sft_train_step(tx=adamw_constant(1e-3), **step_kw)
-        _, loss = step(TrainState.create(params, adamw_constant(1e-3)), fz,
-                       to_device(host, d, 1),
-                       torch.Generator(device=d).manual_seed(0))
-        out.append((loss.item(), [p.grad.cpu() for p in
-                                  tree_leaves(params)]))
+    for impl in ("auto", "flash"):
+        out = []
+        for d in (torch.device("cpu"), dev):
+            params = tree_map(lambda t: t.to(d, copy=True).requires_grad_(),
+                              trainable)
+            fz = tree_map(lambda t: t.to(d), frozen)
+            step = make_sft_train_step(tx=adamw_constant(1e-3),
+                                       attn_impl=impl, **step_kw)
+            _, loss = step(TrainState.create(params, adamw_constant(1e-3)),
+                           fz, to_device(host, d, 1),
+                           torch.Generator(device=d).manual_seed(0))
+            out.append((loss.item(), [p.grad.cpu() for p in
+                                      tree_leaves(params)]))
+        _cuda_cpu_gate(f"SFT step --attn_impl {impl}", out)
+
+
+def _cuda_cpu_gate(label, out):
+    """[(loss, grads) on cpu, (loss, grads) on cuda]: loss atol 1e-4,
+    every gradient entry within 1e-3 of |grad| + 1e-3 of its leaf's max."""
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out
     require(abs(l_cpu - l_gpu) <= 1e-4,
-            f"SFT loss cuda {l_gpu} vs cpu {l_cpu} (atol 1e-4)")
+            f"{label} loss cuda {l_gpu} vs cpu {l_cpu} (atol 1e-4)")
     worst = 0.0
     for a, b in zip(g_gpu, g_cpu):
         err = ((a - b).abs() / (b.abs() + b.abs().max() * 1e-3)).max().item()
         worst = max(worst, err)
-    require(worst <= 1e-3, f"SFT grads cuda vs cpu: rel err {worst} > 1e-3")
-    log(f"plumbing f32 SFT step cuda vs cpu: loss {l_gpu:.6f} vs "
+    require(worst <= 1e-3,
+            f"{label} grads cuda vs cpu: rel err {worst} > 1e-3")
+    log(f"plumbing f32 {label} cuda vs cpu: loss {l_gpu:.6f} vs "
         f"{l_cpu:.6f} (atol 1e-4), {len(g_cpu)} gradients within rtol "
         f"{worst:.2e} (1e-3 of |grad| + 1e-3 of the leaf's max)")
+
+
+def run_contrast_plumbing(torch, dev):
+    """One contrastive step of tiny f32 ESMC + Qwen3 (head_dim 64: K1 at
+    D=64; ESMC's D=16 through K6 under --attn_impl flash) on cuda and on
+    cpu from the same weights and batch, at the SFT step's gates (loss
+    atol 1e-4, adapter gradients rtol 1e-3).  Adapter dropout 0."""
+    from prot2text_tpu_torch.cli import train_contrast as tcli
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.models.adapters import (
+        ModalityAdapterConfig, init_modality_adapter_params,
+    )
+    from prot2text_tpu_torch.models.esmc import ESMCConfig, init_esmc_params
+    from prot2text_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3_params
+    from prot2text_tpu_torch.models.weights import tree_leaves, tree_map
+    from prot2text_tpu_torch.train.contrastive import (
+        ContrastiveConfig, make_contrastive_train_step,
+    )
+    from prot2text_tpu_torch.train.optim import TrainState, adamw_constant
+
+    tok = ByteTextTokenizer()
+    esm_cfg = ESMCConfig.tiny()
+    qwen = Qwen3Config(vocab_size=tok.vocab_size, hidden_size=128,
+                       num_layers=3, num_heads=4, num_kv_heads=2, head_dim=64,
+                       intermediate_size=256)
+    ad_cfg = ModalityAdapterConfig(esm_cfg.d_model, 64, qwen.hidden_size,
+                                   dropout_rate=0.0)
+    g = torch.Generator().manual_seed(4)
+    kw = dict(generator=g, device="cpu")
+    frozen = {"esm_encoder": init_esmc_params(esm_cfg, **kw),
+              "llm_decoder": init_qwen3_params(qwen, **kw)}
+    adapter = init_modality_adapter_params(ad_cfg, **kw)
+    collate = LightCollator(tokenizer=tok, mode="train",
+                            placeholder_token=tok.placeholder_token,
+                            buckets=Buckets(**tcli.BUCKETS))
+    host = collate(train_records(4, (30, 60), seed=5))
+    step_kw = dict(esm_config=esm_cfg, adapter_config=ad_cfg,
+                   decoder_core=qwen.core(),
+                   cfg=ContrastiveConfig(output_llm_layer=2))
+    out = []
+    for d in (torch.device("cpu"), dev):
+        params = tree_map(lambda t: t.to(d, copy=True).requires_grad_(),
+                          adapter)
+        fz = tree_map(lambda t: t.to(d), frozen)
+        step = make_contrastive_train_step(tx=adamw_constant(1e-3),
+                                           attn_impl="flash", **step_kw)
+        _, loss = step(TrainState.create(params, adamw_constant(1e-3)), fz,
+                       tcli.to_device(host, d, 1),
+                       torch.Generator(device=d).manual_seed(0))
+        out.append((loss.item(), [p.grad.cpu() for p in
+                                  tree_leaves(params)]))
+    _cuda_cpu_gate("contrastive step --attn_impl flash", out)
 
 
 def main() -> int:
@@ -1769,6 +2182,7 @@ def main() -> int:
     from prot2text_tpu_torch.core.device import resolve_device
     from prot2text_tpu_torch.kernels import KERNELS, _build
 
+    t_start = time.time()
     dev = resolve_device("cuda")
     card = card_line()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1792,6 +2206,10 @@ def main() -> int:
 
     rows = check_kernels(torch, dev, card)
     rows.update(check_serve_kernels(torch, dev, card))
+    bwd_rows, k6_err = check_bias_bwd_kernel(torch, dev, card)
+    rows.update(bwd_rows)
+    # the K6 row keeps the worst error over its serving and training shapes
+    rows["K6"]["max_abs_err"] = max(rows["K6"]["max_abs_err"], k6_err)
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(check_int8_kernels(torch, dev, card))
@@ -1800,20 +2218,29 @@ def main() -> int:
     rows.update(check_quant_kernels(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3 at {time.time() - t_start:.1f} s")
     paths = {"generate": run_slice(torch, dev, card)}
     gc.collect()                 # free the generation model before training
     torch.cuda.empty_cache()
-    paths["train"] = run_training(torch, dev, card)
+    log(f"phase 4 at {time.time() - t_start:.1f} s")
+    train_paths, models, stamp = run_training(torch, dev, card)
+    paths.update(train_paths)
+    paths["contrast"] = run_contrast(torch, dev, card, models, stamp)
+    del models, stamp
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 4b at {time.time() - t_start:.1f} s")
     paths.update(run_serve(torch, dev, card))
     gc.collect()                 # free the bf16 serving model first
     torch.cuda.empty_cache()
+    log(f"phase 4d at {time.time() - t_start:.1f} s")
     paths.update(run_serve_quant(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 5 at {time.time() - t_start:.1f} s")
     run_plumbing(torch, dev)
     run_train_plumbing(torch, dev)
+    run_contrast_plumbing(torch, dev)
     run_serve_plumbing(torch, dev)
     run_serve_quant_plumbing(torch, dev)
 
@@ -1830,6 +2257,7 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
+    log(f"all phases passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

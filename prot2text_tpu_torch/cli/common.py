@@ -12,11 +12,12 @@ import torch
 
 from ..data.chat import ByteTextTokenizer
 
-from ..core.dtypes import compute_dtype, str2dtype
+from ..core.dtypes import QUANTIZED, compute_dtype, str2dtype
 from ..models.adapters import (
     ModalityAdapterConfig, init_modality_adapter_params,
 )
 from ..models.esmc import ESMCConfig, esmc_params_from_torch, init_esmc_params
+from ..models.quant import quantize_params
 from ..models.qwen3 import Qwen3Config, init_qwen3_params
 
 
@@ -26,7 +27,9 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--fsdp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
-    # the port has one attention route ("auto"): K1 forward, K5 backward
+    # "auto": plain encoder attention, K1/K5 in the decoder; "flash": K6/K6b
+    # in the encoder too; "xla": the plain function everywhere (training
+    # and serve's encoder; see common_unported)
     p.add_argument("--attn_impl", type=str, default="auto",
                    choices=["auto", "xla", "flash", "ring"])
     p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
@@ -46,28 +49,34 @@ def refuse(todo) -> None:
                 f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def common_unported(args, quantized: bool = False) -> list:
-    """The common flags' unported values, for `refuse`; `quantized=True`
-    (the serve CLI) accepts --model_dtype int8/int4."""
+def common_unported(args, quantized: bool = False,
+                    attn_routes: bool = False) -> list:
+    """The common flags' unported values, for `refuse`.  `quantized=True`
+    (serve, train_contrast: frozen towers run forward only) accepts
+    --model_dtype int8/int4; `attn_routes=True` (the training CLIs, serve)
+    accepts --attn_impl xla/flash."""
     return [
         (max(args.fsdp, args.tp, args.sp) > 1, "--fsdp/--tp/--sp > 1",
          "§1 item 14"),
         (args.attn_impl == "ring", "--attn_impl ring", "§1 item 14"),
-        (args.attn_impl in ("xla", "flash"), f"--attn_impl {args.attn_impl}",
-         "§1 items 2-6 (only 'auto' is ported)"),
+        (args.attn_impl in ("xla", "flash") and not attn_routes,
+         f"--attn_impl {args.attn_impl} (the lockstep prefill's routes)",
+         "§1 item 3"),
         (isinstance(args.model_dtype, str) and not quantized,
-         f"--model_dtype {args.model_dtype} (weight quantization outside "
-         f"serving: QLoRA)", "§1 item 12"),
+         f"--model_dtype {args.model_dtype} (LoRA over quantized towers: "
+         f"QLoRA)", "§1 item 4"),
     ]
 
 
 class LossLogger:
     """Per-step losses WITHOUT per-step host syncs: device scalars are
     collected and copied to the host as ONE stacked tensor every
-    `log_every` steps.  Each flush warns on non-finite losses."""
+    `log_every` steps.  Each flush warns on non-finite losses and, with
+    `positive_required` (the contrastive trainer), on losses <= 0."""
 
-    def __init__(self, log_every: int = 10):
+    def __init__(self, log_every: int = 10, positive_required: bool = False):
         self.log_every = max(1, int(log_every))
+        self.positive_required = positive_required
         self._pending: list = []
         self._host: list = []
 
@@ -81,7 +90,10 @@ class LossLogger:
             return
         vals = torch.stack(self._pending).float().cpu().numpy()  # one copy
         self._pending.clear()
-        for v in vals[~np.isfinite(vals)]:
+        bad = ~np.isfinite(vals)
+        if self.positive_required:
+            bad |= vals <= 0
+        for v in vals[bad]:
             print(f"WARNING: impossible loss {float(v)}", file=sys.stderr)
         self._host.extend(float(v) for v in vals)
 
@@ -112,8 +124,9 @@ def build_models(args, tok, device):
     adapter): ESMC + Qwen3 towers in `--model_dtype` (random N(0, 0.02)
     from `--random_seed`, or ESMC from `--esm_checkpoint_path`) and an f32
     modality adapter, all on `device`.  For --model_dtype int8/int4 the
-    towers are built in bf16 and the caller quantizes them (the serve CLI,
-    after merging a LoRA); `args` is left as it is."""
+    towers are built in bf16 and the caller quantizes them with
+    `quantize_towers` (the serve CLI after merging a LoRA, train_contrast
+    at once); `args` is left as it is."""
     if args.debug_tiny_model:
         esm_cfg = ESMCConfig.tiny()
         llm_cfg = Qwen3Config(
@@ -142,3 +155,13 @@ def build_models(args, tok, device):
     adapter = init_modality_adapter_params(adapter_cfg, **kw)  # f32
     return (esm_cfg, llm_cfg, adapter_cfg,
             {"esm_encoder": esm_params, "llm_decoder": llm_params}, adapter)
+
+
+def quantize_towers(towers: dict, model_dtype) -> dict:
+    """{"esm_encoder", "llm_decoder"} built in bf16 → both quantized per
+    output channel (`models/quant.quantize_params`) for --model_dtype
+    int8/int4; the towers as they are for a float dtype."""
+    bits = QUANTIZED.get(model_dtype)
+    if not bits:
+        return towers
+    return {name: quantize_params(t, bits=bits) for name, t in towers.items()}

@@ -75,17 +75,17 @@ def build_parser():
 def refuse_unported(args) -> None:
     """NotImplementedError for every flag value the port lacks."""
     refuse([
-        (args.use_graph, "--use_graph (RGCN arc)", "§1 item 13"),
-        (args.num_beams > 1, "--num_beams > 1 (beam search)", "§1 item 9"),
+        (args.use_graph, "--use_graph (RGCN arc)", "§1 item 12"),
+        (args.num_beams > 1, "--num_beams > 1 (beam search)", "§1 item 10"),
         (args.prompt_lookup_tokens > 0,
          "--prompt_lookup_tokens (lockstep infer/speculative.py)",
-         "§1 item 11"),
+         "§1 item 7"),
         (args.load_checkpoint_dir is not None, "--load_checkpoint_dir",
-         "§1 item 10, checkpoints"),
+         "§1 item 6, checkpoints"),
         (args.esm_checkpoint_dir is not None
          or args.llama_checkpoint_dir is not None,
          "--esm_checkpoint_dir/--llama_checkpoint_dir (HF weight loader)",
-         "§1 item 1"),
+         "§1 item 6"),
         *common_unported(args),
     ])
 

@@ -28,8 +28,11 @@ an error, never a silent CPU run).  --load_sft_checkpoint_dir restores a
 checkpoint of the port's `cli/train_instruct.py` and merges its LoRA into
 the towers, built in --model_dtype (bf16 for int8/int4) first and
 quantized after (the JAX CLI merges after its quantize step and fails;
-ROADMAP.md §3).  Values the port does not have yet raise
-NotImplementedError naming their ROADMAP item.  Output: one JSON file
+ROADMAP.md §3).  --attn_impl routes the ESMC encoder as the JAX CLI
+does (K6 forward under "flash", plain under "auto" and "xla"); the
+engine's decoder keeps its own routes, as JAX serving fixes them.  Values
+the port does not have yet raise NotImplementedError naming their ROADMAP
+item.  Output: one JSON file
 {name: {"true", "pred"}} and a descriptions/hour line.
 
     python -m prot2text_tpu_torch.cli.serve --test_csv test.csv --device cuda
@@ -60,9 +63,10 @@ from ..infer.generate import GenerationConfig
 from ..infer.serving import ContinuousBatcher
 from ..models.composed import ESMCQwen, ESMCQwenConfig
 from ..models.lora import LoraConfig, merge_lora
-from ..models.quant import quantize_params, quantized_bytes
+from ..models.quant import quantized_bytes
 from .common import (
-    add_common_args, build_models, common_unported, refuse, text_tokenizer,
+    add_common_args, build_models, common_unported, quantize_towers, refuse,
+    text_tokenizer,
 )
 
 # the CLI's collation buckets (prot2text_tpu/cli/serve.py:133-134)
@@ -140,12 +144,12 @@ def refuse_unported(args) -> None:
     refuse([
         (args.medusa_path is not None,
          "--medusa_path (Medusa speculative serving)",
-         "§1 item 11, Medusa serving with cli/train_draft.py"),
+         "§1 item 8, Medusa serving with cli/train_draft.py"),
         (args.load_peft_adapter_dir is not None,
-         "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 11"),
+         "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 9"),
         (args.llm_checkpoint_dir is not None,
-         "--llm_checkpoint_dir (HF weight loader)", "§1 item 1"),
-        *common_unported(args, quantized=True),
+         "--llm_checkpoint_dir (HF weight loader)", "§1 item 6"),
+        *common_unported(args, quantized=True, attn_routes=True),
     ])
 
 
@@ -166,10 +170,7 @@ def build_server(args, tok, device):
         frozen["llm_decoder"] = merge_lora(
             lora_cfg, frozen["llm_decoder"], sft["lora_llm"])
         adapter = sft["adapter"]
-    bits = QUANTIZED.get(args.model_dtype)
-    if bits:
-        for name in ("esm_encoder", "llm_decoder"):
-            frozen[name] = quantize_params(frozen[name], bits=bits)
+    frozen = quantize_towers(frozen, args.model_dtype)
     placeholder_id = getattr(tok, "placeholder_id", 151669)
     cfg = ESMCQwenConfig(esm_config=esm_cfg, adapter_config=adapter_cfg,
                          llm_config=llm_cfg, placeholder_id=placeholder_id)
@@ -208,11 +209,14 @@ def shared_prefix_ids(batch, placeholder_id: int):
 
 
 @torch.no_grad()
-def encode_batch(cfg: ESMCQwenConfig, params, batch, device):
+def encode_batch(cfg: ESMCQwenConfig, params, batch, device,
+                 attn_impl: str = "auto"):
     """A collated batch → (prompt embeddings (B, P, H) on `device`, its
-    attention mask as a host array): ESMC, adapter and placeholder merge.
-    The embeddings stay on the device (the engine's device submit); only
-    the small mask comes to the host, for the prompt lengths."""
+    attention mask as a host array): ESMC (its attention routed by
+    `attn_impl`: K6 under "flash", plain under "auto"/"xla"), adapter and
+    placeholder merge.  The embeddings stay on the device (the engine's
+    device submit); only the small mask comes to the host, for the prompt
+    lengths."""
     def tensor(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.int64,
                                device=device)
@@ -222,7 +226,7 @@ def encode_batch(cfg: ESMCQwenConfig, params, batch, device):
         protein_attention_mask=tensor(batch["protein_attention_mask"]),
         input_ids=tensor(batch["input_ids"]),
         attention_mask=tensor(batch["attention_mask"]),
-        return_decoder_inputs=True)
+        return_decoder_inputs=True, attn_impl=attn_impl)
     return embeds, attn.cpu().numpy()
 
 
@@ -252,7 +256,7 @@ def serve(args, tok, cfg: ESMCQwenConfig, params, batches: Iterable[dict],
     buckets = tuple(int(b) for b in str(args.prompt_pad).split(","))
 
     def encode(batch):
-        return encode_batch(cfg, params, batch, device)
+        return encode_batch(cfg, params, batch, device, args.attn_impl)
 
     trues, results, n_tokens = {}, {}, {}
     t0 = time.time()

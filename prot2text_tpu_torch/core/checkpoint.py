@@ -4,7 +4,7 @@ The same layout — `{directory}/step_{N}` under a timestamped root
 (`checkpoints_%y%m%d_%H%M%S`), resume restoring the step counter — with the
 port's own contents: `torch.save` of the nested dict (tensors moved to the
 CPU, ints kept) as `step_{N}/checkpoint.pt`.  Conversion to and from the JAX
-package's orbax checkpoints is still to come (ROADMAP.md §1 item 10).
+package's orbax checkpoints is still to come (ROADMAP.md §1 item 13).
 """
 
 from __future__ import annotations

@@ -148,7 +148,7 @@ class Prot2TextInstructDataset:
     def process_one(self, uid: str):
         raise NotImplementedError(
             "PDB → graph featurization (data/pdb_graph.py) is not ported yet "
-            "(ROADMAP.md §1 item 13); the chat fields it would store come "
+            "(ROADMAP.md §1 item 12); the chat fields it would store come "
             "from _compose_and_tokenize_chat")
 
     # -- chat composition (dataset.py:340-399) ------------------------------

@@ -89,11 +89,11 @@ def run_generation(cfg, params, *, inputs_embeds, attention_mask, gen_cfg,
     are not ported yet."""
     if gen_cfg.num_beams > 1:
         raise NotImplementedError("beam search (num_beams > 1) is not ported "
-                                  "yet (ROADMAP.md §1 item 9)")
+                                  "yet (ROADMAP.md §1 item 10)")
     if gen_cfg.prompt_lookup_tokens > 0:
         raise NotImplementedError("lockstep prompt-lookup speculative "
                                   "decoding (infer/speculative.py) is not "
-                                  "ported yet (ROADMAP.md §1 item 11)")
+                                  "ported yet (ROADMAP.md §1 item 7)")
     return generate(cfg, params, inputs_embeds=inputs_embeds,
                     attention_mask=attention_mask, gen_cfg=gen_cfg,
                     generator=generator, cache_dtype=cache_dtype,

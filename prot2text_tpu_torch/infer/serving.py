@@ -33,7 +33,7 @@ What carries over from the JAX engine, and what does not:
   * the engine counts its plain decode steps (`plain_steps`) and its
     verify rounds (`verify_rounds`) apart, beside JAX's `steps` which sums
     both, so that kernel launch counts can be asserted exactly;
-  * Medusa speculative serving is not ported yet (ROADMAP.md §1 item 11).
+  * Medusa speculative serving is not ported yet (ROADMAP.md §1 item 8).
 
 Typical use:
 
@@ -436,7 +436,7 @@ class ContinuousBatcher:
         ONE copy of that KV, read by every slot through K9a (K9b, K9c on an
         int8 pool), instead of replicating it into each slot's cache.
     max_prefill_rows: cap on requests per prefill dispatch.
-    medusa_params raises NotImplementedError (ROADMAP.md §1 item 11)."""
+    medusa_params raises NotImplementedError (ROADMAP.md §1 item 8)."""
 
     def __init__(self, cfg: DecoderConfig, params, *, max_slots: int,
                  max_len: int, prompt_pad=64, eos_token_id: int = 128009,
@@ -449,7 +449,7 @@ class ContinuousBatcher:
         if medusa_params is not None:
             raise NotImplementedError(
                 "Medusa speculative serving is not ported yet (ROADMAP.md "
-                "§1 item 11: Medusa serving with cli/train_draft.py)")
+                "§1 item 8: Medusa serving with cli/train_draft.py)")
         buckets = ((prompt_pad,) if isinstance(prompt_pad, int)
                    else tuple(sorted(prompt_pad)))
         if not buckets or buckets[-1] >= max_len:

@@ -21,7 +21,8 @@ from .decode_attention import (
     decode_attention_stacked_write_q_prefix_plain,
 )
 from .flash_attention import (
-    flash_attention_bias, flash_attention_bias_fwd,
+    flash_attention_bias, flash_attention_bias_bwd,
+    flash_attention_bias_bwd_plain, flash_attention_bias_fwd,
     flash_attention_bias_plain, flash_attention_masked,
     flash_attention_masked_bwd, flash_attention_masked_bwd_plain,
     flash_attention_masked_fwd, flash_attention_masked_plain,
@@ -56,6 +57,9 @@ KERNELS = {
     "K6": (flash_attention_bias_fwd, flash_attention_bias_plain,
            "prot2text_tpu_torch/kernels/csrc/flash_attention_bias.cu",
            "prot2text_tpu/kernels/flash_attention.py:465"),
+    "K6b": (flash_attention_bias_bwd, flash_attention_bias_bwd_plain,
+            "prot2text_tpu_torch/kernels/csrc/flash_attention_bias_bwd.cu",
+            "prot2text_tpu/kernels/flash_attention.py:356"),
     "K9a": (decode_attention_stacked_write_prefix,
             decode_attention_stacked_write_prefix_plain,
             "prot2text_tpu_torch/kernels/csrc/decode_attention_write.cu",
@@ -116,6 +120,7 @@ __all__ = [
     "decode_attention_stacked_write_q", "decode_attention_stacked_write_q_plain",
     "decode_attention_stacked_write_q_prefix",
     "decode_attention_stacked_write_q_prefix_plain", "flash_attention_bias",
+    "flash_attention_bias_bwd", "flash_attention_bias_bwd_plain",
     "flash_attention_bias_fwd", "flash_attention_bias_plain",
     "flash_attention_masked", "flash_attention_masked_bwd",
     "flash_attention_masked_bwd_plain", "flash_attention_masked_fwd",

@@ -61,6 +61,9 @@ SIGNATURES = {
     # q, k, v, bias, o, lse, strides[15], B, H, Hkv, Sq, Skv, D, dtype,
     # stream
     "p2t_flash_bias_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # q, k, v, bias, do, lse, delta, dq, dk, dv, strides[24], B, H, Hkv,
+    # Sq, Skv, D, dtype, stream
+    "p2t_flash_bias_bwd": [_P] * 11 + [_I] * 7 + [_P],
     # qg, ck, cv, sk, sv (layer), kv_mask, kq, vq, ks, vs, slots, pk, pv,
     # psk, psv (layer), pmask, out, B, Hkv, rep, T, Pc, D, dtype, stream
     "p2t_decode_attention_write_q": [_P] * 17 + [_I] * 7 + [_P],

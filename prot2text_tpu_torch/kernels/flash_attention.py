@@ -14,10 +14,13 @@ is differentiable: a `torch.autograd.Function` whose forward is K1 and whose
 backward is K5, as the JAX `custom_vjp` pairs the two Pallas kernels.
 
 K6 replaces the forward of `flash_attention_tpu` (`_fwd_kernel` /
-`_flash_fwd`), kernel `csrc/flash_attention_bias.cu`: the serving prefix
-install attends [seeded prefix ‖ suffix] cache columns through an explicit
-fp32 bias (`flash_attention_bias`).  Its backward (K6b) is not ported: a
-call that would need a gradient raises.
+`_flash_fwd`), kernel `csrc/flash_attention_bias.cu`: attention through an
+explicit fp32 bias (the serving prefix install over [seeded prefix ‖
+suffix] cache columns; the ESMC encoder under `attn_impl="flash"`).  K6b
+replaces its backward (`_flash_bwd` with `_bwd_dq_kernel` /
+`_bwd_dkv_kernel`), kernel `csrc/flash_attention_bias_bwd.cu`.
+`flash_attention_bias` pairs the two in a `torch.autograd.Function`, as the
+JAX `custom_vjp` does; the bias gets no gradient.
 
 Contract of K1/K5 (as the JAX kernel): q (B, H, Sq, D) pre-scaled; k, v (B,
 Hkv, Skv, D) with Hkv dividing H; kv_start/kv_len (B,) int32 — the valid
@@ -314,13 +317,98 @@ def flash_attention_bias_fwd(q, k, v, bias):
 flash_attention_bias_fwd.launches = 0
 
 
+def flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do):
+    """Plain PyTorch K6b → (dq, dk, dv) in the inputs' dtypes, as the TPU
+    backward computes them: P = exp(q·kᵀ + bias − lse) in fp32 and NOT
+    rounded to v's dtype (the forward rounds it before P·V, the backward
+    does not), Δ = rowsum(dO∘O), dS = P∘(dO·Vᵀ − Δ), dQ = dS·K, dK = dSᵀ·Q,
+    dV = Pᵀ·dO, every product in fp32; dk/dv are computed per query head
+    and summed over each grouped-query group.  No bias gradient."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) + bias.float()
+    p = torch.exp(logits - lse[..., None])
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = dk.view(B, Hkv, rep, Skv, D).sum(dim=2)
+    dv = dv.view(B, Hkv, rep, Skv, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bias_bwd(q, k, v, bias, o, lse, do):
+    """K6b → (dq, dk, dv) with the layouts of q, k, v.  CPU tensors run the
+    plain version; CUDA tensors launch the dQ and dK/dV kernels (or raise).
+    q/k/v/bias follow K6's contract; o and lse are K6's outputs, do the
+    gradient of o.  Strided q/k/v/o/do are taken as they come (ESMC hands
+    over transposes of (B, S, H, D) buffers); only a head dim that is not
+    contiguous is copied.  The bias is read through its broadcast
+    strides."""
+    if q.device.type == "cpu":
+        return flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do)
+    _check_bias(q, k, v, bias)
+    B, H, Sq, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    if do.device != q.device or o.device != q.device:
+        raise ValueError("o and do must lie on q's device")
+    if do.dtype != q.dtype or o.dtype != q.dtype:
+        raise TypeError("o and do must have q's dtype")
+    if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq)
+            or not lse.is_contiguous()):
+        raise ValueError("lse must be a contiguous (B, H, Sq) float32 tensor")
+    if do.stride(-1) != 1:          # e.g. the expanded gradient of a sum
+        do = do.contiguous()
+    # Δ = rowsum(dO∘O): one fp32 torch reduction, as XLA computed it beside
+    # the TPU kernels; the dQ and dK/dV kernels both read it
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    b = bias.expand(B, bias.shape[1], Sq, k.shape[2])
+    b_sh = b.stride(1) if b.shape[1] == H and H > 1 else 0
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    strides = (ctypes.c_int64 * 24)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+        b.stride(0), b_sh, b.stride(2))
+    lib = _build.library()
+    err = lib.p2t_flash_bias_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), B, H,
+        k.shape[1], Sq, k.shape[2], D, _build.dtype_code(q.dtype),
+        _build.stream_of(q))
+    _build.check(err, "p2t_flash_bias_bwd")
+    flash_attention_bias_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bias_bwd.launches = 0
+
+
+class _FlashAttentionBias(torch.autograd.Function):
+    """K6 forward, K6b backward (the JAX `flash_attention_tpu` custom VJP);
+    the bias gets no gradient, as there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        o, lse = flash_attention_bias_fwd(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bias_bwd(q, k, v, bias, o, lse, do)
+        return dq, dk, dv, None
+
+
 def flash_attention_bias(q, k, v, bias):
-    """The forward of the JAX `flash_attention_tpu` (K6): o only.  Its
-    backward, K6b, is not ported yet (ROADMAP.md §2): a call that would
-    need a gradient raises."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the backward of the additive-bias flash attention (K6b) is not "
-            "ported yet (ROADMAP.md §2)")
-    return flash_attention_bias_fwd(q, k, v, bias)[0]
+    """The JAX `flash_attention_tpu`: K6's output, differentiable in q, k
+    and v through K6b."""
+    return _FlashAttentionBias.apply(q, k, v, bias)

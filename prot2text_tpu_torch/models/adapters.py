@@ -3,7 +3,7 @@
 fc1 → GELU → dropout → fc2 → GELU → dropout → L2-normalize; the dropouts
 act in training mode only (`deterministic=False`), drawing their masks
 from an explicit `torch.Generator`.  The RGCN adapter is not ported yet
-(ROADMAP.md §1 item 13)."""
+(ROADMAP.md §1 item 12)."""
 
 from __future__ import annotations
 

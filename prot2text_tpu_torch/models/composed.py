@@ -6,8 +6,9 @@ prot2text_tpu/models/composed.py):
   * `ESMCQwen` (:462-576, reference esmc_qwen_arc.py:31-273): ESMC encoder
     + modality adapter + Qwen3, the serving CLI's model.  Its `generate`
     (and `cli/generate_instruct_light.py`) is not ported yet (ROADMAP.md §1
-    item 7).
-The legacy and RGCN arcs are not ported yet (ROADMAP.md §1 items 8 and 13).
+    item 3).
+The legacy and RGCN arcs are not ported yet (ROADMAP.md §1 items 11 and
+12).
 """
 
 from __future__ import annotations
@@ -207,13 +208,17 @@ class ESMCQwen(nn.Module):
               protein_attention_mask, input_ids=None, attention_mask=None,
               labels=None, return_encoder_outputs: bool = False,
               return_decoder_inputs: bool = False,
-              deterministic: bool = True, generator=None):
+              deterministic: bool = True, generator=None,
+              attn_impl: str = "auto"):
         """The JAX `ESMCQwen.apply`: protein ids (B, P) right-padded, prompt
         ids (B, S) left-padded.  `return_encoder_outputs` → (adapter
         output,); `return_decoder_inputs` → (inputs_embeds, attention_mask),
-        the serving CLI's hand-off to the engine; else a ModelOutput."""
+        the serving CLI's hand-off to the engine; else a ModelOutput.
+        `attn_impl` routes both towers as `decoder_forward` and
+        `esmc_encode` do ("auto": plain ESMC, K1 in the decoder)."""
         enc = esmc_encode(config.esm_config, params["esm_encoder"],
-                          protein_input_ids, protein_attention_mask)
+                          protein_input_ids, protein_attention_mask,
+                          attn_impl=attn_impl)
         adapted = modality_adapter(config.adapter_config, params["adapter"],
                                    enc, deterministic=deterministic,
                                    generator=generator)
@@ -232,7 +237,8 @@ class ESMCQwen(nn.Module):
         positions = torch.arange(S, device=input_ids.device).expand(B, S)
         h, _ = decoder_forward(
             core, dec, inputs_embeds=inputs_embeds, positions=positions,
-            attn_lengths=contiguous_lengths(attention_mask))
+            attn_lengths=contiguous_lengths(attention_mask),
+            attn_impl=attn_impl)
         logits = decoder_logits(core, dec, h)
         loss = None if labels is None else cross_entropy_loss(logits, labels)
         return ModelOutput(loss=loss, logits=logits, hidden_states=h)

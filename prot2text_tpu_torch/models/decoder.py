@@ -5,7 +5,10 @@ Numerics follow the JAX package (HF LlamaForCausalLM / Qwen3ForCausalLM
 parity): fp32 RMSNorm, optional per-head q/k RMSNorm (Qwen3), GQA with
 half-split rotary, fp32 softmax, SwiGLU MLP, logits in fp32.
 
-Attention runs through the port's kernels:
+Attention runs through the port's kernels (`decoder_forward`'s
+`attn_impl` "auto" or "flash"; "xla" sends every layer's attention of a
+forward pass to the plain function instead, over the causal run bias, as
+the JAX XLA route `_xla_attention`):
   * prefill / no-cache forward with `attn_lengths` → `kernels.
     flash_attention.flash_attention_masked`, causal with the per-row
     contiguous key run from `contiguous_lengths`: K1 forward and, when
@@ -56,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.attention import IMPLS, dot_product_attention
 from ..kernels.cache_update import cache_slot_write_bkt
 from ..kernels.decode_attention import (
     HEAD_DIMS, MAX_CHUNK, MAX_ROWS, decode_attention_stacked,
@@ -70,7 +74,7 @@ from ..kernels.flash_attention import (
 from .lora import lora_at
 from .quant import quantize_kv
 from .transformer import (
-    apply_rope, layer_views, linear, linear_lora, rms_norm,
+    apply_rope, layer_views, linear, linear_lora, repeat_kv, rms_norm,
 )
 from .weights import dense, normal_
 
@@ -167,6 +171,19 @@ def embed_tokens(params, input_ids):
     return params["embed_tokens"][input_ids]
 
 
+def causal_run_bias(kv_start, kv_len, S: int):
+    """(B, 1, S, S) fp32 additive bias of the causal key runs: 0 where key
+    j lies in row b's run [kv_start[b], kv_start[b] + kv_len[b]) and j <=
+    i, finfo(f32).min elsewhere.  For a mask with one contiguous run per
+    row this is the JAX `causal_bias_from_mask` of that mask."""
+    j = torch.arange(S, device=kv_start.device)
+    s, n = kv_start.long()[:, None, None], kv_len.long()[:, None, None]
+    ok = (j >= s) & (j < s + n) & (j[None, :] <= j[:, None])
+    zero = torch.zeros((), dtype=torch.float32, device=kv_start.device)
+    return torch.where(ok[:, None], zero,
+                       torch.full_like(zero, torch.finfo(torch.float32).min))
+
+
 def contiguous_lengths(attention_mask):
     """(B, S) 0/1 mask with one contiguous valid run per row → (kv_start,
     kv_len) int32; fully masked rows get kv_len=1 (outputs ignored)."""
@@ -209,10 +226,11 @@ def _dequant(q, scale, dtype):
 
 def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
            attn_lengths, bias, kv_cache, cache_index, li, prefix_kv=None,
-           prefix_bias=None):
+           prefix_bias=None, run_bias=None):
     """One decoder layer: attention through K1 over `attn_lengths`, or
     through K6 over the whole cache (after the shared prefix's columns,
-    when given) with `bias`."""
+    when given) with `bias`; with `run_bias` (attn_impl "xla"), the plain
+    function over `run_bias` or `bias`."""
     B, S, _ = h.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -264,7 +282,11 @@ def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
         bias = torch.cat([prefix_bias.float().expand(B, 1, S, Pc),
                           bias.expand(B, 1, S, bias.shape[-1])], dim=-1)
     q = (q.float() * D ** -0.5).to(q.dtype)
-    if bias is None:
+    if run_bias is not None:
+        rep = H // Hkv
+        a = dot_product_attention(q, repeat_kv(k, rep), repeat_kv(v, rep),
+                                  run_bias if bias is None else bias)
+    elif bias is None:
         a = flash_attention_masked(q, k, v, *attn_lengths, causal=True)
     else:
         a = flash_attention_bias(q, k, v, bias)
@@ -277,7 +299,9 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
                     attn_lengths=None, bias=None, kv_cache=None,
                     cache_index=0, layers=None, lora=None,
                     lora_scale: float = 1.0, remat: bool = False,
-                    prefix_kv=None, prefix_bias=None):
+                    prefix_kv=None, prefix_bias=None,
+                    attn_impl: str = "auto", num_layers=None,
+                    final_norm: bool = True):
     """Causal forward over a whole sequence.  Exactly one of:
       * `attn_lengths` = (kv_start, kv_len) from `contiguous_lengths`:
         attention is K1 (K5 backward), causal on sequence index; with
@@ -293,14 +317,20 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
         `prefix_kv` ({"k","v"[, scales]} (L, 1, Hkv, Pc, D)) with
         `prefix_bias` (B, 1, 1, Pc) prepends the batch-broadcast shared
         prefix's columns to every layer's attention operand and bias.
-        Forward only (K6b is not ported).
+        The serving paths that take it run forward only.
     An int8 `kv_cache` ({"k","v","k_scale","v_scale"}, `init_kv_cache(
     kv_bits=8)`) stores each layer's k/v quantized per (head, token) and
     attends over its dequantized copy in the activations' dtype.
     `lora`: an optional LoRA tree over `params` (models/lora.py), applied
     as side paths scaled by `lora_scale`; `remat=True` recomputes each
-    layer in the backward pass (training; not with a cache).  Returns (h,
-    kv_cache)."""
+    layer in the backward pass (training; not with a cache).
+    `attn_impl` "auto" or "flash" takes the kernels above; "xla" takes the
+    plain function (k/v repeated to H heads) over `bias`, or over
+    `causal_run_bias` of `attn_lengths` (the JAX XLA route over
+    `causal_bias_from_mask`).  `num_layers=N` runs only the first N layers
+    (of `layers` when given) and `final_norm=False` skips the final
+    RMSNorm: with both, h is HF's `hidden_states[N]` (the JAX overrides
+    the contrastive text tower uses).  Returns (h, kv_cache)."""
     if (attn_lengths is None) == (bias is None):
         raise ValueError("pass exactly one of attn_lengths and bias")
     if remat and kv_cache is not None:
@@ -317,21 +347,31 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
                              f"the cache {kv_cache['k'].shape[3]}")
     if prefix_kv is not None and (bias is None or prefix_bias is None):
         raise ValueError("prefix_kv requires bias and prefix_bias")
+    if attn_impl not in IMPLS:
+        raise ValueError(f"attn_impl must be one of {IMPLS}, got "
+                         f"{attn_impl!r}")
+    run_bias = None
+    if attn_impl == "xla":
+        run_bias = (bias if attn_lengths is None else causal_run_bias(
+            *attn_lengths, inputs_embeds.shape[1]))
     cos, sin = decoder_rope_cos_sin(cfg, positions)
     if layers is None:
         layers = layer_views(params["layers"], cfg.num_layers)
-    lora_layers = (layer_views(lora["layers"], cfg.num_layers)
+    layers = layers[:num_layers]
+    lora_layers = (layer_views(lora["layers"], len(layers))
                    if lora is not None else [None] * len(layers))
     h = inputs_embeds
     for li, (lp, ll) in enumerate(zip(layers, lora_layers)):
         args = (cfg, lp, ll, lora_scale, h, cos, sin, attn_lengths, bias,
-                kv_cache, cache_index, li, prefix_kv, prefix_bias)
+                kv_cache, cache_index, li, prefix_kv, prefix_bias, run_bias)
         if remat:
             # the block draws no random numbers: no RNG state to replay
             h = checkpoint(_block, *args, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             h = _block(*args)
+    if not final_norm:
+        return h, kv_cache
     return rms_norm(params["final_ln"], h, cfg.rms_norm_eps), kv_cache
 
 

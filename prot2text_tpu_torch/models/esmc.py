@@ -7,10 +7,13 @@ scaled by 1/sqrt(n_layers/36) — fused qkv (no bias), q/k LayerNorm over
 d_model (no bias), rotary (theta 10000) over the absolute index, the query
 scaled by head_dim**-0.5 AFTER rotary, out_proj; SwiGLU FFN
 (Linear(d, 2f) → silu(g1)·g2 → Linear(f, d)) — and a final LayerNorm.
-Attention is bidirectional plain PyTorch (fp32 logits + key-padding bias):
-the JAX path is plain XLA here too (`"auto"` without lengths), so no Pallas
-kernel is reached.  LoRA side paths ride qkv, out_proj, ffn_in and ffn_out;
-`remat=True` recomputes each block in the backward pass.
+Attention is bidirectional with a (B, 1, 1, S) key-padding bias, routed
+by `attn_impl` as the JAX `attention(q, k, v, bias, impl=attn_impl)`
+(prot2text_tpu/models/esmc.py:154): "xla" and "auto" take plain PyTorch
+(fp32 logits + bias, the JAX XLA route), "flash" takes K6 forward and K6b
+backward (`kernels/attention.py`).  LoRA side paths ride qkv, out_proj,
+ffn_in and ffn_out; `remat=True` recomputes each block in the backward
+pass (under "flash" that runs K6 a second time per block).
 """
 
 from __future__ import annotations
@@ -103,7 +106,8 @@ def init_esmc_params(cfg: ESMCConfig, *, generator, device,
     }
 
 
-def _block(cfg: ESMCConfig, lp, ll, lora_scale, x, bias, cos, sin):
+def _block(cfg: ESMCConfig, lp, ll, lora_scale, x, bias, cos, sin,
+           attn_impl):
     B, S, _ = x.shape
     H, D = cfg.n_heads, cfg.head_dim
     scale = 1.0 / cfg.residue_scaling
@@ -122,7 +126,7 @@ def _block(cfg: ESMCConfig, lp, ll, lora_scale, x, bias, cos, sin):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     q = (q.float() * D ** -0.5).to(q.dtype)
-    a = dot_product_attention(q, k, v, bias)
+    a = dot_product_attention(q, k, v, bias, impl=attn_impl)
     a = a.transpose(1, 2).reshape(B, S, H * D)
     x = x + proj("out_proj", a) * scale
     xn = layer_norm(lp["ffn_ln"], x, cfg.layer_norm_eps)
@@ -132,10 +136,12 @@ def _block(cfg: ESMCConfig, lp, ll, lora_scale, x, bias, cos, sin):
 
 
 def esmc_encode(cfg: ESMCConfig, params, input_ids, attention_mask, *,
-                remat: bool = False, lora=None, lora_scale: float = 1.0):
+                attn_impl: str = "auto", remat: bool = False, lora=None,
+                lora_scale: float = 1.0):
     """`.embeddings`-equivalent per-token hidden states (B, S, d_model).
     input_ids (B, S) right-padded with pad id 1; attention_mask (B, S) 0/1;
-    `lora` an optional LoRA tree (models/lora.py layout)."""
+    `attn_impl` "auto"/"xla" (plain) or "flash" (K6/K6b); `lora` an
+    optional LoRA tree (models/lora.py layout)."""
     S = input_ids.shape[1]
     h = params["embed"][input_ids]
     bias = make_attention_bias(attention_mask, causal=False)
@@ -148,9 +154,10 @@ def esmc_encode(cfg: ESMCConfig, params, input_ids, attention_mask, *,
         if remat:
             # the block draws no random numbers: no RNG state to replay
             h = checkpoint(_block, cfg, lp, ll, lora_scale, h, bias, cos, sin,
-                           use_reentrant=False, preserve_rng_state=False)
+                           attn_impl, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            h = _block(cfg, lp, ll, lora_scale, h, bias, cos, sin)
+            h = _block(cfg, lp, ll, lora_scale, h, bias, cos, sin, attn_impl)
     return layer_norm(params["final_ln"], h, cfg.layer_norm_eps)
 
 

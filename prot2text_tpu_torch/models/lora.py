@@ -29,7 +29,7 @@ class LoraConfig:
     alpha: int = 64           # reference: lora_alpha = 2 * r
     # regexes over tree paths (joined with '/'); the quantized kernel leaves
     # of the JAX package are matched too, and `init_lora_params` refuses
-    # them until weight quantization is ported (ROADMAP.md §1 item 12)
+    # them until weight quantization is ported (ROADMAP.md §1 item 4)
     target_patterns: Sequence[str] = (
         r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)"
         r"/kernel(_q|_q4|_q4p|_q4w)?$",
@@ -76,7 +76,7 @@ def init_lora_params(cfg: LoraConfig, base_params: dict, *, generator,
             if name != "kernel" or not leaf.is_floating_point():
                 raise NotImplementedError(
                     f"LoRA over the quantized leaf {_path_str(p)} is not "
-                    "ported yet (ROADMAP.md §1 item 12)")
+                    "ported yet (ROADMAP.md §1 item 4)")
             *lead, din, dout = leaf.shape
             A = torch.randn((*lead, din, cfg.r), generator=generator,
                             device=leaf.device, dtype=dtype).mul_(0.01)

@@ -29,13 +29,17 @@ from ..models.weights import tree_leaves, tree_map
 
 
 def cosine_warmup_schedule(base_lr: float, total_steps: int,
-                           warmup_frac: float = 0.06) -> Callable[[int], float]:
+                           warmup_frac: float = 0.06,
+                           steps_per_period: int = 1
+                           ) -> Callable[[int], float]:
     """lr(t): linear warmup to base_lr over warmup_frac·total, then cosine
-    decay to 0, stepped per optimizer step (the instruct trainer's
-    stepping)."""
+    decay to 0, evaluated at t // steps_per_period: the contrastive
+    trainer's per-epoch stepping over a num_epochs-long cosine; the
+    instruct trainer steps per optimizer step (1)."""
     warmup = max(int(total_steps * warmup_frac), 1)
 
     def sched(step: int) -> float:
+        step = step // steps_per_period
         if step < warmup:
             return base_lr * step / warmup
         progress = (step - warmup) / max(total_steps - warmup, 1)
@@ -96,8 +100,10 @@ def adamw_cosine_warmup(base_lr: float, total_steps: int,
                         warmup_frac: float = 0.06,
                         weight_decay: float = 0.0,
                         eps: float = 1e-6,
-                        grad_clip: Optional[float] = None) -> AdamW:
-    sched = cosine_warmup_schedule(base_lr, total_steps, warmup_frac)
+                        grad_clip: Optional[float] = None,
+                        steps_per_period: int = 1) -> AdamW:
+    sched = cosine_warmup_schedule(base_lr, total_steps, warmup_frac,
+                                   steps_per_period)
     return AdamW(sched, weight_decay=weight_decay, eps=eps,
                  grad_clip=grad_clip)
 

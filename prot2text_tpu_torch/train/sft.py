@@ -40,18 +40,22 @@ class SFTConfig:
 def sft_loss(trainable: dict, frozen: dict, batch: dict, *,
              esm_config: ESMCConfig, adapter_config: ModalityAdapterConfig,
              decoder_core: DecoderConfig, cfg: SFTConfig,
-             deterministic: bool = False, generator=None):
+             deterministic: bool = False, generator=None,
+             attn_impl: str = "auto"):
     """trainable {"lora_llm", "lora_esm", "adapter"}; frozen {"esm_encoder",
     "llm_decoder", "adapter"?}; batch of (B, ...) int tensors.  Training
     mode (`deterministic=False`) draws the adapter's dropout masks from
-    `generator`."""
+    `generator`.  `attn_impl` routes both towers' attention as in JAX:
+    "auto" — plain ESMC attention, K1/K5 in the decoder; "flash" — K6/K6b
+    in ESMC, K1/K5 in the decoder; "xla" — the plain function in both."""
     adapter_params = (frozen["adapter"] if cfg.fix_modality_adapter
                       else trainable["adapter"])
     scale = cfg.lora.scale
     enc = esmc_encode(esm_config, frozen["esm_encoder"],
                       batch["protein_input_ids"],
-                      batch["protein_attention_mask"], remat=cfg.remat,
-                      lora=trainable["lora_esm"], lora_scale=scale)
+                      batch["protein_attention_mask"], attn_impl=attn_impl,
+                      remat=cfg.remat, lora=trainable["lora_esm"],
+                      lora_scale=scale)
     adapted = modality_adapter(adapter_config, adapter_params, enc,
                                deterministic=deterministic,
                                generator=generator)
@@ -66,7 +70,8 @@ def sft_loss(trainable: dict, frozen: dict, batch: dict, *,
         decoder_core, llm_params, inputs_embeds=inputs_embeds,
         positions=positions,
         attn_lengths=contiguous_lengths(batch["attention_mask"]),
-        lora=trainable["lora_llm"], lora_scale=scale, remat=cfg.remat)
+        lora=trainable["lora_llm"], lora_scale=scale, remat=cfg.remat,
+        attn_impl=attn_impl)
     logits = decoder_logits(decoder_core, llm_params, h)
     return cross_entropy_loss(logits, batch["labels"])
 
@@ -74,7 +79,8 @@ def sft_loss(trainable: dict, frozen: dict, batch: dict, *,
 def make_sft_train_step(*, esm_config: ESMCConfig,
                         adapter_config: ModalityAdapterConfig,
                         decoder_core: DecoderConfig, cfg: SFTConfig,
-                        tx: AdamW, grad_accum: int = 1):
+                        tx: AdamW, grad_accum: int = 1,
+                        attn_impl: str = "auto"):
     """Returns `step(state, frozen, batch, generator) -> (state, loss)`.
     With grad_accum > 1 every batch leaf is stacked (grad_accum, micro_bsz,
     ...).  The dropout generator advances through the micro-batches, so
@@ -92,7 +98,8 @@ def make_sft_train_step(*, esm_config: ESMCConfig,
             loss = sft_loss(params, frozen, mb, esm_config=esm_config,
                             adapter_config=adapter_config,
                             decoder_core=decoder_core, cfg=cfg,
-                            deterministic=False, generator=generator)
+                            deterministic=False, generator=generator,
+                            attn_impl=attn_impl)
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         # a trainable leaf the loss does not reach (the adapter under
@@ -106,7 +113,8 @@ def make_sft_train_step(*, esm_config: ESMCConfig,
 
 def make_sft_eval_step(*, esm_config: ESMCConfig,
                        adapter_config: ModalityAdapterConfig,
-                       decoder_core: DecoderConfig, cfg: SFTConfig):
+                       decoder_core: DecoderConfig, cfg: SFTConfig,
+                       attn_impl: str = "auto"):
     """Deterministic loss-only step (reference eval_epoch)."""
 
     @torch.no_grad()
@@ -114,6 +122,6 @@ def make_sft_eval_step(*, esm_config: ESMCConfig,
         return sft_loss(trainable, frozen, batch, esm_config=esm_config,
                         adapter_config=adapter_config,
                         decoder_core=decoder_core, cfg=cfg,
-                        deterministic=True)
+                        deterministic=True, attn_impl=attn_impl)
 
     return step

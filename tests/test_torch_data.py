@@ -166,5 +166,5 @@ def test_light_dataset_on_csv(tmp_path):
 def test_graph_processing_names_its_roadmap_item(tmp_path):
     ds = tdataset.Prot2TextInstructDataset.__new__(
         tdataset.Prot2TextInstructDataset)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         ds.process_one("P00001")

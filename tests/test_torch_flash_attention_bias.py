@@ -3,14 +3,16 @@ version against the JAX Pallas kernel `flash_attention_tpu` in interpret
 mode on repeat_kv'd inputs (f32, atol 1e-5) — the bias shapes the JAX
 kernel takes, Sq != Skv with a seeded prefix, lengths off the 128 grid and
 a fully masked row; the CUDA kernel against the plain version on the card;
-the missing backward (K6b) raises."""
+`flash_attention_bias` is differentiable (its backward, K6b, is held to
+JAX in tests/test_torch_flash_attention_bias_bwd.py)."""
 
 import numpy as np
 import pytest
 import torch
 
 from prot2text_tpu_torch.kernels.flash_attention import (
-    flash_attention_bias, flash_attention_bias_fwd, flash_attention_bias_plain,
+    flash_attention_bias, flash_attention_bias_bwd_plain,
+    flash_attention_bias_fwd, flash_attention_bias_plain,
 )
 
 ATOL = 1e-5
@@ -112,13 +114,25 @@ def test_fully_masked_row_matches_pallas_interpret():
 
 
 def test_gradient_raises():
+    """The gradient that raised before K6b was ported now flows, and
+    matches the plain version's (K6b's plain twin, 1e-6 of its largest
+    |entry|); no bias gradient; without grad the output is K6's."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 4, 4, 16))
     bias = torch.zeros(1, 1, 4, 4)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K6b"):
-        flash_attention_bias(q, k, v, bias)
+    bias[..., 3] = NEG
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, 2, 4, 16)).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention_bias(*leaves, bias).backward(do)
+    o, lse = flash_attention_bias_plain(q, k, v, bias)
+    want = flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do)
+    for t, w in zip(leaves, want):
+        assert t.grad is not None and t.grad.shape == w.shape
+        torch.testing.assert_close(t.grad, w, rtol=0,
+                                   atol=1e-6 * w.abs().max().item())
+    assert not bias.requires_grad and bias.grad is None
     with torch.no_grad():
-        assert flash_attention_bias(q, k, v, bias).shape == (1, 2, 4, 16)
+        torch.testing.assert_close(flash_attention_bias(q, k, v, bias), o)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ int8 pool and prompt-lookup speculation (--kv_bits 8,
 --prompt_lookup_tokens, the controller flags); weight-quantized towers
 (--model_dtype int8/int4); a checkpoint written by the port's training CLI
 served through --load_sft_checkpoint_dir, in bf16 and merged before the
-int4 quantization; the flags it refuses; the missing-GPU error."""
+int4 quantization; --attn_impl routing the encoder; the flags it refuses;
+the missing-GPU error."""
 
 import json
 import os
@@ -184,19 +185,19 @@ BASE = ["--test_csv", "unused.csv", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--medusa_path", "heads.npz"], "item 11, Medusa serving"),
-    (["--load_peft_adapter_dir", "peft"], "item 11"),
-    (["--llm_checkpoint_dir", "qwen3"], "item 1"),
+    (["--medusa_path", "heads.npz"], "item 8, Medusa serving"),
+    (["--load_peft_adapter_dir", "peft"], "item 9"),
+    (["--llm_checkpoint_dir", "qwen3"], "item 6"),
     (["--tp", "2"], "item 14"),
     (["--fsdp", "2"], "item 14"),
     (["--sp", "2"], "item 14"),
-    (["--model_dtype", "int8"], "item 12"),
-    (["--model_dtype", "int4"], "item 12"),
+    (["--model_dtype", "int8"], "item 4"),
+    (["--model_dtype", "int4"], "item 4"),
     (["--attn_impl", "ring"], "item 14"),
 ])
 def test_unported_flags_raise(csv_path, tmp_path, capsys, flags, item):
     """Each unported flag raises, naming its ROADMAP item.  --model_dtype
-    int8/int4 (item 12's serving half) is ported: those two cases now run
+    int8/int4 (weight-quantized serving) is ported: those two cases now run
     a tiny CPU serve that quantizes both towers, prints their bytes and
     writes its JSON."""
     if flags[0] != "--model_dtype":
@@ -222,6 +223,33 @@ def test_unported_flags_raise(csv_path, tmp_path, capsys, flags, item):
     assert key in params["llm_decoder"]["lm_head"]
     assert key in params["esm_encoder"]["layers"]["qkv"]
     assert params["llm_decoder"]["embed_tokens"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "flash"])
+def test_attn_impl_routes_the_encoder(csv_path, tmp_path, monkeypatch,
+                                      impl):
+    """--attn_impl reaches every ESMC attention (a spy on the encoder's
+    attention call) and nothing else: the engine's decoder keeps its own
+    routes, as in JAX serving; the greedy tokens are those of "auto"."""
+    from prot2text_tpu_torch.models import esmc
+
+    seen = []
+    real = esmc.dot_product_attention
+
+    def spy(q, k, v, bias, impl="xla"):
+        seen.append(impl)
+        return real(q, k, v, bias, impl=impl)
+
+    monkeypatch.setattr(esmc, "dot_product_attention", spy)
+    results = cli.main(_args(csv_path, tmp_path, "--attn_impl", impl))
+    n_layers = 2                      # ESMCConfig.tiny()
+    assert len(seen) > 0 and len(seen) % n_layers == 0
+    assert set(seen) == {impl}
+    monkeypatch.setattr(esmc, "dot_product_attention", real)
+    if impl != "auto":
+        base = cli.main(_args(csv_path, tmp_path / "auto"))
+        assert {k: r["pred"] for k, r in results.items()} == \
+            {k: r["pred"] for k, r in base.items()}
 
 
 def test_cuda_without_gpu_raises():

@@ -275,7 +275,7 @@ def test_engine_refusals():
                                   prompt_lookup_tokens=3)
     assert eng.state["hist"].shape == (1, 12 - 8 + 3 + 2)
     assert not eng._spec_fused
-    with pytest.raises(NotImplementedError, match="item 11: Medusa"):
+    with pytest.raises(NotImplementedError, match="item 8: Medusa"):
         tserv.ContinuousBatcher(tcfg, tparams, **kw,
                                 medusa_params={"w": None})
     with pytest.raises(ValueError, match="greedy-only"):

@@ -9,8 +9,10 @@ divides each entry's gradient by its own RMS, so an entry whose gradient is
 near zero turns its larger relative disagreement into a step of size up to
 lr).  The JAX side runs its XLA attention and, under
 P2T_PALLAS_FORCE_INTERPRET=1, its Pallas flash kernels (forward and the
-backward the port's K5 replaces) in interpret mode; the port takes its one
-route, K1/K5, whose CPU tensors run the plain versions."""
+backward the port's K5 replaces) in interpret mode; the port takes its
+"auto" route, K1/K5, whose CPU tensors run the plain versions.  Then both
+packages at attn_impl "xla" and "flash" (the port's ESMC through K6/K6b's
+plain versions)."""
 
 import numpy as np
 import pytest
@@ -149,7 +151,22 @@ def jax_route(request, monkeypatch):
 
 
 def test_loss_and_grads_match_jax(setup, jax_route):
-    s = setup
+    _check_loss_and_grads(setup, jax_route, "auto")
+
+
+@pytest.mark.parametrize("route", ["xla", "flash"])
+def test_loss_and_grads_match_jax_at_attn_impl(setup, route, monkeypatch):
+    """Both packages at the same --attn_impl: "xla" is the plain function
+    in both towers against JAX's XLA attention; "flash" is K6/K6b (plain
+    versions) in ESMC and K1/K5 in the decoder against JAX's "flash" route
+    (its decoder's Pallas kernels in interpret mode; its ESMC at S = 16,
+    off the 128 grid, on chunked XLA)."""
+    if route == "flash":
+        monkeypatch.setenv("P2T_PALLAS_FORCE_INTERPRET", "1")
+    _check_loss_and_grads(setup, route, route)
+
+
+def _check_loss_and_grads(s, jax_route, port_route):
     mb = {k: v[0] for k, v in s["batch"].items()}
     loss_fn = lambda tr: jsft.sft_loss(tr, s["frozen"], mb, deterministic=True,
                                        attn_impl=jax_route, **_jax_kw(s))
@@ -157,7 +174,7 @@ def test_loss_and_grads_match_jax(setup, jax_route):
         s["trainable"])
     trainable, frozen = _port_trees(s)
     loss = tsft.sft_loss(trainable, frozen, _tbatch(mb), deterministic=True,
-                         **_port_kw(s))
+                         attn_impl=port_route, **_port_kw(s))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), atol=1e-5,
                                rtol=0)

@@ -1,7 +1,7 @@
 """The port's stage-2 SFT CLI: two optimizer steps on a tiny CSV on the CPU
-(and, where there is one, on the GPU through K1/K5) writing a checkpoint,
-resume restoring the step counter, the flags it refuses, the missing-GPU
-error."""
+(and, where there is one, on the GPU through K1/K5, and K6/K6b under
+--attn_impl flash) writing a checkpoint, resume restoring the step counter,
+the --attn_impl routes, the flags it refuses, the missing-GPU error."""
 
 import json
 import os
@@ -87,6 +87,29 @@ def test_train_on_cuda_launches_k1_and_k5(csv_path, tmp_path):
     assert counts["K5"] == layers * micro
 
 
+@pytest.mark.cuda
+def test_train_on_cuda_flash_launches_k6_and_k6b(csv_path, tmp_path):
+    """--attn_impl flash on the card: ESMC's attention runs K6 twice per
+    layer and micro-step (forward, then recomputed in the backward) and
+    K6b once; the decoder keeps K1/K5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    args = _args(csv_path, tmp_path / "ck", "--attn_impl", "flash")
+    args[args.index("--device") + 1] = "cuda"
+    args[args.index("--model_dtype") + 1] = "bf16"
+    state = main(args)
+    counts = launch_counts()
+    micro, layers = 4, 2
+    assert state.step == 2
+    assert counts["K1"] == 2 * layers * micro
+    assert counts["K5"] == layers * micro
+    assert counts["K6"] == 2 * layers * micro
+    assert counts["K6b"] == layers * micro
+
+
 BASE = ["--train_csv", "unused.csv", "--device", "cpu"]
 
 
@@ -101,9 +124,20 @@ BASE = ["--train_csv", "unused.csv", "--device", "cpu"]
     ["--model_dtype", "int4"],
     ["--llm_checkpoint_dir", "qwen3"],
 ])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(BASE + flags)
+def test_unported_flags_raise(flags, csv_path, tmp_path, capsys):
+    """Each unported flag raises, naming its ROADMAP item.  --attn_impl
+    xla and flash are ported: those two cases now train two steps on the
+    CPU (the plain versions of K6/K6b and K1/K5 under "flash", the plain
+    attention function under "xla")."""
+    if flags[:1] != ["--attn_impl"] or flags[1] == "ring":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(BASE + flags)
+        return
+    state = main(_args(csv_path, tmp_path / "ck", *flags))
+    assert state.step == 2 and state.opt_state["count"] == 2
+    assert "2 steps" in capsys.readouterr().out
+    b = state.params["lora_esm"]["layers"]["qkv"]["kernel"]["B"]
+    assert b.abs().max() > 0          # the ESMC LoRA got a gradient
 
 
 def test_cuda_without_gpu_raises():
