@@ -7,8 +7,10 @@ Phases (any failure raises and the script exits non-zero):
   1. setup: versions, the card's name and power limit, the CUDA kernels'
      build from `prot2text_tpu_torch/kernels/csrc` (timed);
   2. kernels: each hand-written kernel (K1 flash prefill, K2 decode
-     attention, K3 cache slot write, K4 decode attention + per-row slot
-     write, K5 flash backward, K6 bias flash prefill, also at
+     attention, K3 cache slot write, K12/K13 the same write on
+     Llama-3.2-1B's tbkd cache (K13 k and v in one launch, also against
+     two K12 launches; no path calls K13), K4 decode attention + per-row
+     slot write, K5 flash backward, K6 bias flash prefill, also at
      ESMC-600M's training shapes, K6b its backward at ESMC-600M's SFT
      shapes, K9a K4 over a shared prefix; on the int8 cache K7 decode + slot write, K9b K7 over an int8
      prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix;
@@ -23,6 +25,12 @@ Phases (any failure raises and the script exits non-zero):
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
      the launch counters must show every kernel on that path;
+  3b. legacy generation: ESM2-8M → dense + LayerNorm → Llama-3.2-1B (full
+     width and depth, bf16, random weights) built by
+     `cli/generate_legacy.py build_model` generates 256 tokens for 4
+     proteins of 380-500 residues through `Esm2LlamaForCausalLM.generate`
+     on the D=64 tbkd cache: exact K1 (prefill) and K12 (2 per decode
+     step) counts, the prompt leading the output;
   4. training: stage-2 LoRA SFT of ESMC-600M + adapter + Qwen3-14B (full
      width and depth, bf16 towers, f32 LoRA r=32 and adapter) built and
      stepped as `cli/train_instruct.py` does: 2 AdamW steps of 4
@@ -38,6 +46,10 @@ Phases (any failure raises and the script exits non-zero):
      x accumulation 8, 2 segments, text tower layer 16) and `--attn_impl
      flash`: 2 steps with exact K1/K6 counts, the adapter moved, the
      towers untouched, one profiled step;
+  4f. legacy full fine-tuning through `cli/train_legacy.py build_training`
+     at its defaults (f32, every parameter trained, StepLR, B 4, S =
+     protein 512 + prompt + description 128): 2 steps with exact K1/K5
+     counts, every parameter group moved;
   4b. serving: ESMC-600M + adapter + Qwen3-14B (full width and depth,
      bf16, random weights) built by `cli/serve.py build_server` serve 16
      records through the CLI's own loop (`cli/serve.py serve`: shared
@@ -70,7 +82,8 @@ Phases (any failure raises and the script exits non-zero):
      and tokens (K1, K4, K6, K9a), a speculative bf16-pool engine's tokens,
      an int8 engine's decode-step and verify-round logits (K7, K8), and
      int4 and int8 weight engines' decode-step and verify-round logits
-     and tokens (K10, K14).
+     and tokens (K10, K14), a legacy model's generation (K1, K12) and one
+     legacy train step (K1, K5).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device contract `{"ok": true, "device": {...}}`.
@@ -402,6 +415,81 @@ def check_kernels(torch, dev, card):
         del q, k, v, do, o, lse, got, want
     rows["K5"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                       library_ms=lib_ms, **bd)
+    return rows
+
+
+# the legacy arc's shapes: protein bucket 512, 256 new tokens
+LEGACY_PROTEIN, LEGACY_NEW = 512, 256
+
+
+def legacy_prompt_len() -> int:
+    """The derived collator's fixed prompt, [bos, sentence, bos]."""
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.collate import DerivedCollator
+
+    return len(DerivedCollator(tokenizer=ByteTextTokenizer(),
+                               original_eos_token_id=128009).prompt_input_ids)
+
+
+def check_tbkd_kernels(torch, dev, card):
+    """K12 and K13 against their plain versions, bit for bit, on
+    Llama-3.2-1B's lockstep cache (bf16 (16, T, 4, 8, 64), T = protein 512
+    + prompt + 256 new tokens), at the first, a decode and the last slot;
+    K13 also against two K12 launches.  Times: eager CUDA events (the
+    kernels are launch-bound) and, for the device alone, CUDA graphs."""
+    from prot2text_tpu_torch.kernels.cache_update import (
+        cache_slot_write, cache_slot_write_kv, cache_slot_write_kv_plain,
+        cache_slot_write_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    L, B, Hkv, D = 16, 4, 8, 64
+    T = LEGACY_PROTEIN + legacy_prompt_len() + LEGACY_NEW
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    ck, cv = randn(L, T, B, Hkv, D), randn(L, T, B, Hkv, D)
+    nk, nv = randn(L, B, Hkv, D), randn(L, B, Hkv, D)
+    idx = T - LEGACY_NEW // 2
+    for index in (0, idx, T - 1):
+        got = cache_slot_write(ck.clone(), nk, index)
+        gk, gv = cache_slot_write_kv(ck.clone(), cv.clone(), nk, nv, index)
+        two = (cache_slot_write(ck.clone(), nk, index),
+               cache_slot_write(cv.clone(), nv, index))
+        torch.cuda.synchronize()
+        want = cache_slot_write_kv_plain(ck.clone(), cv.clone(), nk, nv,
+                                         index)
+        require(torch.equal(got, want[0]) and torch.equal(
+            cache_slot_write_plain(ck.clone(), nk, index), want[0]),
+            f"K12 is not bit-exact at slot {index}")
+        require(torch.equal(gk, want[0]) and torch.equal(gv, want[1]),
+                f"K13 is not bit-exact against its plain version at slot "
+                f"{index}")
+        require(torch.equal(gk, two[0]) and torch.equal(gv, two[1]),
+                f"K13 differs from two K12 launches at slot {index}")
+    rows = {}
+    vk, vv = ck[:, idx], cv[:, idx]          # the library's views, prebuilt
+    for kid, fn, plain, lib, news in (
+            ("K12", lambda: cache_slot_write(ck, nk, idx),
+             lambda: cache_slot_write_plain(ck, nk, idx),
+             lambda: vk.copy_(nk), (nk,)),
+            ("K13", lambda: cache_slot_write_kv(ck, cv, nk, nv, idx),
+             lambda: cache_slot_write_kv_plain(ck, cv, nk, nv, idx),
+             lambda: (vk.copy_(nk), vv.copy_(nv)), (nk, nv))):
+        ms = cuda_ms(torch, fn, iters=50)
+        plain_ms = cuda_ms(torch, plain, iters=50)
+        lib_ms = cuda_ms(torch, lib, iters=50)
+        dev_ms = graph_ms(torch, fn)
+        bd = bound(0.0, 2 * nbytes(*news))   # read the new rows, write them
+        log(f"{kid} tbkd slot write L={L} T={T} B={B} Hkv={Hkv} D={D} "
+            f"bf16{' (k and v)' if kid == 'K13' else ''}: bit-exact; kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), plain "
+            f"{plain_ms:.4f} ms, copy_ {lib_ms:.4f} ms, bound "
+            f"{bd['bound_ms']:.5f} ms ({bd['bound_by']}) [{card}]")
+        rows[kid] = dict(max_abs_err=0.0, ms=ms, graph_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, **bd)
+    rows["K13"]["checked"] = True
     return rows
 
 
@@ -990,6 +1078,125 @@ def run_slice(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the legacy arc's generation at full width
+
+
+def legacy_records(n: int, lengths, seed: int):
+    """n preprocessed instruct records (the dataset's fields) built with
+    numpy: random residues of `lengths` through the ESM2 alphabet, short
+    descriptions ending in the instruct eot the derived collator rewrites."""
+    import numpy as np
+
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.tokenization import esm2_tokenizer
+
+    rng = np.random.default_rng(seed)
+    tok, ptok = ByteTextTokenizer(), esm2_tokenizer()
+    return [{"name": f"P{i:05d}",
+             "sequence_input_ids": np.asarray(ptok.encode("".join(
+                 rng.choice(list(AMINO), int(rng.integers(*lengths))))),
+                 np.int32),
+             "description_input_ids": np.asarray(
+                 tok.encode(FUNCTIONS[i % len(FUNCTIONS)]) + [128009],
+                 np.int32)} for i in range(n)]
+
+
+def legacy_batch(torch, dev, records, mode: str, buckets: dict):
+    """`records` through the CLIs' `DerivedCollator` → int64 tensors."""
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.collate import Buckets, DerivedCollator
+
+    batch = DerivedCollator(tokenizer=ByteTextTokenizer(),
+                            original_eos_token_id=128009, mode=mode,
+                            buckets=Buckets(**buckets))(records)
+    keys = ("input_ids", "attention_mask", "protein_input_ids",
+            "protein_attention_mask") + (("labels",) if mode == "train"
+                                         else ())
+    return {k: torch.as_tensor(batch[k], dtype=torch.int64, device=dev)
+            for k in keys}
+
+
+LEGACY_FAMILIES = (("K1", "flash_masked_fwd"), ("K12", "slab_write"))
+
+
+def run_legacy_generation(torch, dev, card):
+    """Phase 3b: ESM2-8M → dense 320→2048 + LayerNorm → Llama-3.2-1B (all
+    16 layers, bf16, random weights from a seeded CUDA generator), built
+    by `cli/generate_legacy.py build_model` at the CLI's defaults; 4
+    proteins of 380-500 residues collated as the CLI does; 256 greedy new
+    tokens through `Esm2LlamaForCausalLM.generate`.  Head dim 64: the
+    lockstep cache is tbkd, so exact counts K1 = 16 (prefill), K12 = 2 per
+    decode step, nothing else; the output includes the prompt.  Then one
+    short profiled run: where a decode step's device time goes."""
+    from prot2text_tpu_torch.cli import generate_legacy as gcli
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.infer.generate import decode_steps_taken
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.decoder import kv_cache_layout
+
+    B = 4
+    tok = ByteTextTokenizer()
+    args = gcli.build_parser().parse_args([
+        "--data_root", "unused", "--test_csv", "unused", "--device", "cuda",
+        "--random_seed", "0"])
+    t0 = time.perf_counter()
+    model = gcli.build_model(args, tok, dev)
+    torch.cuda.synchronize()
+    core = model.config.llama_config.core()
+    require(kv_cache_layout(core) == "tbkd", "Llama-3.2-1B's cache not tbkd")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"legacy model ESM2-8M + adapter + Llama-3.2-1B bf16: "
+        f"{n_params / 1e9:.3f} B params, random init on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = legacy_batch(torch, dev, legacy_records(B, (380, 501), seed=21),
+                         "inference", gcli.BUCKETS)
+    P = batch["input_ids"].shape[1]
+    require(batch["protein_input_ids"].shape[1] == LEGACY_PROTEIN,
+            "protein bucket")
+    log(f"legacy batch: B={B} protein width {LEGACY_PROTEIN} (valid "
+        f"{batch['protein_attention_mask'].sum(1).tolist()}), prompt {P}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    toks, st = generate(torch, model, batch, LEGACY_NEW)
+    counts = launch_counts()
+    steps = decode_steps_taken(toks[:, P:], tok.eos_token_id)
+    log(f"launches in the legacy generation run: {counts}; decode steps "
+        f"{st['steps']}")
+    require(tuple(toks.shape) == (B, P + LEGACY_NEW),
+            f"tokens {tuple(toks.shape)}")
+    require(torch.equal(toks[:, :P], batch["input_ids"]),
+            "the output does not start with the prompt")
+    require(st["logits_finite"], "non-finite logits")
+    require(steps == st["steps"] > 0,
+            f"tokens imply {steps} decode steps, generate ran {st['steps']}")
+    want = expect(K1=core.num_layers, K12=2 * steps)
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    toks2, st2 = generate(torch, model, batch, LEGACY_NEW)
+    require(torch.equal(toks2, toks), "greedy run is not repeatable")
+    for name, s in (("first", st), ("second", st2)):
+        encode_s = s["total_s"] - s["prefill_s"] - s["decode_s"]
+        log(f"legacy generation {name} run [{card}]: encode+adapter "
+            f"{encode_s * 1e3:.2f} ms, prefill {s['prefill_s'] * 1e3:.2f} ms "
+            f"(B={B}, S={LEGACY_PROTEIN + P}), decode "
+            f"{s['decode_s'] / s['steps'] * 1e3:.3f} ms/step over "
+            f"{s['steps']} steps = {B * s['steps'] / s['decode_s']:.1f} "
+            f"tokens/s, total {s['total_s']:.3f} s = "
+            f"{B / s['total_s'] * 3600:.0f} descriptions/hour")
+    log(f"legacy generation peak device memory {peak:.2f} GiB [{card}]")
+    # a short run under the profiler (3 decode steps: its trace costs the
+    # host about half a millisecond per device event to read back)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, st3 = generate(torch, model, batch, 4)
+    log(f"legacy generation, prefill + {st3['steps']} decode steps, "
+        + kernel_breakdown(torch, prof, st3["total_s"], LEGACY_FAMILIES)
+        + f" [{card}]")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 4: stage-2 SFT at full width through the CLI's own setup
 
 FUNCTIONS = ("Binds ATP and transfers its gamma-phosphate to serine.",
@@ -1388,6 +1595,86 @@ def run_contrast(torch, dev, card, models, stamp):
         wall = time.perf_counter() - t0
     log("contrast " + kernel_breakdown(torch, prof, wall, CONTRAST_FAMILIES)
         + f" [{card}]")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the legacy arc's full fine-tuning at full width
+
+
+def run_legacy_training(torch, dev, card):
+    """Phase 4f: `cli/train_legacy.py build_training` at the CLI's
+    defaults (f32 ESM2-8M + adapter + Llama-3.2-1B, all parameters
+    trained, AdamW at optax's defaults with StepLR, B = 4, accumulation 1,
+    remat), on the derived collator's batches of S = protein 512 + prompt
+    + description 128: 2 steps with exact counts (K1 = forward +
+    recomputation per decoder layer, K5 one per layer; ESM2-8M's
+    attention is plain under "auto"), every parameter group moved, the
+    loss finite."""
+    from prot2text_tpu_torch.cli import train_legacy as tcli
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.weights import tree_leaves
+
+    steps = 2
+    tok = ByteTextTokenizer()
+    args = tcli.build_parser().parse_args([
+        "--data_root", "unused", "--train_csv", "unused", "--device", "cuda",
+        "--random_seed", "0"])
+    t0 = time.perf_counter()
+    run = tcli.build_training(args, tok, dev, steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    params = run.state.params
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"legacy train model f32 {n / 1e9:.3f} B params (all trained), "
+        f"built on {dev} in {time.perf_counter() - t0:.1f} s")
+    B = args.batch_size
+    batches = [legacy_batch(torch, dev, legacy_records(B, (380, 501),
+                                                       seed=31 + i),
+                            "train", tcli.BUCKETS) for i in range(steps)]
+    S = (batches[0]["protein_input_ids"].shape[1]
+         + batches[0]["input_ids"].shape[1])
+    require(S == LEGACY_PROTEIN + legacy_prompt_len() + 128,
+            f"legacy training sequence {S}")
+    valid = [int(b["attention_mask"].sum() + b["protein_attention_mask"].sum())
+             for b in batches]
+    log(f"legacy train batches: B={B}, S={S}, valid tokens per step {valid}")
+
+    def sample(t):
+        return t.detach().view(-1)[::max(1, t.numel() // 2**16)].clone()
+
+    before = {k: [sample(t) for t in tree_leaves(v)]
+              for k, v in params.items()}
+    state = run.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = run.step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = launch_counts()
+    L = run.config.llama_config.num_layers
+    want = expect(K1=2 * L * steps, K5=L * steps)
+    log(f"launches in the legacy training run: {counts} (K1 = forward + "
+        f"recomputation per layer and step, K5 = one per layer and step)")
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    require(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
+            f"non-finite loss {losses}")
+    require(state.step == steps, f"step counter {state.step}")
+    for k, v in params.items():
+        require(any(not torch.equal(a, sample(t)) for a, t in
+                    zip(before[k], tree_leaves(v))), f"{k} did not move")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (dt, loss) in enumerate(zip(times, losses)):
+        log(f"legacy train step {i + 1} [{card}]: loss {loss:.4f}, "
+            f"{dt:.3f} s = {B * S / dt:.1f} positions/s, lr "
+            f"{run.tx.lr(i):.3e}")
+    log(f"legacy train peak device memory {peak:.2f} GiB [{card}]; every "
+        f"parameter group ({', '.join(params)}) moved")
     return counts
 
 
@@ -1854,7 +2141,9 @@ def int8_round_logits(torch, eng):
     """One decode step's and one verify round's logits over copies of an
     int8 engine's pool, computed as `_decode_all` and `_spec_rounds` do
     (bf16 activations; the verify is the fused chunk kernel's path)."""
-    from prot2text_tpu_torch.infer.serving import FUSED_SCRATCH, ngram_drafts
+    from prot2text_tpu_torch.infer.serving import (
+        FUSED_SCRATCH, POOL_LAYOUT, ngram_drafts,
+    )
     from prot2text_tpu_torch.models.decoder import (
         decoder_decode_step, decoder_logits, decoder_verify_chunk,
     )
@@ -1870,7 +2159,7 @@ def int8_round_logits(torch, eng):
         cfg, p, token_embeds=emb, kv_mask=st["kv_mask"],
         positions=(st["pos"] + 1)[:, None], kv_cache=pool(),
         cache_index=torch.where(st["active"], st["next_slot"], T - 1),
-        layers=eng.layers)
+        layers=eng.layers, layout=POOL_LAYOUT)
     step = decoder_logits(cfg, p, h)[:, 0]
     drafts = ngram_drafts(st["hist"], st["hist_len"], gamma=eng.spec_gamma,
                           ngram=eng.spec_ngram)
@@ -1974,7 +2263,9 @@ def f32_round_logits(torch, eng):
     logits, (h, logits, h, logits), over copies of an f32 engine's pool,
     computed as `_decode_all` and `_spec_rounds` do on a float pool (the
     verify: `decoder_forward` with a bias over the pool)."""
-    from prot2text_tpu_torch.infer.serving import NEG, ngram_drafts
+    from prot2text_tpu_torch.infer.serving import (
+        NEG, POOL_LAYOUT, ngram_drafts,
+    )
     from prot2text_tpu_torch.models.decoder import (
         decoder_decode_step, decoder_forward, decoder_logits,
     )
@@ -1990,7 +2281,7 @@ def f32_round_logits(torch, eng):
         cfg, p, token_embeds=emb, kv_mask=st["kv_mask"],
         positions=(st["pos"] + 1)[:, None], kv_cache=pool(),
         cache_index=torch.where(st["active"], st["next_slot"], T - 1),
-        layers=eng.layers)
+        layers=eng.layers, layout=POOL_LAYOUT)
     h_step, step = h[:, 0], decoder_logits(cfg, p, h)[:, 0]
     drafts = ngram_drafts(st["hist"], st["hist_len"], gamma=eng.spec_gamma,
                           ngram=eng.spec_ngram)
@@ -2006,7 +2297,7 @@ def f32_round_logits(torch, eng):
     h, _ = decoder_forward(
         cfg, p, inputs_embeds=p["embed_tokens"][chunk], positions=pos,
         bias=torch.where(ok, 0.0, NEG), kv_cache=pool(), cache_index=start,
-        layers=eng.layers)
+        layers=eng.layers, layout=POOL_LAYOUT)
     return h_step, step, h, decoder_logits(cfg, p, h)
 
 
@@ -2172,6 +2463,63 @@ def run_contrast_plumbing(torch, dev):
     _cuda_cpu_gate("contrastive step --attn_impl flash", out)
 
 
+def run_legacy_plumbing(torch, dev):
+    """A tiny f32 legacy model (ESM2 D 16, Llama D 64: the tbkd cache, K1
+    and K12 on the card) on cuda against the same one on cpu: greedy
+    generation's tokens identical and its prefill and first decode-step
+    logits within 1e-4; one legacy train step's loss and gradients at the
+    SFT step's gates (`_cuda_cpu_gate`)."""
+    from prot2text_tpu_torch.cli.train_legacy import BUCKETS as TB
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.models import ESM2Config, LlamaConfig
+    from prot2text_tpu_torch.models.composed import (
+        Esm2LlamaConfig, Esm2LlamaForCausalLM, init_esm2llama_params,
+    )
+    from prot2text_tpu_torch.models.weights import tree_leaves, tree_map
+    from prot2text_tpu_torch.train.legacy import make_legacy_train_step
+    from prot2text_tpu_torch.train.optim import TrainState, step_lr
+
+    tok = ByteTextTokenizer()
+    cfg = Esm2LlamaConfig(
+        ESM2Config(hidden_size=64, num_layers=2, num_heads=4,
+                   intermediate_size=128),
+        LlamaConfig(vocab_size=tok.vocab_size, hidden_size=256, num_layers=2,
+                    num_heads=4, num_kv_heads=2, intermediate_size=512,
+                    rope_theta=1e4, tie_word_embeddings=False,
+                    rope_scaling=None),
+        decoder_hidden_size=256, bos_token_id=tok.bos_token_id,
+        eos_token_id=tok.eos_token_id)
+    cpu = torch.device("cpu")
+    params = init_esm2llama_params(cfg, generator=torch.Generator()
+                                   .manual_seed(3), device=cpu)
+    records = legacy_records(2, (20, 60), seed=41)
+    out = []
+    for d in (cpu, dev):
+        model = Esm2LlamaForCausalLM(cfg, tree_map(lambda t: t.to(d),
+                                                   params))
+        batch = legacy_batch(torch, d, records, "inference",
+                             dict(protein=[64]))
+        out.append(generate(torch, model, batch, 3))
+    (t_cpu, st_cpu), (t_gpu, st_gpu) = out
+    require(torch.equal(t_gpu.cpu(), t_cpu),
+            "legacy generation tokens differ between cuda and cpu")
+    for i, name in enumerate(("prefill", "first decode step")):
+        a, b = st_gpu["logits"][i].cpu(), st_cpu["logits"][i]
+        err = (a - b).abs().max().item()
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0.0)
+        log(f"plumbing f32 legacy generation cuda vs cpu, {name} logits: "
+            f"max abs diff {err:.3e} (atol 1e-4); tokens identical")
+    out = []
+    for d in (cpu, dev):
+        p = tree_map(lambda t: t.to(d, copy=True).requires_grad_(), params)
+        tx = step_lr(1e-3, 0.1, 1)
+        step = make_legacy_train_step(config=cfg, tx=tx)
+        _, loss = step(TrainState.create(p, tx), legacy_batch(
+            torch, d, records, "train", dict(TB, protein=[64])))
+        out.append((loss.item(), [t.grad.cpu() for t in tree_leaves(p)]))
+    _cuda_cpu_gate("legacy train step", out)
+
+
 def main() -> int:
     import torch
 
@@ -2180,7 +2528,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from prot2text_tpu_torch.core.device import resolve_device
-    from prot2text_tpu_torch.kernels import KERNELS, _build
+    from prot2text_tpu_torch.kernels import KERNELS, OFF_PATH, _build
 
     t_start = time.time()
     dev = resolve_device("cuda")
@@ -2205,6 +2553,7 @@ def main() -> int:
                 log(f"  {fn}: {line.split(':', 1)[1].strip()}")
 
     rows = check_kernels(torch, dev, card)
+    rows.update(check_tbkd_kernels(torch, dev, card))
     rows.update(check_serve_kernels(torch, dev, card))
     bwd_rows, k6_err = check_bias_bwd_kernel(torch, dev, card)
     rows.update(bwd_rows)
@@ -2222,11 +2571,19 @@ def main() -> int:
     paths = {"generate": run_slice(torch, dev, card)}
     gc.collect()                 # free the generation model before training
     torch.cuda.empty_cache()
+    log(f"phase 3b at {time.time() - t_start:.1f} s")
+    paths["legacy_generate"] = run_legacy_generation(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 4 at {time.time() - t_start:.1f} s")
     train_paths, models, stamp = run_training(torch, dev, card)
     paths.update(train_paths)
     paths["contrast"] = run_contrast(torch, dev, card, models, stamp)
     del models, stamp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 4f at {time.time() - t_start:.1f} s")
+    paths["legacy_train"] = run_legacy_training(torch, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 4b at {time.time() - t_start:.1f} s")
@@ -2243,20 +2600,30 @@ def main() -> int:
     run_contrast_plumbing(torch, dev)
     run_serve_plumbing(torch, dev)
     run_serve_quant_plumbing(torch, dev)
+    run_legacy_plumbing(torch, dev)
 
     out = []
     for kid, (_, _, src, tpu) in KERNELS.items():
         r = rows[kid]
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
-        require(sum(by_path.values()) > 0,
-                f"{kid} was launched no time on any path")
+        entry = {}
+        if kid in OFF_PATH:
+            # no path of either package launches it: phase 2's checks
+            # against its plain version and against K12 stand in
+            require(r.get("checked") and sum(by_path.values()) == 0,
+                    f"{kid} is off-path: phase 2 must check it and no path "
+                    f"may launch it")
+            entry["off_path"] = f"no path; its JAX caller {OFF_PATH[kid]}"
+        else:
+            require(sum(by_path.values()) > 0,
+                    f"{kid} was launched no time on any path")
         out.append({"name": kid, "route": "cuda", "source": src,
                     "replaces": tpu, "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+                    "library_ms": r["library_ms"], **entry})
     log(f"all phases passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

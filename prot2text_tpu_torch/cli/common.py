@@ -1,6 +1,7 @@
 """Shared CLI plumbing (counterpart of prot2text_tpu/cli/common.py and
 `build_models` of prot2text_tpu/cli/train_contrast.py:75-128): the common
-flags, the loss logger, the text tokenizer and the ESMC + Qwen3 towers."""
+flags, the loss logger, the text tokenizer, the last batch's padding, the
+ESMC + Qwen3 towers and the legacy arc's configuration."""
 
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ from ..core.dtypes import QUANTIZED, compute_dtype, str2dtype
 from ..models.adapters import (
     ModalityAdapterConfig, init_modality_adapter_params,
 )
+from ..models.composed import Esm2LlamaConfig
+from ..models.esm2 import ESM2Config
 from ..models.esmc import ESMCConfig, esmc_params_from_torch, init_esmc_params
+from ..models.llama import LlamaConfig
 from ..models.quant import quantize_params
 from ..models.qwen3 import Qwen3Config, init_qwen3_params
 
@@ -117,6 +121,38 @@ def text_tokenizer(args):
             tok.pad_token = "<|reserved_special_token_0|>"
         return tok
     return ByteTextTokenizer()
+
+
+def pad_rows(arrays: dict, batch_size: int) -> dict:
+    """Repeat the last row up to batch_size: one shape for the last batch."""
+    out = {}
+    for k, a in arrays.items():
+        n = batch_size - a.shape[0]
+        out[k] = np.concatenate([a, np.repeat(a[-1:], n, axis=0)]) if n else a
+    return out
+
+
+def legacy_config(args, tok) -> Esm2LlamaConfig:
+    """The legacy CLIs' model (prot2text_tpu/cli/generate_legacy.py:80-96,
+    train_legacy.py:88-101): ESM2-8M → dense + LayerNorm to
+    `--decoder_hidden_size` → Llama-3.2-1B, or with `--debug_tiny_model`
+    a 2-layer ESM2 and `LlamaConfig.tiny` over the tokenizer's vocabulary;
+    bos and eos from the tokenizer."""
+    if args.debug_tiny_model:
+        esm_cfg = ESM2Config(hidden_size=32, num_layers=2, num_heads=4,
+                             intermediate_size=64)
+        llama_cfg = LlamaConfig.tiny(
+            vocab_size=getattr(tok, "vocab_size", 512))
+        dec_hidden = llama_cfg.hidden_size
+    else:
+        esm_cfg = ESM2Config.t6_8M()
+        llama_cfg = LlamaConfig.llama_3_2_1b()
+        dec_hidden = args.decoder_hidden_size
+    return Esm2LlamaConfig(
+        esm_config=esm_cfg, llama_config=llama_cfg,
+        decoder_hidden_size=dec_hidden,
+        bos_token_id=getattr(tok, "bos_token_id", 128000),
+        eos_token_id=getattr(tok, "eos_token_id", 128001))
 
 
 def build_models(args, tok, device):

@@ -20,7 +20,6 @@ import json
 import os
 import time
 
-import numpy as np
 import torch
 
 from ..data.collate import Buckets, InstructCollator
@@ -34,7 +33,9 @@ from ..models.composed import (
 )
 from ..models.esm2 import ESM2Config
 from ..models.llama import LlamaConfig
-from .common import add_common_args, common_unported, refuse, text_tokenizer
+from .common import (
+    add_common_args, common_unported, pad_rows, refuse, text_tokenizer,
+)
 
 
 def build_parser():
@@ -116,15 +117,6 @@ def build_model(args, tok, device) -> Esm2LlamaInstructForCausalLM:
                                         dtype=args.model_dtype, generator=gen)
 
 
-def _pad_rows(arrays: dict, batch_size: int) -> dict:
-    """Repeat the last row up to batch_size: one shape for the last batch."""
-    out = {}
-    for k, a in arrays.items():
-        n = batch_size - a.shape[0]
-        out[k] = np.concatenate([a, np.repeat(a[-1:], n, axis=0)]) if n else a
-    return out
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
@@ -174,7 +166,7 @@ def main(argv=None):
              "protein_attention_mask")
     for batch, _records in loader:
         names = batch["name"]
-        arrays = _pad_rows({k: batch[k] for k in akeys}, args.batch_size)
+        arrays = pad_rows({k: batch[k] for k in akeys}, args.batch_size)
         t = {k: torch.as_tensor(a, dtype=torch.int64, device=device)
              for k, a in arrays.items()}
         toks = model.generate(

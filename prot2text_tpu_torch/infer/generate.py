@@ -7,9 +7,10 @@ t, tokens after EOS are pad, greedy = argmax over fp32 logits, sampling
 applies temperature → top-k → top-p.
 
 The decode loop is a host-driven Python loop: one prefill (K1 inside), then
-one `decoder_decode_step` per token (K2 per layer, K3 once per step; K7
-per layer on an int8 cache) and one host sync per token for the
-all-finished check.  The slot written at
+one `decoder_decode_step` per token (K2 per layer, K3 once per step; on
+the tbkd cache of a head dim off the 128 grid, plain attention and K12
+twice per step; K7 per layer on an int8 cache) and one host sync per token
+for the all-finished check.  The slot written at
 step t is still 0 in `kv_mask` while K2 runs; it is set afterwards.
 """
 
@@ -84,7 +85,7 @@ def _sample_token(logits, gen_cfg: GenerationConfig, generator):
 
 def run_generation(cfg, params, *, inputs_embeds, attention_mask, gen_cfg,
                    generator=None, cache_dtype=None, kv_bits=None,
-                   stats=None):
+                   stats=None, attn_impl: str = "auto"):
     """Greedy/sampling generation; beam search and prompt-lookup decoding
     are not ported yet."""
     if gen_cfg.num_beams > 1:
@@ -97,18 +98,22 @@ def run_generation(cfg, params, *, inputs_embeds, attention_mask, gen_cfg,
     return generate(cfg, params, inputs_embeds=inputs_embeds,
                     attention_mask=attention_mask, gen_cfg=gen_cfg,
                     generator=generator, cache_dtype=cache_dtype,
-                    kv_bits=kv_bits, stats=stats)
+                    kv_bits=kv_bits, stats=stats, attn_impl=attn_impl)
 
 
 @torch.no_grad()
 def generate(cfg: DecoderConfig, params, *, inputs_embeds, attention_mask,
              gen_cfg: GenerationConfig, generator=None, cache_dtype=None,
-             kv_bits=None, stats: Optional[dict] = None):
+             kv_bits=None, stats: Optional[dict] = None,
+             attn_impl: str = "auto"):
     """inputs_embeds (B, P, H) left-padded prompt embeddings, attention_mask
     (B, P) → (B, max_new_tokens) int64, pad-filled after EOS.  kv_bits=8
     keeps the cache in int8 with per-(head, token) scales (its width
     rounded up to a multiple of 32, as in the JAX package): the prefill
     quantizes into it and every decode step runs K7 with the scalar slot.
+    `attn_impl` routes the prefill's attention as `decoder_forward` does
+    ("auto"/"flash": K1; "xla": the plain function), as JAX's prefill
+    takes the caller's route; the decode step has one route per cache.
 
     `stats`, when given, is filled with "prefill_s" and "decode_s" (host
     seconds, each ended by a device synchronize), "steps" (decode steps
@@ -137,7 +142,7 @@ def generate(cfg: DecoderConfig, params, *, inputs_embeds, attention_mask,
     h, cache = decoder_forward(
         cfg, params, inputs_embeds=inputs_embeds.to(dtype),
         positions=positions, attn_lengths=contiguous_lengths(attention_mask),
-        kv_cache=cache, layers=layers)
+        kv_cache=cache, layers=layers, attn_impl=attn_impl)
     logits = decoder_logits(cfg, params, h[:, -1:])[:, 0]
     tok = _sample_token(logits, gen_cfg, generator)
     finished = tok == gen_cfg.eos_token_id
@@ -148,6 +153,10 @@ def generate(cfg: DecoderConfig, params, *, inputs_embeds, attention_mask,
     kv_mask = torch.zeros((B, T), dtype=torch.int32, device=dev)
     kv_mask[:, :P] = attention_mask
     embed = params["embed_tokens"]
+    # a finished row feeds its pad id back, which may lie past the
+    # vocabulary (the legacy model's 128002 in a test-sized one): JAX's
+    # gather clamps it, and the row's outputs are pad either way
+    top_id = embed.shape[0] - 1
     if stats is not None:
         kept = [logits.clone()]
         finite = torch.isfinite(logits).all()
@@ -157,7 +166,7 @@ def generate(cfg: DecoderConfig, params, *, inputs_embeds, attention_mask,
     for t in range(1, N):
         if bool(finished.all()):
             break
-        emb = embed[tokens[:, t - 1]][:, None, :].to(dtype)
+        emb = embed[tokens[:, t - 1].clamp(max=top_id)][:, None, :].to(dtype)
         h, cache = decoder_decode_step(
             cfg, params, token_embeds=emb, kv_mask=kv_mask,
             positions=(last_pos + t)[:, None], kv_cache=cache,

@@ -19,9 +19,14 @@ the pool (K6).  `spec_break_even` > 0 turns on the adaptive controller that
 falls back to plain rounds while too few drafts are accepted.
 
 What carries over from the JAX engine, and what does not:
-  * the same state (pool KV cache (L, B, Hkv, T, D) + per-slot metadata),
-    the same install/decode semantics, the scratch-column rule and the T
-    rounding to 16;
+  * the same state (pool KV cache + per-slot metadata), the same
+    install/decode semantics, the scratch-column rule and the T rounding
+    to 16;
+  * the pool, its installs and the shared prefix are (L, B, Hkv, T, D) at
+    every head dim (`POOL_LAYOUT`), passed to the decoder explicitly, so
+    the per-row routes K4/K7/K9 take them; JAX lays out a head dim off the
+    128 grid as "tbkd" (L, T, B, Hkv, D) and serves it on XLA routes only
+    (prot2text_tpu/infer/serving.py:149, :212);
   * JAX jits each piece and DONATES the state through every call so that
     slot writes stay in place; PyTorch runs eagerly, so the port updates
     the state dict's tensors in place instead (the cache through K4/K9a and
@@ -62,6 +67,7 @@ from .generate import _sample_token
 from .kvcache import init_kv_cache
 
 NEG = float(torch.finfo(torch.float32).min)
+POOL_LAYOUT = "bktd"
 # cache width multiples: the JAX fused write kernels' 16-row bf16 and
 # 32-row int8 tile groups; kept so the port's pools have the JAX engine's
 # shapes
@@ -117,10 +123,11 @@ def _prefix_prefill(cfg: DecoderConfig, params, emb, mask, *,
     greedy-exact."""
     emb = torch.where(mask[:, :, None] > 0, emb, 0)
     cache = init_kv_cache(cfg, 1, prefix_cols, device=emb.device,
-                          dtype=emb.dtype, kv_bits=kv_bits)
+                          dtype=emb.dtype, kv_bits=kv_bits,
+                          layout=POOL_LAYOUT)
     decoder_forward(cfg, params, inputs_embeds=emb, positions=_positions(mask),
                     attn_lengths=contiguous_lengths(mask), kv_cache=cache,
-                    layers=layers)
+                    layers=layers, layout=POOL_LAYOUT)
     return cache
 
 
@@ -153,7 +160,7 @@ def _prefill_install_pool(cfg: DecoderConfig, state, params, emb, mask,
     W = prefix_cols + prompt_pad                 # prefill cache width
     kv_bits = 8 if "k_scale" in state else None
     cache = init_kv_cache(cfg, R, W, device=dev, dtype=emb.dtype,
-                          kv_bits=kv_bits)
+                          kv_bits=kv_bits, layout=POOL_LAYOUT)
     positions = _positions(mask) + prefix_len
     if prefix_cols:
         for key in cache:          # broadcast copy (values and scales)
@@ -169,12 +176,13 @@ def _prefill_install_pool(cfg: DecoderConfig, state, params, emb, mask,
         bias = torch.where(torch.cat([okp, ok], dim=-1), 0.0, NEG)
         h, cache = decoder_forward(
             cfg, params, inputs_embeds=emb, positions=positions, bias=bias,
-            kv_cache=cache, cache_index=prefix_cols, layers=layers)
+            kv_cache=cache, cache_index=prefix_cols, layers=layers,
+            layout=POOL_LAYOUT)
     else:
         h, cache = decoder_forward(
             cfg, params, inputs_embeds=emb, positions=positions,
             attn_lengths=contiguous_lengths(mask), kv_cache=cache,
-            layers=layers)
+            layers=layers, layout=POOL_LAYOUT)
     logits = decoder_logits(cfg, params, h[:, -1:])[:n, 0]
     tok0 = _next_token(logits, gen_cfg, generator)
 
@@ -251,7 +259,7 @@ def _decode_all(cfg: DecoderConfig, state, params, generator, pkv=None, *,
             cfg, params, token_embeds=emb, kv_mask=state["kv_mask"],
             positions=(state["pos"] + 1)[:, None], kv_cache=kv,
             cache_index=write_idx, layers=layers, prefix_kv=pkv,
-            prefix_bias=pbias)
+            prefix_bias=pbias, layout=POOL_LAYOUT)
         state["kv_mask"][bidx, write_idx] = torch.where(
             active, 1, state["kv_mask"][bidx, write_idx]).to(torch.int32)
         tok = _next_token(decoder_logits(cfg, params, h)[:, 0], gen_cfg,
@@ -375,7 +383,7 @@ def _spec_rounds(cfg: DecoderConfig, state, params, pkv=None, *,
             h, _ = decoder_forward(
                 cfg, params, inputs_embeds=emb, positions=pos, bias=bias,
                 kv_cache=kv, cache_index=start, layers=layers, prefix_kv=pkv,
-                prefix_bias=pbias)
+                prefix_bias=pbias, layout=POOL_LAYOUT)
         tgt = torch.argmax(decoder_logits(cfg, params, h), dim=-1)  # (B, G)
 
         # per-row acceptance, then the budget and EOS clamps
@@ -527,7 +535,8 @@ class ContinuousBatcher:
         pcols_pool = 0 if self.dedup else self.prefix_cols
         T = -(-(pcols_pool + max_len + slack) // mult) * mult
         cache = init_kv_cache(cfg, max_slots, T, device=self.device,
-                              dtype=cache_dtype, kv_bits=kv_bits)
+                              dtype=cache_dtype, kv_bits=kv_bits,
+                              layout=POOL_LAYOUT)
 
         def zeros(dtype=torch.int64):
             return torch.zeros((max_slots,), dtype=dtype, device=self.device)

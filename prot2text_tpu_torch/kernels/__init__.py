@@ -6,7 +6,10 @@ integer attribute, `wrapper.launches`.  The CUDA library is built and
 loaded only when a kernel is first launched (`_build.py`).
 """
 
-from .cache_update import cache_slot_write_bkt, cache_slot_write_bkt_plain
+from .cache_update import (
+    cache_slot_write, cache_slot_write_bkt, cache_slot_write_bkt_plain,
+    cache_slot_write_kv, cache_slot_write_kv_plain, cache_slot_write_plain,
+)
 from .decode_attention import (
     decode_attention_stacked, decode_attention_stacked_plain,
     decode_attention_stacked_write, decode_attention_stacked_write_plain,
@@ -89,7 +92,17 @@ KERNELS = {
             (quant_matmul_int8_plain, quant_matmul_int8_stacked_plain),
             "prot2text_tpu_torch/kernels/csrc/quant_matmul.cu",
             "prot2text_tpu/kernels/quant_matmul.py:98/:683"),
+    "K12": (cache_slot_write, cache_slot_write_plain,
+            "prot2text_tpu_torch/kernels/csrc/cache_update.cu",
+            "prot2text_tpu/kernels/cache_update.py:104"),
+    "K13": (cache_slot_write_kv, cache_slot_write_kv_plain,
+            "prot2text_tpu_torch/kernels/csrc/cache_update.cu",
+            "prot2text_tpu/kernels/cache_update.py:67"),
 }
+
+# kernels that no path of either package launches, each with its only JAX
+# caller: held against their plain versions, but no path counts them
+OFF_PATH = {"K13": "tests/test_flash_attention.py:142"}
 
 
 def _wrappers(w) -> tuple:
@@ -108,7 +121,9 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "cache_slot_write_bkt", "cache_slot_write_bkt_plain",
+    "KERNELS", "OFF_PATH", "cache_slot_write", "cache_slot_write_bkt",
+    "cache_slot_write_bkt_plain", "cache_slot_write_kv",
+    "cache_slot_write_kv_plain", "cache_slot_write_plain",
     "decode_attention_stacked", "decode_attention_stacked_plain",
     "decode_attention_stacked_write", "decode_attention_stacked_write_plain",
     "decode_attention_stacked_write_prefix",

@@ -55,6 +55,8 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _P],
     # cache, src, n_rows, T, index, row_bytes, stream
     "p2t_cache_slot_write": [_P, _P, _L, _L, _L, _I, _P],
+    # cache0, src0, cache1, src1, n_caches, L, T, index, run_bytes, stream
+    "p2t_cache_slab_write": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
     # qg, ck(layer), cv(layer), kv_mask, k_new, v_new, slots, pk(layer),
     # pv(layer), pmask, out, B, Hkv, rep, T, Pc, D, dtype, stream
     "p2t_decode_attention_write": [_P] * 11 + [_I] * 7 + [_P],

@@ -6,9 +6,12 @@ prot2text_tpu/models/composed.py):
   * `ESMCQwen` (:462-576, reference esmc_qwen_arc.py:31-273): ESMC encoder
     + modality adapter + Qwen3, the serving CLI's model.  Its `generate`
     (and `cli/generate_instruct_light.py`) is not ported yet (ROADMAP.md §1
-    item 3).
-The legacy and RGCN arcs are not ported yet (ROADMAP.md §1 items 11 and
-12).
+    item 3);
+  * `Esm2LlamaForCausalLM` (:171-334, reference
+    modeling_esm2llama_legacy.py:127-574): the legacy arc, ESM2 encoder
+    (+ Linear + LayerNorm adapter) concatenated in front of the text
+    embeds, fully fine-tuned (`train/legacy.py`).
+The RGCN arc is not ported yet (ROADMAP.md §1 item 12).
 """
 
 from __future__ import annotations
@@ -28,10 +31,11 @@ from .decoder import (
 )
 from .esm2 import ESM2Config, esm2_encode, init_esm2_params
 from .esmc import ESMCConfig, esmc_encode, init_esmc_params
-from .fusion import count_check, placeholder_merge
+from .fusion import concat_fusion, count_check, placeholder_merge
 from .llama import LlamaConfig, init_llama_params
 from .qwen3 import Qwen3Config, init_qwen3_params
-from .weights import ParamTree
+from .transformer import layer_norm, linear
+from .weights import ParamTree, dense, tree_map
 
 
 @dataclasses.dataclass
@@ -258,3 +262,192 @@ class ESMCQwen(nn.Module):
         return self.apply(self.config, self.params(),
                           protein_input_ids=protein_input_ids,
                           protein_attention_mask=protein_attention_mask, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Legacy Esm2LlamaForCausalLM (concat fusion)
+
+
+@dataclasses.dataclass(frozen=True)
+class Esm2LlamaConfig:
+    """Reference configuration_esm2llama_legacy.py:29-162 (composite)."""
+
+    esm_config: ESM2Config
+    llama_config: LlamaConfig
+    decoder_hidden_size: Optional[int] = None  # enables linear adapter + LN
+    bos_token_id: int = 128000
+    eos_token_id: int = 128001  # base (non-instruct) eos
+
+
+def init_esm2llama_params(config: Esm2LlamaConfig, *, generator, device,
+                          dtype=torch.float32) -> dict:
+    """{"esm_encoder", "llama_decoder"[, "encoder_adapter"]} drawn on
+    `device` with the JAX init's law; the adapter {dense: {kernel, bias},
+    ln: {scale, bias}} exists with `decoder_hidden_size`
+    (prot2text_tpu/models/composed.py:236-246)."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    params = {"esm_encoder": init_esm2_params(config.esm_config, **kw),
+              "llama_decoder": init_llama_params(config.llama_config, **kw)}
+    if config.decoder_hidden_size is not None:
+        h_out = config.decoder_hidden_size
+        params["encoder_adapter"] = {
+            "dense": dense(config.esm_config.hidden_size, h_out, bias=True,
+                           **kw),
+            "ln": {"scale": torch.ones(h_out, device=device, dtype=dtype),
+                   "bias": torch.zeros(h_out, device=device, dtype=dtype)},
+        }
+    return params
+
+
+class Esm2LlamaForCausalLM(nn.Module):
+    """ESM2 encoder (+ Linear + LayerNorm adapter) concatenated in front of
+    the text embeds (reference modeling_esm2llama_legacy.py:294-360).
+
+    `params`: a ParamTree or nested dict with the JAX tree (e.g. a
+    `train_legacy` checkpoint's "model"); None draws random weights on
+    `device` from `generator`.  `attn_impl` routes attention as
+    `esm2_encode` and `decoder_forward` do: "auto" plain ESM2 attention
+    and K1 (K5 backward) in the decoder, "flash" also K6/K6b in ESM2, "xla"
+    the plain function everywhere; generation decodes through the
+    lockstep step (K12 on the D=64 tbkd cache)."""
+
+    PARTS = ("esm_encoder", "llama_decoder", "encoder_adapter")
+
+    def __init__(self, config: Esm2LlamaConfig, params=None, *,
+                 device="cpu", dtype=torch.float32, generator=None,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        self.config = config
+        self.attn_impl = attn_impl
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            params = init_esm2llama_params(config, generator=generator,
+                                           device=device, dtype=dtype)
+        tree = params if isinstance(params, ParamTree) else ParamTree(params)
+        self.parts = [n for n in self.PARTS if n in tree._modules]
+        for name in self.parts:
+            self.add_module(name, getattr(tree, name))
+
+    @classmethod
+    def from_pretrained(cls, config: Esm2LlamaConfig, *,
+                        combined_checkpoint_dir=None,
+                        esm_checkpoint_dir=None, llama_checkpoint_dir=None,
+                        dtype=None, device="cpu", generator=None,
+                        attn_impl: str = "auto"):
+        """The JAX loading modes: a combined checkpoint (the port's
+        `step_N/checkpoint.pt`, its "model" tree; `dtype` casts its float
+        leaves when given), else random weights in `dtype` (f32 by
+        default).  The HF-directory modes need the weight loader, which is
+        not ported yet."""
+        if esm_checkpoint_dir or llama_checkpoint_dir:
+            raise NotImplementedError(
+                "esm_checkpoint_dir/llama_checkpoint_dir (HF weight loader) "
+                "is not ported yet (ROADMAP.md §1 item 6)")
+        if not combined_checkpoint_dir:
+            return cls(config, device=device, dtype=dtype or torch.float32,
+                       generator=generator, attn_impl=attn_impl)
+        from ..core.checkpoint import restore_checkpoint
+
+        restored = restore_checkpoint(combined_checkpoint_dir,
+                                      map_location=device)
+        params = restored.get("model", restored)
+        if dtype is not None:
+            params = tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                              else t, params)
+        return cls(config, params, attn_impl=attn_impl)
+
+    def params(self) -> dict:
+        return {name: getattr(self, name).tree() for name in self.parts}
+
+    def predict_contacts(self, *a, **kw):
+        """The legacy encoder wrapper strips the contact head: this raises,
+        as in the reference (modeling_esm2llama_legacy.py:115-124)."""
+        raise NotImplementedError(
+            "contact prediction head is removed from the encoder")
+
+    @staticmethod
+    def apply(config: Esm2LlamaConfig, params, *, input_ids=None,
+              attention_mask=None, labels=None, protein_input_ids=None,
+              protein_attention_mask=None,
+              return_encoder_output: bool = False, encoder_output=None,
+              attn_impl: str = "auto", remat: bool = False):
+        """Logits and, with `labels`, the loss over [enc ‖ text];
+        `return_encoder_output` → (adapted encoder states, protein mask);
+        `encoder_output` skips the encoder.  Positions are arange(S) over
+        the whole sequence, the protein's left padding included, as in
+        JAX (generation counts valid tokens instead)."""
+        if encoder_output is None:
+            enc = esm2_encode(config.esm_config, params["esm_encoder"],
+                              protein_input_ids, protein_attention_mask,
+                              attn_impl=attn_impl, remat=remat)
+            if "encoder_adapter" in params:
+                enc = linear(params["encoder_adapter"]["dense"], enc)
+                enc = layer_norm(params["encoder_adapter"]["ln"], enc)
+            enc_mask = protein_attention_mask
+        else:
+            enc, enc_mask = encoder_output
+        if return_encoder_output:
+            return enc, enc_mask
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        dec = params["llama_decoder"]
+        inputs_embeds, full_mask, full_labels = concat_fusion(
+            enc, enc_mask, embed_tokens(dec, input_ids), attention_mask,
+            labels)
+        core = config.llama_config.core()
+        B, S = full_mask.shape
+        positions = torch.arange(S, device=full_mask.device).expand(B, S)
+        # the key runs of the WHOLE [enc ‖ text] mask (one contiguous run
+        # in the derived collator's layout); JAX passes the text mask's
+        # (composed.py:289), which only its TPU flash route reads
+        h, _ = decoder_forward(
+            core, dec, inputs_embeds=inputs_embeds, positions=positions,
+            attn_lengths=contiguous_lengths(full_mask), attn_impl=attn_impl,
+            remat=remat)
+        logits = decoder_logits(core, dec, h)
+        loss = (None if full_labels is None
+                else cross_entropy_loss(logits, full_labels))
+        return ModelOutput(loss=loss, logits=logits, hidden_states=h)
+
+    @torch.no_grad()
+    def forward(self, **kw):
+        return self.apply(self.config, self.params(),
+                          attn_impl=self.attn_impl, **kw)
+
+    @torch.no_grad()
+    def generate(self, inputs=None, attention_mask=None,
+                 protein_input_ids=None, protein_attention_mask=None,
+                 generator=None, **gen_kwargs):
+        """Output INCLUDES the prompt ids (reference
+        modeling_esm2llama_legacy.py:505-507, :574): (B, prompt +
+        max_new_tokens).  The default prompt is one bos per row
+        (:553-560).  `kv_bits` and `stats` are passed on to
+        `infer.generate.generate`."""
+        from ..infer.generate import resolve_generation_config, run_generation
+
+        params = self.params()
+        enc, enc_mask = self.apply(
+            self.config, params, protein_input_ids=protein_input_ids,
+            protein_attention_mask=protein_attention_mask,
+            return_encoder_output=True, attn_impl=self.attn_impl)
+        B = enc.shape[0]
+        if inputs is None:
+            inputs = torch.full((B, 1), self.config.bos_token_id,
+                                dtype=torch.int64, device=enc.device)
+            attention_mask = torch.ones_like(inputs)
+        if attention_mask is None:
+            attention_mask = torch.ones_like(inputs)
+        inputs_embeds, full_mask, _ = concat_fusion(
+            enc, enc_mask, embed_tokens(params["llama_decoder"], inputs),
+            attention_mask)
+        kv_bits = gen_kwargs.pop("kv_bits", None)
+        stats = gen_kwargs.pop("stats", None)
+        lc = self.config.llama_config
+        gen_cfg = resolve_generation_config(self.config.eos_token_id,
+                                            lc.pad_token_id, gen_kwargs)
+        new_tokens = run_generation(
+            lc.core(), params["llama_decoder"], inputs_embeds=inputs_embeds,
+            attention_mask=full_mask, gen_cfg=gen_cfg, generator=generator,
+            kv_bits=kv_bits, stats=stats, attn_impl=self.attn_impl)
+        return torch.cat([inputs.to(new_tokens.dtype), new_tokens], dim=1)

@@ -28,7 +28,11 @@ the JAX XLA route `_xla_attention`):
     column; after the layer loop K3 (`kernels/cache_update.py`) writes slot
     `cache_index` of all L layers at once.  Writing a layer's slot before
     K2 runs would count the token twice.  This is the JAX default split
-    write for scalar slots (prot2text_tpu/models/decoder.py:1008-1011);
+    write for scalar slots (prot2text_tpu/models/decoder.py:1008-1011).
+    On the sequence-leading (L, T, B, Hkv, D) "tbkd" cache (`kv_cache_
+    layout`: head dims off the 128 grid, e.g. Llama-3.2-1B's 64) the
+    attention is plain torch and K12 writes the slot, once for k and once
+    for v (prot2text_tpu/models/decoder.py:1063-1090, :1138-1143);
   * single-token decode with per-row slots (continuous batching) → K4,
     attention fused with each row's in-place slot write per layer; with a
     batch-broadcast shared prefix → K9a (prot2text_tpu/models/decoder.py:
@@ -60,7 +64,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import IMPLS, dot_product_attention
-from ..kernels.cache_update import cache_slot_write_bkt
+from ..kernels.cache_update import cache_slot_write, cache_slot_write_bkt
 from ..kernels.decode_attention import (
     HEAD_DIMS, MAX_CHUNK, MAX_ROWS, decode_attention_stacked,
     decode_attention_stacked_verify_qc,
@@ -193,6 +197,35 @@ def contiguous_lengths(attention_mask):
     return kv_start.to(torch.int32), kv_len.to(torch.int32)
 
 
+LAYOUTS = ("bktd", "tbkd")
+
+
+def kv_cache_layout(cfg: DecoderConfig) -> str:
+    """The dense cache's layout, as JAX picks it (prot2text_tpu/models/
+    decoder.py:138-149): "bktd" (L, B, Hkv, T, D) when the head dim is a
+    multiple of 128, else "tbkd" (L, T, B, Hkv, D)."""
+    return "bktd" if cfg.head_dim % 128 == 0 else "tbkd"
+
+
+def resolve_layout(cfg: DecoderConfig, quantized: bool, layout=None) -> str:
+    """A cache's layout: `layout` when the caller names it (the serving
+    pool keeps "bktd" at every head dim), else "bktd" for an int8 cache
+    (JAX has none in tbkd; the port accepts one at every D) and
+    `kv_cache_layout(cfg)` for a dense one."""
+    if layout is None:
+        return "bktd" if quantized else kv_cache_layout(cfg)
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if quantized and layout != "bktd":
+        raise ValueError("an int8 cache is (L, B, Hkv, T, D): layout bktd")
+    return layout
+
+
+def cache_width(kv_cache, layout: str) -> int:
+    """T, the cache's slot count."""
+    return kv_cache["k"].shape[3 if layout == "bktd" else 1]
+
+
 def _mlp(cfg, lp, x, proj=None):
     proj = proj or (lambda name, x_: linear(lp[name], x_))
     xn = rms_norm(lp["post_attn_ln"], x, cfg.rms_norm_eps)
@@ -201,12 +234,19 @@ def _mlp(cfg, lp, x, proj=None):
     return x + proj("down_proj", (gate * up).to(xn.dtype))
 
 
-def _write_columns(kv_cache, li, vals, cache_index, S):
+def _write_columns(kv_cache, li, vals, cache_index, S, layout):
     """Layer `li` of every cache tensor (k, v and, int8, their scales)
     takes `vals` at columns [cache_index, cache_index + S): a host int
     writes one slab for all rows; a (B,) tensor writes row b's chunk at
     [cache_index[b], cache_index[b] + S) by scatter (the JAX one-hot
-    einsum is a TPU workaround for per-row dynamic indices)."""
+    einsum is a TPU workaround for per-row dynamic indices).  A tbkd
+    cache takes the (S, B, Hkv, D) slab at a host int (the JAX
+    `dynamic_update_slice`, prot2text_tpu/models/decoder.py:346-362)."""
+    if layout == "tbkd":
+        for name, x in vals.items():             # x (B, Hkv, S, D)
+            kv_cache[name][li, cache_index:cache_index + S] = \
+                x.permute(2, 0, 1, 3)
+        return
     if isinstance(cache_index, int):
         for name, x in vals.items():
             kv_cache[name][li, :, :, cache_index:cache_index + S] = x
@@ -226,7 +266,7 @@ def _dequant(q, scale, dtype):
 
 def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
            attn_lengths, bias, kv_cache, cache_index, li, prefix_kv=None,
-           prefix_bias=None, run_bias=None):
+           prefix_bias=None, run_bias=None, layout="bktd"):
     """One decoder layer: attention through K1 over `attn_lengths`, or
     through K6 over the whole cache (after the shared prefix's columns,
     when given) with `bias`; with `run_bias` (attn_impl "xla"), the plain
@@ -259,12 +299,17 @@ def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
                     "k_scale": ks, "v_scale": vs}
         else:
             vals = {"k": k, "v": v}
-        _write_columns(kv_cache, li, vals, cache_index, S)
+        _write_columns(kv_cache, li, vals, cache_index, S, layout)
         # K1 reads back slots [0, S); K6 the whole width, seeded columns
-        # [0, cache_index) included
-        width = S if bias is None else kv_cache["k"].shape[3]
-        k = kv_cache["k"][li, :, :, :width]
-        v = kv_cache["v"][li, :, :, :width]
+        # [0, cache_index) included; a tbkd cache is read through a
+        # (B, Hkv, T, D) view (JAX transposes, decoder.py:363-364)
+        width = S if bias is None else cache_width(kv_cache, layout)
+        if layout == "tbkd":
+            k = kv_cache["k"][li, :width].permute(1, 2, 0, 3)
+            v = kv_cache["v"][li, :width].permute(1, 2, 0, 3)
+        else:
+            k = kv_cache["k"][li, :, :, :width]
+            v = kv_cache["v"][li, :, :, :width]
         if quantized:
             k = _dequant(k, kv_cache["k_scale"][li, :, :, :width], h.dtype)
             v = _dequant(v, kv_cache["v_scale"][li, :, :, :width], h.dtype)
@@ -301,7 +346,7 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
                     lora_scale: float = 1.0, remat: bool = False,
                     prefix_kv=None, prefix_bias=None,
                     attn_impl: str = "auto", num_layers=None,
-                    final_norm: bool = True):
+                    final_norm: bool = True, layout=None):
     """Causal forward over a whole sequence.  Exactly one of:
       * `attn_lengths` = (kv_start, kv_len) from `contiguous_lengths`:
         attention is K1 (K5 backward), causal on sequence index; with
@@ -318,6 +363,10 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
         `prefix_bias` (B, 1, 1, Pc) prepends the batch-broadcast shared
         prefix's columns to every layer's attention operand and bias.
         The serving paths that take it run forward only.
+    `layout` names the cache's layout ("bktd" (L, B, Hkv, T, D) or "tbkd"
+    (L, T, B, Hkv, D)); None takes `resolve_layout`'s: tbkd for a dense
+    cache of a head dim off the 128 grid.  A tbkd cache takes a host-int
+    `cache_index` and no shared prefix.
     An int8 `kv_cache` ({"k","v","k_scale","v_scale"}, `init_kv_cache(
     kv_bits=8)`) stores each layer's k/v quantized per (head, token) and
     attends over its dequantized copy in the activations' dtype.
@@ -339,12 +388,20 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
                                          and cache_index == 0):
         raise ValueError("attn_lengths attends slots [0, S): it takes "
                          "cache_index 0")
+    if kv_cache is not None:
+        layout = resolve_layout(cfg, "k_scale" in kv_cache, layout)
+        if layout == "tbkd" and not (isinstance(cache_index, int)
+                                     and prefix_kv is None):
+            raise ValueError("a tbkd cache takes a host-int cache_index and "
+                             "no shared prefix (per-row slots and prefixes "
+                             "are the serving pool's, layout bktd)")
     if bias is not None:
         if kv_cache is None:
             raise ValueError("bias attends a cache's columns: pass kv_cache")
-        if bias.shape[-1] != kv_cache["k"].shape[3]:
+        T = cache_width(kv_cache, layout)
+        if bias.shape[-1] != T:
             raise ValueError(f"bias covers {bias.shape[-1]} key columns, "
-                             f"the cache {kv_cache['k'].shape[3]}")
+                             f"the cache {T}")
     if prefix_kv is not None and (bias is None or prefix_bias is None):
         raise ValueError("prefix_kv requires bias and prefix_bias")
     if attn_impl not in IMPLS:
@@ -363,7 +420,8 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
     h = inputs_embeds
     for li, (lp, ll) in enumerate(zip(layers, lora_layers)):
         args = (cfg, lp, ll, lora_scale, h, cos, sin, attn_lengths, bias,
-                kv_cache, cache_index, li, prefix_kv, prefix_bias, run_bias)
+                kv_cache, cache_index, li, prefix_kv, prefix_bias, run_bias,
+                layout)
         if remat:
             # the block draws no random numbers: no RNG state to replay
             h = checkpoint(_block, *args, use_reentrant=False,
@@ -375,9 +433,31 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
     return rms_norm(params["final_ln"], h, cfg.rms_norm_eps), kv_cache
 
 
+def _tbkd_decode_attention(qg, ck, cv, kv_mask, k, v):
+    """Grouped decode attention over a stale tbkd layer cache (T, B, Hkv, D)
+    plus the current token's logit, as JAX's einsum route over that layout
+    (prot2text_tpu/models/decoder.py:1063-1090): fp32 logits with the
+    finfo.min bias of unwritten slots, fp32 softmax, the stale weights cast
+    to the cache's dtype and the current one to v's.  JAX takes its Pallas
+    decode attention only on bktd, so on tbkd this plain function is its
+    counterpart, not a fallback.  Returns (B, Hkv, rep, D) in qg's dtype."""
+    T = ck.shape[0]
+    neg = torch.finfo(torch.float32).min
+    bias = torch.where(kv_mask > 0, 0.0, neg)[:, None, None, :]
+    logits_old = torch.einsum("bkrd,tbkd->bkrt", qg.float(), ck.float())
+    logit_new = torch.einsum("bkrd,bkd->bkr", qg.float(),
+                             k.to(qg.dtype).float())[..., None]
+    w = torch.softmax(torch.cat([logits_old + bias, logit_new], dim=-1),
+                      dim=-1)
+    a = torch.einsum("bkrt,tbkd->bkrd", w[..., :T].to(cv.dtype).float(),
+                     cv.float()).to(qg.dtype)
+    return a + (w[..., T:].to(v.dtype) * v[:, :, None, :]).to(qg.dtype)
+
+
 def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
                         kv_mask, positions, kv_cache, cache_index,
-                        layers=None, prefix_kv=None, prefix_bias=None):
+                        layers=None, prefix_kv=None, prefix_bias=None,
+                        layout=None):
     """One token per row.
 
     token_embeds (B, 1, H); kv_mask (B, T) int32 over ALREADY-written slots
@@ -385,7 +465,10 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     attention's extra column); positions (B, 1) rope positions.
     `cache_index` picks the route:
       * a host int (lockstep: every row writes that slot) → K2 per layer,
-        then K3 writes slot `cache_index` of every layer;
+        then K3 writes slot `cache_index` of every layer; on a tbkd cache
+        (`layout`, as in `decoder_forward`) the attention is
+        `_tbkd_decode_attention` and K12 writes the slot, once for k and
+        once for v;
       * a (B,) integer tensor (per-row slots, continuous batching) → K4 per
         layer, which attends and writes row b's k/v into slot
         cache_index[b] of that layer in place.
@@ -413,6 +496,11 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         layers = layer_views(params["layers"], L)
     lockstep = (isinstance(cache_index, int) and prefix_kv is None
                 and not quantized)
+    tbkd = resolve_layout(cfg, quantized, layout) == "tbkd"
+    if tbkd and not lockstep:
+        raise ValueError("a tbkd cache takes the lockstep step only: a "
+                         "host-int cache_index, no shared prefix (per-row "
+                         "slots are the serving pool's, layout bktd)")
     if prefix_kv is not None:
         pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
     cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
@@ -454,8 +542,12 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
                     qg, ck_all, cv_all, kv_mask, k, v, li, cache_index,
                     prefix_kv["k"], prefix_kv["v"], pmask)
             elif lockstep:
-                a = decode_attention_stacked(qg, ck_all, cv_all, kv_mask, k,
-                                             v, li)
+                if tbkd:
+                    a = _tbkd_decode_attention(qg, ck_all[li], cv_all[li],
+                                               kv_mask, k, v)
+                else:
+                    a = decode_attention_stacked(qg, ck_all, cv_all,
+                                                 kv_mask, k, v, li)
                 k_new[li] = k
                 v_new[li] = v
             else:
@@ -465,8 +557,9 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         x = x + linear(lp["o_proj"], a.to(x.dtype).reshape(B, 1, H * D))
         x = _mlp(cfg, lp, x)
     if lockstep:
-        cache_slot_write_bkt(ck_all, k_new, cache_index)
-        cache_slot_write_bkt(cv_all, v_new, cache_index)
+        write = cache_slot_write if tbkd else cache_slot_write_bkt
+        write(ck_all, k_new, cache_index)
+        write(cv_all, v_new, cache_index)
     h = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
     return h, kv_cache
 

@@ -3,9 +3,12 @@
 HF `EsmModel` numerics as the JAX package has them: token-dropout embedding
 scaling, embeddings times the attention mask, pre-LN blocks, the query
 scaled by head_dim**-0.5 BEFORE rotary, rotary over the absolute index,
-final LayerNorm.  Attention is plain PyTorch (fp32 logits + key-padding
-bias, fp32 softmax): the JAX path is plain XLA here too — no Pallas kernel
-is reached by the bidirectional encoder.
+final LayerNorm.  Attention goes through `kernels.attention.
+dot_product_attention` with `attn_impl`, as the JAX `attention(q, k, v,
+bias, impl=attn_impl)`: "auto"/"xla" plain PyTorch (fp32 logits +
+key-padding bias, fp32 softmax; JAX keeps bidirectional encoders on XLA),
+"flash" K6 forward and K6b backward.  `remat=True` recomputes each block
+in the backward pass (the JAX `scan_layers(..., remat)`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import dot_product_attention
 from .transformer import (
@@ -38,6 +42,12 @@ class ESM2Config:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    # published checkpoint shapes
+    @classmethod
+    def t6_8M(cls):
+        return cls(hidden_size=320, num_layers=6, num_heads=20,
+                   intermediate_size=1280)
 
     @classmethod
     def t36_3B(cls):
@@ -90,8 +100,26 @@ def _embed(cfg: ESM2Config, params, input_ids, attention_mask):
     return emb * attention_mask[..., None].to(emb.dtype)
 
 
+def _block(cfg: ESM2Config, lp, h, bias, cos, sin, attn_impl):
+    B, S, _ = h.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    xn = layer_norm(lp["attn_ln"], h, cfg.layer_norm_eps)
+    q = linear(lp["query"], xn).view(B, S, H, D).transpose(1, 2)
+    k = linear(lp["key"], xn).view(B, S, H, D).transpose(1, 2)
+    v = linear(lp["value"], xn).view(B, S, H, D).transpose(1, 2)
+    q = (q.float() * D ** -0.5).to(q.dtype)   # ESM: scale before rotary
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    a = dot_product_attention(q, k, v, bias, impl=attn_impl)
+    a = a.transpose(1, 2).reshape(B, S, H * D)
+    h = h + linear(lp["attn_out"], a)
+    xn = layer_norm(lp["mlp_ln"], h, cfg.layer_norm_eps)
+    return h + linear(lp["output"], gelu_erf(linear(lp["intermediate"], xn)))
+
+
 def esm2_encode(cfg: ESM2Config, params, input_ids=None, attention_mask=None,
-                *, inputs_embeds=None):
+                *, inputs_embeds=None, attn_impl: str = "auto",
+                remat: bool = False):
     """Per-token hidden states (B, S, H)."""
     if inputs_embeds is not None:
         B, S, _ = inputs_embeds.shape
@@ -102,21 +130,14 @@ def esm2_encode(cfg: ESM2Config, params, input_ids=None, attention_mask=None,
     else:
         B, S = input_ids.shape
         h = _embed(cfg, params, input_ids, attention_mask)
-    H, D = cfg.num_heads, cfg.head_dim
     bias = make_attention_bias(attention_mask, causal=False)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    cos, sin = rope_cos_sin(positions, D, cfg.rope_theta)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for lp in layer_views(params["layers"], cfg.num_layers):
-        xn = layer_norm(lp["attn_ln"], h, cfg.layer_norm_eps)
-        q = linear(lp["query"], xn).view(B, S, H, D).transpose(1, 2)
-        k = linear(lp["key"], xn).view(B, S, H, D).transpose(1, 2)
-        v = linear(lp["value"], xn).view(B, S, H, D).transpose(1, 2)
-        q = (q.float() * D ** -0.5).to(q.dtype)   # ESM: scale before rotary
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        a = dot_product_attention(q, k, v, bias)
-        a = a.transpose(1, 2).reshape(B, S, H * D)
-        h = h + linear(lp["attn_out"], a)
-        xn = layer_norm(lp["mlp_ln"], h, cfg.layer_norm_eps)
-        h = h + linear(lp["output"], gelu_erf(linear(lp["intermediate"], xn)))
+        if remat:
+            # the block draws no random numbers: no RNG state to replay
+            h = checkpoint(_block, cfg, lp, h, bias, cos, sin, attn_impl,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _block(cfg, lp, h, bias, cos, sin, attn_impl)
     return layer_norm(params["final_ln"], h, cfg.layer_norm_eps)

@@ -1,6 +1,9 @@
-"""Placeholder-token fusion (counterpart of prot2text_tpu/models/fusion.py:
-21-65): the n-th placeholder of row b receives the n-th valid encoder token
-of row b, by cumsum ordinals and gathers (no data-dependent shapes)."""
+"""Modality fusion (counterpart of prot2text_tpu/models/fusion.py):
+  * `placeholder_merge` (:21-65): the n-th placeholder of row b receives
+    the n-th valid encoder token of row b, by cumsum ordinals and gathers
+    (no data-dependent shapes);
+  * `concat_fusion` (:68-86): the legacy arc's [encoder ‖ text] along the
+    sequence."""
 
 from __future__ import annotations
 
@@ -29,3 +32,18 @@ def count_check(input_ids, placeholder_id, encoder_attention_mask):
     n_ph = (input_ids == placeholder_id).sum(dim=1)
     n_enc = encoder_attention_mask.sum(dim=1)
     return n_ph == n_enc
+
+
+def concat_fusion(encoder_embeds, encoder_attention_mask, text_embeds,
+                  text_attention_mask, labels=None, ignore_index: int = -100):
+    """[enc ‖ text] along the sequence in the text's dtype, the masks
+    concatenated, labels prefixed with `ignore_index` over the encoder's
+    columns → (embeds, mask, labels or None)."""
+    embeds = torch.cat([encoder_embeds.to(text_embeds.dtype), text_embeds],
+                       dim=1)
+    mask = torch.cat([encoder_attention_mask, text_attention_mask], dim=1)
+    if labels is None:
+        return embeds, mask, None
+    pad = torch.full(encoder_embeds.shape[:2], ignore_index,
+                     dtype=labels.dtype, device=labels.device)
+    return embeds, mask, torch.cat([pad, labels], dim=1)

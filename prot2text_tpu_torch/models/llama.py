@@ -57,6 +57,12 @@ class LlamaConfig:
         )
 
     @classmethod
+    def llama_3_2_1b(cls):
+        """The dataclass defaults: hidden 2048, 16 layers, 32 heads of 64,
+        8 kv heads, tied embeddings, llama3 rope scaling 32."""
+        return cls()
+
+    @classmethod
     def llama_3_1_8b(cls):
         return cls(hidden_size=4096, num_layers=32, num_heads=32,
                    num_kv_heads=8, intermediate_size=14336,

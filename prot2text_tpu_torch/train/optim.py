@@ -49,7 +49,24 @@ def cosine_warmup_schedule(base_lr: float, total_steps: int,
     return sched
 
 
+def step_lr_schedule(base_lr: float, gamma: float, steps_per_epoch: int
+                     ) -> Callable[[int], float]:
+    """StepLR(step_size=1 epoch, gamma): base_lr·gamma^(step //
+    steps_per_epoch), in float32 as the JAX schedule computes it
+    (prot2text_tpu/train/optim.py:55-62; reference train_legacy.py:325)."""
+
+    def sched(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return float(np.float32(base_lr)
+                     * np.float32(gamma) ** np.float32(epoch))
+
+    return sched
+
+
 B1, B2 = 0.9, 0.999           # optax.adamw's defaults, used by every trainer
+# optax.adamw's own eps and weight decay, which `step_lr` keeps (the other
+# trainers pass eps 1e-6 and their own decay)
+OPTAX_EPS, OPTAX_WEIGHT_DECAY = 1e-8, 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +128,17 @@ def adamw_cosine_warmup(base_lr: float, total_steps: int,
 def adamw_constant(lr: float, weight_decay: float = 0.0, eps: float = 1e-6,
                    grad_clip: Optional[float] = None) -> AdamW:
     return AdamW(lr, weight_decay=weight_decay, eps=eps, grad_clip=grad_clip)
+
+
+def step_lr(base_lr: float, gamma: float, steps_per_epoch: int,
+            grad_clip: Optional[float] = None) -> AdamW:
+    """The legacy trainer's optimizer: `optax.adamw(step_lr_schedule(...))`
+    at optax's defaults (eps 1e-8, weight decay 1e-4), global-norm clipping
+    chained before it when `grad_clip` is given (prot2text_tpu/train/
+    optim.py:87-93)."""
+    return AdamW(step_lr_schedule(base_lr, gamma, steps_per_epoch),
+                 weight_decay=OPTAX_WEIGHT_DECAY, eps=OPTAX_EPS,
+                 grad_clip=grad_clip)
 
 
 @dataclasses.dataclass

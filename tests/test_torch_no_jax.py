@@ -47,13 +47,16 @@ MODULES = [
     "prot2text_tpu_torch.infer.serving",
     "prot2text_tpu_torch.train",
     "prot2text_tpu_torch.train.contrastive",
+    "prot2text_tpu_torch.train.legacy",
     "prot2text_tpu_torch.train.optim",
     "prot2text_tpu_torch.train.sft",
     "prot2text_tpu_torch.cli.common",
     "prot2text_tpu_torch.cli.generate_instruct",
+    "prot2text_tpu_torch.cli.generate_legacy",
     "prot2text_tpu_torch.cli.serve",
     "prot2text_tpu_torch.cli.train_contrast",
     "prot2text_tpu_torch.cli.train_instruct",
+    "prot2text_tpu_torch.cli.train_legacy",
     "chip_smoke",
 ]
 

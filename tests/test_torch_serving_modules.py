@@ -167,10 +167,12 @@ def test_decoder_forward_bias_with_cache_offset_matches_jax(head_dim):
         bias=jnp.asarray(bias), positions=jnp.asarray(pos), kv_cache=jcache,
         cache_index=Pc, attn_impl="flash")
     tcache = {n: torch.from_numpy(c.copy()) for n, c in cache.items()}
+    # the serving pool's layout at every head dim (infer/serving.py
+    # POOL_LAYOUT); JAX's D=16 cache is tbkd, compared permuted below
     got_h, _ = td.decoder_forward(
         tcfg.core(), _t(params), inputs_embeds=torch.from_numpy(x),
         positions=torch.from_numpy(pos), bias=torch.from_numpy(bias),
-        kv_cache=tcache, cache_index=Pc)
+        kv_cache=tcache, cache_index=Pc, layout="bktd")
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=ATOL,
                                rtol=0)
     for n in ("k", "v"):
@@ -196,7 +198,7 @@ def test_decoder_forward_needs_one_attention_kind():
     with pytest.raises(ValueError, match="bias covers"):
         td.decoder_forward(tcfg.core(), _t(params), inputs_embeds=x,
                            positions=pos, bias=torch.zeros(1, 1, 4, 5),
-                           kv_cache=cache, cache_index=2)
+                           kv_cache=cache, cache_index=2, layout="bktd")
 
 
 # ---------------------------------------------------------------------------

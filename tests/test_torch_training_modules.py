@@ -271,7 +271,10 @@ def test_qwen3_decoder_forward_with_qk_norm(with_lora):
 
 def test_qwen3_decode_step_with_qk_norm():
     """One decode step over a cache holding S prefilled slots: the port's
-    K2/K3 path (plain on the CPU) against the JAX XLA decode step."""
+    lockstep step against the JAX XLA decode step.  At D = 16 both keep
+    the (L, T, B, Hkv, D) "tbkd" cache, so the port's plain attention and
+    K12 (plain on the CPU) are held against JAX's directly: the hidden
+    states, and the prefilled and stepped caches without a permute."""
     jcfg, tcfg, params = _qwen_params()
     B, S, T, D = 2, 6, 8, 16
     rng = np.random.default_rng(15)
@@ -293,30 +296,42 @@ def test_qwen3_decode_step_with_qk_norm():
     kv_mask[:, :S] = 1
     bias_old = np.where(kv_mask > 0, 0.0, np.finfo(np.float32).min).astype(
         np.float32)[:, None, None, :]
-    want, _ = jd.decoder_decode_step(
+    prefilled = {n: np.asarray(c) for n, c in jcache.items()}
+    want, jcache = jd.decoder_decode_step(
         jcfg.core(), params, token_embeds=jnp.asarray(tok),
         bias_old=jnp.asarray(bias_old),
         positions=jnp.full((B, 1), S, jnp.int32), kv_cache=jcache,
         cache_index=S)
     tp = _t(params)
-    tcache = {"k": torch.zeros(2, B, 2, T, D), "v": torch.zeros(2, B, 2, T, D)}
+    assert td.kv_cache_layout(tcfg.core()) == "tbkd"
+    tcache = {"k": torch.zeros(2, T, B, 2, D), "v": torch.zeros(2, T, B, 2, D)}
     td.decoder_forward(
         tcfg.core(), tp, inputs_embeds=torch.from_numpy(x),
         positions=torch.from_numpy(pos),
         attn_lengths=td.contiguous_lengths(torch.from_numpy(mask)),
         kv_cache=tcache)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tcache[n].numpy(), prefilled[n],
+                                   atol=ATOL, rtol=0)
     got, _ = td.decoder_decode_step(
         tcfg.core(), tp, token_embeds=torch.from_numpy(tok),
         kv_mask=torch.from_numpy(kv_mask),
         positions=torch.full((B, 1), S), kv_cache=tcache, cache_index=S)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tcache[n].numpy(), np.asarray(jcache[n]),
+                                   atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("schedule", ["cosine_warmup", "constant"])
+@pytest.mark.parametrize("schedule", ["cosine_warmup", "constant",
+                                      "step_lr", "step_lr_unclipped"])
 def test_adamw_matches_optax_three_steps(schedule):
-    """Three steps of clipped AdamW, including the warmup's lr(0) = 0 first
-    step: params equal optax's (f32, atol 1e-7 on O(1) params)."""
+    """Three steps of AdamW, clipped unless named otherwise, including the
+    warmup's lr(0) = 0 first step, and the legacy trainer's StepLR at
+    optax's own eps (1e-8) and weight decay (1e-4), two steps an epoch and
+    gamma 0.5, so step 3 runs at half the rate: params equal optax's (f32,
+    atol 1e-7 on O(1) params)."""
     rng = np.random.default_rng(16)
     params = {"a": {"A": rng.standard_normal((3, 4)).astype(np.float32),
                     "B": None},
@@ -331,6 +346,14 @@ def test_adamw_matches_optax_three_steps(schedule):
         ttx = topt.adamw_cosine_warmup(0.1, total_steps=20, warmup_frac=0.1,
                                        weight_decay=0.01, grad_clip=1.0)
         assert ttx.lr(0) == 0.0
+    elif schedule.startswith("step_lr"):
+        clip = None if schedule.endswith("unclipped") else 1.0
+        jtx = jopt.step_lr(0.1, 0.5, 2, grad_clip=clip)
+        ttx = topt.step_lr(0.1, 0.5, 2, grad_clip=clip)
+        assert (ttx.eps, ttx.weight_decay) == (1e-8, 1e-4)
+        sched = jopt.step_lr_schedule(0.1, 0.5, 2)
+        assert [ttx.lr(t) for t in range(5)] == [float(sched(t))
+                                                 for t in range(5)]
     else:
         jtx = jopt.adamw_constant(0.1, weight_decay=0.01, grad_clip=1.0)
         ttx = topt.adamw_constant(0.1, weight_decay=0.01, grad_clip=1.0)
