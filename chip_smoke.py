@@ -14,7 +14,9 @@ Phases (any failure raises and the script exits non-zero):
      ESMC-600M's training shapes, K6b its backward at ESMC-600M's SFT
      shapes, K9a K4 over a shared prefix; on the int8 cache K7 decode + slot write, K9b K7 over an int8
      prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix;
-     K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections)
+     K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections,
+     K11a/K11b the int4 split-half-byte and bf16-pair-word matmuls at its
+     gate/up, down and head, also bit for bit against K10)
      against its plain PyTorch version on the same bf16 inputs computed in
      fp32, at the paths' own shapes, with median CUDA-event times of both,
      the bound (the larger of the bytes at the HBM rate and the operations
@@ -31,6 +33,13 @@ Phases (any failure raises and the script exits non-zero):
      proteins of 380-500 residues through `Esm2LlamaForCausalLM.generate`
      on the D=64 tbkd cache: exact K1 (prefill) and K12 (2 per decode
      step) counts, the prompt leading the output;
+  3c. ESMC + Qwen3 lockstep generation: ESMC-600M → adapter → Qwen3-14B
+     (full width and depth, random weights) through
+     `cli/generate_instruct_light.py`: its `build_model` once in bf16,
+     the towers quantized to int4 planes, split-half bytes and bf16-pair
+     words in turn, 4 x 64 tokens each through the CLI's batch loop
+     (exact K10, K11a, K11b counts, logits against the planes run), then
+     its `main` at `--model_dtype int4` over a 6-record CSV at batch 4;
   4. training: stage-2 LoRA SFT of ESMC-600M + adapter + Qwen3-14B (full
      width and depth, bf16 towers, f32 LoRA r=32 and adapter) built and
      stepped as `cli/train_instruct.py` does: 2 AdamW steps of 4
@@ -81,8 +90,9 @@ Phases (any failure raises and the script exits non-zero):
      a serving engine's install logits
      and tokens (K1, K4, K6, K9a), a speculative bf16-pool engine's tokens,
      an int8 engine's decode-step and verify-round logits (K7, K8), and
-     int4 and int8 weight engines' decode-step and verify-round logits
-     and tokens (K10, K14), a legacy model's generation (K1, K12) and one
+     int4 (planes, bytes, pairs) and int8 weight engines' decode-step and
+     verify-round logits and tokens (K10, K11a, K11b, K14), a legacy
+     model's generation (K1, K12) and one
      legacy train step (K1, K5).
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -944,6 +954,111 @@ def check_quant_kernels(torch, dev, card):
     return rows
 
 
+# Qwen3-14B's largest projections and its head (K, N), at the rows of the
+# lockstep decode at B 4, a batch of 16 and a verify round of 40
+K11_SHAPES = (("gate/up", 5120, 17408), ("down", 17408, 5120),
+              ("head", 5120, 151936))
+K11_ROWS = (4, 16, 40)
+
+
+def check_k11_kernels(torch, dev, card):
+    """K11a (int4 split-half bytes) and K11b (int4 bf16-pair words) against
+    their plain versions at `K11_SHAPES` and `K11_ROWS`, bf16 x against the
+    fp32 plain version on the same values: max|kernel - plain| <= 2e-2 ·
+    max|plain|, as for K10/K14.  Each against K10 on the same integers:
+    both read their bytes and words into K10's fragment order, so each must
+    be bit-identical to it.  The stacked entry point at layer 2 of a 3-layer
+    gate/up
+    buffer at each R.  Times are device time per call from CUDA graphs
+    (`graph_ms`), with one eager call's time beside them; the library
+    column is one `torch.matmul` of x with the weight dequantized to bf16
+    before the timed region (the port never calls it).  The row keeps the
+    gate/up shape's times at R 4, the lockstep step's largest projection,
+    and the largest absolute error of any shape."""
+    from prot2text_tpu_torch.kernels import quant_matmul as qm
+    from prot2text_tpu_torch.models.quant import dequantize_kernel
+
+    g = torch.Generator(device=dev).manual_seed(1357)
+    rows = {}
+    for kid, fmt, key, pack, kern, stacked, plain in (
+            ("K11a", "bytes", "kernel_q4", qm.pack_int4,
+             qm.quant_matmul_int4, qm.quant_matmul_int4_stacked,
+             qm.quant_matmul_int4_plain),
+            ("K11b", "pairs", "kernel_q4w", qm.pack_int4_pairs,
+             qm.quant_matmul_int4_pairs, qm.quant_matmul_int4_pairs_stacked,
+             qm.quant_matmul_int4_pairs_plain)):
+        worst = 0.0
+        for name, K, N in K11_SHAPES:
+            q = torch.randint(-8, 8, (K, N), generator=g, device=dev,
+                              dtype=torch.int8)
+            w, wp = pack(q), qm.pack_int4_planes(q)
+            del q
+            scale = torch.rand((1, N), generator=g, device=dev) * 0.03 + 2e-3
+            wd = dequantize_kernel({key: w, "scale": scale}, torch.bfloat16)
+            for R in K11_ROWS:
+                x = torch.randn((R, K), generator=g, device=dev).to(
+                    torch.bfloat16)
+                y = kern(x, w, scale)
+                y10 = qm.quant_matmul_int4_planes(x, wp, scale)
+                torch.cuda.synchronize()
+                want = plain(x.float(), w, scale)
+                err = (y.float() - want).abs().max().item()
+                top = want.abs().max().item()
+                require(bool(torch.isfinite(y).all()) and err <= 2e-2 * top,
+                        f"{kid} {name} R={R}: max|err| {err} > 2e-2 * "
+                        f"max|plain| {top}")
+                worst = max(worst, err)
+                d10 = (y.float() - y10.float()).abs().max().item()
+                require(torch.equal(y, y10), f"{kid} {name} R={R}: not "
+                        f"bit-identical to K10 (max|diff| {d10})")
+                ms = graph_ms(torch, lambda: kern(x, w, scale))
+                plain_ms = graph_ms(torch, lambda: plain(x, w, scale),
+                                    calls=2)
+                lib_ms = graph_ms(torch, lambda: torch.matmul(x, wd))
+                host_ms = cuda_ms(torch, lambda: kern(x, w, scale), iters=20)
+                # W, its scales and x read once, y written once
+                bd = bound(2.0 * R * K * N,
+                           nbytes(w, scale, x) + R * N * x.element_size())
+                log(f"{kid} int4 {fmt} {name} R={R} K={K} N={N} bf16 x: "
+                    f"max|y-plain|/max|plain| {err / top:.3e} (2e-2); "
+                    f"bit-identical to K10 on the same integers; "
+                    f"device time per call (CUDA graph): kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, torch.matmul on the bf16 "
+                    f"dequantized weight {lib_ms:.4f} ms, bound "
+                    f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
+                    f"{bd['bound_ms'] / ms:.1%}; one eager call with its host "
+                    f"cost {host_ms:.4f} ms [{card}]")
+                if name == "gate/up" and R == 4:
+                    rows[kid] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, **bd)
+                del x, y, y10, want
+            del w, wp, scale, wd
+        # the stacked entry point reads layer 2 of an (L, ...) buffer in place
+        K, N = 5120, 17408
+        q = torch.randint(-8, 8, (3, K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = pack(q)
+        del q
+        scale = torch.rand((3, 1, N), generator=g, device=dev) * 0.03 + 2e-3
+        for R in K11_ROWS:
+            x = torch.randn((R, K), generator=g, device=dev).to(torch.bfloat16)
+            y = stacked(x, w, scale, 2)
+            torch.cuda.synchronize()
+            want = plain(x.float(), w[2], scale[2])
+            err = (y.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            require(err <= 2e-2 * top, f"{kid} stacked layer 2 R={R}: "
+                    f"max|err| {err} > 2e-2 * max|plain| {top}")
+            worst = max(worst, err)
+            log(f"{kid} stacked entry, layer 2 of 3 (K={K}, N={N}), R={R}: "
+                f"max|y-plain|/max|plain| {err / top:.3e} (2e-2)")
+        rows[kid]["max_abs_err"] = worst
+        del w, scale, x, y, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the full-width slice through the entry point a user calls
 
@@ -1194,6 +1309,190 @@ def run_legacy_generation(torch, dev, card):
         + kernel_breakdown(torch, prof, st3["total_s"], LEGACY_FAMILIES)
         + f" [{card}]")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: ESMC + Qwen3 lockstep generation at full width through the
+# light CLI
+
+LIGHT_NEW = 64           # new tokens; the CLI defaults to 256
+LIGHT_FORMATS = (("planes", "K10"), ("bytes", "K11a"), ("pairs", "K11b"))
+
+
+def light_launches(cfg, batches, steps: int, B: int = 4) -> int:
+    """int4-matmul launches of the light CLI's generation over `batches`,
+    each padded to B rows: 7 projections per layer and the head per decode
+    step, one head per prefill (the prefill's B × bucket > 256 rows take
+    the dequantized matmul), and ESMC's 4 projections per layer for a
+    protein batch of <= 256 (B × width) rows."""
+    L = cfg.llm_config.num_layers
+    return (len(batches) + steps * (7 * L + 1)
+            + sum(4 * cfg.esm_config.n_layers for b in batches
+                  if B * b["protein_input_ids"].shape[1] <= 256))
+
+
+def run_light_generation(torch, dev, card):
+    """Phase 3c: ESMC-600M + adapter + Qwen3-14B (full width and depth,
+    random weights from `--random_seed 0`) through
+    `cli/generate_instruct_light.py`, `LIGHT_NEW` greedy tokens: (1) the
+    CLI's `build_model` once at `--model_dtype bf16`, then its
+    towers quantized by `quantize_params(int4_format=)` in planes, bytes
+    and pairs in turn, each tree freed before the next, each run through
+    the CLI's batch loop on 4 records: exact K1/K2/K3 and K10/K11a/K11b
+    counts, finite logits, the prefill's and first step's logits of bytes
+    and pairs within 1e-2 of the largest |logit| of the planes run (the
+    first step on the rows whose first token agrees; whether bit-identical
+    is reported), prefill ms, decode ms/step,
+    descriptions/hour, peak memory and the towers' bytes; (2) the CLI's
+    `main` at `--model_dtype int4` (nibble planes) over a CSV of those 4
+    and 2 more records at `--batch_size 4` (the last batch padded): the
+    JSON checked, exact K1/K2/K10 counts (its decode steps from K3's two
+    writes per step)."""
+    import csv
+    import os
+    import tempfile
+
+    from prot2text_tpu_torch.cli import generate_instruct_light as lcli
+    from prot2text_tpu_torch.cli.serve import make_collator
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.composed import ESMCQwen
+    from prot2text_tpu_torch.models.quant import (
+        quantize_params, quantized_bytes,
+    )
+
+    tok = ByteTextTokenizer()
+    records = train_records(6, (200, 451), seed=31)
+    argv = ["--test_csv", "unused", "--device", "cuda", "--random_seed", "0",
+            "--batch_size", "4", "--max_new_tokens", str(LIGHT_NEW),
+            "--model_dtype", "int4"]
+    args = lcli.build_parser().parse_args(argv)
+    lcli.refuse_unported(args)
+    collate = make_collator(args, tok)
+    batch = collate(records[:4])
+    log(f"light batch: B=4 protein width {batch['protein_input_ids'].shape[1]}"
+        f" prompt width {batch['input_ids'].shape[1]} (valid "
+        f"{batch['attention_mask'].sum(1).tolist()})")
+
+    # (1) one bf16 build, three int4 formats
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bf16 = lcli.build_model(lcli.build_parser().parse_args(
+        argv + ["--model_dtype", "bf16"]), tok, dev)
+    torch.cuda.synchronize()
+    cfg, towers = bf16.config, bf16.params()
+    del bf16
+    L = cfg.llm_config.num_layers
+    log(f"light model ESMC-600M + adapter + Qwen3-14B bf16 towers built by "
+        f"the CLI's build_model in {time.perf_counter() - t0:.1f} s, "
+        f"{(quantized_bytes(towers['esm_encoder']) + quantized_bytes(towers['llm_decoder'])) / 2**30:.3f}"
+        f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+    paths, ref = {}, None
+    for fmt, kid in LIGHT_FORMATS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = dict(towers, **{
+            t: quantize_params(towers[t], bits=4, int4_format=fmt)
+            for t in ("esm_encoder", "llm_decoder")})
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        nbytes_q = (quantized_bytes(params["esm_encoder"])
+                    + quantized_bytes(params["llm_decoder"]))
+        model = ESMCQwen(cfg, params, attn_impl=args.attn_impl)
+        torch.cuda.reset_peak_memory_stats()
+        stats = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = lcli.generate_batches(args, tok, model, [batch], dev,
+                                        stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        (st,) = stats
+        steps = st["steps"]
+        require(len(results) == 4 and steps > 0, f"{fmt}: {len(results)} "
+                f"results, {steps} decode steps")
+        require(st["logits_finite"], f"{fmt}: non-finite logits")
+        want = expect(K1=L, K2=L * steps, K3=2 * steps,
+                      **{kid: light_launches(cfg, [batch], steps)})
+        require(counts == want, f"light {fmt}: launch counts {counts} != "
+                f"expected {want}")
+        logits = [t.float().cpu() for t in st["logits"]]
+        if ref is None:
+            ref = logits
+        else:
+            # the first step is compared on the rows whose first (greedy)
+            # token agrees with the planes run: on random weights a
+            # prefill's top-2 logits may lie within any rounding apart
+            same = logits[0].argmax(-1) == ref[0].argmax(-1)
+            require(bool(same.any()), f"light {fmt}: no row's first token "
+                    f"agrees with the planes run")
+            for i, name in enumerate(("prefill", "first step")):
+                rows_ = slice(None) if i == 0 else same
+                d = (logits[i][rows_] - ref[i][rows_]).abs().max().item()
+                top = ref[i][rows_].abs().max().item()
+                require(d <= 1e-2 * top, f"light {fmt} {name} logits: "
+                        f"max|diff| {d} > 1e-2 x max|logit| {top} of planes")
+                log(f"light {fmt} {name} logits against planes"
+                    f"{'' if i == 0 else f' ({int(same.sum())} of 4 rows with the same first token)'}: "
+                    f"{'bit-identical' if d == 0 else f'max|diff| {d:.3e} = {d / top:.3e} of max|logit|'}")
+        encode_s = wall - st["prefill_s"] - st["decode_s"]
+        log(f"light {fmt} ({kid}) [{card}]: towers {nbytes_q} bytes "
+            f"({nbytes_q / 2**30:.3f} GiB) quantized in {quant_s:.1f} s; "
+            f"encode+adapter {encode_s * 1e3:.2f} ms, prefill "
+            f"{st['prefill_s'] * 1e3:.2f} ms (B=4, P="
+            f"{batch['input_ids'].shape[1]}), decode "
+            f"{st['decode_s'] / steps * 1e3:.3f} ms/step over {steps} steps "
+            f"= {4 * steps / st['decode_s']:.1f} tokens/s, total {wall:.3f} s"
+            f" = {4 / wall * 3600:.0f} descriptions/hour; peak device memory"
+            f" {peak:.2f} GiB")
+        log(f"light {fmt} launches: {counts}")
+        paths[f"light_{fmt}"] = counts
+        del params, model, results, stats, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    del towers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the CLI's main over a CSV of 6 records
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "light.csv")
+        with open(csv_path, "w", newline="") as f:
+            wr = csv.DictWriter(f, fieldnames=list(records[0]))
+            wr.writeheader()
+            wr.writerows(records)
+        argv[argv.index("--test_csv") + 1] = csv_path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = lcli.main(argv + ["--output_dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(os.path.join(tmp, "generation_light_0.json")) as f:
+            saved = json.load(f)
+    require(saved == results and sorted(saved) == sorted(
+        r["AlphaFoldDB"] for r in records), f"JSON names {sorted(saved)}")
+    require(all(set(v) == {"true", "pred"} and isinstance(v["pred"], str)
+                for v in saved.values()), "JSON entries")
+    steps = counts["K3"] // 2
+    batches = [batch, collate(records[4:])]
+    want = expect(K1=2 * L, K2=L * steps, K3=2 * steps,
+                  K10=light_launches(cfg, batches, steps))
+    require(steps > 0 and counts == want,
+            f"light main: launch counts {counts} != expected {want}")
+    log(f"light main --model_dtype int4 [{card}]: 6 records in 2 batches of "
+        f"4 (the last padded), {steps} decode steps, {wall:.3f} s with the "
+        f"build, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    paths["light_main_int4"] = counts
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -2175,9 +2474,10 @@ def int8_round_logits(torch, eng):
 
 
 def run_serve_quant_plumbing(torch, dev):
-    """Tiny f32 int4 and int8 serving engines (γ 3 on the f32 pool) on cuda
-    (K10/K14, K4, K6, K1) and on cpu (plain versions) from the same
-    quantized weights.  On the random decoder, whose residual stream the
+    """Tiny f32 serving engines (γ 3 on the f32 pool) with int4 weights in
+    each format (nibble planes, split-half bytes, bf16-pair words) and int8
+    weights on cuda (K10/K11a/K11b/K14, K4, K6, K1) and on cpu (plain
+    versions) from the same quantized weights.  On the random decoder, whose residual stream the
     projections carry (embeddings of std 0.02), one decode step's and one
     verify round's last hidden states and logits agree within 5e-3 of their
     largest |value|: both devices round x to bf16 at each projection, so an
@@ -2215,8 +2515,11 @@ def run_serve_quant_plumbing(torch, dev):
             rng.integers(0, 300, int(n)))].numpy(), int(m))
             for i, (n, m) in enumerate(((5, 9), (17, 6), (30, 12), (3, 7)))]
 
-    for bits in (4, 8):
-        params = {name: quantize_params(p, bits=bits)
+    for label, kw in (("int4", dict(bits=4)),
+                      ("int4 bytes", dict(bits=4, int4_format="bytes")),
+                      ("int4 pairs", dict(bits=4, int4_format="pairs")),
+                      ("int8", dict(bits=8))):
+        params = {name: quantize_params(p, **kw)
                   for name, p in (("rand", rand), ("succ", succ))}
         rounds, toks = [], []
         for d in (torch.device("cpu"), dev):
@@ -2245,16 +2548,16 @@ def run_serve_quant_plumbing(torch, dev):
             a, b = rounds[1][i], rounds[0][i]
             err, top = (a - b).abs().max().item(), b.abs().max().item()
             require(bool(torch.isfinite(a).all()) and err <= 5e-3 * top,
-                    f"int{bits} {name} cuda vs cpu: max|diff| {err} "
+                    f"{label} {name} cuda vs cpu: max|diff| {err} "
                     f"> 5e-3 x max|value| {top}")
-            log(f"plumbing f32 int{bits} weights {name} cuda vs cpu: max abs "
+            log(f"plumbing f32 {label} weights {name} cuda vs cpu: max abs "
                 f"diff {err:.3e} = {err / top:.3e} of max|value| {top:.3e} "
                 f"(<= 5e-3)")
-        require(toks[1] == toks[0], f"int{bits} serving tokens cuda "
+        require(toks[1] == toks[0], f"{label} serving tokens cuda "
                 f"{toks[1]} != cpu {toks[0]}")
-        require(toks[0][0] == toks[0][1], f"int{bits}: speculation changed "
+        require(toks[0][0] == toks[0][1], f"{label}: speculation changed "
                 "the greedy tokens")
-        log(f"plumbing f32 int{bits} weights serving cuda vs cpu: greedy "
+        log(f"plumbing f32 {label} weights serving cuda vs cpu: greedy "
             f"tokens of 4 requests identical, plain and γ 3")
 
 
@@ -2567,12 +2870,19 @@ def main() -> int:
     rows.update(check_quant_kernels(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
+    rows.update(check_k11_kernels(torch, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 3 at {time.time() - t_start:.1f} s")
     paths = {"generate": run_slice(torch, dev, card)}
     gc.collect()                 # free the generation model before training
     torch.cuda.empty_cache()
     log(f"phase 3b at {time.time() - t_start:.1f} s")
     paths["legacy_generate"] = run_legacy_generation(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3c at {time.time() - t_start:.1f} s")
+    paths.update(run_light_generation(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 4 at {time.time() - t_start:.1f} s")

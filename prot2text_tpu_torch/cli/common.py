@@ -32,8 +32,8 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     # "auto": plain encoder attention, K1/K5 in the decoder; "flash": K6/K6b
-    # in the encoder too; "xla": the plain function everywhere (training
-    # and serve's encoder; see common_unported)
+    # in the encoder too; "xla": the plain function everywhere (the serving
+    # engine's decoder keeps its own routes)
     p.add_argument("--attn_impl", type=str, default="auto",
                    choices=["auto", "xla", "flash", "ring"])
     p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
@@ -53,19 +53,14 @@ def refuse(todo) -> None:
                 f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def common_unported(args, quantized: bool = False,
-                    attn_routes: bool = False) -> list:
+def common_unported(args, quantized: bool = False) -> list:
     """The common flags' unported values, for `refuse`.  `quantized=True`
-    (serve, train_contrast: frozen towers run forward only) accepts
-    --model_dtype int8/int4; `attn_routes=True` (the training CLIs, serve)
-    accepts --attn_impl xla/flash."""
+    (serve, train_contrast, generate_instruct_light: frozen towers run
+    forward only) accepts --model_dtype int8/int4."""
     return [
         (max(args.fsdp, args.tp, args.sp) > 1, "--fsdp/--tp/--sp > 1",
          "§1 item 14"),
         (args.attn_impl == "ring", "--attn_impl ring", "§1 item 14"),
-        (args.attn_impl in ("xla", "flash") and not attn_routes,
-         f"--attn_impl {args.attn_impl} (the lockstep prefill's routes)",
-         "§1 item 3"),
         (isinstance(args.model_dtype, str) and not quantized,
          f"--model_dtype {args.model_dtype} (LoRA over quantized towers: "
          f"QLoRA)", "§1 item 4"),

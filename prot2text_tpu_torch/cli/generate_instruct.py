@@ -6,8 +6,10 @@ Decodes with the port's Esm2LlamaInstructForCausalLM and writes one JSON
 file per process, {name: {"true", "pred"}}, as the JAX CLI does.  Same flags,
 plus --device (default "cuda"; a missing GPU is an error, never a silent
 CPU run).  Unlike the JAX CLI, --model_dtype is applied to the weights
-(bf16 by default).  Values this port does not have yet raise
-NotImplementedError naming the ROADMAP item.
+(bf16 by default).  --attn_impl routes the encoder and the prefill as the
+JAX CLI does: "auto" and "flash" take K1 in the prefill, "xla" the plain
+function; "flash" also sends ESM2's attention through K6.  Values this
+port does not have yet raise NotImplementedError naming the ROADMAP item.
 
     python -m prot2text_tpu_torch.cli.generate_instruct \\
         --data_root ROOT --test_csv test.csv --device cuda
@@ -114,7 +116,8 @@ def build_model(args, tok, device) -> Esm2LlamaInstructForCausalLM:
         llama_config=llama_cfg, placeholder_id=placeholder_id)
     gen = torch.Generator(device=device).manual_seed(args.random_seed)
     return Esm2LlamaInstructForCausalLM(cfg, device=device,
-                                        dtype=args.model_dtype, generator=gen)
+                                        dtype=args.model_dtype, generator=gen,
+                                        attn_impl=args.attn_impl)
 
 
 def main(argv=None):

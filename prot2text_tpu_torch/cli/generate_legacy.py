@@ -83,7 +83,7 @@ def build_model(args, tok, device) -> Esm2LlamaForCausalLM:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse(common_unported(args, attn_routes=True))
+    refuse(common_unported(args))
     device = resolve_device(args.device)
     tok = text_tokenizer(args)
     dist = torch.distributed.is_available() and \

@@ -149,7 +149,7 @@ def refuse_unported(args) -> None:
          "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 9"),
         (args.llm_checkpoint_dir is not None,
          "--llm_checkpoint_dir (HF weight loader)", "§1 item 6"),
-        *common_unported(args, quantized=True, attn_routes=True),
+        *common_unported(args, quantized=True),
     ])
 
 

@@ -96,7 +96,7 @@ def refuse_unported(args) -> None:
     refuse([
         (args.llm_checkpoint_dir is not None,
          "--llm_checkpoint_dir (HF weight loader)", "§1 item 6"),
-        *common_unported(args, attn_routes=True),
+        *common_unported(args),
     ])
 
 

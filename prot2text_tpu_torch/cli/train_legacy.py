@@ -91,7 +91,7 @@ def refuse_unported(args) -> None:
          or args.llama_checkpoint_dir is not None,
          "--esm_checkpoint_dir/--llama_checkpoint_dir (HF weight loader)",
          "§1 item 6"),
-        *common_unported(args, attn_routes=True),
+        *common_unported(args),
     ])
     accum = args.gradient_accumulation_steps
     if accum < 1 or args.batch_size % accum:

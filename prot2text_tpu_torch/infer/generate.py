@@ -85,9 +85,13 @@ def _sample_token(logits, gen_cfg: GenerationConfig, generator):
 
 def run_generation(cfg, params, *, inputs_embeds, attention_mask, gen_cfg,
                    generator=None, cache_dtype=None, kv_bits=None,
-                   stats=None, attn_impl: str = "auto"):
+                   stats=None, attn_impl: str = "auto", prompt_ids=None,
+                   prompt_ids_mask=None):
     """Greedy/sampling generation; beam search and prompt-lookup decoding
-    are not ported yet."""
+    are not ported yet.  `prompt_ids`/`prompt_ids_mask` are the text
+    prompt's ids, which JAX's prompt lookup drafts from
+    (prot2text_tpu/infer/generate.py:124); plain decoding does
+    not read them."""
     if gen_cfg.num_beams > 1:
         raise NotImplementedError("beam search (num_beams > 1) is not ported "
                                   "yet (ROADMAP.md §1 item 10)")

@@ -31,6 +31,10 @@ from .flash_attention import (
     flash_attention_masked_fwd, flash_attention_masked_plain,
 )
 from .quant_matmul import (
+    quant_matmul_int4, quant_matmul_int4_pairs,
+    quant_matmul_int4_pairs_plain, quant_matmul_int4_pairs_stacked,
+    quant_matmul_int4_pairs_stacked_plain, quant_matmul_int4_plain,
+    quant_matmul_int4_stacked, quant_matmul_int4_stacked_plain,
     quant_matmul_int4_planes, quant_matmul_int4_planes_plain,
     quant_matmul_int4_planes_stacked, quant_matmul_int4_planes_stacked_plain,
     quant_matmul_int8, quant_matmul_int8_plain, quant_matmul_int8_stacked,
@@ -88,6 +92,15 @@ KERNELS = {
              quant_matmul_int4_planes_stacked_plain),
             "prot2text_tpu_torch/kernels/csrc/quant_matmul.cu",
             "prot2text_tpu/kernels/quant_matmul.py:346/:620"),
+    "K11a": ((quant_matmul_int4, quant_matmul_int4_stacked),
+             (quant_matmul_int4_plain, quant_matmul_int4_stacked_plain),
+             "prot2text_tpu_torch/kernels/csrc/quant_matmul_int4.cu",
+             "prot2text_tpu/kernels/quant_matmul.py:181/:256"),
+    "K11b": ((quant_matmul_int4_pairs, quant_matmul_int4_pairs_stacked),
+             (quant_matmul_int4_pairs_plain,
+              quant_matmul_int4_pairs_stacked_plain),
+             "prot2text_tpu_torch/kernels/csrc/quant_matmul_int4.cu",
+             "prot2text_tpu/kernels/quant_matmul.py:495/:554"),
     "K14": ((quant_matmul_int8, quant_matmul_int8_stacked),
             (quant_matmul_int8_plain, quant_matmul_int8_stacked_plain),
             "prot2text_tpu_torch/kernels/csrc/quant_matmul.cu",
@@ -139,7 +152,11 @@ __all__ = [
     "flash_attention_bias_fwd", "flash_attention_bias_plain",
     "flash_attention_masked", "flash_attention_masked_bwd",
     "flash_attention_masked_bwd_plain", "flash_attention_masked_fwd",
-    "flash_attention_masked_plain", "launch_counts",
+    "flash_attention_masked_plain", "launch_counts", "quant_matmul_int4",
+    "quant_matmul_int4_pairs", "quant_matmul_int4_pairs_plain",
+    "quant_matmul_int4_pairs_stacked",
+    "quant_matmul_int4_pairs_stacked_plain", "quant_matmul_int4_plain",
+    "quant_matmul_int4_stacked", "quant_matmul_int4_stacked_plain",
     "quant_matmul_int4_planes", "quant_matmul_int4_planes_plain",
     "quant_matmul_int4_planes_stacked",
     "quant_matmul_int4_planes_stacked_plain", "quant_matmul_int8",

@@ -74,6 +74,8 @@ SIGNATURES = {
     # x, w (layer), scale (layer), out, partial, R, K, N, bits, splits,
     # dtype, stream
     "p2t_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # the same, with fmt (0 split-half bytes, 1 bf16-pair words) for bits
+    "p2t_quant_matmul_int4": [_P] * 5 + [_I] * 6 + [_P],
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

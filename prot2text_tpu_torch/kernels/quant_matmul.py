@@ -1,28 +1,42 @@
-"""K10 and K14: weight-quantized matmuls for serving (CUDA C++), with the
-int4 nibble-plane packers and the plain PyTorch versions.
+"""K10, K11 and K14: weight-quantized matmuls for serving and decoding
+(CUDA C++), with the int4 packers and the plain PyTorch versions.
 
 K10 replaces prot2text_tpu/kernels/quant_matmul.py
 `quant_matmul_int4_planes` (`_mm_i4p_kernel`) and
-`quant_matmul_int4_planes_stacked` (`_mm_i4p_stacked_kernel`); K14
-replaces `quant_matmul_int8` (`_mm_i8_kernel`) and `quant_matmul_int8_stacked`
-(`_mm_i8_stacked_kernel`).  Both are one kernel, `csrc/quant_matmul.cu`,
-whose header states what bounds it and what its design does about that.
-The TPU's stacked variants exist because a Pallas operand must be a
-materialized buffer; here the stacked wrappers pass layer `layer`'s base
-pointer into the (L, ...) buffer, so both entry points share one body.  The
-serving path needs only the unstacked wrappers: `models/transformer.py
-linear` hands them each layer's zero-copy view of the stacked buffer
-(`layer_views`); the stacked ones keep the JAX package's names.
+`quant_matmul_int4_planes_stacked` (`_mm_i4p_stacked_kernel`); K11a
+replaces `quant_matmul_int4` (`_mm_i4_kernel`) and
+`quant_matmul_int4_stacked` (`_mm_i4_stacked_kernel`), the split-half
+bytes; K11b replaces `quant_matmul_int4_pairs` (`_mm_i4w_kernel`) and
+`quant_matmul_int4_pairs_stacked` (`_mm_i4w_stacked_kernel`), the bf16-pair
+words; K14 replaces `quant_matmul_int8` (`_mm_i8_kernel`) and
+`quant_matmul_int8_stacked` (`_mm_i8_stacked_kernel`).  All are one kernel
+body, `csrc/quant_matmul.cuh` (entry points `csrc/quant_matmul.cu` for
+K10/K14 and `csrc/quant_matmul_int4.cu` for K11), whose header states what
+bounds it and what its design does about that.  The TPU's stacked variants
+exist because a Pallas operand must be a materialized buffer; here the
+stacked wrappers pass layer `layer`'s base pointer into the (L, ...)
+buffer, so both entry points share one body.  The decode path needs only
+the unstacked wrappers: `models/transformer.py linear` hands them each
+layer's zero-copy view of the stacked buffer (`layer_views`); the stacked
+ones keep the JAX package's names.
 
 Contract (as the JAX kernels): x (R, K) float32 or bfloat16, ROUNDED TO
 BF16 before the product; W int4 planes (K/8, N) int32 — nibble j of word
-[k8, n] holds w[k8 + j·K/8, n] (`pack_int4_planes`) — or int8 (K, N);
-scale (1, N) or (N,) float32 (stacked: (L, 1, N)); fp32 accumulation, the
-scale applied in the fp32 epilogue, the result (R, N) in x's dtype.  The
-int4/int8 values are exact in bf16, so only x's rounding and the order of
-the sums separate the kernel from its plain version.
+[k8, n] holds w[k8 + j·K/8, n] (`pack_int4_planes`) —, split-half bytes
+(K/2, N) int8 — byte [k2, n] holds w[k2, n] low and w[k2 + K/2, n] high
+(`pack_int4`) —, bf16-pair words (K/8, N) int32 — bits [4p, 4p+4) hold
+w[k8 + 2p·K/8, n] + 8, bits [16+4p, 20+4p) w[k8 + (2p+1)·K/8, n] + 8
+(`pack_int4_pairs`) — or int8 (K, N); scale (1, N) or (N,) float32
+(stacked: (L, 1, N)); fp32 accumulation, the scale applied in the fp32
+epilogue, the result (R, N) in x's dtype.  The integer values are exact in
+bf16, so only x's rounding and the order of the sums separate the kernel
+from its plain version.  JAX's TPU pairs kernel instead removes the words'
++136 bf16 bias as 136·rowsum(x) in its epilogue, a cancellation of about
+4e-6 of max|y| (its `:410-424`); the port's kernel and plain version are
+exact.  The three int4 formats build the same tensor-core fragments, so
+on the same integers K11a and K11b equal K10 bit for bit (K % 8 == 0).
 
-The serving path calls the kernels for at most `QUANT_KERNEL_ROWS` rows
+The decoder calls the kernels for at most `QUANT_KERNEL_ROWS` rows
 (`models/transformer.py linear`), as the JAX package does on the TPU; the
 kernels themselves take any R and any N.
 """
@@ -39,6 +53,14 @@ QUANT_KERNEL_ROWS = 256
 _BLOCK_COLS = 128               # csrc/quant_matmul.cu kBlockCols
 _BLOCK_ROWS = 64                # at most 8 MMA tiles of 8 rows per block
 _STEP_K = {4: 32, 8: 16}        # k values per K step (Fmt::kStepK)
+# weight format → (dtype, k values per stored row, bits, C entry point and
+# its format argument)
+_FORMATS = {
+    "planes": (torch.int32, 8, 4, "p2t_quant_matmul", 4),
+    "int8": (torch.int8, 1, 8, "p2t_quant_matmul", 8),
+    "bytes": (torch.int8, 2, 4, "p2t_quant_matmul_int4", 0),
+    "pairs": (torch.int32, 8, 4, "p2t_quant_matmul_int4", 1),
+}
 _TARGET_BLOCKS = 792            # about six resident blocks per SM
 _MIN_SPLIT_STEPS = 8            # K steps per slice: 256 (int4) / 128 k
 
@@ -65,6 +87,56 @@ def supports_quant_matmul_planes(K: int, N: int) -> bool:
     return (K % 8 == 0
             and _pick_block(N, (1024, 512, 256, 128)) is not None
             and _pick_block(K // 8, (256, 128, 64, 32, 16, 8)) is not None)
+
+
+# the bf16-pair words tile as the planes do (K/8 words per column)
+supports_quant_matmul_pairs = supports_quant_matmul_planes
+
+
+def pack_int4(q):
+    """q: (..., K, N) integers in [-8, 7] → (..., K/2, N) int8 split-half
+    bytes: byte [..., k, n] = (q[..., k, n] & 0xF) | (q[..., k + K/2, n]
+    << 4) (bit-identical to the JAX packer)."""
+    K = q.shape[-2]
+    if K % 2:
+        raise ValueError(f"pack_int4 needs an even K, got K={K}")
+    q = q.to(torch.int8)
+    return (q[..., :K // 2, :] & 0xF) | (q[..., K // 2:, :] << 4)
+
+
+def unpack_int4(packed):
+    """Inverse of `pack_int4`: (..., K/2, N) int8 → (..., K, N) int8 in
+    [-8, 7] (sign-extended nibbles: low (b << 28) >> 28, high b >> 4)."""
+    p = packed.to(torch.int32)
+    return torch.cat([(p << 28) >> 28, p >> 4], dim=-2).to(torch.int8)
+
+
+def pack_int4_pairs(q):
+    """q: (..., K, N) integers in [-8, 7] → (..., K/8, N) int32 bf16-pair
+    words: plane j = rows [j·K/8, (j+1)·K/8) plus 8, plane 2p in bits
+    [4p, 4p+4) and plane 2p+1 in bits [16+4p, 20+4p) (bit-identical to the
+    JAX packer)."""
+    K = q.shape[-2]
+    if K % 8:
+        raise ValueError(f"pack_int4_pairs needs K % 8 == 0, got K={K}")
+    K8 = K // 8
+    qb = (q.to(torch.int32) + 8) & 0xF
+    out = torch.zeros(q.shape[:-2] + (K8, q.shape[-1]), dtype=torch.int32,
+                      device=q.device)
+    for p in range(4):
+        out |= qb[..., 2 * p * K8:(2 * p + 1) * K8, :] << (4 * p)
+        out |= qb[..., (2 * p + 1) * K8:(2 * p + 2) * K8, :] << (16 + 4 * p)
+    return out
+
+
+def unpack_int4_pairs(packed):
+    """Inverse of `pack_int4_pairs`: (..., K/8, N) int32 → (..., K, N) int8
+    in [-8, 7]."""
+    planes = []
+    for p in range(4):
+        planes.append(((packed >> (4 * p)) & 0xF) - 8)
+        planes.append(((packed >> (16 + 4 * p)) & 0xF) - 8)
+    return torch.cat(planes, dim=-2).to(torch.int8)
 
 
 def pack_int4_planes(q):
@@ -106,6 +178,24 @@ def quant_matmul_int4_planes_stacked_plain(x, w_planes_all, scale_all,
                                           scale_all[layer])
 
 
+def quant_matmul_int4_plain(x, w_packed, scale):
+    return _plain(x, unpack_int4(w_packed), scale)
+
+
+def quant_matmul_int4_stacked_plain(x, w_packed_all, scale_all, layer: int):
+    return quant_matmul_int4_plain(x, w_packed_all[layer], scale_all[layer])
+
+
+def quant_matmul_int4_pairs_plain(x, w_pairs, scale):
+    return _plain(x, unpack_int4_pairs(w_pairs), scale)
+
+
+def quant_matmul_int4_pairs_stacked_plain(x, w_pairs_all, scale_all,
+                                          layer: int):
+    return quant_matmul_int4_pairs_plain(x, w_pairs_all[layer],
+                                         scale_all[layer])
+
+
 def quant_matmul_int8_plain(x, w_q, scale):
     return _plain(x, w_q, scale)
 
@@ -132,7 +222,7 @@ def _splits(R: int, K: int, N: int, bits: int) -> int:
     return -(-steps // per)
 
 
-def _check(name, x, w, scale, bits, stacked, layer):
+def _check(name, x, w, scale, fmt, stacked, layer):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -142,14 +232,14 @@ def _check(name, x, w, scale, bits, stacked, layer):
     if x.dim() != 2 or x.shape[0] == 0 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (R > 0, K) "
                          f"tensor, got {tuple(x.shape)}")
-    wdt = torch.int32 if bits == 4 else torch.int8
+    wdt, per = _FORMATS[fmt][:2]
     lead = 1 if stacked else 0
     if w.dtype != wdt or w.dim() != 2 + lead or not w.is_contiguous():
         raise ValueError(f"{name}: the weight must be a contiguous "
                          f"{'(L, ' if stacked else '('}"
-                         f"{'K/8' if bits == 4 else 'K'}, N) {wdt} tensor, "
-                         f"got {w.dtype} {tuple(w.shape)}")
-    K = w.shape[-2] * (8 if bits == 4 else 1)
+                         f"{f'K/{per}' if per > 1 else 'K'}, N) {wdt} "
+                         f"tensor, got {w.dtype} {tuple(w.shape)}")
+    K = w.shape[-2] * per
     N = w.shape[-1]
     if x.shape[1] != K:
         raise ValueError(f"{name}: x has K={x.shape[1]}, the weight {K}")
@@ -171,7 +261,7 @@ def _check(name, x, w, scale, bits, stacked, layer):
             raise ValueError(f"{name}: {n} on {t.device}, x on {dev}")
 
 
-def _launch(x, w, scale, bits, layer):
+def _launch(x, w, scale, fmt, layer):
     """One kernel over layer `layer` of w/scale (layer None: unstacked)."""
     R, K = x.shape
     N = w.shape[-1]
@@ -179,16 +269,16 @@ def _launch(x, w, scale, bits, layer):
     if layer is not None:
         w_ptr += layer * w.stride(0) * w.element_size()
         s_ptr += layer * N * scale.element_size()
+    bits, entry, code = _FORMATS[fmt][2:]
     splits = _splits(R, K, N, bits)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, R, N), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    lib = _build.library()
-    err = lib.p2t_quant_matmul(
+    err = getattr(_build.library(), entry)(
         x.data_ptr(), w_ptr, s_ptr, out.data_ptr(),
-        None if partial is None else partial.data_ptr(), R, K, N, bits,
+        None if partial is None else partial.data_ptr(), R, K, N, code,
         splits, _build.dtype_code(x.dtype), _build.stream_of(x))
-    _build.check(err, "p2t_quant_matmul")
+    _build.check(err, entry)
     return out
 
 
@@ -198,8 +288,8 @@ def quant_matmul_int4_planes(x, w_planes, scale):
     raise)."""
     if x.device.type == "cpu":
         return quant_matmul_int4_planes_plain(x, w_planes, scale)
-    _check("K10", x, w_planes, scale, 4, False, None)
-    out = _launch(x, w_planes, scale, 4, None)
+    _check("K10", x, w_planes, scale, "planes", False, None)
+    out = _launch(x, w_planes, scale, "planes", None)
     quant_matmul_int4_planes.launches += 1
     return out
 
@@ -215,8 +305,8 @@ def quant_matmul_int4_planes_stacked(x, w_planes_all, scale_all, layer: int):
         return quant_matmul_int4_planes_stacked_plain(x, w_planes_all,
                                                       scale_all, layer)
     layer = int(layer)
-    _check("K10", x, w_planes_all, scale_all, 4, True, layer)
-    out = _launch(x, w_planes_all, scale_all, 4, layer)
+    _check("K10", x, w_planes_all, scale_all, "planes", True, layer)
+    out = _launch(x, w_planes_all, scale_all, "planes", layer)
     quant_matmul_int4_planes_stacked.launches += 1
     return out
 
@@ -224,13 +314,77 @@ def quant_matmul_int4_planes_stacked(x, w_planes_all, scale_all, layer: int):
 quant_matmul_int4_planes_stacked.launches = 0
 
 
+def quant_matmul_int4(x, w_packed, scale):
+    """K11a: x (R, K) · unpack(w_packed (K/2, N) int8 split-half bytes) ·
+    scale (N,).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel (or raise)."""
+    if x.device.type == "cpu":
+        return quant_matmul_int4_plain(x, w_packed, scale)
+    _check("K11a", x, w_packed, scale, "bytes", False, None)
+    out = _launch(x, w_packed, scale, "bytes", None)
+    quant_matmul_int4.launches += 1
+    return out
+
+
+quant_matmul_int4.launches = 0
+
+
+def quant_matmul_int4_stacked(x, w_packed_all, scale_all, layer: int):
+    """K11a over layer `layer` of w_packed_all (L, K/2, N) int8 and
+    scale_all (L, 1, N), read in place by pointer offset.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return quant_matmul_int4_stacked_plain(x, w_packed_all, scale_all,
+                                               layer)
+    layer = int(layer)
+    _check("K11a", x, w_packed_all, scale_all, "bytes", True, layer)
+    out = _launch(x, w_packed_all, scale_all, "bytes", layer)
+    quant_matmul_int4_stacked.launches += 1
+    return out
+
+
+quant_matmul_int4_stacked.launches = 0
+
+
+def quant_matmul_int4_pairs(x, w_pairs, scale):
+    """K11b: x (R, K) · unpack(w_pairs (K/8, N) int32 bf16-pair words) ·
+    scale (N,), exact.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return quant_matmul_int4_pairs_plain(x, w_pairs, scale)
+    _check("K11b", x, w_pairs, scale, "pairs", False, None)
+    out = _launch(x, w_pairs, scale, "pairs", None)
+    quant_matmul_int4_pairs.launches += 1
+    return out
+
+
+quant_matmul_int4_pairs.launches = 0
+
+
+def quant_matmul_int4_pairs_stacked(x, w_pairs_all, scale_all, layer: int):
+    """K11b over layer `layer` of w_pairs_all (L, K/8, N) int32 and
+    scale_all (L, 1, N), read in place by pointer offset.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return quant_matmul_int4_pairs_stacked_plain(x, w_pairs_all,
+                                                     scale_all, layer)
+    layer = int(layer)
+    _check("K11b", x, w_pairs_all, scale_all, "pairs", True, layer)
+    out = _launch(x, w_pairs_all, scale_all, "pairs", layer)
+    quant_matmul_int4_pairs_stacked.launches += 1
+    return out
+
+
+quant_matmul_int4_pairs_stacked.launches = 0
+
+
 def quant_matmul_int8(x, w_q, scale):
     """K14: x (R, K) · w_q (K, N) int8 · scale (N,).  CPU tensors run the
     plain version; CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return quant_matmul_int8_plain(x, w_q, scale)
-    _check("K14", x, w_q, scale, 8, False, None)
-    out = _launch(x, w_q, scale, 8, None)
+    _check("K14", x, w_q, scale, "int8", False, None)
+    out = _launch(x, w_q, scale, "int8", None)
     quant_matmul_int8.launches += 1
     return out
 
@@ -245,8 +399,8 @@ def quant_matmul_int8_stacked(x, w_q_all, scale_all, layer: int):
     if x.device.type == "cpu":
         return quant_matmul_int8_stacked_plain(x, w_q_all, scale_all, layer)
     layer = int(layer)
-    _check("K14", x, w_q_all, scale_all, 8, True, layer)
-    out = _launch(x, w_q_all, scale_all, 8, layer)
+    _check("K14", x, w_q_all, scale_all, "int8", True, layer)
+    out = _launch(x, w_q_all, scale_all, "int8", layer)
     quant_matmul_int8_stacked.launches += 1
     return out
 

@@ -3,10 +3,9 @@ prot2text_tpu/models/composed.py):
   * `Esm2LlamaInstructForCausalLM` (:52-163, reference
     modeling_esm2llama_instruct.py:71-268): ESM2 encoder + modality adapter
     + Llama with placeholder-token fusion;
-  * `ESMCQwen` (:462-576, reference esmc_qwen_arc.py:31-273): ESMC encoder
-    + modality adapter + Qwen3, the serving CLI's model.  Its `generate`
-    (and `cli/generate_instruct_light.py`) is not ported yet (ROADMAP.md §1
-    item 3);
+  * `ESMCQwen` (:462-604, reference esmc_qwen_arc.py:31-273): ESMC encoder
+    + modality adapter + Qwen3, the model of `cli/serve.py` and
+    `cli/generate_instruct_light.py` (lockstep `generate`);
   * `Esm2LlamaForCausalLM` (:171-334, reference
     modeling_esm2llama_legacy.py:127-574): the legacy arc, ESM2 encoder
     (+ Linear + LayerNorm adapter) concatenated in front of the text
@@ -17,11 +16,12 @@ The RGCN arc is not ported yet (ROADMAP.md §1 item 12).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
 
+from ..data.tokenization import ProteinTokenizer, esmc_tokenizer
 from .adapters import (
     ModalityAdapterConfig, init_modality_adapter_params, modality_adapter,
 )
@@ -61,13 +61,17 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
     "llama_decoder"}; None draws random weights on `device` from
     `generator` (N(0, 0.02), as the JAX init).
 
-    Attention has one route, the JAX package's `attn_impl="auto"`: plain
-    encoder attention, K1 in the prefill, K2 + K3 in decode."""
+    `attn_impl` routes the encoder and the prefill as `apply` does
+    ("auto": plain ESM2 attention, K1 in the prefill; "flash": K6 in ESM2
+    too; "xla": the plain function everywhere); decode has one route per
+    cache (K2 + K3, or K12 on the tbkd cache)."""
 
     def __init__(self, config: Esm2LlamaInstructConfig, params=None, *,
-                 device="cpu", dtype=torch.float32, generator=None):
+                 device="cpu", dtype=torch.float32, generator=None,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.config = config
+        self.attn_impl = attn_impl
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
@@ -93,10 +97,11 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
               return_encoder_outputs: bool = False,
               return_adapter_outputs: bool = False,
               return_decoder_inputs: bool = False,
-              deterministic: bool = True):
+              deterministic: bool = True, attn_impl: str = "auto"):
         enc = esm2_encode(config.esm_config, params["esm_encoder"],
                           protein_input_ids, protein_attention_mask,
-                          inputs_embeds=protein_inputs_embeds)
+                          inputs_embeds=protein_inputs_embeds,
+                          attn_impl=attn_impl)
         if return_encoder_outputs:
             return enc
         adapted = modality_adapter(config.adapter_config, params["adapter"],
@@ -117,13 +122,15 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
         positions = torch.arange(S, device=input_ids.device).expand(B, S)
         h, _ = decoder_forward(
             core, dec, inputs_embeds=inputs_embeds, positions=positions,
-            attn_lengths=contiguous_lengths(attention_mask))
+            attn_lengths=contiguous_lengths(attention_mask),
+            attn_impl=attn_impl)
         logits = decoder_logits(core, dec, h)
         loss = None if labels is None else cross_entropy_loss(logits, labels)
         return ModelOutput(loss=loss, logits=logits, hidden_states=h)
 
     @torch.no_grad()
     def forward(self, **kw):
+        kw.setdefault("attn_impl", self.attn_impl)
         return self.apply(self.config, self.params(), **kw)
 
     @torch.no_grad()
@@ -148,7 +155,7 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
             protein_input_ids=protein_input_ids,
             protein_attention_mask=protein_attention_mask,
             protein_inputs_embeds=protein_inputs_embeds,
-            return_decoder_inputs=True)
+            return_decoder_inputs=True, attn_impl=self.attn_impl)
         kv_bits = gen_kwargs.pop("kv_bits", None)
         stats = gen_kwargs.pop("stats", None)
         lc = self.config.llama_config
@@ -157,7 +164,8 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
         return run_generation(
             lc.core(), params["llama_decoder"], inputs_embeds=inputs_embeds,
             attention_mask=attention_mask, gen_cfg=gen_cfg,
-            generator=generator, kv_bits=kv_bits, stats=stats)
+            generator=generator, kv_bits=kv_bits, stats=stats,
+            attn_impl=self.attn_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -177,19 +185,26 @@ class ESMCQwenConfig:
 
 
 class ESMCQwen(nn.Module):
-    """ESMC + ModalityAdapter + Qwen3 over pre-tokenized proteins.
+    """ESMC + ModalityAdapter + Qwen3: raw protein strings or pre-tokenized
+    proteins in, text out.
 
     `params`: a ParamTree or a nested dict of tensors with the JAX tree
     {"esm_encoder", "adapter", "llm_decoder"}; None draws random weights on
-    `device` from `generator`.  Attention: plain encoder attention, K1 in
-    the decoder's forward."""
+    `device` from `generator`.  `attn_impl` routes `forward`, `generate`
+    and `encode_protein_sequences` as `apply` does ("auto": plain ESMC, K1
+    in the decoder; "flash": K6 in ESMC too; "xla": the plain function
+    everywhere)."""
 
     PARTS = ("esm_encoder", "adapter", "llm_decoder")
 
     def __init__(self, config: ESMCQwenConfig, params=None, *,
-                 device="cpu", dtype=torch.float32, generator=None):
+                 device="cpu", dtype=torch.float32, generator=None,
+                 attn_impl: str = "auto",
+                 tokenizer: Optional[ProteinTokenizer] = None):
         super().__init__()
         self.config = config
+        self.attn_impl = attn_impl
+        self.protein_tokenizer = tokenizer or esmc_tokenizer()
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
@@ -203,6 +218,27 @@ class ESMCQwen(nn.Module):
         tree = params if isinstance(params, ParamTree) else ParamTree(params)
         for name in self.PARTS:
             self.add_module(name, getattr(tree, name))
+
+    def _tokenize(self, protein_sequences: List[str], pad_to=None):
+        """Host tokenization → right-padded (ids, mask) int64 tensors on
+        the model's device."""
+        dev = self.esm_encoder.tree()["embed"].device
+        ids, mask = self.protein_tokenizer.batch_encode(protein_sequences,
+                                                        pad_to=pad_to)
+        return (torch.as_tensor(ids, dtype=torch.int64, device=dev),
+                torch.as_tensor(mask, dtype=torch.int64, device=dev))
+
+    @torch.no_grad()
+    def encode_protein_sequences(self, protein_sequences: List[str],
+                                 pad_to: Optional[int] = None):
+        """Tokenize (host) + ESMC encode (device) → (embeddings (B, P, d),
+        mask (B, P)) (prot2text_tpu/models/composed.py:495): tokenization is
+        a separable host step, unlike the reference's forward
+        (esmc_qwen_arc.py:70-78)."""
+        ids, mask = self._tokenize(protein_sequences, pad_to)
+        emb = esmc_encode(self.config.esm_config, self.esm_encoder.tree(),
+                          ids, mask, attn_impl=self.attn_impl)
+        return emb, mask
 
     def params(self) -> dict:
         return {name: getattr(self, name).tree() for name in self.PARTS}
@@ -248,10 +284,15 @@ class ESMCQwen(nn.Module):
         return ModelOutput(loss=loss, logits=logits, hidden_states=h)
 
     @torch.no_grad()
-    def forward(self, *, protein_input_ids, protein_attention_mask, **kw):
-        """`apply` on this model's params, after the reference's check that
-        every row has one placeholder per valid protein token
-        (esmc_qwen_arc.py:137-141)."""
+    def forward(self, protein_sequences: Optional[List[str]] = None, *,
+                protein_input_ids=None, protein_attention_mask=None, **kw):
+        """`apply` on this model's params and route (raw `protein_sequences`
+        are tokenized first), after the reference's check that every row
+        has one placeholder per valid protein token (esmc_qwen_arc.py:
+        137-141)."""
+        if protein_sequences is not None:
+            protein_input_ids, protein_attention_mask = self._tokenize(
+                protein_sequences)
         if (kw.get("input_ids") is not None
                 and not kw.get("return_encoder_outputs", False)
                 and not bool(count_check(kw["input_ids"],
@@ -259,9 +300,44 @@ class ESMCQwen(nn.Module):
                                          protein_attention_mask).all())):
             raise ValueError("Number of placeholder tokens must match number "
                              "of protein tokens")
+        kw.setdefault("attn_impl", self.attn_impl)
         return self.apply(self.config, self.params(),
                           protein_input_ids=protein_input_ids,
                           protein_attention_mask=protein_attention_mask, **kw)
+
+    @torch.no_grad()
+    def generate(self, input_ids, attention_mask=None,
+                 protein_sequences: Optional[List[str]] = None,
+                 protein_input_ids=None, protein_attention_mask=None,
+                 generator=None, **gen_kwargs):
+        """Lockstep generation (prot2text_tpu/models/composed.py:578-604):
+        `forward(return_decoder_inputs=True)`, then `run_generation` with
+        `kv_bits` from the keyword arguments and the prompt ids (for prompt
+        lookup, which is not ported: ROADMAP.md §1 item 7).  Returns ONLY
+        the new tokens (B, max_new_tokens); a `stats` dict is passed on to
+        `infer.generate.generate`."""
+        from ..infer.generate import resolve_generation_config, run_generation
+
+        if protein_sequences is None and protein_input_ids is None:
+            raise ValueError("protein_sequences must be provided for "
+                             "generation")
+        text_ids, text_mask = input_ids, attention_mask
+        inputs_embeds, attention_mask = self.forward(
+            protein_sequences, protein_input_ids=protein_input_ids,
+            protein_attention_mask=protein_attention_mask,
+            input_ids=input_ids, attention_mask=attention_mask,
+            return_decoder_inputs=True)
+        kv_bits = gen_kwargs.pop("kv_bits", None)
+        stats = gen_kwargs.pop("stats", None)
+        qc = self.config.llm_config
+        gen_cfg = resolve_generation_config(qc.eos_token_id, qc.pad_token_id,
+                                            gen_kwargs)
+        return run_generation(
+            qc.core(), self.llm_decoder.tree(), inputs_embeds=inputs_embeds,
+            attention_mask=attention_mask, gen_cfg=gen_cfg,
+            generator=generator, kv_bits=kv_bits, stats=stats,
+            attn_impl=self.attn_impl, prompt_ids=text_ids,
+            prompt_ids_mask=text_mask)
 
 
 # ---------------------------------------------------------------------------

@@ -43,10 +43,11 @@ the JAX XLA route `_xla_attention`):
     shared prefix); the speculative chunk verify (`decoder_verify_chunk`)
     runs K8 (K9c).
 Weight-quantized towers (`models/quant.quantize_params`: int4 nibble
-planes or int8) multiply through `transformer.linear`, which sends
-projections of few rows (the decode and verify steps, the head) to K10/K14
-on each layer's view of the stacked buffers, read in place; a quantized LM
-head gives the fp32 logits of its x-dtype output.
+planes, bf16-pair words or split-half bytes, or int8) multiply through
+`transformer.linear`, which sends projections of few rows (the decode and
+verify steps, the head) to K10/K11b/K11a/K14 on each layer's view of the
+stacked buffers, read in place; a quantized LM head gives the fp32 logits
+of its x-dtype output.
 The layer loop is a Python loop over views of the stacked weights (no
 per-layer copies).  Training adds LoRA side paths on the seven projections
 (`lora=`) and per-layer recomputation (`remat=True`, the JAX
@@ -681,7 +682,7 @@ def decoder_logits(cfg: DecoderConfig, params, hidden_states):
     if cfg.tie_word_embeddings:
         w = params["embed_tokens"].T
     elif "kernel" not in params["lm_head"]:
-        # the quantized head (K10/K14 at few rows): fp32 logits of an
+        # the quantized head (K10/K11/K14 at few rows): fp32 logits of an
         # output rounded to the activations' dtype, as JAX's `linear(...)
         # .astype(float32)` (prot2text_tpu/models/decoder.py:1404-1421)
         return linear(params["lm_head"], hidden_states).float()

@@ -12,7 +12,8 @@ import math
 import torch
 
 from ..kernels.quant_matmul import (
-    QUANT_KERNEL_ROWS, quant_matmul_int4_planes, quant_matmul_int8,
+    QUANT_KERNEL_ROWS, quant_matmul_int4, quant_matmul_int4_pairs,
+    quant_matmul_int4_planes, quant_matmul_int8,
 )
 from .quant import dequantize_kernel
 
@@ -22,14 +23,14 @@ def linear(p, x):
 
     Quantized leaves (`models/quant.quantize_params`): activations are
     flattened to rows first (`:69-79`); at most `QUANT_KERNEL_ROWS` rows
-    take K10 (`kernel_q4p`, int4 nibble planes) or K14 (`kernel_q`, int8),
-    which round x to bf16 and apply the scale in an fp32 epilogue; more rows
-    (prefill, the protein encoder) dequantize the weight to x's dtype and
-    take `torch.matmul`, the counterpart of the JAX XLA route.  JAX sends
-    int8 to an XLA mixed-dtype dot at every row count; PyTorch has no fused
-    bf16 × int8 product, so the port takes K14 (ROADMAP.md §3).  The
-    other int4 formats (`kernel_q4`, `kernel_q4w`: kernel K11) and the
-    tensor-parallel repacks (`*_tp{n}`) raise."""
+    take K10 (`kernel_q4p`, int4 nibble planes), K11a (`kernel_q4`, int4
+    split-half bytes), K11b (`kernel_q4w`, int4 bf16-pair words) or K14
+    (`kernel_q`, int8), which round x to bf16 and apply the scale in an
+    fp32 epilogue; more rows (prefill, the protein encoder) dequantize the
+    weight to x's dtype and take `torch.matmul`, the counterpart of the JAX
+    XLA route.  JAX sends int8 to an XLA mixed-dtype dot at every row
+    count; PyTorch has no fused bf16 × int8 product, so the port takes K14
+    (ROADMAP.md §3).  The tensor-parallel repacks (`*_tp{n}`) raise."""
     if "kernel" in p:
         y = torch.matmul(x, p["kernel"].to(x.dtype))
     else:
@@ -47,12 +48,12 @@ def _quant_linear(p, x):
             "(ROADMAP.md §1 item 14)")
     if "kernel_q4p" in p:
         kernel, w = quant_matmul_int4_planes, p["kernel_q4p"]
-    elif "kernel_q" in p:
-        kernel, w = quant_matmul_int8, p["kernel_q"]
+    elif "kernel_q4w" in p:
+        kernel, w = quant_matmul_int4_pairs, p["kernel_q4w"]
+    elif "kernel_q4" in p:
+        kernel, w = quant_matmul_int4, p["kernel_q4"]
     else:
-        raise NotImplementedError(
-            f"quantized linear leaves {found}: the split-half and bf16-pair "
-            "int4 formats are kernel K11, not ported yet (ROADMAP.md §2)")
+        kernel, w = quant_matmul_int8, p["kernel_q"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.shape[0] <= QUANT_KERNEL_ROWS:

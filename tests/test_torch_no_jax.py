@@ -52,6 +52,7 @@ MODULES = [
     "prot2text_tpu_torch.train.sft",
     "prot2text_tpu_torch.cli.common",
     "prot2text_tpu_torch.cli.generate_instruct",
+    "prot2text_tpu_torch.cli.generate_instruct_light",
     "prot2text_tpu_torch.cli.generate_legacy",
     "prot2text_tpu_torch.cli.serve",
     "prot2text_tpu_torch.cli.train_contrast",

@@ -9,6 +9,9 @@ import jax.numpy as jnp
 
 from prot2text_tpu.models import decoder as jdec
 from prot2text_tpu.models import transformer as jtr
+from prot2text_tpu_torch.kernels.quant_matmul import (
+    pack_int4, pack_int4_pairs, pack_int4_planes,
+)
 from prot2text_tpu_torch.models import decoder as tdec
 from prot2text_tpu_torch.models import transformer as ttr
 
@@ -45,22 +48,22 @@ def test_linear_layer_norm_rms_norm_gelu(rng):
 
 
 def test_linear_refuses_quantized_leaves():
-    """int8 (`kernel_q`) and int4 nibble-plane (`kernel_q4p`) leaves are
-    ported (K14, K10); the other int4 formats (kernel K11) and the
-    tensor-parallel repacks still raise, naming their ROADMAP item."""
+    """int8 (`kernel_q`) and every int4 leaf — nibble planes
+    (`kernel_q4p`, K10), split-half bytes (`kernel_q4`, K11a) and bf16-pair
+    words (`kernel_q4w`, K11b) — multiply; the tensor-parallel repacks
+    still raise, naming their ROADMAP item."""
     x = torch.zeros(2, 16)
-    for leaf, pattern in (
-            ({"kernel_q4": torch.zeros(8, 4, dtype=torch.int8)},
-             r"K11.*ROADMAP\.md §2"),
-            ({"kernel_q4w": torch.zeros(2, 4, dtype=torch.int32)},
-             r"K11.*ROADMAP\.md §2"),
-            ({"kernel_q4p_tp2": torch.zeros(2, 4, dtype=torch.int32)},
-             r"ROADMAP\.md §1 item 14")):
-        with pytest.raises(NotImplementedError, match=pattern):
-            ttr.linear({**leaf, "scale": torch.ones(1, 4)}, x)
-    y = ttr.linear({"kernel_q": torch.ones(16, 4, dtype=torch.int8),
-                    "scale": torch.full((1, 4), 0.5)}, x + 1.0)
-    assert torch.equal(y, torch.full((2, 4), 8.0))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 14"):
+        ttr.linear({"kernel_q4p_tp2": torch.zeros(2, 4, dtype=torch.int32),
+                    "scale": torch.ones(1, 4)}, x)
+    q = torch.arange(64).reshape(16, 4) % 15 - 7
+    want = (x + 1.0) @ q.float() * 0.5
+    for leaf in ({"kernel_q4": pack_int4(q)},
+                 {"kernel_q4w": pack_int4_pairs(q)},
+                 {"kernel_q4p": pack_int4_planes(q)},
+                 {"kernel_q": q.to(torch.int8)}):
+        y = ttr.linear({**leaf, "scale": torch.full((1, 4), 0.5)}, x + 1.0)
+        assert torch.equal(y, want), list(leaf)
 
 
 @pytest.mark.parametrize("cos_rank", [2, 3])

@@ -143,27 +143,38 @@ def test_stacked_leaf_in_layer_chunks_equals_whole(monkeypatch):
 
 
 def test_int4_formats_of_k11_raise_and_odd_din_stays_int8():
+    """The K11 formats are ported: `int4_format` "pairs" and "bytes" give
+    JAX's kernel_q4w / kernel_q4 leaves (bit-identical here, where no
+    pre-image lies near a half-integer), a din % 8 != 0 falls back to
+    split-half bytes under every format, as in JAX, and an odd din keeps
+    int4 values in int8 storage; bits other than 4 and 8 and an unknown
+    format raise."""
+    rng = np.random.default_rng(1)
+    for din, fmt, key in ((16, "pairs", "kernel_q4w"),
+                          (16, "bytes", "kernel_q4"),
+                          (12, "planes", "kernel_q4"),
+                          (12, "pairs", "kernel_q4"),
+                          (9, "planes", "kernel_q")):
+        w = (rng.standard_normal((2, din, 8)) * 0.02).astype(np.float32)
+        got = tquant.quantize_params(
+            {"q_proj": {"kernel": torch.from_numpy(w)}}, bits=4,
+            int4_format=fmt)["q_proj"]
+        want = _np(jquant.quantize_params(
+            {"q_proj": {"kernel": jnp.asarray(w)}}, bits=4,
+            int4_format=fmt)["q_proj"])
+        assert set(got) == set(want) == {key, "scale"}, (din, fmt)
+        assert got[key].dtype == torch.from_numpy(want[key]).dtype
+        np.testing.assert_array_equal(got[key].numpy(), want[key])
+        np.testing.assert_allclose(got["scale"].numpy(), want["scale"],
+                                   rtol=1e-6)
+        unpack = tquant.INT4_FORMATS.get(key, (None, lambda t: t))[1]
+        assert unpack(got[key]).abs().max() <= 7
     w = torch.zeros((2, 16, 8))
-    for fmt in ("pairs", "bytes"):
-        with pytest.raises(NotImplementedError, match="K11"):
-            tquant.quantize_params({"q_proj": {"kernel": w}}, bits=4,
-                                   int4_format=fmt)
-    with pytest.raises(NotImplementedError, match="K11"):
-        tquant.quantize_params({"q_proj": {"kernel": torch.zeros(12, 8)}},
-                               bits=4)
     with pytest.raises(ValueError, match="bits"):
         tquant.quantize_params({"q_proj": {"kernel": w}}, bits=3)
-    # an odd din keeps int4 values in int8 storage, as in JAX
-    rng = np.random.default_rng(1)
-    wo = (rng.standard_normal((9, 8)) * 0.02).astype(np.float32)
-    got = tquant.quantize_params({"q_proj": {"kernel": torch.from_numpy(wo)}},
-                                 bits=4)["q_proj"]
-    want = _np(jquant.quantize_params({"q_proj": {"kernel": jnp.asarray(wo)}},
-                                      bits=4)["q_proj"])
-    assert set(got) == set(want) == {"kernel_q", "scale"}
-    _assert_ints_close(got["kernel_q"].numpy(), want["kernel_q"],
-                       _pre(wo, want["scale"]))
-    assert got["kernel_q"].abs().max() <= 7
+    with pytest.raises(ValueError, match="int4_format"):
+        tquant.quantize_params({"q_proj": {"kernel": w}}, bits=4,
+                               int4_format="nibbles")
 
 
 def test_dequantize_and_quantized_bytes_match_jax():
