@@ -16,7 +16,11 @@ Phases (any failure raises and the script exits non-zero):
      prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix;
      K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections,
      K11a/K11b the int4 split-half-byte and bf16-pair-word matmuls at its
-     gate/up, down and head, also bit for bit against K10)
+     gate/up, down and head, also bit for bit against K10; K15a-K15g the
+     probe scripts' quantized matmuls at their Llama-3.1-8B and Qwen3-14B
+     shapes, K15a at bc 128 against K14, K15b/K15e against K11a and K15d
+     at K10's tiling against K10 bit for bit, K15f exact; K15h-K15l the
+     int8-KV probe operations, bit-exact, at the probe's sizes)
      against its plain PyTorch version on the same bf16 inputs computed in
      fp32, at the paths' own shapes, with median CUDA-event times of both,
      the bound (the larger of the bytes at the HBM rate and the operations
@@ -94,6 +98,12 @@ Phases (any failure raises and the script exits non-zero):
      verify-round logits and tokens (K10, K11a, K11b, K14), a legacy
      model's generation (K1, K12) and one
      legacy train step (K1, K5).
+  6. probes: the six scripts of `prot2text_tpu_torch/scripts/` through
+     their `main()` at their own shapes (R 16 or 128 rows; Llama-3.1-8B's
+     q/o, gate/up, down and vocab; Qwen3-14B's MLP), replays cut to 5:
+     every variant agrees with its plain version, no row reads above 105%
+     of its bound (bound / device time <= 1.05: the weights rotate past
+     the L2), the int8-KV probes all pass, and every K15 kernel launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device contract `{"ok": true, "device": {...}}`.
@@ -1056,6 +1066,249 @@ def check_k11_kernels(torch, dev, card):
         del w, scale, x, y, want
         gc.collect()
         torch.cuda.empty_cache()
+    return rows
+
+
+# K15a-g at their probes' shapes: (kernel id, the probe's (K, N) shapes,
+# rows, the shape the row keeps the times of)
+PROBE_MM_SHAPES = (
+    ("K15a", ((4096, 4096), (4096, 14336), (14336, 4096), (4096, 128256)),
+     16, (4096, 14336)),
+    ("K15b", ((4096, 14336), (14336, 4096)), 16, (4096, 14336)),
+    ("K15c", ((4096, 14336), (14336, 4096)), 16, (4096, 14336)),
+    ("K15d", ((4096, 14336), (14336, 4096)), 16, (4096, 14336)),
+    ("K15e", ((5120, 17408),), 16, (5120, 17408)),
+    ("K15f", ((4096, 14336),), 128, (4096, 14336)),
+    ("K15g", ((4096, 14336),), 128, (4096, 14336)),
+)
+
+
+def probe_operands(torch, dev, g, kid, K, N, R):
+    """x, the packed weight, the scale (None for K15f/K15g) and the integer
+    weight (K, N) it holds, for one K15a-g call."""
+    from prot2text_tpu_torch.kernels import probe_quant_matmul as pq
+    from prot2text_tpu_torch.kernels import quant_matmul as qm
+
+    def ints(shape, lo=-128, hi=128):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    if kid in ("K15b", "K15e"):            # split-half bytes: any byte
+        w = ints((K // 2, N))
+        deq = qm.unpack_int4(w)
+    elif kid in ("K15c", "K15d"):
+        deq = ints((K, N), -8, 8)
+        w = (pq.pack_int4_native if kid == "K15c"
+             else qm.pack_int4_planes)(deq)
+    else:
+        w = deq = ints((K, N))
+    x = (ints((R, K)) if kid == "K15f" else torch.randn(
+        (R, K), generator=g, device=dev).to(torch.bfloat16))
+    scale = (None if kid in ("K15f", "K15g") else
+             torch.rand((1, N), generator=g, device=dev) * 0.03 + 2e-3)
+    return x, w, scale, deq
+
+
+def check_probe_kernels(torch, dev, card):
+    """K15a-K15g against their plain versions at their probes' shapes
+    (`PROBE_MM_SHAPES`): bf16 outputs within 2e-2 · max|plain| (K15a-e),
+    K15f's int32 product exact, K15g's f32 within 1e-5 · max|plain|.  Each
+    variant's control: K15a at bc 128 is K14 bit for bit (its other chunks
+    within 2e-2); K15b and K15e (K11a's bytes, two other unpacks) are K11a
+    bit for bit; K15d at K10's tiling is K10 bit for bit (256 columns and K
+    slices within 2e-2).  Times at the row's shape: device time per call
+    from a CUDA graph that rotates through weight copies exceeding twice
+    the card's L2 (`scripts/_timing.py`), eager time beside it; the plain
+    version from CUDA graphs; the library yardstick, never called by the
+    port: `torch.matmul` on the weight dequantized to bf16 (K15f:
+    `torch._int_mm`), rotating through its own copies.  Bounds: bytes at
+    3.35 TB/s or operations at the bf16 rate (K15f: the int8 rate)."""
+    from prot2text_tpu_torch.kernels import probe_quant_matmul as pq
+    from prot2text_tpu_torch.kernels import quant_matmul as qm
+    from prot2text_tpu_torch.scripts import _timing as tm
+
+    fns = {"K15a": (pq.chunk_mm, pq.chunk_mm_plain),
+           "K15b": (pq.mm_i4f, pq.mm_i4f_plain),
+           "K15c": (pq.mm_i4n, pq.mm_i4n_plain),
+           "K15d": (pq.mm_i4p, pq.mm_i4p_plain),
+           "K15e": (pq.mm_i4and, pq.mm_i4and_plain),
+           "K15f": (pq.mm_i8i8, pq.mm_i8i8_plain),
+           "K15g": (pq.mm_mix, pq.mm_mix_plain)}
+    g = torch.Generator(device=dev).manual_seed(8642)
+    rows = {}
+    for kid, shapes, R, timed in PROBE_MM_SHAPES:
+        kern, plain = fns[kid]
+        worst = 0.0
+        for K, N in shapes:
+            x, w, scale, deq = probe_operands(torch, dev, g, kid, K, N, R)
+            args = (x, w) if scale is None else (x, w, scale)
+            y = kern(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            top = want.float().abs().max().item()
+            if kid == "K15f":
+                require(torch.equal(y, want), f"K15f K={K} N={N}: the int8 "
+                        f"product is not exact")
+                err = 0.0
+            else:
+                err = (y.float() - want.float()).abs().max().item()
+                rel = 1e-5 if kid == "K15g" else 2e-2
+                require(bool(torch.isfinite(y).all()) and err <= rel * top,
+                        f"{kid} K={K} N={N} R={R}: max|err| {err} > {rel} "
+                        f"* max|plain| {top}")
+            worst = max(worst, err)
+
+            def near(got, what):
+                d = (got.float() - want.float()).abs().max().item()
+                require(d <= 2e-2 * top, f"{kid} {what} K={K} N={N}: "
+                        f"max|err| {d} > 2e-2 * max|plain| {top}")
+
+            ctrl = ""
+            if kid == "K15a":
+                require(torch.equal(pq.chunk_mm(x, w, scale, bc=128),
+                                    qm.quant_matmul_int8(x, w, scale)),
+                        f"K15a bc 128 is not K14 bit for bit (K={K} N={N})")
+                for bc in (32, 64):
+                    near(pq.chunk_mm(x, w, scale, bc=bc), f"bc {bc}")
+                ctrl = "; bc 128 = K14 bit for bit, bc 32 and 64 within 2e-2"
+            elif kid in ("K15b", "K15e"):
+                require(torch.equal(y, qm.quant_matmul_int4(x, w, scale)),
+                        f"{kid} is not K11a bit for bit (K={K} N={N})")
+                ctrl = "; = K11a bit for bit"
+            elif kid == "K15d":
+                require(torch.equal(y, qm.quant_matmul_int4_planes(
+                    x, w, scale)), f"K15d is not K10 bit for bit (K={K} "
+                    f"N={N})")
+                for kw in ({"block_cols": 256}, {"split_k8": 64},
+                           {"block_cols": 256, "split_k8": 512}):
+                    near(pq.mm_i4p(x, w, scale, **kw), str(kw))
+                ctrl = ("; K10's tiling = K10 bit for bit, 256 columns and "
+                        "K slices within 2e-2")
+            log(f"{kid} R={R} K={K} N={N}: max|y-plain|/max|plain| "
+                f"{err / max(top, 1e-30):.3e}{ctrl}")
+            if (K, N) == timed:
+                ws = [w] + [w.clone() for _ in range(
+                    tm.copies(nbytes(w), dev) - 1)]
+                t = tm.time_pass(lambda: [kern(x, wi, *args[2:])
+                                          for wi in ws], len(ws), dev, 10)
+                plain_ms = graph_ms(torch, lambda: plain(*args), calls=2)
+                if kid == "K15f":
+                    lib, name = ws, "torch._int_mm"
+                    lt = tm.time_pass(lambda: [torch._int_mm(x, wi)
+                                               for wi in lib], len(lib),
+                                      dev, 10)
+                else:
+                    wd = deq.float()
+                    if scale is not None:
+                        wd = wd * scale
+                    wd = wd.to(torch.bfloat16)
+                    lib, name = [wd] + [wd.clone() for _ in range(
+                        tm.copies(nbytes(wd), dev) - 1)], "torch.matmul"
+                    lt = tm.time_pass(lambda: [torch.matmul(x, wi)
+                                               for wi in lib], len(lib),
+                                      dev, 10)
+                io = nbytes(x, y) + (0 if scale is None else nbytes(scale))
+                bd = tm.bound(2.0 * R * K * N, nbytes(w) + io,
+                              tm.PEAK_INT8 if kid == "K15f" else
+                              tm.PEAK_BF16)
+                log(f"{kid} R={R} K={K} N={N}: device time per call (CUDA "
+                    f"graph over {len(ws)} weight copies) {t['ms']:.4f} ms, "
+                    f"eager {t['host_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
+                    f"{name} {lt['ms']:.4f} ms; bound {bd['bound_ms']:.4f} "
+                    f"ms ({bd['bound_by']}; bytes {bd['bytes_ms']:.4f}, "
+                    f"operations {bd['ops_ms']:.4f}) = "
+                    f"{bd['bound_ms'] / t['ms']:.1%} [{card}]")
+                rows[kid] = dict(ms=t["ms"], plain_ms=plain_ms,
+                                 library_ms=lt["ms"], **bd)
+                del ws, lib
+            del x, w, scale, deq, y, want, args
+            gc.collect()
+            torch.cuda.empty_cache()
+        rows[kid]["max_abs_err"] = worst
+    return rows
+
+
+def check_probe_kv_kernels(torch, dev, card):
+    """K15h-K15l against their plain versions on random inputs at the int8
+    KV probe's sizes (Hkv 8, T 192, D 128, slot 77): K15h, K15i, K15j and
+    K15l bit for bit over the whole output (K15j and K15l write in place,
+    and only the slot's row or column may change), K15k within 1e-5 ·
+    max|plain|.  Times: eager CUDA events (these kernels are launch-bound)
+    with the device time from CUDA graphs beside them, the plain versions',
+    and the library yardstick where one PyTorch call computes the function
+    (`torch.where` for K15i, `index_copy_` for K15j and K15l)."""
+    from prot2text_tpu_torch.kernels import probe_int8_kv as pk
+
+    g = torch.Generator(device=dev).manual_seed(9753)
+    Hkv, T, D, slot = 8, 192, 128, 77
+
+    def ints(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    x = torch.randn((T, D), generator=g, device=dev) * 12
+    a, b, kn = ints(T, D), ints(T, D), ints(Hkv, D)
+    cache = ints(1, Hkv, T, D)
+    q = torch.randn((8, D), generator=g, device=dev).to(torch.bfloat16)
+    s = torch.rand((1, T), generator=g, device=dev)
+    srow = torch.rand((1, Hkv, T), generator=g, device=dev)
+    sn = torch.rand((Hkv, 1), generator=g, device=dev)
+    idx = torch.tensor([slot], dtype=torch.int32, device=dev)
+    idx64 = idx.long()
+    first = (torch.arange(T, device=dev) == 7)[:, None]
+    kn4, sn3 = kn.reshape(1, Hkv, 1, D), sn.reshape(1, Hkv, 1)
+    cases = (  # id, kernel, plain, library, bytes moved, operations
+        ("K15h", lambda: pk.f32_to_int8_store(x),
+         lambda: pk.f32_to_int8_store_plain(x), None,
+         nbytes(x) + x.numel(), 0.0),
+        ("K15i", lambda: pk.int8_select(a, b, 7),
+         lambda: pk.int8_select_plain(a, b, 7),
+         lambda: torch.where(first, a, b), 3 * nbytes(a), 0.0),
+        ("K15j", lambda: pk.int8_group_rmw(cache, kn, idx),
+         lambda: pk.int8_group_rmw_plain(cache, kn, idx),
+         lambda: cache.index_copy_(2, idx64, kn4), 2 * nbytes(kn) + 4, 0.0),
+        ("K15k", lambda: pk.int8_to_bf16_matmul(q, a, s),
+         lambda: pk.int8_to_bf16_matmul_plain(q, a, s), None,
+         nbytes(q, a, s) + 4 * 8 * T, 2.0 * 8 * T * D),
+        ("K15l", lambda: pk.f32_scale_row_rmw(srow, sn, idx),
+         lambda: pk.f32_scale_row_rmw_plain(srow, sn, idx),
+         lambda: srow.index_copy_(2, idx64, sn3), 2 * nbytes(sn) + 4, 0.0),
+    )
+    rows = {}
+    for kid, fn, plain, lib, moved, flops in cases:
+        before = (cache.clone(), srow.clone())
+        y = fn().clone()
+        torch.cuda.synchronize()
+        cache.copy_(before[0])
+        srow.copy_(before[1])
+        want = plain().clone()
+        err = 0.0
+        if kid == "K15k":
+            err = (y - want).abs().max().item()
+            top = want.abs().max().item()
+            require(err <= 1e-5 * top, f"K15k: max|err| {err} > 1e-5 * "
+                    f"max|plain| {top}")
+        else:
+            require(torch.equal(y, want), f"{kid} is not bit-exact")
+        if kid in ("K15j", "K15l"):
+            old = before[0] if kid == "K15j" else before[1]
+            moved_at = (y != old).nonzero()[:, 2].unique().tolist()
+            require(moved_at == [slot], f"{kid} changed slots {moved_at}, "
+                    f"not only {slot}")
+        ms = cuda_ms(torch, fn, iters=50)
+        plain_ms = cuda_ms(torch, plain, iters=50)
+        lib_ms = None if lib is None else cuda_ms(torch, lib, iters=50)
+        dev_ms = graph_ms(torch, fn)
+        bd = bound(flops, moved)
+        what = (f"max|err| {err:.3e} (1e-5 of max)" if kid == "K15k"
+                else "bit-exact")
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"{kid} int8-KV probe op Hkv={Hkv} T={T} D={D}: {what}; kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), plain "
+            f"{plain_ms:.4f} ms, library {lib_txt}, bound "
+            f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}) [{card}]")
+        rows[kid] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, **bd)
     return rows
 
 
@@ -2823,6 +3076,57 @@ def run_legacy_plumbing(torch, dev):
     _cuda_cpu_gate("legacy train step", out)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the port's probe scripts, the path of K15a-K15l
+
+PROBES = ("bench_lmhead3", "bench_int4_unpack", "bench_int4_planes",
+          "bench_int4_single", "bench_int8_mxu", "probe_int8_kv")
+PROBE_REPS = 5       # CUDA-graph replays per variant (the scripts: 20)
+
+
+def run_probes(torch, dev, card):
+    """Phase 6: each of `prot2text_tpu_torch/scripts/` six probes through its
+    `main()` on the card at its own shapes (only its replays cut), as
+    `python -m prot2text_tpu_torch.scripts.<name>` runs it.  No row may
+    read above 105% of its bound (bound / device time <= 1.05: a faster
+    reading would be a weight read from L2, not HBM), every variant agrees
+    with its plain version inside the script, and probe_int8_kv's five
+    probes pass.
+    Returns the launch counts of the whole run: every K15 kernel must be
+    among them, beside K10, K11a and K14."""
+    import importlib
+
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    for name in PROBES:
+        t0 = time.perf_counter()
+        mod = importlib.import_module(f"prot2text_tpu_torch.scripts.{name}")
+        out = mod.main(["--device", str(dev), "--reps", str(PROBE_REPS)])
+        for r in out["rows"]:
+            require(r["ms"] is not None and r["bound_ms"] <= 1.05 * r["ms"],
+                    f"{name} {r['variant']}: {r['ms']} ms per call beats its "
+                    f"bound {r['bound_ms']} ms by more than 5%")
+        if name == "probe_int8_kv":
+            require(out["ok"], "probe_int8_kv: a probe failed")
+        best = max(out["rows"], key=lambda r: r["share"])
+        log(f"probe {name}: {len(out['rows'])} rows in "
+            f"{time.perf_counter() - t0:.1f} s, highest share of its bound "
+            f"{best['share']:.1%} ({best['variant']}, {best['kernel']}) "
+            f"[{card}]")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    missing = [k for k in counts if k.startswith("K15") and counts[k] == 0]
+    require(not missing, f"the probes launched no {missing}")
+    require(counts["K10"] > 0 and counts["K11a"] > 0 and counts["K14"] > 0,
+            f"the probes' shipped baselines did not run: {counts}")
+    log(f"launches in the probes' run: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2873,6 +3177,10 @@ def main() -> int:
     rows.update(check_k11_kernels(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
+    rows.update(check_probe_kernels(torch, dev, card))
+    rows.update(check_probe_kv_kernels(torch, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 3 at {time.time() - t_start:.1f} s")
     paths = {"generate": run_slice(torch, dev, card)}
     gc.collect()                 # free the generation model before training
@@ -2911,6 +3219,8 @@ def main() -> int:
     run_serve_plumbing(torch, dev)
     run_serve_quant_plumbing(torch, dev)
     run_legacy_plumbing(torch, dev)
+    log(f"phase 6 at {time.time() - t_start:.1f} s")
+    paths["probes"] = run_probes(torch, dev, card)
 
     out = []
     for kid, (_, _, src, tpu) in KERNELS.items():
@@ -2927,6 +3237,8 @@ def main() -> int:
         else:
             require(sum(by_path.values()) > 0,
                     f"{kid} was launched no time on any path")
+        if kid.startswith("K15"):
+            require(by_path["probes"] > 0, f"{kid}: no launch in phase 6")
         out.append({"name": kid, "route": "cuda", "source": src,
                     "replaces": tpu, "launches": sum(by_path.values()),
                     "launches_by_path": by_path,

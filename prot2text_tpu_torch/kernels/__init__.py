@@ -30,6 +30,17 @@ from .flash_attention import (
     flash_attention_masked_bwd, flash_attention_masked_bwd_plain,
     flash_attention_masked_fwd, flash_attention_masked_plain,
 )
+from .probe_int8_kv import (
+    f32_scale_row_rmw, f32_scale_row_rmw_plain, f32_to_int8_store,
+    f32_to_int8_store_plain, int8_group_rmw, int8_group_rmw_plain,
+    int8_select, int8_select_plain, int8_to_bf16_matmul,
+    int8_to_bf16_matmul_plain,
+)
+from .probe_quant_matmul import (
+    chunk_mm, chunk_mm_plain, mm_i4and, mm_i4and_plain, mm_i4f, mm_i4f_plain,
+    mm_i4n, mm_i4n_plain, mm_i4p, mm_i4p_plain, mm_i8i8, mm_i8i8_plain,
+    mm_mix, mm_mix_plain,
+)
 from .quant_matmul import (
     quant_matmul_int4, quant_matmul_int4_pairs,
     quant_matmul_int4_pairs_plain, quant_matmul_int4_pairs_stacked,
@@ -40,6 +51,9 @@ from .quant_matmul import (
     quant_matmul_int8, quant_matmul_int8_plain, quant_matmul_int8_stacked,
     quant_matmul_int8_stacked_plain,
 )
+
+_PROBE_MM = "prot2text_tpu_torch/kernels/csrc/probe_quant_matmul.cu"
+_PROBE_KV = "prot2text_tpu_torch/kernels/csrc/probe_int8_kv.cu"
 
 # id → (wrapper, plain version, kernel source, TPU kernel it replaces); a
 # kernel with two entry points (unstacked and stacked) lists both wrappers,
@@ -111,6 +125,33 @@ KERNELS = {
     "K13": (cache_slot_write_kv, cache_slot_write_kv_plain,
             "prot2text_tpu_torch/kernels/csrc/cache_update.cu",
             "prot2text_tpu/kernels/cache_update.py:67"),
+    # K15: the TPU probe scripts' in-file kernels; their path is the port's
+    # probes, `prot2text_tpu_torch/scripts/`
+    "K15a": (chunk_mm, chunk_mm_plain, _PROBE_MM,
+             "scripts/bench_lmhead3.py:65"),
+    "K15b": (mm_i4f, mm_i4f_plain, _PROBE_MM,
+             "scripts/bench_int4_unpack.py:96"),
+    "K15c": (mm_i4n, mm_i4n_plain, _PROBE_MM,
+             "scripts/bench_int4_unpack.py:138"),
+    "K15d": (mm_i4p, mm_i4p_plain, _PROBE_MM,
+             "scripts/bench_int4_planes.py:95"),
+    "K15e": (mm_i4and, mm_i4and_plain, _PROBE_MM,
+             "scripts/bench_int4_single.py:86"),
+    "K15f": (mm_i8i8, mm_i8i8_plain,
+             "prot2text_tpu_torch/kernels/csrc/int8_mma.cu",
+             "scripts/bench_int8_mxu.py:102"),
+    "K15g": (mm_mix, mm_mix_plain, _PROBE_MM,
+             "scripts/bench_int8_mxu.py:156"),
+    "K15h": (f32_to_int8_store, f32_to_int8_store_plain, _PROBE_KV,
+             "scripts/probe_int8_kv.py:38"),
+    "K15i": (int8_select, int8_select_plain, _PROBE_KV,
+             "scripts/probe_int8_kv.py:50"),
+    "K15j": (int8_group_rmw, int8_group_rmw_plain, _PROBE_KV,
+             "scripts/probe_int8_kv.py:62"),
+    "K15k": (int8_to_bf16_matmul, int8_to_bf16_matmul_plain, _PROBE_KV,
+             "scripts/probe_int8_kv.py:96"),
+    "K15l": (f32_scale_row_rmw, f32_scale_row_rmw_plain, _PROBE_KV,
+             "scripts/probe_int8_kv.py:116"),
 }
 
 # kernels that no path of either package launches, each with its only JAX
@@ -152,7 +193,14 @@ __all__ = [
     "flash_attention_bias_fwd", "flash_attention_bias_plain",
     "flash_attention_masked", "flash_attention_masked_bwd",
     "flash_attention_masked_bwd_plain", "flash_attention_masked_fwd",
-    "flash_attention_masked_plain", "launch_counts", "quant_matmul_int4",
+    "flash_attention_masked_plain", "chunk_mm", "chunk_mm_plain",
+    "f32_scale_row_rmw", "f32_scale_row_rmw_plain", "f32_to_int8_store",
+    "f32_to_int8_store_plain", "int8_group_rmw", "int8_group_rmw_plain",
+    "int8_select", "int8_select_plain", "int8_to_bf16_matmul",
+    "int8_to_bf16_matmul_plain", "mm_i4and", "mm_i4and_plain", "mm_i4f",
+    "mm_i4f_plain", "mm_i4n", "mm_i4n_plain", "mm_i4p", "mm_i4p_plain",
+    "mm_i8i8", "mm_i8i8_plain", "mm_mix", "mm_mix_plain",
+    "launch_counts", "quant_matmul_int4",
     "quant_matmul_int4_pairs", "quant_matmul_int4_pairs_plain",
     "quant_matmul_int4_pairs_stacked",
     "quant_matmul_int4_pairs_stacked_plain", "quant_matmul_int4_plain",

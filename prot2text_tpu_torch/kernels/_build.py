@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # C entry points → argtypes; each returns an int cudaError_t
 SIGNATURES = {
     # q, k, v, kv_start, kv_len, o, lse, strides[12], B, H, Hkv, Sq, Skv, D,
@@ -76,6 +77,20 @@ SIGNATURES = {
     "p2t_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # the same, with fmt (0 split-half bytes, 1 bf16-pair words) for bits
     "p2t_quant_matmul_int4": [_P] * 5 + [_I] * 6 + [_P],
+    # x, w, scale, out, partial, R, K, N, variant, param, splits, stream
+    "p2t_probe_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # x, w, out, partial, R, K, N, splits, stream
+    "p2t_int8_mma": [_P] * 4 + [_I] * 4 + [_P],
+    # x, out, n, mult, stream
+    "p2t_int8_quantize_store": [_P, _P, _L, _F, _P],
+    # a, b, out, rows, cols, row, stream
+    "p2t_int8_select_row": [_P] * 3 + [_I] * 3 + [_P],
+    # cache, kn, slot, heads, T, D, stream
+    "p2t_int8_group_row_write": [_P] * 3 + [_I] * 3 + [_P],
+    # q, c, s, out, Q, T, D, stream
+    "p2t_int8_kv_logits": [_P] * 4 + [_I] * 3 + [_P],
+    # s, sn, slot, heads, T, stream
+    "p2t_scale_column_write": [_P] * 3 + [_I] * 2 + [_P],
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

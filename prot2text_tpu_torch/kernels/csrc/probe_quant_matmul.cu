@@ -1,0 +1,195 @@
+// K15a-e and K15g: the weight-quantized matmul variants of the TPU probe
+// scripts, few-row products at Llama-3.1-8B and Qwen3-14B widths,
+//
+//   y[r, n] = (sum_k bf16(x[r, k]) * q[k, n]) * scale[n]
+//
+// x (R, K) bf16; fp32 accumulation; the scale (N,) f32 in the fp32
+// epilogue; y (R, N) bf16 (K15g: f32, no scale).  Each variant keeps the
+// one strategy its probe varies and takes the rest from quant_matmul.cuh
+// (K10/K11/K14's loads, fragment builders, x staging and mma.sync
+// m16n8k16) through that header's body, each a policy (`FormatPolicy`) that
+// overrides only what its probe varies, so the card's answer isolates that
+// strategy:
+//
+//   K15a chunk_mm (scripts/bench_lmhead3.py:65, body :42): int8 q (K, N);
+//        the TPU kernel converts its int8 tile to bf16 in sub-chunks of bc
+//        rows.  Here a warp holds bc k rows of its columns in registers and
+//        converts that chunk before its products: bc = 16 * kUnroll rows in
+//        flight per thread, against K14's fixed 128 (bc 128 is K14's policy).
+//   K15b mm_i4f (bench_int4_unpack.py:96, body :71): split-half bytes
+//        (K/2, N) as K11a; each byte unpacked in f32 arithmetic: hi =
+//        floor(w / 16), lo = w - 16 hi, lo -= 16 when lo >= 8.
+//   K15c mm_i4n (bench_int4_unpack.py:138, body :119): a native int4 weight
+//        (K, N); the port's layout (kernels/probe_quant_matmul.py
+//        pack_int4_native) holds k rows 2i and 2i + 1 of a column in the low
+//        and high nibble of byte [i, n], so one byte is one bf16 pair of an
+//        A fragment and x is staged in plain k order.
+//   K15d mm_i4p (bench_int4_planes.py:95, body :72): K10's nibble planes
+//        over the probe's tile sweep: 128 or 256 columns per block, any K
+//        slice per block.  At 128 columns and K10's slices it is K10's
+//        policy, bit for bit.
+//   K15e mm_i4and (bench_int4_single.py:86, body :59): split-half bytes,
+//        unpacked with an AND: lo_u = w & 0xF, then in bf16x2 arithmetic
+//        (lo_u - 16 [lo_u >= 8], (w - lo_u) / 16).
+//   K15g mm_mix (bench_int8_mxu.py:156, body :139): bf16 x int8 with an
+//        f32 output and no scale, at R 128: 16 row tiles per block (K14's
+//        body stops at 8), so the weight streams once, and x staged 16
+//        bytes at a time (one value at a time, K14's way, the staging of
+//        128 rows took 0.33 ms against 0.12 on an H100 80GB HBM3 at 700 W).
+//
+// K15b and K15e build K11a's fragments from the same bytes, so on the same
+// integers they equal K11a (and K10) bit for bit; only the unpack differs.
+//
+// Bound: bytes, as K10/K14 (the header states the design).  At R 16 the
+// weight dominates: one int4 call at (4096, 14336) reads 29.4 MB, 8.8 us at
+// 3.35 TB/s; K15a's LM head (4096, 128256) int8 525 MB, 157 us; K15e's
+// (5120, 17408) 44.6 MB, 13.3 us; K15g at R 128 58.7 MB of int8 weight and
+// 7.3 MB of f32 output, about 20 us, against 15.0 G operations at the bf16
+// rate, 15.2 us, so bytes still set the pace.
+#include "quant_matmul.cuh"
+
+namespace {
+
+// f32-arithmetic unpack of split-half byte c of w: (lo, hi) as one bf16 pair
+__device__ __forceinline__ uint32_t floor_pair(uint32_t w, int c) {
+  const float wf = static_cast<float>(byte_at(w, c));
+  const float hi = floorf(wf * (1.f / 16.f));
+  float lo = wf - hi * 16.f;                     // [0, 15]
+  lo -= lo >= 8.f ? 16.f : 0.f;
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// AND unpack of split-half byte c of w: lo_u = w & 0xF, then (lo_u - 16
+// [lo_u >= 8], (w - lo_u) * 1/16) in bf16x2 arithmetic (every value exact)
+__device__ __forceinline__ uint32_t and_pair(uint32_t w, int c) {
+  const int b = byte_at(w, c);
+  const int lo_u = b & 0xF;
+  const __nv_bfloat162 d = __hsub2(
+      __floats2bfloat162_rn(static_cast<float>(lo_u), static_cast<float>(b)),
+      __floats2bfloat162_rn(lo_u >= 8 ? 16.f : 0.f, static_cast<float>(lo_u)));
+  const __nv_bfloat162 v = __hmul2(d, __floats2bfloat162_rn(1.f, 0.0625f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// K15a (kUnroll = bc / 16) and K15g: K14's int8 loads and fragments with
+// kU steps loaded ahead and kS x values staged per fill; kV: x staged 8
+// values at a time (K15g, whose 128 rows make the staging as costly as the
+// weight stream when it goes one value at a time)
+template <int kU, int kS = kStageK, bool kV = false>
+struct Int8Rows : FormatPolicy<kInt8, true> {
+  static constexpr int kUnroll = kU, kStage = kS;
+  static constexpr bool kVecStage = kV;
+};
+
+// K15b / K15e: K11a's split-half byte loads and k order, another unpack
+template <int kUnpack>          // 0 f32 floor (K15b), 1 AND (K15e)
+struct BytesUnpack : FormatPolicy<kBytes, true> {
+  __device__ static uint32_t pair(uint32_t w, int c) {
+    return kUnpack == 0 ? floor_pair(w, c) : and_pair(w, c);
+  }
+  __device__ static void frags(const uint32_t (&v)[4], int h,
+                               uint32_t (&a)[2][4]) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {     // a_frags<kBytes>'s order
+      a[m][0] = pair(v[2 * m], 2 * h);
+      a[m][1] = pair(v[2 * m], 2 * h + 1);
+      a[m][2] = pair(v[2 * m + 1], 2 * h);
+      a[m][3] = pair(v[2 * m + 1], 2 * h + 1);
+    }
+  }
+};
+
+// K15c: native int4, k rows 2i and 2i + 1 in byte row i.  A step of 32 k
+// loads byte rows 16 step + 4t + i (i < 4) with K14's 4-byte row loads over
+// the (K/2, N) bytes; MMA m takes byte rows 2m (k 2t, 2t+1) and 2m + 1 (k
+// 2t+8, 2t+9), so thread t's B fragments are x[32 step + 8t .. + 8): x is
+// staged in plain k order
+struct Native : FormatPolicy<kBytes, true> {
+  __device__ static void load(const void* w, int step, int nc, int t, int K,
+                              int N, uint32_t (&v)[4]) {
+    load_step<kInt8, true>(w, step, nc, t, K / 2, N, v);
+  }
+  __device__ static void frags(const uint32_t (&v)[4], int h,
+                               uint32_t (&a)[2][4]) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      a[m][0] = byte_nibbles(v[2 * m], 2 * h);
+      a[m][1] = byte_nibbles(v[2 * m], 2 * h + 1);
+      a[m][2] = byte_nibbles(v[2 * m + 1], 2 * h);
+      a[m][3] = byte_nibbles(v[2 * m + 1], 2 * h + 1);
+    }
+  }
+  __device__ static void slot(int q, int sb, int K, int* k, int* pos) {
+    *k = kStepK * sb + q;
+    *pos = q;
+  }
+};
+
+}  // namespace
+
+// variant 0 K15a (param: bc in {32, 64, 128, 256}; w (K, N) int8), 1 K15b
+// (w (K/2, N) int8 split-half bytes), 2 K15c (w (K/2, N) int8 native int4,
+// k pairs per byte), 3 K15d (param: columns per block, 128 or 256; w (K/8,
+// N) int32 planes), 4 K15e (as K15b), 5 K15g (w (K, N) int8, out f32, scale
+// unused, 16 row tiles per block); every other variant writes bf16 and
+// needs the scale.  splits >= 1 slices of K (in steps of 16 k values for
+// int8, 32 for int4), with `partial` an (splits, R, N) fp32 scratch buffer
+// when splits > 1.  The wrapper checks x bf16 (R, K), N % 4 == 0 and a
+// 16-byte-aligned weight.
+extern "C" int p2t_probe_quant_matmul(const void* x, const void* w,
+                                      const void* scale, void* out,
+                                      void* partial, int R, int K, int N,
+                                      int variant, int param, int splits,
+                                      void* stream) {
+  const int k_mult = variant == 3 ? 8 : (variant == 0 || variant == 5) ? 1 : 2;
+  const int step_k = (variant == 0 || variant == 5) ? 16 : 32;
+  if (R <= 0 || K <= 0 || N <= 0 || K % k_mult != 0 || N % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || splits <= 0 ||
+      splits > 65535 || (splits > 1 && partial == nullptr) ||
+      splits > (K + step_k - 1) / step_k || (N + 127) / 128 > 65535 ||
+      (variant != 5 && scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  float* pt = static_cast<float*>(partial);
+  using bf16 = __nv_bfloat16;
+  switch (variant) {
+    case 0:
+      if (param == 32)
+        return (int)launch<Int8Rows<2>, bf16, bf16>(x, w, sc, out, pt, R, K,
+                                                    N, splits, s);
+      if (param == 64)
+        return (int)launch<Int8Rows<4>, bf16, bf16>(x, w, sc, out, pt, R, K,
+                                                    N, splits, s);
+      if (param == 128)         // K14's policy
+        return (int)launch<FormatPolicy<kInt8, true>, bf16, bf16>(
+            x, w, sc, out, pt, R, K, N, splits, s);
+      if (param == 256)
+        return (int)launch<Int8Rows<16>, bf16, bf16>(x, w, sc, out, pt, R,
+                                                     K, N, splits, s);
+      return (int)cudaErrorInvalidValue;
+    case 1:
+      return (int)launch<BytesUnpack<0>, bf16, bf16>(x, w, sc, out, pt, R, K,
+                                                     N, splits, s);
+    case 2:
+      return (int)launch<Native, bf16, bf16>(x, w, sc, out, pt, R, K, N,
+                                             splits, s);
+    case 3:
+      if (param == 128)         // K10's policy and tiling
+        return (int)launch<FormatPolicy<kPlanes, true>, bf16, bf16>(
+            x, w, sc, out, pt, R, K, N, splits, s);
+      if (param == 256)
+        return (int)launch<FormatPolicy<kPlanes, true>, bf16, bf16, 8>(
+            x, w, sc, out, pt, R, K, N, splits, s);
+      return (int)cudaErrorInvalidValue;
+    case 4:
+      return (int)launch<BytesUnpack<1>, bf16, bf16>(x, w, sc, out, pt, R, K,
+                                                     N, splits, s);
+    case 5:
+      return (int)launch<Int8Rows<4, 128, true>, bf16, float, kWarps, 16>(
+          x, w, nullptr, out, pt, R, K, N, splits, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -69,14 +69,22 @@
 // are resident (the loads in flight set the rate); the splits' partial
 // sums go to an fp32 scratch buffer and a second kernel adds them in split
 // order (no atomics: the result does not change from run to run).
+//
+// The body is a template over a policy (`Format` below: how a K step's
+// weights are loaded and turned into A fragments, and how x is staged), the
+// number of warps per block and the input and output types, so that the
+// probe variants K15a-e and K15g (probe_quant_matmul.cu) differ from
+// K10/K11/K14 only in what their probe varies.  K15f's int8 x int8 product
+// (int8_mma.cu) shares the split-K reduction.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 using p2t::from_float;
-using p2t::to_float;
 
 enum Format : int { kPlanes = 0, kPairs = 1, kBytes = 2, kInt8 = 3 };
 
@@ -86,24 +94,25 @@ constexpr int kWarpCols = 32;                       // two MMA tiles of 16
 constexpr int kBlockCols = kWarps * kWarpCols;      // 128 columns per block
 constexpr int kTileRows = 8;                        // MMA N: activation rows
 constexpr int kStageK = 256;                        // k values staged per fill
-constexpr int kUnroll = 8;                          // K steps loaded ahead
 
 // A K step: the int4 formats cover 4 quarter rows = 32 k values (two MMAs
-// per tile); int8 covers 16 k rows (one MMA per tile).  Shared-memory row
-// strides are padded so that the B-fragment loads of a warp hit distinct
-// banks.
+// per tile); int8 covers 16 k rows (one MMA per tile).
 template <int kF>
 struct Fmt {
   static constexpr bool kInt4 = kF != kInt8;
   static constexpr int kStepK = kInt4 ? 32 : 16;
   static constexpr int kMmas = kInt4 ? 2 : 1;
-  static constexpr int kStageSteps = kStageK / kStepK;
-  static constexpr int kRowStride = kStageK + (kInt4 ? 32 : 16);  // bf16
 };
 
 template <int kF>
 __host__ __device__ constexpr int num_steps(int K) {
   return (K + Fmt<kF>::kStepK - 1) / Fmt<kF>::kStepK;
+}
+
+// x as staged: bf16 x is copied, f32 x rounded
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
+  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(int lo, int hi) {
@@ -265,23 +274,58 @@ __device__ __forceinline__ void stage_slot(int q, int sb, int K, int* k,
   }
 }
 
-template <typename T, int kF, bool kVec, int kRT>
-__global__ void __launch_bounds__(kThreads)
+// The policy of format kF for the body below: the k values of a K step
+// (kStepK) and its MMAs per tile (kMmas), the steps loaded ahead (kUnroll),
+// the x values staged per fill (kStage) and the padding of a staged row
+// (kPad, bf16 elements, so that the B-fragment loads of a warp hit distinct
+// banks); kVecStage: x (bf16, K % 8 == 0, 16-byte aligned) staged 8 values
+// at a time in plain k order, else one value at a time through slot().
+// load() reads one step's weights of a thread, frags() builds tile h's A
+// fragments, slot() places x value q of a fill that starts at step sb.
+template <int kF, bool kVec>
+struct FormatPolicy : Fmt<kF> {
+  static constexpr int kUnroll = 8;             // K steps loaded ahead
+  static constexpr int kStage = kStageK;
+  static constexpr int kPad = Fmt<kF>::kInt4 ? 32 : 16;
+  static constexpr bool kVecStage = false;
+  __device__ static void load(const void* w, int step, int nc, int t, int K,
+                              int N, uint32_t (&v)[4]) {
+    load_step<kF, kVec>(w, step, nc, t, K, N, v);
+  }
+  __device__ static void frags(const uint32_t (&v)[4], int h,
+                               uint32_t (&a)[Fmt<kF>::kMmas][4]) {
+    a_frags<kF>(v, h, a);
+  }
+  __device__ static void slot(int q, int sb, int K, int* k, int* pos) {
+    stage_slot<kF>(q, sb, K, k, pos);
+  }
+};
+
+// kRT row tiles and kW warps of 32 columns per block; x of type T, the
+// output of type To; scale == nullptr: no scale
+template <class P, typename T, typename To, int kRT, int kW>
+__global__ void __launch_bounds__(kW * 32)
 quant_mma_kernel(const T* __restrict__ x, const void* __restrict__ w,
-                 const float* __restrict__ scale, T* __restrict__ out,
+                 const float* __restrict__ scale, To* __restrict__ out,
                  float* __restrict__ partial, int R, int K, int N,
                  int steps_per_split) {
-  using F = Fmt<kF>;
+  static_assert(!P::kVecStage || std::is_same<T, __nv_bfloat16>::value,
+                "the 16-byte x staging takes bf16 x");
+  constexpr int kNThreads = kW * 32;
   constexpr int kRows = kRT * kTileRows;
-  __shared__ __align__(16) __nv_bfloat16 xs[kRows * F::kRowStride];
+  constexpr int kStride = P::kStage + P::kPad;
+  constexpr int kFill = P::kStage / P::kStepK;      // steps per fill
+  __shared__ __align__(16) __nv_bfloat16 xs[kRows * kStride];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = blockIdx.x * kRows;
-  const int nc = blockIdx.y * kBlockCols + warp * kWarpCols + 4 * g;
-  const int nsteps = num_steps<kF>(K);
+  const int nc = blockIdx.y * (kW * kWarpCols) + warp * kWarpCols + 4 * g;
+  const int nsteps = (K + P::kStepK - 1) / P::kStepK;
   const int s_begin = blockIdx.z * steps_per_split;
   const int s_end = min(nsteps, s_begin + steps_per_split);
+  const bool vec_x = P::kVecStage && K % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
   float acc[kRT][2][4];
 #pragma unroll
@@ -291,49 +335,58 @@ quant_mma_kernel(const T* __restrict__ x, const void* __restrict__ w,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][h][c] = 0.f;
 
-  for (int sb = s_begin; sb < s_end; sb += F::kStageSteps) {
-    const int ns = min(F::kStageSteps, s_end - sb);
+  for (int sb = s_begin; sb < s_end; sb += kFill) {
+    const int ns = min(kFill, s_end - sb);
     // stage x[r0 .. r0 + kRows, the fill's k values] as bf16 in the order
     // the B fragments read it; the global index runs fastest across threads
-    for (int e = threadIdx.x; e < kRows * kStageK; e += kThreads) {
-      const int r = e / kStageK;
-      int k, pos;
-      stage_slot<kF>(e % kStageK, sb, K, &k, &pos);
-      float v = 0.f;
-      if (r0 + r < R && k < K) v = to_float(x[(int64_t)(r0 + r) * K + k]);
-      xs[r * F::kRowStride + pos] = __float2bfloat16(v);
+    if (vec_x) {
+      for (int e = threadIdx.x; e < kRows * P::kStage / 8; e += kNThreads) {
+        const int r = e / (P::kStage / 8), q = 8 * (e % (P::kStage / 8));
+        const int k = P::kStepK * sb + q;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 + r < R && k < K)
+          v = *reinterpret_cast<const uint4*>(x + (int64_t)(r0 + r) * K + k);
+        *reinterpret_cast<uint4*>(&xs[r * kStride + q]) = v;
+      }
+    } else {
+      for (int e = threadIdx.x; e < kRows * P::kStage; e += kNThreads) {
+        const int r = e / P::kStage;
+        int k, pos;
+        P::slot(e % P::kStage, sb, K, &k, &pos);
+        __nv_bfloat16 v = __float2bfloat16(0.f);
+        if (r0 + r < R && k < K) v = to_bf16(x[(int64_t)(r0 + r) * K + k]);
+        xs[r * kStride + pos] = v;
+      }
     }
     __syncthreads();
-    for (int s0 = 0; s0 < ns; s0 += kUnroll) {
-      uint32_t wv[kUnroll][4];
+    for (int s0 = 0; s0 < ns; s0 += P::kUnroll) {
+      uint32_t wv[P::kUnroll][4];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (s0 + u < ns)
-          load_step<kF, kVec>(w, sb + s0 + u, nc, t, K, N, wv[u]);
+      for (int u = 0; u < P::kUnroll; ++u)
+        if (s0 + u < ns) P::load(w, sb + s0 + u, nc, t, K, N, wv[u]);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < P::kUnroll; ++u) {
         if (s0 + u >= ns) break;
         const int sl = s0 + u;
-        uint32_t a[2][F::kMmas][4];
+        uint32_t a[2][P::kMmas][4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) a_frags<kF>(wv[u], h, a[h]);
+        for (int h = 0; h < 2; ++h) P::frags(wv[u], h, a[h]);
 #pragma unroll
         for (int i = 0; i < kRT; ++i) {
-          const __nv_bfloat16* xr = &xs[(i * kTileRows + g) * F::kRowStride];
-          uint32_t b[F::kMmas][2];
-          if constexpr (F::kInt4) {
-            const uint4 u4 =
-                *reinterpret_cast<const uint4*>(xr + (4 * sl + t) * 8);
+          const __nv_bfloat16* xr =
+              &xs[(i * kTileRows + g) * kStride + P::kStepK * sl];
+          uint32_t b[P::kMmas][2];
+          if constexpr (P::kMmas == 2) {
+            const uint4 u4 = *reinterpret_cast<const uint4*>(xr + 8 * t);
             b[0][0] = u4.x; b[0][1] = u4.y; b[1][0] = u4.z; b[1][1] = u4.w;
           } else {
-            const uint2 u2 =
-                *reinterpret_cast<const uint2*>(xr + 16 * sl + 4 * t);
+            const uint2 u2 = *reinterpret_cast<const uint2*>(xr + 4 * t);
             b[0][0] = u2.x; b[0][1] = u2.y;
           }
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int m = 0; m < F::kMmas; ++m)
+            for (int m = 0; m < P::kMmas; ++m)
               mma_bf16(acc[i][h], a[h][m], b[m][0], b[m][1]);
         }
       }
@@ -355,78 +408,81 @@ quant_mma_kernel(const T* __restrict__ x, const void* __restrict__ w,
         if (p)
           p[(int64_t)r * N + n] = acc[i][h][c];
         else
-          out[(int64_t)r * N + n] = from_float<T>(acc[i][h][c] * scale[n]);
+          out[(int64_t)r * N + n] = from_float<To>(
+              scale ? acc[i][h][c] * scale[n] : acc[i][h][c]);
       }
 }
 
-// out[r, n] = (sum over splits, in order, of partial) * scale[n]
-template <typename T>
+// out[r, n] = (sum over splits, in order, of partial) * scale[n]; no scale
+// (nullptr): the sum.  Acc int32 (K15f): the exact integer sum, no scale.
+template <typename Acc, typename To>
 __global__ void __launch_bounds__(256)
-quant_matmul_reduce_kernel(const float* __restrict__ partial,
+quant_matmul_reduce_kernel(const Acc* __restrict__ partial,
                            const float* __restrict__ scale,
-                           T* __restrict__ out, int R, int N, int splits) {
+                           To* __restrict__ out, int R, int N, int splits) {
   const int64_t total = (int64_t)R * N;
   for (int64_t i = blockIdx.x * 256LL + threadIdx.x; i < total;
        i += (int64_t)gridDim.x * 256) {
-    float s = 0.f;
+    Acc s = 0;
     for (int p = 0; p < splits; ++p) s += partial[p * total + i];
-    out[i] = from_float<T>(s * scale[i % N]);
+    if constexpr (std::is_same<Acc, float>::value)
+      out[i] = from_float<To>(scale ? s * scale[i % N] : s);
+    else
+      out[i] = s;
   }
 }
 
-template <typename T, int kF, bool kVec, int kRT>
+template <typename Acc, typename To>
+void launch_reduce(const Acc* partial, const float* scale, To* out, int R,
+                   int N, int splits, cudaStream_t stream) {
+  const int64_t total = (int64_t)R * N;
+  const int64_t blocks64 = (total + 255) / 256;
+  const int blocks = (int)(blocks64 < 4096 ? blocks64 : 4096);
+  quant_matmul_reduce_kernel<Acc, To><<<blocks, 256, 0, stream>>>(
+      partial, scale, out, R, N, splits);
+}
+
+template <class P, typename T, typename To, int kRT, int kW>
 void launch_rt(const void* x, const void* w, const float* scale, void* out,
                float* partial, int R, int K, int N, int splits, int per,
                cudaStream_t stream) {
-  constexpr int kRows = kRT * kTileRows;
-  const dim3 grid((R + kRows - 1) / kRows,
-                  (N + kBlockCols - 1) / kBlockCols, splits);
-  quant_mma_kernel<T, kF, kVec, kRT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, scale, static_cast<T*>(out), partial, R,
+  constexpr int kRows = kRT * kTileRows, kCols = kW * kWarpCols;
+  const dim3 grid((R + kRows - 1) / kRows, (N + kCols - 1) / kCols, splits);
+  quant_mma_kernel<P, T, To, kRT, kW><<<grid, kW * 32, 0, stream>>>(
+      static_cast<const T*>(x), w, scale, static_cast<To*>(out), partial, R,
       K, N, per);
 }
 
-template <typename T, int kF, bool kVec>
-void launch_vec(const void* x, const void* w, const float* scale, void* out,
-                float* partial, int R, int K, int N, int splits, int per,
-                cudaStream_t stream) {
-  // the fewest row tiles per block that hold R (at most 8: 64 rows)
-  if (R <= 8)
-    launch_rt<T, kF, kVec, 1>(x, w, scale, out, partial, R, K, N, splits,
-                              per, stream);
-  else if (R <= 16)
-    launch_rt<T, kF, kVec, 2>(x, w, scale, out, partial, R, K, N, splits,
-                              per, stream);
-  else if (R <= 32)
-    launch_rt<T, kF, kVec, 4>(x, w, scale, out, partial, R, K, N, splits,
-                              per, stream);
-  else if (R <= 40)           // a γ-4 verify round at B 8
-    launch_rt<T, kF, kVec, 5>(x, w, scale, out, partial, R, K, N, splits,
-                              per, stream);
-  else
-    launch_rt<T, kF, kVec, 8>(x, w, scale, out, partial, R, K, N, splits,
-                              per, stream);
-}
-
-template <typename T, int kF>
+// the body with policy P, then the split-K reduction; kFixedRT > 0: that
+// many row tiles per block whatever R, else the fewest that hold R (at most
+// 8: 64 rows)
+template <class P, typename T, typename To, int kW = kWarps, int kFixedRT = 0>
 cudaError_t launch(const void* x, const void* w, const float* scale,
                    void* out, float* partial, int R, int K, int N,
                    int splits, cudaStream_t stream) {
-  const int per = (num_steps<kF>(K) + splits - 1) / splits;
-  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if (vec)
-    launch_vec<T, kF, true>(x, w, scale, out, partial, R, K, N, splits, per,
-                            stream);
+  const int nsteps = (K + P::kStepK - 1) / P::kStepK;
+  const int per = (nsteps + splits - 1) / splits;
+  if constexpr (kFixedRT > 0)
+    launch_rt<P, T, To, kFixedRT, kW>(x, w, scale, out, partial, R, K, N,
+                                      splits, per, stream);
+  else if (R <= 8)
+    launch_rt<P, T, To, 1, kW>(x, w, scale, out, partial, R, K, N,
+                                      splits, per, stream);
+  else if (R <= 16)
+    launch_rt<P, T, To, 2, kW>(x, w, scale, out, partial, R, K, N,
+                                      splits, per, stream);
+  else if (R <= 32)
+    launch_rt<P, T, To, 4, kW>(x, w, scale, out, partial, R, K, N,
+                                      splits, per, stream);
+  else if (R <= 40)           // a γ-4 verify round at B 8
+    launch_rt<P, T, To, 5, kW>(x, w, scale, out, partial, R, K, N,
+                                      splits, per, stream);
   else
-    launch_vec<T, kF, false>(x, w, scale, out, partial, R, K, N, splits, per,
-                             stream);
-  if (splits > 1) {
-    const int64_t total = (int64_t)R * N;
-    const int64_t blocks64 = (total + 255) / 256;
-    const int blocks = (int)(blocks64 < 4096 ? blocks64 : 4096);
-    quant_matmul_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
-        partial, scale, static_cast<T*>(out), R, N, splits);
-  }
+    launch_rt<P, T, To, 8, kW>(x, w, scale, out, partial, R, K, N,
+                                      splits, per, stream);
+  if (splits > 1)
+    launch_reduce<float, To>(partial, scale, static_cast<To*>(out), R, N,
+                             splits, stream);
   return cudaGetLastError();
 }
 
@@ -447,11 +503,20 @@ int run(const void* x, const void* w, const void* scale, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   float* pt = static_cast<float*>(partial);
+  // vec: N % 4 == 0 and the weight 16-byte aligned (wide weight loads)
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if (dtype == p2t::kFloat32)
-    return (int)launch<float, kF>(x, w, sc, out, pt, R, K, N, splits, s);
-  if (dtype == p2t::kBFloat16)
-    return (int)launch<__nv_bfloat16, kF>(x, w, sc, out, pt, R, K, N, splits,
-                                          s);
+    return (int)(vec ? launch<FormatPolicy<kF, true>, float, float>(
+                           x, w, sc, out, pt, R, K, N, splits, s)
+                     : launch<FormatPolicy<kF, false>, float, float>(
+                           x, w, sc, out, pt, R, K, N, splits, s));
+  if (dtype == p2t::kBFloat16) {
+    using bf16 = __nv_bfloat16;
+    return (int)(vec ? launch<FormatPolicy<kF, true>, bf16, bf16>(
+                           x, w, sc, out, pt, R, K, N, splits, s)
+                     : launch<FormatPolicy<kF, false>, bf16, bf16>(
+                           x, w, sc, out, pt, R, K, N, splits, s));
+  }
   return (int)cudaErrorInvalidValue;
 }
 

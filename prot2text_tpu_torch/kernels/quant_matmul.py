@@ -208,13 +208,15 @@ def _steps(K: int, bits: int) -> int:
     return -(-K // _STEP_K[bits])
 
 
-def _splits(R: int, K: int, N: int, bits: int) -> int:
+def _splits(R: int, K: int, N: int, bits: int,
+            block_rows: int = _BLOCK_ROWS, step_k: int | None = None) -> int:
     """Slices of K across blocks: enough that about `_TARGET_BLOCKS` blocks
-    run, each slice at least `_MIN_SPLIT_STEPS` steps, the fp32 partial
-    sums (written and read once more) at most a quarter of the weight
-    bytes, no empty slice."""
-    steps = _steps(K, bits)
-    blocks = -(-R // _BLOCK_ROWS) * -(-N // _BLOCK_COLS)
+    run, each slice at least `_MIN_SPLIT_STEPS` steps, the partial sums
+    (written and read once more) at most a quarter of the weight bytes, no
+    empty slice.  `block_rows` and `step_k` (default: the format's K step)
+    describe another kernel's blocks over the same weight."""
+    steps = _steps(K, bits) if step_k is None else -(-K // step_k)
+    blocks = -(-R // block_rows) * -(-N // _BLOCK_COLS)
     weight_bytes = K * N // (2 if bits == 4 else 1)
     s = max(1, min(-(-_TARGET_BLOCKS // blocks), steps // _MIN_SPLIT_STEPS,
                    weight_bytes // (16 * R * N)))

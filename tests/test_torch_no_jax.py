@@ -27,6 +27,8 @@ MODULES = [
     "prot2text_tpu_torch.kernels.cache_update",
     "prot2text_tpu_torch.kernels.decode_attention",
     "prot2text_tpu_torch.kernels.flash_attention",
+    "prot2text_tpu_torch.kernels.probe_int8_kv",
+    "prot2text_tpu_torch.kernels.probe_quant_matmul",
     "prot2text_tpu_torch.kernels.quant_matmul",
     "prot2text_tpu_torch.models",
     "prot2text_tpu_torch.models.adapters",
@@ -58,6 +60,14 @@ MODULES = [
     "prot2text_tpu_torch.cli.train_contrast",
     "prot2text_tpu_torch.cli.train_instruct",
     "prot2text_tpu_torch.cli.train_legacy",
+    "prot2text_tpu_torch.scripts",
+    "prot2text_tpu_torch.scripts._timing",
+    "prot2text_tpu_torch.scripts.bench_int4_planes",
+    "prot2text_tpu_torch.scripts.bench_int4_single",
+    "prot2text_tpu_torch.scripts.bench_int4_unpack",
+    "prot2text_tpu_torch.scripts.bench_int8_mxu",
+    "prot2text_tpu_torch.scripts.bench_lmhead3",
+    "prot2text_tpu_torch.scripts.probe_int8_kv",
     "chip_smoke",
 ]
 

@@ -1,0 +1,231 @@
+"""K15h-K15l, the int8 KV-cache probes: the plain versions of K15h, K15i and
+K15k held against the JAX probe's own kernel bodies run by `pallas_call` in
+interpret mode on the same seeded numpy inputs (K15h and K15i bit for bit,
+K15k at the probe's rtol 1e-2, with a floor of 1e-2 · max|logit| for the
+logits near zero, where only the order of the fp32 sums differs); K15j
+and K15l against the semantics the
+probes assert, over the whole buffer (only the slot's row or column
+changes).  The JAX probes p3 and p5 cannot pass as written: with one
+scalar-prefetch operand they alias operand 1 (`kn`, `sn`) to the output,
+not the cache (operand 2), and JAX refuses the alias before running; with
+the cache aliased they pass.  The wrappers run the plain versions on CPU
+tensors without counting a launch; on the card each kernel against its
+plain version.
+
+The probe script runs nothing at import, but is loaded the way the other
+probes are (`ast`), so that no test depends on a script's import-time
+code."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from prot2text_tpu_torch.kernels import launch_counts
+from prot2text_tpu_torch.kernels import probe_int8_kv as pk
+
+SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "probe_int8_kv.py"
+Hkv, T, D = 8, 192, 128
+
+
+def _probe_ns(fix_aliases: bool = False) -> dict:
+    """The probe script's imports and functions, executed; fix_aliases
+    aliases the cache (operand 2) instead of operand 1."""
+    tree = ast.parse(SCRIPT.read_text())
+    keep = [n for n in tree.body
+            if isinstance(n, (ast.Import, ast.ImportFrom, ast.FunctionDef))
+            or (isinstance(n, ast.Assign) and ast.unparse(n).startswith(
+                "Hkv, T, D"))]
+    module = ast.Module(body=keep, type_ignores=[])
+    if fix_aliases:
+        for node in ast.walk(module):
+            if (isinstance(node, ast.keyword)
+                    and node.arg == "input_output_aliases"):
+                node.value = ast.parse("{2: 0}", mode="eval").body
+    ns = {}
+    exec(compile(module, str(SCRIPT), "exec"), ns)
+    return ns
+
+
+def _kernel_body(probe: str):
+    """The inner `kernel` of one of the probe's functions, as a function."""
+    tree = ast.parse(SCRIPT.read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == probe)
+    body = next(n for n in fn.body
+                if isinstance(n, ast.FunctionDef) and n.name == "kernel")
+    import jax
+    import jax.numpy as jnp
+
+    ns = {"jax": jax, "jnp": jnp, "Hkv": Hkv, "T": T, "D": D}
+    exec(compile(ast.Module(body=[body], type_ignores=[]), str(SCRIPT),
+                 "exec"), ns)
+    return ns["kernel"]
+
+
+def _interpret(kernel, out_shape, *args):
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(pl.pallas_call(kernel, out_shape=out_shape)(*args))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def test_k15h_plain_matches_jax_kernel():
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((T, D)) * 12).astype(np.float32)
+    x[0, :8] = [0.125, 0.375, -0.125, -0.375, 31.875, -31.875, 40.0, -40.0]
+    want = _interpret(_kernel_body("p1_f32_to_int8_store"),
+                      jax.ShapeDtypeStruct((T, D), jnp.int8), x)
+    got = pk.f32_to_int8_store_plain(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k15i_plain_matches_jax_kernel():
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(2)
+    a = rng.integers(-128, 128, (T, D)).astype(np.int8)
+    b = rng.integers(-128, 128, (T, D)).astype(np.int8)
+    want = _interpret(_kernel_body("p2_int8_select"),
+                      jax.ShapeDtypeStruct((T, D), jnp.int8), a, b)
+    got = pk.int8_select_plain(torch.from_numpy(a), torch.from_numpy(b), 7)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k15k_plain_matches_jax_kernel():
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((8, D)).astype(
+        np.float32)).bfloat16()
+    c = rng.integers(-128, 128, (T, D)).astype(np.int8)
+    s = rng.uniform(0.01, 1.0, (1, T)).astype(np.float32)
+    want = _interpret(_kernel_body("p4_int8_to_bf16_matmul"),
+                      jax.ShapeDtypeStruct((8, T), jnp.float32),
+                      jnp.asarray(q.float().numpy(), jnp.bfloat16), c, s)
+    got = pk.int8_to_bf16_matmul_plain(q, torch.from_numpy(c),
+                                       torch.from_numpy(s))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-2,
+                               atol=1e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("probe", ["p1_f32_to_int8_store", "p2_int8_select",
+                                   "p4_int8_to_bf16_matmul"])
+def test_jax_probes_pass_in_interpret_mode(probe):
+    from jax.experimental.pallas import tpu as pltpu
+
+    fn = _probe_ns()[probe]
+    with pltpu.force_tpu_interpret_mode():
+        fn()                              # the probe asserts its own result
+
+
+@pytest.mark.parametrize("probe", ["p3_dynamic_int8_group_rmw",
+                                   "p5_f32_scale_row_rmw"])
+def test_jax_probes_p3_p5_alias_the_wrong_operand(probe):
+    """The reference fault: operand 1 is `kn`/`sn`, not the cache, so JAX
+    refuses the alias; aliasing the cache (operand 2), the probe passes."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        with pytest.raises(ValueError, match="input_output_aliases"):
+            _probe_ns()[probe]()
+        _probe_ns(fix_aliases=True)[probe]()
+
+
+def test_k15j_plain_writes_only_the_slot_row():
+    rng = np.random.default_rng(4)
+    cache = torch.from_numpy(rng.integers(-128, 128, (2, Hkv, T, D)).astype(
+        np.int8))
+    kn = torch.from_numpy(rng.integers(-128, 128, (2, Hkv, D)).astype(
+        np.int8))
+    want = cache.numpy().copy()
+    want[:, :, 77] = kn.numpy()
+    got = pk.int8_group_rmw_plain(cache, kn,
+                                  torch.tensor([77], dtype=torch.int32))
+    assert got is cache
+    np.testing.assert_array_equal(got.numpy(), want)
+    before = cache.clone()
+    pk.int8_group_rmw_plain(cache, kn, torch.tensor([T], dtype=torch.int32))
+    assert torch.equal(cache, before), "a slot past T must write nothing"
+
+
+def test_k15l_plain_writes_only_the_slot_column():
+    s = torch.full((1, Hkv, T), 0.25)
+    sn = torch.arange(Hkv, dtype=torch.float32).reshape(Hkv, 1) + 9
+    got = pk.f32_scale_row_rmw_plain(s, sn,
+                                     torch.tensor([77], dtype=torch.int32))
+    want = np.full((1, Hkv, T), 0.25, np.float32)
+    want[0, :, 77] = np.arange(Hkv) + 9
+    assert got is s
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrappers_run_plain_on_cpu_and_count_nothing():
+    before = launch_counts()
+    x = torch.linspace(-20, 20, T * D).reshape(T, D)
+    assert torch.equal(pk.f32_to_int8_store(x),
+                       pk.f32_to_int8_store_plain(x))
+    a = torch.full((T, D), 3, dtype=torch.int8)
+    b = torch.full((T, D), -5, dtype=torch.int8)
+    assert torch.equal(pk.int8_select(a, b), pk.int8_select_plain(a, b))
+    slot = torch.tensor([77], dtype=torch.int32)
+    cache = torch.full((1, Hkv, T, D), -1, dtype=torch.int8)
+    pk.int8_group_rmw(cache, torch.full((Hkv, D), 42, dtype=torch.int8),
+                      slot)
+    assert int(cache[0, 3, 77, 5]) == 42 and int(cache[0, 3, 76, 5]) == -1
+    q = torch.ones((8, D), dtype=torch.bfloat16)
+    s = torch.full((1, T), 0.5)
+    assert torch.equal(pk.int8_to_bf16_matmul(q, a, s),
+                       pk.int8_to_bf16_matmul_plain(q, a, s))
+    sr = torch.full((1, Hkv, T), 0.25)
+    pk.f32_scale_row_rmw(sr, torch.full((Hkv, 1), 9.0), slot)
+    assert float(sr[0, 0, 77]) == 9.0 and float(sr[0, 0, 76]) == 0.25
+    assert launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_cuda(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def ints(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=cuda,
+                             dtype=torch.int8)
+
+    x = torch.randn((T, D), generator=g, device=cuda) * 12
+    assert torch.equal(pk.f32_to_int8_store(x),
+                       pk.f32_to_int8_store_plain(x))
+    a, b = ints(T, D), ints(T, D)
+    for row in (0, 7, T - 1, T):
+        assert torch.equal(pk.int8_select(a, b, row),
+                           pk.int8_select_plain(a, b, row))
+    for slot in (0, 77, T - 1, T):
+        idx = torch.tensor([slot], dtype=torch.int32, device=cuda)
+        cache, kn = ints(2, Hkv, T, D), ints(2, Hkv, D)
+        want = pk.int8_group_rmw_plain(cache.clone(), kn, idx)
+        assert torch.equal(pk.int8_group_rmw(cache, kn, idx), want)
+        s = torch.rand((2, Hkv, T), generator=g, device=cuda)
+        sn = torch.rand((2, Hkv), generator=g, device=cuda)
+        want = pk.f32_scale_row_rmw_plain(s.clone(), sn, idx)
+        assert torch.equal(pk.f32_scale_row_rmw(s, sn, idx), want)
+    q = torch.randn((8, D), generator=g, device=cuda).to(torch.bfloat16)
+    s = torch.rand((1, T), generator=g, device=cuda)
+    got = pk.int8_to_bf16_matmul(q, a, s)
+    want = pk.int8_to_bf16_matmul_plain(q, a, s)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    with pytest.raises(ValueError, match="slot"):
+        pk.int8_group_rmw(cache, kn, torch.tensor([1], device=cuda))

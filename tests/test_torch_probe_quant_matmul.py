@@ -1,0 +1,323 @@
+"""K15a-K15g, the probe scripts' quantized matmuls: the plain versions held
+against the JAX probe kernels in interpret mode on the same seeded numpy
+inputs (K15a-e within 1e-2 of max|y|: the probes write bf16; K15f exact;
+K15g within 1e-5 of max|y|), the native int4 packer against the integers,
+the unpacks of K15b/K15e against `unpack_int4`, plain K15d against plain
+K10 bit for bit; the wrappers run the plain version on CPU tensors without
+counting a launch; the CUDA kernels against the plain versions on the card
+(bf16 out 2e-2 · max|plain|, K15f exact, K15g 1e-5 · max|plain|).
+
+The probe scripts are not imported: several run their benchmark and point
+JAX's compilation cache at a shared directory when imported.  Their named
+functions and imports are taken from the source with `ast` and executed
+(`load_probe`)."""
+
+import ast
+from functools import partial
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from prot2text_tpu_torch.kernels import launch_counts
+from prot2text_tpu_torch.kernels import probe_quant_matmul as pq
+from prot2text_tpu_torch.kernels import quant_matmul as qm
+
+SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
+
+
+def load_probe(script: str, names, **consts) -> dict:
+    """The imports (but the JAX package's) and the named top-level defs of
+    scripts/<script>, executed in a namespace holding `consts`."""
+    tree = ast.parse((SCRIPTS / script).read_text())
+    keep = [n for n in tree.body
+            if isinstance(n, ast.Import) or (
+                isinstance(n, ast.ImportFrom)
+                and not (n.module or "").startswith("prot2text_tpu"))]
+    keep += [n for n in tree.body
+             if isinstance(n, ast.FunctionDef) and n.name in names]
+    assert len(keep) > len(names)
+    ns = dict(consts)
+    exec(compile(ast.Module(body=keep, type_ignores=[]), script, "exec"), ns)
+    return ns
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _x(rng, R, K):
+    """bf16-representable f32 activations."""
+    x = rng.standard_normal((R, K)).astype(np.float32)
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+R, K, N = 8, 256, 256
+
+
+def _case(kid, rng):
+    """(JAX probe call in interpret mode, the port's plain call, tolerance
+    relative to max|y|, None for exact)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    x = _x(rng, R, K)
+    s = rng.uniform(0.002, 0.03, (1, N)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt, st = torch.from_numpy(x), torch.from_numpy(s)
+    if kid == "K15a":
+        q = rng.integers(-128, 128, (K, N)).astype(np.int8)
+        ns = load_probe("bench_lmhead3.py", ("_chunk_kernel", "chunk_mm"))
+        jax_call = partial(ns["chunk_mm"], xj, jnp.asarray(q),
+                           jnp.asarray(s), bn=128, bk=128, bc=64)
+        port = partial(pq.chunk_mm_plain, xt, torch.from_numpy(q), st)
+    elif kid in ("K15b", "K15e"):
+        wp = rng.integers(-128, 128, (K // 2, N)).astype(np.int8)
+        script, names, plain = {
+            "K15b": ("bench_int4_unpack.py", ("_mm_i4f_kernel", "mm_i4f"),
+                     pq.mm_i4f_plain),
+            "K15e": ("bench_int4_single.py",
+                     ("_mm_i4and_kernel", "mm_i4and"), pq.mm_i4and_plain),
+        }[kid]
+        ns = load_probe(script, names)
+        jax_call = partial(ns[names[1]], xj, jnp.asarray(wp), jnp.asarray(s),
+                           bk=64, bn=128)
+        port = partial(plain, xt, torch.from_numpy(wp), st)
+    elif kid == "K15c":
+        q = rng.integers(-8, 8, (K, N)).astype(np.int8)
+        ns = load_probe("bench_int4_unpack.py", ("_mm_i4n_kernel", "mm_i4n"))
+        jax_call = partial(ns["mm_i4n"], xj, jnp.asarray(q).astype(jnp.int4),
+                           jnp.asarray(s), bk=128, bn=128)
+        port = partial(pq.mm_i4n_plain, xt,
+                       pq.pack_int4_native(torch.from_numpy(q)), st)
+    elif kid == "K15d":
+        q = rng.integers(-8, 8, (K, N)).astype(np.int8)
+        ns = load_probe("bench_int4_planes.py",
+                        ("pack_int4_planes", "_mm_i4p_kernel", "mm_i4p"))
+        jax_call = partial(ns["mm_i4p"], xj,
+                           ns["pack_int4_planes"](jnp.asarray(q)),
+                           jnp.asarray(s), bk8=16, bn=128)
+        port = partial(pq.mm_i4p_plain, xt,
+                       qm.pack_int4_planes(torch.from_numpy(q)), st)
+    elif kid == "K15f":
+        w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+        x8 = rng.integers(-128, 128, (R, K)).astype(np.int8)
+        ns = load_probe("bench_int8_mxu.py", ("_i8_kernel", "mm_i8i8"), R=R)
+        jax_call = partial(ns["mm_i8i8"], jnp.asarray(x8), jnp.asarray(w),
+                           bk=128, bn=128)
+        port = partial(pq.mm_i8i8_plain, torch.from_numpy(x8),
+                       torch.from_numpy(w))
+    else:
+        w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+        ns = load_probe("bench_int8_mxu.py", ("_mix_kernel", "mm_mix"), R=R)
+        jax_call = partial(ns["mm_mix"], xj, jnp.asarray(w), bk=128, bn=128)
+        port = partial(pq.mm_mix_plain, xt, torch.from_numpy(w))
+
+    def run_jax():
+        with pltpu.force_tpu_interpret_mode():
+            return np.asarray(jax_call(), np.float64)
+
+    tol = {"K15f": None, "K15g": 1e-5}.get(kid, 1e-2)
+    return run_jax, port, tol
+
+
+@pytest.mark.parametrize("kid", ["K15a", "K15b", "K15c", "K15d", "K15e",
+                                 "K15f", "K15g"])
+def test_plain_matches_jax_probe_kernel(kid):
+    run_jax, port, tol = _case(kid, np.random.default_rng(ord(kid[-1])))
+    want = run_jax()
+    got = port()
+    assert tuple(got.shape) == want.shape
+    got = got.double().numpy()
+    if tol is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        top = np.abs(want).max()
+        assert np.abs(got - want).max() <= tol * top, (
+            np.abs(got - want).max(), top)
+
+
+@pytest.mark.parametrize("shape", [(16, 24), (3, 64, 40), (2, 2, 8, 8)])
+def test_native_int4_pack_round_trip(shape):
+    rng = np.random.default_rng(len(shape))
+    q = rng.integers(-8, 8, shape).astype(np.int8)
+    packed = pq.pack_int4_native(torch.from_numpy(q))
+    assert packed.dtype == torch.int8
+    assert tuple(packed.shape) == shape[:-2] + (shape[-2] // 2, shape[-1])
+    p = packed.numpy().astype(np.int32)
+    # byte [i, n]: row 2i in the low nibble, row 2i + 1 in the high one
+    np.testing.assert_array_equal(p & 0xF, q[..., 0::2, :] & 0xF)
+    np.testing.assert_array_equal((p >> 4) & 0xF, q[..., 1::2, :] & 0xF)
+    np.testing.assert_array_equal(pq.unpack_int4_native(packed).numpy(), q)
+    with pytest.raises(ValueError, match="even K"):
+        pq.pack_int4_native(torch.zeros(3, 4, dtype=torch.int8))
+
+
+def test_k15b_k15e_unpacks_equal_the_split_half_integers():
+    """Every byte value: the f32-floor and AND unpacks give the integers
+    `unpack_int4` gives (low nibbles, then high nibbles)."""
+    wp = torch.arange(-128, 128, dtype=torch.int8).reshape(64, 4)
+    want = qm.unpack_int4(wp).float()
+    assert torch.equal(pq.unpack_int4_floor(wp), want)
+    assert torch.equal(pq.unpack_int4_and(wp), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k15d_plain_bit_identical_to_k10_plain(dtype):
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.integers(-8, 8, (128, 96)).astype(np.int8))
+    wp = qm.pack_int4_planes(q)
+    s = torch.from_numpy(rng.uniform(0.002, 0.03, (1, 96)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((5, 128)).astype(
+        np.float32)).to(dtype)
+    assert torch.equal(pq.mm_i4p_plain(x, wp, s),
+                       qm.quant_matmul_int4_planes_plain(x, wp, s).to(
+                           torch.bfloat16))
+
+
+def test_k15f_plain_exact_at_the_extremes():
+    x = torch.full((3, 4096), -128, dtype=torch.int8)
+    w = torch.full((4096, 8), -128, dtype=torch.int8)
+    y = pq.mm_i8i8_plain(x, w)
+    assert y.dtype == torch.int32
+    assert int(y.min()) == int(y.max()) == 128 * 128 * 4096
+
+
+def test_plane_splits():
+    assert pq.plane_splits(4096, 64, 16, 14336) == 8
+    assert pq.plane_splits(14336, 512, 16, 4096) == 4
+    assert pq.plane_splits(4096, None, 16, 14336) == qm._splits(
+        16, 4096, 14336, 4)
+    with pytest.raises(ValueError, match="split_k8"):
+        pq.plane_splits(4096, 6, 16, 14336)
+
+
+def test_wrappers_run_plain_on_cpu_and_count_nothing():
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_x(rng, 4, 64)).bfloat16()
+    q = torch.from_numpy(rng.integers(-8, 8, (64, 32)).astype(np.int8))
+    s = torch.full((1, 32), 0.01)
+    before = launch_counts()
+    wb = qm.pack_int4(q)
+    for kern, plain, w, kw in (
+            (pq.chunk_mm, pq.chunk_mm_plain, q, {"bc": 64}),
+            (pq.mm_i4f, pq.mm_i4f_plain, wb, {}),
+            (pq.mm_i4n, pq.mm_i4n_plain, pq.pack_int4_native(q), {}),
+            (pq.mm_i4p, pq.mm_i4p_plain, qm.pack_int4_planes(q),
+             {"block_cols": 256, "split_k8": 4}),
+            (pq.mm_i4and, pq.mm_i4and_plain, wb, {})):
+        assert torch.equal(kern(x, w, s, **kw), plain(x, w, s))
+    assert torch.equal(pq.mm_mix(x, q), pq.mm_mix_plain(x, q))
+    assert torch.equal(pq.mm_i8i8(q[:, :4].t().contiguous(), q),
+                       pq.mm_i8i8_plain(q[:, :4].t().contiguous(), q))
+    assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+
+
+def _cuda_operands(kid, R, K, N, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(shape, lo=-128, hi=128):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    if kid in ("K15b", "K15e"):
+        w = ints((K // 2, N))
+    elif kid == "K15c":
+        w = pq.pack_int4_native(ints((K, N), -8, 8))
+    elif kid == "K15d":
+        w = qm.pack_int4_planes(ints((K, N), -8, 8))
+    else:
+        w = ints((K, N))
+    x = (ints((R, K)) if kid == "K15f" else torch.randn(
+        (R, K), generator=g, device=dev).to(torch.bfloat16))
+    s = torch.rand((1, N), generator=g, device=dev) * 0.03 + 0.002
+    return x, w, s
+
+
+KERN = {"K15a": (pq.chunk_mm, pq.chunk_mm_plain),
+        "K15b": (pq.mm_i4f, pq.mm_i4f_plain),
+        "K15c": (pq.mm_i4n, pq.mm_i4n_plain),
+        "K15d": (pq.mm_i4p, pq.mm_i4p_plain),
+        "K15e": (pq.mm_i4and, pq.mm_i4and_plain),
+        "K15f": (pq.mm_i8i8, pq.mm_i8i8_plain),
+        "K15g": (pq.mm_mix, pq.mm_mix_plain)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kid", sorted(KERN))
+@pytest.mark.parametrize("R,K,N", [(1, 64, 24), (16, 512, 1028),
+                                   (40, 1024, 256), (128, 2048, 640),
+                                   (200, 256, 128)])
+def test_kernel_matches_plain_on_cuda(cuda, kid, R, K, N):
+    """Ragged N (a multiple of 4, not of a block), R 1 to 200 (K15f/K15g:
+    one or two 128-row blocks), split and unsplit K."""
+    x, w, s = _cuda_operands(kid, R, K, N, cuda, R * K + N)
+    kern, plain = KERN[kid]
+    args = (x, w) if kid in ("K15f", "K15g") else (x, w, s)
+    n0 = kern.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    want = plain(*args)
+    if kid == "K15f":
+        assert torch.equal(got, want)
+        return
+    top = want.float().abs().max().item()
+    rel = 1e-5 if kid == "K15g" else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= rel * top
+    assert torch.equal(kern(*args), got), "the split sum is not repeatable"
+
+
+@pytest.mark.cuda
+def test_controls_bit_identical_on_cuda(cuda):
+    """K15a at bc 128 is K14, K15b/K15e are K11a, K15d at K10's tiling is
+    K10, bit for bit; K15a's other chunks and K15d's other tiles agree
+    with the plain version."""
+    x, q, s = _cuda_operands("K15a", 16, 4096, 2048, cuda, 1)
+    assert torch.equal(pq.chunk_mm(x, q, s, bc=128),
+                       qm.quant_matmul_int8(x, q, s))
+    want = pq.chunk_mm_plain(x, q, s).float()
+    for bc in pq.CHUNK_ROWS:
+        got = pq.chunk_mm(x, q, s, bc=bc).float()
+        assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    _, wb, _ = _cuda_operands("K15b", 16, 4096, 2048, cuda, 2)
+    ref = qm.quant_matmul_int4(x, wb, s)
+    assert torch.equal(pq.mm_i4f(x, wb, s), ref)
+    assert torch.equal(pq.mm_i4and(x, wb, s), ref)
+    _, wp, _ = _cuda_operands("K15d", 16, 4096, 2048, cuda, 3)
+    assert torch.equal(pq.mm_i4p(x, wp, s),
+                       qm.quant_matmul_int4_planes(x, wp, s))
+    want = pq.mm_i4p_plain(x, wp, s).float()
+    for cols in pq.PLANE_BLOCK_COLS:
+        for k8 in (None, 64, 512):
+            got = pq.mm_i4p(x, wp, s, block_cols=cols, split_k8=k8).float()
+            assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_bad_operands(cuda):
+    x = torch.zeros((2, 64), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((64, 16), dtype=torch.int8, device=cuda)
+    s = torch.ones((1, 16), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pq.chunk_mm(x.float(), w, s)
+    with pytest.raises(ValueError, match="bc"):
+        pq.chunk_mm(x, w, s, bc=48)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pq.chunk_mm(x, w[:, :14].contiguous(), s[:, :14].contiguous())
+    with pytest.raises(ValueError, match="K=64, the weight 128"):
+        pq.mm_i4f(x, w, s)
+    with pytest.raises(ValueError, match="block_cols"):
+        pq.mm_i4p(x, torch.zeros((8, 16), dtype=torch.int32, device=cuda),
+                  s, block_cols=512)
+    with pytest.raises(TypeError, match="int8"):
+        pq.mm_i8i8(x, w)
