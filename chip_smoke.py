@@ -11,9 +11,10 @@ Phases (any failure raises and the script exits non-zero):
      Llama-3.2-1B's tbkd cache (K13 k and v in one launch, also against
      two K12 launches; no path calls K13), K4 decode attention + per-row
      slot write, K5 flash backward, K6 bias flash prefill, also at
-     ESMC-600M's training shapes, K6b its backward at ESMC-600M's SFT
-     shapes, K9a K4 over a shared prefix; on the int8 cache K7 decode + slot write, K9b K7 over an int8
-     prefix, K8 chunk verify + chunk write, K9c K8 over an int8 prefix;
+     ESMC-600M's training shapes (timed there too), K6b its backward at
+     ESMC-600M's SFT shapes, K9a K4 over a shared prefix; on the int8
+     cache K7 decode + slot write, K9b K7 over an int8 prefix, K8 chunk
+     verify + chunk write, K9c K8 over an int8 prefix;
      K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections,
      K11a/K11b the int4 split-half-byte and bf16-pair-word matmuls at its
      gate/up, down and head, also bit for bit against K10; K15a-K15g the
@@ -26,7 +27,9 @@ Phases (any failure raises and the script exits non-zero):
      the bound (the larger of the bytes at the HBM rate and the operations
      at the bf16 peak) and, where one PyTorch call computes the same
      function, that call's time on operands built outside the timed region
-     (the port never calls it);
+     (the port never calls it); K1 and K6 also print their device time
+     and SDPA's from CUDA graphs, their useful TFLOP/s and share of the
+     bound on that time, and their ratio to SDPA, eager and on the device;
   3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
@@ -187,6 +190,29 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def speed(torch, fn, lib_fn, ms: float, lib_ms: float, bd: dict) -> dict:
+    """What a kernel call achieved beside its library call: both calls'
+    device times from CUDA graphs (the eager times `ms` and `lib_ms` also
+    hold the host's launch path), the useful operations per second and the
+    share of the bound on the device time (the bound's count: this data's
+    unmasked pairs), and the kernel's time over the library call's, eager
+    and on the device."""
+    dev_ms, lib_dev_ms = graph_ms(torch, fn), graph_ms(torch, lib_fn)
+    return dict(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                useful_tflops=bd["flops"] / dev_ms / 1e9,
+                bound_share=bd["bound_ms"] / dev_ms, x_library=ms / lib_ms,
+                x_library_device=dev_ms / lib_dev_ms)
+
+
+def speed_text(sp: dict) -> str:
+    return (f"device {sp['device_ms']:.4f} ms (SDPA "
+            f"{sp['library_device_ms']:.4f}), "
+            f"{sp['useful_tflops']:.1f} useful TFLOP/s, "
+            f"{sp['bound_share']:.1%} of the bound, "
+            f"{sp['x_library']:.2f}x SDPA eager, "
+            f"{sp['x_library_device']:.2f}x on the device")
+
+
 def causal_run_pairs(torch, kv_start, kv_len, S: int) -> int:
     """(query, key) pairs a causal masked-run attention computes: query i
     of row b sees keys j in [kv_start[b], kv_start[b] + kv_len[b]), j <= i."""
@@ -218,13 +244,17 @@ def expect(**nonzero) -> dict:
     return {k: nonzero.get(k, 0) for k in KERNELS}
 
 
-def sdpa_ms(torch, q, k, v, mask) -> float:
+def sdpa_call(torch, q, k, v, mask):
     """The library yardstick: one `F.scaled_dot_product_attention` call
     (q pre-scaled, grouped-query heads) on operands built beforehand."""
     import torch.nn.functional as F
 
-    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True))
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+
+def sdpa_ms(torch, q, k, v, mask) -> float:
+    return cuda_ms(torch, sdpa_call(torch, q, k, v, mask))
 
 
 def decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, li, pk=None,
@@ -295,20 +325,26 @@ def check_kernels(torch, dev, card):
     empty_lse = torch.tensor(-1e30, dtype=torch.float32).item()
     require(o[3].abs().max().item() == 0.0, "empty row must give o = 0")
     require(lse[3].max().item() == empty_lse, "empty row must give lse -1e30")
-    ms = cuda_ms(torch, lambda: flash_attention_masked_fwd(
-        q, k, v, kv_start, kv_len, causal=True))
+    def k1():
+        return flash_attention_masked_fwd(q, k, v, kv_start, kv_len,
+                                          causal=True)
+
+    ms = cuda_ms(torch, k1)
     plain_ms = cuda_ms(torch, lambda: flash_attention_masked_plain(
         q, k, v, kv_start, kv_len, causal=True))
-    lib_ms = sdpa_ms(torch, q, k, v, run_mask(torch, kv_start, kv_len, S))
+    lib = sdpa_call(torch, q, k, v, run_mask(torch, kv_start, kv_len, S))
+    lib_ms = cuda_ms(torch, lib)
     bd = bound(4.0 * D * H * causal_run_pairs(torch, kv_start, kv_len, S),
                nbytes(q, k, v, o, lse, kv_start, kv_len))
+    sp = speed(torch, k1, lib, ms, lib_ms, bd)
     log(f"K1 flash prefill B={B} H={H} Hkv={Hkv} S={S} D={D} bf16: "
         f"max|o-plain|={err_o:.3e} (atol/rtol 2e-2) "
         f"max|lse-plain|={err_lse:.3e} (atol 1e-3); kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, SDPA (boolean run mask) {lib_ms:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+        f"{speed_text(sp)} [{card}]")
     rows["K1"] = dict(max_abs_err=err_o, lse_max_abs_err=err_lse, ms=ms,
-                      plain_ms=plain_ms, library_ms=lib_ms, **bd)
+                      plain_ms=plain_ms, library_ms=lib_ms, **bd, **sp)
 
     # K2: decode attention over the 8B cache at T = 1024 + 256
     L, B, Hkv, rep, T, D = 32, 4, 8, 4, 1280, 128
@@ -648,21 +684,45 @@ def check_serve_kernels(torch, dev, card):
     err_lse = (lse - lse_ref).abs().max().item()
     torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0.0)
-    ms = cuda_ms(torch, lambda: flash_attention_bias_fwd(q, k, v, bias))
+    # rows whose bias is finfo(f32).min everywhere (a whole q tile of row 7,
+    # one row of row 3): o = 0 and lse = -1e30 exactly, as the plain
+    # version and the TPU kernel give
+    dead = bias.clone()
+    dead[7, :, :64] = torch.finfo(torch.float32).min
+    dead[3, :, 100] = torch.finfo(torch.float32).min
+    o_d, lse_d = flash_attention_bias_fwd(q, k, v, dead)
+    torch.cuda.synchronize()
+    empty_lse = torch.tensor(-1e30, dtype=torch.float32).item()
+    require(o_d[7, :, :64].abs().max().item() == 0.0
+            and o_d[3, :, 100].abs().max().item() == 0.0,
+            "K6: fully masked rows must give o = 0")
+    require(bool((lse_d[7, :, :64] == empty_lse).all())
+            and bool((lse_d[3, :, 100] == empty_lse).all()),
+            "K6: fully masked rows must give lse = -1e30")
+    del dead, o_d, lse_d
+
+    def k6():
+        return flash_attention_bias_fwd(q, k, v, bias)
+
+    ms = cuda_ms(torch, k6)
     plain_ms = cuda_ms(torch, lambda: flash_attention_bias_plain(q, k, v,
                                                                  bias))
     # SDPA takes a float mask in the query's dtype: cast before timing
-    lib_ms = sdpa_ms(torch, q, k, v, bias.to(q.dtype))
+    lib = sdpa_call(torch, q, k, v, bias.to(q.dtype))
+    lib_ms = cuda_ms(torch, lib)
     pairs = int((bias > -1e30).sum()) * H            # unmasked (q, k) pairs
     bd = bound(4.0 * D * pairs, nbytes(q, k, v, bias, o, lse))
+    sp = speed(torch, k6, lib, ms, lib_ms, bd)
     log(f"K6 bias flash prefill R={R} H={H} Hkv={Hkv} Sq={Sq} Skv={Pc + Sq} "
-        f"D={D} bf16, bias (R,1,Sq,Skv), left-padded rows: "
+        f"D={D} bf16, bias (R,1,Sq,Skv), left-padded rows (fully masked "
+        f"rows: o = 0, lse = -1e30 exactly): "
         f"max|o-plain|={err:.3e} (atol/rtol 2e-2) max|lse-plain|="
         f"{err_lse:.3e} (atol 1e-3); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, SDPA (additive bias) {lib_ms:.4f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer [{card}]")
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer; "
+        f"{speed_text(sp)} [{card}]")
     rows["K6"] = dict(max_abs_err=err, lse_max_abs_err=err_lse, ms=ms,
-                      plain_ms=plain_ms, library_ms=lib_ms, **bd)
+                      plain_ms=plain_ms, library_ms=lib_ms, **bd, **sp)
     return rows
 
 
@@ -673,10 +733,11 @@ def check_bias_bwd_kernel(torch, dev, card):
     key-padding bias of ragged valid runs.  K6's o and lse at B 1 with S
     512 (the width of phase 4's proteins) and S 1024 (the largest protein
     bucket), and at the contrastive batch B 8, S 512 with a run per row,
-    at the gates of the serving check (o atol/rtol 2e-2, lse atol 1e-3).
-    K6b from K6's o and lse at the two B 1 shapes, per gradient
-    max|kernel - plain| <= 2e-2 * max|plain|, timed at S 512.  Returns
-    the K6b row and K6's worst max|o - plain| here."""
+    at the gates of the serving check (o atol/rtol 2e-2, lse atol 1e-3),
+    each timed beside SDPA on the same operands.  K6b from K6's o and lse
+    at the two B 1 shapes, per gradient max|kernel - plain| <= 2e-2 *
+    max|plain|, timed at S 512.  Returns the K6b row, K6's worst
+    max|o - plain| here and K6's timings at these shapes."""
     from prot2text_tpu_torch.kernels.flash_attention import (
         flash_attention_bias_bwd, flash_attention_bias_bwd_plain,
         flash_attention_bias_fwd, flash_attention_bias_plain,
@@ -685,7 +746,7 @@ def check_bias_bwd_kernel(torch, dev, card):
     g = torch.Generator(device=dev).manual_seed(6161)
     bf16 = torch.bfloat16
     H, D = 18, 64
-    errs, row, fwd_errs = [], None, []
+    errs, row, fwd_errs, fwd_times = [], None, [], []
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
@@ -708,9 +769,25 @@ def check_bias_bwd_kernel(torch, dev, card):
         torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
         torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0.0)
         fwd_errs.append(err)
+        def k6():
+            return flash_attention_bias_fwd(q, k, v, bias)
+
+        ms = cuda_ms(torch, k6)
+        lib = sdpa_call(torch, q, k, v, bias.to(bf16))
+        lib_ms = cuda_ms(torch, lib)
+        # unmasked pairs: valid keys of each batch row x Sq query rows x H
+        pairs = int((bias > -1e30).sum()) * q.shape[2] * H
+        bd = bound(4.0 * D * pairs, nbytes(q, k, v, bias, o, lse))
+        sp = speed(torch, k6, lib, ms, lib_ms, bd)
+        fwd_times.append(dict(shape=what, ms=ms, library_ms=lib_ms,
+                              bound_ms=bd["bound_ms"],
+                              bound_by=bd["bound_by"], **sp))
         log(f"K6 bias flash forward {what} H={H} D={D} bf16, key-padding "
             f"bias (B,1,1,S): max|o-plain|={err:.3e} (atol/rtol 2e-2) "
-            f"max|lse-plain|={err_lse:.3e} (atol 1e-3)")
+            f"max|lse-plain|={err_lse:.3e} (atol 1e-3); kernel {ms:.4f} ms, "
+            f"SDPA (additive bias) {lib_ms:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); {speed_text(sp)} "
+            f"[{card}]")
         return o, lse
 
     # the contrastive batch: 8 rows of ragged protein lengths in bucket 512
@@ -768,7 +845,8 @@ def check_bias_bwd_kernel(torch, dev, card):
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
         log(msg + f" [{card}]")
         del q, k, v, do, o, lse, got, want
-    return {"K6b": dict(max_abs_err=max(errs), **row)}, max(fwd_errs)
+    return ({"K6b": dict(max_abs_err=max(errs), **row)}, max(fwd_errs),
+            fwd_times)
 
 
 def check_int8_kernels(torch, dev, card):
@@ -1484,7 +1562,11 @@ def legacy_batch(torch, dev, records, mode: str, buckets: dict):
             for k in keys}
 
 
-LEGACY_FAMILIES = (("K1", "flash_masked_fwd"), ("K12", "slab_write"))
+# kernel-name patterns of the profiled breakdowns: K1's and K6's bf16
+# forwards are the one tensor-core body's instances by mask policy, their
+# f32 forwards the SIMT kernels
+K1_FWD, K6_FWD = r"flash_masked_fwd|RunMask", r"flash_bias_fwd|BiasMask"
+LEGACY_FAMILIES = (("K1", K1_FWD), ("K12", "slab_write"))
 
 
 def run_legacy_generation(torch, dev, card):
@@ -1770,9 +1852,9 @@ def train_records(n: int, lengths, seed: int):
              "function": FUNCTIONS[i % len(FUNCTIONS)]} for i in range(n)]
 
 
-TRAIN_FAMILIES = (("K1", "flash_masked_fwd"), ("K5", "flash_masked_bwd"),
-                  ("K6", "flash_bias_fwd"), ("K6b", "flash_bias_bwd"))
-SERVE_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"),
+TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", "flash_masked_bwd"),
+                  ("K6", K6_FWD), ("K6b", "flash_bias_bwd"))
+SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
                   ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
                   ("K4/K9a", "decode_attention_write"),
                   ("K10/K14", "quant_m"))
@@ -1781,8 +1863,8 @@ SERVE_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"),
 def kernel_breakdown(torch, prof, wall_s: float,
                      families=TRAIN_FAMILIES) -> str:
     """Device time of a profiled window by kernel family (the port's kernels
-    by name, cuBLAS GEMMs, the rest), from the CUDA kernel events of
-    `torch.profiler`, and the host's CUDA API calls (launches,
+    by a name pattern each, cuBLAS GEMMs, the rest), from the CUDA kernel
+    events of `torch.profiler`, and the host's CUDA API calls (launches,
     synchronisations, copies) that pace it."""
     fam = {label: 0.0 for label, _ in families}
     fam.update(GEMM=0.0, rest=0.0)
@@ -1798,7 +1880,8 @@ def kernel_breakdown(torch, prof, wall_s: float,
             continue
         n_kernels += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        label = next((lb for lb, key in families if key in e.name), None)
+        label = next((lb for lb, key in families if re.search(key, e.name)),
+                     None)
         if label is None:
             label = ("GEMM" if re.search(r"gemm|xmma|nvjet|cutlass|cublas",
                                          e.name, re.I) else "rest")
@@ -2052,7 +2135,7 @@ def run_training_flash(torch, run, batches, gen, accum, stamp, card):
     return counts
 
 
-CONTRAST_FAMILIES = (("K1", "flash_masked_fwd"), ("K6", "flash_bias_fwd"))
+CONTRAST_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD))
 
 
 def run_contrast(torch, dev, card, models, stamp):
@@ -3127,6 +3210,11 @@ def run_probes(torch, dev, card):
     return counts
 
 
+# the extra keys of K1's and K6's rows in the kernels line
+SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
+              "bound_share", "x_library", "x_library_device", "other_shapes")
+
+
 def main() -> int:
     import torch
 
@@ -3162,10 +3250,12 @@ def main() -> int:
     rows = check_kernels(torch, dev, card)
     rows.update(check_tbkd_kernels(torch, dev, card))
     rows.update(check_serve_kernels(torch, dev, card))
-    bwd_rows, k6_err = check_bias_bwd_kernel(torch, dev, card)
+    bwd_rows, k6_err, k6_esmc = check_bias_bwd_kernel(torch, dev, card)
     rows.update(bwd_rows)
     # the K6 row keeps the worst error over its serving and training shapes
+    # and its times at the training shapes beside the serving shape's
     rows["K6"]["max_abs_err"] = max(rows["K6"]["max_abs_err"], k6_err)
+    rows["K6"]["other_shapes"] = k6_esmc
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(check_int8_kernels(torch, dev, card))
@@ -3245,7 +3335,8 @@ def main() -> int:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"], **entry})
+                    "library_ms": r["library_ms"], **entry,
+                    **{key: r[key] for key in SPEED_KEYS if key in r}})
     log(f"all phases passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {

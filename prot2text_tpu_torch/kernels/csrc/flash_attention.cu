@@ -4,25 +4,39 @@
 // Replaces prot2text_tpu/kernels/flash_attention.py flash_attention_masked,
 // forward (_fwd_masked_kernel / _flash_masked_fwd_impl).  Semantics kept:
 // the valid keys of batch row b are [kv_start[b], kv_start[b] + kv_len[b]),
-// optionally also causal on SEQUENCE index (col <= row); masked logits are
-// -1e30 and their weights are set to 0 explicitly (not by underflow), so a
-// row with no valid key gives o = 0 and lse = -1e30 + log(1); q arrives
-// pre-scaled; logits and the running max/sum are fp32; the weights are
-// rounded to the value dtype before P·V.  GQA: query head h reads kv head
-// h / (H / Hkv), so repeat_kv never materialises.  Any Sq/Skv: the ragged
-// edge tiles are zero-filled and masked here (the TPU path padded to 128).
+// optionally also causal on SEQUENCE index (col <= row); masked logits take
+// weight exactly 0 (not by underflow), so a row with no valid key gives o =
+// 0 and lse = -1e30 + log(1); q arrives pre-scaled; logits and the running
+// max/sum are fp32; the weights are rounded to the value dtype before P·V.
+// GQA: query head h reads kv head h / (H / Hkv), so repeat_kv never
+// materialises.  Any Sq/Skv: the ragged edge tiles are zero-filled and
+// masked here (the TPU path padded to 128).
 //
-// Bound: at the Llama-3.1-8B prefill (B=4, H=32, Hkv=8, S=1024, D=128) the
-// causal half is ~34 GFLOP per layer over ~50 MB of q/k/v: compute-bound.
-// This first version is deliberately simple: fp32 CUDA-core FMAs on tiles
-// staged in shared memory (no tensor cores, no TMA), one block per
-// (batch*head, 64-row q tile), 64-column K/V tiles walked with an online
-// softmax, and KV tiles outside the row's valid run or above the causal
-// diagonal skipped entirely.  Each thread owns a 4x4 score micro-tile and a
-// 4 x D/16 output micro-tile; K and Q are stored transposed (+1 padding) so
-// the inner loops read shared memory without bank conflicts.  wgmma + TMA
-// (and a pipelined producer warp) are the follow-up that makes it fast.
+// Bound: at the Llama-3.1-8B prefill (B=4, H=32, Hkv=8, S=1024, D=128,
+// ragged causal runs) the two limits lie close: 25 us for the bytes (84 MB
+// of q/k/v/o at 3.35 TB/s), 21 us for the products (21 GFLOP of unmasked
+// pairs at 989 TFLOP/s bf16).  Off the tensor cores the products alone
+// take 310 us (67 TFLOP/s fp32), so the bf16 body uses them.
+//
+// Two bodies, by dtype:
+//   - bf16 runs the tensor-core body of flash_attention_fwd.cuh with its
+//     run mask (`fwd::RunMask`): mma.sync bf16 products, S and P in
+//     registers, K/V staged in bf16 by cp.async, the tiles outside the
+//     row's run and above the causal diagonal skipped.  It needs every
+//     operand 16-byte aligned (base pointers and strides) and returns
+//     cudaErrorMisalignedAddress otherwise; it never falls back.
+//   - f32 runs the SIMT body below, unchanged since it was first written:
+//     fp32 CUDA-core FMAs on tiles staged in shared memory as fp32, so the
+//     f32 callers (the legacy arc's f32 training, the f32 plumbing checks
+//     at 1e-4) get full fp32 arithmetic, which TF32 tensor cores would not
+//     give.  One block per (batch*head, 64-row q tile), 64-column K/V
+//     tiles walked with an online softmax, tiles outside the row's run or
+//     above the causal diagonal skipped; each thread owns a 4x4 score
+//     micro-tile and a 4 x D/16 output micro-tile; K and Q are stored
+//     transposed (+1 padding) so the inner loops read shared memory without
+//     bank conflicts.
 #include "common.cuh"
+#include "flash_attention_fwd.cuh"
 
 namespace {
 
@@ -278,8 +292,14 @@ extern "C" int p2t_flash_masked_fwd(const void* q, const void* k,
   p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == p2t::kBFloat16)
-    return (int)dispatch_d<__nv_bfloat16>(D, p, B, s);
+  if (dtype == p2t::kBFloat16) {
+    fwd::Params f =
+        fwd::make_params(q, k, v, o, lse, strides, H, Hkv, Sq, Skv);
+    f.kv_start = p.kv_start;
+    f.kv_len = p.kv_len;
+    f.causal = causal;
+    return (int)fwd::run<fwd::RunMask>(D, f, B, s);
+  }
   if (dtype == p2t::kFloat32) return (int)dispatch_d<float>(D, p, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,17 +16,30 @@
 // tiles are zero-filled and their columns excluded from the softmax.
 //
 // Bound: at the serving prefix install (R=8, H=40, Hkv=8, Sq=512,
-// Skv=256+512, D=128) one layer is ~64 GFLOP over ~67 MB of q/k/v and
-// ~13 MB of bias: compute-bound.  This first version is K1's design,
-// deliberately simple: fp32 CUDA-core FMAs on tiles staged in shared
-// memory (no tensor cores, no TMA), one block per (batch*head, 64-row q
-// tile), 64-column K/V tiles walked with an online softmax; each thread
-// owns a 4x4 score micro-tile and a 4 x D/16 output micro-tile; K and Q
-// are stored transposed (+1 padding) so the inner loops read shared memory
-// without bank conflicts.  No tile is skipped: the bias is arbitrary.
-// wgmma + TMA and skipping tiles whose bias is all masked are the
-// follow-ups that make it fast.
+// Skv=256+512, D=128) the unmasked pairs are 36.9 GFLOP (37 us at 989
+// TFLOP/s bf16) over 122 MB of q/k/v/bias/o (36 us at 3.35 TB/s); 43% of
+// the (query, key) pairs are masked (the causal suffix and left pads).
+//
+// Two bodies, by dtype:
+//   - bf16 runs the tensor-core body of flash_attention_fwd.cuh with its
+//     bias mask (`fwd::BiasMask`): mma.sync bf16 products, S and P in
+//     registers, K/V in bf16 and the bias tile in fp32 staged by cp.async
+//     (one row of it for a bias of one row, `BiasMask<true>`), a key tile
+//     whose bias is at most -2e30 for every row of the block skipped whole
+//     (copies and products); the install's masked pairs are mostly such
+//     tiles.  It needs q/k/v 16-byte aligned (base pointers and strides)
+//     and returns cudaErrorMisalignedAddress otherwise; it never falls
+//     back.
+//   - f32 runs the SIMT body below, unchanged since it was first written:
+//     fp32 CUDA-core FMAs on tiles staged in shared memory as fp32, so the
+//     f32 callers (the f32 plumbing checks at 1e-4) get full fp32
+//     arithmetic, which TF32 tensor cores would not give.  K1's SIMT
+//     design: one block per (batch*head, 64-row q tile), 64-column K/V
+//     tiles walked with an online softmax, each thread a 4x4 score
+//     micro-tile and a 4 x D/16 output micro-tile, K and Q stored
+//     transposed (+1 padding); no tile is skipped.
 #include "common.cuh"
+#include "flash_attention_fwd.cuh"
 
 namespace {
 
@@ -279,8 +292,14 @@ extern "C" int p2t_flash_bias_fwd(const void* q, const void* k,
   p.b_sb = strides[12]; p.b_sh = strides[13]; p.b_sq = strides[14];
   p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == p2t::kBFloat16)
-    return (int)dispatch_d<__nv_bfloat16>(D, p, B, s);
+  if (dtype == p2t::kBFloat16) {
+    fwd::Params f =
+        fwd::make_params(q, k, v, o, lse, strides, H, Hkv, Sq, Skv);
+    f.bias = p.bias;
+    f.b_sb = p.b_sb; f.b_sh = p.b_sh; f.b_sq = p.b_sq;
+    return (int)(p.b_sq == 0 ? fwd::run<fwd::BiasMask<true>>(D, f, B, s)
+                             : fwd::run<fwd::BiasMask<false>>(D, f, B, s));
+  }
   if (dtype == p2t::kFloat32) return (int)dispatch_d<float>(D, p, B, s);
   return (int)cudaErrorInvalidValue;
 }

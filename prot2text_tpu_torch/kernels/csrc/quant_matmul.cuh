@@ -85,6 +85,7 @@
 namespace {
 
 using p2t::from_float;
+using p2t::mma_bf16;
 
 enum Format : int { kPlanes = 0, kPairs = 1, kBytes = 2, kInt8 = 3 };
 
@@ -156,15 +157,6 @@ __device__ __forceinline__ uint32_t byte_nibbles(uint32_t w, int c) {
 
 __device__ __forceinline__ int byte_at(uint32_t w, int c) {
   return static_cast<int32_t>(w << (24 - 8 * c)) >> 24;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 4 bytes of row k of an (rows, N) int8 buffer, columns nc .. nc + 3 (0

@@ -103,15 +103,31 @@ def _check(q, k, v, kv_start, kv_len):
             raise ValueError(f"{name} must be a contiguous (B,) int32 tensor")
 
 
+def _check_aligned(what, **tensors):
+    """The bf16 forward body (csrc/flash_attention_fwd.cuh) copies q, k and
+    v in 16-byte chunks (cp.async): each base pointer and each (batch,
+    head, sequence) stride must be a multiple of 16 bytes."""
+    for name, t in tensors.items():
+        isz = t.element_size()
+        if t.data_ptr() % 16 or any(s * isz % 16 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{what}: bf16 {name} must be 16-byte aligned (data_ptr % 16 "
+                f"= {t.data_ptr() % 16}, strides {tuple(t.stride())} of "
+                f"{isz}-byte elements)")
+
+
 def flash_attention_masked_fwd(q, k, v, kv_start, kv_len, *,
                                causal: bool = False):
     """K1 → (o (B, H, Sq, D), lse (B, H, Sq) f32).  CPU tensors run the
-    plain version; CUDA tensors launch the kernel (or raise).  On CUDA, o
-    is a (B, H, Sq, D) view of a (B, Sq, H, D) buffer, so the caller's
-    transpose back to (B, Sq, H*D) is free."""
+    plain version; CUDA tensors launch the kernel (or raise): bf16 the
+    tensor-core body, which needs q/k/v 16-byte aligned, f32 the SIMT body.
+    On CUDA, o is a (B, H, Sq, D) view of a (B, Sq, H, D) buffer, so the
+    caller's transpose back to (B, Sq, H*D) is free."""
     if q.device.type == "cpu":
         return flash_attention_masked_plain(q, k, v, kv_start, kv_len, causal)
     _check(q, k, v, kv_start, kv_len)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K1", q=q, k=k, v=v)
     B, H, Sq, D = q.shape
     o = torch.empty((B, Sq, H, D), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
@@ -289,12 +305,15 @@ def _check_bias(q, k, v, bias):
 
 def flash_attention_bias_fwd(q, k, v, bias):
     """K6 → (o (B, H, Sq, D), lse (B, H, Sq) f32).  CPU tensors run the
-    plain version; CUDA tensors launch the kernel (or raise).  The bias is
-    read through its broadcast strides; on CUDA, o is a (B, H, Sq, D) view
-    of a (B, Sq, H, D) buffer, as K1's."""
+    plain version; CUDA tensors launch the kernel (or raise): bf16 the
+    tensor-core body, which needs q/k/v 16-byte aligned, f32 the SIMT body.
+    The bias is read through its broadcast strides; on CUDA, o is a (B, H,
+    Sq, D) view of a (B, Sq, H, D) buffer, as K1's."""
     if q.device.type == "cpu":
         return flash_attention_bias_plain(q, k, v, bias)
     _check_bias(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K6", q=q, k=k, v=v)
     B, H, Sq, D = q.shape
     b = bias.expand(B, bias.shape[1], Sq, k.shape[2])
     b_sh = b.stride(1) if b.shape[1] == H and H > 1 else 0

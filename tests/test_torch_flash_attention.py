@@ -1,14 +1,18 @@
 """K1 (masked flash-attention forward): the port's plain version against the
 JAX Pallas kernel in interpret mode, for o AND lse (f32, atol 1e-5); the
 CUDA kernel against the plain version on the card (JAX is imported only
-by the tests that use it, so the cuda tests also run where JAX is absent)."""
+by the tests that use it, so the cuda tests also run where JAX is absent):
+f32 runs the SIMT body, bf16 the tensor-core body of
+csrc/flash_attention_fwd.cuh, whose edges (ragged Sq/Skv, every head dim,
+GQA, Sq != Skv, strided views, empty rows, misaligned views) have their
+own cases."""
 
 import numpy as np
 import pytest
 import torch
 
 from prot2text_tpu_torch.kernels.flash_attention import (
-    flash_attention_masked, flash_attention_masked_fwd,
+    _check_aligned, flash_attention_masked, flash_attention_masked_fwd,
     flash_attention_masked_plain,
 )
 
@@ -121,3 +125,85 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype, atol, causal):
         q.float(), k.float(), v.float(), start, length, causal)
     torch.testing.assert_close(o.float(), o_ref, atol=atol, rtol=atol)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+def _bshd(rng, B, S, H, D, scale, dev):
+    """A (B, H, S, D) bf16 view of a (B, S, H, D) buffer, as the decoder
+    hands q/k/v over."""
+    x = (rng.standard_normal((B, S, H, D)) * scale).astype(np.float32)
+    return torch.from_numpy(x).to(dev, torch.bfloat16).transpose(1, 2)
+
+
+# (B, H, Hkv, Sq, Skv, D, causal): Sq/Skv off the 64 and 16 grids, every
+# head dim, GQA rep 1, 4 and 5, Sq != Skv both ways; batch row 2 has no key
+K1_EDGES = [(3, 4, 4, 77, 77, 16, True), (3, 8, 2, 200, 200, 32, True),
+            (3, 10, 2, 13, 13, 64, False), (3, 10, 2, 96, 150, 128, False),
+            (3, 4, 1, 150, 96, 128, True), (3, 40, 8, 333, 333, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal", K1_EDGES)
+def test_bf16_tensor_core_body_edges_on_cuda(cuda, B, H, Hkv, Sq, Skv, D,
+                                             causal):
+    rng = np.random.default_rng(Sq * 131 + D)
+    q = _bshd(rng, B, Sq, H, D, D ** -0.5, cuda)
+    k, v = (_bshd(rng, B, Skv, Hkv, D, 1.0, cuda) for _ in range(2))
+    start = torch.tensor([0, min(9, Skv - 1), 3], dtype=torch.int32,
+                         device=cuda)
+    length = torch.tensor([Skv, Skv - 9 - Skv // 5, 0], dtype=torch.int32,
+                          device=cuda).clamp(min=0)
+    n = flash_attention_masked_fwd.launches
+    o, lse = flash_attention_masked_fwd(q, k, v, start, length,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_masked_fwd.launches == n + 1
+    o_ref, lse_ref = flash_attention_masked_plain(
+        q.float(), k.float(), v.float(), start, length, causal)
+    torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    # the row without keys: o exactly 0, lse exactly -1e30
+    assert (o[2] == 0).all()
+    assert (lse[2] == torch.tensor(-1e30, dtype=torch.float32)).all()
+
+
+def _misaligned(buf, view, D):
+    """(B, H, S, D) views of a (B, H, S, width) buffer: shifted one element
+    off a 16-byte boundary, or with a row stride of 132 elements."""
+    return buf[..., 1:D + 1] if view == "offset" else buf[..., :D]
+
+
+def test_alignment_check_names_the_operand():
+    """The bf16 wrappers' check (run on CUDA tensors before the launch)
+    takes aligned views of (B, S, H, D) buffers and names a misaligned
+    operand."""
+    buf = torch.zeros(2, 17, 4, 132, dtype=torch.bfloat16)
+    _check_aligned("K1", q=torch.zeros(2, 17, 4, 64,
+                                       dtype=torch.bfloat16).transpose(1, 2))
+    for view in ("offset", "row_stride"):
+        bad = _misaligned(buf.transpose(1, 2), view, 128)
+        with pytest.raises(ValueError, match="K1: bf16 k must be 16-byte"):
+            _check_aligned("K1", q=buf[..., :128].contiguous(), k=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["offset", "row_stride"])
+def test_bf16_misaligned_view_raises_on_cuda(cuda, view):
+    """A bf16 view cp.async cannot copy raises before any launch; the f32
+    SIMT body takes the same view."""
+    B, H, S, D = 1, 2, 17, 128
+    buf = torch.randn(B, H, S, D + 4, device=cuda)
+    k = torch.randn(B, H, S, D, device=cuda)
+    start = torch.zeros(B, dtype=torch.int32, device=cuda)
+    length = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    n = flash_attention_masked_fwd.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_masked_fwd(
+            _misaligned(buf.bfloat16(), view, D), k.bfloat16(), k.bfloat16(),
+            start, length, causal=True)
+    assert flash_attention_masked_fwd.launches == n
+    q = _misaligned(buf, view, D)
+    o, lse = flash_attention_masked_fwd(q, k, k, start, length, causal=True)
+    o_ref, lse_ref = flash_attention_masked_plain(q, k, k, start, length,
+                                                  True)
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)

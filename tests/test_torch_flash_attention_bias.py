@@ -2,7 +2,11 @@
 version against the JAX Pallas kernel `flash_attention_tpu` in interpret
 mode on repeat_kv'd inputs (f32, atol 1e-5) — the bias shapes the JAX
 kernel takes, Sq != Skv with a seeded prefix, lengths off the 128 grid and
-a fully masked row; the CUDA kernel against the plain version on the card;
+a fully masked row; the CUDA kernel against the plain version on the card
+(f32 the SIMT body, bf16 the tensor-core body of
+csrc/flash_attention_fwd.cuh, with cases for its edges: whole masked key
+tiles, the scalar bias loads at odd Skv, Sq != Skv, every head dim, GQA,
+strided views, fully masked rows, misaligned views);
 `flash_attention_bias` is differentiable (its backward, K6b, is held to
 JAX in tests/test_torch_flash_attention_bias_bwd.py)."""
 
@@ -161,3 +165,75 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype, atol, rep, D, bias_kind):
                                                 v.float(), bias)
     torch.testing.assert_close(o.float(), o_ref, atol=atol, rtol=atol)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0.0)
+
+
+def _bshd(rng, B, S, H, D, scale, dev):
+    """A (B, H, S, D) bf16 view of a (B, S, H, D) buffer, as ESMC and the
+    decoder hand q/k/v over."""
+    x = (rng.standard_normal((B, S, H, D)) * scale).astype(np.float32)
+    return torch.from_numpy(x).to(dev, torch.bfloat16).transpose(1, 2)
+
+
+# (B, rep, Hkv, Sq, Pc, D, bias kind); Skv = Pc + Sq
+K6_EDGES = [
+    # the install: prefix columns 0..171 masked for every row (whole key
+    # tiles), the causal suffix above each q tile, a 70-column left pad
+    (2, 5, 2, 200, 192, 128, "install"),
+    # (B, 1, 1, Skv) at odd Skv 141: scalar bias loads, row b's base odd
+    (3, 1, 2, 77, 64, 16, "b11k"),
+    # (B, 1, 1, Skv) at Skv 256: one 16-byte-aligned row for every query
+    (2, 5, 2, 96, 160, 64, "b11k"),
+    (2, 4, 2, 50, 80, 32, "b1qk"),          # Sq != Skv, off the 16 grid
+    (2, 5, 1, 64, 0, 64, "bhqk"),           # a per-head bias
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,rep,Hkv,Sq,Pc,D,kind", K6_EDGES)
+def test_bf16_tensor_core_body_edges_on_cuda(cuda, B, rep, Hkv, Sq, Pc, D,
+                                             kind):
+    H, Skv = rep * Hkv, Pc + Sq
+    rng = np.random.default_rng(Skv * 7 + D)
+    q = _bshd(rng, B, Sq, H, D, D ** -0.5, cuda)
+    k, v = (_bshd(rng, B, Skv, Hkv, D, 1.0, cuda) for _ in range(2))
+    if kind == "install":
+        bias = _install_bias(B, Sq, Pc, prefix_len=20, pads=[0, 70])
+    else:
+        shape = {"b11k": (B, 1, 1, Skv), "b1qk": (B, 1, Sq, Skv),
+                 "bhqk": (B, H, Sq, Skv)}[kind]
+        bias = rng.standard_normal(shape).astype(np.float32)
+        bias[..., :3] = NEG
+    if bias.shape[2] > 1:
+        bias[B - 1, :, 5] = NEG                 # fully masked rows
+    bias = torch.from_numpy(bias).to(cuda)
+    n = flash_attention_bias_fwd.launches
+    o, lse = flash_attention_bias_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert flash_attention_bias_fwd.launches == n + 1
+    o_ref, lse_ref = flash_attention_bias_plain(q.float(), k.float(),
+                                                v.float(), bias)
+    torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0.0)
+    if bias.shape[2] > 1:
+        assert (o[B - 1, :, 5] == 0).all()
+        assert (lse[B - 1, :, 5] == torch.tensor(-1e30)).all()
+
+
+@pytest.mark.cuda
+def test_bf16_misaligned_view_raises_on_cuda(cuda):
+    """A bf16 q shifted one element off a 16-byte boundary raises before
+    any launch; the f32 SIMT body takes the same view."""
+    B, H, S, D = 1, 2, 17, 64
+    buf = torch.randn(B, H, S, D + 1, device=cuda)
+    k = torch.randn(B, H, S, D, device=cuda)
+    bias = torch.zeros(B, 1, 1, S, device=cuda)
+    n = flash_attention_bias_fwd.launches
+    with pytest.raises(ValueError, match="K6: bf16 q must be 16-byte"):
+        flash_attention_bias_fwd(buf.bfloat16()[..., 1:], k.bfloat16(),
+                                 k.bfloat16(), bias)
+    assert flash_attention_bias_fwd.launches == n
+    q = buf[..., 1:]
+    o, _ = flash_attention_bias_fwd(q, k, k, bias)
+    torch.testing.assert_close(o, flash_attention_bias_plain(q, k, k,
+                                                             bias)[0],
+                               atol=1e-4, rtol=1e-4)
