@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
      attention, K3 cache slot write, K12/K13 the same write on
      Llama-3.2-1B's tbkd cache (K13 k and v in one launch, also against
      two K12 launches; no path calls K13), K4 decode attention + per-row
-     slot write, K5 flash backward, K6 bias flash prefill, also at
+     slot write, K5 flash backward (two launches bit-identical), K6 bias
+     flash prefill, also at
      ESMC-600M's training shapes (timed there too), K6b its backward at
      ESMC-600M's SFT shapes, K9a K4 over a shared prefix; on the int8
      cache K7 decode + slot write, K9b K7 over an int8 prefix, K8 chunk
@@ -27,9 +28,11 @@ Phases (any failure raises and the script exits non-zero):
      the bound (the larger of the bytes at the HBM rate and the operations
      at the bf16 peak) and, where one PyTorch call computes the same
      function, that call's time on operands built outside the timed region
-     (the port never calls it); K1 and K6 also print their device time
-     and SDPA's from CUDA graphs, their useful TFLOP/s and share of the
-     bound on that time, and their ratio to SDPA, eager and on the device;
+     (the port never calls it); K1, K5, K6 and K9a also print their
+     device time and SDPA's from CUDA graphs (SDPA backward's from
+     torch.profiler: no graph holds torch.autograd.grad), their useful
+     TFLOP/s and TB/s and share of the bound on that time, and their
+     ratio to SDPA, eager and on the device;
   3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
@@ -190,16 +193,39 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def speed(torch, fn, lib_fn, ms: float, lib_ms: float, bd: dict) -> dict:
+def profiled_ms(torch, fn, calls: int = 10) -> float:
+    """Device time of one fn() in milliseconds from `torch.profiler`: the
+    sum of the CUDA kernel events of `calls` calls over `calls`.  For a
+    call a CUDA graph cannot hold (a backward through torch.autograd.grad)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(us > 0, "the profiler recorded no device kernels")
+    return us / 1e3 / calls
+
+
+def speed(torch, fn, lib_fn, ms: float, lib_ms: float, bd: dict,
+          lib_dev_ms: float | None = None) -> dict:
     """What a kernel call achieved beside its library call: both calls'
     device times from CUDA graphs (the eager times `ms` and `lib_ms` also
-    hold the host's launch path), the useful operations per second and the
-    share of the bound on the device time (the bound's count: this data's
-    unmasked pairs), and the kernel's time over the library call's, eager
-    and on the device."""
-    dev_ms, lib_dev_ms = graph_ms(torch, fn), graph_ms(torch, lib_fn)
+    hold the host's launch path; `lib_dev_ms`, where given, stands for a
+    library call no graph holds), the useful operations and bytes per
+    second and the share of the bound on the device time (the bound's
+    count: this data's unmasked pairs or valid columns), and the kernel's
+    time over the library call's, eager and on the device."""
+    dev_ms = graph_ms(torch, fn)
+    if lib_dev_ms is None:
+        lib_dev_ms = graph_ms(torch, lib_fn)
     return dict(device_ms=dev_ms, library_device_ms=lib_dev_ms,
                 useful_tflops=bd["flops"] / dev_ms / 1e9,
+                useful_tbps=bd["bytes"] / dev_ms / 1e9,
                 bound_share=bd["bound_ms"] / dev_ms, x_library=ms / lib_ms,
                 x_library_device=dev_ms / lib_dev_ms)
 
@@ -208,6 +234,7 @@ def speed_text(sp: dict) -> str:
     return (f"device {sp['device_ms']:.4f} ms (SDPA "
             f"{sp['library_device_ms']:.4f}), "
             f"{sp['useful_tflops']:.1f} useful TFLOP/s, "
+            f"{sp['useful_tbps']:.2f} TB/s, "
             f"{sp['bound_share']:.1%} of the bound, "
             f"{sp['x_library']:.2f}x SDPA eager, "
             f"{sp['x_library_device']:.2f}x on the device")
@@ -253,12 +280,14 @@ def sdpa_call(torch, q, k, v, mask):
         q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
 
 
-def sdpa_ms(torch, q, k, v, mask) -> float:
-    return cuda_ms(torch, sdpa_call(torch, q, k, v, mask))
-
-
 def decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, li, pk=None,
                       pv=None, pmask=None) -> float:
+    return cuda_ms(torch, decode_library_call(torch, qg, ck, cv, kv_mask, kn,
+                                              vn, li, pk, pv, pmask))
+
+
+def decode_library_call(torch, qg, ck, cv, kv_mask, kn, vn, li, pk=None,
+                        pv=None, pmask=None):
     """SDPA over a pre-built [prefix ‖ cache ‖ current] operand: what one
     library call computes of K2/K4/K9a (their slot writes aside)."""
     B, Hkv, rep, D = qg.shape
@@ -270,8 +299,8 @@ def decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, li, pk=None,
         k = torch.cat([pk[li].expand(B, -1, -1, -1), k], dim=2)
         v = torch.cat([pv[li].expand(B, -1, -1, -1), v], dim=2)
         m = torch.cat([pmask > 0, m], dim=1)
-    return sdpa_ms(torch, qg.reshape(B, Hkv * rep, 1, D), k, v,
-                   m[:, None, None, :])
+    return sdpa_call(torch, qg.reshape(B, Hkv * rep, 1, D), k, v,
+                     m[:, None, None, :])
 
 
 def run_mask(torch, kv_start, kv_len, S: int):
@@ -432,9 +461,16 @@ def check_kernels(torch, dev, card):
             f"bf16 (training layout): max|o-plain|={e_o:.3e} (atol/rtol "
             f"2e-2) max|lse-plain|={e_lse:.3e} (atol 1e-3)")
         del o_ref, lse_ref
-        got = flash_attention_masked_bwd(q, k, v, o, lse, do, kv_start,
-                                         kv_len, causal=True)
+        def k5():
+            return flash_attention_masked_bwd(q, k, v, o, lse, do, kv_start,
+                                              kv_len, causal=True)
+
+        got = k5()
+        again = k5()
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K5 at S={S} D={D}: two launches differ")
+        del again
         want = flash_attention_masked_bwd_plain(
             q.float(), k.float(), v.float(), o.float(), lse, do.float(),
             kv_start, kv_len, causal=True)
@@ -446,31 +482,46 @@ def check_kernels(torch, dev, card):
             errs.append(err)
             parts.append(f"{name} {err:.3e} (max|plain| {top:.3e})")
         log(f"K5 flash backward B={B} H={H} Hkv={Hkv} S={S} D={D} causal "
-            f"bf16: max|kernel-plain| " + ", ".join(parts))
+            f"bf16: two launches bit-identical; max|kernel-plain| " +
+            ", ".join(parts))
         if S == 1280:
-            ms = cuda_ms(torch, lambda: flash_attention_masked_bwd(
-                q, k, v, o, lse, do, kv_start, kv_len, causal=True))
+            ms = cuda_ms(torch, k5)
             plain_ms = cuda_ms(torch, lambda: flash_attention_masked_bwd_plain(
                 q, k, v, o, lse, do, kv_start, kv_len, causal=True))
             # the library's backward of the same SDPA call (its forward,
-            # which keeps the graph, runs outside the timed region)
+            # which keeps the graph, runs outside the timed region); no
+            # CUDA graph holds torch.autograd.grad, so its device time is
+            # the profiler's sum of its kernels, K5's beside it
             qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
             out = torch.nn.functional.scaled_dot_product_attention(
                 qr, kr, vr, attn_mask=run_mask(torch, kv_start, kv_len, S),
                 scale=1.0, enable_gqa=True)
-            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-                out, (qr, kr, vr), do, retain_graph=True))
+
+            def lib():
+                return torch.autograd.grad(out, (qr, kr, vr), do,
+                                           retain_graph=True)
+
+            lib_ms = cuda_ms(torch, lib)
+            lib_dev = profiled_ms(torch, lib)
+            k5_prof = profiled_ms(torch, k5)
             del qr, kr, vr, out
             # recomputed q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k and dSᵀ·q: 10·D per pair
             bd = bound(10.0 * D * H * causal_run_pairs(torch, kv_start,
                                                        kv_len, S),
                        nbytes(q, k, v, o, lse, do, *got))
+            sp = speed(torch, k5, None, ms, lib_ms, bd, lib_dev_ms=lib_dev)
+            sp["device_ms_profiler"] = k5_prof
+            sp["library_device_source"] = (
+                "torch.profiler kernel times (no CUDA graph holds "
+                "torch.autograd.grad)")
             log(f"K5 at B={B} H={H} S={S} D={D}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
-                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                f"{speed_text(sp)} (SDPA's device time and K5's "
+                f"{k5_prof:.4f} ms from the profiler) [{card}]")
         del q, k, v, do, o, lse, got, want
     rows["K5"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                      library_ms=lib_ms, **bd)
+                      library_ms=lib_ms, **bd, **sp)
     return rows
 
 
@@ -648,20 +699,22 @@ def check_serve_kernels(torch, dev, card):
             "K9a", k9, k9_plain,
             lambda ck_, cv_, li: decode_attention_stacked_write_prefix_plain(
                 qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask))
-        lib_ms = decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, 23,
-                                   pk, pv, pmask)
+        lib = decode_library_call(torch, qg, ck, cv, kv_mask, kn, vn, 23,
+                                  pk, pv, pmask)
+        lib_ms = cuda_ms(torch, lib)
         bd = decode_bound(torch, kv_mask, pmask, Hkv, rep, D, 2, 0,
                           fixed + nbytes(pmask))
+        sp = speed(torch, lambda: k9(ck, cv, 23), lib, ms, lib_ms, bd)
         log(f"K9a decode attention + slot write + shared prefix Pc={Pc} "
             f"(row 6 gated off) L={L} B={B} T={T} bf16: "
             f"max|a-plain|={err:.3e} (atol/rtol 2e-2), caches bit-exact; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
             f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}) per layer [{card}]")
+            f"({bd['bound_by']}) per layer; {speed_text(sp)} [{card}]")
         # the row keeps the worst error and the serving shape's times
         worst = max(err, rows.get("K9a", {}).get("max_abs_err", 0.0))
         rows["K9a"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, **bd)
+                           library_ms=lib_ms, **bd, **sp)
     del ck, cv
 
     # K6: the prefix install's attention, R 8 rows, Sq 512 suffix columns
@@ -1563,9 +1616,11 @@ def legacy_batch(torch, dev, records, mode: str, buckets: dict):
 
 
 # kernel-name patterns of the profiled breakdowns: K1's and K6's bf16
-# forwards are the one tensor-core body's instances by mask policy, their
-# f32 forwards the SIMT kernels
-K1_FWD, K6_FWD = r"flash_masked_fwd|RunMask", r"flash_bias_fwd|BiasMask"
+# forwards are the one tensor-core body's instances by mask policy
+# (flash_fwd_kernel<D, policy>; K5's bf16 kernels, flash_masked_bwd_*, have
+# a RunMask policy of their own), their f32 forwards the SIMT kernels
+K1_FWD = r"flash_masked_fwd|flash_fwd_kernel.*RunMask"
+K6_FWD = r"flash_bias_fwd|flash_fwd_kernel.*BiasMask"
 LEGACY_FAMILIES = (("K1", K1_FWD), ("K12", "slab_write"))
 
 
@@ -1854,9 +1909,12 @@ def train_records(n: int, lengths, seed: int):
 
 TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", "flash_masked_bwd"),
                   ("K6", K6_FWD), ("K6b", "flash_bias_bwd"))
+# K4 and f32 K9a run the SIMT body; the profiled serving runs are bf16,
+# where K9a is the cluster body
 SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
                   ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
-                  ("K4/K9a", "decode_attention_write"),
+                  ("K4", "decode_attention_write_kernel"),
+                  ("K9a", "decode_split_kernel"),
                   ("K10/K14", "quant_m"))
 
 
@@ -3210,9 +3268,10 @@ def run_probes(torch, dev, card):
     return counts
 
 
-# the extra keys of K1's and K6's rows in the kernels line
+# the extra keys of K1's, K5's, K6's and K9a's rows in the kernels line
 SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
-              "bound_share", "x_library", "x_library_device", "other_shapes")
+              "useful_tbps", "bound_share", "x_library", "x_library_device",
+              "device_ms_profiler", "library_device_source", "other_shapes")
 
 
 def main() -> int:

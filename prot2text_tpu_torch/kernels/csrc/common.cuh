@@ -128,6 +128,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
 }
 
+// rows [r0, r0 + kRows) of a (rows, D) bf16 matrix of row stride ss →
+// shared [kRows][kStride] by 16-byte cp.async, spread over kThreads
+// threads; rows at or past `limit` are zero-filled and not read.  The
+// source's base and row stride must be 16-byte aligned.
+template <int D, int kRows, int kStride, int kThreads>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              int64_t ss, int r0, int limit,
+                                              int tid) {
+  constexpr int kChunks = D / 8;
+  static_assert(kRows * kChunks % kThreads == 0, "tile / thread mismatch");
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * kStride + 8 * c,
+               ok ? src + (int64_t)(r0 + r) * ss + 8 * c : src, ok ? 16 : 0);
+  }
+}
+
+// an 8x8 bf16 matrix held as one fragment register (lane 4g + t: row g,
+// columns 2t, 2t+1) → its transpose in the same layout; turns a C
+// fragment's rows into a B fragment's columns
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y) : "r"(x));
+  return y;
+}
+
+// a bf16 operand cp.async can copy: base and (batch, head, sequence)
+// element strides 16-byte aligned
+__host__ inline bool aligned16(const void* ptr, int64_t sb, int64_t sh,
+                               int64_t ss) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 &&
+         ((sb | sh | ss) & 7) == 0;
+}
+
 // 2^x (MUFU; -inf → +0)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;

@@ -21,19 +21,20 @@
 //
 // Bound: bytes.  A step reads the valid cache columns of every (b, kv head)
 // once per layer (B=8, Hkv=8, ~700 valid columns, D=128, bf16: ~23 MB) for
-// ~2 FLOP per byte, plus 2*B*Hkv*D*2 bytes of writes.  Design: K2's — one
-// block per (b, kv head) handles all `rep` query heads of the group, an
+// ~2 FLOP per byte, plus 2*B*Hkv*D*2 bytes of writes.  bf16 K9a runs the
+// column-split cluster body of decode_attention_split.cuh (its header
+// states the design).  K4 and f32 K9a run the SIMT body below, K2's design:
+// one block per (b, kv head) handles all `rep` query heads of the group, an
 // online softmax walks the columns in chunks of 256 (one column per thread
 // for q·k with 16-byte loads, one head-dim element per thread for P·V).
-// Known limits, left to a later PR: B*Hkv = 64 blocks at the serving shape
-// fill half of the H100's 132 SMs (split the columns across blocks with a
-// combine pass); and K9a's prefix slab is read by every one of the B blocks
-// of a kv head, the redundancy the TPU kernel avoided by fetching the
-// constant-index prefix block once per layer (L2 catches most of it here:
-// a layer's prefix is Hkv*Pc*D*2*2 bytes, 1 MB at Pc=256).
+// Its known limit: B*Hkv = 64 blocks at the serving shape fill half of the
+// H100's 132 SMs; K4 can take the split body through a column policy.
 #include <float.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "decode_attention_split.cuh"
 
 namespace {
 
@@ -234,12 +235,17 @@ decode_attention_write_kernel(const WriteParams<T> p) {
 template <typename T, int D>
 cudaError_t launch(const WriteParams<T>& p, int B, cudaStream_t stream) {
   const dim3 grid(B * p.Hkv);
-  if (p.Pc > 0)
-    decode_attention_write_kernel<T, D, true>
-        <<<grid, kThreads, 0, stream>>>(p);
-  else
+  if (p.Pc > 0) {
+    // bf16 with a prefix runs the split body (the entry point routes it)
+    if constexpr (!std::is_same<T, float>::value)
+      return cudaErrorInvalidValue;
+    else
+      decode_attention_write_kernel<T, D, true>
+          <<<grid, kThreads, 0, stream>>>(p);
+  } else {
     decode_attention_write_kernel<T, D, false>
         <<<grid, kThreads, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -255,32 +261,34 @@ cudaError_t dispatch_d(int D, const WriteParams<T>& p, int B,
   }
 }
 
-template <typename T>
-cudaError_t run(const void* qg, void* ck, void* cv, const void* kv_mask,
-                const void* k_new, const void* v_new, const void* slots,
-                const void* pk, const void* pv, const void* pmask, void* out,
-                int B, int Hkv, int rep, int T_len, int Pc, int D,
-                cudaStream_t s) {
-  WriteParams<T> p;
-  p.qg = static_cast<const T*>(qg);
-  p.ck = static_cast<T*>(ck);
-  p.cv = static_cast<T*>(cv);
+// the entry point's arguments → either body's parameters (the same field
+// names; pointers cast to the body's element type)
+template <class P>
+P make_params(const void* qg, void* ck, void* cv, const void* kv_mask,
+              const void* k_new, const void* v_new, const void* slots,
+              const void* pk, const void* pv, const void* pmask, void* out,
+              int Hkv, int rep, int T_len, int Pc) {
+  P p;
+  p.qg = static_cast<decltype(p.qg)>(qg);
+  p.ck = static_cast<decltype(p.ck)>(ck);
+  p.cv = static_cast<decltype(p.cv)>(cv);
   p.kv_mask = static_cast<const int32_t*>(kv_mask);
-  p.k_new = static_cast<const T*>(k_new);
-  p.v_new = static_cast<const T*>(v_new);
+  p.k_new = static_cast<decltype(p.k_new)>(k_new);
+  p.v_new = static_cast<decltype(p.v_new)>(v_new);
   p.slots = static_cast<const int32_t*>(slots);
-  p.pk = static_cast<const T*>(pk);
-  p.pv = static_cast<const T*>(pv);
+  p.pk = static_cast<decltype(p.pk)>(pk);
+  p.pv = static_cast<decltype(p.pv)>(pv);
   p.pmask = static_cast<const int32_t*>(pmask);
-  p.out = static_cast<T*>(out);
+  p.out = static_cast<decltype(p.out)>(out);
   p.Hkv = Hkv; p.rep = rep; p.T_len = T_len; p.Pc = Pc;
-  return dispatch_d<T>(D, p, B, s);
+  return p;
 }
 
 }  // namespace
 
 // ck/cv: the layer's (B, Hkv, T, D) slice; pk/pv: the layer's (Hkv, Pc, D)
-// prefix slice and pmask (B, Pc), all ignored when Pc == 0 (K4)
+// prefix slice and pmask (B, Pc), all ignored when Pc == 0 (K4).  bf16 K9a
+// runs the split body, K4 and f32 K9a the SIMT body.
 extern "C" int p2t_decode_attention_write(
     const void* qg, void* ck, void* cv, const void* kv_mask,
     const void* k_new, const void* v_new, const void* slots, const void* pk,
@@ -291,12 +299,20 @@ extern "C" int p2t_decode_attention_write(
                             pmask == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == p2t::kBFloat16 && Pc > 0)
+    return (int)split::run<split::PrefixCols>(
+        D, make_params<split::Params>(qg, ck, cv, kv_mask, k_new, v_new,
+                                      slots, pk, pv, pmask, out, Hkv, rep,
+                                      T_len, Pc), B, s);
   if (dtype == p2t::kBFloat16)
-    return (int)run<__nv_bfloat16>(qg, ck, cv, kv_mask, k_new, v_new, slots,
-                                   pk, pv, pmask, out, B, Hkv, rep, T_len, Pc,
-                                   D, s);
+    return (int)dispatch_d<__nv_bfloat16>(
+        D, make_params<WriteParams<__nv_bfloat16>>(
+               qg, ck, cv, kv_mask, k_new, v_new, slots, pk, pv, pmask, out,
+               Hkv, rep, T_len, Pc), B, s);
   if (dtype == p2t::kFloat32)
-    return (int)run<float>(qg, ck, cv, kv_mask, k_new, v_new, slots, pk, pv,
-                           pmask, out, B, Hkv, rep, T_len, Pc, D, s);
+    return (int)dispatch_d<float>(
+        D, make_params<WriteParams<float>>(qg, ck, cv, kv_mask, k_new, v_new,
+                                           slots, pk, pv, pmask, out, Hkv,
+                                           rep, T_len, Pc), B, s);
   return (int)cudaErrorInvalidValue;
 }

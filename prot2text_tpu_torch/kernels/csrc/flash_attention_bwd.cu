@@ -9,53 +9,44 @@
 // EXPLICITLY (an empty row carries lse = -1e30 and must give zero
 // gradients, which exp underflow would not guarantee); with Δ = rowsum(dO∘O)
 // (one torch expression in the wrapper, as XLA computes it beside the TPU
-// kernels), dS = P∘(dO·Vᵀ - Δ), dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO; all
-// products and sums in fp32, outputs rounded to the input dtype once.
+// kernels), dS = P∘(dO·Vᵀ - Δ), dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO.
 //
-// GQA without repeat_kv: the TPU path repeated k/v to H heads and let
-// repeat_kv's transpose sum dK/dV over each group.  Here a dK/dV block owns
-// one (batch, kv head, 64-key tile), loops over the `rep` query heads of its
-// group and the query tiles that can see the tile, and writes its rows
-// once: no atomics, and the group sum has a fixed order (deterministic).
-// A dQ block owns one (batch, query head, 64-row tile) and loops over the
-// key tiles of its rows' run.  Tiles wholly outside the run or above the
-// causal diagonal are skipped: they only ever contribute zeros.  Any
-// Sq/Skv: ragged edge tiles are zero-filled and masked here.
-//
-// Bound: at the Qwen3-14B training shape (B=1, H=40, Hkv=8, S=1280, D=128,
-// causal) the causal half of the five products is ~60 GFLOP per layer over
-// ~50 MB of q/k/v/dO: compute-bound.  This first version is deliberately
-// simple, like K1: fp32 CUDA-core FMAs on tiles staged in shared memory as
-// fp32 [row][D+1] (the +1 padding keeps both the row-wise and the
-// column-wise reads of a tile free of bank conflicts), 256 threads, each
-// owning a 4x4 micro-tile of the 64x64 score block and a 4 x D/16 slice of
-// the output tile.  The causal grid puts the heaviest tiles first (the
-// last query tiles for dQ, the first key tiles for dK/dV) so the short ones
-// fill the tail of the wave.  wgmma + TMA, and splitting the dK/dV loop
-// over more blocks, are the follow-up that makes it fast.
+// bf16 runs the tensor-core body of flash_attention_bwd.cuh (its header
+// states the bound and the design).  f32 (the legacy full fine-tune, the
+// plumbing checks) runs the SIMT body below: all products and sums in fp32,
+// outputs rounded once.  GQA without repeat_kv: the TPU path repeated k/v
+// to H heads and let repeat_kv's transpose sum dK/dV over each group.  Here
+// a dK/dV block owns one (batch, kv head, 64-key tile), loops over the
+// `rep` query heads of its group and the query tiles that can see the tile,
+// and writes its rows once: no atomics, and the group sum has a fixed order
+// (deterministic).  A dQ block owns one (batch, query head, 64-row tile)
+// and loops over the key tiles of its rows' run.  Tiles wholly outside the
+// run or above the causal diagonal are skipped: they only ever contribute
+// zeros.  Any Sq/Skv: ragged edge tiles are zero-filled and masked here.
+// The SIMT tiles are fp32 [row][D+1] in shared memory (the +1 padding keeps
+// both the row-wise and the column-wise reads free of bank conflicts), 256
+// threads, each owning a 4x4 micro-tile of the 64x64 score block and a 4 x
+// D/16 slice of the output tile; the causal grid puts the heaviest tiles
+// first.
 #include "common.cuh"
+#include "flash_attention_bwd.cuh"
 
 namespace {
-
-using p2t::from_float;
-using p2t::to_float;
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
 
 struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
   const float* lse;     // (B, H, Sq) contiguous
   const float* delta;   // (B, H, Sq) contiguous, rowsum(dO∘O)
-  const int32_t* kv_start;
-  const int32_t* kv_len;
-  void* dq;
-  void* dk;
-  void* dv;
+  float* dq;
+  float* dk;
+  float* dv;
   // element strides (batch, head, sequence); the head dim is contiguous
   int64_t q_sb, q_sh, q_ss;
   int64_t k_sb, k_sh, k_ss;
@@ -65,6 +56,8 @@ struct BwdParams {
   int64_t dk_sb, dk_sh, dk_ss;
   int64_t dv_sb, dv_sh, dv_ss;
   int H, Hkv, Sq, Skv;
+  const int32_t* kv_start;
+  const int32_t* kv_len;
   int causal;
 };
 
@@ -80,13 +73,13 @@ struct Smem {
 
 // rows [row0, row0 + 64) of a (seq, D) slice with row stride `ss` → fp32
 // [64][D+1] in shared memory; rows at or past n_rows are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t ss, int row0, int n_rows) {
   for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int s = row0 + r;
-    dst[r * (D + 1) + d] = s < n_rows ? to_float(src[s * ss + d]) : 0.f;
+    dst[r * (D + 1) + d] = s < n_rows ? src[s * ss + d] : 0.f;
   }
 }
 
@@ -130,7 +123,7 @@ __device__ __forceinline__ void two_score_tiles(
 }
 
 // dQ: one block per (batch*head, 64-row query tile)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_masked_bwd_dq_kernel(const BwdParams p) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
@@ -151,11 +144,11 @@ flash_masked_bwd_dq_kernel(const BwdParams p) {
   const int q0 = qt * kBQ;
   const int tid = threadIdx.x;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* dout = p.dout + b * p.do_sb + h * p.do_sh;
+  const float* k = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* v = p.v + b * p.v_sb + hk * p.v_sh;
+  float* dq = p.dq + b * p.dq_sb + h * p.dq_sh;
   const float* lse = p.lse + (int64_t)bh * p.Sq;
   const float* delta = p.delta + (int64_t)bh * p.Sq;
 
@@ -166,8 +159,8 @@ flash_masked_bwd_dq_kernel(const BwdParams p) {
   int kv_hi = min(start + len, p.Skv);
   if (p.causal) kv_hi = min(kv_hi, q_last + 1);
 
-  load_tile<T, D>(Qs, q, p.q_ss, q0, p.Sq);
-  load_tile<T, D>(dOs, dout, p.do_ss, q0, p.Sq);
+  load_tile<D>(Qs, q, p.q_ss, q0, p.Sq);
+  load_tile<D>(dOs, dout, p.do_ss, q0, p.Sq);
   if (tid < kBQ) {
     const bool in = q0 + tid < p.Sq;
     lse_s[tid] = in ? lse[q0 + tid] : 0.f;
@@ -184,8 +177,8 @@ flash_masked_bwd_dq_kernel(const BwdParams p) {
 
   for (int k0 = (kv_lo / kBK) * kBK; k0 < kv_hi; k0 += kBK) {
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, D>(Ks, k, p.k_ss, k0, p.Skv);
-    load_tile<T, D>(Vs, v, p.v_ss, k0, p.Skv);
+    load_tile<D>(Ks, k, p.k_ss, k0, p.Skv);
+    load_tile<D>(Vs, v, p.v_ss, k0, p.Skv);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -224,14 +217,14 @@ flash_masked_bwd_dq_kernel(const BwdParams p) {
     if (row < p.Sq) {
 #pragma unroll
       for (int j = 0; j < kDJ; ++j)
-        dq[row * p.dq_ss + cg + 16 * j] = from_float<T>(acc[i][j]);
+        dq[row * p.dq_ss + cg + 16 * j] = acc[i][j];
     }
   }
 }
 
 // dK, dV: one block per (batch*kv_head, 64-key tile), summing over the
 // rep query heads of the group
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_masked_bwd_dkv_kernel(const BwdParams p) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
@@ -252,10 +245,10 @@ flash_masked_bwd_dkv_kernel(const BwdParams p) {
   const int k0 = blockIdx.y * kBK;
   const int tid = threadIdx.x;
 
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* dk = static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  T* dv = static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+  const float* k = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* v = p.v + b * p.v_sb + hk * p.v_sh;
+  float* dk = p.dk + b * p.dk_sb + hk * p.dk_sh;
+  float* dv = p.dv + b * p.dv_sb + hk * p.dv_sh;
 
   const int start = p.kv_start[b];
   const int len = p.kv_len[b];
@@ -276,20 +269,19 @@ flash_masked_bwd_dkv_kernel(const BwdParams p) {
     for (int j = 0; j < kDJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
   if (active) {
-    load_tile<T, D>(Ks, k, p.k_ss, k0, p.Skv);
-    load_tile<T, D>(Vs, v, p.v_ss, k0, p.Skv);
+    load_tile<D>(Ks, k, p.k_ss, k0, p.Skv);
+    load_tile<D>(Vs, v, p.v_ss, k0, p.Skv);
     for (int g = 0; g < rep; ++g) {
       const int h = hk * rep + g;
       const int bh = b * p.H + h;
-      const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-      const T* dout =
-          static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+      const float* q = p.q + b * p.q_sb + h * p.q_sh;
+      const float* dout = p.dout + b * p.do_sb + h * p.do_sh;
       const float* lse = p.lse + (int64_t)bh * p.Sq;
       const float* delta = p.delta + (int64_t)bh * p.Sq;
       for (int q0 = q_begin; q0 < p.Sq; q0 += kBQ) {
         __syncthreads();   // the previous tile's readers are done
-        load_tile<T, D>(Qs, q, p.q_ss, q0, p.Sq);
-        load_tile<T, D>(dOs, dout, p.do_ss, q0, p.Sq);
+        load_tile<D>(Qs, q, p.q_ss, q0, p.Sq);
+        load_tile<D>(dOs, dout, p.do_ss, q0, p.Sq);
         if (tid < kBQ) {
           const bool in = q0 + tid < p.Sq;
           lse_s[tid] = in ? lse[q0 + tid] : 0.f;
@@ -347,48 +339,80 @@ flash_masked_bwd_dkv_kernel(const BwdParams p) {
     if (row < p.Skv) {
 #pragma unroll
       for (int j = 0; j < kDJ; ++j) {
-        dk[row * p.dk_ss + cg + 16 * j] = from_float<T>(acc_k[i][j]);
-        dv[row * p.dv_ss + cg + 16 * j] = from_float<T>(acc_v[i][j]);
+        dk[row * p.dk_ss + cg + 16 * j] = acc_k[i][j];
+        dv[row * p.dv_ss + cg + 16 * j] = acc_v[i][j];
       }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_masked_bwd_dq_kernel<T, D>,
+      flash_masked_bwd_dq_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::kDq);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(
-      flash_masked_bwd_dkv_kernel<T, D>,
+      flash_masked_bwd_dkv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::kDkv);
   if (e != cudaSuccess) return e;
   const dim3 grid_dq(B * p.H, (p.Sq + kBQ - 1) / kBQ);
-  flash_masked_bwd_dq_kernel<T, D>
+  flash_masked_bwd_dq_kernel<D>
       <<<grid_dq, kThreads, Smem<D>::kDq, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid_dkv(B * p.Hkv, (p.Skv + kBK - 1) / kBK);
-  flash_masked_bwd_dkv_kernel<T, D>
+  flash_masked_bwd_dkv_kernel<D>
       <<<grid_dkv, kThreads, Smem<D>::kDkv, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(int D, const BwdParams& p, int B, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(p, B, s);
-    case 32: return launch<T, 32>(p, B, s);
-    case 64: return launch<T, 64>(p, B, s);
-    case 128: return launch<T, 128>(p, B, s);
+    case 16: return launch<16>(p, B, s);
+    case 32: return launch<32>(p, B, s);
+    case 64: return launch<64>(p, B, s);
+    case 128: return launch<128>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// the entry point's arguments → either body's parameters (the same field
+// names; pointers cast to the body's element type); strides: q, k, v, dout,
+// dq, dk, dv, each (b, h, s), in elements
+template <class P>
+P make_params(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* kv_start,
+              const void* kv_len, void* dq, void* dk, void* dv,
+              const int64_t* st, int H, int Hkv, int Sq, int Skv,
+              int causal) {
+  P p = {};
+  p.q = static_cast<decltype(p.q)>(q);
+  p.k = static_cast<decltype(p.k)>(k);
+  p.v = static_cast<decltype(p.v)>(v);
+  p.dout = static_cast<decltype(p.dout)>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<decltype(p.dq)>(dq);
+  p.dk = static_cast<decltype(p.dk)>(dk);
+  p.dv = static_cast<decltype(p.dv)>(dv);
+  p.q_sb = st[0]; p.q_sh = st[1]; p.q_ss = st[2];
+  p.k_sb = st[3]; p.k_sh = st[4]; p.k_ss = st[5];
+  p.v_sb = st[6]; p.v_sh = st[7]; p.v_ss = st[8];
+  p.do_sb = st[9]; p.do_sh = st[10]; p.do_ss = st[11];
+  p.dq_sb = st[12]; p.dq_sh = st[13]; p.dq_ss = st[14];
+  p.dk_sb = st[15]; p.dk_sh = st[16]; p.dk_ss = st[17];
+  p.dv_sb = st[18]; p.dv_sh = st[19]; p.dv_ss = st[20];
+  p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv;
+  p.kv_start = static_cast<const int32_t*>(kv_start);
+  p.kv_len = static_cast<const int32_t*>(kv_len);
+  p.causal = causal;
+  return p;
+}
+
 }  // namespace
 
-// strides: q, k, v, dout, dq, dk, dv, each (b, h, s), in elements
+// bf16: the tensor-core body; f32: the SIMT body
 extern "C" int p2t_flash_masked_bwd(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -399,25 +423,18 @@ extern "C" int p2t_flash_masked_bwd(const void* q, const void* k,
                                     int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
-  BwdParams p;
-  p.q = q; p.k = k; p.v = v; p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.kv_start = static_cast<const int32_t*>(kv_start);
-  p.kv_len = static_cast<const int32_t*>(kv_len);
-  p.dq = dq; p.dk = dk; p.dv = dv;
-  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
-  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
-  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
-  p.do_sb = strides[9]; p.do_sh = strides[10]; p.do_ss = strides[11];
-  p.dq_sb = strides[12]; p.dq_sh = strides[13]; p.dq_ss = strides[14];
-  p.dk_sb = strides[15]; p.dk_sh = strides[16]; p.dk_ss = strides[17];
-  p.dv_sb = strides[18]; p.dv_sh = strides[19]; p.dv_ss = strides[20];
-  p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv;
-  p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == p2t::kBFloat16)
-    return (int)dispatch_d<__nv_bfloat16>(D, p, B, s);
-  if (dtype == p2t::kFloat32) return (int)dispatch_d<float>(D, p, B, s);
+    return (int)bwd::run<bwd::RunMask>(
+        D, make_params<bwd::Params>(q, k, v, dout, lse, delta, kv_start,
+                                    kv_len, dq, dk, dv, strides, H, Hkv, Sq,
+                                    Skv, causal),
+        B, s);
+  if (dtype == p2t::kFloat32)
+    return (int)dispatch_d(
+        D, make_params<BwdParams>(q, k, v, dout, lse, delta, kv_start,
+                                  kv_len, dq, dk, dv, strides, H, Hkv, Sq,
+                                  Skv, causal),
+        B, s);
   return (int)cudaErrorInvalidValue;
 }

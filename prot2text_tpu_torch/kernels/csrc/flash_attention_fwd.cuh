@@ -59,6 +59,7 @@ namespace fwd {
 
 using p2t::cp_async16;
 using p2t::cp_async4;
+using p2t::cp_async_rows;
 using p2t::cp_async_commit;
 using p2t::cp_async_wait;
 using p2t::exp2_approx;
@@ -281,24 +282,6 @@ struct Layout {
       sizeof(bf16) * (kQ + 2 * kKV) + sizeof(float) * kBias;
 };
 
-// rows [r0, r0 + kRows) of a (rows, D) matrix of row stride ss → shared
-// [kRows][kStride] by 16-byte cp.async; rows at or past `limit` zero-filled
-template <int D, int kRows, int kStride>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int64_t ss, int r0, int limit,
-                                          int tid) {
-  constexpr int kChunks = D / 8;
-  static_assert(kRows * kChunks % kThreads == 0, "tile / thread mismatch");
-#pragma unroll
-  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
-    const int i = tid + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + r * kStride + 8 * c,
-               ok ? src + (int64_t)(r0 + r) * ss + 8 * c : src, ok ? 16 : 0);
-  }
-}
-
 template <int D, class Mask>
 __global__ void __launch_bounds__(kThreads, Mask::kMinBlocks)
 flash_fwd_kernel(const Params p) {
@@ -330,9 +313,11 @@ flash_fwd_kernel(const Params p) {
   int k_lo, k_hi;
   mask.tiles(p, min(q0 + kBQ, p.Sq) - 1, &k_lo, &k_hi);
 
-  load_rows<D, kBQ, L::kStride>(Qs, q, p.q_ss, q0, p.Sq, tid);
+  cp_async_rows<D, kBQ, L::kStride, kThreads>(Qs, q, p.q_ss, q0, p.Sq,
+                                              tid);
   if (k_lo < k_hi) {
-    load_rows<D, kBK, L::kStride>(Ks, k, p.k_ss, k_lo, p.Skv, tid);
+    cp_async_rows<D, kBK, L::kStride, kThreads>(Ks, k, p.k_ss, k_lo, p.Skv,
+                                                tid);
     mask.stage(Bs, k_lo, q0, tid, p);
   }
   cp_async_commit();
@@ -357,7 +342,9 @@ flash_fwd_kernel(const Params p) {
     float* next = Bs + ((jt + 1) & 1) * (L::kBias / 2);
     cp_async_wait<0>();                 // K (and the stage) have landed;
     __syncthreads();                    // every warp is done with V
-    if (live) load_rows<D, kBK, L::kStride>(Vs, v, p.v_ss, k0, p.Skv, tid);
+    if (live)
+      cp_async_rows<D, kBK, L::kStride, kThreads>(Vs, v, p.v_ss, k0, p.Skv,
+                                                  tid);
     if (more) mask.stage(next, k0 + kBK, q0, tid, p);
     cp_async_commit();
     float s[kNT][4];
@@ -393,7 +380,8 @@ flash_fwd_kernel(const Params p) {
     else
       __syncthreads();
     if (next_live)
-      load_rows<D, kBK, L::kStride>(Ks, k, p.k_ss, k0 + kBK, p.Skv, tid);
+      cp_async_rows<D, kBK, L::kStride, kThreads>(Ks, k, p.k_ss, k0 + kBK,
+                                                  p.Skv, tid);
     cp_async_commit();
     live = next_live;
     if (dead) continue;
@@ -502,17 +490,12 @@ __host__ inline Params make_params(const void* q, const void* k,
   return f;
 }
 
-__host__ inline bool aligned16(const void* ptr, int64_t sb, int64_t sh,
-                               int64_t ss) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 &&
-         ((sb | sh | ss) & 7) == 0;
-}
-
 // The body for head dim D; cudaErrorInvalidValue for another D,
 // cudaErrorMisalignedAddress for an operand cp.async cannot copy (the
 // wrappers raise before that).
 template <class Mask>
 cudaError_t run(int D, const Params& p, int B, cudaStream_t s) {
+  using p2t::aligned16;
   if (!aligned16(p.q, p.q_sb, p.q_sh, p.q_ss) ||
       !aligned16(p.k, p.k_sb, p.k_sh, p.k_ss) ||
       !aligned16(p.v, p.v_sb, p.v_sh, p.v_ss) ||

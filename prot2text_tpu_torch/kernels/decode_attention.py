@@ -7,7 +7,8 @@ K2 replaces prot2text_tpu/kernels/decode_attention.py
 the cache is read-only and the slot write is K3's, after the layer loop
 (lockstep generation).  K4 replaces `decode_attention_stacked_write`
 (`_kernel_write`) and K9a `decode_attention_stacked_write_prefix`
-(`_kernel_write_p`), kernel `csrc/decode_attention_write.cu`: the same
+(`_kernel_write_p`), kernel `csrc/decode_attention_write.cu` (bf16 K9a
+over the cluster body `csrc/decode_attention_split.cuh`): the same
 attention fused with the in-place write of each row's current k/v into its
 own slot `slots[b]` of layer `layer` (continuous-batching serving), K9a
 with a read-only shared-prefix operand (L, 1, Hkv, Pc, D) gated per row by
@@ -17,12 +18,14 @@ functions are the plain PyTorch versions.
 
 Contract (as the JAX kernels): qg (B, Hkv, rep, D) pre-scaled; ck_all/
 cv_all (L, B, Hkv, T, D); kv_mask (B, T) 0/1 over already-written slots
-(K4/K9a: the slot being written must still be 0); k_new/v_new (B, Hkv, D)
-the current token, folded in as one extra logit column; `layer` a host
-int.  Returns (B, Hkv, rep, D) in qg's dtype.  Masked columns take no
-weight and are never read by the kernels, so a stale or scratch column
-cannot leak a NaN.  JAX donates the cache and returns the updated copy;
-K4 and K9a update ck_all/cv_all in place and return only the attention.
+(K4/K9a: the slot being written is still 0 on every engine path; where
+it is 1 the attention reads the slot's old value, and the write follows);
+k_new/v_new (B, Hkv, D) the current token, folded in as one extra logit
+column; `layer` a host int.  Returns (B, Hkv, rep, D) in qg's dtype.
+Masked columns take no weight and are never read by the kernels, so a
+stale or scratch column cannot leak a NaN.  JAX donates the cache and
+returns the updated copy; K4 and K9a update ck_all/cv_all in place and
+return only the attention.
 """
 
 from __future__ import annotations
@@ -202,7 +205,8 @@ def decode_attention_stacked_write_prefix(qg, ck_all, cv_all, kv_mask, k_new,
                                           pv_all, pmask):
     """K9a: K4 plus the shared prefix pk_all/pv_all (L, 1, Hkv, Pc, D),
     read-only, gated per row by pmask (B, Pc) int32.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel (or raise)."""
+    plain version; CUDA tensors launch the kernel (or raise): bf16 the
+    column-split cluster body, f32 the SIMT body."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_write_prefix_plain(
             qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots, pk_all,
@@ -226,6 +230,10 @@ def decode_attention_stacked_write_prefix(qg, ck_all, cv_all, kv_mask, k_new,
             or pmask.device != qg.device or not pmask.is_contiguous():
         raise ValueError(f"K9a: pmask must be a contiguous ({B}, {Pc}) int32 "
                          f"tensor on {qg.device}")
+    if qg.dtype == torch.bfloat16 and (pk_all.data_ptr() % 16
+                                       or pv_all.data_ptr() % 16):
+        # the bf16 body copies prefix rows in 16-byte chunks (cp.async)
+        raise ValueError("K9a: bf16 prefix buffers must be 16-byte aligned")
     out = _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer,
                         slots, pk_all, pv_all, pmask)
     decode_attention_stacked_write_prefix.launches += 1

@@ -5,8 +5,9 @@ Replaces prot2text_tpu/kernels/flash_attention.py `flash_attention_masked`:
 K1 is its forward (`_fwd_masked_kernel` / `_flash_masked_fwd_impl`), kernel
 `csrc/flash_attention.cu`; K5 its backward (`_flash_masked_bwd_impl` with
 `_bwd_masked_dq_kernel` / `_bwd_masked_dkv_kernel`), kernel
-`csrc/flash_attention_bwd.cu`.  Each header states what bounds the kernel
-on the card and what the design does about that.
+`csrc/flash_attention_bwd.cu` (bf16 over the tensor-core body
+`csrc/flash_attention_bwd.cuh`, f32 on a SIMT body).  Each header states
+what bounds the kernel on the card and what the design does about that.
 `flash_attention_masked_plain` / `flash_attention_masked_bwd_plain` are the
 plain PyTorch versions of the same functions: CPU tensors run them, and the
 chip smoke test holds the kernels against them.  `flash_attention_masked`
@@ -103,13 +104,22 @@ def _check(q, k, v, kv_start, kv_len):
             raise ValueError(f"{name} must be a contiguous (B,) int32 tensor")
 
 
+def _aligned16(t) -> bool:
+    """The base pointer and each (batch, head, sequence) stride of t are
+    multiples of 16 bytes."""
+    isz = t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(s * isz % 16
+                                              for s in t.stride()[:3])
+
+
 def _check_aligned(what, **tensors):
-    """The bf16 forward body (csrc/flash_attention_fwd.cuh) copies q, k and
-    v in 16-byte chunks (cp.async): each base pointer and each (batch,
-    head, sequence) stride must be a multiple of 16 bytes."""
+    """The bf16 tensor-core bodies (csrc/flash_attention_fwd.cuh, K5's
+    csrc/flash_attention_bwd.cuh) copy q, k and v in 16-byte chunks
+    (cp.async): each base pointer and each (batch, head, sequence) stride
+    must be a multiple of 16 bytes."""
     for name, t in tensors.items():
         isz = t.element_size()
-        if t.data_ptr() % 16 or any(s * isz % 16 for s in t.stride()[:3]):
+        if not _aligned16(t):
             raise ValueError(
                 f"{what}: bf16 {name} must be 16-byte aligned (data_ptr % 16 "
                 f"= {t.data_ptr() % 16}, strides {tuple(t.stride())} of "
@@ -173,14 +183,27 @@ def flash_attention_masked_bwd_plain(q, k, v, o, lse, do, kv_start, kv_len,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _grad_operand(do):
+    """dO as K5 reads it.  Autograd may hand over any view: the expanded
+    gradient of a sum, or a slice off a 16-byte boundary.  A head dim that
+    is not contiguous, or a bf16 view the tensor-core body cannot copy in
+    16-byte chunks (cp.async), is copied into a fresh (B, H, S, D) buffer;
+    any other view is taken as it is."""
+    if do.stride(-1) == 1 and (do.dtype != torch.bfloat16
+                               or _aligned16(do)):
+        return do
+    return do.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_masked_bwd(q, k, v, o, lse, do, kv_start, kv_len, *,
                                causal: bool = False):
     """K5 → (dq, dk, dv) with the layouts of q, k, v.  CPU tensors run the
-    plain version; CUDA tensors launch the dQ and dK/dV kernels (or
-    raise).  q/k/v/kv_start/kv_len follow K1's contract; o and lse are K1's
+    plain version; CUDA tensors launch the kernels (or raise): bf16 the
+    tensor-core body, which needs q/k/v 16-byte aligned, f32 the SIMT
+    body.  q/k/v/kv_start/kv_len follow K1's contract; o and lse are K1's
     outputs, do the gradient of o.  Strided inputs are taken as they come
     (K1's o and the dO autograd hands back are views of (B, Sq, H, D)
-    buffers); only a head dim that is not contiguous is copied."""
+    buffers); a dO `_grad_operand` rejects is copied."""
     if q.device.type == "cpu":
         return flash_attention_masked_bwd_plain(q, k, v, o, lse, do, kv_start,
                                                 kv_len, causal)
@@ -196,8 +219,9 @@ def flash_attention_masked_bwd(q, k, v, o, lse, do, kv_start, kv_len, *,
     if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq)
             or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous (B, H, Sq) float32 tensor")
-    if do.stride(-1) != 1:          # e.g. the expanded gradient of a sum
-        do = do.contiguous()
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K5", q=q, k=k, v=v)
+    do = _grad_operand(do)
     # Δ = rowsum(dO∘O): one fp32 torch reduction, as XLA computed it beside
     # the TPU kernels; the dQ and dK/dV kernels both read it
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()

@@ -208,3 +208,115 @@ def test_scalar_slot_and_launch_counts_on_cuda(cuda):
     assert torch.equal(ck, wk) and torch.equal(cv, wv)
     assert decode_attention_stacked_write.launches == n4 + 1
     assert decode_attention_stacked_write_prefix.launches == n9 + 1
+
+
+# the bf16 cluster body's edges: column tiles of 64 dealt to a cluster of 4
+# blocks (tile i to block i mod 4); Pc 48 and T 80 give ragged tiles
+EDGE_T, EDGE_PC = 80, 48
+
+
+def _edge_inputs(rep, D, seed, T=EDGE_T, Pc=EDGE_PC, B=4):
+    """Row 0: a fully masked cache span beside a valid prefix; row 1: an
+    empty row (no prefix, no cache: only the current token); row 2: a
+    valid cache window and a left-padded prefix; row 3: everything valid
+    but the slot."""
+    rng = np.random.default_rng(seed)
+    ck = rng.standard_normal((L, B, Hkv, T, D)).astype(np.float32)
+    cv = rng.standard_normal((L, B, Hkv, T, D)).astype(np.float32)
+    q = (rng.standard_normal((B, Hkv, rep, D)) * D ** -0.5).astype(np.float32)
+    kn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    vn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    pk = rng.standard_normal((L, 1, Hkv, Pc, D)).astype(np.float32)
+    pv = rng.standard_normal((L, 1, Hkv, Pc, D)).astype(np.float32)
+    slots = np.array([T - 1, T - 1, 37, 64], np.int32)
+    mask = np.zeros((B, T), np.int32)
+    mask[2, 5:37] = 1
+    mask[3] = 1
+    mask[np.arange(B), slots] = 0
+    pmask = np.ones((B, Pc), np.int32)
+    pmask[1] = 0
+    pmask[2, :Pc - 20] = 0
+    return q, ck, cv, mask, kn, vn, pk, pv, pmask, slots
+
+
+@pytest.mark.parametrize("rep,D", CASES)
+def test_k9a_plain_matches_pallas_interpret_at_edge_shapes(rep, D):
+    import jax.numpy as jnp
+
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_write_prefix as j_write_p,
+    )
+
+    q, ck, cv, mask, kn, vn, pk, pv, pmask, slots = _edge_inputs(rep, D, 6)
+    layer = 1
+    wa, wk, wv = j_write_p(
+        *(jnp.asarray(a) for a in (q, ck, cv, mask, kn, vn)), layer,
+        jnp.asarray(slots), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(pmask), interpret=True)
+    tq, tck, tcv, tmask, tkn, tvn, tpk, tpv, tpm = _torch(
+        q, ck, cv, mask, kn, vn, pk, pv, pmask)
+    got = decode_attention_stacked_write_prefix(
+        tq, tck, tcv, tmask, tkn, tvn, layer, torch.from_numpy(slots), tpk,
+        tpv, tpm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(wa), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_array_equal(tck.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(tcv.numpy(), np.asarray(wv))
+    # the empty row attends to its current token alone: o = v_new
+    np.testing.assert_allclose(got[1].numpy(), np.broadcast_to(
+        vn[1][:, None, :], got[1].shape), atol=ATOL, rtol=0)
+
+
+def _split_case(case, D):
+    """Operands for one edge of the cluster body at T 512 and Pc 128 (10
+    tiles: block 0 gets tiles 0, 4, 8; block 1 tiles 1, 5, 9; blocks 2 and
+    3 tiles 2, 6 and 3, 7)."""
+    T, Pc, rep = 512, 128, 5
+    q, ck, cv, mask, kn, vn, pk, pv, pmask, _ = _edge_inputs(
+        rep, D, 10, T=T, Pc=Pc)
+    rng = np.random.default_rng(11)
+    mask = (rng.random((B, T)) < 0.7).astype(np.int32)
+    pmask = np.ones((B, Pc), np.int32)
+    slots = np.array([100, 200, 300, 400], np.int32)
+    if case == "left_masked":
+        # row 0 sees only cache columns 448-499 (tile 9): blocks 0, 2 and
+        # 3 see nothing at all
+        mask[0] = 0
+        mask[0, 448:500] = 1
+        pmask[0] = 0
+    elif case == "pmask0":
+        pmask[1] = 0
+        pmask[3] = 0
+    elif case == "repeated":
+        slots = np.array([T - 1, 7, T - 1, T - 1], np.int32)
+    # slot_live: kv_mask is 1 at every row's slot; the attention reads the
+    # old value there and the write lands after it, as in the plain version
+    mask[np.arange(B), slots] = int(case == "slot_live")
+    return q, ck, cv, mask, kn, vn, pk, pv, pmask, slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["left_masked", "pmask0", "repeated",
+                                  "slot_live"])
+def test_k9a_cluster_body_matches_plain_on_cuda(cuda, case, D):
+    """bf16 K9a's column-split body against the plain version: attention
+    atol/rtol 2e-2, the written caches bit-exact, one launch."""
+    arrays = _split_case(case, D)
+    q, ck, cv, mask, kn, vn, pk, pv, pmask, slots = (
+        t.to(cuda) for t in _torch(*arrays))
+    q, ck, cv, kn, vn, pk, pv = (t.to(torch.bfloat16)
+                                 for t in (q, ck, cv, kn, vn, pk, pv))
+    for layer in (0, L - 1):
+        gk, gv, wk, wv = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        n = decode_attention_stacked_write_prefix.launches
+        got = decode_attention_stacked_write_prefix(
+            q, gk, gv, mask, kn, vn, layer, slots, pk, pv, pmask)
+        torch.cuda.synchronize()
+        assert decode_attention_stacked_write_prefix.launches == n + 1
+        want = decode_attention_stacked_write_prefix_plain(
+            q.float(), wk, wv, mask, kn.float(), vn.float(), layer, slots,
+            pk.float(), pv.float(), pmask)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+        assert torch.equal(gk, wk) and torch.equal(gv, wv)
