@@ -28,15 +28,20 @@ Phases (any failure raises and the script exits non-zero):
      the bound (the larger of the bytes at the HBM rate and the operations
      at the bf16 peak) and, where one PyTorch call computes the same
      function, that call's time on operands built outside the timed region
-     (the port never calls it); K1, K5, K6 and K9a also print their
-     device time and SDPA's from CUDA graphs (SDPA backward's from
+     (the port never calls it); K1, K2, K4, K5, K6 and K9a also print
+     their device time and SDPA's from CUDA graphs (SDPA backward's from
      torch.profiler: no graph holds torch.autograd.grad), their useful
      TFLOP/s and TB/s and share of the bound on that time, and their
-     ratio to SDPA, eager and on the device;
+     ratio to SDPA, eager and on the device, and their eager times are
+     gated at a half (K2, K4, K9a) or a third (K5) of their SIMT bodies'
+     times (0.3109, 0.2460, 0.3607 and 3.9088 ms on an H100 80GB HBM3 at
+     700 W);
   3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
-     the launch counters must show every kernel on that path;
+     the launch counters must show every kernel on that path; then 16
+     tokens under torch.profiler: the decode window's device time by
+     kernel family (K1, K2, K3) and its idle share;
   3b. legacy generation: ESM2-8M → dense + LayerNorm → Llama-3.2-1B (full
      width and depth, bf16, random weights) built by
      `cli/generate_legacy.py build_model` generates 256 tokens for 4
@@ -280,12 +285,6 @@ def sdpa_call(torch, q, k, v, mask):
         q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
 
 
-def decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, li, pk=None,
-                      pv=None, pmask=None) -> float:
-    return cuda_ms(torch, decode_library_call(torch, qg, ck, cv, kv_mask, kn,
-                                              vn, li, pk, pv, pmask))
-
-
 def decode_library_call(torch, qg, ck, cv, kv_mask, kn, vn, li, pk=None,
                         pv=None, pmask=None):
     """SDPA over a pre-built [prefix ‖ cache ‖ current] operand: what one
@@ -383,28 +382,46 @@ def check_kernels(torch, dev, card):
     pos = torch.arange(T, device=dev)
     pad = torch.tensor([0, 37, 301, 5], device=dev)[:, None]
     kv_mask = ((pos >= pad) & (pos < 1024 + 100)).to(torch.int32)
-    errs = []
+    ck0, cv0 = ck.clone(), cv.clone()
+    errs, top = [], 0.0
     for li in (0, 7, L - 1):
+        n = decode_attention_stacked.launches
         a = decode_attention_stacked(qg, ck, cv, kv_mask, kn, vn, li)
         torch.cuda.synchronize()
+        require(decode_attention_stacked.launches == n + 1,
+                "K2: one launch per call")
         a_ref = decode_attention_stacked_plain(
             qg.float(), ck.float(), cv.float(), kv_mask, kn.float(),
             vn.float(), li)
         torch.testing.assert_close(a.float(), a_ref, atol=2e-2, rtol=2e-2)
         errs.append((a.float() - a_ref).abs().max().item())
-    ms = cuda_ms(torch, lambda: decode_attention_stacked(
-        qg, ck, cv, kv_mask, kn, vn, 7), iters=50)
+        top = max(top, a_ref.abs().max().item())
+    require(torch.equal(ck, ck0) and torch.equal(cv, cv0),
+            "K2 changed the cache")
+    del ck0, cv0
+
+    def k2():
+        return decode_attention_stacked(qg, ck, cv, kv_mask, kn, vn, 7)
+
+    ms = cuda_ms(torch, k2, iters=50)
     plain_ms = cuda_ms(torch, lambda: decode_attention_stacked_plain(
         qg, ck, cv, kv_mask, kn, vn, 7), iters=50)
-    lib_ms = decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, 7)
+    lib = decode_library_call(torch, qg, ck, cv, kv_mask, kn, vn, 7)
+    lib_ms = cuda_ms(torch, lib, iters=50)
     bd = decode_bound(torch, kv_mask, None, Hkv, rep, D, 2, 0,
                       2 * nbytes(qg) + nbytes(kn, vn, kv_mask))
+    sp = speed(torch, k2, lib, ms, lib_ms, bd)
     log(f"K2 decode attention L={L} B={B} Hkv={Hkv} rep={rep} T={T} D={D} "
-        f"bf16: max|a-plain|={max(errs):.3e} (atol/rtol 2e-2); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer [{card}]")
+        f"bf16: max|a-plain|={max(errs):.3e} (atol/rtol 2e-2; "
+        f"{max(errs) / top:.2e} of max|plain|) at layers 0, 7, {L - 1}, "
+        f"one launch a call, the cache bit-unchanged; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer; "
+        f"{speed_text(sp)} [{card}]")
+    require(ms <= 0.155, f"K2 eager {ms:.4f} ms > 0.155 (half the SIMT "
+            f"body's)")
     rows["K2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                      library_ms=lib_ms, **bd)
+                      library_ms=lib_ms, **bd, **sp)
 
     # K3: slot write into the same cache, bit-exact
     new = randn(L, B, Hkv, D)
@@ -519,6 +536,8 @@ def check_kernels(torch, dev, card):
                 f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
                 f"{speed_text(sp)} (SDPA's device time and K5's "
                 f"{k5_prof:.4f} ms from the profiler) [{card}]")
+            require(ms <= 1.30, f"K5 eager {ms:.4f} ms > 1.30 (a third of "
+                    f"the SIMT body's)")
         del q, k, v, do, o, lse, got, want
     rows["K5"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                       library_ms=lib_ms, **bd, **sp)
@@ -646,39 +665,50 @@ def check_serve_kernels(torch, dev, card):
         return decode_attention_stacked_write_plain(
             qg.float(), ck_, cv_, kv_mask, kn.float(), vn.float(), li, slots)
 
-    def check_write(name, kern, plain, plain_bf16):
-        errs = []
+    def check_write(name, kern, plain, plain_bf16, wrapper):
+        """The worst max|kernel - plain|, that over max|plain|, and the
+        kernel's and the plain version's eager times."""
+        errs, top = [], 0.0
         for li in (0, 23, L - 1):
             gk, gv = ck.clone(), cv.clone()
+            n = wrapper.launches
             a = kern(gk, gv, li)
             torch.cuda.synchronize()
+            require(wrapper.launches == n + 1, f"{name}: one launch a call")
             wk, wv = ck.clone(), cv.clone()
             want = plain(wk, wv, li)
             torch.testing.assert_close(a.float(), want, atol=2e-2, rtol=2e-2)
             require(torch.equal(gk, wk) and torch.equal(gv, wv),
                     f"{name}: the written cache is not bit-exact")
             errs.append((a.float() - want).abs().max().item())
+            top = max(top, want.abs().max().item())
             del gk, gv, wk, wv
         ms = cuda_ms(torch, lambda: kern(ck, cv, 23), iters=50)
         plain_ms = cuda_ms(torch, lambda: plain_bf16(ck, cv, 23), iters=20)
-        return max(errs), ms, plain_ms
+        return max(errs), max(errs) / top, ms, plain_ms
 
-    err, ms, plain_ms = check_write(
+    err, rel, ms, plain_ms = check_write(
         "K4", k4, k4_plain,
         lambda ck_, cv_, li: decode_attention_stacked_write_plain(
-            qg, ck_, cv_, kv_mask, kn, vn, li, slots))
+            qg, ck_, cv_, kv_mask, kn, vn, li, slots),
+        decode_attention_stacked_write)
     # q, the output, the new k/v (read, then written at the slots), mask
     fixed = 2 * nbytes(qg) + 2 * nbytes(kn, vn) + nbytes(kv_mask, slots)
-    lib_ms = decode_library_ms(torch, qg, ck, cv, kv_mask, kn, vn, 23)
+    lib = decode_library_call(torch, qg, ck, cv, kv_mask, kn, vn, 23)
+    lib_ms = cuda_ms(torch, lib)
     bd = decode_bound(torch, kv_mask, None, Hkv, rep, D, 2, 0, fixed)
+    sp = speed(torch, lambda: k4(ck, cv, 23), lib, ms, lib_ms, bd)
     log(f"K4 decode attention + slot write L={L} B={B} Hkv={Hkv} rep={rep} "
         f"T={T} D={D} bf16 (slots distinct, two rows on the scratch "
-        f"column): max|a-plain|={err:.3e} (atol/rtol 2e-2), caches "
-        f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) "
-        f"per layer [{card}]")
+        f"column): max|a-plain|={err:.3e} (atol/rtol 2e-2; {rel:.2e} of "
+        f"max|plain|), caches bit-exact, one launch a call; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer; "
+        f"{speed_text(sp)} [{card}]")
+    require(ms <= 0.123, f"K4 eager {ms:.4f} ms > 0.123 (half the SIMT "
+            f"body's)")
     rows["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      library_ms=lib_ms, **bd)
+                      library_ms=lib_ms, **bd, **sp)
 
     for Pc in (128, 256):
         pk, pv = randn(L, 1, Hkv, Pc, D), randn(L, 1, Hkv, Pc, D)
@@ -695,10 +725,11 @@ def check_serve_kernels(torch, dev, card):
                 qg.float(), ck_, cv_, kv_mask, kn.float(), vn.float(), li,
                 slots, pk.float(), pv.float(), pmask)
 
-        err, ms, plain_ms = check_write(
+        err, rel, ms, plain_ms = check_write(
             "K9a", k9, k9_plain,
             lambda ck_, cv_, li: decode_attention_stacked_write_prefix_plain(
-                qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask))
+                qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask),
+            decode_attention_stacked_write_prefix)
         lib = decode_library_call(torch, qg, ck, cv, kv_mask, kn, vn, 23,
                                   pk, pv, pmask)
         lib_ms = cuda_ms(torch, lib)
@@ -707,10 +738,13 @@ def check_serve_kernels(torch, dev, card):
         sp = speed(torch, lambda: k9(ck, cv, 23), lib, ms, lib_ms, bd)
         log(f"K9a decode attention + slot write + shared prefix Pc={Pc} "
             f"(row 6 gated off) L={L} B={B} T={T} bf16: "
-            f"max|a-plain|={err:.3e} (atol/rtol 2e-2), caches bit-exact; "
+            f"max|a-plain|={err:.3e} (atol/rtol 2e-2; {rel:.2e} of "
+            f"max|plain|), caches bit-exact, one launch a call; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
             f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']}) per layer; {speed_text(sp)} [{card}]")
+        require(ms <= 0.18, f"K9a eager {ms:.4f} ms > 0.18 (half the SIMT "
+                f"body's)")
         # the row keeps the worst error and the serving shape's times
         worst = max(err, rows.get("K9a", {}).get("max_abs_err", 0.0))
         rows["K9a"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
@@ -1573,6 +1607,16 @@ def run_slice(torch, dev, card):
             f"descriptions/hour")
     log(f"slice peak device memory {peak:.2f} GiB [{card}]")
     log(f"first tokens row 0: {toks[0, :12].tolist()}")
+    # a short run under the profiler: the decode window after the
+    # prefill's last K1 launch, K2's share of it and the idle share
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, st3 = generate(torch, model, batch, 16)
+    log(f"slice, {st3['steps']} decode steps at "
+        f"{st3['decode_s'] / st3['steps'] * 1e3:.3f} ms/step, decode "
+        + kernel_breakdown(torch, prof, st3["decode_s"], GEN_FAMILIES,
+                           after=K1_FWD) + f" [{card}]")
     return counts
 
 
@@ -1622,6 +1666,9 @@ def legacy_batch(torch, dev, records, mode: str, buckets: dict):
 K1_FWD = r"flash_masked_fwd|flash_fwd_kernel.*RunMask"
 K6_FWD = r"flash_bias_fwd|flash_fwd_kernel.*BiasMask"
 LEGACY_FAMILIES = (("K1", K1_FWD), ("K12", "slab_write"))
+GEN_FAMILIES = (("K1", K1_FWD),
+                ("K2", r"decode_split_kernel.*NoWrite|decode_attention_kernel"),
+                ("K3", "slot_write_kernel"))
 
 
 def run_legacy_generation(torch, dev, card):
@@ -1909,26 +1956,35 @@ def train_records(n: int, lengths, seed: int):
 
 TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", "flash_masked_bwd"),
                   ("K6", K6_FWD), ("K6b", "flash_bias_bwd"))
-# K4 and f32 K9a run the SIMT body; the profiled serving runs are bf16,
-# where K9a is the cluster body
+# the profiled serving runs are bf16: K4 and K9a run the split body, told
+# apart by its column policy
 SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
                   ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
-                  ("K4", "decode_attention_write_kernel"),
-                  ("K9a", "decode_split_kernel"),
+                  ("K4", r"decode_split_kernel.*CacheCols.*SlotWrite"),
+                  ("K9a", r"decode_split_kernel.*PrefixCols"),
                   ("K10/K14", "quant_m"))
 
 
 def kernel_breakdown(torch, prof, wall_s: float,
-                     families=TRAIN_FAMILIES) -> str:
+                     families=TRAIN_FAMILIES, after: str | None = None) -> str:
     """Device time of a profiled window by kernel family (the port's kernels
     by a name pattern each, cuBLAS GEMMs, the rest), from the CUDA kernel
     events of `torch.profiler`, and the host's CUDA API calls (launches,
-    synchronisations, copies) that pace it."""
+    synchronisations, copies) that pace it.  With `after`, the window
+    starts where the last device event matching that pattern ends (`wall_s`
+    is then that window's wall time)."""
     fam = {label: 0.0 for label, _ in families}
     fam.update(GEMM=0.0, rest=0.0)
     by_name, api = {}, {}
     n_kernels = 0
-    for e in prof.events():
+    events = prof.events()
+    if after is not None:
+        t0 = max((e.time_range.end for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and re.search(after, e.name)), default=None)
+        require(t0 is not None, f"no device event matches {after!r}")
+        events = [e for e in events if e.time_range.start >= t0]
+    for e in events:
         us = e.time_range.elapsed_us()
         if e.device_type != torch.autograd.DeviceType.CUDA:
             if e.name.startswith(("cuda", "cu")) and not e.name.startswith(
@@ -2474,21 +2530,8 @@ def run_serve(torch, dev, card):
     paths = {"serve": counts}
     del run, eng                 # free the pool before the next run's peak
     gc.collect()
-
-    # the same loop with the shared prefix off: full-prompt installs (K1)
-    # and per-row decode through K4
-    args_np = serve_args("--shared_prefix", "false", "--max_new_tokens",
-                         "32")
-    run_np, counts_np = serve_once(
-        torch, args_np, tok, cfg, params, serve_batches(args_np, tok, 8, 6),
-        dev, "no shared prefix, 8 x 32 tokens", card)
-    eng = run_np.engine
-    want = expect(K1=L * eng.installs["full"], K4=L * eng.steps)
-    require(counts_np == want,
-            f"launch counts {counts_np} != expected {want}")
-    paths["serve_no_prefix"] = counts_np
-    del run_np, eng
-    gc.collect()
+    paths["serve_no_prefix"] = serve_no_prefix(torch, tok, cfg, params, dev,
+                                               card)
 
     # one short default-path run under torch.profiler: where the time goes
     args_p = serve_args("--max_new_tokens", "12")
@@ -2504,6 +2547,22 @@ def run_serve(torch, dev, card):
     gc.collect()
     paths.update(run_serve_int8(torch, dev, card, tok, cfg, params, batches))
     return paths
+
+
+def serve_no_prefix(torch, tok, cfg, params, dev, card):
+    """The serving loop with the shared prefix off: full-prompt installs
+    (K1) and per-row decode through K4, 8 x 32 tokens."""
+    args = serve_args("--shared_prefix", "false", "--max_new_tokens", "32")
+    run, counts = serve_once(
+        torch, args, tok, cfg, params, serve_batches(args, tok, 8, 6), dev,
+        "no shared prefix, 8 x 32 tokens", card)
+    eng = run.engine
+    want = expect(K1=cfg.llm_config.num_layers * eng.installs["full"],
+                  K4=cfg.llm_config.num_layers * eng.steps)
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    del run, eng
+    gc.collect()
+    return counts
 
 
 def run_serve_int8(torch, dev, card, tok, cfg, params, batches):

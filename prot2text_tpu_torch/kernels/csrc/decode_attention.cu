@@ -3,34 +3,36 @@
 //
 // Replaces prot2text_tpu/kernels/decode_attention.py decode_attention_stacked
 // (_kernel).  Semantics kept: q is pre-scaled; logits are fp32; cache
-// columns with kv_mask == 0 are excluded (the JAX kernel gives them
-// finfo(f32).min, whose weight is exactly 0 once the always-valid current
-// column sets the max); the current token's k/v are one extra logit column;
-// the cache is read-only (the slot write is K3, after the layer loop);
-// softmax weights are rounded to the cache dtype before P·V, the sum of
-// weights stays fp32.  The TPU kernel read the layer by scalar-prefetch
-// block indexing; here the wrapper passes a pointer offset into the stacked
-// buffer, so no per-layer copy exists either.
+// columns with kv_mask == 0 take no weight and are never read (the JAX
+// kernel gives them finfo(f32).min, whose weight is exactly 0 once the
+// always-valid current column sets the max); the current token's k/v are
+// one extra logit column; the cache is read-only (the slot write is K3,
+// after the layer loop); softmax weights are rounded to the cache dtype
+// before P·V, the sum of weights stays fp32.  The TPU kernel read the layer
+// by scalar-prefetch block indexing; here the wrapper passes a pointer
+// offset into the stacked buffer, so no per-layer copy exists either.
 //
-// Bound: bytes.  A step reads B*Hkv*T*D*2*itemsize bytes per layer (21 MB at
-// B=4, Hkv=8, T=1280, D=128, bf16) for ~2 FLOP per byte.  Design: one block
-// per (b, kv-head) handles all `rep` query heads of the group, so every
-// K/V row is read once for the whole group; an online softmax walks T in
-// chunks of 256 columns (one column per thread for q·k with 16-byte loads;
-// one head-dim element per thread for P·V, coalesced across the warp);
-// masked columns are not read at all.  Known limit, left to the next PR:
-// B*Hkv = 32 blocks fill only a quarter of the H100's 132 SMs; splitting T
-// across blocks (flash-decoding) with a second combine pass is the fix.
+// Bound: bytes.  A step reads each valid column of B*Hkv*T*D*2*itemsize
+// bytes per layer once (17 MB, 5.1 us at 3.35 TB/s, at B=4, Hkv=8,
+// T=1280 with ~1040 valid columns a row, D=128, bf16) for ~2 FLOP per
+// byte.  bf16 runs the column-split cluster body of
+// decode_attention_split.cuh (policies CacheCols and NoWrite; its header
+// states the design and the rule for the cluster size).  f32 runs
+// the SIMT body below: one block per (b, kv head) handles all `rep` query
+// heads of the group, so every K/V row is read once for the whole group;
+// an online softmax walks T in chunks of 256 columns (one column per thread
+// for q·k with 16-byte loads; one head-dim element per thread for P·V,
+// coalesced across the warp); masked columns are not read at all.  It
+// fills only B*Hkv of the 132 SMs: f32 models (`--model_dtype fp32`) are
+// for checking, not for speed.
 #include <float.h>
 
 #include "common.cuh"
+#include "decode_attention_split.cuh"
 
 namespace {
 
-using p2t::from_float;
 using p2t::load8;
-using p2t::round_to;
-using p2t::to_float;
 using p2t::warp_max;
 using p2t::warp_sum;
 
@@ -39,15 +41,15 @@ constexpr int kChunk = kThreads;     // cache columns per softmax chunk
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRep = kWarps;      // query heads per kv head (GQA group)
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const T* __restrict__ qg,        // (B, Hkv, rep, D), pre-scaled
-    const T* __restrict__ ck,        // layer slice (B, Hkv, T, D)
-    const T* __restrict__ cv,
+    const float* __restrict__ qg,    // (B, Hkv, rep, D), pre-scaled
+    const float* __restrict__ ck,    // layer slice (B, Hkv, T, D)
+    const float* __restrict__ cv,
     const int32_t* __restrict__ kv_mask,  // (B, T) 0/1
-    const T* __restrict__ k_new,     // (B, Hkv, D)
-    const T* __restrict__ v_new,
-    T* __restrict__ out,             // (B, Hkv, rep, D)
+    const float* __restrict__ k_new, // (B, Hkv, D)
+    const float* __restrict__ v_new,
+    float* __restrict__ out,         // (B, Hkv, rep, D)
     int Hkv, int rep, int T_len) {
   static_assert(kThreads % D == 0 && D % 8 == 0, "unsupported head_dim");
   constexpr int kGroups = kThreads / D;        // head rows in flight per d
@@ -64,9 +66,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
-  const T* q = qg + (int64_t)bg * rep * D;
-  for (int i = tid; i < rep * D; i += kThreads)
-    q_s[i / D][i % D] = to_float(q[i]);
+  const float* q = qg + (int64_t)bg * rep * D;
+  for (int i = tid; i < rep * D; i += kThreads) q_s[i / D][i % D] = q[i];
   __syncthreads();
 
   // The current token's column starts the online softmax: m = its logit,
@@ -74,7 +75,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   if (warp < rep) {
     float s = 0.f;
     for (int d = lane; d < D; d += 32)
-      s = fmaf(q_s[warp][d], to_float(k_new[(int64_t)bg * D + d]), s);
+      s = fmaf(q_s[warp][d], k_new[(int64_t)bg * D + d], s);
     s = warp_sum(s);
     if (lane == 0) {
       m_s[warp] = s;
@@ -89,11 +90,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = g0 + kGroups * i;
-    acc[i] = r < rep ? to_float(v_new[(int64_t)bg * D + d]) : 0.f;
+    acc[i] = r < rep ? v_new[(int64_t)bg * D + d] : 0.f;
   }
 
-  const T* kb = ck + (int64_t)bg * T_len * D;
-  const T* vb = cv + (int64_t)bg * T_len * D;
+  const float* kb = ck + (int64_t)bg * T_len * D;
+  const float* vb = cv + (int64_t)bg * T_len * D;
   const int32_t* mb = kv_mask + (int64_t)b * T_len;
 
   for (int t0 = 0; t0 < T_len; t0 += kChunk) {
@@ -104,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) s[r] = 0.f;
     if (valid) {
-      const T* krow = kb + (int64_t)t * D;
+      const float* krow = kb + (int64_t)t * D;
 #pragma unroll 2
       for (int d0 = 0; d0 < D; d0 += 8) {
         float kf[8];
@@ -140,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     for (int r = 0; r < kMaxRep; ++r) {
       if (r < rep) {
         const float p = valid ? expf(s[r] - m_s[r]) : 0.f;
-        p_s[r][tid] = round_to<T>(p);
+        p_s[r][tid] = p;
         const float ps = warp_sum(p);
         if (lane == 0) red_s[r][warp] = ps;
       }
@@ -160,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const int n = min(kChunk, T_len - t0);
     for (int c = 0; c < n; ++c) {
       if (!valid_s[c]) continue;             // block-uniform branch
-      const float v = to_float(vb[(int64_t)(t0 + c) * D + d]);
+      const float v = vb[(int64_t)(t0 + c) * D + d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int r = g0 + kGroups * i;
@@ -174,39 +175,40 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   for (int i = 0; i < kRows; ++i) {
     const int r = g0 + kGroups * i;
     if (r < rep)
-      out[((int64_t)bg * rep + r) * D + d] = from_float<T>(acc[i] / l_s[r]);
+      out[((int64_t)bg * rep + r) * D + d] = acc[i] / l_s[r];
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* qg, const void* ck, const void* cv,
                    const void* kv_mask, const void* k_new, const void* v_new,
                    void* out, int B, int Hkv, int rep, int T_len,
                    cudaStream_t stream) {
-  decode_attention_kernel<T, D><<<B * Hkv, kThreads, 0, stream>>>(
-      static_cast<const T*>(qg), static_cast<const T*>(ck),
-      static_cast<const T*>(cv), static_cast<const int32_t*>(kv_mask),
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<T*>(out), Hkv, rep, T_len);
+  decode_attention_kernel<D><<<B * Hkv, kThreads, 0, stream>>>(
+      static_cast<const float*>(qg), static_cast<const float*>(ck),
+      static_cast<const float*>(cv), static_cast<const int32_t*>(kv_mask),
+      static_cast<const float*>(k_new), static_cast<const float*>(v_new),
+      static_cast<float*>(out), Hkv, rep, T_len);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(int D, const void* qg, const void* ck, const void* cv,
                        const void* kv_mask, const void* k_new,
                        const void* v_new, void* out, int B, int Hkv, int rep,
                        int T_len, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
-    case 32: return launch<T, 32>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
-    case 64: return launch<T, 64>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
-    case 128: return launch<T, 128>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
+    case 16: return launch<16>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
+    case 32: return launch<32>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
+    case 64: return launch<64>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
+    case 128: return launch<128>(qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv, rep, T_len, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// ck/cv: the layer's (B, Hkv, T, D) slice.  bf16 runs the split body, f32
+// the SIMT body.
 extern "C" int p2t_decode_attention(const void* qg, const void* ck,
                                     const void* cv, const void* kv_mask,
                                     const void* k_new, const void* v_new,
@@ -217,10 +219,13 @@ extern "C" int p2t_decode_attention(const void* qg, const void* ck,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == p2t::kBFloat16)
-    return (int)dispatch_d<__nv_bfloat16>(D, qg, ck, cv, kv_mask, k_new,
-                                          v_new, out, B, Hkv, rep, T_len, s);
+    return (int)split::run<split::CacheCols>(
+        D,
+        split::make_params(qg, ck, cv, kv_mask, k_new, v_new, nullptr,
+                           nullptr, nullptr, out, Hkv, rep, T_len, 0),
+        split::NoWrite{}, B, s);
   if (dtype == p2t::kFloat32)
-    return (int)dispatch_d<float>(D, qg, ck, cv, kv_mask, k_new, v_new, out,
-                                  B, Hkv, rep, T_len, s);
+    return (int)dispatch_d(D, qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv,
+                           rep, T_len, s);
   return (int)cudaErrorInvalidValue;
 }

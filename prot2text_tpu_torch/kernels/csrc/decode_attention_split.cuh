@@ -1,32 +1,42 @@
-// The bf16 decode attention + slot write whose key columns are split
-// across a thread-block cluster: K9a's bf16 route (decode_attention_write.cu
-// keeps the SIMT body for f32 and for K4).  A column policy (`PrefixCols`
-// below: [shared prefix ‖ slot cache]) names the columns, so that K4 (no
-// prefix) and K2 can take the body later.
+// The bf16 decode attention whose key columns are split across a
+// thread-block cluster: the bf16 route of K2 (decode_attention.cu), K4 and
+// K9a (decode_attention_write.cu); their f32 routes keep the SIMT bodies of
+// those files.  Two policies make each kernel of the one body:
+//   - a column policy names the columns and counts their tiles:
+//     `CacheCols` (K2, K4) the slot cache's, `PrefixCols` (K9a) [shared
+//     prefix ‖ slot cache];
+//   - a write policy: `SlotWrite` (K4, K9a) stores row b's k/v into slot
+//     slots[b] after the reads, `NoWrite` (K2) leaves the cache as it is
+//     (lockstep generation writes the slot with K3 after the layer loop).
 //
-// Contract (as the SIMT body and the TPU kernel): q pre-scaled, logits
+// Contract (as the SIMT bodies and the TPU kernels): q pre-scaled, logits
 // fp32; masked columns (kv_mask == 0, pmask == 0 for the prefix) take no
 // weight and are never read; the current token's k/v are one extra logit
 // column; the softmax runs over [prefix ‖ cache ‖ current]; the weights are
 // rounded to bf16 before P·V and their sum stays fp32; m starts at -1e30
 // and stays finite, so a block whose whole share is masked contributes
-// l = 0 and no NaN.  Then row b's k/v are written into slot slots[b] of its
-// own (b, kv head) slab, after every read of that slab (a slot whose
-// kv_mask is 1 is read as it was before the write).
+// l = 0 and no NaN, and a row with no valid column gives o = v_new.  With
+// `SlotWrite`, row b's k/v are then written into slot slots[b] of its own
+// (b, kv head) slab, after every read of that slab (a slot whose kv_mask
+// is 1 is read as it was before the write).
 //
-// Bound: bytes.  A step reads each valid cache column of every (b, kv head)
-// once per layer (at the Qwen3-14B serving shape, B 8, Hkv 8, rep 5, D 128,
-// T 1936 with ~500-800 valid columns a row, and a 256-column prefix: 5.6 us
-// at 3.35 TB/s) for ~2 FLOP a byte.  The SIMT body took one block per (b,
-// kv head), 64 blocks on 132 SMs, and walked all Pc + T columns in series
-// in chunks of 256 with four barriers each, P·V loading one element per
-// column per thread.  So here:
-//   - a cluster of kCluster = 4 blocks per (b, kv head) splits the column
-//     tiles of 64, tile i to block i mod 4: 256 blocks at the serving shape,
-//     all resident at once (two an SM), and the interleave spreads a row's
-//     valid window evenly over the four (each gets 3-4 of the ~14 live
-//     tiles of a serving row); 8 blocks would leave 1-2 live tiles a block,
-//     too few to overlap their copies, for twice the combine;
+// Bound: bytes.  A call reads each valid cache column of every (b, kv head)
+// once (K2 at Llama-3.1-8B's generation shape, B 4, Hkv 8, rep 4, D 128,
+// T 1280 with ~1040 valid columns a row: 5.1 us at 3.35 TB/s; K4/K9a at the
+// Qwen3-14B serving shape, B 8, Hkv 8, rep 5, T 1936 with ~500-800 valid
+// columns a row and, K9a, a 256-column prefix: 5.3-5.6 us) for ~2 FLOP a
+// byte.  The SIMT bodies take one block per (b, kv head), 32-64 blocks on
+// 132 SMs, and walk all columns in series in chunks of 256 with four
+// barriers each, P·V loading one element per column per thread.  So here:
+//   - a cluster of kCluster = 4 blocks per (b, kv head), at every shape,
+//     splits the column tiles of 64, tile i to block i mod 4; the
+//     interleave spreads a row's valid window evenly over the blocks.
+//     K4/K9a at B 8, Hkv 8 get 256 blocks, two an SM, each with 3-4 of a
+//     serving row's ~14 live tiles.  K2 at B 4, Hkv 8 gets 128 blocks, one
+//     an SM; a cluster of 8 there (256 blocks, 2-3 live tiles each)
+//     measured slower on the H100 (PERF.md §6; the likely cause, each
+//     block's fixed work of q loads, mask scan and merge paid twice as
+//     often, is not profiled);
 //   - a block first reads the masks of its tiles (every load in flight at
 //     once) into a bit set; a tile with no valid column is never copied,
 //     and a valid tile's masked columns are zero-filled, never read;
@@ -42,12 +52,13 @@
 //   - each warp keeps its own (m, l, Oᵀ); the block merges its four warps
 //     through shared memory, the leading block (rank 0) folds in the
 //     current token's column, and after a cluster barrier block r merges
-//     the four blocks' partials (in rank order, through distributed shared
+//     the cluster's partials (in rank order, through distributed shared
 //     memory) for head-dim columns [r·D/4, (r+1)·D/4) and writes them: one
 //     launch, no scratch;
-//   - the slot write follows that barrier, which follows every block's
-//     last read of the slab; a second barrier keeps each block's shared
-//     memory alive until the others have read it.
+//   - the slot write (`SlotWrite`) follows that barrier, which follows
+//     every block's last read of the slab; a second barrier keeps each
+//     block's shared memory alive until the others have read it (K2 needs
+//     both barriers too).
 // The prefix tiles of a kv head are read by the clusters of all B rows;
 // after the first they come from L2 (a layer's prefix is Hkv·Pc·D·2·2
 // bytes, 1 MB at Pc 256), the redundancy the TPU kernel avoided by
@@ -78,7 +89,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kCluster = 4;          // blocks per (b, kv head)
+constexpr int kCluster = 4;          // blocks per (b, kv head): the rule
 constexpr int kBT = 16 * kWarps;     // columns per tile, 16 a warp
 constexpr int kStages = 3;           // the copy ring: two tiles ahead
 constexpr int kMaxRep = 8;           // query heads per kv head: the mma's n
@@ -87,20 +98,35 @@ constexpr int kScan = 8;             // mask loads in flight per lane
 constexpr float kNegInf = -1e30f;    // the running max's floor
 constexpr float kLog2e = 1.4426950408889634f;
 
+// what every kernel of the body reads, and its output
 struct Params {
   const bf16* qg;            // (B, Hkv, rep, D), pre-scaled
-  bf16* ck;                  // layer slice (B, Hkv, T, D), slot row written
-  bf16* cv;
+  const bf16* ck;            // layer slice (B, Hkv, T, D)
+  const bf16* cv;
   const int32_t* kv_mask;    // (B, T) 0/1
   const bf16* k_new;         // (B, Hkv, D)
   const bf16* v_new;
-  const int32_t* slots;      // (B,)
-  const bf16* pk;            // prefix layer slice (Hkv, Pc, D)
+  const bf16* pk;            // prefix layer slice (Hkv, Pc, D); PrefixCols
   const bf16* pv;
-  const int32_t* pmask;      // (B, Pc) 0/1
+  const int32_t* pmask;      // (B, Pc) 0/1; PrefixCols
   bf16* out;                 // (B, Hkv, rep, D)
   int Hkv, rep, T_len, Pc;
 };
+
+// the C entry points' untyped arguments → Params (pk, pv and pmask may be
+// null: CacheCols reads none of them)
+inline Params make_params(const void* qg, const void* ck, const void* cv,
+                          const void* kv_mask, const void* k_new,
+                          const void* v_new, const void* pk, const void* pv,
+                          const void* pmask, void* out, int Hkv, int rep,
+                          int T_len, int Pc) {
+  return {static_cast<const bf16*>(qg), static_cast<const bf16*>(ck),
+          static_cast<const bf16*>(cv), static_cast<const int32_t*>(kv_mask),
+          static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
+          static_cast<const bf16*>(pk), static_cast<const bf16*>(pv),
+          static_cast<const int32_t*>(pmask), static_cast<bf16*>(out),
+          Hkv, rep, T_len, Pc};
+}
 
 // a tile's first key and value rows (row stride D), its mask and its count
 // of columns
@@ -111,14 +137,32 @@ struct Tile {
   int n;
 };
 
+// A column policy: `tiles(p)` counts a row's column tiles, `tile<D>(p, b,
+// h, i)` gives tile i of row b and kv head h.
+
+// K2, K4: the slot cache's tiles; no prefix pointer is read.
+struct CacheCols {
+  __host__ __device__ explicit CacheCols(const Params&) {}
+  __host__ __device__ int tiles(const Params& p) const {
+    return (p.T_len + kBT - 1) / kBT;
+  }
+  template <int D>
+  __device__ Tile tile(const Params& p, int b, int h, int i) const {
+    const int c0 = i * kBT;
+    const int64_t o = (((int64_t)b * p.Hkv + h) * p.T_len + c0) * D;
+    return {p.ck + o, p.cv + o, p.kv_mask + (int64_t)b * p.T_len + c0,
+            min(kBT, p.T_len - c0)};
+  }
+};
+
 // K9a: the prefix's tiles, then the cache's (neither straddles the seam).
 struct PrefixCols {
   int nP;                    // prefix tiles
 
-  __device__ explicit PrefixCols(const Params& p)
+  __host__ __device__ explicit PrefixCols(const Params& p)
       : nP((p.Pc + kBT - 1) / kBT) {}
-  __device__ int tiles(const Params& p) const {
-    return nP + (p.T_len + kBT - 1) / kBT;
+  __host__ __device__ int tiles(const Params& p) const {
+    return nP + CacheCols(p).tiles(p);
   }
   template <int D>
   __device__ Tile tile(const Params& p, int b, int h, int i) const {
@@ -128,12 +172,49 @@ struct PrefixCols {
       return {p.pk + o, p.pv + o, p.pmask + (int64_t)b * p.Pc + c0,
               min(kBT, p.Pc - c0)};
     }
-    const int c0 = (i - nP) * kBT;
-    const int64_t o = (((int64_t)b * p.Hkv + h) * p.T_len + c0) * D;
-    return {p.ck + o, p.cv + o, p.kv_mask + (int64_t)b * p.T_len + c0,
-            min(kBT, p.T_len - c0)};
+    return CacheCols(p).tile<D>(p, b, h, i - nP);
   }
 };
+
+// A write policy: `write<D>(p, bg, b, rank, tid)` runs after the
+// cluster barrier that follows every block's last read of the slab.
+
+// K4, K9a: row b's k/v into slot slots[b] of its own (b, kv head) slab;
+// block `rank` writes its head-dim columns.  An out-of-range slot is not
+// written (the wrappers' plain versions raise on it; the serving engine
+// never produces one).
+struct SlotWrite {
+  bf16* ck;                  // Params' layer slices, written
+  bf16* cv;
+  const int32_t* slots;      // (B,)
+
+  template <int D>
+  __device__ void write(const Params& p, int bg, int b, int rank,
+                        int tid) const {
+    constexpr int kCols = D / kCluster;
+    const int slot = slots[b];
+    if (slot < 0 || slot >= p.T_len) return;
+    const int64_t row = ((int64_t)bg * p.T_len + slot) * D;
+    for (int i = tid; i < 2 * kCols; i += kThreads) {
+      const int d = rank * kCols + (i < kCols ? i : i - kCols);
+      if (i < kCols)
+        ck[row + d] = p.k_new[(int64_t)bg * D + d];
+      else
+        cv[row + d] = p.v_new[(int64_t)bg * D + d];
+    }
+  }
+};
+
+// K2: the cache is read-only.
+struct NoWrite {
+  template <int D>
+  __device__ void write(const Params&, int, int, int, int) const {}
+};
+
+// tiles rank, rank + kCluster, ... of n: the ones block `rank` owns
+__host__ __device__ inline int owned(int n_tiles, int rank) {
+  return n_tiles > rank ? (n_tiles - 1 - rank) / kCluster + 1 : 0;
+}
 
 template <int D>
 struct Layout {
@@ -152,9 +233,10 @@ struct Layout {
       sizeof(float) * (kMaxRep * D + 3 * kMaxRep);
 };
 
-template <int D, class Cols>
+// one cluster of kCluster blocks per (b, kv head)
+template <int D, class Cols, class Write>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-decode_split_kernel(const Params p) {
+decode_split_kernel(const Params p, const Write w) {
   static_assert(D % 16 == 0 && D <= 128 && D % kCluster == 0,
                 "head_dim in {16, 32, 64, 128}");
   using L = Layout<D>;
@@ -175,10 +257,7 @@ decode_split_kernel(const Params p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const Cols cols(p);
-  const int n_tiles = cols.tiles(p);
-  // this block's tiles: rank, rank + kCluster, ...
-  const int n_local =
-      n_tiles > rank ? (n_tiles - 1 - rank) / kCluster + 1 : 0;
+  const int n_local = owned(cols.tiles(p), rank);
 
   // q's B fragments (k = head dim, n = query head g; heads >= rep zero)
   const bf16* q = p.qg + (int64_t)bg * p.rep * D;
@@ -395,8 +474,8 @@ decode_split_kernel(const Params p) {
   // every block's partial is in place, and every read of the slab is done
   cluster.sync();
 
-  // block `rank` merges head-dim columns [rank·D/4, (rank+1)·D/4) of every
-  // head over the blocks in rank order
+  // block `rank` merges head-dim columns [rank·kCols, (rank+1)·kCols) of
+  // every head over the blocks in rank order
   constexpr int kCols = D / kCluster;
   for (int i = tid; i < p.rep * kCols; i += kThreads) {
     const int hh = i / kCols, d = rank * kCols + i % kCols;
@@ -419,31 +498,21 @@ decode_split_kernel(const Params p) {
     }
     p.out[((int64_t)bg * p.rep + hh) * D + d] = __float2bfloat16(ot / lt);
   }
-  // the slot write: every block's last read of the slab preceded the
-  // barrier; block `rank` writes its head-dim columns
-  const int slot = p.slots[b];
-  if (slot >= 0 && slot < p.T_len) {
-    const int64_t row = ((int64_t)bg * p.T_len + slot) * D;
-    for (int i = tid; i < 2 * kCols; i += kThreads) {
-      const int d = rank * kCols + (i < kCols ? i : i - kCols);
-      if (i < kCols)
-        p.ck[row + d] = p.k_new[(int64_t)bg * D + d];
-      else
-        p.cv[row + d] = p.v_new[(int64_t)bg * D + d];
-    }
-  }
+  // every block's last read of the slab preceded the barrier
+  w.template write<D>(p, bg, b, rank, tid);
   cluster.sync();                    // no block leaves while others read it
 }
 
-template <int D, class Cols>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+template <int D, class Cols, class Write>
+cudaError_t launch(const Params& p, const Write& w, int B,
+                   cudaStream_t stream) {
   using L = Layout<D>;
   cudaError_t e = cudaFuncSetAttribute(
-      decode_split_kernel<D, Cols>,
+      decode_split_kernel<D, Cols, Write>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (e != cudaSuccess) return e;
-  decode_split_kernel<D, Cols>
-      <<<B * p.Hkv * kCluster, kThreads, L::kBytes, stream>>>(p);
+  decode_split_kernel<D, Cols, Write>
+      <<<B * p.Hkv * kCluster, kThreads, L::kBytes, stream>>>(p, w);
   return cudaGetLastError();
 }
 
@@ -451,20 +520,20 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // kMaxRep query heads or more tiles than a block may own,
 // cudaErrorMisalignedAddress for a slab cp.async cannot copy (the wrapper
 // raises before that).
-template <class Cols>
-cudaError_t run(int D, const Params& p, int B, cudaStream_t s) {
-  const int n_tiles = (p.Pc + kBT - 1) / kBT + (p.T_len + kBT - 1) / kBT;
-  if (p.rep > kMaxRep || (n_tiles + kCluster - 1) / kCluster > kMaxLocal)
+template <class Cols, class Write>
+cudaError_t run(int D, const Params& p, const Write& w, int B,
+                cudaStream_t s) {
+  if (p.rep > kMaxRep || owned(Cols(p).tiles(p), 0) > kMaxLocal)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(p.ck) | reinterpret_cast<uintptr_t>(p.cv) |
        reinterpret_cast<uintptr_t>(p.pk) | reinterpret_cast<uintptr_t>(p.pv)) &
       15)
     return cudaErrorMisalignedAddress;
   switch (D) {
-    case 16: return launch<16, Cols>(p, B, s);
-    case 32: return launch<32, Cols>(p, B, s);
-    case 64: return launch<64, Cols>(p, B, s);
-    case 128: return launch<128, Cols>(p, B, s);
+    case 16: return launch<16, Cols>(p, w, B, s);
+    case 32: return launch<32, Cols>(p, w, B, s);
+    case 64: return launch<64, Cols>(p, w, B, s);
+    case 128: return launch<128, Cols>(p, w, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

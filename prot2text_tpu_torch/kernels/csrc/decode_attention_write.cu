@@ -11,37 +11,34 @@
 // k/v are one extra logit column; the softmax runs over [prefix ‖ cache ‖
 // current] in one pass; weights are rounded to the cache dtype before P·V
 // and their sum stays fp32.  The TPU kernels read-modified-wrote a 16-row
-// tile group through an aliased output; here the block writes exactly the
-// one slot row of its own (b, kv head) slab after its last read of the
-// layer, so the write cannot race a read (no other block touches that
-// slab, and the slot column is masked anyway).  Masked columns are never
-// read at all, so a stale, scratch or uninitialised column cannot leak a
-// NaN into the output.  Slots may repeat across rows (every inactive
-// serving row writes the scratch column T - 1): each row owns its slab.
+// tile group through an aliased output; here each row's slot row of its
+// own (b, kv head) slab is written after the last read of that slab, so
+// the write cannot race a read (no other row touches that slab, and the
+// slot column is masked anyway).  Masked columns are never read at all, so
+// a stale, scratch or uninitialised column cannot leak a NaN into the
+// output.  Slots may repeat across rows (every inactive serving row writes
+// the scratch column T - 1): each row owns its slab.
 //
 // Bound: bytes.  A step reads the valid cache columns of every (b, kv head)
-// once per layer (B=8, Hkv=8, ~700 valid columns, D=128, bf16: ~23 MB) for
-// ~2 FLOP per byte, plus 2*B*Hkv*D*2 bytes of writes.  bf16 K9a runs the
-// column-split cluster body of decode_attention_split.cuh (its header
-// states the design).  K4 and f32 K9a run the SIMT body below, K2's design:
-// one block per (b, kv head) handles all `rep` query heads of the group, an
-// online softmax walks the columns in chunks of 256 (one column per thread
-// for q·k with 16-byte loads, one head-dim element per thread for P·V).
-// Its known limit: B*Hkv = 64 blocks at the serving shape fill half of the
-// H100's 132 SMs; K4 can take the split body through a column policy.
+// once per layer (B=8, Hkv=8, ~700 valid columns, D=128, bf16: ~18 MB,
+// 5.3 us at 3.35 TB/s) for ~2 FLOP per byte, plus 2*B*Hkv*D*2 bytes of
+// writes.  bf16 runs the column-split cluster body of
+// decode_attention_split.cuh (K4 with the policies CacheCols and
+// SlotWrite, K9a with PrefixCols and SlotWrite; its header states the
+// design).  f32 runs the SIMT body below: one block per (b, kv head)
+// handles all `rep` query heads of the group, an online softmax walks the
+// columns in chunks of 256 (one column per thread for q·k with 16-byte
+// loads, one head-dim element per thread for P·V), and the slot row is
+// written after the loop's last barrier.  It fills only B*Hkv of the 132
+// SMs: f32 models (`--model_dtype fp32`) are for checking, not for speed.
 #include <float.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "decode_attention_split.cuh"
 
 namespace {
 
-using p2t::from_float;
 using p2t::load8;
-using p2t::round_to;
-using p2t::to_float;
 using p2t::warp_max;
 using p2t::warp_sum;
 
@@ -50,25 +47,24 @@ constexpr int kChunk = kThreads;     // columns per softmax chunk
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRep = kWarps;      // query heads per kv head (GQA group)
 
-template <typename T>
 struct WriteParams {
-  const T* qg;          // (B, Hkv, rep, D), pre-scaled
-  T* ck;                // layer slice (B, Hkv, T, D), slot row written
-  T* cv;
+  const float* qg;      // (B, Hkv, rep, D), pre-scaled
+  float* ck;            // layer slice (B, Hkv, T, D), slot row written
+  float* cv;
   const int32_t* kv_mask;   // (B, T) 0/1
-  const T* k_new;       // (B, Hkv, D)
-  const T* v_new;
+  const float* k_new;   // (B, Hkv, D)
+  const float* v_new;
   const int32_t* slots; // (B,) slot per row
-  const T* pk;          // prefix layer slice (Hkv, Pc, D); K9a only
-  const T* pv;
+  const float* pk;      // prefix layer slice (Hkv, Pc, D); K9a only
+  const float* pv;
   const int32_t* pmask; // (B, Pc) 0/1; K9a only
-  T* out;               // (B, Hkv, rep, D)
+  float* out;           // (B, Hkv, rep, D)
   int Hkv, rep, T_len, Pc;
 };
 
-template <typename T, int D, bool kPrefix>
+template <int D, bool kPrefix>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_write_kernel(const WriteParams<T> p) {
+decode_attention_write_kernel(const WriteParams p) {
   static_assert(kThreads % D == 0 && D % 8 == 0, "unsupported head_dim");
   constexpr int kGroups = kThreads / D;        // head rows in flight per d
   constexpr int kRows = (kMaxRep + kGroups - 1) / kGroups;
@@ -88,9 +84,8 @@ decode_attention_write_kernel(const WriteParams<T> p) {
   const int Pc = kPrefix ? p.Pc : 0;
   const int n_cols = Pc + p.T_len;             // [prefix ‖ cache]
 
-  const T* q = p.qg + (int64_t)bg * rep * D;
-  for (int i = tid; i < rep * D; i += kThreads)
-    q_s[i / D][i % D] = to_float(q[i]);
+  const float* q = p.qg + (int64_t)bg * rep * D;
+  for (int i = tid; i < rep * D; i += kThreads) q_s[i / D][i % D] = q[i];
   __syncthreads();
 
   // the current token's column starts the online softmax: m = its logit,
@@ -98,7 +93,7 @@ decode_attention_write_kernel(const WriteParams<T> p) {
   if (warp < rep) {
     float s = 0.f;
     for (int d = lane; d < D; d += 32)
-      s = fmaf(q_s[warp][d], to_float(p.k_new[(int64_t)bg * D + d]), s);
+      s = fmaf(q_s[warp][d], p.k_new[(int64_t)bg * D + d], s);
     s = warp_sum(s);
     if (lane == 0) {
       m_s[warp] = s;
@@ -113,20 +108,20 @@ decode_attention_write_kernel(const WriteParams<T> p) {
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = g0 + kGroups * i;
-    acc[i] = r < rep ? to_float(p.v_new[(int64_t)bg * D + d]) : 0.f;
+    acc[i] = r < rep ? p.v_new[(int64_t)bg * D + d] : 0.f;
   }
 
-  T* kb = p.ck + (int64_t)bg * p.T_len * D;
-  T* vb = p.cv + (int64_t)bg * p.T_len * D;
+  float* kb = p.ck + (int64_t)bg * p.T_len * D;
+  float* vb = p.cv + (int64_t)bg * p.T_len * D;
   const int32_t* mb = p.kv_mask + (int64_t)b * p.T_len;
-  const T* pkb = kPrefix ? p.pk + (int64_t)h * Pc * D : nullptr;
-  const T* pvb = kPrefix ? p.pv + (int64_t)h * Pc * D : nullptr;
+  const float* pkb = kPrefix ? p.pk + (int64_t)h * Pc * D : nullptr;
+  const float* pvb = kPrefix ? p.pv + (int64_t)h * Pc * D : nullptr;
   const int32_t* pmb = kPrefix ? p.pmask + (int64_t)b * Pc : nullptr;
 
   for (int t0 = 0; t0 < n_cols; t0 += kChunk) {
     const int t = t0 + tid;
     bool valid = false;
-    const T* krow = nullptr;
+    const float* krow = nullptr;
     if (t < n_cols) {
       if (kPrefix && t < Pc) {
         valid = pmb[t] != 0;
@@ -177,7 +172,7 @@ decode_attention_write_kernel(const WriteParams<T> p) {
     for (int r = 0; r < kMaxRep; ++r) {
       if (r < rep) {
         const float w = valid ? expf(s[r] - m_s[r]) : 0.f;
-        p_s[r][tid] = round_to<T>(w);
+        p_s[r][tid] = w;
         const float ws = warp_sum(w);
         if (lane == 0) red_s[r][warp] = ws;
       }
@@ -198,9 +193,9 @@ decode_attention_write_kernel(const WriteParams<T> p) {
     for (int c = 0; c < n; ++c) {
       if (!valid_s[c]) continue;             // block-uniform branch
       const int tc = t0 + c;
-      const T* vrow = (kPrefix && tc < Pc) ? pvb + (int64_t)tc * D
-                                           : vb + (int64_t)(tc - Pc) * D;
-      const float v = to_float(vrow[d]);
+      const float* vrow = (kPrefix && tc < Pc) ? pvb + (int64_t)tc * D
+                                               : vb + (int64_t)(tc - Pc) * D;
+      const float v = vrow[d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int r = g0 + kGroups * i;
@@ -214,7 +209,7 @@ decode_attention_write_kernel(const WriteParams<T> p) {
   for (int i = 0; i < kRows; ++i) {
     const int r = g0 + kGroups * i;
     if (r < rep)
-      p.out[((int64_t)bg * rep + r) * D + d] = from_float<T>(acc[i] / l_s[r]);
+      p.out[((int64_t)bg * rep + r) * D + d] = acc[i] / l_s[r];
   }
 
   // every read of this (b, kv head) slab ended at the loop's last barrier:
@@ -232,63 +227,32 @@ decode_attention_write_kernel(const WriteParams<T> p) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const WriteParams<T>& p, int B, cudaStream_t stream) {
+template <int D>
+cudaError_t launch(const WriteParams& p, int B, cudaStream_t stream) {
   const dim3 grid(B * p.Hkv);
-  if (p.Pc > 0) {
-    // bf16 with a prefix runs the split body (the entry point routes it)
-    if constexpr (!std::is_same<T, float>::value)
-      return cudaErrorInvalidValue;
-    else
-      decode_attention_write_kernel<T, D, true>
-          <<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    decode_attention_write_kernel<T, D, false>
-        <<<grid, kThreads, 0, stream>>>(p);
-  }
+  if (p.Pc > 0)
+    decode_attention_write_kernel<D, true><<<grid, kThreads, 0, stream>>>(p);
+  else
+    decode_attention_write_kernel<D, false><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const WriteParams<T>& p, int B,
-                       cudaStream_t s) {
+cudaError_t dispatch_d(int D, const WriteParams& p, int B, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(p, B, s);
-    case 32: return launch<T, 32>(p, B, s);
-    case 64: return launch<T, 64>(p, B, s);
-    case 128: return launch<T, 128>(p, B, s);
+    case 16: return launch<16>(p, B, s);
+    case 32: return launch<32>(p, B, s);
+    case 64: return launch<64>(p, B, s);
+    case 128: return launch<128>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// the entry point's arguments → either body's parameters (the same field
-// names; pointers cast to the body's element type)
-template <class P>
-P make_params(const void* qg, void* ck, void* cv, const void* kv_mask,
-              const void* k_new, const void* v_new, const void* slots,
-              const void* pk, const void* pv, const void* pmask, void* out,
-              int Hkv, int rep, int T_len, int Pc) {
-  P p;
-  p.qg = static_cast<decltype(p.qg)>(qg);
-  p.ck = static_cast<decltype(p.ck)>(ck);
-  p.cv = static_cast<decltype(p.cv)>(cv);
-  p.kv_mask = static_cast<const int32_t*>(kv_mask);
-  p.k_new = static_cast<decltype(p.k_new)>(k_new);
-  p.v_new = static_cast<decltype(p.v_new)>(v_new);
-  p.slots = static_cast<const int32_t*>(slots);
-  p.pk = static_cast<decltype(p.pk)>(pk);
-  p.pv = static_cast<decltype(p.pv)>(pv);
-  p.pmask = static_cast<const int32_t*>(pmask);
-  p.out = static_cast<decltype(p.out)>(out);
-  p.Hkv = Hkv; p.rep = rep; p.T_len = T_len; p.Pc = Pc;
-  return p;
 }
 
 }  // namespace
 
 // ck/cv: the layer's (B, Hkv, T, D) slice; pk/pv: the layer's (Hkv, Pc, D)
-// prefix slice and pmask (B, Pc), all ignored when Pc == 0 (K4).  bf16 K9a
-// runs the split body, K4 and f32 K9a the SIMT body.
+// prefix slice and pmask (B, Pc), all ignored when Pc == 0 (K4).  bf16 runs
+// the split body (K4: CacheCols, K9a: PrefixCols; both SlotWrite), f32 the
+// SIMT body.
 extern "C" int p2t_decode_attention_write(
     const void* qg, void* ck, void* cv, const void* kv_mask,
     const void* k_new, const void* v_new, const void* slots, const void* pk,
@@ -299,20 +263,31 @@ extern "C" int p2t_decode_attention_write(
                             pmask == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == p2t::kBFloat16 && Pc > 0)
-    return (int)split::run<split::PrefixCols>(
-        D, make_params<split::Params>(qg, ck, cv, kv_mask, k_new, v_new,
-                                      slots, pk, pv, pmask, out, Hkv, rep,
-                                      T_len, Pc), B, s);
-  if (dtype == p2t::kBFloat16)
-    return (int)dispatch_d<__nv_bfloat16>(
-        D, make_params<WriteParams<__nv_bfloat16>>(
-               qg, ck, cv, kv_mask, k_new, v_new, slots, pk, pv, pmask, out,
-               Hkv, rep, T_len, Pc), B, s);
-  if (dtype == p2t::kFloat32)
-    return (int)dispatch_d<float>(
-        D, make_params<WriteParams<float>>(qg, ck, cv, kv_mask, k_new, v_new,
-                                           slots, pk, pv, pmask, out, Hkv,
-                                           rep, T_len, Pc), B, s);
+  if (dtype == p2t::kBFloat16) {
+    const split::Params p =
+        split::make_params(qg, ck, cv, kv_mask, k_new, v_new, pk, pv, pmask,
+                           out, Hkv, rep, T_len, Pc);
+    const split::SlotWrite w = {static_cast<split::bf16*>(ck),
+                                static_cast<split::bf16*>(cv),
+                                static_cast<const int32_t*>(slots)};
+    return (int)(Pc > 0 ? split::run<split::PrefixCols>(D, p, w, B, s)
+                        : split::run<split::CacheCols>(D, p, w, B, s));
+  }
+  if (dtype == p2t::kFloat32) {
+    WriteParams p;
+    p.qg = static_cast<const float*>(qg);
+    p.ck = static_cast<float*>(ck);
+    p.cv = static_cast<float*>(cv);
+    p.kv_mask = static_cast<const int32_t*>(kv_mask);
+    p.k_new = static_cast<const float*>(k_new);
+    p.v_new = static_cast<const float*>(v_new);
+    p.slots = static_cast<const int32_t*>(slots);
+    p.pk = static_cast<const float*>(pk);
+    p.pv = static_cast<const float*>(pv);
+    p.pmask = static_cast<const int32_t*>(pmask);
+    p.out = static_cast<float*>(out);
+    p.Hkv = Hkv; p.rep = rep; p.T_len = T_len; p.Pc = Pc;
+    return (int)dispatch_d(D, p, B, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

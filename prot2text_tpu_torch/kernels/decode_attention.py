@@ -7,14 +7,18 @@ K2 replaces prot2text_tpu/kernels/decode_attention.py
 the cache is read-only and the slot write is K3's, after the layer loop
 (lockstep generation).  K4 replaces `decode_attention_stacked_write`
 (`_kernel_write`) and K9a `decode_attention_stacked_write_prefix`
-(`_kernel_write_p`), kernel `csrc/decode_attention_write.cu` (bf16 K9a
-over the cluster body `csrc/decode_attention_split.cuh`): the same
+(`_kernel_write_p`), kernel `csrc/decode_attention_write.cu`: the same
 attention fused with the in-place write of each row's current k/v into its
 own slot `slots[b]` of layer `layer` (continuous-batching serving), K9a
 with a read-only shared-prefix operand (L, 1, Hkv, Pc, D) gated per row by
-`pmask`, columns ordered [prefix ‖ cache ‖ current].  Each kernel's header
-states what bounds it and what its design does about that.  The `_plain`
-functions are the plain PyTorch versions.
+`pmask`, columns ordered [prefix ‖ cache ‖ current].  On bf16 all three run
+one column-split cluster body, `csrc/decode_attention_split.cuh` (column
+policy `CacheCols` for K2 and K4, `PrefixCols` for K9a; K2 writes nothing),
+one launch a call; f32 runs the SIMT bodies of the two `.cu` files.  A
+shape the body refuses (more column tiles than its blocks may own) raises;
+nothing falls back to another body.  Each kernel's header states what
+bounds it and what its design does about that.  The `_plain` functions are
+the plain PyTorch versions.
 
 Contract (as the JAX kernels): qg (B, Hkv, rep, D) pre-scaled; ck_all/
 cv_all (L, B, Hkv, T, D); kv_mask (B, T) 0/1 over already-written slots
@@ -25,7 +29,9 @@ column; `layer` a host int.  Returns (B, Hkv, rep, D) in qg's dtype.
 Masked columns take no weight and are never read by the kernels, so a
 stale or scratch column cannot leak a NaN.  JAX donates the cache and
 returns the updated copy; K4 and K9a update ck_all/cv_all in place and
-return only the attention.
+return only the attention.  The bf16 body copies the caches with 16-byte
+`cp.async`, so every operand must be contiguous and the caches 16-byte
+aligned (`_check`).
 """
 
 from __future__ import annotations
@@ -110,7 +116,8 @@ def _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer):
 def decode_attention_stacked(qg, ck_all, cv_all, kv_mask, k_new, v_new,
                              layer: int):
     """K2.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel (or raise).  Layer `layer` is read in place by pointer offset."""
+    kernel (or raise): bf16 the column-split cluster body, f32 the SIMT
+    body.  Layer `layer` is read in place by pointer offset."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_plain(qg, ck_all, cv_all, kv_mask,
                                               k_new, v_new, layer)
@@ -184,7 +191,8 @@ def decode_attention_stacked_write(qg, ck_all, cv_all, kv_mask, k_new, v_new,
                                    layer: int, slots):
     """K4: decode attention + in-place write of row b's k/v into slot
     slots[b] (a scalar slot is broadcast) of layer `layer`.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel (or raise)."""
+    the plain version; CUDA tensors launch the kernel (or raise): bf16 the
+    column-split cluster body, f32 the SIMT body."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_write_plain(
             qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots)

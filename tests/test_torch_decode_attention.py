@@ -51,6 +51,43 @@ def test_plain_matches_pallas_interpret(rep, layer):
                                rtol=ATOL)
 
 
+def _edge_inputs(rep, D, seed, T=150, L=2, B=4, Hkv=2):
+    """T off the 64-column tile grid.  Row 0: valid columns 70-120, all in
+    one 64-column tile; row 1: no valid cache column (o = v_new); row 2: a
+    left-padded window across tiles; row 3: every column valid, the ragged
+    last tile included."""
+    rng = np.random.default_rng(seed)
+    ck = rng.standard_normal((L, B, Hkv, T, D)).astype(np.float32)
+    cv = rng.standard_normal((L, B, Hkv, T, D)).astype(np.float32)
+    q = (rng.standard_normal((B, Hkv, rep, D)) * D ** -0.5).astype(np.float32)
+    kn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    vn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    mask = np.zeros((B, T), np.int32)
+    mask[0, 70:121] = 1
+    mask[2, 5:143] = 1
+    mask[3] = 1
+    return q, ck, cv, mask, kn, vn
+
+
+@pytest.mark.parametrize("rep,D", [(1, 16), (5, 64), (8, 128)])
+def test_k2_plain_matches_pallas_interpret_at_edge_shapes(rep, D):
+    import jax.numpy as jnp
+
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked as j_decode,
+    )
+
+    arrays = _edge_inputs(rep, D, seed=7)
+    want = j_decode(*(jnp.asarray(a) for a in arrays), 1, interpret=True)
+    got = decode_attention_stacked(*(torch.from_numpy(a) for a in arrays), 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=ATOL)
+    # the row with no valid cache column attends to its current token alone
+    vn = arrays[-1]
+    np.testing.assert_allclose(got[1].numpy(), np.broadcast_to(
+        vn[1][:, None, :], got[1].shape), atol=ATOL, rtol=0)
+
+
 def test_cache_is_read_only():
     arrays = [torch.from_numpy(a) for a in _inputs(2, 2, 2, 2, 8, 16)]
     before = [a.clone() for a in arrays]

@@ -3,13 +3,17 @@ read-only prefix operand): the port's plain versions against the JAX
 Pallas kernels in interpret mode (f32: attention atol 1e-5, the cache after
 the write bit-exact); K9a against K4 on the same prefix physically
 replicated into every row; the CUDA kernels against the plain versions on
-the card (f32 1e-4, bf16 2e-2, caches bit-exact)."""
+the card (f32 1e-4, bf16 2e-2, caches bit-exact).  bf16 K2, K4 and K9a
+share one column-split cluster body, so its edges on the card are held
+here for all three (K2's plain-vs-JAX tests are in
+test_torch_decode_attention.py)."""
 
 import numpy as np
 import pytest
 import torch
 
 from prot2text_tpu_torch.kernels.decode_attention import (
+    decode_attention_stacked, decode_attention_stacked_plain,
     decode_attention_stacked_write, decode_attention_stacked_write_plain,
     decode_attention_stacked_write_prefix,
     decode_attention_stacked_write_prefix_plain,
@@ -267,6 +271,35 @@ def test_k9a_plain_matches_pallas_interpret_at_edge_shapes(rep, D):
         vn[1][:, None, :], got[1].shape), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("rep,D", [(1, 16), (5, 64), (8, 128)])
+def test_k4_plain_matches_pallas_interpret_at_edge_shapes(rep, D):
+    """K4 at the cluster body's edges without a prefix: T 80 off the tile
+    grid, rows 0 and 1 with no valid cache column (o = v_new), row 2's
+    valid columns in one 64-column tile, row 3 all valid; rows 0 and 1
+    both write the scratch column T - 1."""
+    import jax.numpy as jnp
+
+    from prot2text_tpu.kernels.decode_attention import (
+        decode_attention_stacked_write as j_write,
+    )
+
+    q, ck, cv, mask, kn, vn, _, _, _, slots = _edge_inputs(rep, D, 8)
+    layer = 2
+    wa, wk, wv = j_write(*(jnp.asarray(a) for a in (q, ck, cv, mask, kn,
+                                                     vn)),
+                         layer, jnp.asarray(slots), interpret=True)
+    tq, tck, tcv, tmask, tkn, tvn = _torch(q, ck, cv, mask, kn, vn)
+    got = decode_attention_stacked_write(tq, tck, tcv, tmask, tkn, tvn,
+                                         layer, torch.from_numpy(slots))
+    np.testing.assert_allclose(got.numpy(), np.asarray(wa), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_array_equal(tck.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(tcv.numpy(), np.asarray(wv))
+    for row in (0, 1):
+        np.testing.assert_allclose(got[row].numpy(), np.broadcast_to(
+            vn[row][:, None, :], got[row].shape), atol=ATOL, rtol=0)
+
+
 def _split_case(case, D):
     """Operands for one edge of the cluster body at T 512 and Pc 128 (10
     tiles: block 0 gets tiles 0, 4, 8; block 1 tiles 1, 5, 9; blocks 2 and
@@ -295,28 +328,108 @@ def _split_case(case, D):
     return q, ck, cv, mask, kn, vn, pk, pv, pmask, slots
 
 
+# (kernel, case) pairs of the split body on the card: K9a's prefix tiles
+# beside the cache's; K4 and K2 without a prefix (K2 writes no slot)
+SPLIT_CASES = (
+    [("K9a", c) for c in ("left_masked", "pmask0", "repeated", "slot_live")]
+    + [("K4", c) for c in ("left_masked", "repeated", "slot_live")]
+    + [("K2", c) for c in ("left_masked", "repeated")])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("case", ["left_masked", "pmask0", "repeated",
-                                  "slot_live"])
-def test_k9a_cluster_body_matches_plain_on_cuda(cuda, case, D):
-    """bf16 K9a's column-split body against the plain version: attention
-    atol/rtol 2e-2, the written caches bit-exact, one launch."""
-    arrays = _split_case(case, D)
+@pytest.mark.parametrize("kernel,case", SPLIT_CASES)
+def test_split_body_matches_plain_on_cuda(cuda, kernel, case, D):
+    """bf16 K2, K4 and K9a on the column-split body against their plain
+    versions: attention atol/rtol 2e-2, one launch a call, the written
+    caches bit-exact (K4, K9a) or bit-unchanged (K2)."""
     q, ck, cv, mask, kn, vn, pk, pv, pmask, slots = (
-        t.to(cuda) for t in _torch(*arrays))
+        t.to(cuda) for t in _torch(*_split_case(case, D)))
     q, ck, cv, kn, vn, pk, pv = (t.to(torch.bfloat16)
                                  for t in (q, ck, cv, kn, vn, pk, pv))
+    fn, plain, extra, extra_plain = {
+        "K2": (decode_attention_stacked, decode_attention_stacked_plain,
+               (), ()),
+        "K4": (decode_attention_stacked_write,
+               decode_attention_stacked_write_plain, (slots,), (slots,)),
+        "K9a": (decode_attention_stacked_write_prefix,
+                decode_attention_stacked_write_prefix_plain,
+                (slots, pk, pv, pmask),
+                (slots, pk.float(), pv.float(), pmask)),
+    }[kernel]
     for layer in (0, L - 1):
         gk, gv, wk, wv = ck.clone(), cv.clone(), ck.clone(), cv.clone()
-        n = decode_attention_stacked_write_prefix.launches
-        got = decode_attention_stacked_write_prefix(
-            q, gk, gv, mask, kn, vn, layer, slots, pk, pv, pmask)
+        n = fn.launches
+        got = fn(q, gk, gv, mask, kn, vn, layer, *extra)
         torch.cuda.synchronize()
-        assert decode_attention_stacked_write_prefix.launches == n + 1
-        want = decode_attention_stacked_write_prefix_plain(
-            q.float(), wk, wv, mask, kn.float(), vn.float(), layer, slots,
-            pk.float(), pv.float(), pmask)
+        assert fn.launches == n + 1
+        want = plain(q.float(), wk, wv, mask, kn.float(), vn.float(), layer,
+                     *extra_plain)
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
         assert torch.equal(gk, wk) and torch.equal(gv, wv)
+        if kernel == "K2":
+            assert torch.equal(gk, ck) and torch.equal(gv, cv)
+
+
+# the split body's column limit: kMaxLocal (256) tiles a block x a cluster
+# of 4 blocks (the rule) x 64 columns
+SPLIT_LIMIT = 256 * 4 * 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_split_body_limit_raises_past_it_on_cuda(cuda, kernel):
+    """At the body's column limit bf16 K2/K4 run and match the plain
+    version; one tile past it the wrapper raises, launching nothing and
+    writing nothing: no fall-back to another body."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for T in (SPLIT_LIMIT, SPLIT_LIMIT + 64):
+        ck, cv = (torch.randn(1, 1, 1, T, 16, generator=g, device=cuda)
+                  .to(torch.bfloat16) for _ in range(2))
+        q, kn, vn = (torch.randn(*shape, generator=g, device=cuda)
+                     .to(torch.bfloat16)
+                     for shape in ((1, 1, 2, 16), (1, 1, 16), (1, 1, 16)))
+        q = q * 0.25
+        mask = (torch.rand(1, T, generator=g, device=cuda) < 0.01).to(
+            torch.int32)
+        slots = torch.tensor([T - 1], dtype=torch.int32, device=cuda)
+        mask[0, T - 1] = 0
+        ck0, cv0 = ck.clone(), cv.clone()
+        if kernel == "K2":
+            fn = decode_attention_stacked
+            wk, wv = ck0, cv0
+
+            def run():
+                return fn(q, ck, cv, mask, kn, vn, 0)
+
+            def plain():
+                return decode_attention_stacked_plain(
+                    q.float(), ck.float(), cv.float(), mask, kn.float(),
+                    vn.float(), 0)
+        else:
+            fn = decode_attention_stacked_write
+            wk, wv = ck.clone(), cv.clone()
+
+            def run():
+                return fn(q, ck, cv, mask, kn, vn, 0, slots)
+
+            def plain():
+                return decode_attention_stacked_write_plain(
+                    q.float(), wk, wv, mask, kn.float(), vn.float(), 0,
+                    slots)
+        n = fn.launches
+        if T == SPLIT_LIMIT:
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            torch.testing.assert_close(got.float(), want, atol=2e-2,
+                                       rtol=2e-2)
+            assert torch.equal(ck, wk) and torch.equal(cv, wv)
+            assert fn.launches == n + 1
+        else:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                run()
+            torch.cuda.synchronize()
+            assert fn.launches == n
+            assert torch.equal(ck, ck0) and torch.equal(cv, cv0)
