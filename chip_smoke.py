@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero):
      slot write, K5 flash backward (two launches bit-identical), K6 bias
      flash prefill, also at
      ESMC-600M's training shapes (timed there too), K6b its backward at
-     ESMC-600M's SFT shapes, K9a K4 over a shared prefix; on the int8
+     ESMC-600M's SFT shapes (two launches bit-identical), K9a K4 over a
+     shared prefix; on the int8
      cache K7 decode + slot write, K9b K7 over an int8 prefix, K8 chunk
      verify + chunk write, K9c K8 over an int8 prefix;
      K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections,
@@ -28,14 +29,15 @@ Phases (any failure raises and the script exits non-zero):
      the bound (the larger of the bytes at the HBM rate and the operations
      at the bf16 peak) and, where one PyTorch call computes the same
      function, that call's time on operands built outside the timed region
-     (the port never calls it); K1, K2, K4, K5, K6 and K9a also print
-     their device time and SDPA's from CUDA graphs (SDPA backward's from
-     torch.profiler: no graph holds torch.autograd.grad), their useful
-     TFLOP/s and TB/s and share of the bound on that time, and their
-     ratio to SDPA, eager and on the device, and their eager times are
-     gated at a half (K2, K4, K9a) or a third (K5) of their SIMT bodies'
-     times (0.3109, 0.2460, 0.3607 and 3.9088 ms on an H100 80GB HBM3 at
-     700 W);
+     (the port never calls it); K1, K2, K4, K5, K6, K6b and K9a also
+     print their device time and SDPA's from CUDA graphs (SDPA backward's
+     from torch.profiler: no graph holds torch.autograd.grad), their
+     useful TFLOP/s and TB/s and share of the bound on that time, and
+     their ratio to SDPA, eager and on the device, and their eager times
+     are gated at a half (K2, K4, K9a, K6b) or a third (K5) of their SIMT
+     bodies' times (0.3109, 0.2460, 0.3607, 0.5602 and 3.9088 ms on an
+     H100 80GB HBM3 at 700 W); K15g's device time per call comes from
+     CUDA graphs beside torch.matmul's on a bf16 copy of the weight;
   3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
@@ -822,8 +824,10 @@ def check_bias_bwd_kernel(torch, dev, card):
     bucket), and at the contrastive batch B 8, S 512 with a run per row,
     at the gates of the serving check (o atol/rtol 2e-2, lse atol 1e-3),
     each timed beside SDPA on the same operands.  K6b from K6's o and lse
-    at the two B 1 shapes, per gradient max|kernel - plain| <= 2e-2 *
-    max|plain|, timed at S 512.  Returns the K6b row, K6's worst
+    at the two B 1 shapes: two launches bit-identical, per gradient
+    max|kernel - plain| <= 2e-2 * max|plain|, timed at both: eager, device
+    time from CUDA graphs, SDPA backward's device time from the profiler;
+    the row holds S 512, its `other_shapes` S 1024.  Returns the K6b row, K6's worst
     max|o - plain| here and K6's timings at these shapes."""
     from prot2text_tpu_torch.kernels.flash_attention import (
         flash_attention_bias_bwd, flash_attention_bias_bwd_plain,
@@ -891,8 +895,14 @@ def check_bias_bwd_kernel(torch, dev, card):
         bias = key_padding(S, torch.tensor([n_valid], device=dev))
         o, lse = check_fwd(q, k, v, bias,
                            f"B={B} S={S} ({n_valid} valid keys)")
-        got = flash_attention_bias_bwd(q, k, v, bias, o, lse, do)
+
+        def k6b():
+            return flash_attention_bias_bwd(q, k, v, bias, o, lse, do)
+
+        got, again = k6b(), k6b()
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K6b at S={S}: two launches differ")
         want = flash_attention_bias_bwd_plain(
             q.float(), k.float(), v.float(), bias, o.float(), lse, do.float())
         parts = []
@@ -901,37 +911,59 @@ def check_bias_bwd_kernel(torch, dev, card):
             require(err <= 2e-2 * top, f"K6b {name} at S={S}: max|err| {err} "
                     f"> 2e-2 * max|plain| {top}")
             errs.append(err)
-            parts.append(f"{name} {err:.3e} (max|plain| {top:.3e})")
-        ms = cuda_ms(torch, lambda: flash_attention_bias_bwd(
-            q, k, v, bias, o, lse, do))
+            parts.append(f"{name} {err:.3e} ({err / top:.2e} of max|plain|)")
+        ms = cuda_ms(torch, k6b)
+        # the library's backward of the same SDPA call (float mask in the
+        # query's dtype; its forward, which keeps the graph, runs outside
+        # the timed region); no CUDA graph holds torch.autograd.grad, so its
+        # device time is the profiler's sum of its kernels, K6b's beside it
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=bias.to(bf16), scale=1.0)
+
+        def lib():
+            return torch.autograd.grad(out, (qr, kr, vr), do,
+                                       retain_graph=True)
+
+        lib_ms = cuda_ms(torch, lib)
+        lib_dev = profiled_ms(torch, lib)
+        k6b_prof = profiled_ms(torch, k6b)
+        del qr, kr, vr, out
         # recomputed q·kᵀ, dO·vᵀ, Pᵀ·dO, dS·k and dSᵀ·q: 10·D per (query,
         # key) pair; this data needs the unmasked pairs only
         full = 10.0 * D * B * H * S * S
         bd = bound(10.0 * D * B * H * S * n_valid,
                    nbytes(q, k, v, o, lse, do, bias, *got))
+        sp = speed(torch, k6b, None, ms, lib_ms, bd, lib_dev_ms=lib_dev)
+        sp["device_ms_profiler"] = k6b_prof
+        sp["library_device_source"] = (
+            "torch.profiler kernel times (no CUDA graph holds "
+            "torch.autograd.grad)")
         msg = (f"K6b bias flash backward B={B} H={H} S={S} D={D} bf16, "
-               f"key-padding bias (1,1,1,S) over {n_valid} valid keys: "
-               f"max|kernel-plain| " + ", ".join(parts) + f"; kernel "
-               f"{ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+               f"key-padding bias (1,1,1,S) over {n_valid} valid keys: two "
+               f"launches bit-identical; max|kernel-plain| " +
+               ", ".join(parts) + f"; kernel {ms:.4f} ms, SDPA backward "
+               f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
                f"({bd['bound_by']}; all S² pairs "
-               f"{full / PEAK_FLOPS * 1e3:.4f} ms)")
+               f"{full / PEAK_FLOPS * 1e3:.4f} ms); {speed_text(sp)} (SDPA's "
+               f"device time and K6b's {k6b_prof:.4f} ms from the "
+               f"profiler)")
+        shape = dict(shape=f"B={B} H={H} S={S} D={D}", ms=ms,
+                     library_ms=lib_ms, bound_ms=bd["bound_ms"],
+                     bound_by=bd["bound_by"], **sp)
         if S == 512:
             plain_ms = cuda_ms(torch, lambda: flash_attention_bias_bwd_plain(
                 q, k, v, bias, o, lse, do))
-            # the library's backward of the same SDPA call (float mask in
-            # the query's dtype; its forward, which keeps the graph, runs
-            # outside the timed region)
-            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qr, kr, vr, attn_mask=bias.to(bf16), scale=1.0)
-            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-                out, (qr, kr, vr), do, retain_graph=True))
-            del qr, kr, vr, out
-            msg += (f", plain {plain_ms:.4f} ms, SDPA backward "
-                    f"{lib_ms:.4f} ms")
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+            msg += f", plain {plain_ms:.4f} ms"
+            require(ms <= 0.2801, f"K6b eager {ms:.4f} ms > 0.2801 (a half "
+                    f"of the SIMT body's)")
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd,
+                       **sp)
+        else:
+            other = shape
         log(msg + f" [{card}]")
-        del q, k, v, do, o, lse, got, want
+        del q, k, v, do, o, lse, got, again, want
+    row["other_shapes"] = [other]
     return ({"K6b": dict(max_abs_err=max(errs), **row)}, max(fwd_errs),
             fwd_times)
 
@@ -1340,6 +1372,13 @@ def check_probe_kernels(torch, dev, card):
                 require(torch.equal(y, qm.quant_matmul_int4(x, w, scale)),
                         f"{kid} is not K11a bit for bit (K={K} N={N})")
                 ctrl = "; = K11a bit for bit"
+            elif kid == "K15g":
+                require(torch.equal(y, kern(*args)),
+                        f"K15g K={K} N={N}: two launches differ")
+                bn, cl = pq.mix_tiling(R, K, N, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
+                ctrl = (f"; two launches bit-identical; many-row body, {bn} "
+                        f"columns a block, K over a cluster of {cl}")
             elif kid == "K15d":
                 require(torch.equal(y, qm.quant_matmul_int4_planes(
                     x, w, scale)), f"K15d is not K10 bit for bit (K={K} "
@@ -1661,10 +1700,13 @@ def legacy_batch(torch, dev, records, mode: str, buckets: dict):
 
 # kernel-name patterns of the profiled breakdowns: K1's and K6's bf16
 # forwards are the one tensor-core body's instances by mask policy
-# (flash_fwd_kernel<D, policy>; K5's bf16 kernels, flash_masked_bwd_*, have
-# a RunMask policy of their own), their f32 forwards the SIMT kernels
+# (flash_fwd_kernel<D, policy>), their f32 forwards the SIMT kernels; K5's
+# and K6b's bf16 backwards likewise (flash_masked_bwd_*_mma_kernel<D,
+# policy>: RunMask, BiasMask)
 K1_FWD = r"flash_masked_fwd|flash_fwd_kernel.*RunMask"
 K6_FWD = r"flash_bias_fwd|flash_fwd_kernel.*BiasMask"
+K5_BWD = r"flash_masked_bwd_(dq|dkv)_kernel|flash_masked_bwd.*RunMask"
+K6B_BWD = r"flash_bias_bwd|flash_masked_bwd.*BiasMask"
 LEGACY_FAMILIES = (("K1", K1_FWD), ("K12", "slab_write"))
 GEN_FAMILIES = (("K1", K1_FWD),
                 ("K2", r"decode_split_kernel.*NoWrite|decode_attention_kernel"),
@@ -1954,8 +1996,8 @@ def train_records(n: int, lengths, seed: int):
              "function": FUNCTIONS[i % len(FUNCTIONS)]} for i in range(n)]
 
 
-TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", "flash_masked_bwd"),
-                  ("K6", K6_FWD), ("K6b", "flash_bias_bwd"))
+TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", K5_BWD), ("K6", K6_FWD),
+                  ("K6b", K6B_BWD))
 # the profiled serving runs are bf16: K4 and K9a run the split body, told
 # apart by its column policy
 SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
@@ -3327,7 +3369,8 @@ def run_probes(torch, dev, card):
     return counts
 
 
-# the extra keys of K1's, K5's, K6's and K9a's rows in the kernels line
+# the extra keys of K1's, K2's, K4's, K5's, K6's, K6b's and K9a's rows in the
+# kernels line
 SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
               "useful_tbps", "bound_share", "x_library", "x_library_device",
               "device_ms_profiler", "library_device_source", "other_shapes")

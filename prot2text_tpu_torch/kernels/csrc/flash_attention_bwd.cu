@@ -429,7 +429,7 @@ extern "C" int p2t_flash_masked_bwd(const void* q, const void* k,
         D, make_params<bwd::Params>(q, k, v, dout, lse, delta, kv_start,
                                     kv_len, dq, dk, dv, strides, H, Hkv, Sq,
                                     Skv, causal),
-        B, s);
+        B, s, s);
   if (dtype == p2t::kFloat32)
     return (int)dispatch_d(
         D, make_params<BwdParams>(q, k, v, dout, lse, delta, kv_start,

@@ -1,11 +1,12 @@
-// The bf16 masked flash-attention backward on the tensor cores: K5's bf16
-// route (flash_attention_bwd.cu keeps the SIMT body for f32, which the
-// legacy full fine-tune computes in full fp32).  The backward twin of the
-// forward body in flash_attention_fwd.cuh, with a mask policy (`RunMask`
-// below: K5's key runs, causal) so that K6b can take it with a bias policy.
+// The bf16 flash-attention backward on the tensor cores, one body for K5
+// (flash_attention_bwd.cu) and K6b (flash_attention_bias_bwd.cu), which
+// differ only in a mask policy (`RunMask` below: K5's key runs, causal;
+// `BiasMask`: K6b's additive fp32 bias); both files keep a SIMT body for
+// f32, which the f32 callers compute in full fp32.  The backward twin of
+// the forward body in flash_attention_fwd.cuh.
 //
-// Contract (as the SIMT body and the TPU kernel): P = exp(Q·Kᵀ - lse),
-// masked EXPLICITLY (an empty row carries lse = -1e30 and must give exactly
+// Contract (as the SIMT bodies and the TPU kernels): P = exp(Q·Kᵀ [+ bias]
+// - lse), masked EXPLICITLY (an empty row carries lse = -1e30 and must give exactly
 // zero gradients); Δ = rowsum(dO∘O) comes from the wrapper; dS = P∘(dP - Δ)
 // with dP = dO·Vᵀ; dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO, summed over each GQA
 // group for dK/dV; q pre-scaled.  Numerics: the five products run on bf16
@@ -48,9 +49,14 @@
 //     more; smaller key tiles would still leave the rep heads in series;
 //   - tiles that no row sees are skipped (outside the run, above the
 //     diagonal), per block and per warp; the heaviest tiles run first (dQ:
-//     the last query tiles; dK/dV: the first key tiles), by grid order;
+//     the last query tiles; dK/dV: the first key tiles), by grid order.
+//     K6b's bias tiles arrive by cp.async two walked tiles ahead (three
+//     stages), so the block votes on a tile before it copies the tile's
+//     operands, and skips a tile whose bias is at most -2e30 throughout
+//     (ESMC's key padding): copies and products;
 //   - registers are capped for two blocks an SM at D 128 (the shared
-//     memory allows two), three below.
+//     memory allows two), three below (a full-height bias takes 55 KB more
+//     and leaves one block an SM at D 128).
 // wgmma + TMA with warp specialisation is the follow-up.
 #pragma once
 
@@ -63,6 +69,7 @@ namespace bwd {
 
 namespace cg = cooperative_groups;
 
+using p2t::cp_async16;
 using p2t::cp_async4;
 using p2t::cp_async_commit;
 using p2t::cp_async_rows;
@@ -81,6 +88,9 @@ constexpr int kBQ = 64;               // query rows per tile
 constexpr int kBK = 64;               // key rows per tile
 constexpr int kMaxCluster = 8;        // portable cluster size
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kSkipBias = -2e30f;   // a bias at or below it gives P = 0
+constexpr int kBiasStrideQ = kBK + 8;   // dQ: fp32 per staged bias row
+constexpr int kBiasStrideKV = kBK + 4;  // dK/dV: read down its columns
 
 struct Params {
   const bf16* q;
@@ -105,11 +115,17 @@ struct Params {
   const int32_t* kv_start;
   const int32_t* kv_len;
   int causal;
+  // BiasMask: fp32, strides (batch, head, query row), 0 where broadcast;
+  // the key dim is contiguous
+  const float* bias;
+  int64_t b_sb, b_sh, b_sq;
 };
 
 // K5: the keys of batch row b are [kv_start[b], kv_start[b] + kv_len[b])
 // within [0, Skv), and with `causal` also col <= row (sequence index).
 struct RunMask {
+  static constexpr bool kStaged = false;    // nothing staged beside tiles
+  static constexpr int kRows = 0;
   int start, end, causal, Sq;
 
   __device__ RunMask(const Params& p, int b)
@@ -144,14 +160,138 @@ struct RunMask {
   }
 };
 
-template <int D>
+// K6b: logits = q·kᵀ + bias[b|0, h|0, row|0, col], the bias fp32 and read
+// through its broadcast strides.  Its tiles (the block's query rows × a key
+// tile's 64 keys) arrive by cp.async two walked tiles ahead, so the block
+// votes on a tile before it copies that tile's operands: a tile whose bias
+// is at most -2e30 wherever a row and a key exist gives P = 0 (exp of a
+// logit below -1e30 less any finite lse underflows, as in the plain
+// version), so skipping its copies and products is exact.  kOne: the bias
+// has one row for every query (B|1, H|1, 1, Skv), as ESMC's key padding
+// does; then only that row is staged.  Ragged rows past Sq and keys past
+// Skv are masked explicitly.
+template <bool kOne>
+struct BiasMask {
+  static constexpr bool kStaged = true;
+  static constexpr int kRows = kOne ? 1 : kBQ;   // rows of a staged tile
+  const float* bias;             // batch b's planes
+  int64_t sh, sq;
+  int Sq, Skv;
+  bool vec;                      // rows 16-byte aligned: 16-byte copies
+
+  __device__ BiasMask(const Params& p, int b)
+      : bias(p.bias + b * p.b_sb), sh(p.b_sh), sq(p.b_sq), Sq(p.Sq),
+        Skv(p.Skv),
+        vec((reinterpret_cast<uintptr_t>(p.bias) & 15) == 0 &&
+            ((p.b_sb | p.b_sh | p.b_sq) & 3) == 0) {}
+  __device__ void key_tiles(int, int* lo, int* hi) const {
+    *lo = 0;
+    *hi = Skv;
+  }
+  __device__ int first_row(int) const { return 0; }
+  __device__ bool dead_keys(int k0, int) const { return k0 >= Skv; }
+  __device__ bool dead(int r0, int, int c0, int) const {
+    return r0 >= Sq || c0 >= Skv;
+  }
+  __device__ bool full(int r0, int nr, int c0, int nc) const {
+    return r0 + nr <= Sq && c0 + nc <= Skv;
+  }
+  __device__ bool visible(int row, int col) const {
+    return row < Sq && col < Skv;
+  }
+  // head h's bias, rows q0 .. q0 + kRows - 1, keys k0 .. k0 + 63 →
+  // [kRows][kStride]; rows past Sq and keys past Skv zero-filled
+  template <int kStride>
+  __device__ void stage(float* bs, int h, int q0, int k0, int tid) const {
+    const float* src = bias + h * sh;
+    if (vec) {
+      constexpr int kChunks = kBK / 4;
+      for (int i = tid; i < kRows * kChunks; i += kThreads) {
+        const int r = i / kChunks, c = 4 * (i % kChunks);
+        const int n = q0 + r < Sq ? 4 * min(max(Skv - k0 - c, 0), 4) : 0;
+        cp_async16(bs + r * kStride + c,
+                   n ? src + (q0 + r) * sq + k0 + c : src, n);
+      }
+    } else {
+      for (int i = tid; i < kRows * kBK; i += kThreads) {
+        const int r = i / kBK, c = i % kBK;
+        const bool ok = q0 + r < Sq && k0 + c < Skv;
+        cp_async4(bs + r * kStride + c,
+                  ok ? src + (q0 + r) * sq + k0 + c : src, ok ? 4 : 0);
+      }
+    }
+  }
+  // this thread's share of the block's vote on a staged tile: true when a
+  // value it copied itself (so its own wait suffices) lies above kSkipBias
+  // at a row and key that exist
+  template <int kStride>
+  __device__ bool any_live(const float* bs, int q0, int k0, int tid) const {
+    bool live = false;
+    if (vec) {
+      constexpr int kChunks = kBK / 4;
+      for (int i = tid; i < kRows * kChunks; i += kThreads) {
+        const int r = i / kChunks, c = 4 * (i % kChunks);
+        const float4 x =
+            *reinterpret_cast<const float4*>(bs + r * kStride + c);
+        const int n = q0 + r < Sq ? Skv - k0 - c : 0;
+        live = live || (n > 0 && x.x > kSkipBias) ||
+               (n > 1 && x.y > kSkipBias) || (n > 2 && x.z > kSkipBias) ||
+               (n > 3 && x.w > kSkipBias);
+      }
+    } else {
+      for (int i = tid; i < kRows * kBK; i += kThreads) {
+        const int r = i / kBK, c = i % kBK;
+        live = live || (q0 + r < Sq && k0 + c < Skv &&
+                        bs[r * kStride + c] > kSkipBias);
+      }
+    }
+    return live;
+  }
+  // dQ: S starts at the staged bias of the thread's fragment, rows rl + g
+  // (e = 0, 1) and rl + g + 8 (e = 2, 3) of the block, keys 8j + 2t + (e&1)
+  template <int kNT>
+  __device__ void init_q(float (&s)[kNT][4], const float* bs, int rl, int g,
+                         int t) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* row =
+          bs + (kOne ? 0 : (rl + g + 8 * r) * kBiasStrideQ) + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(row + 8 * j);
+        s[j][2 * r] = x.x;
+        s[j][2 * r + 1] = x.y;
+      }
+    }
+  }
+  // dK/dV: Sᵀ starts at the staged bias, element (j, e) being key kl + g +
+  // 8(e>>1) and query qh + 8j + 2t + (e&1) of the tile
+  __device__ void init_kv(float (&s)[4][4], const float* bs, int qh, int kl,
+                          int g, int t) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = qh + 8 * j + 2 * t + (e & 1);
+        s[j][e] = bs[(kOne ? 0 : q * kBiasStrideKV) + kl + g + 8 * (e >> 1)];
+      }
+  }
+};
+
+template <int D, class Mask>
 struct Smem {
   static constexpr int kStride = D + 8;       // bf16 per staged row (+16 B)
   static constexpr int kTile = 64 * kStride;  // one staged 64-row tile
-  // dQ: Q, dO, then K and V twice; dK/dV: K, V, then Q and dO twice, and
-  // lse and Δ twice
-  static constexpr size_t kDq = sizeof(bf16) * 6 * kTile;
-  static constexpr size_t kDkv = kDq + sizeof(float) * 4 * kBQ;
+  // a staged mask's three tiles (this walked tile's, the next one's, the
+  // one after), fp32
+  static constexpr int kBiasQ = 3 * Mask::kRows * kBiasStrideQ;
+  static constexpr int kBiasKV = 3 * Mask::kRows * kBiasStrideKV;
+  // dQ: Q, dO, then K and V twice, then the staged tiles; dK/dV: K, V, then
+  // Q and dO twice, lse and Δ twice, then the staged tiles
+  static constexpr size_t kDq =
+      sizeof(bf16) * 6 * kTile + sizeof(float) * kBiasQ;
+  static constexpr size_t kDkv = sizeof(bf16) * 6 * kTile +
+                                 sizeof(float) * (4 * kBQ + kBiasKV);
   // dK/dV's exchange: fp32 [2][kBK][kAccStride] over the Q/dO stages
   static constexpr int kAccStride = D + 8;
   static_assert(sizeof(float) * 2 * kBK * kAccStride <=
@@ -163,10 +303,10 @@ struct Smem {
 // dQ: one block per (batch·head, 64-row query tile), the last tiles first;
 // warp w owns rows q0 + 16w .. q0 + 16w + 15 and walks the key tiles.
 template <int D, class Mask>
-__global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Smem<D, Mask>::kMinBlocks)
 flash_masked_bwd_dq_mma_kernel(const Params p) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim in {16, 32, 64, 128}");
-  using S = Smem<D>;
+  using S = Smem<D, Mask>;
   constexpr int kKT = D / 16;     // k steps over the head dim
   constexpr int kNT = kBK / 8;    // S / dP accumulator tiles per warp
   constexpr int kDT = D / 8;      // dQ accumulator tiles per warp
@@ -174,6 +314,7 @@ flash_masked_bwd_dq_mma_kernel(const Params p) {
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dOs = Qs + S::kTile;
   bf16* KV = dOs + S::kTile;      // [2 stages][K, V]
+  float* Bs = reinterpret_cast<float*>(KV + 4 * S::kTile);  // [3][staged]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -193,15 +334,37 @@ flash_masked_bwd_dq_mma_kernel(const Params p) {
   int k_lo, k_hi;
   mask.key_tiles(min(q0 + kBQ, p.Sq) - 1, &k_lo, &k_hi);
 
+  // key tile `it` (first key k0) → K/V stage it & 1; a staged mask's tile
+  // → its stage it % 3
+  auto copy_kv = [&](int it, int k0) {
+    bf16* ks = KV + (it & 1) * 2 * S::kTile;
+    cp_async_rows<D, kBK, S::kStride, kThreads>(ks, k, p.k_ss, k0, p.Skv,
+                                                tid);
+    cp_async_rows<D, kBK, S::kStride, kThreads>(ks + S::kTile, v, p.v_ss,
+                                                k0, p.Skv, tid);
+  };
+  auto stage_of = [&](int it) {
+    return Bs + (it % 3) * (S::kBiasQ / 3);
+  };
+
   cp_async_rows<D, kBQ, S::kStride, kThreads>(Qs, q, p.q_ss, q0, p.Sq, tid);
   cp_async_rows<D, kBQ, S::kStride, kThreads>(dOs, dout, p.do_ss, q0, p.Sq,
                                               tid);
-  if (k_lo < k_hi) {
-    cp_async_rows<D, kBK, S::kStride, kThreads>(KV, k, p.k_ss, k_lo, p.Skv,
-                                                tid);
-    cp_async_rows<D, kBK, S::kStride, kThreads>(KV + S::kTile, v, p.v_ss,
-                                                k_lo, p.Skv, tid);
+  // live: the block sees a key of the tile (a staged mask votes on its
+  // tile before the tile's K and V are copied)
+  bool live = k_lo < k_hi;
+  if constexpr (Mask::kStaged) {
+    if (live)
+      mask.template stage<kBiasStrideQ>(stage_of(0), h, q0, k_lo, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    live = __syncthreads_or(
+        live && mask.template any_live<kBiasStrideQ>(stage_of(0), q0, k_lo,
+                                                     tid));
+    if (k_lo + kBK < k_hi)
+      mask.template stage<kBiasStrideQ>(stage_of(1), h, q0, k_lo + kBK, tid);
   }
+  if (live) copy_kv(0, k_lo);
   cp_async_commit();
 
   // lse and Δ of this thread's rows r0 + g and r0 + g + 8
@@ -222,25 +385,35 @@ flash_masked_bwd_dq_mma_kernel(const Params p) {
   for (int k0 = k_lo, it = 0; k0 < k_hi; k0 += kBK, ++it) {
     const bf16* Ks = KV + (it & 1) * 2 * S::kTile;
     const bf16* Vs = Ks + S::kTile;
-    cp_async_wait<0>();           // this tile has landed;
-    __syncthreads();              // every warp is done with the other stage
-    if (k0 + kBK < k_hi) {
-      bf16* nk = KV + ((it + 1) & 1) * 2 * S::kTile;
-      cp_async_rows<D, kBK, S::kStride, kThreads>(nk, k, p.k_ss, k0 + kBK,
-                                                  p.Skv, tid);
-      cp_async_rows<D, kBK, S::kStride, kThreads>(nk + S::kTile, v, p.v_ss,
-                                                  k0 + kBK, p.Skv, tid);
-    }
+    const bool more = k0 + kBK < k_hi;
+    cp_async_wait<0>();           // this tile (and the next staged one)
+    // landed; every warp is done with the other K/V stage (and the staged
+    // tile before this one); a staged mask votes on the next tile
+    bool next_live = more;
+    if constexpr (Mask::kStaged)
+      next_live = __syncthreads_or(
+          more && mask.template any_live<kBiasStrideQ>(stage_of(it + 1), q0,
+                                                       k0 + kBK, tid));
+    else
+      __syncthreads();
+    if (next_live) copy_kv(it + 1, k0 + kBK);
+    if constexpr (Mask::kStaged)
+      if (k0 + 2 * kBK < k_hi)
+        mask.template stage<kBiasStrideQ>(stage_of(it + 2), h, q0,
+                                          k0 + 2 * kBK, tid);
     cp_async_commit();
-    if (mask.dead(r0, 16, k0, kBK)) continue;     // warp-uniform
+    const bool cur = live;
+    live = next_live;
+    if (!cur || mask.dead(r0, 16, k0, kBK)) continue;   // warp-uniform
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ: one x4 ldmatrix gives the B fragments of
-    // two key tiles
+    // S = Q·Kᵀ (from the staged bias, if any) and dP = dO·Vᵀ: one x4
+    // ldmatrix gives the B fragments of two key tiles
     float s[kNT][4], dp[kNT][4];
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    if constexpr (Mask::kStaged) mask.init_q(s, stage_of(it), rl, g, t);
 #pragma unroll
     for (int kk = 0; kk < kKT; ++kk) {
       const int a_off = (rl + (lane & 7) + (((lane >> 3) & 1) << 3)) *
@@ -317,10 +490,10 @@ flash_masked_bwd_dq_mma_kernel(const Params p) {
 // halves of 32 rows (so S and dP take 32 registers, beside dK's and dV's
 // 2·D/2).  Then the cluster sums the blocks' partials in rank order.
 template <int D, class Mask>
-__global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Smem<D, Mask>::kMinBlocks)
 flash_masked_bwd_dkv_mma_kernel(const Params p) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim in {16, 32, 64, 128}");
-  using S = Smem<D>;
+  using S = Smem<D, Mask>;
   constexpr int kKT = D / 16;
   constexpr int kDT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -328,6 +501,7 @@ flash_masked_bwd_dkv_mma_kernel(const Params p) {
   bf16* Vs = Ks + S::kTile;
   bf16* QD = Vs + S::kTile;                     // [2 stages][Q, dO]
   float* LD = reinterpret_cast<float*>(QD + 4 * S::kTile);  // [2][lse, Δ]
+  float* Bs = LD + 4 * kBQ;                     // [3][staged]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = gridDim.x;
@@ -350,11 +524,14 @@ flash_masked_bwd_dkv_mma_kernel(const Params p) {
   const int nqt = q_begin < p.Sq ? (p.Sq - q_begin + kBQ - 1) / kBQ : 0;
   const int nheads = rank < rep ? (rep - 1 - rank) / C + 1 : 0;
   const int n_it = nqt * nheads;                // (head, query tile) pairs
+  auto head_of = [&](int i) { return hk * rep + rank + C * (i / nqt); };
+  auto q0_of = [&](int i) { return q_begin + (i % nqt) * kBQ; };
+  auto stage_of = [&](int i) { return Bs + (i % 3) * (S::kBiasKV / 3); };
 
   // pair i → its head and first query row, staged into buffer i & 1
   auto stage = [&](int i) {
-    const int h = hk * rep + rank + C * (i / nqt);
-    const int qt0 = q_begin + (i % nqt) * kBQ;
+    const int h = head_of(i);
+    const int qt0 = q0_of(i);
     bf16* qs = QD + (i & 1) * 2 * S::kTile;
     cp_async_rows<D, kBQ, S::kStride, kThreads>(
         qs, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, qt0, p.Sq, tid);
@@ -376,7 +553,23 @@ flash_masked_bwd_dkv_mma_kernel(const Params p) {
     cp_async_rows<D, kBK, S::kStride, kThreads>(Vs, v, p.v_ss, k0, p.Skv,
                                                 tid);
   }
-  if (n_it > 0) stage(0);
+  // live: the pair's query tile sees a key of the block (a staged mask
+  // votes on the pair's tile before its Q and dO are copied)
+  bool live = n_it > 0;
+  if constexpr (Mask::kStaged) {
+    if (live)
+      mask.template stage<kBiasStrideKV>(stage_of(0), head_of(0), q0_of(0),
+                                         k0, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    live = __syncthreads_or(
+        live && mask.template any_live<kBiasStrideKV>(stage_of(0), q0_of(0),
+                                                      k0, tid));
+    if (n_it > 1)
+      mask.template stage<kBiasStrideKV>(stage_of(1), head_of(1), q0_of(1),
+                                         k0, tid);
+  }
+  if (live) stage(0);
   cp_async_commit();
 
   float dk[kDT][4], dv[kDT][4];
@@ -387,12 +580,26 @@ flash_masked_bwd_dkv_mma_kernel(const Params p) {
   const bool warp_dead = mask.dead_keys(kw, 16);
 
   for (int i = 0; i < n_it; ++i) {
-    cp_async_wait<0>();           // this pair's tiles have landed;
-    __syncthreads();              // every warp is done with the other stage
-    if (i + 1 < n_it) stage(i + 1);
+    cp_async_wait<0>();           // this pair's tiles (and the next staged
+    // one) landed; every warp is done with the other stage (and the staged
+    // tile before this one); a staged mask votes on the next pair's tile
+    bool next_live = i + 1 < n_it;
+    if constexpr (Mask::kStaged)
+      next_live = __syncthreads_or(
+          next_live && mask.template any_live<kBiasStrideKV>(
+                           stage_of(i + 1), q0_of(i + 1), k0, tid));
+    else
+      __syncthreads();
+    if (next_live) stage(i + 1);
+    if constexpr (Mask::kStaged)
+      if (i + 2 < n_it)
+        mask.template stage<kBiasStrideKV>(stage_of(i + 2), head_of(i + 2),
+                                           q0_of(i + 2), k0, tid);
     cp_async_commit();
-    if (warp_dead) continue;      // warp-uniform
-    const int qt0 = q_begin + (i % nqt) * kBQ;
+    const bool cur = live;
+    live = next_live;
+    if (!cur || warp_dead) continue;              // warp-uniform
+    const int qt0 = q0_of(i);
     const bf16* Qs = QD + (i & 1) * 2 * S::kTile;
     const bf16* dOs = Qs + S::kTile;
     const float* lse = LD + (i & 1) * 2 * kBQ;
@@ -409,6 +616,8 @@ flash_masked_bwd_dkv_mma_kernel(const Params p) {
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      if constexpr (Mask::kStaged)
+        mask.init_kv(s, stage_of(i), qh, 16 * warp, g, t);
 #pragma unroll
       for (int kk = 0; kk < kKT; ++kk) {
         const int a_off = (16 * warp + (lane & 7) +
@@ -531,9 +740,12 @@ flash_masked_bwd_dkv_mma_kernel(const Params p) {
   cluster.sync();                 // no block leaves while others read it
 }
 
+// dQ on s_dq, then dK/dV on s_dkv: the caller orders the two streams
+// (the same stream, or two that run the kernels side by side)
 template <int D, class Mask>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using S = Smem<D>;
+cudaError_t launch(const Params& p, int B, cudaStream_t s_dq,
+                   cudaStream_t s_dkv) {
+  using S = Smem<D, Mask>;
   cudaError_t e = cudaFuncSetAttribute(
       flash_masked_bwd_dq_mma_kernel<D, Mask>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kDq);
@@ -544,7 +756,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   const dim3 grid_dq(B * p.H, (p.Sq + kBQ - 1) / kBQ);
   flash_masked_bwd_dq_mma_kernel<D, Mask>
-      <<<grid_dq, kThreads, S::kDq, stream>>>(p);
+      <<<grid_dq, kThreads, S::kDq, s_dq>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int C = min(p.H / p.Hkv, kMaxCluster);
@@ -552,7 +764,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   cfg.gridDim = dim3(C, B * p.Hkv, (p.Skv + kBK - 1) / kBK);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = S::kDkv;
-  cfg.stream = stream;
+  cfg.stream = s_dkv;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
@@ -569,7 +781,8 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // cudaErrorMisalignedAddress for an operand cp.async cannot copy (the
 // wrapper copies dO and raises on q/k/v before that).
 template <class Mask>
-cudaError_t run(int D, const Params& p, int B, cudaStream_t s) {
+cudaError_t run(int D, const Params& p, int B, cudaStream_t s_dq,
+                cudaStream_t s_dkv) {
   using p2t::aligned16;
   if (!aligned16(p.q, p.q_sb, p.q_sh, p.q_ss) ||
       !aligned16(p.k, p.k_sb, p.k_sh, p.k_ss) ||
@@ -581,10 +794,10 @@ cudaError_t run(int D, const Params& p, int B, cudaStream_t s) {
                                                    p.dq_ss) & 1))
     return cudaErrorMisalignedAddress;
   switch (D) {
-    case 16: return launch<16, Mask>(p, B, s);
-    case 32: return launch<32, Mask>(p, B, s);
-    case 64: return launch<64, Mask>(p, B, s);
-    case 128: return launch<128, Mask>(p, B, s);
+    case 16: return launch<16, Mask>(p, B, s_dq, s_dkv);
+    case 32: return launch<32, Mask>(p, B, s_dq, s_dkv);
+    case 64: return launch<64, Mask>(p, B, s_dq, s_dkv);
+    case 128: return launch<128, Mask>(p, B, s_dq, s_dkv);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,11 @@
 // K15a-e and K15g: the weight-quantized matmul variants of the TPU probe
-// scripts, few-row products at Llama-3.1-8B and Qwen3-14B widths,
+// scripts, products at Llama-3.1-8B and Qwen3-14B widths (16 rows; K15g
+// 128),
 //
 //   y[r, n] = (sum_k bf16(x[r, k]) * q[k, n]) * scale[n]
 //
 // x (R, K) bf16; fp32 accumulation; the scale (N,) f32 in the fp32
-// epilogue; y (R, N) bf16 (K15g: f32, no scale).  Each variant keeps the
+// epilogue; y (R, N) bf16 (K15g: f32, no scale).  Each of K15a-e keeps the
 // one strategy its probe varies and takes the rest from quant_matmul.cuh
 // (K10/K11/K14's loads, fragment builders, x staging and mma.sync
 // m16n8k16) through that header's body, each a policy (`FormatPolicy`) that
@@ -32,10 +33,11 @@
 //        unpacked with an AND: lo_u = w & 0xF, then in bf16x2 arithmetic
 //        (lo_u - 16 [lo_u >= 8], (w - lo_u) / 16).
 //   K15g mm_mix (bench_int8_mxu.py:156, body :139): bf16 x int8 with an
-//        f32 output and no scale, at R 128: 16 row tiles per block (K14's
-//        body stops at 8), so the weight streams once, and x staged 16
-//        bytes at a time (one value at a time, K14's way, the staging of
-//        128 rows took 0.33 ms against 0.12 on an H100 80GB HBM3 at 700 W).
+//        f32 output and no scale, at R 128: not this header's few-row body
+//        but quant_matmul_rows.cuh's many-row body (`rows::Int8W`), whose
+//        header states its bound and design; the wrapper's rule
+//        (probe_quant_matmul.py mix_tiling) picks its block columns and
+//        the cluster that splits K.
 //
 // K15b and K15e build K11a's fragments from the same bytes, so on the same
 // integers they equal K11a (and K10) bit for bit; only the unpack differs.
@@ -43,10 +45,9 @@
 // Bound: bytes, as K10/K14 (the header states the design).  At R 16 the
 // weight dominates: one int4 call at (4096, 14336) reads 29.4 MB, 8.8 us at
 // 3.35 TB/s; K15a's LM head (4096, 128256) int8 525 MB, 157 us; K15e's
-// (5120, 17408) 44.6 MB, 13.3 us; K15g at R 128 58.7 MB of int8 weight and
-// 7.3 MB of f32 output, about 20 us, against 15.0 G operations at the bf16
-// rate, 15.2 us, so bytes still set the pace.
+// (5120, 17408) 44.6 MB, 13.3 us.
 #include "quant_matmul.cuh"
+#include "quant_matmul_rows.cuh"
 
 namespace {
 
@@ -72,14 +73,10 @@ __device__ __forceinline__ uint32_t and_pair(uint32_t w, int c) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// K15a (kUnroll = bc / 16) and K15g: K14's int8 loads and fragments with
-// kU steps loaded ahead and kS x values staged per fill; kV: x staged 8
-// values at a time (K15g, whose 128 rows make the staging as costly as the
-// weight stream when it goes one value at a time)
-template <int kU, int kS = kStageK, bool kV = false>
+// K15a: K14's int8 loads and fragments with kU steps loaded ahead
+template <int kU>
 struct Int8Rows : FormatPolicy<kInt8, true> {
-  static constexpr int kUnroll = kU, kStage = kS;
-  static constexpr bool kVecStage = kV;
+  static constexpr int kUnroll = kU;
 };
 
 // K15b / K15e: K11a's split-half byte loads and k order, another unpack
@@ -131,24 +128,28 @@ struct Native : FormatPolicy<kBytes, true> {
 // variant 0 K15a (param: bc in {32, 64, 128, 256}; w (K, N) int8), 1 K15b
 // (w (K/2, N) int8 split-half bytes), 2 K15c (w (K/2, N) int8 native int4,
 // k pairs per byte), 3 K15d (param: columns per block, 128 or 256; w (K/8,
-// N) int32 planes), 4 K15e (as K15b), 5 K15g (w (K, N) int8, out f32, scale
-// unused, 16 row tiles per block); every other variant writes bf16 and
-// needs the scale.  splits >= 1 slices of K (in steps of 16 k values for
-// int8, 32 for int4), with `partial` an (splits, R, N) fp32 scratch buffer
-// when splits > 1.  The wrapper checks x bf16 (R, K), N % 4 == 0 and a
-// 16-byte-aligned weight.
+// N) int32 planes), 4 K15e (as K15b): bf16 out, the scale needed, splits
+// >= 1 slices of K (in steps of 16 k values for int8, 32 for int4), with
+// `partial` an (splits, R, N) fp32 scratch buffer when splits > 1.  5 K15g
+// (w (K, N) int8, out f32, scale and partial unused): param the block's
+// columns (128 or 256), splits the cluster that sums K (1 to 4).  The
+// wrapper checks x bf16 (R, K), N % 4 == 0 and a 16-byte-aligned weight.
 extern "C" int p2t_probe_quant_matmul(const void* x, const void* w,
                                       const void* scale, void* out,
                                       void* partial, int R, int K, int N,
                                       int variant, int param, int splits,
                                       void* stream) {
-  const int k_mult = variant == 3 ? 8 : (variant == 0 || variant == 5) ? 1 : 2;
-  const int step_k = (variant == 0 || variant == 5) ? 16 : 32;
+  if (variant == 5)
+    return rows::run<rows::Int8W, float>(x, w, nullptr, out, R, K, N, param,
+                                         splits,
+                                         static_cast<cudaStream_t>(stream));
+  const int k_mult = variant == 3 ? 8 : variant == 0 ? 1 : 2;
+  const int step_k = variant == 0 ? 16 : 32;
   if (R <= 0 || K <= 0 || N <= 0 || K % k_mult != 0 || N % 4 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 || splits <= 0 ||
       splits > 65535 || (splits > 1 && partial == nullptr) ||
       splits > (K + step_k - 1) / step_k || (N + 127) / 128 > 65535 ||
-      (variant != 5 && scale == nullptr))
+      scale == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
@@ -186,9 +187,6 @@ extern "C" int p2t_probe_quant_matmul(const void* x, const void* w,
     case 4:
       return (int)launch<BytesUnpack<1>, bf16, bf16>(x, w, sc, out, pt, R, K,
                                                      N, splits, s);
-    case 5:
-      return (int)launch<Int8Rows<4, 128, true>, bf16, float, kWarps, 16>(
-          x, w, nullptr, out, pt, R, K, N, splits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

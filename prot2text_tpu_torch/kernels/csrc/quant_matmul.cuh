@@ -73,7 +73,7 @@
 // The body is a template over a policy (`Format` below: how a K step's
 // weights are loaded and turned into A fragments, and how x is staged), the
 // number of warps per block and the input and output types, so that the
-// probe variants K15a-e and K15g (probe_quant_matmul.cu) differ from
+// probe variants K15a-e (probe_quant_matmul.cu) differ from
 // K10/K11/K14 only in what their probe varies.  K15f's int8 x int8 product
 // (int8_mma.cu) shares the split-K reduction.
 #pragma once
@@ -270,16 +270,13 @@ __device__ __forceinline__ void stage_slot(int q, int sb, int K, int* k,
 // (kStepK) and its MMAs per tile (kMmas), the steps loaded ahead (kUnroll),
 // the x values staged per fill (kStage) and the padding of a staged row
 // (kPad, bf16 elements, so that the B-fragment loads of a warp hit distinct
-// banks); kVecStage: x (bf16, K % 8 == 0, 16-byte aligned) staged 8 values
-// at a time in plain k order, else one value at a time through slot().
-// load() reads one step's weights of a thread, frags() builds tile h's A
+// banks).  load() reads one step's weights of a thread, frags() builds tile h's A
 // fragments, slot() places x value q of a fill that starts at step sb.
 template <int kF, bool kVec>
 struct FormatPolicy : Fmt<kF> {
   static constexpr int kUnroll = 8;             // K steps loaded ahead
   static constexpr int kStage = kStageK;
   static constexpr int kPad = Fmt<kF>::kInt4 ? 32 : 16;
-  static constexpr bool kVecStage = false;
   __device__ static void load(const void* w, int step, int nc, int t, int K,
                               int N, uint32_t (&v)[4]) {
     load_step<kF, kVec>(w, step, nc, t, K, N, v);
@@ -301,8 +298,6 @@ quant_mma_kernel(const T* __restrict__ x, const void* __restrict__ w,
                  const float* __restrict__ scale, To* __restrict__ out,
                  float* __restrict__ partial, int R, int K, int N,
                  int steps_per_split) {
-  static_assert(!P::kVecStage || std::is_same<T, __nv_bfloat16>::value,
-                "the 16-byte x staging takes bf16 x");
   constexpr int kNThreads = kW * 32;
   constexpr int kRows = kRT * kTileRows;
   constexpr int kStride = P::kStage + P::kPad;
@@ -316,8 +311,6 @@ quant_mma_kernel(const T* __restrict__ x, const void* __restrict__ w,
   const int nsteps = (K + P::kStepK - 1) / P::kStepK;
   const int s_begin = blockIdx.z * steps_per_split;
   const int s_end = min(nsteps, s_begin + steps_per_split);
-  const bool vec_x = P::kVecStage && K % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
   float acc[kRT][2][4];
 #pragma unroll
@@ -331,24 +324,13 @@ quant_mma_kernel(const T* __restrict__ x, const void* __restrict__ w,
     const int ns = min(kFill, s_end - sb);
     // stage x[r0 .. r0 + kRows, the fill's k values] as bf16 in the order
     // the B fragments read it; the global index runs fastest across threads
-    if (vec_x) {
-      for (int e = threadIdx.x; e < kRows * P::kStage / 8; e += kNThreads) {
-        const int r = e / (P::kStage / 8), q = 8 * (e % (P::kStage / 8));
-        const int k = P::kStepK * sb + q;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < R && k < K)
-          v = *reinterpret_cast<const uint4*>(x + (int64_t)(r0 + r) * K + k);
-        *reinterpret_cast<uint4*>(&xs[r * kStride + q]) = v;
-      }
-    } else {
-      for (int e = threadIdx.x; e < kRows * P::kStage; e += kNThreads) {
-        const int r = e / P::kStage;
-        int k, pos;
-        P::slot(e % P::kStage, sb, K, &k, &pos);
-        __nv_bfloat16 v = __float2bfloat16(0.f);
-        if (r0 + r < R && k < K) v = to_bf16(x[(int64_t)(r0 + r) * K + k]);
-        xs[r * kStride + pos] = v;
-      }
+    for (int e = threadIdx.x; e < kRows * P::kStage; e += kNThreads) {
+      const int r = e / P::kStage;
+      int k, pos;
+      P::slot(e % P::kStage, sb, K, &k, &pos);
+      __nv_bfloat16 v = __float2bfloat16(0.f);
+      if (r0 + r < R && k < K) v = to_bf16(x[(int64_t)(r0 + r) * K + k]);
+      xs[r * kStride + pos] = v;
     }
     __syncthreads();
     for (int s0 = 0; s0 < ns; s0 += P::kUnroll) {
@@ -445,19 +427,15 @@ void launch_rt(const void* x, const void* w, const float* scale, void* out,
       K, N, per);
 }
 
-// the body with policy P, then the split-K reduction; kFixedRT > 0: that
-// many row tiles per block whatever R, else the fewest that hold R (at most
-// 8: 64 rows)
-template <class P, typename T, typename To, int kW = kWarps, int kFixedRT = 0>
+// the body with policy P, then the split-K reduction; the fewest row tiles
+// that hold R (at most 8: 64 rows)
+template <class P, typename T, typename To, int kW = kWarps>
 cudaError_t launch(const void* x, const void* w, const float* scale,
                    void* out, float* partial, int R, int K, int N,
                    int splits, cudaStream_t stream) {
   const int nsteps = (K + P::kStepK - 1) / P::kStepK;
   const int per = (nsteps + splits - 1) / splits;
-  if constexpr (kFixedRT > 0)
-    launch_rt<P, T, To, kFixedRT, kW>(x, w, scale, out, partial, R, K, N,
-                                      splits, per, stream);
-  else if (R <= 8)
+  if (R <= 8)
     launch_rt<P, T, To, 1, kW>(x, w, scale, out, partial, R, K, N,
                                       splits, per, stream);
   else if (R <= 16)

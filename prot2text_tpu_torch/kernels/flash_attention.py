@@ -19,7 +19,9 @@ K6 replaces the forward of `flash_attention_tpu` (`_fwd_kernel` /
 explicit fp32 bias (the serving prefix install over [seeded prefix ‖
 suffix] cache columns; the ESMC encoder under `attn_impl="flash"`).  K6b
 replaces its backward (`_flash_bwd` with `_bwd_dq_kernel` /
-`_bwd_dkv_kernel`), kernel `csrc/flash_attention_bias_bwd.cu`.
+`_bwd_dkv_kernel`), kernel `csrc/flash_attention_bias_bwd.cu` (bf16 over
+K5's tensor-core body `csrc/flash_attention_bwd.cuh` with its bias policy,
+f32 on a SIMT body).
 `flash_attention_bias` pairs the two in a `torch.autograd.Function`, as the
 JAX `custom_vjp` does; the bias gets no gradient.
 
@@ -33,6 +35,7 @@ exactly 0; a row with no valid key gives o = 0 and lse = -1e30.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -113,8 +116,8 @@ def _aligned16(t) -> bool:
 
 
 def _check_aligned(what, **tensors):
-    """The bf16 tensor-core bodies (csrc/flash_attention_fwd.cuh, K5's
-    csrc/flash_attention_bwd.cuh) copy q, k and v in 16-byte chunks
+    """The bf16 tensor-core bodies (csrc/flash_attention_fwd.cuh, K5's and
+    K6b's csrc/flash_attention_bwd.cuh) copy q, k and v in 16-byte chunks
     (cp.async): each base pointer and each (batch, head, sequence) stride
     must be a multiple of 16 bytes."""
     for name, t in tensors.items():
@@ -184,7 +187,7 @@ def flash_attention_masked_bwd_plain(q, k, v, o, lse, do, kv_start, kv_len,
 
 
 def _grad_operand(do):
-    """dO as K5 reads it.  Autograd may hand over any view: the expanded
+    """dO as K5 and K6b read it.  Autograd may hand over any view: the expanded
     gradient of a sum, or a slice off a 16-byte boundary.  A head dim that
     is not contiguous, or a bf16 view the tensor-core body cannot copy in
     16-byte chunks (cp.async), is copied into a fresh (B, H, S, D) buffer;
@@ -385,14 +388,22 @@ def flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+@functools.cache
+def _side_stream(index: int):
+    """The stream bf16 K6b's dK/dV kernel runs on beside dQ's."""
+    return torch.cuda.Stream(device=index)
+
+
 def flash_attention_bias_bwd(q, k, v, bias, o, lse, do):
     """K6b → (dq, dk, dv) with the layouts of q, k, v.  CPU tensors run the
-    plain version; CUDA tensors launch the dQ and dK/dV kernels (or raise).
-    q/k/v/bias follow K6's contract; o and lse are K6's outputs, do the
-    gradient of o.  Strided q/k/v/o/do are taken as they come (ESMC hands
-    over transposes of (B, S, H, D) buffers); only a head dim that is not
-    contiguous is copied.  The bias is read through its broadcast
-    strides."""
+    plain version; CUDA tensors launch the dQ and dK/dV kernels (or raise):
+    bf16 Δ's kernel, then the tensor-core body's dQ on the current stream
+    beside its dK/dV on a side stream that is forked and joined here (it
+    needs q/k/v/o 16-byte aligned), f32 the SIMT body.  q/k/v/bias follow
+    K6's contract; o and lse are K6's outputs, do the gradient of o.  Strided q/k/v/o/do are taken as they
+    come (ESMC hands over transposes of (B, S, H, D) buffers); a dO
+    `_grad_operand` rejects is copied.  The bias is read through its
+    broadcast strides."""
     if q.device.type == "cpu":
         return flash_attention_bias_bwd_plain(q, k, v, bias, o, lse, do)
     _check_bias(q, k, v, bias)
@@ -407,11 +418,21 @@ def flash_attention_bias_bwd(q, k, v, bias, o, lse, do):
     if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq)
             or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous (B, H, Sq) float32 tensor")
-    if do.stride(-1) != 1:          # e.g. the expanded gradient of a sum
-        do = do.contiguous()
-    # Δ = rowsum(dO∘O): one fp32 torch reduction, as XLA computed it beside
-    # the TPU kernels; the dQ and dK/dV kernels both read it
-    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    if q.dtype == torch.bfloat16:
+        _check_aligned("K6b", q=q, k=k, v=v, o=o)
+    do = _grad_operand(do)
+    lib = _build.library()
+    stream = _build.stream_of(q)
+    # Δ = rowsum(dO∘O) in fp32, as XLA computed it beside the TPU kernels;
+    # the dQ and dK/dV kernels both read it.  bf16: a kernel of its own
+    if q.dtype == torch.bfloat16:
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        st = (ctypes.c_int64 * 6)(*do.stride()[:3], *o.stride()[:3])
+        _build.check(lib.p2t_flash_bwd_delta(
+            do.data_ptr(), o.data_ptr(), delta.data_ptr(),
+            ctypes.addressof(st), B, H, Sq, D, stream), "p2t_flash_bwd_delta")
+    else:
+        delta = (do.float() * o.float()).sum(dim=-1).contiguous()
     b = bias.expand(B, bias.shape[1], Sq, k.shape[2])
     b_sh = b.stride(1) if b.shape[1] == H and H > 1 else 0
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -419,13 +440,19 @@ def flash_attention_bias_bwd(q, k, v, bias, o, lse, do):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
         b.stride(0), b_sh, b.stride(2))
-    lib = _build.library()
+    # bf16: dK/dV on a side stream, forked after Δ and joined back, runs
+    # beside dQ; the tensors' memory stays with the current stream, which
+    # waits for the side stream before anything after this call
+    main = torch.cuda.current_stream(q.device)
+    side = _side_stream(q.device.index or 0)
+    side.wait_stream(main)
     err = lib.p2t_flash_bias_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), b.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), B, H,
-        k.shape[1], Sq, k.shape[2], D, _build.dtype_code(q.dtype),
-        _build.stream_of(q))
+        k.shape[1], Sq, k.shape[2], D, _build.dtype_code(q.dtype), stream,
+        side.cuda_stream)
+    main.wait_stream(side)
     _build.check(err, "p2t_flash_bias_bwd")
     flash_attention_bias_bwd.launches += 1
     return dq, dk, dv

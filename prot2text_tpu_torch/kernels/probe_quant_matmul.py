@@ -17,9 +17,12 @@ Each kernel replaces an in-file Pallas kernel of a probe under `scripts/`:
   on the int8 tensor cores (`csrc/int8_mma.cu`);
 - K15g `mm_mix` (`bench_int8_mxu.py:156`): bf16 x int8 -> f32, no scale.
 
-K15a-K15e and K15g are K10/K14's body (`csrc/quant_matmul.cuh`) with a
-policy each (`csrc/probe_quant_matmul.cu`) that varies only the strategy
-its probe varies; the sources state what bounds them.
+K15a-K15e are K10/K14's body (`csrc/quant_matmul.cuh`) with a policy each
+(`csrc/probe_quant_matmul.cu`) that varies only the strategy its probe
+varies; K15g runs the many-row body `csrc/quant_matmul_rows.cuh` (wgmma,
+all 128 rows of a block × 128 or 256 columns, K split over a thread-block
+cluster where the column blocks leave SMs idle: `mix_tiling`); the
+sources state what bounds them.
 
 Contract (as the probes' kernels): x (R, K) bfloat16 (the plain versions
 take any float x and round it to bf16 first); y = (x @ q) * scale in fp32,
@@ -37,6 +40,8 @@ packing, two values per byte along the axis the kernel consumes in pairs).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -44,6 +49,13 @@ from .quant_matmul import _splits, unpack_int4_planes
 
 CHUNK_ROWS = (32, 64, 128, 256)     # K15a's bc: k rows converted per chunk
 PLANE_BLOCK_COLS = (128, 256)       # K15d: output columns per block
+# K15g's many-row body (csrc/quant_matmul_rows.cuh): rows and k values of
+# a block's tile, its column counts (widest first) and cluster sizes
+MIX_BLOCK_ROWS = 128
+MIX_TILE_K = 64
+MIX_BLOCK_COLS = (256, 128)
+MIX_CLUSTERS = (1, 2, 4)
+MIX_MIN_TILES = 8                   # K tiles a cluster rank sums at least
 # variant → (C variant code, weight dtype, k values per stored row)
 _VARIANTS = {
     "K15a": (0, torch.int8, 1),
@@ -287,17 +299,48 @@ def mm_i4and(x, wp, scale):
 mm_i4and.launches = 0
 
 
+def mix_tiling(R: int, K: int, N: int, sms: int = 132) -> tuple[int, int]:
+    """K15g's grid: (block columns, cluster size).  A block holds one block
+    per SM (its ring and registers), so the rule fills the SMs: for each
+    column count (widest first) the blocks are the row blocks × column
+    blocks, and K is split over the largest cluster that keeps them within
+    one wave of `sms` with at least `MIX_MIN_TILES` K tiles a rank; the
+    column count whose grid fills its last wave best wins, the widest on a
+    tie (x crosses L2 once per column block)."""
+    tiles = -(-K // MIX_TILE_K)
+    best, best_fill = None, -1.0
+    for bn in MIX_BLOCK_COLS:
+        blocks = -(-R // MIX_BLOCK_ROWS) * -(-N // bn)
+        c = max(cl for cl in MIX_CLUSTERS
+                if cl == 1 or (blocks * cl <= sms
+                               and tiles >= cl * MIX_MIN_TILES))
+        used = blocks * c
+        fill = used / (-(-used // sms) * sms)
+        if fill > best_fill:
+            best, best_fill = (bn, c), fill
+    return best
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def mm_mix(x, w):
-    """K15g: x (R, K) bf16 · w (K, N) int8 → (R, N) f32, no scale, 128 rows
-    per block.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel (or raise)."""
+    """K15g: x (R, K) bf16 · w (K, N) int8 → (R, N) f32, no scale, on the
+    many-row body (`mix_tiling` picks its grid).  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return mm_mix_plain(x, w)
     _check("K15g", x, w, None, "K15g")
     R, K = x.shape
-    out = _launch("K15g", x, w, None, 0,
-                  _splits(R, K, w.shape[1], 8, block_rows=128),
-                  torch.float32)
+    N = w.shape[1]
+    bn, cluster = mix_tiling(R, K, N, _sm_count(x.device.index or 0))
+    out = torch.empty((R, N), dtype=torch.float32, device=x.device)
+    err = _build.library().p2t_probe_quant_matmul(
+        x.data_ptr(), w.data_ptr(), None, out.data_ptr(), None, R, K, N,
+        _VARIANTS["K15g"][0], bn, cluster, _build.stream_of(x))
+    _build.check(err, "p2t_probe_quant_matmul (K15g)")
     mm_mix.launches += 1
     return out
 

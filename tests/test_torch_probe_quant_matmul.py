@@ -197,6 +197,25 @@ def test_plane_splits():
         pq.plane_splits(4096, 6, 16, 14336)
 
 
+def test_mix_tiling():
+    """K15g's grid rule: at the probe's shape 56 blocks of 256 columns, K
+    split over clusters of 2 (112 of 132 SMs; 112 blocks of 128 columns
+    fill as many, and the wider block moves less of x); a narrow N takes
+    128 columns and up to 4 blocks a cluster where K has the tiles; a short
+    K keeps clusters of 1; a grid of several waves splits nothing."""
+    assert pq.mix_tiling(128, 4096, 14336) == (256, 2)
+    assert pq.mix_tiling(128, 14336, 4096) == (128, 4)
+    assert pq.mix_tiling(128, 2048, 640) == (128, 4)
+    assert pq.mix_tiling(200, 256, 128) == (256, 1)
+    assert pq.mix_tiling(1, 64, 24) == (256, 1)
+    assert pq.mix_tiling(512, 4096, 14336) == (256, 1)
+    assert pq.mix_tiling(128, 4096, 14336, sms=16) == (128, 1)
+    for R, K, N in ((1, 1, 4), (300, 999, 1028), (128, 64 * 33, 20000)):
+        bn, c = pq.mix_tiling(R, K, N)
+        assert bn in pq.MIX_BLOCK_COLS and c in pq.MIX_CLUSTERS
+        assert c == 1 or -(-K // pq.MIX_TILE_K) >= c * pq.MIX_MIN_TILES
+
+
 def test_wrappers_run_plain_on_cpu_and_count_nothing():
     rng = np.random.default_rng(9)
     x = torch.from_numpy(_x(rng, 4, 64)).bfloat16()
@@ -321,3 +340,38 @@ def test_kernels_raise_on_bad_operands(cuda):
                   s, block_cols=512)
     with pytest.raises(TypeError, match="int8"):
         pq.mm_i8i8(x, w)
+
+
+@pytest.mark.cuda
+def test_k15g_probe_shape_bit_identical_on_cuda(cuda):
+    """K15g at the probe's shape (R 128, K 4096, N 14336: 256 columns a
+    block, K over clusters of 2) within 1e-5 · max|plain|, and two
+    launches bit-identical (the cluster sums its partials in rank order)."""
+    x, w, _ = _cuda_operands("K15g", 128, 4096, 14336, cuda, 21)
+    got = pq.mm_mix(x, w)
+    again = pq.mm_mix(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = pq.mm_mix_plain(x, w)
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K,N", [(200, 999, 1028), (77, 4096, 1024)])
+def test_k15g_every_tiling_on_cuda(cuda, monkeypatch, R, K, N):
+    """Every block width and cluster size of the many-row body, forced past
+    the rule, within 1e-5 · max|plain|: K 999 copies x element by element
+    (rows off 16 bytes) with a ragged last K tile, N 1028 the weight 4
+    bytes at a time."""
+    x, w, _ = _cuda_operands("K15g", R, K, N, cuda, R + K + N)
+    want = pq.mm_mix_plain(x, w)
+    top = want.abs().max().item()
+    for bn in pq.MIX_BLOCK_COLS:
+        for c in pq.MIX_CLUSTERS:
+            monkeypatch.setattr(pq, "mix_tiling", lambda *a, bn=bn, c=c:
+                                (bn, c))
+            got = pq.mm_mix(x, w)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            assert err <= 1e-5 * top, (bn, c, err)
