@@ -95,8 +95,9 @@ Phases (any failure raises and the script exits non-zero):
   4d. weight-quantized serving (the bf16 model freed first): the towers
      built by `build_server` with `--model_dtype int4` (bf16, then int4
      nibble planes) serve (e) `--kv_bits 8`, 16 x 128 (K10 per projection
-     and head, K9b) and (g) `--kv_bits 8 --prompt_lookup_tokens 4`, 8 x 32
-     (K10 at 40 rows, K9c), then a short profiled run; `--model_dtype int8`
+     and head at every row count, the installs' prefills and ESMC included,
+     K9b) and (g) `--kv_bits 8 --prompt_lookup_tokens 4`, 8 x 32 (K10 at
+     40 rows, K9c), then a short profiled run; `--model_dtype int8`
      serves (f) the 16 requests of (e) on the bf16 pool (K14, K9a); exact
      K10/K14 counts from the engine's counters (`quant_launches`), each
      build's and run's peak;
@@ -200,22 +201,39 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def profiled_ms(torch, fn, calls: int = 10) -> float:
+def profiled_ms(torch, fn, calls: int = 10) -> float | None:
     """Device time of one fn() in milliseconds from `torch.profiler`: the
     sum of the CUDA kernel events of `calls` calls over `calls`.  For a
-    call a CUDA graph cannot hold (a backward through torch.autograd.grad)."""
+    call a CUDA graph cannot hold (a backward through torch.autograd.grad).
+    A profiler session that records no device kernel (seen once on the
+    card, in a process that had profiled before) is run again; after three
+    such sessions the time is not measured: None, and the log says so."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(us > 0, "the profiler recorded no device kernels")
-    return us / 1e3 / calls
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / calls
+    log("the profiler recorded no device kernels in three sessions: this "
+        "device time is not measured")
+    return None
+
+
+PROFILED_SOURCE = ("torch.profiler kernel times (no CUDA graph holds "
+                   "torch.autograd.grad)")
+UNPROFILED_SOURCE = ("not measured: the profiler recorded no device kernel "
+                     "in three sessions")
+
+
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def speed(torch, fn, lib_fn, ms: float, lib_ms: float, bd: dict,
@@ -226,25 +244,30 @@ def speed(torch, fn, lib_fn, ms: float, lib_ms: float, bd: dict,
     library call no graph holds), the useful operations and bytes per
     second and the share of the bound on the device time (the bound's
     count: this data's unmasked pairs or valid columns), and the kernel's
-    time over the library call's, eager and on the device."""
+    time over the library call's, eager and on the device.  Without
+    `lib_fn`, a `lib_dev_ms` of None is a library time not measured: its
+    ratio is None too."""
     dev_ms = graph_ms(torch, fn)
-    if lib_dev_ms is None:
+    if lib_dev_ms is None and lib_fn is not None:
         lib_dev_ms = graph_ms(torch, lib_fn)
     return dict(device_ms=dev_ms, library_device_ms=lib_dev_ms,
                 useful_tflops=bd["flops"] / dev_ms / 1e9,
                 useful_tbps=bd["bytes"] / dev_ms / 1e9,
                 bound_share=bd["bound_ms"] / dev_ms, x_library=ms / lib_ms,
-                x_library_device=dev_ms / lib_dev_ms)
+                x_library_device=(None if lib_dev_ms is None
+                                  else dev_ms / lib_dev_ms))
 
 
 def speed_text(sp: dict) -> str:
+    ratio = sp["x_library_device"]
     return (f"device {sp['device_ms']:.4f} ms (SDPA "
-            f"{sp['library_device_ms']:.4f}), "
+            f"{ms_text(sp['library_device_ms'])}), "
             f"{sp['useful_tflops']:.1f} useful TFLOP/s, "
             f"{sp['useful_tbps']:.2f} TB/s, "
             f"{sp['bound_share']:.1%} of the bound, "
             f"{sp['x_library']:.2f}x SDPA eager, "
-            f"{sp['x_library_device']:.2f}x on the device")
+            + ("not measured" if ratio is None else f"{ratio:.2f}x")
+            + " on the device")
 
 
 def causal_run_pairs(torch, kv_start, kv_len, S: int) -> int:
@@ -531,13 +554,12 @@ def check_kernels(torch, dev, card):
             sp = speed(torch, k5, None, ms, lib_ms, bd, lib_dev_ms=lib_dev)
             sp["device_ms_profiler"] = k5_prof
             sp["library_device_source"] = (
-                "torch.profiler kernel times (no CUDA graph holds "
-                "torch.autograd.grad)")
+                PROFILED_SOURCE if lib_dev is not None else UNPROFILED_SOURCE)
             log(f"K5 at B={B} H={H} S={S} D={D}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
                 f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
                 f"{speed_text(sp)} (SDPA's device time and K5's "
-                f"{k5_prof:.4f} ms from the profiler) [{card}]")
+                f"{ms_text(k5_prof)} from the profiler) [{card}]")
             require(ms <= 1.30, f"K5 eager {ms:.4f} ms > 1.30 (a third of "
                     f"the SIMT body's)")
         del q, k, v, do, o, lse, got, want
@@ -937,8 +959,7 @@ def check_bias_bwd_kernel(torch, dev, card):
         sp = speed(torch, k6b, None, ms, lib_ms, bd, lib_dev_ms=lib_dev)
         sp["device_ms_profiler"] = k6b_prof
         sp["library_device_source"] = (
-            "torch.profiler kernel times (no CUDA graph holds "
-            "torch.autograd.grad)")
+            PROFILED_SOURCE if lib_dev is not None else UNPROFILED_SOURCE)
         msg = (f"K6b bias flash backward B={B} H={H} S={S} D={D} bf16, "
                f"key-padding bias (1,1,1,S) over {n_valid} valid keys: two "
                f"launches bit-identical; max|kernel-plain| " +
@@ -946,7 +967,7 @@ def check_bias_bwd_kernel(torch, dev, card):
                f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
                f"({bd['bound_by']}; all S² pairs "
                f"{full / PEAK_FLOPS * 1e3:.4f} ms); {speed_text(sp)} (SDPA's "
-               f"device time and K6b's {k6b_prof:.4f} ms from the "
+               f"device time and K6b's {ms_text(k6b_prof)} from the "
                f"profiler)")
         shape = dict(shape=f"B={B} H={H} S={S} D={D}", ms=ms,
                      library_ms=lib_ms, bound_ms=bd["bound_ms"],
@@ -1063,10 +1084,13 @@ def check_int8_kernels(torch, dev, card):
 
 
 # Qwen3-14B's projections (K, N) and the rows the serving path gives them:
-# 8 (a decode step at B 8), 40 (a γ-4 verify round), the head at 8
-QUANT_SHAPES = (("q/o", 5120, 5120, (8, 40)), ("k/v", 5120, 1024, (8, 40)),
-                ("gate/up", 5120, 17408, (8, 40)),
-                ("down", 17408, 5120, (8, 40)), ("head", 5120, 151936, (8,)))
+# 8 (a decode step at B 8), 40 (a γ-4 verify round), 128; gate/up also at
+# an install's 3072 (8 requests x the 384 bucket); the head at 8 and 40
+QUANT_SHAPES = (("q/o", 5120, 5120, (8, 40, 128)),
+                ("k/v", 5120, 1024, (8, 40, 128)),
+                ("gate/up", 5120, 17408, (8, 40, 128, 3072)),
+                ("down", 17408, 5120, (8, 40, 128)),
+                ("head", 5120, 151936, (8, 40)))
 
 
 def check_quant_kernels(torch, dev, card):
@@ -1074,14 +1098,18 @@ def check_quant_kernels(torch, dev, card):
     at Qwen3-14B's projection shapes, bf16 x against the fp32 plain version
     on the same values: max|kernel - plain| <= 2e-2 · max|plain| (the int
     values are exact in bf16; only the output's bf16 rounding and the order
-    of the fp32 sums differ); the stacked entry point at layer 2 of a
-    3-layer buffer.  The library column is one `torch.matmul` of x with the
-    weight dequantized to bf16 before the timed region (the port never
-    calls it).  Times are device time per call from CUDA graphs
+    of the fp32 sums differ); above `FEW_ROWS` rows (the many-row body) two
+    launches bit-identical; the stacked entry point at layer 2 of a 3-layer
+    buffer.  Beside each: the plain version, `torch.matmul` of x with the
+    weight dequantized to bf16 before the timed region (the library
+    column; the port never calls it) and `dequantize_kernel` followed by
+    `torch.matmul` (the route the port took above 256 rows before the
+    many-row body).  Times are device time per call from CUDA graphs
     (`graph_ms`); at these sizes an eager call's host cost exceeds the
     kernel's, and the eager time is printed beside it.  The row keeps the
-    gate/up shape's times at R 8, the step's largest projection, and the
-    largest absolute error of any shape."""
+    gate/up shape's times at R 8, the step's largest projection, with R 40,
+    128 and 3072 beside them (`at_rows`), and the largest absolute error of
+    any shape."""
     from prot2text_tpu_torch.kernels import quant_matmul as qm
     from prot2text_tpu_torch.models.quant import dequantize_kernel
 
@@ -1095,14 +1123,15 @@ def check_quant_kernels(torch, dev, card):
              qm.quant_matmul_int8_plain)):
         lo, hi = (-8, 8) if bits == 4 else (-127, 128)
         key = "kernel_q4p" if bits == 4 else "kernel_q"
-        worst = 0.0
+        worst, at_rows = 0.0, []
         for name, K, N, Rs in QUANT_SHAPES:
             q = torch.randint(lo, hi, (K, N), generator=g, device=dev,
                               dtype=torch.int8)
             w = qm.pack_int4_planes(q) if bits == 4 else q
             del q
             scale = torch.rand((1, N), generator=g, device=dev) * 0.03 + 2e-3
-            wd = dequantize_kernel({key: w, "scale": scale}, torch.bfloat16)
+            leaf = {key: w, "scale": scale}
+            wd = dequantize_kernel(leaf, torch.bfloat16)
             for R in Rs:
                 x = torch.randn((R, K), generator=g, device=dev).to(
                     torch.bfloat16)
@@ -1114,47 +1143,66 @@ def check_quant_kernels(torch, dev, card):
                 require(bool(torch.isfinite(y).all()) and err <= 2e-2 * top,
                         f"{kid} {name} R={R}: max|err| {err} > 2e-2 * "
                         f"max|plain| {top}")
+                body = "few-row"
+                if R > qm.FEW_ROWS:
+                    body = "many-row"
+                    require(torch.equal(kern(x, w, scale), y),
+                            f"{kid} {name} R={R}: two launches differ")
                 worst = max(worst, err)
                 ms = graph_ms(torch, lambda: kern(x, w, scale))
                 plain_ms = graph_ms(torch, lambda: plain(x, w, scale),
                                     calls=2)
                 lib_ms = graph_ms(torch, lambda: torch.matmul(x, wd))
+                deq_ms = graph_ms(torch, lambda: torch.matmul(
+                    x, dequantize_kernel(leaf, torch.bfloat16)), calls=2)
                 host_ms = cuda_ms(torch, lambda: kern(x, w, scale), iters=20)
                 # W, its scales and x read once, y written once
                 bd = bound(2.0 * R * K * N,
                            nbytes(w, scale, x) + R * N * x.element_size())
                 log(f"{kid} {'int4 planes' if bits == 4 else 'int8'} {name} "
-                    f"R={R} K={K} N={N} bf16 x: max|y-plain|/max|plain| "
-                    f"{err / top:.3e} (2e-2); device time per call (CUDA "
-                    f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"torch.matmul on the bf16 dequantized weight "
-                    f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                    f"R={R} K={K} N={N} bf16 x, {body} body: "
+                    f"max|y-plain|/max|plain| {err / top:.3e} (2e-2); device "
+                    f"time per call (CUDA graph): kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, torch.matmul on the bf16 dequantized "
+                    f"weight {lib_ms:.4f} ms, dequantize + torch.matmul "
+                    f"{deq_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
                     f"({bd['bound_by']}) = {bd['bound_ms'] / ms:.1%}; one "
                     f"eager call with its host cost {host_ms:.4f} ms "
                     f"[{card}]")
-                if name == "gate/up" and R == 8:
-                    rows[kid] = dict(ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, **bd)
+                if name == "gate/up":
+                    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+                    if R == 8:
+                        rows[kid] = t
+                    else:
+                        at_rows.append(dict(R=R, K=K, N=N, body=body,
+                                            dequantize_library_ms=deq_ms,
+                                            **t))
                 del x, y, want
-            del w, scale, wd
+            del w, scale, wd, leaf
         # the stacked entry point reads layer 2 of an (L, ...) buffer in place
         K, N = 5120, 5120
         q = torch.randint(lo, hi, (3, K, N), generator=g, device=dev,
                           dtype=torch.int8)
         w = qm.pack_int4_planes(q) if bits == 4 else q
         scale = torch.rand((3, 1, N), generator=g, device=dev) * 0.03 + 2e-3
-        x = torch.randn((40, K), generator=g, device=dev).to(torch.bfloat16)
-        y = stacked(x, w, scale, 2)
-        torch.cuda.synchronize()
-        want = plain(x.float(), w[2], scale[2])
-        err = (y.float() - want).abs().max().item()
-        top = want.abs().max().item()
-        require(err <= 2e-2 * top, f"{kid} stacked layer 2: max|err| {err} "
-                f"> 2e-2 * max|plain| {top}")
-        worst = max(worst, err)
-        log(f"{kid} stacked entry, layer 2 of (3, {w.shape[1]}, {N}), R=40: "
-            f"max|y-plain|/max|plain| {err / top:.3e} (2e-2)")
+        for R in (8, 40):
+            x = torch.randn((R, K), generator=g, device=dev).to(
+                torch.bfloat16)
+            y = stacked(x, w, scale, 2)
+            torch.cuda.synchronize()
+            want = plain(x.float(), w[2], scale[2])
+            err = (y.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            require(err <= 2e-2 * top, f"{kid} stacked layer 2 R={R}: "
+                    f"max|err| {err} > 2e-2 * max|plain| {top}")
+            worst = max(worst, err)
+            log(f"{kid} stacked entry, layer 2 of (3, {w.shape[1]}, {N}), "
+                f"R={R}: max|y-plain|/max|plain| {err / top:.3e} (2e-2)")
         rows[kid]["max_abs_err"] = worst
+        rows[kid]["at_rows"] = at_rows
+        rows[kid]["sources"] = [
+            "prot2text_tpu_torch/kernels/csrc/quant_matmul.cu",
+            "prot2text_tpu_torch/kernels/csrc/quant_matmul_rows.cu"]
         del q, w, scale, x, y, want
         gc.collect()
         torch.cuda.empty_cache()
@@ -1172,11 +1220,11 @@ def check_k11_kernels(torch, dev, card):
     """K11a (int4 split-half bytes) and K11b (int4 bf16-pair words) against
     their plain versions at `K11_SHAPES` and `K11_ROWS`, bf16 x against the
     fp32 plain version on the same values: max|kernel - plain| <= 2e-2 ·
-    max|plain|, as for K10/K14.  Each against K10 on the same integers:
-    both read their bytes and words into K10's fragment order, so each must
-    be bit-identical to it.  The stacked entry point at layer 2 of a 3-layer
-    gate/up
-    buffer at each R.  Times are device time per call from CUDA graphs
+    max|plain|, as for K10/K14.  Each against K10's few-row body on the same
+    integers (`quant_matmul._few_rows`, at every R: above `FEW_ROWS` K10's
+    wrapper runs the many-row body): both read their bytes and words into
+    that body's fragment order, so each must be bit-identical to it.  The
+    stacked entry point at layer 2 of a 3-layer gate/up buffer at each R.  Times are device time per call from CUDA graphs
     (`graph_ms`), with one eager call's time beside them; the library
     column is one `torch.matmul` of x with the weight dequantized to bf16
     before the timed region (the port never calls it).  The row keeps the
@@ -1206,7 +1254,7 @@ def check_k11_kernels(torch, dev, card):
                 x = torch.randn((R, K), generator=g, device=dev).to(
                     torch.bfloat16)
                 y = kern(x, w, scale)
-                y10 = qm.quant_matmul_int4_planes(x, wp, scale)
+                y10 = qm._few_rows(x, wp, scale, "planes")
                 torch.cuda.synchronize()
                 want = plain(x.float(), w, scale)
                 err = (y.float() - want).abs().max().item()
@@ -1217,7 +1265,8 @@ def check_k11_kernels(torch, dev, card):
                 worst = max(worst, err)
                 d10 = (y.float() - y10.float()).abs().max().item()
                 require(torch.equal(y, y10), f"{kid} {name} R={R}: not "
-                        f"bit-identical to K10 (max|diff| {d10})")
+                        f"bit-identical to K10's few-row body (max|diff| "
+                        f"{d10})")
                 ms = graph_ms(torch, lambda: kern(x, w, scale))
                 plain_ms = graph_ms(torch, lambda: plain(x, w, scale),
                                     calls=2)
@@ -1228,7 +1277,8 @@ def check_k11_kernels(torch, dev, card):
                            nbytes(w, scale, x) + R * N * x.element_size())
                 log(f"{kid} int4 {fmt} {name} R={R} K={K} N={N} bf16 x: "
                     f"max|y-plain|/max|plain| {err / top:.3e} (2e-2); "
-                    f"bit-identical to K10 on the same integers; "
+                    f"bit-identical to K10's few-row body on the same "
+                    f"integers; "
                     f"device time per call (CUDA graph): kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, torch.matmul on the bf16 "
                     f"dequantized weight {lib_ms:.4f} ms, bound "
@@ -1313,8 +1363,10 @@ def check_probe_kernels(torch, dev, card):
     variant's control: K15a at bc 128 is K14 bit for bit (its other chunks
     within 2e-2); K15b and K15e (K11a's bytes, two other unpacks) are K11a
     bit for bit; K15d at K10's tiling is K10 bit for bit (256 columns and K
-    slices within 2e-2).  Times at the row's shape: device time per call
-    from a CUDA graph that rotates through weight copies exceeding twice
+    slices within 2e-2).  The K10/K14 references are their few-row body
+    (`quant_matmul._few_rows`), whose fragments K15a and K15d share.  Times
+    at the row's shape: device time per call from a CUDA graph that rotates
+    through weight copies exceeding twice
     the card's L2 (`scripts/_timing.py`), eager time beside it; the plain
     version from CUDA graphs; the library yardstick, never called by the
     port: `torch.matmul` on the weight dequantized to bf16 (K15f:
@@ -1363,11 +1415,13 @@ def check_probe_kernels(torch, dev, card):
             ctrl = ""
             if kid == "K15a":
                 require(torch.equal(pq.chunk_mm(x, w, scale, bc=128),
-                                    qm.quant_matmul_int8(x, w, scale)),
-                        f"K15a bc 128 is not K14 bit for bit (K={K} N={N})")
+                                    qm._few_rows(x, w, scale, "int8")),
+                        f"K15a bc 128 is not K14's few-row body bit for bit "
+                        f"(K={K} N={N})")
                 for bc in (32, 64):
                     near(pq.chunk_mm(x, w, scale, bc=bc), f"bc {bc}")
-                ctrl = "; bc 128 = K14 bit for bit, bc 32 and 64 within 2e-2"
+                ctrl = ("; bc 128 = K14's few-row body bit for bit, bc 32 and "
+                        "64 within 2e-2")
             elif kid in ("K15b", "K15e"):
                 require(torch.equal(y, qm.quant_matmul_int4(x, w, scale)),
                         f"{kid} is not K11a bit for bit (K={K} N={N})")
@@ -1375,19 +1429,21 @@ def check_probe_kernels(torch, dev, card):
             elif kid == "K15g":
                 require(torch.equal(y, kern(*args)),
                         f"K15g K={K} N={N}: two launches differ")
-                bn, cl = pq.mix_tiling(R, K, N, torch.cuda.get_device_properties(
-                    dev).multi_processor_count)
-                ctrl = (f"; two launches bit-identical; many-row body, {bn} "
-                        f"columns a block, K over a cluster of {cl}")
+                bm, bn, cl = qm.rows_tiling(
+                    R, K, N, torch.cuda.get_device_properties(
+                        dev).multi_processor_count, bm=pq.MIX_BLOCK_ROWS)
+                ctrl = (f"; two launches bit-identical; many-row body, {bm} "
+                        f"rows x {bn} columns a block, K over a cluster of "
+                        f"{cl}")
             elif kid == "K15d":
-                require(torch.equal(y, qm.quant_matmul_int4_planes(
-                    x, w, scale)), f"K15d is not K10 bit for bit (K={K} "
-                    f"N={N})")
+                require(torch.equal(y, qm._few_rows(x, w, scale, "planes")),
+                        f"K15d is not K10's few-row body bit for bit (K={K} "
+                        f"N={N})")
                 for kw in ({"block_cols": 256}, {"split_k8": 64},
                            {"block_cols": 256, "split_k8": 512}):
                     near(pq.mm_i4p(x, w, scale, **kw), str(kw))
-                ctrl = ("; K10's tiling = K10 bit for bit, 256 columns and "
-                        "K slices within 2e-2")
+                ctrl = ("; K10's tiling = K10's few-row body bit for bit, "
+                        "256 columns and K slices within 2e-2")
             log(f"{kid} R={R} K={K} N={N}: max|y-plain|/max|plain| "
                 f"{err / max(top, 1e-30):.3e}{ctrl}")
             if (K, N) == timed:
@@ -1798,16 +1854,112 @@ LIGHT_NEW = 64           # new tokens; the CLI defaults to 256
 LIGHT_FORMATS = (("planes", "K10"), ("bytes", "K11a"), ("pairs", "K11b"))
 
 
-def light_launches(cfg, batches, steps: int, B: int = 4) -> int:
+def light_launches(cfg, batches, steps: int, every_row: bool,
+                   B: int = 4) -> int:
     """int4-matmul launches of the light CLI's generation over `batches`,
     each padded to B rows: 7 projections per layer and the head per decode
-    step, one head per prefill (the prefill's B × bucket > 256 rows take
-    the dequantized matmul), and ESMC's 4 projections per layer for a
-    protein batch of <= 256 (B × width) rows."""
+    step, one head per prefill, and ESMC's 4 projections per layer for a
+    protein batch.  Nibble planes (K10, `every_row`) take the kernel at
+    every row count, so also the prefill's 7 per layer (B × bucket rows);
+    K11's formats only up to 256 rows, so not the prefill and ESMC only
+    for a batch of <= 256 (B × width) rows."""
     L = cfg.llm_config.num_layers
+    esm = 4 * cfg.esm_config.n_layers
+    if every_row:
+        return len(batches) * (7 * L + 1 + esm) + steps * (7 * L + 1)
     return (len(batches) + steps * (7 * L + 1)
-            + sum(4 * cfg.esm_config.n_layers for b in batches
+            + sum(esm for b in batches
                   if B * b["protein_input_ids"].shape[1] <= 256))
+
+
+def planes_witnesses(torch, lcli, args, tok, model, batch, dev) -> dict:
+    """The planes towers' prefill and first-step logits (2 new tokens, no
+    launch counted) on routes beside the one the model takes: "planes
+    plain", every K10 call through its plain twin on the card (the same
+    route: x rounded to bf16, the integer weight, the scale in an fp32
+    epilogue); "planes reordered", the plain twin with its fp32 sums over
+    K in two halves (only the order of the sums moves: how far that alone
+    carries the logits of 40 random layers); "planes parent", K10's route
+    before its many-row body (the few-row body up to `QUANT_KERNEL_ROWS`
+    rows, the weight dequantized to bf16 above), which bytes and pairs
+    still take."""
+    import argparse
+
+    from prot2text_tpu_torch.kernels import quant_matmul as qm
+    from prot2text_tpu_torch.models import transformer
+    from prot2text_tpu_torch.models.quant import dequantize_kernel
+
+    def reordered(x, w, s):
+        q = qm.unpack_int4_planes(w).float()
+        xb = x.to(torch.bfloat16).float()
+        h = q.shape[0] // 2
+        y = torch.matmul(xb[:, :h], q[:h]) + torch.matmul(xb[:, h:], q[h:])
+        return (y * s.reshape(-1).float()).to(x.dtype)
+
+    def parent(x, w, s):
+        if x.shape[0] > qm.QUANT_KERNEL_ROWS:
+            return torch.matmul(x, dequantize_kernel(
+                {"kernel_q4p": w, "scale": s}, x.dtype))
+        return qm._few_rows(x, w, s, "planes")
+
+    short = argparse.Namespace(**dict(vars(args), max_new_tokens=2))
+    real = transformer.quant_matmul_int4_planes
+    out = {}
+    for name, fn in (("planes plain", qm.quant_matmul_int4_planes_plain),
+                     ("planes reordered", reordered),
+                     ("planes parent", parent)):
+        stats = []
+        transformer.quant_matmul_int4_planes = fn
+        try:
+            lcli.generate_batches(short, tok, model, [batch], dev,
+                                  stats=stats)
+        finally:
+            transformer.quant_matmul_int4_planes = real
+        out[name] = [t.float().cpu() for t in stats[0]["logits"]]
+    return out
+
+
+# each run's logits against (reference, limit · its largest |logit| or None:
+# reported, whether a row's first token must agree); the "planes ..." runs
+# are `planes_witnesses`.  Planes against its plain twin: the limit is set
+# from the card's readings (PERF.md §6: 4.5% in the prefill on an H100; the
+# twin with its sums reordered is the yardstick of what rounding alone does
+# over 40 random layers); the formats on the dequantized route: 1e-2
+LIGHT_PLAIN_LIMIT = 0.15
+LIGHT_AGAINST = {
+    "planes reordered": (("planes plain", None, False),),
+    "planes": (("planes plain", LIGHT_PLAIN_LIMIT, False),
+               ("planes parent", None, False)),
+    "bytes": (("planes parent", 1e-2, True), ("planes", None, False)),
+    "pairs": (("bytes", 1e-2, True), ("planes parent", 1e-2, True),
+              ("planes", None, False))}
+
+
+def light_compare(refs: dict, fmt: str, logits: list) -> None:
+    """`fmt`'s prefill and first-step logits against its `LIGHT_AGAINST`
+    references: the first step on the rows whose first (greedy) token
+    agrees (on random weights a prefill's top-2 logits may lie within any
+    rounding apart)."""
+    for against, limit, need_same in LIGHT_AGAINST[fmt]:
+        ref = refs[against]
+        same = logits[0].argmax(-1) == ref[0].argmax(-1)
+        require(bool(same.any()) or not need_same, f"light {fmt}: no row's "
+                f"first token agrees with the {against} run")
+        for i, name in enumerate(("prefill", "first step")):
+            rows_ = slice(None) if i == 0 else same
+            if i and not bool(same.any()):
+                log(f"light {fmt} first step against {against}: no row "
+                    f"with the same first token")
+                continue
+            d = (logits[i][rows_] - ref[i][rows_]).abs().max().item()
+            top = ref[i][rows_].abs().max().item()
+            require(limit is None or d <= limit * top, f"light {fmt} {name} "
+                    f"logits: max|diff| {d} > {limit} x max|logit| {top} of "
+                    f"{against}")
+            log(f"light {fmt} {name} logits against {against}"
+                f"{'' if i == 0 else f' ({int(same.sum())} of 4 rows with the same first token)'}: "
+                f"{'bit-identical' if d == 0 else f'max|diff| {d:.3e} = {d / top:.3e} of max|logit|'}"
+                f"{' (reported)' if limit is None else f' ({limit})'}")
 
 
 def run_light_generation(torch, dev, card):
@@ -1818,10 +1970,15 @@ def run_light_generation(torch, dev, card):
     towers quantized by `quantize_params(int4_format=)` in planes, bytes
     and pairs in turn, each tree freed before the next, each run through
     the CLI's batch loop on 4 records: exact K1/K2/K3 and K10/K11a/K11b
-    counts, finite logits, the prefill's and first step's logits of bytes
-    and pairs within 1e-2 of the largest |logit| of the planes run (the
+    counts, finite logits, the prefill's and first step's logits (the
     first step on the rows whose first token agrees; whether bit-identical
-    is reported), prefill ms, decode ms/step,
+    is reported) against a reference on the same route (`LIGHT_AGAINST`):
+    bytes and pairs (the weight dequantized to bf16 above 256 rows) within
+    1e-2 of the largest |logit| of the planes towers on that route, pairs
+    of bytes; planes (K10 at every row count, the integer weight in the
+    product) within `LIGHT_PLAIN_LIMIT` of its plain twin on the card,
+    beside the distance that reordering the twin's sums alone gives; the
+    distance between the two routes reported, prefill ms, decode ms/step,
     descriptions/hour, peak memory and the towers' bytes; (2) the CLI's
     `main` at `--model_dtype int4` (nibble planes) over a CSV of those 4
     and 2 more records at `--batch_size 4` (the last batch padded): the
@@ -1868,7 +2025,7 @@ def run_light_generation(torch, dev, card):
         f"{(quantized_bytes(towers['esm_encoder']) + quantized_bytes(towers['llm_decoder'])) / 2**30:.3f}"
         f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"[{card}]")
-    paths, ref = {}, None
+    paths, refs = {}, {}
     for fmt, kid in LIGHT_FORMATS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1897,28 +2054,17 @@ def run_light_generation(torch, dev, card):
                 f"results, {steps} decode steps")
         require(st["logits_finite"], f"{fmt}: non-finite logits")
         want = expect(K1=L, K2=L * steps, K3=2 * steps,
-                      **{kid: light_launches(cfg, [batch], steps)})
+                      **{kid: light_launches(cfg, [batch], steps,
+                                             every_row=kid == "K10")})
         require(counts == want, f"light {fmt}: launch counts {counts} != "
                 f"expected {want}")
         logits = [t.float().cpu() for t in st["logits"]]
-        if ref is None:
-            ref = logits
-        else:
-            # the first step is compared on the rows whose first (greedy)
-            # token agrees with the planes run: on random weights a
-            # prefill's top-2 logits may lie within any rounding apart
-            same = logits[0].argmax(-1) == ref[0].argmax(-1)
-            require(bool(same.any()), f"light {fmt}: no row's first token "
-                    f"agrees with the planes run")
-            for i, name in enumerate(("prefill", "first step")):
-                rows_ = slice(None) if i == 0 else same
-                d = (logits[i][rows_] - ref[i][rows_]).abs().max().item()
-                top = ref[i][rows_].abs().max().item()
-                require(d <= 1e-2 * top, f"light {fmt} {name} logits: "
-                        f"max|diff| {d} > 1e-2 x max|logit| {top} of planes")
-                log(f"light {fmt} {name} logits against planes"
-                    f"{'' if i == 0 else f' ({int(same.sum())} of 4 rows with the same first token)'}: "
-                    f"{'bit-identical' if d == 0 else f'max|diff| {d:.3e} = {d / top:.3e} of max|logit|'}")
+        if fmt == "planes":
+            refs.update(planes_witnesses(torch, lcli, args, tok, model,
+                                         batch, dev))
+            light_compare(refs, "planes reordered", refs["planes reordered"])
+        light_compare(refs, fmt, logits)
+        refs[fmt] = logits
         encode_s = wall - st["prefill_s"] - st["decode_s"]
         log(f"light {fmt} ({kid}) [{card}]: towers {nbytes_q} bytes "
             f"({nbytes_q / 2**30:.3f} GiB) quantized in {quant_s:.1f} s; "
@@ -1963,7 +2109,7 @@ def run_light_generation(torch, dev, card):
     steps = counts["K3"] // 2
     batches = [batch, collate(records[4:])]
     want = expect(K1=2 * L, K2=L * steps, K3=2 * steps,
-                  K10=light_launches(cfg, batches, steps))
+                  K10=light_launches(cfg, batches, steps, every_row=True))
     require(steps > 0 and counts == want,
             f"light main: launch counts {counts} != expected {want}")
     log(f"light main --model_dtype int4 [{card}]: 6 records in 2 batches of "
@@ -1999,12 +2145,14 @@ def train_records(n: int, lengths, seed: int):
 TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", K5_BWD), ("K6", K6_FWD),
                   ("K6b", K6B_BWD))
 # the profiled serving runs are bf16: K4 and K9a run the split body, told
-# apart by its column policy
+# apart by its column policy; K10/K14 are both of their bodies (the few-row
+# quant_mma/quant_matmul_reduce kernels, the many-row mm_rows kernel and
+# planes' x copy)
 SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
                   ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
                   ("K4", r"decode_split_kernel.*CacheCols.*SlotWrite"),
                   ("K9a", r"decode_split_kernel.*PrefixCols"),
-                  ("K10/K14", "quant_m"))
+                  ("K10/K14", "quant_m|mm_rows_kernel|planes_x_kernel"))
 
 
 def kernel_breakdown(torch, prof, wall_s: float,
@@ -2695,23 +2843,19 @@ def run_serve_int8(torch, dev, card, tok, cfg, params, batches):
 
 def quant_launches(eng, cfg, batches) -> int:
     """K10 (int4) or K14 (int8) launches of one serving run, from the
-    engine's counters: 7 stacked projections per layer and 1 head per
-    decoder dispatch (a plain step at B rows, a verify round at B·G rows;
-    both <= 256), 1 head per install (<= 8 rows), the 7·L projections of
-    the shared prefix's prefill when its Pc <= 256 rows, and the protein
-    encoder's 4 projections per layer for a batch of <= 256 (B × protein
-    width) rows.  The installs' prefills (R × a bucket of >= 384 rows)
-    take the dequantized matmul."""
-    import numpy as np
-
+    engine's counters: bf16 towers send every projection of a quantized
+    leaf to the kernel at every row count (`models/transformer.py linear`),
+    so 7 stacked projections per layer and 1 head per decoder dispatch (a
+    plain step at B rows, a verify round at B·G rows) and per install (its
+    prefill of R × a bucket rows, the head on its last position), the 7·L
+    projections of the shared prefix's prefill, and the protein encoder's
+    4 projections per layer for every batch."""
     L = cfg.llm_config.num_layers
     dispatches = eng.plain_steps + eng.verify_rounds
-    n = dispatches * (7 * L + 1) + sum(eng.installs.values())
-    if 0 < eng.prefix_cols <= 256:
+    n = (dispatches + sum(eng.installs.values())) * (7 * L + 1)
+    if eng.prefix_cols > 0:
         n += 7 * L
-    n += sum(4 * cfg.esm_config.n_layers for b in batches
-             if np.asarray(b["protein_input_ids"]).size <= 256)
-    return n
+    return n + len(batches) * 4 * cfg.esm_config.n_layers
 
 
 def run_serve_quant(torch, dev, card):
@@ -2731,8 +2875,6 @@ def run_serve_quant(torch, dev, card):
     tok = ByteTextTokenizer()
     batches = serve_batches(serve_args(), tok, 16, seed=5)
     args_s = serve_args("--max_new_tokens", "32")
-    require(min(int(b) for b in args_s.prompt_pad.split(",")) > 256,
-            "the launch formula assumes install prefills above 256 rows")
     paths = {}
     for dtype in ("int4", "int8"):
         args = serve_args("--model_dtype", dtype)
@@ -2744,6 +2886,10 @@ def run_serve_quant(torch, dev, card):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         L = cfg.llm_config.num_layers
+        require(params["llm_decoder"]["embed_tokens"].dtype == torch.bfloat16
+                and params["esm_encoder"]["embed"].dtype == torch.bfloat16,
+                "the launch formula assumes bf16 towers (an f32 x above "
+                "256 rows takes the dequantized weight)")
         n_params = sum(t.numel() for t in tree_leaves(params))
         log(f"serve model ESMC-600M + adapter + Qwen3-14B --model_dtype "
             f"{dtype}: {n_params / 1e9:.3f} B stored values; towers "
@@ -3373,7 +3519,8 @@ def run_probes(torch, dev, card):
 # kernels line
 SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
               "useful_tbps", "bound_share", "x_library", "x_library_device",
-              "device_ms_profiler", "library_device_source", "other_shapes")
+              "device_ms_profiler", "library_device_source", "other_shapes",
+              "sources", "at_rows")
 
 
 def main() -> int:

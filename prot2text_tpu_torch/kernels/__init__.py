@@ -140,7 +140,8 @@ KERNELS = {
     "K15f": (mm_i8i8, mm_i8i8_plain,
              "prot2text_tpu_torch/kernels/csrc/int8_mma.cu",
              "scripts/bench_int8_mxu.py:102"),
-    "K15g": (mm_mix, mm_mix_plain, _PROBE_MM,
+    "K15g": (mm_mix, mm_mix_plain,
+             "prot2text_tpu_torch/kernels/csrc/quant_matmul_rows.cu",
              "scripts/bench_int8_mxu.py:156"),
     "K15h": (f32_to_int8_store, f32_to_int8_store_plain, _PROBE_KV,
              "scripts/probe_int8_kv.py:38"),

@@ -1,11 +1,10 @@
-// K15a-e and K15g: the weight-quantized matmul variants of the TPU probe
-// scripts, products at Llama-3.1-8B and Qwen3-14B widths (16 rows; K15g
-// 128),
+// K15a-e: the weight-quantized matmul variants of the TPU probe scripts,
+// products at Llama-3.1-8B and Qwen3-14B widths (16 rows),
 //
 //   y[r, n] = (sum_k bf16(x[r, k]) * q[k, n]) * scale[n]
 //
 // x (R, K) bf16; fp32 accumulation; the scale (N,) f32 in the fp32
-// epilogue; y (R, N) bf16 (K15g: f32, no scale).  Each of K15a-e keeps the
+// epilogue; y (R, N) bf16.  Each of K15a-e keeps the
 // one strategy its probe varies and takes the rest from quant_matmul.cuh
 // (K10/K11/K14's loads, fragment builders, x staging and mma.sync
 // m16n8k16) through that header's body, each a policy (`FormatPolicy`) that
@@ -32,12 +31,8 @@
 //   K15e mm_i4and (bench_int4_single.py:86, body :59): split-half bytes,
 //        unpacked with an AND: lo_u = w & 0xF, then in bf16x2 arithmetic
 //        (lo_u - 16 [lo_u >= 8], (w - lo_u) / 16).
-//   K15g mm_mix (bench_int8_mxu.py:156, body :139): bf16 x int8 with an
-//        f32 output and no scale, at R 128: not this header's few-row body
-//        but quant_matmul_rows.cuh's many-row body (`rows::Int8W`), whose
-//        header states its bound and design; the wrapper's rule
-//        (probe_quant_matmul.py mix_tiling) picks its block columns and
-//        the cluster that splits K.
+//   (K15g mm_mix, bench_int8_mxu.py:156, runs the many-row body through
+//   quant_matmul_rows.cu's entry point.)
 //
 // K15b and K15e build K11a's fragments from the same bytes, so on the same
 // integers they equal K11a (and K10) bit for bit; only the unpack differs.
@@ -47,7 +42,6 @@
 // 3.35 TB/s; K15a's LM head (4096, 128256) int8 525 MB, 157 us; K15e's
 // (5120, 17408) 44.6 MB, 13.3 us.
 #include "quant_matmul.cuh"
-#include "quant_matmul_rows.cuh"
 
 namespace {
 
@@ -130,19 +124,13 @@ struct Native : FormatPolicy<kBytes, true> {
 // k pairs per byte), 3 K15d (param: columns per block, 128 or 256; w (K/8,
 // N) int32 planes), 4 K15e (as K15b): bf16 out, the scale needed, splits
 // >= 1 slices of K (in steps of 16 k values for int8, 32 for int4), with
-// `partial` an (splits, R, N) fp32 scratch buffer when splits > 1.  5 K15g
-// (w (K, N) int8, out f32, scale and partial unused): param the block's
-// columns (128 or 256), splits the cluster that sums K (1 to 4).  The
+// `partial` an (splits, R, N) fp32 scratch buffer when splits > 1.  The
 // wrapper checks x bf16 (R, K), N % 4 == 0 and a 16-byte-aligned weight.
 extern "C" int p2t_probe_quant_matmul(const void* x, const void* w,
                                       const void* scale, void* out,
                                       void* partial, int R, int K, int N,
                                       int variant, int param, int splits,
                                       void* stream) {
-  if (variant == 5)
-    return rows::run<rows::Int8W, float>(x, w, nullptr, out, R, K, N, param,
-                                         splits,
-                                         static_cast<cudaStream_t>(stream));
   const int k_mult = variant == 3 ? 8 : variant == 0 ? 1 : 2;
   const int step_k = variant == 0 ? 16 : 32;
   if (R <= 0 || K <= 0 || N <= 0 || K % k_mult != 0 || N % 4 != 0 ||

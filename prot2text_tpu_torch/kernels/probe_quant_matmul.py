@@ -17,12 +17,13 @@ Each kernel replaces an in-file Pallas kernel of a probe under `scripts/`:
   on the int8 tensor cores (`csrc/int8_mma.cu`);
 - K15g `mm_mix` (`bench_int8_mxu.py:156`): bf16 x int8 -> f32, no scale.
 
-K15a-K15e are K10/K14's body (`csrc/quant_matmul.cuh`) with a policy each
-(`csrc/probe_quant_matmul.cu`) that varies only the strategy its probe
-varies; K15g runs the many-row body `csrc/quant_matmul_rows.cuh` (wgmma,
-all 128 rows of a block × 128 or 256 columns, K split over a thread-block
-cluster where the column blocks leave SMs idle: `mix_tiling`); the
-sources state what bounds them.
+K15a-K15e are K10/K14's few-row body (`csrc/quant_matmul.cuh`) with a
+policy each (`csrc/probe_quant_matmul.cu`) that varies only the strategy
+its probe varies; K15g runs K14's many-row body `csrc/quant_matmul_rows.cuh`
+(wgmma, 128 rows of a block, the grid from `quant_matmul.rows_tiling`)
+with no scale and an f32 output, at any K and N % 4 == 0 (a shape its TMA
+boxes cannot take runs on a zero-padded copy); the sources state what
+bounds them.
 
 Contract (as the probes' kernels): x (R, K) bfloat16 (the plain versions
 take any float x and round it to bf16 first); y = (x @ q) * scale in fp32,
@@ -40,22 +41,15 @@ packing, two values per byte along the axis the kernel consumes in pairs).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
+from . import quant_matmul as qm
 from .quant_matmul import _splits, unpack_int4_planes
 
 CHUNK_ROWS = (32, 64, 128, 256)     # K15a's bc: k rows converted per chunk
 PLANE_BLOCK_COLS = (128, 256)       # K15d: output columns per block
-# K15g's many-row body (csrc/quant_matmul_rows.cuh): rows and k values of
-# a block's tile, its column counts (widest first) and cluster sizes
-MIX_BLOCK_ROWS = 128
-MIX_TILE_K = 64
-MIX_BLOCK_COLS = (256, 128)
-MIX_CLUSTERS = (1, 2, 4)
-MIX_MIN_TILES = 8                   # K tiles a cluster rank sums at least
+MIX_BLOCK_ROWS = 128                # K15g: rows a block of the many-row body
 # variant → (C variant code, weight dtype, k values per stored row)
 _VARIANTS = {
     "K15a": (0, torch.int8, 1),
@@ -64,7 +58,7 @@ _VARIANTS = {
     "K15d": (3, torch.int32, 8),
     "K15e": (4, torch.int8, 2),
     "K15f": (None, torch.int8, 1),
-    "K15g": (5, torch.int8, 1),
+    "K15g": (None, torch.int8, 1),
 }
 
 
@@ -299,50 +293,40 @@ def mm_i4and(x, wp, scale):
 mm_i4and.launches = 0
 
 
-def mix_tiling(R: int, K: int, N: int, sms: int = 132) -> tuple[int, int]:
-    """K15g's grid: (block columns, cluster size).  A block holds one block
-    per SM (its ring and registers), so the rule fills the SMs: for each
-    column count (widest first) the blocks are the row blocks × column
-    blocks, and K is split over the largest cluster that keeps them within
-    one wave of `sms` with at least `MIX_MIN_TILES` K tiles a rank; the
-    column count whose grid fills its last wave best wins, the widest on a
-    tie (x crosses L2 once per column block)."""
-    tiles = -(-K // MIX_TILE_K)
-    best, best_fill = None, -1.0
-    for bn in MIX_BLOCK_COLS:
-        blocks = -(-R // MIX_BLOCK_ROWS) * -(-N // bn)
-        c = max(cl for cl in MIX_CLUSTERS
-                if cl == 1 or (blocks * cl <= sms
-                               and tiles >= cl * MIX_MIN_TILES))
-        used = blocks * c
-        fill = used / (-(-used // sms) * sms)
-        if fill > best_fill:
-            best, best_fill = (bn, c), fill
-    return best
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _mix_operands(x, w):
+    """K15g's operands as the many-row body takes them: where `quant_matmul.
+    rows_fit` fails (its TMA boxes need K % 8 == 0 and N % 16 == 0), x and
+    w zero-padded to the next such K and N (the zero products leave every
+    sum as it was; the caller drops the padded columns)."""
+    K, N = w.shape
+    if qm.rows_fit("int8", K, N, w.data_ptr()):
+        return x, w
+    Kp, Np = -(-K // 8) * 8, -(-N // 16) * 16
+    xp = x.new_zeros((x.shape[0], Kp))
+    xp[:, :K] = x
+    wp = w.new_zeros((Kp, Np))
+    wp[:K, :N] = w
+    return xp, wp
 
 
 def mm_mix(x, w):
     """K15g: x (R, K) bf16 · w (K, N) int8 → (R, N) f32, no scale, on the
-    many-row body (`mix_tiling` picks its grid).  CPU tensors run the plain
+    many-row body at 128 rows a block (`quant_matmul.rows_tiling` picks the
+    rest of its grid; a K or N the body's copies cannot take runs on a
+    zero-padded copy, `_mix_operands`).  CPU tensors run the plain
     version; CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return mm_mix_plain(x, w)
     _check("K15g", x, w, None, "K15g")
-    R, K = x.shape
-    N = w.shape[1]
-    bn, cluster = mix_tiling(R, K, N, _sm_count(x.device.index or 0))
-    out = torch.empty((R, N), dtype=torch.float32, device=x.device)
-    err = _build.library().p2t_probe_quant_matmul(
-        x.data_ptr(), w.data_ptr(), None, out.data_ptr(), None, R, K, N,
-        _VARIANTS["K15g"][0], bn, cluster, _build.stream_of(x))
-    _build.check(err, "p2t_probe_quant_matmul (K15g)")
+    R, N = x.shape[0], w.shape[1]
+    xk, wk = _mix_operands(x, w)
+    tiling = qm.rows_tiling(R, xk.shape[1], wk.shape[1],
+                            qm._sm_count(x.device.index or 0),
+                            bm=MIX_BLOCK_ROWS)
+    out = torch.empty((R, wk.shape[1]), dtype=torch.float32, device=x.device)
+    qm.rows_matmul(xk, wk.data_ptr(), None, out, 8, tiling)
     mm_mix.launches += 1
-    return out
+    return out if wk.shape[1] == N else out[:, :N].contiguous()
 
 
 mm_mix.launches = 0

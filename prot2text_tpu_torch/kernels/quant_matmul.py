@@ -9,10 +9,15 @@ replaces `quant_matmul_int4` (`_mm_i4_kernel`) and
 bytes; K11b replaces `quant_matmul_int4_pairs` (`_mm_i4w_kernel`) and
 `quant_matmul_int4_pairs_stacked` (`_mm_i4w_stacked_kernel`), the bf16-pair
 words; K14 replaces `quant_matmul_int8` (`_mm_i8_kernel`) and
-`quant_matmul_int8_stacked` (`_mm_i8_stacked_kernel`).  All are one kernel
-body, `csrc/quant_matmul.cuh` (entry points `csrc/quant_matmul.cu` for
-K10/K14 and `csrc/quant_matmul_int4.cu` for K11), whose header states what
-bounds it and what its design does about that.  The TPU's stacked variants
+`quant_matmul_int8_stacked` (`_mm_i8_stacked_kernel`).  Two kernel bodies
+carry them, each header stating what bounds it and what its design does
+about that: the few-row body `csrc/quant_matmul.cuh` (entry points
+`csrc/quant_matmul.cu` for K10/K14 and `csrc/quant_matmul_int4.cu` for
+K11) takes K11 at every R and K10/K14 at up to `FEW_ROWS` rows; the
+many-row `wgmma` body `csrc/quant_matmul_rows.cuh` (entry
+`csrc/quant_matmul_rows.cu`) takes K10/K14 above it, on a grid that
+`rows_tiling` picks, where the shape rule `rows_fit` holds.  The TPU's
+stacked variants
 exist because a Pallas operand must be a materialized buffer; here the
 stacked wrappers pass layer `layer`'s base pointer into the (L, ...)
 buffer, so both entry points share one body.  The decode path needs only
@@ -36,20 +41,33 @@ from its plain version.  JAX's TPU pairs kernel instead removes the words'
 exact.  The three int4 formats build the same tensor-core fragments, so
 on the same integers K11a and K11b equal K10 bit for bit (K % 8 == 0).
 
-The decoder calls the kernels for at most `QUANT_KERNEL_ROWS` rows
-(`models/transformer.py linear`), as the JAX package does on the TPU; the
-kernels themselves take any R and any N.
+The decoder calls K10/K14 at every row count and K11 for at most
+`QUANT_KERNEL_ROWS` rows (`models/transformer.py linear`); the kernels
+themselves take any R and any N.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import _build
 
-# rows at or below which the decoder's quantized projections take K10/K14
+# rows at or below which the decoder's K11 projections take their kernels
 # (prot2text_tpu/models/transformer.py:97-128, decoder.py:491-525)
 QUANT_KERNEL_ROWS = 256
+# rows at or below which K10/K14 run the few-row body; above, the many-row
+# body (the crossover measured on an H100: PERF.md §6)
+FEW_ROWS = 8
+# the many-row body (csrc/quant_matmul_rows.cuh): k values of a tile, the
+# rows (wgmma's N) and columns of a block, the K splits of a cluster and
+# the K tiles a cluster rank sums at least
+ROWS_TILE_K = 64
+ROWS_BLOCK_ROWS = (64, 128, 256)
+ROWS_BLOCK_COLS = (256, 128)
+ROWS_CLUSTERS = (1, 2, 4, 8)
+ROWS_MIN_TILES = 16
 _BLOCK_COLS = 128               # csrc/quant_matmul.cu kBlockCols
 _BLOCK_ROWS = 64                # at most 8 MMA tiles of 8 rows per block
 _STEP_K = {4: 32, 8: 16}        # k values per K step (Fmt::kStepK)
@@ -234,6 +252,10 @@ def _check(name, x, w, scale, fmt, stacked, layer):
     if x.dim() != 2 or x.shape[0] == 0 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (R > 0, K) "
                          f"tensor, got {tuple(x.shape)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(f"{name} has no backward: a product whose x "
+                         f"requires grad takes the dequantized weight "
+                         f"(models/transformer.py linear)")
     wdt, per = _FORMATS[fmt][:2]
     lead = 1 if stacked else 0
     if w.dtype != wdt or w.dim() != 2 + lead or not w.is_contiguous():
@@ -263,15 +285,110 @@ def _check(name, x, w, scale, fmt, stacked, layer):
             raise ValueError(f"{name}: {n} on {t.device}, x on {dev}")
 
 
-def _launch(x, w, scale, fmt, layer):
-    """One kernel over layer `layer` of w/scale (layer None: unstacked)."""
-    R, K = x.shape
-    N = w.shape[-1]
+def _pointers(w, scale, layer):
+    """Base pointers of layer `layer` of w and scale (None: unstacked)."""
     w_ptr, s_ptr = w.data_ptr(), scale.data_ptr()
     if layer is not None:
         w_ptr += layer * w.stride(0) * w.element_size()
-        s_ptr += layer * N * scale.element_size()
+        s_ptr += layer * w.shape[-1] * scale.element_size()
+    return w_ptr, s_ptr
+
+
+@functools.lru_cache(maxsize=4096)
+def rows_tiling(R: int, K: int, N: int, sms: int = 132,
+                bm: int | None = None) -> tuple[int, int, int]:
+    """The many-row body's grid: (rows a block, columns a block, K split
+    over a cluster), the one rule for K10, K14 and K15g, fitted to the card
+    (PERF.md §6, `scripts/sweep_quant_rows.py`).  Rows: 64 up to 64 rows (a
+    verify round), 128 up to 128, above that 256 unless 128 pads fewer
+    rows (`bm` fixes them).  Columns: 128 at 64 rows (two blocks fit an
+    SM), 256 at 128 rows where that still gives `sms` / 8 blocks (x is
+    read once per column block), 128 at 256 rows (registers).  K is split
+    over the largest cluster whose ranks keep `ROWS_MIN_TILES` K tiles
+    each, within one wave at 128 rows and up to four at 64; where that
+    leaves fewer than `sms` / 2 blocks, ranks of half as many tiles."""
+    tiles = -(-K // ROWS_TILE_K)
+    if bm is None:
+        if R <= 64:
+            bm = 64
+        elif R <= 128:
+            bm = 128
+        else:
+            bm = 256 if 2 * -(-R // 256) <= -(-R // 128) else 128
+    rb = -(-R // bm)
+    if bm == 128 and rb * -(-N // 256) >= sms // 8:
+        bn = 256
+    else:
+        bn = 128
+    blocks = rb * -(-N // bn)
+    cap = 4 * 2 * sms if bm == 64 else sms
+
+    def split(min_tiles):
+        return max(c for c in ROWS_CLUSTERS
+                   if c == 1 or (tiles >= c * min_tiles
+                                 and blocks * c <= cap))
+
+    ck = split(ROWS_MIN_TILES)
+    if blocks * ck < sms // 2:
+        ck = split(ROWS_MIN_TILES // 2)
+    return bm, bn, ck
+
+
+def rows_fit(fmt: str, K: int, N: int, w_ptr: int) -> bool:
+    """The shape rule of the many-row body, whose copies are TMA boxes:
+    int8 with K % 8 == 0 (x's rows 16-byte strided) and N % 16 == 0 (the
+    weight's), or nibble planes with K % 64 == 0 (whole tiles of 8 word
+    rows) and N % 4 == 0; the weight (the layer's base) 16-byte aligned.
+    Anything else, and K11's formats, take the few-row body at every R."""
+    if fmt == "int8":
+        shape = K % 8 == 0 and N % 16 == 0
+    else:
+        shape = fmt == "planes" and K % 64 == 0 and N % 4 == 0
+    return shape and w_ptr % 16 == 0
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rows_matmul(x, w_ptr: int, s_ptr: int | None, out, bits: int,
+                tiling=None):
+    """One launch of the many-row body: x (R, K) bf16 (copied when it is
+    not 16-byte aligned), the weight's and scale's base pointers (scale
+    None: no scale), out (R, N) f32 or bf16 allocated by the caller;
+    `tiling` (bm, bn, Ck), default `rows_tiling`.  For nibble planes (bits
+    4) the body first writes x in its tile-local k order to a scratch copy
+    allocated here (so that a tile of x is one TMA box)."""
+    R, K = x.shape
+    N = out.shape[1]
+    if x.data_ptr() % 16:
+        x = x.clone()
+    xp = torch.empty_like(x) if bits == 4 else None
+    bm, bn, ck = tiling or rows_tiling(R, K, N,
+                                       _sm_count(x.device.index or 0))
+    err = _build.library().p2t_quant_matmul_rows(
+        x.data_ptr(), None if xp is None else xp.data_ptr(), w_ptr, s_ptr,
+        out.data_ptr(), R, K, N, bits, bm, bn, ck,
+        _build.dtype_code(out.dtype), _build.stream_of(x))
+    _build.check(err, "p2t_quant_matmul_rows")
+    return out
+
+
+def _launch(x, w, scale, fmt, layer, few_rows: bool = False):
+    """One kernel over layer `layer` of w/scale (layer None: unstacked):
+    the many-row body above `FEW_ROWS` rows where `rows_fit` holds (x
+    rounded to bf16 first, the output in x's dtype), else (or with
+    `few_rows`) the few-row body."""
+    R, K = x.shape
+    N = w.shape[-1]
+    w_ptr, s_ptr = _pointers(w, scale, layer)
     bits, entry, code = _FORMATS[fmt][2:]
+    if not few_rows and R > FEW_ROWS and rows_fit(fmt, K, N, w_ptr):
+        out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+        if x.dtype != torch.bfloat16:
+            x = x.to(torch.bfloat16)
+        return rows_matmul(x, w_ptr, s_ptr, out, bits)
     splits = _splits(R, K, N, bits)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, R, N), dtype=torch.float32,
@@ -282,6 +399,14 @@ def _launch(x, w, scale, fmt, layer):
         splits, _build.dtype_code(x.dtype), _build.stream_of(x))
     _build.check(err, entry)
     return out
+
+
+def _few_rows(x, w, scale, fmt: str, layer: int | None = None):
+    """The few-row body at any R (no launch counted): the reference that
+    K11a/K11b, K15a (bc 128) and K15d share their fragments with, for the
+    card checks that hold them bit for bit."""
+    _check("few-row body", x, w, scale, fmt, layer is not None, layer)
+    return _launch(x, w, scale, fmt, layer, few_rows=True)
 
 
 def quant_matmul_int4_planes(x, w_planes, scale):

@@ -22,15 +22,18 @@ def linear(p, x):
     """y = x @ kernel (+ bias) (prot2text_tpu/models/transformer.py:35).
 
     Quantized leaves (`models/quant.quantize_params`): activations are
-    flattened to rows first (`:69-79`); at most `QUANT_KERNEL_ROWS` rows
-    take K10 (`kernel_q4p`, int4 nibble planes), K11a (`kernel_q4`, int4
-    split-half bytes), K11b (`kernel_q4w`, int4 bf16-pair words) or K14
-    (`kernel_q`, int8), which round x to bf16 and apply the scale in an
-    fp32 epilogue; more rows (prefill, the protein encoder) dequantize the
-    weight to x's dtype and take `torch.matmul`, the counterpart of the JAX
-    XLA route.  JAX sends int8 to an XLA mixed-dtype dot at every row
-    count; PyTorch has no fused bf16 × int8 product, so the port takes K14
-    (ROADMAP.md §3).  The tensor-parallel repacks (`*_tp{n}`) raise."""
+    flattened to rows first (`:69-79`).  Int4 nibble planes (`kernel_q4p`)
+    and int8 (`kernel_q`) take K10 and K14 at every row count (the few-row
+    body up to `FEW_ROWS` rows, the many-row body above), which round x to
+    bf16 and apply the scale in an fp32 epilogue: JAX's Pallas kernels at
+    <= 256 rows, its XLA route (`:160-176`, an integer weight in the dot,
+    the scale after it) above.  The K11 formats (`kernel_q4`, split-half
+    bytes; `kernel_q4w`, bf16-pair words) take K11a/K11b at most
+    `QUANT_KERNEL_ROWS` rows and the weight dequantized to x's dtype above.
+    So does an f32 x above `QUANT_KERNEL_ROWS` rows (JAX's XLA route keeps
+    it unrounded), and any call whose x requires grad (the kernels have no
+    backward; `torch.matmul` on the dequantized weight carries dX).  The
+    tensor-parallel repacks (`*_tp{n}`) raise."""
     if "kernel" in p:
         y = torch.matmul(x, p["kernel"].to(x.dtype))
     else:
@@ -56,7 +59,11 @@ def _quant_linear(p, x):
         kernel, w = quant_matmul_int8, p["kernel_q"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.shape[0] <= QUANT_KERNEL_ROWS:
+    every_row = kernel in (quant_matmul_int4_planes, quant_matmul_int8) and (
+        x.dtype == torch.bfloat16)
+    if torch.is_grad_enabled() and x.requires_grad:
+        y = torch.matmul(x2, dequantize_kernel(p, x.dtype))
+    elif x2.shape[0] <= QUANT_KERNEL_ROWS or every_row:
         y = kernel(x2.contiguous(), w, p["scale"])
     else:
         y = torch.matmul(x2, dequantize_kernel(p, x.dtype))

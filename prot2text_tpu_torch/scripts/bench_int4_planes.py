@@ -28,7 +28,8 @@ import torch
 
 from ..kernels.probe_quant_matmul import mm_i4p, mm_i4p_plain
 from ..kernels.quant_matmul import (
-    pack_int4, pack_int4_planes, quant_matmul_int4, quant_matmul_int4_plain,
+    _few_rows, pack_int4, pack_int4_planes, quant_matmul_int4,
+    quant_matmul_int4_plain,
     quant_matmul_int4_planes, quant_matmul_int4_planes_plain,
 )
 from ._timing import (
@@ -66,8 +67,9 @@ def main(argv=None) -> dict:
     if not diff < 0.1:
         raise RuntimeError(f"K15d against K11a: max|diff| {diff} >= 0.1")
     if dev.type == "cuda" and not torch.equal(
-            got, quant_matmul_int4_planes(x, pu[0], su[0])):
-        raise RuntimeError("K15d at K10's tiling is not K10 bit for bit")
+            got, _few_rows(x, pu[0], su[0], "planes")):
+        raise RuntimeError("K15d at K10's tiling is not K10's few-row body "
+                           "bit for bit")
 
     flops = 2.0 * R * H * M
     nbytes = chain_bytes(R, H, M, L, L * 2 * H * M // 2)

@@ -198,22 +198,46 @@ def test_plane_splits():
 
 
 def test_mix_tiling():
-    """K15g's grid rule: at the probe's shape 56 blocks of 256 columns, K
-    split over clusters of 2 (112 of 132 SMs; 112 blocks of 128 columns
-    fill as many, and the wider block moves less of x); a narrow N takes
-    128 columns and up to 4 blocks a cluster where K has the tiles; a short
-    K keeps clusters of 1; a grid of several waves splits nothing."""
-    assert pq.mix_tiling(128, 4096, 14336) == (256, 2)
-    assert pq.mix_tiling(128, 14336, 4096) == (128, 4)
-    assert pq.mix_tiling(128, 2048, 640) == (128, 4)
-    assert pq.mix_tiling(200, 256, 128) == (256, 1)
-    assert pq.mix_tiling(1, 64, 24) == (256, 1)
-    assert pq.mix_tiling(512, 4096, 14336) == (256, 1)
-    assert pq.mix_tiling(128, 4096, 14336, sms=16) == (128, 1)
+    """K15g's grid: K14's many-row rule (`quant_matmul.rows_tiling`) at 128
+    rows a block.  At the probe's shape 56 blocks of 256 columns, K split
+    over clusters of 2 (112 of 132 SMs); a narrow N takes up to 8 K slices
+    where K has the tiles; a short K splits nothing; a grid of several
+    waves splits nothing; every K rank keeps at least half of
+    `ROWS_MIN_TILES` tiles."""
+    def tiling(R, K, N, sms=132):
+        return qm.rows_tiling(R, K, N, sms, bm=pq.MIX_BLOCK_ROWS)
+
+    assert tiling(128, 4096, 14336) == (128, 256, 2)
+    assert tiling(128, 14336, 4096) == (128, 256, 8)
+    assert tiling(200, 256, 128)[2] == 1
+    assert tiling(1, 64, 24)[2] == 1
+    assert tiling(512, 4096, 14336)[2] == 1
+    assert tiling(128, 4096, 14336, sms=16)[2] == 1
     for R, K, N in ((1, 1, 4), (300, 999, 1028), (128, 64 * 33, 20000)):
-        bn, c = pq.mix_tiling(R, K, N)
-        assert bn in pq.MIX_BLOCK_COLS and c in pq.MIX_CLUSTERS
-        assert c == 1 or -(-K // pq.MIX_TILE_K) >= c * pq.MIX_MIN_TILES
+        bm, bn, ck = tiling(R, K, N)
+        assert bm == pq.MIX_BLOCK_ROWS and bn in qm.ROWS_BLOCK_COLS
+        assert ck in qm.ROWS_CLUSTERS
+        assert ck == 1 or -(-K // qm.ROWS_TILE_K) >= (
+            ck * qm.ROWS_MIN_TILES // 2)
+
+
+@pytest.mark.parametrize("K,N", [(999, 1028), (64, 24), (1000, 1040)])
+def test_mix_operands_pad_to_the_body(K, N):
+    """K15g's zero-padded copy: K to a multiple of 8 and N of 16 where the
+    many-row body's shape rule fails (else the operands as given), and the
+    product's first N columns unchanged (within 1e-6 · max: only the fp32
+    sums' blocking may move)."""
+    g = torch.Generator().manual_seed(K + N)
+    x = torch.randn((5, K), generator=g).to(torch.bfloat16)
+    w = torch.randint(-128, 128, (K, N), generator=g).to(torch.int8)
+    xk, wk = pq._mix_operands(x, w)
+    assert qm.rows_fit("int8", xk.shape[1], wk.shape[1], 0)
+    assert (xk is x) == (wk is w) == qm.rows_fit("int8", K, N, w.data_ptr())
+    assert xk.shape[1] - K < 8 and wk.shape[1] - N < 16
+    assert not xk[:, K:].any() and not wk[K:].any() and not wk[:, N:].any()
+    want = pq.mm_mix_plain(x, w)
+    got = pq.mm_mix_plain(xk, wk)[:, :N]
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
 
 
 def test_wrappers_run_plain_on_cpu_and_count_nothing():
@@ -298,12 +322,13 @@ def test_kernel_matches_plain_on_cuda(cuda, kid, R, K, N):
 
 @pytest.mark.cuda
 def test_controls_bit_identical_on_cuda(cuda):
-    """K15a at bc 128 is K14, K15b/K15e are K11a, K15d at K10's tiling is
-    K10, bit for bit; K15a's other chunks and K15d's other tiles agree
-    with the plain version."""
+    """K15a at bc 128 is K14's few-row body, K15b/K15e are K11a, K15d at
+    K10's tiling is K10's few-row body, bit for bit (`quant_matmul.
+    _few_rows`, whatever the threshold); K15a's other chunks and K15d's
+    other tiles agree with the plain version."""
     x, q, s = _cuda_operands("K15a", 16, 4096, 2048, cuda, 1)
     assert torch.equal(pq.chunk_mm(x, q, s, bc=128),
-                       qm.quant_matmul_int8(x, q, s))
+                       qm._few_rows(x, q, s, "int8"))
     want = pq.chunk_mm_plain(x, q, s).float()
     for bc in pq.CHUNK_ROWS:
         got = pq.chunk_mm(x, q, s, bc=bc).float()
@@ -314,7 +339,7 @@ def test_controls_bit_identical_on_cuda(cuda):
     assert torch.equal(pq.mm_i4and(x, wb, s), ref)
     _, wp, _ = _cuda_operands("K15d", 16, 4096, 2048, cuda, 3)
     assert torch.equal(pq.mm_i4p(x, wp, s),
-                       qm.quant_matmul_int4_planes(x, wp, s))
+                       qm._few_rows(x, wp, s, "planes"))
     want = pq.mm_i4p_plain(x, wp, s).float()
     for cols in pq.PLANE_BLOCK_COLS:
         for k8 in (None, 64, 512):
@@ -359,19 +384,26 @@ def test_k15g_probe_shape_bit_identical_on_cuda(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,K,N", [(200, 999, 1028), (77, 4096, 1024)])
-def test_k15g_every_tiling_on_cuda(cuda, monkeypatch, R, K, N):
-    """Every block width and cluster size of the many-row body, forced past
-    the rule, within 1e-5 · max|plain|: K 999 copies x element by element
-    (rows off 16 bytes) with a ragged last K tile, N 1028 the weight 4
-    bytes at a time."""
+def test_k15g_every_tiling_on_cuda(cuda, R, K, N):
+    """Every block width and K split of the many-row body at 128 rows a
+    block, forced past the rule, within 1e-5 · max|plain|: K 999 and N 1028
+    (no TMA box fits) run on the zero-padded copy, with a ragged last K
+    tile and a column block past N; `mm_mix` itself takes them too."""
     x, w, _ = _cuda_operands("K15g", R, K, N, cuda, R + K + N)
     want = pq.mm_mix_plain(x, w)
     top = want.abs().max().item()
-    for bn in pq.MIX_BLOCK_COLS:
-        for c in pq.MIX_CLUSTERS:
-            monkeypatch.setattr(pq, "mix_tiling", lambda *a, bn=bn, c=c:
-                                (bn, c))
-            got = pq.mm_mix(x, w)
+    xk, wk = pq._mix_operands(x, w)
+    assert qm.rows_fit("int8", xk.shape[1], wk.shape[1], wk.data_ptr())
+    for bn in qm.ROWS_BLOCK_COLS:
+        for ck in qm.ROWS_CLUSTERS:
+            if ck > -(-xk.shape[1] // qm.ROWS_TILE_K):
+                continue
+            out = torch.empty((R, wk.shape[1]), dtype=torch.float32,
+                              device=cuda)
+            qm.rows_matmul(xk, wk.data_ptr(), None, out, 8,
+                           (pq.MIX_BLOCK_ROWS, bn, ck))
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            assert err <= 1e-5 * top, (bn, c, err)
+            err = (out[:, :N] - want).abs().max().item()
+            assert err <= 1e-5 * top, (bn, ck, err)
+    err = (pq.mm_mix(x, w) - want).abs().max().item()
+    assert err <= 1e-5 * top

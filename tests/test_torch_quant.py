@@ -233,15 +233,29 @@ def test_linear_quantized_matches_jax(bits, lead):
 
 
 def test_linear_dequantized_route_runs_in_x_dtype():
-    """Above 256 rows a bf16 x meets the bf16 dequantized weight."""
+    """The routes that still dequantize meet the weight in x's dtype: the
+    K11 formats (split-half bytes, bf16-pair words) above 256 rows, and a
+    call whose x requires grad (every format, at any row count, where the
+    kernels would have no backward)."""
     rng = np.random.default_rng(2)
     w = torch.from_numpy((rng.standard_normal((64, 16)) * 0.02).astype(
         np.float32))
-    p = tquant.quantize_params({"q_proj": {"kernel": w}}, bits=4)["q_proj"]
     x = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
-    y = tt.linear(p, x.bfloat16())
-    want = x.bfloat16() @ tquant.dequantize_kernel(p, torch.bfloat16)
-    assert y.dtype == torch.bfloat16 and torch.equal(y, want)
+    for fmt in ("bytes", "pairs"):
+        p = tquant.quantize_params({"q_proj": {"kernel": w}}, bits=4,
+                                   int4_format=fmt)["q_proj"]
+        y = tt.linear(p, x.bfloat16())
+        want = x.bfloat16() @ tquant.dequantize_kernel(p, torch.bfloat16)
+        assert y.dtype == torch.bfloat16 and torch.equal(y, want), fmt
+    for bits in (4, 8):
+        p = tquant.quantize_params({"q_proj": {"kernel": w}},
+                                   bits=bits)["q_proj"]
+        for R in (5, 300):
+            xg = x[:R].bfloat16().requires_grad_()
+            y = tt.linear(p, xg)
+            want = xg @ tquant.dequantize_kernel(p, torch.bfloat16)
+            assert y.dtype == torch.bfloat16 and torch.equal(y, want), (
+                bits, R)
 
 
 @pytest.mark.parametrize("bits", [4, 8])

@@ -256,3 +256,243 @@ def test_kernel_raises_on_bad_operands(cuda):
         qm.quant_matmul_int4_planes(x, w, torch.ones((1, 8), device=cuda))
     with pytest.raises(ValueError, match="layer"):
         qm.quant_matmul_int4_planes_stacked(x, w[None], s[None], 1)
+
+
+# ---------------------------------------------------------------------------
+# the many-row body (csrc/quant_matmul_rows.cuh): its grid rule, its shape
+# rule, and the decoder's routes
+
+
+def test_rows_tiling():
+    """The many-row body's grid, one rule for K10, K14 and K15g: rows a
+    block follow R (64 up to 64 rows, 128 up to 128, then 256 unless 128
+    pads fewer rows); at Qwen3-14B's projections it gives the grids the card
+    measured fastest (a verify round's 40 rows: 128 columns, K over 4 or 8
+    blocks; R 128: 256 columns but at k/v); every K rank keeps half of
+    `ROWS_MIN_TILES` tiles or more, within the portable cluster of 8."""
+    assert qm.rows_tiling(25, 5120, 17408)[0] == 64
+    assert qm.rows_tiling(64, 5120, 17408)[0] == 64
+    assert qm.rows_tiling(65, 5120, 17408)[0] == 128
+    assert qm.rows_tiling(300, 5120, 17408)[0] == 128     # 384 vs 512 rows
+    assert qm.rows_tiling(384, 5120, 17408)[0] == 128
+    assert qm.rows_tiling(512, 5120, 17408)[0] == 256
+    assert qm.rows_tiling(40, 5120, 17408, bm=128)[0] == 128
+    assert qm.rows_tiling(40, 5120, 17408) == (64, 128, 4)      # gate/up
+    assert qm.rows_tiling(40, 17408, 5120) == (64, 128, 8)      # down
+    assert qm.rows_tiling(40, 5120, 5120) == (64, 128, 4)       # q/o
+    assert qm.rows_tiling(40, 5120, 1024) == (64, 128, 8)       # k/v
+    assert qm.rows_tiling(128, 5120, 17408) == (128, 256, 1)
+    assert qm.rows_tiling(128, 17408, 5120) == (128, 256, 4)
+    assert qm.rows_tiling(128, 5120, 1024) == (128, 128, 8)
+    assert qm.rows_tiling(3072, 5120, 17408) == (256, 128, 1)   # install
+    for R in (1, 25, 40, 64, 100, 128, 300, 1000, 3072):
+        for K, N in ((5120, 5120), (5120, 1024), (5120, 17408),
+                     (17408, 5120), (5120, 151936), (1152, 3456), (64, 24),
+                     (999, 1028)):
+            bm, bn, ck = qm.rows_tiling(R, K, N)
+            assert bm in qm.ROWS_BLOCK_ROWS and bn in qm.ROWS_BLOCK_COLS
+            assert bm != 256 or bn == 128
+            assert ck in qm.ROWS_CLUSTERS
+            assert ck == 1 or -(-K // qm.ROWS_TILE_K) >= (
+                ck * qm.ROWS_MIN_TILES // 2)
+
+
+def test_few_rows_threshold_and_shape_rule():
+    """K10/K14 leave the few-row body above `FEW_ROWS` rows, the crossover
+    the card measured over R 8-64 (the few-row body wins at 8, the many-row
+    body at 16 in 7 of Qwen3-14B's 8 projection formats and everywhere from
+    24); the many-row body, whose copies are TMA boxes,
+    takes int8 with K % 8 == 0 and N % 16 == 0, planes with K % 64 == 0 and
+    N % 4 == 0, a 16-byte-aligned weight, and nothing of K11's formats."""
+    assert 8 <= qm.FEW_ROWS < 64
+    assert qm.FEW_ROWS < qm.QUANT_KERNEL_ROWS
+    assert qm.rows_fit("planes", 5120, 17408, 0)
+    assert qm.rows_fit("planes", 1024, 1028, 16)
+    assert qm.rows_fit("int8", 1000, 1040, 64)
+    assert not qm.rows_fit("int8", 999, 1040, 0)           # K % 8
+    assert not qm.rows_fit("int8", 1000, 1028, 0)          # N % 16
+    assert not qm.rows_fit("int8", 5120, 1024, 8)          # misaligned
+    assert not qm.rows_fit("planes", 5120 + 32, 1024, 0)   # K % 64
+    assert not qm.rows_fit("planes", 5120, 1030, 0)        # N % 4
+    for fmt in ("bytes", "pairs"):
+        assert not qm.rows_fit(fmt, 5120, 17408, 0)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("R", [40, 300])
+def test_linear_planes_int8_take_the_kernel_at_every_row_count(bits, R):
+    """Planes and int8 leaves on a bf16 x go to K10/K14 above 256 rows too:
+    on the CPU the plain version, bit for bit (JAX's XLA order: the integer
+    weight in the fp32 product, the scale after it), and no dequantized
+    weight."""
+    from prot2text_tpu_torch.models import quant as tquant
+    from prot2text_tpu_torch.models import transformer as tt
+
+    rng = np.random.default_rng(30 + bits + R)
+    w = torch.from_numpy((rng.standard_normal((128, 48)) * 0.02).astype(
+        np.float32))
+    p = tquant.quantize_params({"q_proj": {"kernel": w}}, bits=bits)["q_proj"]
+    key = "kernel_q4p" if bits == 4 else "kernel_q"
+    x = torch.from_numpy(rng.standard_normal((R, 128)).astype(
+        np.float32)).bfloat16()
+    plain = (qm.quant_matmul_int4_planes_plain if bits == 4
+             else qm.quant_matmul_int8_plain)
+    got = tt.linear(p, x.reshape(2, R // 2, 128))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.reshape(R, 48), plain(x, p[key], p["scale"]))
+
+
+@pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
+def test_linear_under_grad_skips_the_kernels(fmt, monkeypatch):
+    """A call whose x requires grad takes the dequantized weight at every
+    row count and format (the kernels have no backward, so on the card dX
+    would be lost): the kernel wrappers are not called, and dX equals the
+    dequantized product's.  Without grad the same leaves call them."""
+    from prot2text_tpu_torch.models import quant as tquant
+    from prot2text_tpu_torch.models import transformer as tt
+
+    calls = []
+    for name in ("quant_matmul_int4_planes", "quant_matmul_int4",
+                 "quant_matmul_int4_pairs", "quant_matmul_int8"):
+        def spy(*a, _f=getattr(tt, name), _n=name):
+            calls.append(_n)
+            return _f(*a)
+        monkeypatch.setattr(tt, name, spy)
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.standard_normal((64, 16)) * 0.02).astype(
+        np.float32))
+    p = tquant.quantize_params(
+        {"q_proj": {"kernel": w}}, bits=8 if fmt == "int8" else 4,
+        **({} if fmt == "int8" else {"int4_format": fmt}))["q_proj"]
+    for R in (5, 300):
+        x = torch.from_numpy(rng.standard_normal((R, 64)).astype(
+            np.float32)).bfloat16()
+        xg = x.clone().requires_grad_()
+        g = torch.from_numpy(rng.standard_normal((R, 16)).astype(
+            np.float32)).bfloat16()
+        tt.linear(p, xg).backward(g)
+        assert calls == [], (fmt, R)
+        xd = x.clone().requires_grad_()
+        (xd @ tquant.dequantize_kernel(p, torch.bfloat16)).backward(g)
+        assert torch.equal(xg.grad, xd.grad), (fmt, R)
+        with torch.no_grad():
+            tt.linear(p, xg)
+        tt.linear(p, x)
+        kernel_rows = R <= qm.QUANT_KERNEL_ROWS or fmt in ("planes", "int8")
+        assert len(calls) == (2 if kernel_rows else 0), (fmt, R, calls)
+        calls.clear()
+
+
+def _grids(R, K, N):
+    """Every grid of the many-row body at R: the rule's rows a block, and
+    256 rows too above 128 rows."""
+    bms = {qm.rows_tiling(R, K, N)[0]} | ({256} if R > 128 else set())
+    tiles = -(-K // qm.ROWS_TILE_K)
+    for bm in sorted(bms):
+        for bn in qm.ROWS_BLOCK_COLS:
+            if bm == 256 and bn != 128:
+                continue
+            for ck in qm.ROWS_CLUSTERS:
+                if ck <= tiles:
+                    yield bm, bn, ck
+
+
+def _rows_operands(cuda, bits, R, K, N, seed, L=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    q = torch.randint(lo, hi, (L, K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = qm.pack_int4_planes(q) if bits == 4 else q
+    s = torch.rand((L, 1, N), generator=g, device=cuda) * 0.03 + 0.002
+    x = torch.randn((R, K), generator=g, device=cuda).bfloat16()
+    return x, w, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("R", [17, 40, 64, 129, 300])
+def test_rows_body_matches_plain_on_cuda(cuda, bits, R):
+    """The many-row body at R rows, called directly (whatever the
+    threshold), at K 2368 (37 tiles: uneven K slices over Ck 2, 4 and 8)
+    and ragged N 1168 (a multiple of 16, not of a block: the last column
+    block's TMA boxes run past N), at every grid (above 128 rows also at
+    256 rows a block, R 300 then padding 212 rows): bf16 out within 2e-2 ·
+    max|plain|, f32 out within 1e-5, two launches bit-identical."""
+    K, N = 2368, 1168
+    x, w, s = _rows_operands(cuda, bits, R, K, N, 40 + R + bits)
+    w, s = w[0], s[0]
+    plain = (qm.quant_matmul_int4_planes_plain if bits == 4
+             else qm.quant_matmul_int8_plain)
+    want = plain(x.float(), w, s)
+    top = want.abs().max().item()
+    for grid in _grids(R, K, N):
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            out = [qm.rows_matmul(x, w.data_ptr(), s.data_ptr(),
+                                  torch.empty((R, N), dtype=dt, device=cuda),
+                                  bits, grid) for _ in range(2)]
+            torch.cuda.synchronize()
+            err = (out[0].float() - want).abs().max().item()
+            assert err <= tol * top, (grid, dt, err, top)
+            assert torch.equal(out[0], out[1]), (grid, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_rows_body_through_the_wrappers_on_cuda(cuda, bits):
+    """The public wrappers above `FEW_ROWS` rows: f32 x (rounded to bf16,
+    f32 out: 1e-5 · max|plain|) and bf16 x (2e-2), unstacked and the
+    stacked entry at layer 2 of 3, each launch counted once; where the
+    shape rule refuses (int8 at K 999, N 1028) and at the threshold, the
+    few-row body, bit-identical to `_few_rows`."""
+    kern, stacked, plain, fmt = {
+        4: (qm.quant_matmul_int4_planes, qm.quant_matmul_int4_planes_stacked,
+            qm.quant_matmul_int4_planes_plain, "planes"),
+        8: (qm.quant_matmul_int8, qm.quant_matmul_int8_stacked,
+            qm.quant_matmul_int8_plain, "int8")}[bits]
+    x, w, s = _rows_operands(cuda, bits, 300, 1024, 640, 300 + bits, L=3)
+    want = plain(x.float(), w[2], s[2])
+    top = want.abs().max().item()
+    n0, n1 = kern.launches, stacked.launches
+    got32 = kern(x.float(), w[2].contiguous(), s[2])
+    got16 = stacked(x, w, s, 2)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1 and stacked.launches == n1 + 1
+    assert got32.dtype == torch.float32 and got16.dtype == torch.bfloat16
+    assert (got32 - want).abs().max().item() <= 1e-5 * top
+    assert (got16.float() - want).abs().max().item() <= 2e-2 * top
+    assert torch.equal(stacked(x, w, s, 2), got16)
+    cases = [(qm.FEW_ROWS, 1024, 640)] + ([(77, 999, 1028)] if bits == 8
+                                          else [])
+    for R, K, N in cases:
+        x, w, s = _rows_operands(cuda, bits, R, K, N, 5 + K, L=3)
+        assert torch.equal(stacked(x, w, s, 1),
+                           qm._few_rows(x, w, s, fmt, 1))
+        assert torch.equal(kern(x, w[1].contiguous(), s[1]),
+                           qm._few_rows(x, w[1].contiguous(), s[1], fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_rows_body_cluster_split_on_cuda(cuda, bits):
+    """At a verify round's 40 rows of Qwen3-14B's down projection (K 17408,
+    N 5120) the rule splits K over a cluster (Ck > 1): within 2e-2 ·
+    max|plain|, two launches bit-identical (the ranks' partials summed in
+    rank order), and within the same bound of Ck 1 at the same blocks."""
+    R, K, N = 40, 17408, 5120
+    grid = qm.rows_tiling(R, K, N, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert grid[2] > 1
+    x, w, s = _rows_operands(cuda, bits, R, K, N, 3 + bits)
+    w, s = w[0], s[0]
+    plain = (qm.quant_matmul_int4_planes_plain if bits == 4
+             else qm.quant_matmul_int8_plain)
+    want = plain(x.float(), w, s)
+    top = want.abs().max().item()
+    outs = [qm.rows_matmul(x, w.data_ptr(), s.data_ptr(),
+                           torch.empty((R, N), dtype=torch.bfloat16,
+                                       device=cuda), bits, g)
+            for g in (grid, grid, grid[:2] + (1,))]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for o in (outs[0], outs[2]):
+        assert (o.float() - want).abs().max().item() <= 2e-2 * top

@@ -258,12 +258,13 @@ def test_kernel_matches_plain_on_cuda(cuda, fmt, R, K, N):
 @pytest.mark.parametrize("R,K,N", [(4, 5120, 1024), (40, 2048, 640),
                                    (16, 17408, 256)])
 def test_kernels_against_k10_on_the_same_integers(cuda, R, K, N):
-    """K11a and K11b take K10's fragment order: bit-identical to K10 on the
-    same integers, in f32 and bf16, unstacked and stacked."""
+    """K11a and K11b take the fragment order of K10's few-row body:
+    bit-identical to it on the same integers (`quant_matmul._few_rows`, at
+    every R: above `FEW_ROWS` K10's wrapper runs the many-row body), in f32
+    and bf16, unstacked and stacked."""
     q, s, x = _cuda_case(cuda, "k10", R, K, N)
     for xx in (x, x.bfloat16()):
-        planes = qm.quant_matmul_int4_planes_stacked(
-            xx, qm.pack_int4_planes(q), s, 1)
+        planes = qm._few_rows(xx, qm.pack_int4_planes(q), s, "planes", 1)
         pairs = qm.quant_matmul_int4_pairs_stacked(
             xx, qm.pack_int4_pairs(q), s, 1)
         byts = qm.quant_matmul_int4(xx, qm.pack_int4(q[1]), s[1])
