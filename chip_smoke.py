@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
      ESMC-600M's SFT shapes (two launches bit-identical), K9a K4 over a
      shared prefix; on the int8
      cache K7 decode + slot write, K9b K7 over an int8 prefix, K8 chunk
-     verify + chunk write, K9c K8 over an int8 prefix;
+     verify + chunk write, K9c K8 over an int8 prefix (K9b/K9c on the
+     split body, K7/K8 on the SIMT body; each two launches bit-identical,
+     timed eagerly and from CUDA graphs);
      K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections,
      K11a/K11b the int4 split-half-byte and bf16-pair-word matmuls at its
      gate/up, down and head, also bit for bit against K10; K15a-K15g the
@@ -33,7 +35,9 @@ Phases (any failure raises and the script exits non-zero):
      print their device time and SDPA's from CUDA graphs (SDPA backward's
      from torch.profiler: no graph holds torch.autograd.grad), their
      useful TFLOP/s and TB/s and share of the bound on that time, and
-     their ratio to SDPA, eager and on the device, and their eager times
+     their ratio to SDPA, eager and on the device (K3, K12, K13 and
+     K15h-l print their device time and their library call's), and their
+     eager times
      are gated at a half (K2, K4, K9a, K6b) or a third (K5) of their SIMT
      bodies' times (0.3109, 0.2460, 0.3607, 0.5602 and 3.9088 ms on an
      H100 80GB HBM3 at 700 W); K15g's device time per call comes from
@@ -460,14 +464,23 @@ def check_kernels(torch, dev, card):
         ck, new, 1100), iters=50)
     idx = torch.tensor([1100], device=dev)
     new5 = new[:, :, :, None, :]
-    lib_ms = cuda_ms(torch, lambda: ck.index_copy_(3, idx, new5), iters=50)
+
+    def lib():
+        return ck.index_copy_(3, idx, new5)
+
+    lib_ms = cuda_ms(torch, lib, iters=50)
+    # the device alone (CUDA graphs): the eager times hold the host's path
+    dev_ms = graph_ms(torch, lambda: cache_slot_write_bkt(ck, new, 1100))
+    lib_dev_ms = graph_ms(torch, lib)
     bd = bound(0.0, 2 * nbytes(new))        # read the new rows, write them
     log(f"K3 cache slot write L={L} B={B} Hkv={Hkv} T={T} D={D} bf16: "
-        f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"index_copy_ {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"bit-exact; kernel {ms:.4f} ms (device {dev_ms:.4f} ms from CUDA "
+        f"graphs), plain {plain_ms:.4f} ms, index_copy_ {lib_ms:.4f} ms "
+        f"(device {lib_dev_ms:.4f} ms), bound {bd['bound_ms']:.4f} ms "
         f"({bd['bound_by']}) [{card}]")
-    rows["K3"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                      library_ms=lib_ms, **bd)
+    rows["K3"] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                      plain_ms=plain_ms, library_ms=lib_ms,
+                      library_device_ms=lib_dev_ms, **bd)
 
     # K1 again, then K5, at the Qwen3-14B training shape (rep 5, causal,
     # kv_start > 0 and a padded tail) for S = 1152, the S the training
@@ -631,14 +644,17 @@ def check_tbkd_kernels(torch, dev, card):
         plain_ms = cuda_ms(torch, plain, iters=50)
         lib_ms = cuda_ms(torch, lib, iters=50)
         dev_ms = graph_ms(torch, fn)
+        lib_dev_ms = graph_ms(torch, lib)
         bd = bound(0.0, 2 * nbytes(*news))   # read the new rows, write them
         log(f"{kid} tbkd slot write L={L} T={T} B={B} Hkv={Hkv} D={D} "
             f"bf16{' (k and v)' if kid == 'K13' else ''}: bit-exact; kernel "
             f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), plain "
-            f"{plain_ms:.4f} ms, copy_ {lib_ms:.4f} ms, bound "
-            f"{bd['bound_ms']:.5f} ms ({bd['bound_by']}) [{card}]")
-        rows[kid] = dict(max_abs_err=0.0, ms=ms, graph_ms=dev_ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, **bd)
+            f"{plain_ms:.4f} ms, copy_ {lib_ms:.4f} ms (device "
+            f"{lib_dev_ms:.4f} ms), bound {bd['bound_ms']:.5f} ms "
+            f"({bd['bound_by']}) [{card}]")
+        rows[kid] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_device_ms=lib_dev_ms, **bd)
     rows["K13"]["checked"] = True
     return rows
 
@@ -997,7 +1013,9 @@ def check_int8_kernels(torch, dev, card):
     for decode, T - 64 for verify, the engine's rules), Pc 256 with 250
     real tokens and row 6 gated off, G 5 (γ 4).  bf16 qg against the plain
     version on the same values in fp32: attention atol/rtol 2e-2; the int8
-    caches and scales bit-exact after the write."""
+    caches and scales bit-exact after the write; two launches
+    bit-identical.  Times: eager CUDA events and the device time from CUDA
+    graphs (`graph_ms`) beside the bound and the plain version."""
     from prot2text_tpu_torch.kernels import decode_attention as da
     from prot2text_tpu_torch.models.quant import quantize_kv
 
@@ -1049,7 +1067,13 @@ def check_int8_kernels(torch, dev, card):
         for li in (0, 23, L - 1):
             gcache = [t.clone() for t in cache]
             a = kern(qg, *gcache, kv_mask, *new, li, slots, *pargs)
+            again = [t.clone() for t in cache]
+            a2 = kern(qg, *again, kv_mask, *new, li, slots, *pargs)
             torch.cuda.synchronize()
+            require(torch.equal(a, a2) and all(
+                torch.equal(x, y) for x, y in zip(gcache, again)),
+                f"{name}: two launches differ")
+            del again, a2
             wcache = [t.clone() for t in cache]
             want = plain(qg.float(), *wcache, kv_mask, *new, li, slots,
                          *pargs)
@@ -1059,8 +1083,15 @@ def check_int8_kernels(torch, dev, card):
                     f"{name}: the written int8 cache or scales differ")
             errs.append((a.float() - want).abs().max().item())
             del gcache, wcache
-        ms = cuda_ms(torch, lambda: kern(qg, *cache, kv_mask, *new, 23,
-                                         slots, *pargs), iters=50)
+        # K8/K9c given the largest chunk start: no device→host read, so a
+        # CUDA graph can hold the call
+        kw = {} if G == 1 else {"slots_max": int(slots.max())}
+
+        def fn():
+            return kern(qg, *cache, kv_mask, *new, 23, slots, *pargs, **kw)
+
+        ms = cuda_ms(torch, fn, iters=50)
+        dev_ms = graph_ms(torch, fn)
         plain_ms = cuda_ms(torch, lambda: plain(qg, *cache, kv_mask, *new,
                                                 23, slots, *pargs), iters=20)
         # q, the output, the new tokens' values and scales (read, then
@@ -1070,16 +1101,21 @@ def check_int8_kernels(torch, dev, card):
                  + (nbytes(pmask) if with_prefix else 0))
         bd = decode_bound(torch, kv_mask, pmask if with_prefix else None,
                           Hkv, G * rep, D, 1, 8, fixed)
+        route = ("split" if da.int8_split_route(qg.dtype, G * rep,
+                                                with_prefix) else "SIMT")
         log(f"{name} int8 {'verify G=5' if G > 1 else 'decode'}"
             f"{' + prefix Pc=256 (row 6 gated off)' if with_prefix else ''}"
             f" L={L} B={B} Hkv={Hkv} rep={rep} T={T} D={D}, 535 valid "
-            f"columns per row, rows 6-7 on one scratch slot: "
-            f"max|a-plain|={max(errs):.3e} (atol/rtol 2e-2), int8 caches "
-            f"and scales bit-exact; kernel {ms:.4f} ms, plain "
+            f"columns per row, rows 6-7 on one scratch slot, the {route} "
+            f"body: max|a-plain|={max(errs):.3e} (atol/rtol 2e-2), int8 "
+            f"caches and scales bit-exact, two launches bit-identical; "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs, "
+            f"{bd['bound_ms'] / dev_ms:.1%} of the bound), plain "
             f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']}) per layer; no library call [{card}]")
-        rows[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                          library_ms=None, **bd)
+        rows[name] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+                          bound_share=bd["bound_ms"] / dev_ms,
+                          plain_ms=plain_ms, library_ms=None, **bd)
     return rows
 
 
@@ -1559,16 +1595,19 @@ def check_probe_kv_kernels(torch, dev, card):
         plain_ms = cuda_ms(torch, plain, iters=50)
         lib_ms = None if lib is None else cuda_ms(torch, lib, iters=50)
         dev_ms = graph_ms(torch, fn)
+        lib_dev_ms = None if lib is None else graph_ms(torch, lib)
         bd = bound(flops, moved)
         what = (f"max|err| {err:.3e} (1e-5 of max)" if kid == "K15k"
                 else "bit-exact")
-        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        lib_txt = ("none" if lib_ms is None else
+                   f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms)")
         log(f"{kid} int8-KV probe op Hkv={Hkv} T={T} D={D}: {what}; kernel "
             f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), plain "
             f"{plain_ms:.4f} ms, library {lib_txt}, bound "
             f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}) [{card}]")
-        rows[kid] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, **bd)
+        rows[kid] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_device_ms=lib_dev_ms, **bd)
     return rows
 
 
@@ -2144,14 +2183,16 @@ def train_records(n: int, lengths, seed: int):
 
 TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", K5_BWD), ("K6", K6_FWD),
                   ("K6b", K6B_BWD))
-# the profiled serving runs are bf16: K4 and K9a run the split body, told
-# apart by its column policy; K10/K14 are both of their bodies (the few-row
+# the profiled serving runs are bf16: K4, K9a and K9b/K9c run the split
+# body, told apart by its column and element policies, K7/K8 the SIMT
+# int8 body; K10/K14 are both of their bodies (the few-row
 # quant_mma/quant_matmul_reduce kernels, the many-row mm_rows kernel and
 # planes' x copy)
 SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
-                  ("K7/K9b/K8/K9c", "decode_attention_q_kernel"),
+                  ("K7/K8", "decode_attention_q_kernel"),
+                  ("K9b/K9c", r"decode_split_kernel.*Int8Cache"),
                   ("K4", r"decode_split_kernel.*CacheCols.*SlotWrite"),
-                  ("K9a", r"decode_split_kernel.*PrefixCols"),
+                  ("K9a", r"decode_split_kernel.*PrefixCols.*Bf16Cache"),
                   ("K10/K14", "quant_m|mm_rows_kernel|planes_x_kernel"))
 
 
@@ -3515,8 +3556,9 @@ def run_probes(torch, dev, card):
     return counts
 
 
-# the extra keys of K1's, K2's, K4's, K5's, K6's, K6b's and K9a's rows in the
-# kernels line
+# the extra keys of the rows in the kernels line: K1's, K2's, K4's, K5's,
+# K6's, K6b's and K9a's speed; the device times of the int8 attentions, the
+# slot writes (K3, K12, K13), the int8-KV probes and their library calls
 SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
               "useful_tbps", "bound_share", "x_library", "x_library_device",
               "device_ms_profiler", "library_device_source", "other_shapes",

@@ -74,6 +74,10 @@ SIGNATURES = {
     "p2t_decode_attention_write_q": [_P] * 17 + [_I] * 7 + [_P],
     # the same pointers, then B, Hkv, rep, G, T, Pc, D, dtype, stream
     "p2t_decode_attention_verify": [_P] * 17 + [_I] * 8 + [_P],
+    # rows (K9b/K9c) or prefix (K4/K9a), D, out int: the split body's
+    # resident clusters
+    "p2t_decode_split_int8_resident": [_I, _I, _P],
+    "p2t_decode_split_bf16_resident": [_I, _I, _P],
     # x, w (layer), scale (layer), out, partial, R, K, N, bits, splits,
     # dtype, stream
     "p2t_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],

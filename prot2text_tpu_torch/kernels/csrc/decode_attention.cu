@@ -16,10 +16,10 @@
 // bytes per layer once (17 MB, 5.1 us at 3.35 TB/s, at B=4, Hkv=8,
 // T=1280 with ~1040 valid columns a row, D=128, bf16) for ~2 FLOP per
 // byte.  bf16 runs the column-split cluster body of
-// decode_attention_split.cuh (policies CacheCols and NoWrite; its header
-// states the design and the rule for the cluster size).  f32 runs
-// the SIMT body below: one block per (b, kv head) handles all `rep` query
-// heads of the group, so every K/V row is read once for the whole group;
+// decode_attention_split.cuh (policies CacheCols, Bf16Cache and NoWrite;
+// its header states the design and the rule for the cluster size).  f32
+// runs the SIMT body below: one block per (b, kv head) handles all `rep`
+// query heads of the group, so every K/V row is read once for the group;
 // an online softmax walks T in chunks of 256 columns (one column per thread
 // for q·k with 16-byte loads; one head-dim element per thread for P·V,
 // coalesced across the warp); masked columns are not read at all.  It
@@ -221,8 +221,10 @@ extern "C" int p2t_decode_attention(const void* qg, const void* ck,
   if (dtype == p2t::kBFloat16)
     return (int)split::run<split::CacheCols>(
         D,
-        split::make_params(qg, ck, cv, kv_mask, k_new, v_new, nullptr,
-                           nullptr, nullptr, out, Hkv, rep, T_len, 0),
+        split::make_params(qg, ck, cv, kv_mask, nullptr, nullptr, nullptr,
+                           out, Hkv, rep, T_len, 0),
+        split::Bf16Cache{static_cast<const split::bf16*>(k_new),
+                         static_cast<const split::bf16*>(v_new)},
         split::NoWrite{}, B, s);
   if (dtype == p2t::kFloat32)
     return (int)dispatch_d(D, qg, ck, cv, kv_mask, k_new, v_new, out, B, Hkv,

@@ -1,11 +1,13 @@
 // Grouped-query attention of G query tokens per row over layer `li` of the
 // stacked int8 (L, B, Hkv, T, D) KV cache with per-(head, token) fp32
 // scales, fused with the in-place write of the G current tokens' int8 k/v
-// and scales at columns [slots[b], slots[b] + G) — the shared body of K7,
-// K9b (G = 1, csrc/decode_attention_write_q.cu) and K8, K9c (a G-token
-// speculative chunk, csrc/decode_attention_verify.cu).  K9b/K9c add a
-// read-only int8 shared-prefix operand (L, 1, Hkv, Pc, D) with scales
-// (L, 1, Hkv, Pc), gated per row by pmask.
+// and scales at columns [slots[b], slots[b] + G) — the SIMT body of K7
+// (G = 1, csrc/decode_attention_write_q.cu) and K8 (a G-token speculative
+// chunk, csrc/decode_attention_verify.cu) at every dtype, and of K9b/K9c
+// with f32 q or past the cluster-split body's 32 query rows (bf16 K9b/K9c
+// within them run decode_attention_split.cuh's Int8Cache policy).
+// K9b/K9c add a read-only int8 shared-prefix operand (L, 1, Hkv, Pc, D)
+// with scales (L, 1, Hkv, Pc), gated per row by pmask.
 //
 // Numerics (the TPU kernels' rounding points): int8 → float is exact; a
 // cache column's logit is the fp32 q·k_int times its k scale; its softmax
@@ -23,14 +25,18 @@
 // (b, kv head) (2·D bytes + 8 bytes of scales) for ~4·rows FLOP per byte
 // (G·rep = 25 rows at the serving verify shape, 5 for decode), far below
 // the card's ~295 FLOP/byte ridge.  Design, simple first: one block per
-// (b, kv head, tile of 8 query rows) — K4's design with int8 rows read 16
-// bytes per thread (one column per thread for q·k, one head-dim element
-// per thread for P·V) and the scales folded in per column.  A verify call
-// with 25 rows runs 4 row tiles, each re-reading the slab (from L2 at the
-// serving shape: a (b, head) slab is ~0.5 MB); a later PR can hold all
-// rows of a group in one block.  Only row tile 0 writes the G new rows,
-// after its last read; the written columns have kv_mask 0, so no block of
-// the same slab reads them, and no other block touches the slab.
+// (b, kv head, tile of 8 query rows) — K4's first design with int8 rows
+// read 16 bytes per thread (one column per thread for q·k, one head-dim
+// element per thread for P·V, both on fp32 FMAs) and the scales folded in
+// per column.  It reaches ~1% of the bound at the serving shape: 64 blocks
+// on 132 SMs, every column walked in series, and a verify call with 25
+// rows runs 4 row tiles, each re-reading the slab (from L2 at the serving
+// shape: a (b, head) slab is ~0.5 MB) — what the split body's Int8Cache
+// policy does away with for K9b/K9c, and K7/K8 are to take next.  Only
+// row tile 0 writes the G new rows, after its last read; the written
+// columns have kv_mask 0, so no block of the same slab reads them, and no
+// other block touches the slab.  Registers (ptxas -v on sm_90a, logged by
+// chip_smoke.py): 64 at D 128 without a prefix, 70 with one.
 #pragma once
 
 #include <float.h>

@@ -23,9 +23,9 @@
 // once per layer (B=8, Hkv=8, ~700 valid columns, D=128, bf16: ~18 MB,
 // 5.3 us at 3.35 TB/s) for ~2 FLOP per byte, plus 2*B*Hkv*D*2 bytes of
 // writes.  bf16 runs the column-split cluster body of
-// decode_attention_split.cuh (K4 with the policies CacheCols and
-// SlotWrite, K9a with PrefixCols and SlotWrite; its header states the
-// design).  f32 runs the SIMT body below: one block per (b, kv head)
+// decode_attention_split.cuh (K4 with the policies CacheCols, Bf16Cache
+// and SlotWrite, K9a with PrefixCols, Bf16Cache and SlotWrite; its header
+// states the design).  f32 runs the SIMT body below: one block per (b, kv head)
 // handles all `rep` query heads of the group, an online softmax walks the
 // columns in chunks of 256 (one column per thread for q·k with 16-byte
 // loads, one head-dim element per thread for P·V), and the slot row is
@@ -264,14 +264,15 @@ extern "C" int p2t_decode_attention_write(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == p2t::kBFloat16) {
-    const split::Params p =
-        split::make_params(qg, ck, cv, kv_mask, k_new, v_new, pk, pv, pmask,
-                           out, Hkv, rep, T_len, Pc);
+    const split::Params<split::bf16> p = split::make_params(
+        qg, ck, cv, kv_mask, pk, pv, pmask, out, Hkv, rep, T_len, Pc);
+    const split::Bf16Cache e = {static_cast<const split::bf16*>(k_new),
+                                static_cast<const split::bf16*>(v_new)};
     const split::SlotWrite w = {static_cast<split::bf16*>(ck),
                                 static_cast<split::bf16*>(cv),
                                 static_cast<const int32_t*>(slots)};
-    return (int)(Pc > 0 ? split::run<split::PrefixCols>(D, p, w, B, s)
-                        : split::run<split::CacheCols>(D, p, w, B, s));
+    return (int)(Pc > 0 ? split::run<split::PrefixCols>(D, p, e, w, B, s)
+                        : split::run<split::CacheCols>(D, p, e, w, B, s));
   }
   if (dtype == p2t::kFloat32) {
     WriteParams p;
@@ -290,4 +291,18 @@ extern "C" int p2t_decode_attention_write(
     return (int)dispatch_d(D, p, B, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of bf16 K4's (prefix 0) or K9a's (prefix 1) split-body
+// instantiation at head dim D that the card holds at once, into *n
+// (scripts/sweep_decode_split.py; no path calls it)
+extern "C" int p2t_decode_split_bf16_resident(int prefix, int D, void* n) {
+  int* out = static_cast<int*>(n);
+  return (int)(prefix ? split::resident_clusters<split::PrefixCols,
+                                                 split::Bf16Cache,
+                                                 split::SlotWrite>(D, 1, out)
+                      : split::resident_clusters<split::CacheCols,
+                                                 split::Bf16Cache,
+                                                 split::SlotWrite>(D, 1,
+                                                                   out));
 }

@@ -14,9 +14,10 @@ with a read-only shared-prefix operand (L, 1, Hkv, Pc, D) gated per row by
 `pmask`, columns ordered [prefix ‖ cache ‖ current].  On bf16 all three run
 one column-split cluster body, `csrc/decode_attention_split.cuh` (column
 policy `CacheCols` for K2 and K4, `PrefixCols` for K9a; K2 writes nothing),
-one launch a call; f32 runs the SIMT bodies of the two `.cu` files.  A
-shape the body refuses (more column tiles than its blocks may own) raises;
-nothing falls back to another body.  Each kernel's header states what
+one launch a call; f32 runs the SIMT bodies of the two `.cu` files.  bf16
+K9b and K9c run the same body with int8 tiles (below).  A shape the body
+refuses (more column tiles than its blocks may own) raises; nothing falls
+back to another body.  Each kernel's header states what
 bounds it and what its design does about that.  The `_plain` functions are
 the plain PyTorch versions.
 
@@ -277,8 +278,14 @@ def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
 # ---------------------------------------------------------------------------
 # int8 KV cache: K7 and K9b (one token per row), K8 and K9c (a G-token
 # speculative chunk per row), kernels csrc/decode_attention_write_q.cu and
-# csrc/decode_attention_verify.cu over the shared body in
-# csrc/decode_attention_q.cuh.
+# csrc/decode_attention_verify.cu.  bf16 K9b and K9c with at most
+# SPLIT_ROWS query rows (`int8_split_route`) run the cluster-split
+# tensor-core body csrc/decode_attention_split.cuh (policies PrefixCols,
+# Int8Cache and ChunkWrite: int8 tiles converted to bf16 in shared memory,
+# all G·rep rows of a kv head in one block); K7 and K8 at every dtype, f32
+# K9b/K9c and a K9b/K9c past SPLIT_ROWS rows run the SIMT body
+# csrc/decode_attention_q.cuh.  The route is the shape's, never a launch's
+# outcome: a call on the card launches its body or raises.
 #
 # Contract (as the JAX kernels): qg (B, Hkv, G·rep, D) pre-scaled, row
 # g·rep + r = chunk token g, head replica r (G = 1: (B, Hkv, rep, D));
@@ -291,17 +298,51 @@ def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
 # (B, Hkv[, G]); `layer` a host int; slots a scalar or (B,) first written
 # column per row.  The prefix variants add pk_all/pv_all (L, 1, Hkv, Pc, D)
 # int8 with psk_all/psv_all (L, 1, Hkv, Pc) fp32, read-only, and pmask
-# (B, Pc).  Returns the attention in qg's dtype.
+# (B, Pc).  Returns the attention in qg's dtype.  The split body copies
+# the int8 slabs with 16-byte cp.async: caches and prefix 16-byte aligned
+# (contiguous tensors of D in HEAD_DIMS are).
 #
 # Numerics, kept by the plain versions so that in fp32 they match the JAX
-# kernels in interpret mode: int8 → float exact; a cache column's logit is
-# the fp32 q·k_int times its k scale; its weight times its v scale is
-# rounded to bf16 before ·V; the current tokens' own columns stay fp32
-# (K7/K9b: q·(kq·ks); K8/K9c: (q·kq)·ks; chunk columns causal by token).
+# kernels in interpret mode, and by both CUDA bodies: int8 → float (bf16 in
+# the split body) exact; a cache column's logit is the fp32 q·k_int times
+# its k scale; its weight times its v scale is rounded to bf16 before ·V;
+# the current tokens' own columns stay fp32 (K7/K9b: q·(kq·ks); K8/K9c:
+# (q·kq)·ks; chunk columns causal by token).
 # ---------------------------------------------------------------------------
 
 MAX_CHUNK = 32                  # K8/K9c: chunk tokens G
 MAX_ROWS = 256                  # query rows G·rep (csrc kQMaxRows)
+SPLIT_ROWS = 32                 # the split body's rows (csrc split::kMaxRows)
+
+
+def int8_split_route(dtype, rows: int, prefix: bool) -> bool:
+    """Whether an int8-pool attention call on the card runs the
+    cluster-split tensor-core body (True) or the SIMT body (False): bf16
+    q, the shared prefix (K9b, K9c) and rows = G·rep <= SPLIT_ROWS query
+    rows; the rule `split::int8_takes` applies in the C entry points.
+    Past the body's column limit (more than 256 tiles of 64 columns a
+    block, a cluster of 4: Pc + T > 65536) the split route raises."""
+    return dtype == torch.bfloat16 and prefix and rows <= SPLIT_ROWS
+
+
+def split_resident_clusters(int8: bool, rows: int, D: int,
+                            prefix: bool = True) -> int:
+    """How many clusters of the cluster-split body's instantiation the card
+    holds at once (`cudaOccupancyMaxActiveClusters`): int8, bf16 K9b/K9c's
+    at `rows` query rows; else bf16 K9a's (prefix) or K4's.  A launch of
+    B·Hkv clusters above it runs the rest as a second wave.  Card only."""
+    import ctypes
+
+    n = ctypes.c_int()
+    lib = _build.library()
+    if int8:
+        err = lib.p2t_decode_split_int8_resident(rows, D,
+                                                 ctypes.addressof(n))
+    else:
+        err = lib.p2t_decode_split_bf16_resident(int(prefix), D,
+                                                 ctypes.addressof(n))
+    _build.check(err, "split_resident_clusters")
+    return n.value
 
 
 def _attend_q_plain(qg, ck, cv, sk, sv, mask, kq, vq, ks, vs, *,
@@ -533,7 +574,8 @@ def decode_attention_stacked_write_q_prefix(
         psv_all, pmask):
     """K9b: K7 plus the int8 shared prefix, read-only, gated per row by
     pmask.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel (or raise)."""
+    kernel (or raise): the split body where `int8_split_route` holds, the
+    SIMT body otherwise."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_write_q_prefix_plain(
             qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
@@ -601,7 +643,8 @@ def decode_attention_stacked_verify_qc_prefix(
         psv_all, pmask, *, slots_max=None):
     """K9c: K8 plus the int8 shared prefix, read-only, gated per row by
     pmask.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel (or raise)."""
+    kernel (or raise): the split body where `int8_split_route` holds, the
+    SIMT body otherwise."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_verify_qc_prefix_plain(
             qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,

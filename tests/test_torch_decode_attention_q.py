@@ -2,9 +2,15 @@
 the JAX package, and K7, K9b (one token per row) and K8, K9c (a G-token
 speculative chunk per row), whose plain versions are held against the JAX
 Pallas kernels in interpret mode (f32 qg: attention atol 1e-5; int8 caches
-and scales bit-exact after the write); K9b/K9c against K7/K8 on the same
-prefix physically placed in the cache; the CUDA kernels against the plain
-versions on the card (bf16 2e-2, caches and scales bit-exact)."""
+and scales bit-exact after the write), also at the split body's edges (T
+off the 64-column grid, a row with no cache column and its prefix gated
+off, inactive rows on one scratch slot); K9b/K9c against K7/K8 on the same
+prefix physically placed in the cache; the route rule `int8_split_route`;
+the CUDA kernels against the plain versions on the card (bf16 2e-2, caches
+and scales bit-exact): both bodies, and bf16 K9b/K9c on the cluster-split
+body at the serving shape, every rep and G the rule takes, its edges, two
+launches bit-identical, the route by the profiler's kernel names, and the
+column limit."""
 
 import numpy as np
 import pytest
@@ -12,13 +18,13 @@ import torch
 
 from prot2text_tpu_torch.infer.kvcache import init_kv_cache
 from prot2text_tpu_torch.kernels.decode_attention import (
-    decode_attention_stacked_verify_qc,
+    SPLIT_ROWS, decode_attention_stacked_verify_qc,
     decode_attention_stacked_verify_qc_plain,
     decode_attention_stacked_verify_qc_prefix,
     decode_attention_stacked_verify_qc_prefix_plain,
     decode_attention_stacked_write_q, decode_attention_stacked_write_q_plain,
     decode_attention_stacked_write_q_prefix,
-    decode_attention_stacked_write_q_prefix_plain,
+    decode_attention_stacked_write_q_prefix_plain, int8_split_route,
 )
 from prot2text_tpu_torch.models.decoder import DecoderConfig
 from prot2text_tpu_torch.models.quant import quantize_kv
@@ -75,7 +81,7 @@ def test_init_kv_cache_int8():
         init_kv_cache(cfg, 2, 64, device="cpu", kv_bits=4)
 
 
-def _cache(rng, D, Pc):
+def _cache(rng, D, Pc, T=T, B=B, Hkv=Hkv):
     """An int8 pool and prefix with positive per-column scales."""
     ck = rng.integers(-127, 128, (L, B, Hkv, T, D)).astype(np.int8)
     cv = rng.integers(-127, 128, (L, B, Hkv, T, D)).astype(np.int8)
@@ -88,12 +94,12 @@ def _cache(rng, D, Pc):
     # per-row prefix validity: full, left-padded, none (a full-prompt
     # request in a dedup pool), full
     pmask = np.ones((B, Pc), np.int32)
-    pmask[1, :Pc // 2] = 0
-    pmask[2] = 0
+    pmask[1:2, :Pc // 2] = 0
+    pmask[2:3] = 0
     return [ck, cv, sk, sv], [pk, pv, psk, psv, pmask]
 
 
-def _new(rng, rep, D, G):
+def _new(rng, rep, D, G, B=B, Hkv=Hkv):
     """qg (B, Hkv, G·rep, D) pre-scaled f32 and the chunk's quantized
     k/v (B, Hkv, G[, D]) from `quantize_kv`.  qg holds multiples of 2^-8,
     so every q·k_int is exact in fp32 whatever the summation order: the
@@ -327,3 +333,251 @@ def test_kernels_match_plain_on_cuda(cuda, G, rep, D, prefix):
         torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
         for a, b in zip(gc, wc):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the route rule and the split body's edges (CPU), then bf16 K9b/K9c on the
+# cluster-split body (card)
+
+@pytest.mark.parametrize("dtype,rows,prefix,split", [
+    (torch.bfloat16, 5, True, True),       # K9b at the serving shape
+    (torch.bfloat16, 25, True, True),      # K9c at G 5, rep 5
+    (torch.bfloat16, SPLIT_ROWS, True, True),
+    (torch.bfloat16, SPLIT_ROWS + 1, True, False),
+    (torch.bfloat16, 40, True, False),     # K9c at G 5, rep 8
+    (torch.bfloat16, 5, False, False),     # K7, K8: the SIMT body
+    (torch.float32, 5, True, False),       # f32 K9b/K9c: the SIMT body
+])
+def test_int8_split_route(dtype, rows, prefix, split):
+    assert int8_split_route(dtype, rows, prefix) is split
+
+
+def test_sweep_decode_split_times_the_split_body():
+    """Every (G, rep) that scripts/sweep_decode_split.py times takes the
+    split body, across 1, 2 and 4 row fragments."""
+    from prot2text_tpu_torch.scripts import sweep_decode_split as sweep
+
+    rows = [G * rep for G, rep in sweep.ROWS]
+    assert all(int8_split_route(torch.bfloat16, r, True) for r in rows)
+    assert {-(-r // 8) for r in rows} >= {1, 2, 4}
+    with pytest.raises(SystemExit, match="--device cuda"):
+        sweep.main(["--device", "cpu"])
+
+
+EDGE_T = 544                 # off the 64-column grid (the TPU kernels take
+                             # 32-row groups); 9 cache tiles
+
+
+def _edge_case(rng, rep, D, G, Pc):
+    """The split body's edges at T 544: row 0 sees only cache columns
+    448-499 (one tile: three of a cluster's four blocks see nothing), row
+    1 no cache column and its prefix gated off (only the current columns),
+    rows 2 and 3 inactive on one scratch slot (T - 1 decode, T - 64
+    verify, the engine's rules)."""
+    T_ = EDGE_T
+    cache, prefix = _cache(rng, D, Pc, T=T_)
+    q, new = _new(rng, rep, D, G)
+    mask = rng.integers(0, 2, (B, T_)).astype(np.int32)
+    mask[0] = 0
+    mask[0, 448:500] = 1
+    mask[1] = 0
+    prefix[4][0] = 0
+    prefix[4][1] = 0
+    slots = np.array([100, 7, 0, 0], np.int32)
+    slots[2:] = T_ - 1 if G == 1 else T_ - 64
+    for b, s in enumerate(slots):
+        mask[b, s:s + G] = 0
+    return cache, prefix, q, new, mask, slots
+
+
+@pytest.mark.parametrize("G,rep,D", [(1, 5, 128), (1, 1, 64), (5, 5, 128),
+                                     (3, 2, 64)])
+def test_prefix_variants_plain_match_pallas_interpret_at_edges(G, rep, D):
+    """K9b (G 1) and K9c plain versions against the Pallas kernels in
+    interpret mode at the split body's edges; the row with nothing but
+    its current columns gets exactly their mix."""
+    from prot2text_tpu.kernels import decode_attention as jda
+
+    rng = np.random.default_rng([G, rep, D, 9])
+    Pc = 64
+    cache, prefix, q, new, mask, slots = _edge_case(rng, rep, D, G, Pc)
+    layer = 1
+    if G == 1:
+        new = [x[:, :, 0] for x in new]
+        j_fn = jda.decode_attention_stacked_write_q_prefix
+        fn = decode_attention_stacked_write_q_prefix
+    else:
+        j_fn = jda.decode_attention_stacked_verify_qc_prefix
+        fn = decode_attention_stacked_verify_qc_prefix
+    want = j_fn(*_j([q, *cache, mask, *new]), layer, np.asarray(slots),
+                *_j(prefix), interpret=True)
+    tc = _t(cache)
+    got = fn(torch.from_numpy(q), *tc, torch.from_numpy(mask), *_t(new),
+             layer, torch.from_numpy(slots), *_t(prefix))
+    _check(got, want, tc)
+    # row 1: [chunk columns] only, causal by token
+    kq, vq, ks, vs = (torch.from_numpy(np.array(x)) for x in new)
+    if G == 1:
+        kq, vq, ks, vs = kq[:, :, None], vq[:, :, None], ks[:, :, None], \
+            vs[:, :, None]
+    qr = torch.from_numpy(q)[1]                          # (Hkv, G·rep, D)
+    if G == 1:
+        ln = torch.einsum("krd,kgd->krg", qr, kq[1] * ks[1][..., None])
+    else:
+        ln = torch.einsum("krd,kgd->krg", qr, kq[1]) * ks[1][:, None, :]
+    vis = (torch.arange(G)[None, :] <= torch.arange(G * rep)[:, None] // rep)
+    w = torch.softmax(torch.where(vis, ln, -torch.inf), dim=-1)
+    only = torch.einsum("krg,kgd->krd", w * vs[1][:, None, :], vq[1])
+    torch.testing.assert_close(got[1], only, atol=ATOL, rtol=ATOL)
+
+
+def _to(dev, arrays):
+    return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+
+
+def _run_split(cuda, G, cache, prefix, q, new, mask, slots, layer):
+    """bf16 K9b (G 1) or K9c on the card twice, on two copies of the
+    caches, and the plain version in f32 on the same values: the two
+    launches' outputs and whole caches bit-identical, the kernel's caches
+    bit-exact against the plain version's, the attention within 2e-2.
+    Returns max|kernel - plain|."""
+    if G == 1:
+        new = [x[:, :, 0] for x in new]
+        kern = decode_attention_stacked_write_q_prefix
+        plain = decode_attention_stacked_write_q_prefix_plain
+    else:
+        kern = decode_attention_stacked_verify_qc_prefix
+        plain = decode_attention_stacked_verify_qc_prefix_plain
+    tq = torch.from_numpy(q).to(cuda).bfloat16()
+    tn, tp = _to(cuda, new), _to(cuda, prefix)
+    tm, ts = torch.from_numpy(mask).to(cuda), torch.from_numpy(slots).to(cuda)
+    runs = []
+    for _ in range(2):
+        gc = _to(cuda, cache)
+        n0 = kern.launches
+        a = kern(tq, *gc, tm, *tn, layer, ts, *tp)
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 1
+        runs.append((a, gc))
+    (a, gc), (a2, gc2) = runs
+    assert torch.equal(a, a2)
+    assert all(torch.equal(x, y) for x, y in zip(gc, gc2))
+    wc = _to(cuda, cache)
+    want = plain(tq.float(), *wc, tm, *tn, layer, ts, *tp)
+    assert torch.isfinite(a).all()
+    torch.testing.assert_close(a.float(), want, atol=2e-2, rtol=2e-2)
+    assert all(torch.equal(x, y) for x, y in zip(gc, wc))
+    return (a.float() - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 5])
+def test_int8_split_body_at_the_serving_shape_on_cuda(cuda, G):
+    """Qwen3-14B's int8 serving shape (B 8, Hkv 8, rep 5, D 128, T 1856,
+    Pc 256 with 250 real columns, row 6 gated off, 535 valid cache columns
+    a row, rows 6-7 on one scratch slot), one launch a call."""
+    rng = np.random.default_rng(15 + G)
+    B_, Hkv_, rep, D, T_, Pc = 8, 8, 5, 128, 1856, 256
+    cache, prefix = _cache(rng, D, Pc, T=T_, B=B_, Hkv=Hkv_)
+    prefix[4][:] = (np.arange(Pc) >= Pc - 250).astype(np.int32)
+    prefix[4] = np.broadcast_to(prefix[4][:1], (B_, Pc)).copy()
+    prefix[4][6] = 0
+    q, new = _new(rng, rep, D, G, B=B_, Hkv=Hkv_)
+    pads = np.array([0, 37, 100, 250, 5, 0, 60, 200])
+    cols = np.arange(T_)
+    mask = ((cols >= pads[:, None]) & (cols < pads[:, None] + 535)).astype(
+        np.int32)
+    slots = (pads + 535).astype(np.int32)
+    slots[6:] = T_ - 1 if G == 1 else T_ - 64
+    err = _run_split(cuda, G, cache, prefix, q, new, mask, slots, L - 1)
+    print(f"K9{'b' if G == 1 else 'c'} serving shape: max|a-plain| {err:.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_int8_split_body_every_rep_and_chunk_on_cuda(cuda, rep):
+    """rep 1-8 and G 1-6 wherever G·rep <= SPLIT_ROWS (1, 2 and 4 row
+    fragments), D 64 and 128, at the split body's edges."""
+    for G in range(1, 7):
+        if G * rep > SPLIT_ROWS:
+            continue
+        for D in (64, 128):
+            rng = np.random.default_rng([rep, G, D])
+            cache, prefix, q, new, mask, slots = _edge_case(rng, rep, D, G,
+                                                            64)
+            err = _run_split(cuda, G, cache, prefix, q, new, mask, slots, 0)
+            print(f"rep {rep} G {G} D {D}: max|a-plain| {err:.3e}")
+
+
+@pytest.mark.cuda
+def test_int8_route_by_kernel_name_on_cuda(cuda):
+    """The profiler names the body each call ran: bf16 K9b/K9c inside the
+    rule the split body's Int8Cache policy; past SPLIT_ROWS rows, f32 q
+    and K7/K8 the SIMT body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for G, rep, dtype, prefix in ((1, 5, torch.bfloat16, True),
+                                  (5, 5, torch.bfloat16, True),
+                                  (4, 8, torch.bfloat16, True),
+                                  (5, 7, torch.bfloat16, True),
+                                  (5, 5, torch.float32, True),
+                                  (5, 5, torch.bfloat16, False),
+                                  (1, 5, torch.bfloat16, False)):
+        rng = np.random.default_rng(G * rep)
+        cache, pfx, q, new, mask, slots = _edge_case(rng, rep, 64, G, 64)
+        if G == 1:
+            new = [x[:, :, 0] for x in new]
+        kern = {(1, True): decode_attention_stacked_write_q_prefix,
+                (1, False): decode_attention_stacked_write_q,
+                (0, True): decode_attention_stacked_verify_qc_prefix,
+                (0, False): decode_attention_stacked_verify_qc}[
+                    (int(G == 1), prefix)]
+        args = (torch.from_numpy(q).to(cuda).to(dtype), *_to(cuda, cache),
+                torch.from_numpy(mask).to(cuda), *_to(cuda, new), 0,
+                torch.from_numpy(slots).to(cuda),
+                *(_to(cuda, pfx) if prefix else ()))
+        kern(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            kern(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        split = int8_split_route(dtype, G * rep, prefix)
+        want = "Int8Cache" if split else "decode_attention_q_kernel"
+        assert any(want in n for n in names), (G, rep, dtype, prefix, names)
+        assert not any(("decode_split_kernel" in n) != split for n in names
+                       if "decode" in n), names
+
+
+@pytest.mark.cuda
+def test_int8_split_body_column_limit_on_cuda(cuda):
+    """At the body's column limit (Pc 64 + T 65472: 1024 tiles, 256 a
+    block) K9c runs and matches the plain version; one tile past it the
+    wrapper raises, launching nothing and writing nothing."""
+    from prot2text_tpu_torch.kernels.decode_attention import (
+        decode_attention_stacked_verify_qc_prefix as k9c,
+    )
+
+    limit = 256 * 4 * 64
+    for T_ in (limit - 64, limit):
+        rng = np.random.default_rng(T_)
+        Hkv_, B_, D, Pc, G, rep = 1, 1, 16, 64, 2, 3
+        cache, prefix = _cache(rng, D, Pc, T=T_, B=B_, Hkv=Hkv_)
+        q, new = _new(rng, rep, D, G, B=B_, Hkv=Hkv_)
+        mask = (rng.random((B_, T_)) < 0.01).astype(np.int32)
+        slots = np.array([T_ - 64], np.int32)
+        mask[:, T_ - 64:T_ - 64 + G] = 0
+        if T_ < limit:
+            _run_split(cuda, G, cache, prefix, q, new, mask, slots, 1)
+            continue
+        gc = _to(cuda, cache)
+        n0 = k9c.launches
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k9c(torch.from_numpy(q).to(cuda).bfloat16(), *gc,
+                torch.from_numpy(mask).to(cuda), *_to(cuda, new), 1,
+                torch.from_numpy(slots).to(cuda), *_to(cuda, prefix))
+        torch.cuda.synchronize()
+        assert k9c.launches == n0
+        assert all(torch.equal(x, y) for x, y in zip(gc, _to(cuda, cache)))

@@ -68,6 +68,8 @@ MODULES = [
     "prot2text_tpu_torch.scripts.bench_int8_mxu",
     "prot2text_tpu_torch.scripts.bench_lmhead3",
     "prot2text_tpu_torch.scripts.probe_int8_kv",
+    "prot2text_tpu_torch.scripts.sweep_decode_split",
+    "prot2text_tpu_torch.scripts.sweep_quant_rows",
     "chip_smoke",
 ]
 
