@@ -83,8 +83,9 @@ SIGNATURES = {
     "p2t_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # the same, with fmt (0 split-half bytes, 1 bf16-pair words) for bits
     "p2t_quant_matmul_int4": [_P] * 5 + [_I] * 6 + [_P],
-    # x, xp (planes' scratch) or None, w (layer), scale (layer) or None,
-    # out, R, K, N, bits, bm, bn, ck, out dtype, stream
+    # x, xp (the int4 formats' scratch) or None, w (layer), scale (layer)
+    # or None, out, R, K, N, fmt (0 int8, 1 planes, 2 bytes, 3 pairs), bm,
+    # bn, ck, out dtype, stream
     "p2t_quant_matmul_rows": [_P] * 5 + [_I] * 8 + [_P],
     # x, w, scale, out, partial, R, K, N, variant, param, splits, stream
     "p2t_probe_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],

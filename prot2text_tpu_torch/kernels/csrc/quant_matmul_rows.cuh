@@ -1,23 +1,28 @@
 // A bf16 x integer-weight product for more than a few rows on the tensor
-// cores' warpgroup instruction (wgmma): K14's and K10's body above the
-// few-row threshold, and K15g's,
+// cores' warpgroup instruction (wgmma): K14's, K10's, K11a's and K11b's
+// body above the few-row threshold, and K15g's,
 //
 //   y[r, n] = (sum_k x[r, k] * q[k, n]) * scale[n]     (no scale: the sum)
 //
 // x (R, K) bf16 row-major; q the integer weight in a format policy's layout
 // (`Int8W`: (K, N) int8, K14's and K15g's; `PlanesW`: (K/8, N) int32 nibble
-// planes, K10's: nibble j of word [k8, n] holds q[k8 + j*K/8, n]); fp32
+// planes, K10's: nibble j of word [k8, n] holds q[k8 + j*K/8, n];
+// `BytesW`: (K/2, N) int8 split-half bytes, K11a's: byte [k2, n] holds
+// q[k2, n] in its low nibble and q[k2 + K/2, n] in its high one; `PairsW`:
+// (K/8, N) int32 bf16-pair words, K11b's: bits [4p, 4p+4) hold q[k8 +
+// 2p*K/8, n] + 8 and bits [16+4p, 20+4p) q[k8 + (2p+1)*K/8, n] + 8); fp32
 // accumulation, the scale in the fp32 epilogue, y of type To (bf16 or f32).
 // The body is a template over the weight format, the output type, the
 // block's columns (64 per consumer warpgroup) and its rows (wgmma's N: 64,
 // 128 or 256); the scale is nullable.
 //
 // Bound: at R <= 128 the weight stream (Qwen3-14B gate/up, K 5120 N 17408:
-// 89.1 MB int8, 44.6 MB int4, 26.6 or 13.3 us at 3.35 TB/s); at an
-// install's rows (R 3072 there: 547.6 G operations, 0.554 ms at 989
-// TFLOP/s) the tensor cores.  The few-row body (quant_matmul.cuh) is 3x
-// slower than cuBLAS on a bf16 copy at R 40: its mma.sync tiles of 8 rows
-// re-stage x per 128 columns and hold R/8 accumulator tiles a warp.  So:
+// 89.1 MB int8, 44.6 MB in each int4 format, 26.6 or 13.3 us at 3.35
+// TB/s); at an install's rows (R 3072 there: 547.6 G operations, 0.554 ms
+// at 989 TFLOP/s) the tensor cores.  The few-row body (quant_matmul.cuh)
+// is 3x slower than cuBLAS on a bf16 copy at R 40: its mma.sync tiles of 8
+// rows re-stage x per 128 columns and hold R/8 accumulator tiles a warp.
+// So:
 //   - the product runs transposed, y^T = q^T x^T, on wgmma m64nBMk16: A (64
 //     weight columns x 16 k) from registers, converted from the integer
 //     tile, B (16 k x BM rows of x) from shared memory through a
@@ -58,23 +63,40 @@
 // MMA's row g stands for column 2g and row g + 8 for column 2g + 1, and a
 // byte pair becomes a bf16 pair in registers (q + 128 in the fp32 2^23 +
 // 128 + q by a byte permute, 2^23 + 128 off in one add, exactly).
-// PlanesW: a tile is 8 word rows x the block's columns, 64 k values: the
-// tile-local k of (word row i, nibble j) is 8j + i, so x's tile is, for
-// each row, the 8 runs x[k8_0 + j*K/8 .. + 8] side by side: a first kernel
-// copies x into that order (`planes_x_kernel`), so that x's tile is one TMA
-// box (a 4-D view of x, boxes of 16-byte runs, does not fit the 128-byte
-// swizzle: it wrote past the stage on the card).  The k pair (2t, 2t+1) of
-// a k16 step s is nibble 2s of word rows 2t and 2t+1, and (2t+8, 2t+9)
-// nibble 2s+1 of the same two words: a thread loads its two columns'
-// words of rows 2t and 2t+1 (two 8-byte loads), a byte permute puts byte s
-// of both words side by side, and 0x4300 | nibble ^ 8, minus 136 in one
-// bf16x2 subtraction, is the exact bf16 pair (the few-row body's
-// arithmetic).  The integer values are
-// exact in bf16, so only the order of the fp32 sums separates the result
-// from the plain version.
+// The three int4 formats hold the same integers in three layouts, and
+// each policy's tile holds the same 64 k values: those of word row k8 =
+// 8t + i (i < 8) in plane j, k = j*K/8 + 8t + i, at tile-local k 8j + i.
+// So x's tile is, for each row, the 8 runs x[j*K/8 + 8t .. + 8] side by
+// side: a first kernel copies x into that order (`planes_x_kernel`), so
+// that x's tile is one TMA box (a 4-D view of x, boxes of 16-byte runs,
+// does not fit the 128-byte swizzle: it wrote past the stage on the
+// card).  k16 step s of a tile is planes 2s (k 2t, 2t+1: word rows 2t and
+// 2t + 1) and 2s + 1 (k 2t+8, 2t+9).  Every A value is an exact bf16 built
+// from a nibble u biased to u + 8: 0x4300 | u is the bf16 of 128 + u, and
+// one bf16x2 subtraction of 136 leaves the value (the few-row body's
+// arithmetic).  So on the same integers the three formats give the same
+// fragments, the same wgmmas and K10's result bit for bit, at every grid.
+//   PlanesW: a thread loads its two columns' words of word rows 2t and
+//   2t + 1 (two 8-byte loads); a byte permute puts byte s (nibbles 2s, 2s +
+//   1) of both words side by side; nibble ^ 8 biases it.
+//   BytesW: the tile is byte rows g*K/8 + 8t + i of the four groups g < 4
+//   (low nibble plane g, high nibble plane g + 4), 32 byte rows, as many
+//   bytes as PlanesW's 8 word rows; one ldmatrix.x4.trans of 16-bit units
+//   over the four groups (matrix g: group g's 8 rows) gives a thread, in
+//   register g, the bytes of word rows 2t, 2t + 1 at columns 2g, 2g + 1:
+//   planes g and g + 4.  One load a warp serves the tile's four k16
+//   steps (Int8W needs two); nibble ^ 8 biases it, as for planes.
+//   PairsW: PlanesW's word rows, tile and boxes; plane 2p sits in byte p/2
+//   (nibble p % 2), plane 2p + 1 in byte 2 + p/2, both already biased: one
+//   byte permute a column and pair of steps puts bytes kp and 2 + kp of
+//   rows 2t and 2t + 1 side by side, and masks (no XOR) give steps 2kp and
+//   2kp + 1.
+// The integer values are exact in bf16, so only the order of the fp32
+// sums separates the result from the plain version.
 // Contract: any R >= 1 (rows past R are zero-filled and not written), x
-// 16-byte aligned; Int8W: K % 8 == 0, N % 16 == 0; PlanesW: K % 64 == 0,
-// N % 4 == 0; the weight 16-byte aligned.  (kernels/quant_matmul.py
+// 16-byte aligned; Int8W: K % 8 == 0, N % 16 == 0; PlanesW and PairsW: K %
+// 64 == 0, N % 4 == 0; BytesW: K % 64 == 0, N % 16 == 0 (the byte rows'
+// stride, a TMA rule); the weight 16-byte aligned.  (kernels/quant_matmul.py
 // rows_fit is this rule.)
 #pragma once
 
@@ -177,8 +199,55 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
           smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
       : "memory");
 }
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a tensor map in the 128-byte swizzle, zeros out of bounds; dims and box
+// innermost first, strides (bytes) of dims 1 ..
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                     const void* base, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                         12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+#endif
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------------------
-// weight formats
+// weight formats.  A policy W states: kXTiled (x is read in the int4
+// formats' tile order, written first by planes_x_kernel), fits(K, N) (its
+// shape rule), wmap() (the weight's tensor map), bytes<kBN>() (a tile's
+// weight bytes), tiles(K), load() (the producer's copies of tile kt) and
+// frags() (a consumer warp's A fragments of the tile's four k16 steps).
 
 // int8 bytes i and i + 2 of u (flipped: q + 128) → their bf16 pair (byte i
 // in the low half), exactly: u's byte sits in the fp32 2^23 + u, one add
@@ -192,8 +261,18 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t u, int i) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// nibbles in bits [0, 4) and [16, 20) of v → their exact bf16 pair: bit 3
-// flipped (q + 8), 0x4300 | u is the bf16 of 128 + u, and 136 off
+// nibbles u0, u1 in bits [0, 4) and [16, 20) of t, already biased (u =
+// q + 8) → their exact bf16 pair: 0x4300 | u is the bf16 of 128 + u, and
+// 136 off
+__device__ __forceinline__ uint32_t biased_pair(uint32_t t) {
+  t = (t & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t),
+                                   __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// two's complement nibbles in bits [0, 4) and [16, 20) of v → their exact
+// bf16 pair: bit 3 flipped (q + 8), then biased_pair's arithmetic
 __device__ __forceinline__ uint32_t nibble_pair(uint32_t v) {
   uint32_t t = (v & 0x000F000Fu) ^ 0x43084308u;
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t),
@@ -201,16 +280,33 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// the weight's 2-D map: dims (cols, rows) of `type`, a row `pitch` bytes
+// apart, boxes (box_cols, box_rows)
+inline bool make_wmap_2d(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* w, int cols, int rows, int pitch,
+                         int box_cols, int box_rows) {
+  const cuuint64_t d[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t st[1] = {(cuuint64_t)pitch};
+  const cuuint32_t b[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return make_map(map, type, 2, w, d, st, b);
+}
+
 // The int8 weight (K, N): a tile is kBK rows x kBN columns, kBN / 128
 // boxes of 64 rows x 128 bytes (the weight's map: dims (N, K), boxes (128,
 // 64)).  x's tile is one box of its map (dims (K, R), boxes (64, kBM)) at
-// k 64kt.  frags() turns one ldmatrix.x4.trans of 16-bit units over k rows
+// k 64kt.  half() turns one ldmatrix.x4.trans of 16-bit units over k rows
 // 32kp .. 32kp + 31 of the warp's 16 columns (matrices: k 0-7, 8-15, 16-23,
 // 24-31) into the A fragments of k16 steps 2kp and 2kp + 1: register r of
 // a matrix holds bytes (k 2t, col 2g), (k 2t, col 2g+1), (k 2t+1, col 2g),
 // (k 2t+1, col 2g+1), so the MMA's row g is column 2g (bytes 0, 2) and row
 // g + 8 column 2g + 1 (bytes 1, 3).
 struct Int8W {
+  static constexpr bool kXTiled = false;
+  static bool fits(int K, int N) { return K % 8 == 0 && N % 16 == 0; }
+  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
+    return make_wmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, 128,
+                        64);
+  }
   template <int kBN>
   __host__ __device__ static constexpr int bytes() {
     return kBK * kBN;
@@ -226,9 +322,8 @@ struct Int8W {
     for (int h = 0; h < kBN / 128; ++h)
       tma_2d(ws + h * 128 * kBK, wmap, n0 + 128 * h, kt * kBK, bar);
   }
-  template <int kBN>
-  __device__ static void frags(const unsigned char* ws, int col, int lane,
-                               int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+  __device__ static void half(const unsigned char* ws, int col, int lane,
+                              int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
     const int k = 32 * kp + (lane & 7) + 8 * (lane >> 3);
     uint32_t m[4];
     ldmatrix_x4_trans(m, ws + (col >> 7) * 128 * kBK + k * 128 +
@@ -245,19 +340,29 @@ struct Int8W {
     a1[2] = int8_pair(u[3], 0);
     a1[3] = int8_pair(u[3], 1);
   }
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    half(ws, col, lane, 0, a[0], a[1]);
+    half(ws, col, lane, 1, a[2], a[3]);
+  }
 };
 
 // The nibble planes (K/8, N) int32: a tile is 8 word rows x kBN words,
 // kBN / 32 boxes of 8 rows x 128 bytes (the weight's map: dims (N, K/8),
-// boxes (32, 8)).  The tile-local k of (word row i, nibble j) is 8j + i,
-// so x's tile is, for each row, the 8 runs x[k8_0 + j*K/8 .. + 8] side by
-// side: `planes_x_kernel` writes x in that order (xp[r, 64kt + 8j + i] =
-// x[r, j*K/8 + 8kt + i]), and x's tile is one box of xp's map at k 64kt, as
-// for Int8W.  frags() for k16 steps
-// 2kp and 2kp + 1: the MMA's row g is column 2g and row g + 8 column 2g + 1,
-// as for Int8W; words (2t, col) and (2t + 1, col) give k 2t, 2t + 1 (nibble
-// 2s) and 2t + 8, 2t + 9 (nibble 2s + 1) of step s.
+// boxes (32, 8)).  The tile-local k of (word row i, nibble j) is 8j + i:
+// `planes_x_kernel` writes x in that order (xp[r, 64kt + 8j + i] = x[r,
+// j*K/8 + 8kt + i]), and x's tile is one box of xp's map at k 64kt, as for
+// Int8W.  half() for k16 steps 2kp and 2kp + 1: the MMA's row g is column
+// 2g and row g + 8 column 2g + 1, as for Int8W; words (2t, col) and (2t +
+// 1, col) give k 2t, 2t + 1 (nibble 2s) and 2t + 8, 2t + 9 (nibble 2s + 1)
+// of step s.
 struct PlanesW {
+  static constexpr bool kXTiled = true;
+  static bool fits(int K, int N) { return K % 64 == 0 && N % 4 == 0; }
+  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
+    return make_wmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_INT32, w, N, K / 8,
+                        4 * N, 32, 8);
+  }
   template <int kBN>
   __host__ __device__ static constexpr int bytes() {
     return 8 * 4 * kBN;
@@ -273,16 +378,22 @@ struct PlanesW {
     for (int h = 0; h < kBN / 32; ++h)
       tma_2d(ws + h * 1024, wmap, n0 + 32 * h, 8 * kt, bar);
   }
-  template <int kBN>
-  __device__ static void frags(const unsigned char* ws, int col, int lane,
-                               int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+  // words (2t, column 2g), (2t, 2g + 1) in u0 and (2t + 1, ...) in u1 (the
+  // box of 32 words holding column c, word w of it)
+  __device__ static void words(const unsigned char* ws, int col, int lane,
+                               uint2* u0, uint2* u1) {
     const int g = lane >> 2, t = lane & 3;
     const int c = col + 2 * g, w = c & 31;        // box c / 32, word w
     const unsigned char* box = ws + (c >> 5) * 1024 + (w & 3) * 4;
-    const uint2 u0 = *reinterpret_cast<const uint2*>(
+    *u0 = *reinterpret_cast<const uint2*>(
         box + 2 * t * 128 + (((w >> 2) ^ (2 * t)) << 4));
-    const uint2 u1 = *reinterpret_cast<const uint2*>(
+    *u1 = *reinterpret_cast<const uint2*>(
         box + (2 * t + 1) * 128 + (((w >> 2) ^ (2 * t + 1)) << 4));
+  }
+  __device__ static void half(const unsigned char* ws, int col, int lane,
+                              int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+    uint2 u0, u1;
+    words(ws, col, lane, &u0, &u1);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int s = 2 * kp + h;
@@ -295,6 +406,95 @@ struct PlanesW {
       a[1] = nibble_pair(c1);
       a[2] = nibble_pair(c0 >> 4);
       a[3] = nibble_pair(c1 >> 4);
+    }
+  }
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    half(ws, col, lane, 0, a[0], a[1]);
+    half(ws, col, lane, 1, a[2], a[3]);
+  }
+};
+
+// The split-half bytes (K/2, N) int8, viewed as (4, K/8, N): group g's
+// byte row k8 holds plane g (k = g*K/8 + k8) low and plane g + 4 (k = K/2
+// + g*K/8 + k8) high.  A tile is word rows 8kt .. 8kt + 7 of the four
+// groups, 32 byte rows x kBN bytes, PlanesW's k values in PlanesW's
+// bytes: kBN / 128 boxes of (4, 8, 128) bytes (the weight's map: dims (N,
+// K/8, 4), strides N and K/8 * N bytes), byte row 8g + i of a box at
+// 128(8g + i), in the 128-byte swizzle.  x as for PlanesW.  frags(): one
+// ldmatrix.x4.trans of 16-bit units, lane l addressing row l of the box
+// (group l / 8, word row l % 8) at the warp's 16 columns: register g holds
+// bytes (2t, 2g), (2t, 2g + 1), (2t + 1, 2g), (2t + 1, 2g + 1) of group g,
+// so k16 step s's planes 2s, 2s + 1 are groups 2(s % 2) and 2(s % 2) + 1,
+// low nibbles for s < 2 and high ones above: one load for the four steps.
+struct BytesW {
+  static constexpr bool kXTiled = true;
+  static bool fits(int K, int N) { return K % 64 == 0 && N % 16 == 0; }
+  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
+    const cuuint64_t d[3] = {(cuuint64_t)N, (cuuint64_t)(K / 8), 4};
+    const cuuint64_t st[2] = {(cuuint64_t)N, (cuuint64_t)(K / 8) * N};
+    const cuuint32_t b[3] = {128, 8, 4};
+    return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, w, d, st, b);
+  }
+  template <int kBN>
+  __host__ __device__ static constexpr int bytes() {
+    return 32 * kBN;
+  }
+  __host__ __device__ static int tiles(int K) { return K / kBK; }
+  template <int kBN>
+  __device__ static void load(unsigned char* xs, unsigned char* ws,
+                              const CUtensorMap* xmap,
+                              const CUtensorMap* wmap, int kt, int r0,
+                              int n0, uint64_t* bar) {
+    tma_2d(xs, xmap, kt * kBK, r0, bar);
+#pragma unroll
+    for (int h = 0; h < kBN / 128; ++h)
+      tma_3d(ws + h * 4096, wmap, n0 + 128 * h, 8 * kt, 0, bar);
+  }
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    uint32_t m[4];
+    ldmatrix_x4_trans(m, ws + (col >> 7) * 4096 + lane * 128 +
+                             ((((col & 127) >> 4) ^ (lane & 7)) << 4));
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int sh = 4 * (s >> 1);              // high nibbles from step 2
+      const uint32_t lo = m[2 * (s & 1)] >> sh;   // plane 2s
+      const uint32_t hi = m[2 * (s & 1) + 1] >> sh;  // plane 2s + 1
+      a[s][0] = nibble_pair(lo);                // column 2g
+      a[s][1] = nibble_pair(lo >> 8);           // column 2g + 1
+      a[s][2] = nibble_pair(hi);
+      a[s][3] = nibble_pair(hi >> 8);
+    }
+  }
+};
+
+// The bf16-pair words (K/8, N) int32: PlanesW's word rows, tile, boxes and
+// map; only the bits differ.  Plane 2p sits in bits [4p, 4p + 4) (byte p /
+// 2, nibble p % 2), plane 2p + 1 in bits [16 + 4p, 20 + 4p) (byte 2 + p /
+// 2), both biased by +8.  For steps 2kp and 2kp + 1 one byte permute a
+// column puts bytes kp, 2 + kp of row 2t and kp, 2 + kp of row 2t + 1 in
+// bytes 0-3: step 2kp's planes are the low nibbles of bytes (0, 2) and (1,
+// 3), step 2kp + 1's the high ones.
+struct PairsW : PlanesW {
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    uint2 u0, u1;
+    words(ws, col, lane, &u0, &u1);
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      const uint32_t sel = kp | ((2 + kp) << 4) | ((4 + kp) << 8) |
+                           ((6 + kp) << 12);
+      const uint32_t c0 = __byte_perm(u0.x, u1.x, sel);  // column 2g
+      const uint32_t c1 = __byte_perm(u0.y, u1.y, sel);  // column 2g + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t (&f)[4] = a[2 * kp + h];
+        f[0] = biased_pair(c0 >> (4 * h));
+        f[1] = biased_pair(c1 >> (4 * h));
+        f[2] = biased_pair(c0 >> (8 + 4 * h));
+        f[3] = biased_pair(c1 >> (8 + 4 * h));
+      }
     }
   }
 };
@@ -472,8 +672,7 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
     const int col = 64 * wg + 16 * wq;
     auto step = [&](int i, uint32_t (&a)[4][4]) {
       mbar_wait(&full[i % kS], (i / kS) & 1);
-      W::template frags<kBN>(ws_of(i), col, lane, 0, a[0], a[1]);
-      W::template frags<kBN>(ws_of(i), col, lane, 1, a[2], a[3]);
+      W::frags(ws_of(i), col, lane, a);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int s = 0; s < 4; ++s)
@@ -568,7 +767,7 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
   cluster.sync();                  // no block leaves while others read it
 }
 
-// PlanesW's x in the tile-local k order, xp[r, 64t + 8j + i] = x[r,
+// x in the int4 formats' tile-local k order, xp[r, 64t + 8j + i] = x[r,
 // j*K/8 + 8t + i]: one 16-byte run of 8 values a thread
 __global__ void __launch_bounds__(256)
 planes_x_kernel(const uint4* __restrict__ x, uint4* __restrict__ xp, int R,
@@ -582,54 +781,17 @@ planes_x_kernel(const uint4* __restrict__ x, uint4* __restrict__ xp, int R,
   }
 }
 
-// a tensor map in the 128-byte swizzle, zeros out of bounds; dims and box
-// innermost first, strides (bytes) of dims 1 ..
-inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                     const void* base, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
-                                         12000, cudaEnableDefault,
-                                         &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-#endif
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }();
-  const cuuint32_t elem[2] = {1, 1};
-  return encode != nullptr &&
-         encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// x's and the weight's maps for format W at bm rows a block (PlanesW: x
-// in its tile-local order)
+// x's and the weight's maps for format W at bm rows a block (x in the
+// tile-local order where W::kXTiled)
 template <class W>
 bool make_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
                const void* w, int R, int K, int N, int bm) {
-  const bool planes = std::is_same<W, PlanesW>::value;
   const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)R};
   const cuuint64_t xs[1] = {(cuuint64_t)K * 2};
   const cuuint32_t xb[2] = {64, (cuuint32_t)bm};
-  const cuuint64_t wd[2] = {(cuuint64_t)N, (cuuint64_t)(planes ? K / 8 : K)};
-  const cuuint64_t ws[1] = {(cuuint64_t)N * (planes ? 4 : 1)};
-  const cuuint32_t wb[2] = {planes ? 32u : 128u, planes ? 8u : 64u};
   return make_map(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xd, xs,
                   xb) &&
-         make_map(wmap, planes ? CU_TENSOR_MAP_DATA_TYPE_INT32
-                               : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                  2, w, wd, ws, wb);
+         W::wmap(wmap, w, K, N);
 }
 
 // make_maps through a small table of encoded maps: a map is a function of
@@ -707,24 +869,23 @@ cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& wmap,
 
 // The body with weight format W and output type To: bm rows (64, 128 or
 // 256) and bn columns (128 or 256; 128 at bm 256) a block, K split over Ck
-// blocks of a cluster (1 .. 8, at most one K tile each); PlanesW first
-// writes x in its tile-local order to xp (R x K bf16, 16-byte aligned);
-// cudaErrorInvalidValue for anything else, or for operands outside the
-// contract.  The caller's rule picks them (kernels/quant_matmul.py
-// rows_tiling).
+// blocks of a cluster (1 .. 8, at most one K tile each); a format with
+// kXTiled first writes x in its tile-local order to xp (R x K bf16,
+// 16-byte aligned); cudaErrorInvalidValue for anything else, or for
+// operands outside the contract.  The caller's rule picks them
+// (kernels/quant_matmul.py rows_tiling).
 template <class W, typename To>
 int run(const void* x, void* xp, const void* w, const float* scale,
         void* out, int R, int K, int N, int bm, int bn, int Ck,
         cudaStream_t s) {
-  const bool planes = std::is_same<W, PlanesW>::value;
   if (R <= 0 || K <= 0 || N <= 0 || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15) ||
-      (planes && (xp == nullptr || (reinterpret_cast<uintptr_t>(xp) & 15))) ||
-      (planes ? K % 64 != 0 || N % 4 != 0 : K % 8 != 0 || N % 16 != 0) ||
-      Ck < 1 || Ck > kMaxCluster || Ck > W::tiles(K) ||
+      (W::kXTiled &&
+       (xp == nullptr || (reinterpret_cast<uintptr_t>(xp) & 15))) ||
+      !W::fits(K, N) || Ck < 1 || Ck > kMaxCluster || Ck > W::tiles(K) ||
       (R + bm - 1) / bm > 65535 || (N + bn - 1) / bn > 65535)
     return (int)cudaErrorInvalidValue;
-  if (planes) {
+  if (W::kXTiled) {
     const int64_t n = (int64_t)R * (K / 8);
     const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
     planes_x_kernel<<<blocks, 256, 0, s>>>(static_cast<const uint4*>(x),
@@ -750,5 +911,18 @@ int run(const void* x, void* xp, const void* w, const float* scale,
   return (int)cudaErrorInvalidValue;
 }
 
+// the weight formats' codes in p2t_quant_matmul_rows (kernels/
+// quant_matmul.py _FORMATS)
+enum Format : int { kInt8 = 0, kPlanes = 1, kBytes = 2, kPairs = 3 };
+
 }  // namespace rows
 }  // namespace
+
+// K11a's and K11b's instantiations (BytesW, PairsW), in a translation unit
+// of their own (quant_matmul_rows_int4.cu): p2t_quant_matmul_rows's
+// arguments, fmt rows::kBytes or rows::kPairs
+extern "C" int p2t_quant_matmul_rows_int4(const void* x, void* xp,
+                                          const void* w, const void* scale,
+                                          void* out, int R, int K, int N,
+                                          int fmt, int bm, int bn, int ck,
+                                          int dtype, void* stream);

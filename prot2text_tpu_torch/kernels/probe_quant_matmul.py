@@ -324,7 +324,7 @@ def mm_mix(x, w):
                             qm._sm_count(x.device.index or 0),
                             bm=MIX_BLOCK_ROWS)
     out = torch.empty((R, wk.shape[1]), dtype=torch.float32, device=x.device)
-    qm.rows_matmul(xk, wk.data_ptr(), None, out, 8, tiling)
+    qm.rows_matmul(xk, wk.data_ptr(), None, out, "int8", tiling)
     mm_mix.launches += 1
     return out if wk.shape[1] == N else out[:, :N].contiguous()
 

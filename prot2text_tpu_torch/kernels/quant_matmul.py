@@ -13,11 +13,12 @@ words; K14 replaces `quant_matmul_int8` (`_mm_i8_kernel`) and
 carry them, each header stating what bounds it and what its design does
 about that: the few-row body `csrc/quant_matmul.cuh` (entry points
 `csrc/quant_matmul.cu` for K10/K14 and `csrc/quant_matmul_int4.cu` for
-K11) takes K11 at every R and K10/K14 at up to `FEW_ROWS` rows; the
-many-row `wgmma` body `csrc/quant_matmul_rows.cuh` (entry
-`csrc/quant_matmul_rows.cu`) takes K10/K14 above it, on a grid that
-`rows_tiling` picks, where the shape rule `rows_fit` holds.  The TPU's
-stacked variants
+K11) takes all four formats at up to `FEW_ROWS` rows; the many-row
+`wgmma` body `csrc/quant_matmul_rows.cuh` (entry
+`csrc/quant_matmul_rows.cu`, K11's instantiations in
+`csrc/quant_matmul_rows_int4.cu`) takes them above it, on the grid that
+`rows_tiling` picks, where the format's shape rule `rows_fit` holds (the
+few-row body where it does not).  The TPU's stacked variants
 exist because a Pallas operand must be a materialized buffer; here the
 stacked wrappers pass layer `layer`'s base pointer into the (L, ...)
 buffer, so both entry points share one body.  The decode path needs only
@@ -38,12 +39,14 @@ bf16, so only x's rounding and the order of the sums separate the kernel
 from its plain version.  JAX's TPU pairs kernel instead removes the words'
 +136 bf16 bias as 136·rowsum(x) in its epilogue, a cancellation of about
 4e-6 of max|y| (its `:410-424`); the port's kernel and plain version are
-exact.  The three int4 formats build the same tensor-core fragments, so
-on the same integers K11a and K11b equal K10 bit for bit (K % 8 == 0).
+exact.  The three int4 formats build the same tensor-core fragments in
+each body, so on the same integers K11a and K11b equal K10 bit for bit
+(the few-row body: K % 8 == 0; the many-row body: where `rows_fit` holds
+for both formats, on the same `rows_tiling` grid).
 
-The decoder calls K10/K14 at every row count and K11 for at most
-`QUANT_KERNEL_ROWS` rows (`models/transformer.py linear`); the kernels
-themselves take any R and any N.
+The decoder calls all four on a bf16 x at every row count, and on an f32
+x for at most `QUANT_KERNEL_ROWS` rows (`models/transformer.py linear`);
+the kernels themselves take any R and any N.
 """
 
 from __future__ import annotations
@@ -54,11 +57,12 @@ import torch
 
 from . import _build
 
-# rows at or below which the decoder's K11 projections take their kernels
-# (prot2text_tpu/models/transformer.py:97-128, decoder.py:491-525)
+# rows at or below which the decoder's projections of an f32 x take their
+# kernels (prot2text_tpu/models/transformer.py:97-128, decoder.py:491-525)
 QUANT_KERNEL_ROWS = 256
-# rows at or below which K10/K14 run the few-row body; above, the many-row
-# body (the crossover measured on an H100: PERF.md §6)
+# rows at or below which the kernels run the few-row body; above, the
+# many-row body (the crossover measured on an H100: PERF.md §6,
+# scripts/sweep_quant_rows.py)
 FEW_ROWS = 8
 # the many-row body (csrc/quant_matmul_rows.cuh): k values of a tile, the
 # rows (wgmma's N) and columns of a block, the K splits of a cluster and
@@ -71,13 +75,14 @@ ROWS_MIN_TILES = 16
 _BLOCK_COLS = 128               # csrc/quant_matmul.cu kBlockCols
 _BLOCK_ROWS = 64                # at most 8 MMA tiles of 8 rows per block
 _STEP_K = {4: 32, 8: 16}        # k values per K step (Fmt::kStepK)
-# weight format → (dtype, k values per stored row, bits, C entry point and
-# its format argument)
+# weight format → (dtype, k values per stored row, bits, the few-row C
+# entry point and its format argument, the many-row body's format code
+# (csrc/quant_matmul_rows.cuh rows::Format))
 _FORMATS = {
-    "planes": (torch.int32, 8, 4, "p2t_quant_matmul", 4),
-    "int8": (torch.int8, 1, 8, "p2t_quant_matmul", 8),
-    "bytes": (torch.int8, 2, 4, "p2t_quant_matmul_int4", 0),
-    "pairs": (torch.int32, 8, 4, "p2t_quant_matmul_int4", 1),
+    "planes": (torch.int32, 8, 4, "p2t_quant_matmul", 4, 1),
+    "int8": (torch.int8, 1, 8, "p2t_quant_matmul", 8, 0),
+    "bytes": (torch.int8, 2, 4, "p2t_quant_matmul_int4", 0, 2),
+    "pairs": (torch.int32, 8, 4, "p2t_quant_matmul_int4", 1, 3),
 }
 _TARGET_BLOCKS = 792            # about six resident blocks per SM
 _MIN_SPLIT_STEPS = 8            # K steps per slice: 256 (int4) / 128 k
@@ -335,15 +340,17 @@ def rows_tiling(R: int, K: int, N: int, sms: int = 132,
 
 
 def rows_fit(fmt: str, K: int, N: int, w_ptr: int) -> bool:
-    """The shape rule of the many-row body, whose copies are TMA boxes:
-    int8 with K % 8 == 0 (x's rows 16-byte strided) and N % 16 == 0 (the
-    weight's), or nibble planes with K % 64 == 0 (whole tiles of 8 word
-    rows) and N % 4 == 0; the weight (the layer's base) 16-byte aligned.
-    Anything else, and K11's formats, take the few-row body at every R."""
+    """The shape rule of the many-row body, whose copies are TMA boxes
+    (row strides multiples of 16 bytes): int8 with K % 8 == 0 (x's rows)
+    and N % 16 == 0 (the weight's); the int4 formats with K % 64 == 0
+    (whole tiles of 8 word rows, x read in their tile order), nibble planes
+    and bf16-pair words with N % 4 == 0 (int32 words), split-half bytes
+    with N % 16 == 0 (byte rows); the weight (the layer's base) 16-byte
+    aligned.  Anything else takes the few-row body at every R."""
     if fmt == "int8":
         shape = K % 8 == 0 and N % 16 == 0
     else:
-        shape = fmt == "planes" and K % 64 == 0 and N % 4 == 0
+        shape = K % 64 == 0 and N % (16 if fmt == "bytes" else 4) == 0
     return shape and w_ptr % 16 == 0
 
 
@@ -352,24 +359,26 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def rows_matmul(x, w_ptr: int, s_ptr: int | None, out, bits: int,
+def rows_matmul(x, w_ptr: int, s_ptr: int | None, out, fmt: str,
                 tiling=None):
-    """One launch of the many-row body: x (R, K) bf16 (copied when it is
-    not 16-byte aligned), the weight's and scale's base pointers (scale
-    None: no scale), out (R, N) f32 or bf16 allocated by the caller;
-    `tiling` (bm, bn, Ck), default `rows_tiling`.  For nibble planes (bits
-    4) the body first writes x in its tile-local k order to a scratch copy
-    allocated here (so that a tile of x is one TMA box)."""
+    """One launch of the many-row body on weight format `fmt` (a key of
+    `_FORMATS`): x (R, K) bf16 (copied when it is not 16-byte aligned),
+    the weight's and scale's base pointers (scale None: no scale), out (R,
+    N) f32 or bf16 allocated by the caller; `tiling` (bm, bn, Ck), default
+    `rows_tiling`.  For the int4 formats the body first writes x in their
+    tile-local k order to a scratch copy allocated here (so that a tile of
+    x is one TMA box)."""
     R, K = x.shape
     N = out.shape[1]
     if x.data_ptr() % 16:
         x = x.clone()
+    bits, code = _FORMATS[fmt][2], _FORMATS[fmt][5]
     xp = torch.empty_like(x) if bits == 4 else None
     bm, bn, ck = tiling or rows_tiling(R, K, N,
                                        _sm_count(x.device.index or 0))
     err = _build.library().p2t_quant_matmul_rows(
         x.data_ptr(), None if xp is None else xp.data_ptr(), w_ptr, s_ptr,
-        out.data_ptr(), R, K, N, bits, bm, bn, ck,
+        out.data_ptr(), R, K, N, code, bm, bn, ck,
         _build.dtype_code(out.dtype), _build.stream_of(x))
     _build.check(err, "p2t_quant_matmul_rows")
     return out
@@ -383,12 +392,12 @@ def _launch(x, w, scale, fmt, layer, few_rows: bool = False):
     R, K = x.shape
     N = w.shape[-1]
     w_ptr, s_ptr = _pointers(w, scale, layer)
-    bits, entry, code = _FORMATS[fmt][2:]
+    bits, entry, code = _FORMATS[fmt][2:5]
     if not few_rows and R > FEW_ROWS and rows_fit(fmt, K, N, w_ptr):
         out = torch.empty((R, N), dtype=x.dtype, device=x.device)
         if x.dtype != torch.bfloat16:
             x = x.to(torch.bfloat16)
-        return rows_matmul(x, w_ptr, s_ptr, out, bits)
+        return rows_matmul(x, w_ptr, s_ptr, out, fmt)
     splits = _splits(R, K, N, bits)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, R, N), dtype=torch.float32,
@@ -403,8 +412,8 @@ def _launch(x, w, scale, fmt, layer, few_rows: bool = False):
 
 def _few_rows(x, w, scale, fmt: str, layer: int | None = None):
     """The few-row body at any R (no launch counted): the reference that
-    K11a/K11b, K15a (bc 128) and K15d share their fragments with, for the
-    card checks that hold them bit for bit."""
+    K15a (bc 128), K15b/K15e (the bytes) and K15d share their fragments
+    with, for the card checks that hold them bit for bit."""
     _check("few-row body", x, w, scale, fmt, layer is not None, layer)
     return _launch(x, w, scale, fmt, layer, few_rows=True)
 

@@ -22,17 +22,18 @@ def linear(p, x):
     """y = x @ kernel (+ bias) (prot2text_tpu/models/transformer.py:35).
 
     Quantized leaves (`models/quant.quantize_params`): activations are
-    flattened to rows first (`:69-79`).  Int4 nibble planes (`kernel_q4p`)
-    and int8 (`kernel_q`) take K10 and K14 at every row count (the few-row
-    body up to `FEW_ROWS` rows, the many-row body above), which round x to
-    bf16 and apply the scale in an fp32 epilogue: JAX's Pallas kernels at
+    flattened to rows first (`:69-79`).  On a bf16 x all four formats take
+    their kernel at every row count: int4 nibble planes (`kernel_q4p`,
+    K10), split-half bytes (`kernel_q4`, K11a), bf16-pair words
+    (`kernel_q4w`, K11b) and int8 (`kernel_q`, K14), the few-row body up
+    to `FEW_ROWS` rows and the many-row body above.  Each rounds x to bf16
+    and applies the scale in an fp32 epilogue: JAX's Pallas kernels at
     <= 256 rows, its XLA route (`:160-176`, an integer weight in the dot,
-    the scale after it) above.  The K11 formats (`kernel_q4`, split-half
-    bytes; `kernel_q4w`, bf16-pair words) take K11a/K11b at most
-    `QUANT_KERNEL_ROWS` rows and the weight dequantized to x's dtype above.
-    So does an f32 x above `QUANT_KERNEL_ROWS` rows (JAX's XLA route keeps
-    it unrounded), and any call whose x requires grad (the kernels have no
-    backward; `torch.matmul` on the dequantized weight carries dX).  The
+    the scale after it) above.  Two calls take `torch.matmul` on the
+    weight dequantized to x's dtype instead: an f32 x above
+    `QUANT_KERNEL_ROWS` rows (JAX's XLA route keeps it unrounded), and any
+    call whose x requires grad (the kernels have no backward;
+    `torch.matmul` on the dequantized weight carries dX).  The
     tensor-parallel repacks (`*_tp{n}`) raise."""
     if "kernel" in p:
         y = torch.matmul(x, p["kernel"].to(x.dtype))
@@ -59,14 +60,11 @@ def _quant_linear(p, x):
         kernel, w = quant_matmul_int8, p["kernel_q"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    every_row = kernel in (quant_matmul_int4_planes, quant_matmul_int8) and (
-        x.dtype == torch.bfloat16)
-    if torch.is_grad_enabled() and x.requires_grad:
+    if (torch.is_grad_enabled() and x.requires_grad) or (
+            x.dtype != torch.bfloat16 and x2.shape[0] > QUANT_KERNEL_ROWS):
         y = torch.matmul(x2, dequantize_kernel(p, x.dtype))
-    elif x2.shape[0] <= QUANT_KERNEL_ROWS or every_row:
-        y = kernel(x2.contiguous(), w, p["scale"])
     else:
-        y = torch.matmul(x2, dequantize_kernel(p, x.dtype))
+        y = kernel(x2.contiguous(), w, p["scale"])
     return y.reshape(*lead, y.shape[-1])
 
 

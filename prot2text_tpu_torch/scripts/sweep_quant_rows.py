@@ -1,16 +1,18 @@
-"""K10/K14's two bodies over rows and grids: where the many-row `wgmma`
-body (csrc/quant_matmul_rows.cuh) overtakes the few-row body
+"""K10/K14/K11a/K11b's two bodies over rows and grids: where the many-row
+`wgmma` body (csrc/quant_matmul_rows.cuh) overtakes the few-row body
 (csrc/quant_matmul.cuh), and which grid of the many-row body is fastest,
 at Qwen3-14B's projections.
 
-For each projection (K, N), each weight format (int4 nibble planes, int8)
-and each row count it times, device time per call from CUDA graphs that
-rotate through weight copies exceeding twice the L2 (`_timing.time_pass`):
+For each projection (K, N), each weight format (int4 nibble planes, int8,
+int4 split-half bytes, int4 bf16-pair words) and each row count it times,
+device time per call from CUDA graphs that rotate through weight copies
+exceeding twice the L2 (`_timing.time_pass`):
 
   few    the few-row body (`quant_matmul._few_rows`);
-  rows   the many-row body at `quant_matmul.rows_tiling`'s grid and, at
-         `--grid_rows`, at every grid it can launch (rows a block fixed by
-         R; columns 128/256, K split Ck);
+  rows   the many-row body at `quant_matmul.rows_tiling`'s grid and, for
+         planes and int8 at `--grid_rows`, at every grid it can launch
+         (rows a block fixed by R; columns 128/256, K split Ck; bytes and
+         pairs take planes' grids, on which they are planes bit for bit);
   lib    `torch.matmul` of x with the weight dequantized to bf16 before the
          timed region, and at the install's rows also `dequantize_kernel`
          followed by `torch.matmul` (the route the many-row body replaces).
@@ -37,6 +39,16 @@ from ._timing import bound, check_close, copies, parser, setup, time_pass
 # Qwen3-14B's projections (K, N)
 SHAPES = {"q/o": (5120, 5120), "k/v": (5120, 1024),
           "gate/up": (5120, 17408), "down": (17408, 5120)}
+# weight format → (leaf key, packer of (K, N) integers in [lo, hi), lo, hi,
+# plain twin)
+FORMATS = {
+    "planes": ("kernel_q4p", qm.pack_int4_planes, -8, 8,
+               qm.quant_matmul_int4_planes_plain),
+    "int8": ("kernel_q", lambda q: q, -127, 128, qm.quant_matmul_int8_plain),
+    "bytes": ("kernel_q4", qm.pack_int4, -8, 8, qm.quant_matmul_int4_plain),
+    "pairs": ("kernel_q4w", qm.pack_int4_pairs, -8, 8,
+              qm.quant_matmul_int4_pairs_plain),
+}
 CROSS_ROWS = (8, 16, 24, 32, 40, 64)
 GRID_ROWS = (40, 64, 128)
 INSTALL_ROWS = 3072                  # 8 requests x the 384-token bucket
@@ -70,15 +82,12 @@ def main(argv=None) -> list:
     gen = torch.Generator(device=dev).manual_seed(11)
     lines = []
     for name, (K, N) in SHAPES.items():
-        for bits in (4, 8):
-            fmt = "planes" if bits == 4 else "int8"
-            lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+        for fmt, (key, pack, lo, hi, plain) in FORMATS.items():
             q = torch.randint(lo, hi, (K, N), generator=gen, device=dev,
                               dtype=torch.int8)
-            w = qm.pack_int4_planes(q) if bits == 4 else q
+            w = pack(q)
             del q
             scale = torch.rand((1, N), generator=gen, device=dev) * 0.03 + 2e-3
-            key = "kernel_q4p" if bits == 4 else "kernel_q"
             ws = [w] + [w.clone() for _ in range(
                 copies(w.numel() * w.element_size(), dev) - 1)]
             wd = dequantize_kernel({key: w, "scale": scale}, torch.bfloat16)
@@ -90,8 +99,7 @@ def main(argv=None) -> list:
             for R in rs:
                 x = torch.randn((R, K), generator=gen, device=dev).to(
                     torch.bfloat16)
-                want = qm.quant_matmul_int4_planes_plain(x, w, scale) \
-                    if bits == 4 else qm.quant_matmul_int8_plain(x, w, scale)
+                want = plain(x, w, scale)
                 bd = bound(2.0 * R * K * N, w.numel() * w.element_size()
                            + 4 * N + 2 * R * K + 2 * R * N)
 
@@ -111,9 +119,10 @@ def main(argv=None) -> list:
                         x, wi, scale, fmt)))
                 rule = qm.rows_tiling(R, K, N, sms)
                 tilings = [rule]
-                if R in grid_rows:
+                if R in grid_rows and fmt in ("planes", "int8"):
                     tilings += [g for g in grids(R, K, N) if g != rule]
-                if R == INSTALL_ROWS:      # 128 rows a block beside 256
+                if R == INSTALL_ROWS and fmt in ("planes", "int8"):
+                    # 128 rows a block beside 256
                     tilings += [g for g in ((128, 256, 1), (128, 128, 1))
                                 if g != rule]
                 for tiling in tilings:
@@ -121,7 +130,7 @@ def main(argv=None) -> list:
                         out = torch.empty((R, N), dtype=torch.bfloat16,
                                           device=dev)
                         return qm.rows_matmul(x, wi.data_ptr(),
-                                              scale.data_ptr(), out, bits,
+                                              scale.data_ptr(), out, fmt,
                                               tiling)
                     check_close(f"rows {name} {fmt} R={R} {tiling}",
                                 call(w), want, 2e-2)
@@ -158,7 +167,7 @@ def main(argv=None) -> list:
             del w, ws, wd, wds, scale
             torch.cuda.empty_cache()
     for name in SHAPES:
-        for fmt in ("planes", "int8"):
+        for fmt in FORMATS:
             won = [ln["R"] for ln in lines if ln["shape"] == name
                    and ln["fmt"] == fmt and ln["what"] == "rows"
                    and ln["R"] in CROSS_ROWS

@@ -177,6 +177,40 @@ def test_bridge_dequantize_and_linear_match_jax(fmt):
         assert torch.equal(y, tt.linear(planes, x))
 
 
+@pytest.mark.parametrize("fmt", ["bytes", "pairs"])
+def test_linear_bf16_many_rows_matches_jax(fmt):
+    """A bf16 x of 300 rows takes the format's kernel (its plain twin on the
+    CPU): the integer weight in the fp32 product, the scale after it, as
+    JAX's XLA route, which `linear` takes above 256 rows.  The two differ
+    only by the order of one fp32 sum over K (JAX's split-half route sums
+    the two halves apart) before the bf16 rounding of the output, so each
+    output is JAX's or a bf16 neighbour: |port - JAX| <= 2^-7·|JAX| (one
+    bf16 ulp) + 1e-6·max|JAX| (the fp32 reorder near zero).  The weight
+    dequantized to bf16 (this route's parent) sits farther from JAX, in
+    rms and in the count of outputs that differ, on the same values."""
+    key = FORMATS[fmt]
+    rng = np.random.default_rng(300 + len(fmt))
+    w = (rng.standard_normal((256, 96)) * 0.02).astype(np.float32)
+    jp = jquant.quantize_params({"q_proj": {"kernel": jnp.asarray(w)}},
+                                bits=4, int4_format=fmt)["q_proj"]
+    tp = _t(jp)
+    x = torch.from_numpy(rng.standard_normal((300, 256)).astype(
+        np.float32)).bfloat16()
+    want = np.asarray(jt.linear(jp, jnp.asarray(
+        x.float().numpy()).astype(jnp.bfloat16))).astype(np.float32)
+    got = tt.linear(tp, x)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (300, 96)
+    got = got.float().numpy()
+    deq = torch.matmul(x, tquant.dequantize_kernel(tp, torch.bfloat16))
+    deq = deq.float().numpy()
+    top = np.abs(want).max()
+    d = np.abs(got - want)
+    assert (d <= 2.0 ** -7 * np.abs(want) + 1e-6 * top).all(), d.max()
+    rms = lambda a: float(np.sqrt(np.mean((a - want) ** 2)))   # noqa: E731
+    assert rms(got) < rms(deq), (rms(got), rms(deq))
+    assert (got != want).sum() < (deq != want).sum()
+
+
 # ---------------------------------------------------------------------------
 # the decode step, the head and lockstep generation on a tiny Qwen3
 

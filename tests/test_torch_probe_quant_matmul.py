@@ -322,10 +322,11 @@ def test_kernel_matches_plain_on_cuda(cuda, kid, R, K, N):
 
 @pytest.mark.cuda
 def test_controls_bit_identical_on_cuda(cuda):
-    """K15a at bc 128 is K14's few-row body, K15b/K15e are K11a, K15d at
-    K10's tiling is K10's few-row body, bit for bit (`quant_matmul.
-    _few_rows`, whatever the threshold); K15a's other chunks and K15d's
-    other tiles agree with the plain version."""
+    """K15a at bc 128 is K14's few-row body, K15b/K15e are K11a's, K15d at
+    K10's tiling is K10's, bit for bit (`quant_matmul._few_rows`, whatever
+    the threshold: at these 16 rows K10, K11a and K14 run the many-row
+    body, the probes stay on the few-row one); K15a's other chunks and
+    K15d's other tiles agree with the plain version."""
     x, q, s = _cuda_operands("K15a", 16, 4096, 2048, cuda, 1)
     assert torch.equal(pq.chunk_mm(x, q, s, bc=128),
                        qm._few_rows(x, q, s, "int8"))
@@ -334,7 +335,7 @@ def test_controls_bit_identical_on_cuda(cuda):
         got = pq.chunk_mm(x, q, s, bc=bc).float()
         assert (got - want).abs().max() <= 2e-2 * want.abs().max()
     _, wb, _ = _cuda_operands("K15b", 16, 4096, 2048, cuda, 2)
-    ref = qm.quant_matmul_int4(x, wb, s)
+    ref = qm._few_rows(x, wb, s, "bytes")
     assert torch.equal(pq.mm_i4f(x, wb, s), ref)
     assert torch.equal(pq.mm_i4and(x, wb, s), ref)
     _, wp, _ = _cuda_operands("K15d", 16, 4096, 2048, cuda, 3)
@@ -400,7 +401,7 @@ def test_k15g_every_tiling_on_cuda(cuda, R, K, N):
                 continue
             out = torch.empty((R, wk.shape[1]), dtype=torch.float32,
                               device=cuda)
-            qm.rows_matmul(xk, wk.data_ptr(), None, out, 8,
+            qm.rows_matmul(xk, wk.data_ptr(), None, out, "int8",
                            (pq.MIX_BLOCK_ROWS, bn, ck))
             torch.cuda.synchronize()
             err = (out[:, :N] - want).abs().max().item()

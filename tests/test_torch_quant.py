@@ -233,20 +233,21 @@ def test_linear_quantized_matches_jax(bits, lead):
 
 
 def test_linear_dequantized_route_runs_in_x_dtype():
-    """The routes that still dequantize meet the weight in x's dtype: the
-    K11 formats (split-half bytes, bf16-pair words) above 256 rows, and a
-    call whose x requires grad (every format, at any row count, where the
-    kernels would have no backward)."""
+    """The routes that still dequantize meet the weight in x's dtype: an
+    f32 x above 256 rows (every format: JAX's XLA route leaves it
+    unrounded), and a call whose x requires grad (every format, at any row
+    count, where the kernels would have no backward)."""
     rng = np.random.default_rng(2)
     w = torch.from_numpy((rng.standard_normal((64, 16)) * 0.02).astype(
         np.float32))
     x = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
-    for fmt in ("bytes", "pairs"):
-        p = tquant.quantize_params({"q_proj": {"kernel": w}}, bits=4,
-                                   int4_format=fmt)["q_proj"]
-        y = tt.linear(p, x.bfloat16())
-        want = x.bfloat16() @ tquant.dequantize_kernel(p, torch.bfloat16)
-        assert y.dtype == torch.bfloat16 and torch.equal(y, want), fmt
+    for bits, fmt in ((4, "planes"), (4, "bytes"), (4, "pairs"), (8, None)):
+        p = tquant.quantize_params(
+            {"q_proj": {"kernel": w}}, bits=bits,
+            **({"int4_format": fmt} if fmt else {}))["q_proj"]
+        y = tt.linear(p, x)
+        want = x @ tquant.dequantize_kernel(p, torch.float32)
+        assert y.dtype == torch.float32 and torch.equal(y, want), fmt
     for bits in (4, 8):
         p = tquant.quantize_params({"q_proj": {"kernel": w}},
                                    bits=bits)["q_proj"]

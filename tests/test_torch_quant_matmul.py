@@ -298,48 +298,72 @@ def test_rows_tiling():
 
 
 def test_few_rows_threshold_and_shape_rule():
-    """K10/K14 leave the few-row body above `FEW_ROWS` rows, the crossover
-    the card measured over R 8-64 (the few-row body wins at 8, the many-row
-    body at 16 in 7 of Qwen3-14B's 8 projection formats and everywhere from
-    24); the many-row body, whose copies are TMA boxes,
-    takes int8 with K % 8 == 0 and N % 16 == 0, planes with K % 64 == 0 and
-    N % 4 == 0, a 16-byte-aligned weight, and nothing of K11's formats."""
+    """The kernels leave the few-row body above `FEW_ROWS` rows, the
+    crossover the card measured over R 8-64 (the few-row body wins at 8,
+    the many-row body at 16 in 7 of Qwen3-14B's 8 projection formats and
+    everywhere from 24); the many-row body, whose copies are TMA boxes
+    (row strides multiples of 16 bytes), takes int8 with K % 8 == 0 and N %
+    16 == 0, planes and pairs with K % 64 == 0 and N % 4 == 0, bytes with K
+    % 64 == 0 and N % 16 == 0, each with a 16-byte-aligned weight."""
     assert 8 <= qm.FEW_ROWS < 64
     assert qm.FEW_ROWS < qm.QUANT_KERNEL_ROWS
-    assert qm.rows_fit("planes", 5120, 17408, 0)
-    assert qm.rows_fit("planes", 1024, 1028, 16)
     assert qm.rows_fit("int8", 1000, 1040, 64)
     assert not qm.rows_fit("int8", 999, 1040, 0)           # K % 8
     assert not qm.rows_fit("int8", 1000, 1028, 0)          # N % 16
     assert not qm.rows_fit("int8", 5120, 1024, 8)          # misaligned
-    assert not qm.rows_fit("planes", 5120 + 32, 1024, 0)   # K % 64
-    assert not qm.rows_fit("planes", 5120, 1030, 0)        # N % 4
-    for fmt in ("bytes", "pairs"):
-        assert not qm.rows_fit(fmt, 5120, 17408, 0)
+    for fmt in ("planes", "pairs", "bytes"):
+        assert qm.rows_fit(fmt, 5120, 17408, 0)
+        assert qm.rows_fit(fmt, 1024, 1040, 16)
+        assert not qm.rows_fit(fmt, 5120 + 32, 1024, 0)    # K % 64
+        assert not qm.rows_fit(fmt, 1000, 1024, 0)         # K % 64
+        assert not qm.rows_fit(fmt, 5120, 1030, 0)         # N % 4
+        assert not qm.rows_fit(fmt, 5120, 1024, 8)         # misaligned
+        # N % 16: the bytes' rows are N bytes apart, the words' 4N
+        assert qm.rows_fit(fmt, 1024, 1028, 16) == (fmt != "bytes")
 
 
-@pytest.mark.parametrize("bits", [4, 8])
+# weight format → the leaf's key, its packer from (K, N) integers, the
+# plain twin, the unstacked and the stacked wrapper
+FORMATS = {
+    "planes": ("kernel_q4p", qm.pack_int4_planes,
+               qm.quant_matmul_int4_planes_plain, qm.quant_matmul_int4_planes,
+               qm.quant_matmul_int4_planes_stacked),
+    "int8": ("kernel_q", lambda q: q, qm.quant_matmul_int8_plain,
+             qm.quant_matmul_int8, qm.quant_matmul_int8_stacked),
+    "bytes": ("kernel_q4", qm.pack_int4, qm.quant_matmul_int4_plain,
+              qm.quant_matmul_int4, qm.quant_matmul_int4_stacked),
+    "pairs": ("kernel_q4w", qm.pack_int4_pairs,
+              qm.quant_matmul_int4_pairs_plain, qm.quant_matmul_int4_pairs,
+              qm.quant_matmul_int4_pairs_stacked),
+}
+
+
+@pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
 @pytest.mark.parametrize("R", [40, 300])
-def test_linear_planes_int8_take_the_kernel_at_every_row_count(bits, R):
-    """Planes and int8 leaves on a bf16 x go to K10/K14 above 256 rows too:
-    on the CPU the plain version, bit for bit (JAX's XLA order: the integer
-    weight in the fp32 product, the scale after it), and no dequantized
-    weight."""
+def test_linear_takes_the_kernel_at_every_row_count(fmt, R):
+    """Every quantized leaf on a bf16 x goes to its kernel above 256 rows
+    too (K10, K14, K11a, K11b): on the CPU the plain version, bit for bit
+    (JAX's XLA order: the integer weight in the fp32 product, the scale
+    after it), and no dequantized weight."""
     from prot2text_tpu_torch.models import quant as tquant
     from prot2text_tpu_torch.models import transformer as tt
 
-    rng = np.random.default_rng(30 + bits + R)
+    rng = np.random.default_rng(30 + len(fmt) + R)
     w = torch.from_numpy((rng.standard_normal((128, 48)) * 0.02).astype(
         np.float32))
-    p = tquant.quantize_params({"q_proj": {"kernel": w}}, bits=bits)["q_proj"]
-    key = "kernel_q4p" if bits == 4 else "kernel_q"
+    p = tquant.quantize_params(
+        {"q_proj": {"kernel": w}}, bits=8 if fmt == "int8" else 4,
+        **({} if fmt == "int8" else {"int4_format": fmt}))["q_proj"]
+    key, _, plain = FORMATS[fmt][:3]
     x = torch.from_numpy(rng.standard_normal((R, 128)).astype(
         np.float32)).bfloat16()
-    plain = (qm.quant_matmul_int4_planes_plain if bits == 4
-             else qm.quant_matmul_int8_plain)
     got = tt.linear(p, x.reshape(2, R // 2, 128))
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.reshape(R, 48), plain(x, p[key], p["scale"]))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tquant, "dequantize_kernel", None)
+        mp.setattr(tt, "dequantize_kernel", None)
+        assert torch.equal(tt.linear(p, x), got.reshape(R, 48))
 
 
 @pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
@@ -347,7 +371,9 @@ def test_linear_under_grad_skips_the_kernels(fmt, monkeypatch):
     """A call whose x requires grad takes the dequantized weight at every
     row count and format (the kernels have no backward, so on the card dX
     would be lost): the kernel wrappers are not called, and dX equals the
-    dequantized product's.  Without grad the same leaves call them."""
+    dequantized product's.  Without grad the same leaves call them, but
+    for an f32 x above `QUANT_KERNEL_ROWS` rows (JAX's XLA route leaves it
+    unrounded)."""
     from prot2text_tpu_torch.models import quant as tquant
     from prot2text_tpu_torch.models import transformer as tt
 
@@ -364,22 +390,23 @@ def test_linear_under_grad_skips_the_kernels(fmt, monkeypatch):
     p = tquant.quantize_params(
         {"q_proj": {"kernel": w}}, bits=8 if fmt == "int8" else 4,
         **({} if fmt == "int8" else {"int4_format": fmt}))["q_proj"]
-    for R in (5, 300):
+    for R, dt in ((5, torch.bfloat16), (300, torch.bfloat16),
+                  (300, torch.float32)):
         x = torch.from_numpy(rng.standard_normal((R, 64)).astype(
-            np.float32)).bfloat16()
+            np.float32)).to(dt)
         xg = x.clone().requires_grad_()
         g = torch.from_numpy(rng.standard_normal((R, 16)).astype(
-            np.float32)).bfloat16()
+            np.float32)).to(dt)
         tt.linear(p, xg).backward(g)
         assert calls == [], (fmt, R)
         xd = x.clone().requires_grad_()
-        (xd @ tquant.dequantize_kernel(p, torch.bfloat16)).backward(g)
+        (xd @ tquant.dequantize_kernel(p, dt)).backward(g)
         assert torch.equal(xg.grad, xd.grad), (fmt, R)
         with torch.no_grad():
             tt.linear(p, xg)
         tt.linear(p, x)
-        kernel_rows = R <= qm.QUANT_KERNEL_ROWS or fmt in ("planes", "int8")
-        assert len(calls) == (2 if kernel_rows else 0), (fmt, R, calls)
+        kernel_rows = R <= qm.QUANT_KERNEL_ROWS or x.dtype == torch.bfloat16
+        assert len(calls) == (2 if kernel_rows else 0), (fmt, R, dt, calls)
         calls.clear()
 
 
@@ -397,59 +424,64 @@ def _grids(R, K, N):
                     yield bm, bn, ck
 
 
-def _rows_operands(cuda, bits, R, K, N, seed, L=1):
+def _rows_operands(cuda, fmt, R, K, N, seed, L=1):
+    """x (R, K) bf16, the (L, ...) weight packed in `fmt`, its scales and
+    the (L, K, N) integers it holds."""
     g = torch.Generator(device=cuda).manual_seed(seed)
-    lo, hi = (-8, 8) if bits == 4 else (-127, 128)
+    lo, hi = (-127, 128) if fmt == "int8" else (-8, 8)
     q = torch.randint(lo, hi, (L, K, N), generator=g, device=cuda,
                       dtype=torch.int8)
-    w = qm.pack_int4_planes(q) if bits == 4 else q
+    w = FORMATS[fmt][1](q)
     s = torch.rand((L, 1, N), generator=g, device=cuda) * 0.03 + 0.002
     x = torch.randn((R, K), generator=g, device=cuda).bfloat16()
-    return x, w, s
+    return x, w, s, q
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
 @pytest.mark.parametrize("R", [17, 40, 64, 129, 300])
-def test_rows_body_matches_plain_on_cuda(cuda, bits, R):
+def test_rows_body_matches_plain_on_cuda(cuda, fmt, R):
     """The many-row body at R rows, called directly (whatever the
     threshold), at K 2368 (37 tiles: uneven K slices over Ck 2, 4 and 8)
     and ragged N 1168 (a multiple of 16, not of a block: the last column
     block's TMA boxes run past N), at every grid (above 128 rows also at
     256 rows a block, R 300 then padding 212 rows): bf16 out within 2e-2 ·
-    max|plain|, f32 out within 1e-5, two launches bit-identical."""
+    max|plain|, f32 out within 1e-5, two launches bit-identical; bytes and
+    pairs bit-identical to the planes of the same integers at each grid."""
     K, N = 2368, 1168
-    x, w, s = _rows_operands(cuda, bits, R, K, N, 40 + R + bits)
+    x, w, s, q = _rows_operands(cuda, fmt, R, K, N, 40 + R + len(fmt))
     w, s = w[0], s[0]
-    plain = (qm.quant_matmul_int4_planes_plain if bits == 4
-             else qm.quant_matmul_int8_plain)
-    want = plain(x.float(), w, s)
+    want = FORMATS[fmt][2](x.float(), w, s)
     top = want.abs().max().item()
+    wp = qm.pack_int4_planes(q[0]) if fmt in ("bytes", "pairs") else None
     for grid in _grids(R, K, N):
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
-            out = [qm.rows_matmul(x, w.data_ptr(), s.data_ptr(),
-                                  torch.empty((R, N), dtype=dt, device=cuda),
-                                  bits, grid) for _ in range(2)]
+            def call(wt, f):
+                return qm.rows_matmul(
+                    x, wt.data_ptr(), s.data_ptr(),
+                    torch.empty((R, N), dtype=dt, device=cuda), f, grid)
+
+            out = [call(w, fmt) for _ in range(2)]
+            ref = call(wp, "planes") if wp is not None else out[0]
             torch.cuda.synchronize()
             err = (out[0].float() - want).abs().max().item()
             assert err <= tol * top, (grid, dt, err, top)
             assert torch.equal(out[0], out[1]), (grid, dt)
+            assert torch.equal(out[0], ref), (grid, dt, "planes")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [4, 8])
-def test_rows_body_through_the_wrappers_on_cuda(cuda, bits):
+@pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
+def test_rows_body_through_the_wrappers_on_cuda(cuda, fmt):
     """The public wrappers above `FEW_ROWS` rows: f32 x (rounded to bf16,
     f32 out: 1e-5 · max|plain|) and bf16 x (2e-2), unstacked and the
     stacked entry at layer 2 of 3, each launch counted once; where the
-    shape rule refuses (int8 at K 999, N 1028) and at the threshold, the
-    few-row body, bit-identical to `_few_rows`."""
-    kern, stacked, plain, fmt = {
-        4: (qm.quant_matmul_int4_planes, qm.quant_matmul_int4_planes_stacked,
-            qm.quant_matmul_int4_planes_plain, "planes"),
-        8: (qm.quant_matmul_int8, qm.quant_matmul_int8_stacked,
-            qm.quant_matmul_int8_plain, "int8")}[bits]
-    x, w, s = _rows_operands(cuda, bits, 300, 1024, 640, 300 + bits, L=3)
+    shape rule refuses (int8 at K 999, N 1028; bytes at N 1028; planes and
+    pairs at K 1000) and at the threshold, the few-row body, bit-identical
+    to `_few_rows`."""
+    _, _, plain, kern, stacked = FORMATS[fmt]
+    x, w, s, _ = _rows_operands(cuda, fmt, 300, 1024, 640, 300 + len(fmt),
+                                L=3)
     want = plain(x.float(), w[2], s[2])
     top = want.abs().max().item()
     n0, n1 = kern.launches, stacked.launches
@@ -461,10 +493,11 @@ def test_rows_body_through_the_wrappers_on_cuda(cuda, bits):
     assert (got32 - want).abs().max().item() <= 1e-5 * top
     assert (got16.float() - want).abs().max().item() <= 2e-2 * top
     assert torch.equal(stacked(x, w, s, 2), got16)
-    cases = [(qm.FEW_ROWS, 1024, 640)] + ([(77, 999, 1028)] if bits == 8
-                                          else [])
-    for R, K, N in cases:
-        x, w, s = _rows_operands(cuda, bits, R, K, N, 5 + K, L=3)
+    refused = {"int8": (77, 999, 1028), "bytes": (77, 1024, 1028),
+               "planes": (77, 1000, 1028), "pairs": (77, 1000, 1028)}[fmt]
+    for R, K, N in ((qm.FEW_ROWS, 1024, 640), refused):
+        assert R <= qm.FEW_ROWS or not qm.rows_fit(fmt, K, N, 0)
+        x, w, s, _ = _rows_operands(cuda, fmt, R, K, N, 5 + K, L=3)
         assert torch.equal(stacked(x, w, s, 1),
                            qm._few_rows(x, w, s, fmt, 1))
         assert torch.equal(kern(x, w[1].contiguous(), s[1]),
@@ -472,8 +505,8 @@ def test_rows_body_through_the_wrappers_on_cuda(cuda, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [4, 8])
-def test_rows_body_cluster_split_on_cuda(cuda, bits):
+@pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
+def test_rows_body_cluster_split_on_cuda(cuda, fmt):
     """At a verify round's 40 rows of Qwen3-14B's down projection (K 17408,
     N 5120) the rule splits K over a cluster (Ck > 1): within 2e-2 ·
     max|plain|, two launches bit-identical (the ranks' partials summed in
@@ -482,15 +515,13 @@ def test_rows_body_cluster_split_on_cuda(cuda, bits):
     grid = qm.rows_tiling(R, K, N, torch.cuda.get_device_properties(
         cuda).multi_processor_count)
     assert grid[2] > 1
-    x, w, s = _rows_operands(cuda, bits, R, K, N, 3 + bits)
+    x, w, s, _ = _rows_operands(cuda, fmt, R, K, N, 3 + len(fmt))
     w, s = w[0], s[0]
-    plain = (qm.quant_matmul_int4_planes_plain if bits == 4
-             else qm.quant_matmul_int8_plain)
-    want = plain(x.float(), w, s)
+    want = FORMATS[fmt][2](x.float(), w, s)
     top = want.abs().max().item()
     outs = [qm.rows_matmul(x, w.data_ptr(), s.data_ptr(),
                            torch.empty((R, N), dtype=torch.bfloat16,
-                                       device=cuda), bits, g)
+                                       device=cuda), fmt, g)
             for g in (grid, grid, grid[:2] + (1,))]
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])

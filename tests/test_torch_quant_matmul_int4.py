@@ -17,9 +17,10 @@ integers and bf16-representable x (f32 out):
     route only.
 
 On the card, the CUDA kernels against the plain versions (bf16 x:
-2e-2·max|plain|; f32 x: 1e-5·max|plain|), and against K10 on the same
-integers: K11a and K11b read their bytes and words into K10's fragment
-order, so the three are bit-identical.
+2e-2·max|plain|; f32 x: 1e-5·max|plain|), and against K10's wrapper on
+the same integers: K11a and K11b read their bytes and words into K10's
+fragment order in both bodies (the few-row body up to `FEW_ROWS` rows,
+the many-row body above), so the three are bit-identical.
 
 JAX is imported inside the tests that use it, so that the card-only cases
 run where JAX is not installed."""
@@ -255,16 +256,17 @@ def test_kernel_matches_plain_on_cuda(cuda, fmt, R, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,K,N", [(4, 5120, 1024), (40, 2048, 640),
-                                   (16, 17408, 256)])
+@pytest.mark.parametrize("R,K,N", [(4, 5120, 1024), (16, 17408, 256),
+                                   (40, 2048, 640), (300, 1024, 640)])
 def test_kernels_against_k10_on_the_same_integers(cuda, R, K, N):
-    """K11a and K11b take the fragment order of K10's few-row body:
-    bit-identical to it on the same integers (`quant_matmul._few_rows`, at
-    every R: above `FEW_ROWS` K10's wrapper runs the many-row body), in f32
+    """K11a and K11b build K10's fragments in both bodies and take K10's
+    grid: bit-identical to K10's wrapper on the same integers at every R
+    (the few-row body at R 4, the many-row body at 16, 40 and 300), in f32
     and bf16, unstacked and stacked."""
     q, s, x = _cuda_case(cuda, "k10", R, K, N)
     for xx in (x, x.bfloat16()):
-        planes = qm._few_rows(xx, qm.pack_int4_planes(q), s, "planes", 1)
+        planes = qm.quant_matmul_int4_planes_stacked(
+            xx, qm.pack_int4_planes(q), s, 1)
         pairs = qm.quant_matmul_int4_pairs_stacked(
             xx, qm.pack_int4_pairs(q), s, 1)
         byts = qm.quant_matmul_int4(xx, qm.pack_int4(q[1]), s[1])
