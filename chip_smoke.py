@@ -189,6 +189,19 @@ def graph_ms(torch, fn, calls: int = 10) -> float:
     return cuda_ms(torch, graph.replay) / calls
 
 
+def cold_ms(torch, fn, w, dev, reps: int = 10) -> float:
+    """Device time of one fn(w_i) in milliseconds, HBM-cold: a CUDA graph
+    of one pass over copies of w that together exceed twice the card's L2
+    (`scripts/_timing.py` `copies`, `time_pass`), as a decode step reads a
+    different layer's weight on every call."""
+    from prot2text_tpu_torch.scripts import _timing as tm
+
+    ws = [w] + [w.clone() for _ in range(tm.copies(nbytes(w), dev) - 1)]
+    t = tm.time_pass(lambda: [fn(wi) for wi in ws], len(ws), dev, reps)
+    del ws
+    return t["ms"]
+
+
 # the card's peaks for the bound column (NVIDIA's H100 SXM data sheet, dense)
 PEAK_FLOPS = 989e12          # bf16 tensor-core operations per second
 PEAK_BYTES = 3.35e12         # HBM bytes per second
@@ -1124,12 +1137,13 @@ def check_int8_kernels(torch, dev, card):
 
 # Qwen3-14B's projections (K, N) and the rows the serving path gives them:
 # 8 (a decode step at B 8), 40 (a γ-4 verify round), 128; gate/up also at
-# an install's 3072 (8 requests x the 384 bucket); the head at 8 and 40
+# 1 and 4 (smaller batches) and an install's 3072 (8 requests x the 384
+# bucket); the head at 1, 4, 8 and 40
 QUANT_SHAPES = (("q/o", 5120, 5120, (8, 40, 128)),
                 ("k/v", 5120, 1024, (8, 40, 128)),
-                ("gate/up", 5120, 17408, (8, 40, 128, 3072)),
+                ("gate/up", 5120, 17408, (1, 4, 8, 40, 128, 3072)),
                 ("down", 17408, 5120, (8, 40, 128)),
-                ("head", 5120, 151936, (8, 40)))
+                ("head", 5120, 151936, (1, 4, 8, 40)))
 
 
 def check_quant_kernels(torch, dev, card):
@@ -1143,12 +1157,16 @@ def check_quant_kernels(torch, dev, card):
     weight dequantized to bf16 before the timed region (the library
     column; the port never calls it) and `dequantize_kernel` followed by
     `torch.matmul` (the route the port took above 256 rows before the
-    many-row body).  Times are device time per call from CUDA graphs
-    (`graph_ms`); at these sizes an eager call's host cost exceeds the
-    kernel's, and the eager time is printed beside it.  The row keeps the
-    gate/up shape's times at R 8, the step's largest projection, with R 40,
-    128 and 3072 beside them (`at_rows`), and the largest absolute error of
-    any shape."""
+    many-row body).  Every shape's two launches are bit-identical.  Times
+    are device time per call from CUDA graphs: at up to `FEW_ROWS` rows
+    (the few-row TMA body) HBM-cold, the kernel and the library call each
+    over weight copies past the L2 (`cold_ms`), as a decode step finds
+    them; above, over one weight (`graph_ms`).  At these sizes an eager
+    call's host cost exceeds the kernel's, and one eager call's time is
+    printed beside it.  The row keeps the gate/up shape's times at R 8, the
+    step's largest projection, with R 1, 4, 40, 128 and 3072 beside them
+    (`at_rows`), the head's few-row times (`head_rows`), and the largest
+    absolute error of any shape."""
     from prot2text_tpu_torch.kernels import quant_matmul as qm
     from prot2text_tpu_torch.models.quant import dequantize_kernel
 
@@ -1162,7 +1180,7 @@ def check_quant_kernels(torch, dev, card):
              qm.quant_matmul_int8_plain)):
         lo, hi = (-8, 8) if bits == 4 else (-127, 128)
         key = "kernel_q4p" if bits == 4 else "kernel_q"
-        worst, at_rows = 0.0, []
+        worst, at_rows, head_rows = 0.0, [], []
         for name, K, N, Rs in QUANT_SHAPES:
             q = torch.randint(lo, hi, (K, N), generator=g, device=dev,
                               dtype=torch.int8)
@@ -1182,16 +1200,19 @@ def check_quant_kernels(torch, dev, card):
                 require(bool(torch.isfinite(y).all()) and err <= 2e-2 * top,
                         f"{kid} {name} R={R}: max|err| {err} > 2e-2 * "
                         f"max|plain| {top}")
-                body = "few-row"
-                if R > qm.FEW_ROWS:
-                    body = "many-row"
-                    require(torch.equal(kern(x, w, scale), y),
-                            f"{kid} {name} R={R}: two launches differ")
+                body = "few-row" if R <= qm.FEW_ROWS else "many-row"
+                require(torch.equal(kern(x, w, scale), y),
+                        f"{kid} {name} R={R}: two launches differ")
                 worst = max(worst, err)
-                ms = graph_ms(torch, lambda: kern(x, w, scale))
+                if body == "few-row":
+                    ms = cold_ms(torch, lambda wi: kern(x, wi, scale), w, dev)
+                    lib_ms = cold_ms(torch, lambda wi: torch.matmul(x, wi),
+                                     wd, dev)
+                else:
+                    ms = graph_ms(torch, lambda: kern(x, w, scale))
+                    lib_ms = graph_ms(torch, lambda: torch.matmul(x, wd))
                 plain_ms = graph_ms(torch, lambda: plain(x, w, scale),
                                     calls=2)
-                lib_ms = graph_ms(torch, lambda: torch.matmul(x, wd))
                 deq_ms = graph_ms(torch, lambda: torch.matmul(
                     x, dequantize_kernel(leaf, torch.bfloat16)), calls=2)
                 host_ms = cuda_ms(torch, lambda: kern(x, w, scale), iters=20)
@@ -1200,22 +1221,27 @@ def check_quant_kernels(torch, dev, card):
                            nbytes(w, scale, x) + R * N * x.element_size())
                 log(f"{kid} {'int4 planes' if bits == 4 else 'int8'} {name} "
                     f"R={R} K={K} N={N} bf16 x, {body} body: "
-                    f"max|y-plain|/max|plain| {err / top:.3e} (2e-2); device "
-                    f"time per call (CUDA graph): kernel {ms:.4f} ms, plain "
+                    f"max|y-plain|/max|plain| {err / top:.3e} (2e-2); two "
+                    f"launches bit-identical; device time per call (CUDA "
+                    f"graph{', HBM-cold' if body == 'few-row' else ''}): "
+                    f"kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, torch.matmul on the bf16 dequantized "
                     f"weight {lib_ms:.4f} ms, dequantize + torch.matmul "
                     f"{deq_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
                     f"({bd['bound_by']}) = {bd['bound_ms'] / ms:.1%}; one "
                     f"eager call with its host cost {host_ms:.4f} ms "
                     f"[{card}]")
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         eager_ms=host_ms, **bd)
                 if name == "gate/up":
-                    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
                     if R == 8:
                         rows[kid] = t
                     else:
                         at_rows.append(dict(R=R, K=K, N=N, body=body,
                                             dequantize_library_ms=deq_ms,
                                             **t))
+                elif name == "head" and body == "few-row":
+                    head_rows.append(dict(R=R, K=K, N=N, body=body, **t))
                 del x, y, want
             del w, scale, wd, leaf
         # the stacked entry point reads layer 2 of an (L, ...) buffer in place
@@ -1239,6 +1265,7 @@ def check_quant_kernels(torch, dev, card):
                 f"R={R}: max|y-plain|/max|plain| {err / top:.3e} (2e-2)")
         rows[kid]["max_abs_err"] = worst
         rows[kid]["at_rows"] = at_rows
+        rows[kid]["head_rows"] = head_rows
         rows[kid]["sources"] = [
             "prot2text_tpu_torch/kernels/csrc/quant_matmul.cu",
             "prot2text_tpu_torch/kernels/csrc/quant_matmul_rows.cu"]
@@ -1251,29 +1278,30 @@ def check_quant_kernels(torch, dev, card):
 # Qwen3-14B's largest projections and its head (K, N), at the rows of the
 # lockstep decode at B 4, a batch of 16 and a verify round of 40; gate/up
 # also at 128 and at an install's (a prefill's) 3072
-K11_SHAPES = (("gate/up", 5120, 17408, (4, 16, 40, 128, 3072)),
-              ("down", 17408, 5120, (4, 16, 40)),
-              ("head", 5120, 151936, (4, 16, 40)))
+K11_SHAPES = (("gate/up", 5120, 17408, (1, 4, 8, 16, 40, 128, 3072)),
+              ("down", 17408, 5120, (4, 8, 16, 40)),
+              ("head", 5120, 151936, (4, 8, 16, 40)))
 
 
 def check_k11_kernels(torch, dev, card):
     """K11a (int4 split-half bytes) and K11b (int4 bf16-pair words) against
     their plain versions at `K11_SHAPES`, bf16 x against the fp32 plain
     version on the same values: max|kernel - plain| <= 2e-2 · max|plain|,
-    as for K10/K14; above `FEW_ROWS` rows (the many-row body) two launches
-    bit-identical.  Each against K10's wrapper on the same integers at
-    every R: both bodies read the bytes and words into K10's fragment
-    order, and the many-row body takes K10's grid, so each must be
+    as for K10/K14; two launches bit-identical.  Each against K10's wrapper
+    on the same integers at every R: both bodies read the bytes and words
+    into K10's fragment order and take K10's grid, so each must be
     bit-identical to it.  The stacked entry point at layer 2 of a 3-layer
     gate/up buffer at R 4, 16 and 40.  Times are device time per call from
-    CUDA graphs (`graph_ms`), with one eager call's time beside them; the
+    CUDA graphs, at up to `FEW_ROWS` rows HBM-cold (`cold_ms`: the kernel
+    and the library call over weight copies past the L2), above over one
+    weight (`graph_ms`), with one eager call's time beside them; the
     library column is one `torch.matmul` of x with the weight dequantized
     to bf16 before the timed region (the port never calls it), and at R
     3072 also `dequantize_kernel` followed by `torch.matmul` (the route
     these rows took before the many-row body).  The row keeps the gate/up
     shape's times at R 4, the lockstep step's largest projection, with R
-    40, 128 and 3072 beside them (`at_rows`), and the largest absolute
-    error of any shape."""
+    1, 8, 40, 128 and 3072 beside them (`at_rows`), the head's few-row
+    times (`head_rows`), and the largest absolute error of any shape."""
     from prot2text_tpu_torch.kernels import quant_matmul as qm
     from prot2text_tpu_torch.models.quant import dequantize_kernel
 
@@ -1286,7 +1314,7 @@ def check_k11_kernels(torch, dev, card):
             ("K11b", "pairs", "kernel_q4w", qm.pack_int4_pairs,
              qm.quant_matmul_int4_pairs, qm.quant_matmul_int4_pairs_stacked,
              qm.quant_matmul_int4_pairs_plain)):
-        worst, at_rows = 0.0, []
+        worst, at_rows, head_rows = 0.0, [], []
         for name, K, N, Rs in K11_SHAPES:
             q = torch.randint(-8, 8, (K, N), generator=g, device=dev,
                               dtype=torch.int8)
@@ -1311,15 +1339,18 @@ def check_k11_kernels(torch, dev, card):
                 d10 = (y.float() - y10.float()).abs().max().item()
                 require(torch.equal(y, y10), f"{kid} {name} R={R}: not "
                         f"bit-identical to K10's wrapper (max|diff| {d10})")
-                body = "few-row"
-                if R > qm.FEW_ROWS:
-                    body = "many-row"
-                    require(torch.equal(kern(x, w, scale), y),
-                            f"{kid} {name} R={R}: two launches differ")
-                ms = graph_ms(torch, lambda: kern(x, w, scale))
+                body = "few-row" if R <= qm.FEW_ROWS else "many-row"
+                require(torch.equal(kern(x, w, scale), y),
+                        f"{kid} {name} R={R}: two launches differ")
+                if body == "few-row":
+                    ms = cold_ms(torch, lambda wi: kern(x, wi, scale), w, dev)
+                    lib_ms = cold_ms(torch, lambda wi: torch.matmul(x, wi),
+                                     wd, dev)
+                else:
+                    ms = graph_ms(torch, lambda: kern(x, w, scale))
+                    lib_ms = graph_ms(torch, lambda: torch.matmul(x, wd))
                 plain_ms = graph_ms(torch, lambda: plain(x, w, scale),
                                     calls=2)
-                lib_ms = graph_ms(torch, lambda: torch.matmul(x, wd))
                 deq = ""
                 if R == 3072:
                     deq_ms = graph_ms(torch, lambda: torch.matmul(
@@ -1332,21 +1363,26 @@ def check_k11_kernels(torch, dev, card):
                 log(f"{kid} int4 {fmt} {name} R={R} K={K} N={N} bf16 x, "
                     f"{body} body: max|y-plain|/max|plain| {err / top:.3e} "
                     f"(2e-2); bit-identical to K10's wrapper on the same "
-                    f"integers; device time per call (CUDA graph): kernel "
+                    f"integers, two launches bit-identical; device time per "
+                    f"call (CUDA graph"
+                    f"{', HBM-cold' if body == 'few-row' else ''}): kernel "
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul on "
                     f"the bf16 dequantized weight {lib_ms:.4f} ms "
                     f"(x{ms / lib_ms:.2f}){deq}, bound "
                     f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
                     f"{bd['bound_ms'] / ms:.1%}; one eager call with its host "
                     f"cost {host_ms:.4f} ms [{card}]")
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         eager_ms=host_ms, **bd)
                 if name == "gate/up":
-                    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
                     if R == 4:
                         rows[kid] = t
-                    elif R in (40, 128, 3072):
+                    elif R != 16:
                         if R == 3072:
                             t["dequantize_library_ms"] = deq_ms
                         at_rows.append(dict(R=R, K=K, N=N, body=body, **t))
+                elif name == "head" and body == "few-row":
+                    head_rows.append(dict(R=R, K=K, N=N, body=body, **t))
                 del x, y, y10, want
             del w, wp, scale, wd, leaf
         # the stacked entry point reads layer 2 of an (L, ...) buffer in place
@@ -1370,6 +1406,7 @@ def check_k11_kernels(torch, dev, card):
                 f"max|y-plain|/max|plain| {err / top:.3e} (2e-2)")
         rows[kid]["max_abs_err"] = worst
         rows[kid]["at_rows"] = at_rows
+        rows[kid]["head_rows"] = head_rows
         rows[kid]["sources"] = [
             "prot2text_tpu_torch/kernels/csrc/quant_matmul_int4.cu",
             "prot2text_tpu_torch/kernels/csrc/quant_matmul_rows_int4.cu"]
@@ -2286,12 +2323,17 @@ TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", K5_BWD), ("K6", K6_FWD),
 # int8 body; K10/K14 are both of their bodies (the few-row
 # quant_mma/quant_matmul_reduce kernels, the many-row mm_rows kernel and
 # planes' x copy)
+# the ragged route's kernels (csrc/quant_matmul_ragged.cuh; before the
+# few-row TMA body, every few-row call's)
+RAGGED_QUANT = "quant_mma_kernel|quant_matmul_reduce_kernel"
 SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
                   ("K7/K8", "decode_attention_q_kernel"),
                   ("K9b/K9c", r"decode_split_kernel.*Int8Cache"),
                   ("K4", r"decode_split_kernel.*CacheCols.*SlotWrite"),
                   ("K9a", r"decode_split_kernel.*PrefixCols.*Bf16Cache"),
-                  ("K10/K14", "quant_m|mm_rows_kernel|planes_x_kernel"))
+                  ("K10/K14 few-row", "few_rows_kernel"),
+                  ("K10/K14 ragged", RAGGED_QUANT),
+                  ("K10/K14 many-row", "mm_rows_kernel|planes_x_kernel"))
 
 
 def kernel_breakdown(torch, prof, wall_s: float,
@@ -3073,19 +3115,10 @@ def run_serve_quant(torch, dev, card):
                                  K6=L * e.installs["prefix"],
                                  K9c=L * e.verify_rounds))
             require(plain == 0 and rounds > 0, f"run g: {rounds} rounds")
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            args_p = serve_args("--model_dtype", dtype, "--kv_bits", "8",
-                                "--max_new_tokens", "12")
-            batches_p = serve_batches(args_p, tok, 8, 7)
-            with torch.profiler.profile(activities=acts) as prof:
-                run_p, _ = serve_once(torch, args_p, tok, cfg, params,
-                                      batches_p, dev,
-                                      "profiled int4 + int8 pool, 8 x 12",
-                                      card)
-            log(kernel_breakdown(torch, prof, run_p.seconds,
-                                 SERVE_FAMILIES) + f" [{card}]")
-            del run_p, prof
+            _, ragged = serve_quant_profile(torch, tok, cfg, params, dev,
+                                            card)
+            require(not ragged, f"the ragged route ran on the int4 serving "
+                    f"path: {ragged}")
         else:
             plain, rounds = once(
                 "int8 weights, bf16 pool, shared prefix + dedup, 16 x 128 "
@@ -3098,6 +3131,47 @@ def run_serve_quant(torch, dev, card):
         gc.collect()
         torch.cuda.empty_cache()
     return paths
+
+
+def serve_quant_profile(torch, tok, cfg, params, dev, card):
+    """A short profiled run of int4 towers on the int8 pool (8 x 12 tokens)
+    through the CLI's loop: the window's device time by kernel family, the
+    quantized matmuls by body (`SERVE_FAMILIES`).  Returns the breakdown
+    and the names of the ragged route's kernels that ran (none should: no
+    model projection takes it)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    args_p = serve_args("--model_dtype", "int4", "--kv_bits", "8",
+                        "--max_new_tokens", "12")
+    batches_p = serve_batches(args_p, tok, 8, 7)
+    with torch.profiler.profile(activities=acts) as prof:
+        run_p, _ = serve_once(torch, args_p, tok, cfg, params, batches_p,
+                              dev, "profiled int4 + int8 pool, 8 x 12", card)
+    text = kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
+    log(text + f" [{card}]")
+    ragged = sorted({e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and re.search(RAGGED_QUANT, e.name)})
+    del run_p, prof
+    return text, ragged
+
+
+def serve_quant_window(torch, dev, card):
+    """`serve_quant_profile` on a fresh int4 server (the CLI's defaults,
+    int4 towers): the profiled window alone, for an A/B of two trees'
+    packages (run this file's function with the other tree first on
+    `sys.path`).  Returns the breakdown and the ragged route's kernels
+    seen."""
+    from prot2text_tpu_torch.cli.serve import build_server
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+
+    tok = ByteTextTokenizer()
+    cfg, params = build_server(serve_args("--model_dtype", "int4"), tok, dev)
+    out = serve_quant_profile(torch, tok, cfg, params, dev, card)
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_serve_plumbing(torch, dev):
@@ -3663,6 +3737,21 @@ SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
               "sources", "at_rows")
 
 
+def count_routes(qm):
+    """Tally the bodies `quant_matmul.route` picks (few, rows, ragged) while
+    the model paths run: its wrapper in the module, which `_launch` calls.
+    Returns the tally and the function that puts the rule back."""
+    tally, rule = {}, qm.route
+
+    def counted(*args, **kw):
+        way = rule(*args, **kw)
+        tally[way] = tally.get(way, 0) + 1
+        return way
+
+    qm.route = counted
+    return tally, lambda: setattr(qm, "route", rule)
+
+
 def main() -> int:
     import torch
 
@@ -3728,6 +3817,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3c at {time.time() - t_start:.1f} s")
+    from prot2text_tpu_torch.kernels import quant_matmul as qm
+    routes, restore_route = count_routes(qm)
     paths.update(run_light_generation(torch, dev, card))
     gc.collect()
     torch.cuda.empty_cache()
@@ -3748,6 +3839,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 4d at {time.time() - t_start:.1f} s")
     paths.update(run_serve_quant(torch, dev, card))
+    restore_route()
+    log(f"quantized matmuls of phases 3c-4d by body: {routes}")
+    require(routes.get("few", 0) > 0 and routes.get("ragged", 0) == 0,
+            f"a model projection took the ragged route, or none the "
+            f"few-row body: {routes}")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 5 at {time.time() - t_start:.1f} s")

@@ -78,17 +78,22 @@ SIGNATURES = {
     # resident clusters
     "p2t_decode_split_int8_resident": [_I, _I, _P],
     "p2t_decode_split_bf16_resident": [_I, _I, _P],
-    # x, w (layer), scale (layer), out, partial, R, K, N, bits, splits,
-    # dtype, stream
+    # the ragged route: x, w (layer), scale (layer), out, partial, R, K, N,
+    # bits, splits, dtype, stream
     "p2t_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # the same, with fmt (0 split-half bytes, 1 bf16-pair words) for bits
     "p2t_quant_matmul_int4": [_P] * 5 + [_I] * 6 + [_P],
+    # the few-row TMA body: x, w (layer), scale (layer), out, R, K, N, fmt
+    # (0 planes, 1 pairs, 2 bytes, 3 int8), ck, stages, dtype, stream
+    "p2t_quant_matmul_few": [_P] * 4 + [_I] * 7 + [_P],
     # x, xp (the int4 formats' scratch) or None, w (layer), scale (layer)
     # or None, out, R, K, N, fmt (0 int8, 1 planes, 2 bytes, 3 pairs), bm,
     # bn, ck, out dtype, stream
     "p2t_quant_matmul_rows": [_P] * 5 + [_I] * 8 + [_P],
     # x, w, scale, out, partial, R, K, N, variant, param, splits, stream
     "p2t_probe_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # x, w, scale, out, R, K, N, variant, param, ck, stages, stream
+    "p2t_probe_quant_matmul_few": [_P] * 4 + [_I] * 7 + [_P],
     # x, w, out, partial, R, K, N, splits, stream
     "p2t_int8_mma": [_P] * 4 + [_I] * 4 + [_P],
     # x, out, n, mult, stream

@@ -13,7 +13,7 @@
 // and the int32 output 7.3 MB: 19.9 us at 3.35 TB/s; its 15.0 G operations
 // take 7.6 us at the int8 dense rate (1979 TOP/s).  A product reaches the
 // int8 rate only from about 2R operations per weight byte = 590, R ~ 300.
-// Design: K10/K14's layout (csrc/quant_matmul.cuh), on
+// Design: the ragged route's layout (csrc/quant_matmul_ragged.cuh), on
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32: the product is computed
 // transposed, y^T = w^T x^T; a warp owns 32 output columns (two MMA tiles of
 // 16 rows) and up to 16 tiles of 8 x rows (the MMA's 8 columns), so at R 128
@@ -25,8 +25,8 @@
 // .. are rows 8t + 4 ..), so a B fragment is 8 contiguous bytes of an x row,
 // staged in shared memory in plain k order.  int32 accumulation is exact
 // and order-free: a split of K across blocks is summed into the same
-// integers by quant_matmul.cuh's second pass.
-#include "quant_matmul.cuh"
+// integers by quant_matmul_ragged.cuh's second pass.
+#include "quant_matmul_ragged.cuh"
 
 namespace {
 

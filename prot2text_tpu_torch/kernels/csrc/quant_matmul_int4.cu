@@ -22,15 +22,17 @@
 // error of about 4e-6 of max|y|; here each bf16 pair is made exact before
 // the product (one bf16x2 subtraction of 136) and the word is read by its
 // defined layout.  Both formats build K10's fragments, so on the same
-// integers K11a and K11b give K10's result bit for bit (K % 8 == 0).  The
-// body, its bound (bytes: the weight stream, a quarter of bf16's) and its
-// design are in quant_matmul.cuh, shared with K10/K14.
+// integers K11a and K11b give K10's result bit for bit (the TMA body; the
+// ragged route with K % 8 == 0).  The bodies, their bound (bytes: the
+// weight stream, a quarter of bf16's) and their design are in
+// quant_matmul.cuh (the few-row TMA body: few::BytesF, few::WordsF<kPairs>)
+// and quant_matmul_ragged.cuh, shared with K10/K14.
 #include "quant_matmul.cuh"
 
-// fmt 0: K11a, w (K/2, N) int8 split-half bytes (K even); fmt 1: K11b, w
-// (K/8, N) int32 bf16-pair words (K % 8 == 0).  splits >= 1 slices of K in
-// steps of 32 k values, with `partial` an (splits, R, N) fp32 scratch
-// buffer when splits > 1
+// The ragged route: fmt 0: K11a, w (K/2, N) int8 split-half bytes (K
+// even); fmt 1: K11b, w (K/8, N) int32 bf16-pair words (K % 8 == 0).
+// splits >= 1 slices of K in steps of 32 k values, with `partial` an
+// (splits, R, N) fp32 scratch buffer when splits > 1
 extern "C" int p2t_quant_matmul_int4(const void* x, const void* w,
                                      const void* scale, void* out,
                                      void* partial, int R, int K, int N,
@@ -42,5 +44,20 @@ extern "C" int p2t_quant_matmul_int4(const void* x, const void* w,
   if (fmt == 1)
     return run<kPairs>(x, w, scale, out, partial, R, K, N, splits, dtype,
                        stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The few-row TMA body's K11 instantiations: p2t_quant_matmul_few's
+// arguments (quant_matmul.cu), fmt kBytes or kPairs
+extern "C" int p2t_quant_matmul_few_int4(const void* x, const void* w,
+                                         const void* scale, void* out, int R,
+                                         int K, int N, int fmt, int ck,
+                                         int stages, int dtype, void* stream) {
+  if (fmt == kBytes)
+    return few::run_dtype<few::BytesF<>>(x, w, scale, out, R, K, N, ck,
+                                         stages, dtype, stream);
+  if (fmt == kPairs)
+    return few::run_dtype<few::WordsF<kPairs>>(x, w, scale, out, R, K, N, ck,
+                                               stages, dtype, stream);
   return (int)cudaErrorInvalidValue;
 }

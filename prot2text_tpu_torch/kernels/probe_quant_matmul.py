@@ -17,10 +17,14 @@ Each kernel replaces an in-file Pallas kernel of a probe under `scripts/`:
   on the int8 tensor cores (`csrc/int8_mma.cu`);
 - K15g `mm_mix` (`bench_int8_mxu.py:156`): bf16 x int8 -> f32, no scale.
 
-K15a-K15e are K10/K14's few-row body (`csrc/quant_matmul.cuh`) with a
-policy each (`csrc/probe_quant_matmul.cu`) that varies only the strategy
-its probe varies; K15g runs K14's many-row body `csrc/quant_matmul_rows.cuh`
-(wgmma, 128 rows of a block, the grid from `quant_matmul.rows_tiling`)
+K15a-K15e are K10/K14's few-row TMA body (`csrc/quant_matmul.cuh`) with a
+weight policy each (`csrc/probe_quant_matmul.cu`) that varies only the
+strategy its probe varies, on K10/K14's grid (`quant_matmul.
+few_rows_tiling`; K15d maps its block width and K slice onto it); shapes
+TMA cannot describe (`quant_matmul.few_fit`) take the same policies on the
+ragged route (`csrc/quant_matmul_ragged.cuh`), as K10/K14 do.  K15g runs
+K14's many-row body `csrc/quant_matmul_rows.cuh` (wgmma, 128 rows of a
+block, the grid from `quant_matmul.rows_tiling`)
 with no scale and an f32 output, at any K and N % 4 == 0 (a shape its TMA
 boxes cannot take runs on a zero-padded copy); the sources state what
 bounds them.
@@ -50,15 +54,16 @@ from .quant_matmul import _splits, unpack_int4_planes
 CHUNK_ROWS = (32, 64, 128, 256)     # K15a's bc: k rows converted per chunk
 PLANE_BLOCK_COLS = (128, 256)       # K15d: output columns per block
 MIX_BLOCK_ROWS = 128                # K15g: rows a block of the many-row body
-# variant → (C variant code, weight dtype, k values per stored row)
+# variant → (C variant code, weight dtype, k values per stored row, the
+# quant_matmul format whose shape rule and bits it takes)
 _VARIANTS = {
-    "K15a": (0, torch.int8, 1),
-    "K15b": (1, torch.int8, 2),
-    "K15c": (2, torch.int8, 2),
-    "K15d": (3, torch.int32, 8),
-    "K15e": (4, torch.int8, 2),
-    "K15f": (None, torch.int8, 1),
-    "K15g": (None, torch.int8, 1),
+    "K15a": (0, torch.int8, 1, "int8"),
+    "K15b": (1, torch.int8, 2, "bytes"),
+    "K15c": (2, torch.int8, 2, "bytes"),
+    "K15d": (3, torch.int32, 8, "planes"),
+    "K15e": (4, torch.int8, 2, "bytes"),
+    "K15f": (None, torch.int8, 1, "int8"),
+    "K15g": (None, torch.int8, 1, "int8"),
 }
 
 
@@ -149,7 +154,7 @@ def _check(name, x, w, scale, kid, xdtype=torch.bfloat16):
     if x.dim() != 2 or x.shape[0] == 0 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (R > 0, K) "
                          f"tensor, got {tuple(x.shape)}")
-    _, wdt, per = _VARIANTS[kid]
+    _, wdt, per, _ = _VARIANTS[kid]
     if w.dtype != wdt or w.dim() != 2 or not w.is_contiguous():
         raise ValueError(f"{name}: the weight must be a contiguous "
                          f"({f'K/{per}' if per > 1 else 'K'}, N) {wdt} "
@@ -170,17 +175,36 @@ def _check(name, x, w, scale, kid, xdtype=torch.bfloat16):
             raise ValueError(f"{name}: {n} on {t.device}, x on {dev}")
 
 
-def _launch(kid, x, w, scale, param, splits, out_dtype):
+def _launch(kid, x, w, scale, param: int = 0, tiling=None, splits=None):
+    """One K15a-e launch into a new (R, N) bf16 output: the few-row TMA
+    body where `quant_matmul.few_fit` holds for the variant's format, on
+    `tiling` (columns, cluster, stages; default K10/K14's
+    `few_rows_tiling`), else the ragged route with `splits` slices of K
+    (default `_splits`) and their fp32 scratch."""
     R, K = x.shape
     N = w.shape[-1]
-    out = torch.empty((R, N), dtype=out_dtype, device=x.device)
+    code, _, _, fmt = _VARIANTS[kid]
+    bits = qm._FORMATS[fmt][2]
+    out = torch.empty((R, N), dtype=torch.bfloat16, device=x.device)
+    lib = _build.library()
+    if qm.few_fit(fmt, K, N, w.data_ptr()):
+        _, ck, stages = tiling or qm.few_rows_tiling(R, K, N, bits)
+        if kid == "K15a":                   # a chunk's tiles, and one more
+            stages = max(stages, param // qm.FEW_TILE_K[8] + 1)
+        x = qm._aligned(x)
+        err = lib.p2t_probe_quant_matmul_few(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), R,
+            K, N, code, param, ck, stages, _build.stream_of(x))
+        _build.check(err, f"p2t_probe_quant_matmul_few ({kid})")
+        return out
+    if splits is None:
+        splits = _splits(R, K, N, bits)
     partial = (torch.empty((splits, R, N), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    err = _build.library().p2t_probe_quant_matmul(
-        x.data_ptr(), w.data_ptr(),
-        None if scale is None else scale.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), R, K, N,
-        _VARIANTS[kid][0], param, splits, _build.stream_of(x))
+    err = lib.p2t_probe_quant_matmul(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), R, K, N, code,
+        param, splits, _build.stream_of(x))
     _build.check(err, f"p2t_probe_quant_matmul ({kid})")
     return out
 
@@ -195,9 +219,7 @@ def chunk_mm(x, w_q, scale, bc: int = 256):
     if bc not in CHUNK_ROWS:
         raise ValueError(f"K15a: bc must be one of {CHUNK_ROWS}, got {bc}")
     _check("K15a", x, w_q, scale, "K15a")
-    R, K = x.shape
-    out = _launch("K15a", x, w_q, scale, bc, _splits(R, K, w_q.shape[1], 8),
-                  torch.bfloat16)
+    out = _launch("K15a", x, w_q, scale, bc)
     chunk_mm.launches += 1
     return out
 
@@ -213,9 +235,7 @@ def mm_i4f(x, wp, scale):
     if x.device.type == "cpu":
         return mm_i4f_plain(x, wp, scale)
     _check("K15b", x, wp, scale, "K15b")
-    out = _launch("K15b", x, wp, scale, 0,
-                  _splits(x.shape[0], x.shape[1], wp.shape[1], 4),
-                  torch.bfloat16)
+    out = _launch("K15b", x, wp, scale)
     mm_i4f.launches += 1
     return out
 
@@ -230,9 +250,7 @@ def mm_i4n(x, w4, scale):
     if x.device.type == "cpu":
         return mm_i4n_plain(x, w4, scale)
     _check("K15c", x, w4, scale, "K15c")
-    out = _launch("K15c", x, w4, scale, 0,
-                  _splits(x.shape[0], x.shape[1], w4.shape[1], 4),
-                  torch.bfloat16)
+    out = _launch("K15c", x, w4, scale)
     mm_i4n.launches += 1
     return out
 
@@ -240,14 +258,33 @@ def mm_i4n(x, w4, scale):
 mm_i4n.launches = 0
 
 
-def plane_splits(K: int, split_k8: int | None, R: int, N: int) -> int:
-    """K15d's slices of K: `split_k8` word rows (8·split_k8 k values) per
-    block, or K10's own rule when None."""
-    if split_k8 is None:
-        return _splits(R, K, N, 4)
-    if split_k8 <= 0 or split_k8 % 4:
+def _check_split_k8(split_k8):
+    if split_k8 is not None and (split_k8 <= 0 or split_k8 % 4):
         raise ValueError(f"K15d: split_k8 must be a positive multiple of 4 "
                          f"(a 32-k step is 4 word rows), got {split_k8}")
+
+
+def plane_splits(K: int, split_k8: int | None, R: int, N: int) -> int:
+    """K15d's split of K on the few-row TMA body, the cluster: `split_k8`
+    word rows (8·split_k8 k values) a rank, as far as the body's cluster of
+    `FEW_MAX_CLUSTER` and non-empty ranks allow; None: K10's rule
+    (`few_rows_tiling`)."""
+    _check_split_k8(split_k8)
+    if split_k8 is None:
+        return qm.few_rows_tiling(R, K, N, 4)[1]
+    tiles = -(-K // qm.FEW_TILE_K[4])
+    ck = min(qm.FEW_MAX_CLUSTER, tiles, -(-(K // 8) // split_k8))
+    while ck > 1 and (ck - 1) * -(-tiles // ck) >= tiles:
+        ck -= 1
+    return ck
+
+
+def _ragged_plane_splits(K: int, split_k8: int | None, R: int,
+                         N: int) -> int:
+    """K15d's slices of K on the ragged route: `split_k8` word rows per
+    block, or K10's ragged rule when None."""
+    if split_k8 is None:
+        return _splits(R, K, N, 4)
     steps = -(-K // 32)
     per = min(steps, split_k8 // 4)
     return -(-steps // per)
@@ -257,18 +294,22 @@ def mm_i4p(x, wp, scale, block_cols: int = 128, split_k8: int | None = None):
     """K15d: x (R, K) bf16 · unpack(wp (K/8, N) int32 nibble planes) ·
     scale (N,) → (R, N) bf16 (K10's function), tiled by `block_cols`
     output columns per block (128 or 256) and `split_k8` word rows of K
-    per block (None: K10's slices; at 128 columns that is K10, bit for bit).
-    CPU tensors run the plain version; CUDA tensors launch the kernel (or
-    raise)."""
+    per cluster rank (`plane_splits`; None: K10's grid, on which at 128
+    columns it is K10, bit for bit).  CPU tensors run the plain version;
+    CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return mm_i4p_plain(x, wp, scale)
     if block_cols not in PLANE_BLOCK_COLS:
         raise ValueError(f"K15d: block_cols must be one of "
                          f"{PLANE_BLOCK_COLS}, got {block_cols}")
+    _check_split_k8(split_k8)
     _check("K15d", x, wp, scale, "K15d")
     R, K = x.shape
+    N = wp.shape[1]
+    ck = plane_splits(K, split_k8, R, N)
     out = _launch("K15d", x, wp, scale, block_cols,
-                  plane_splits(K, split_k8, R, wp.shape[1]), torch.bfloat16)
+                  qm.few_rows_tiling(R, K, N, 4, block_cols, ck),
+                  _ragged_plane_splits(K, split_k8, R, N))
     mm_i4p.launches += 1
     return out
 
@@ -283,9 +324,7 @@ def mm_i4and(x, wp, scale):
     if x.device.type == "cpu":
         return mm_i4and_plain(x, wp, scale)
     _check("K15e", x, wp, scale, "K15e")
-    out = _launch("K15e", x, wp, scale, 0,
-                  _splits(x.shape[0], x.shape[1], wp.shape[1], 4),
-                  torch.bfloat16)
+    out = _launch("K15e", x, wp, scale)
     mm_i4and.launches += 1
     return out
 

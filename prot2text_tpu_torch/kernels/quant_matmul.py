@@ -9,22 +9,35 @@ replaces `quant_matmul_int4` (`_mm_i4_kernel`) and
 bytes; K11b replaces `quant_matmul_int4_pairs` (`_mm_i4w_kernel`) and
 `quant_matmul_int4_pairs_stacked` (`_mm_i4w_stacked_kernel`), the bf16-pair
 words; K14 replaces `quant_matmul_int8` (`_mm_i8_kernel`) and
-`quant_matmul_int8_stacked` (`_mm_i8_stacked_kernel`).  Two kernel bodies
-carry them, each header stating what bounds it and what its design does
-about that: the few-row body `csrc/quant_matmul.cuh` (entry points
-`csrc/quant_matmul.cu` for K10/K14 and `csrc/quant_matmul_int4.cu` for
-K11) takes all four formats at up to `FEW_ROWS` rows; the many-row
-`wgmma` body `csrc/quant_matmul_rows.cuh` (entry
-`csrc/quant_matmul_rows.cu`, K11's instantiations in
-`csrc/quant_matmul_rows_int4.cu`) takes them above it, on the grid that
-`rows_tiling` picks, where the format's shape rule `rows_fit` holds (the
-few-row body where it does not).  The TPU's stacked variants
-exist because a Pallas operand must be a materialized buffer; here the
-stacked wrappers pass layer `layer`'s base pointer into the (L, ...)
-buffer, so both entry points share one body.  The decode path needs only
-the unstacked wrappers: `models/transformer.py linear` hands them each
-layer's zero-copy view of the stacked buffer (`layer_views`); the stacked
-ones keep the JAX package's names.
+`quant_matmul_int8_stacked` (`_mm_i8_stacked_kernel`).  Three routes carry
+them, each body's header stating what bounds it and what its design does
+about that (`route` is the rule):
+
+- up to `FEW_ROWS` rows, the few-row TMA body `csrc/quant_matmul.cuh`
+  (entry `p2t_quant_matmul_few` in `csrc/quant_matmul.cu`, K11's
+  instantiations in `csrc/quant_matmul_int4.cu`): the weight streams
+  through a TMA ring in shared memory, x is staged once per block, K is
+  split over a thread-block cluster summed through distributed shared
+  memory, on the grid that `few_rows_tiling` picks; one launch, no scratch;
+- above `FEW_ROWS` rows, the many-row `wgmma` body
+  `csrc/quant_matmul_rows.cuh` (entry `csrc/quant_matmul_rows.cu`, K11's
+  instantiations in `csrc/quant_matmul_rows_int4.cu`) on the grid that
+  `rows_tiling` picks;
+- at every row count, where TMA cannot describe the weight (`few_fit` /
+  `rows_fit`: a row stride off 16 bytes, an int4 K off the 64-value tile,
+  an unaligned base, or an x slice past a block's shared memory), the
+  ragged route `csrc/quant_matmul_ragged.cuh`: the body the few-row calls
+  ran before, whose split of K goes through an fp32 scratch buffer and a
+  second launch.  It is chosen by the shape alone, never on a failure,
+  and no projection of the port's models (Qwen3-14B, Llama-3.1-8B, ESMC)
+  takes it.
+
+The TPU's stacked variants exist because a Pallas operand must be a
+materialized buffer; here the stacked wrappers pass layer `layer`'s base
+pointer into the (L, ...) buffer, so both entry points share each body.
+The decode path needs only the unstacked wrappers: `models/transformer.py
+linear` hands them each layer's zero-copy view of the stacked buffer
+(`layer_views`); the stacked ones keep the JAX package's names.
 
 Contract (as the JAX kernels): x (R, K) float32 or bfloat16, ROUNDED TO
 BF16 before the product; W int4 planes (K/8, N) int32 — nibble j of word
@@ -40,9 +53,9 @@ from its plain version.  JAX's TPU pairs kernel instead removes the words'
 +136 bf16 bias as 136·rowsum(x) in its epilogue, a cancellation of about
 4e-6 of max|y| (its `:410-424`); the port's kernel and plain version are
 exact.  The three int4 formats build the same tensor-core fragments in
-each body, so on the same integers K11a and K11b equal K10 bit for bit
-(the few-row body: K % 8 == 0; the many-row body: where `rows_fit` holds
-for both formats, on the same `rows_tiling` grid).
+each body and take the same grid, so on the same integers K11a and K11b
+equal K10 bit for bit wherever they take the same route (the ragged one:
+K % 8 == 0).
 
 The decoder calls all four on a bf16 x at every row count, and on an f32
 x for at most `QUANT_KERNEL_ROWS` rows (`models/transformer.py linear`);
@@ -64,6 +77,13 @@ QUANT_KERNEL_ROWS = 256
 # many-row body (the crossover measured on an H100: PERF.md §6,
 # scripts/sweep_quant_rows.py)
 FEW_ROWS = 8
+# the few-row TMA body (csrc/quant_matmul.cuh): k values of a ring stage
+# by the weight's bits (8 KB at 128 columns either way), the ring's bytes a
+# block (4 stages), a block's shared memory, the largest (portable) cluster
+FEW_TILE_K = {4: 128, 8: 64}
+FEW_RING_BYTES = 32 * 1024
+FEW_SMEM = 232448
+FEW_MAX_CLUSTER = 8
 # the many-row body (csrc/quant_matmul_rows.cuh): k values of a tile, the
 # rows (wgmma's N) and columns of a block, the K splits of a cluster and
 # the K tiles a cluster rank sums at least
@@ -72,17 +92,18 @@ ROWS_BLOCK_ROWS = (64, 128, 256)
 ROWS_BLOCK_COLS = (256, 128)
 ROWS_CLUSTERS = (1, 2, 4, 8)
 ROWS_MIN_TILES = 16
-_BLOCK_COLS = 128               # csrc/quant_matmul.cu kBlockCols
+_BLOCK_COLS = 128               # csrc/quant_matmul_ragged.cuh kBlockCols
 _BLOCK_ROWS = 64                # at most 8 MMA tiles of 8 rows per block
 _STEP_K = {4: 32, 8: 16}        # k values per K step (Fmt::kStepK)
-# weight format → (dtype, k values per stored row, bits, the few-row C
-# entry point and its format argument, the many-row body's format code
-# (csrc/quant_matmul_rows.cuh rows::Format))
+# weight format → (dtype, k values per stored row, bits, the ragged route's
+# C entry point and its format argument, the many-row body's format code
+# (csrc/quant_matmul_rows.cuh rows::Format), the few-row body's
+# (csrc/quant_matmul_ragged.cuh Format))
 _FORMATS = {
-    "planes": (torch.int32, 8, 4, "p2t_quant_matmul", 4, 1),
-    "int8": (torch.int8, 1, 8, "p2t_quant_matmul", 8, 0),
-    "bytes": (torch.int8, 2, 4, "p2t_quant_matmul_int4", 0, 2),
-    "pairs": (torch.int32, 8, 4, "p2t_quant_matmul_int4", 1, 3),
+    "planes": (torch.int32, 8, 4, "p2t_quant_matmul", 4, 1, 0),
+    "int8": (torch.int8, 1, 8, "p2t_quant_matmul", 8, 0, 3),
+    "bytes": (torch.int8, 2, 4, "p2t_quant_matmul_int4", 0, 2, 2),
+    "pairs": (torch.int32, 8, 4, "p2t_quant_matmul_int4", 1, 3, 1),
 }
 _TARGET_BLOCKS = 792            # about six resident blocks per SM
 _MIN_SPLIT_STEPS = 8            # K steps per slice: 256 (int4) / 128 k
@@ -233,11 +254,12 @@ def _steps(K: int, bits: int) -> int:
 
 def _splits(R: int, K: int, N: int, bits: int,
             block_rows: int = _BLOCK_ROWS, step_k: int | None = None) -> int:
-    """Slices of K across blocks: enough that about `_TARGET_BLOCKS` blocks
-    run, each slice at least `_MIN_SPLIT_STEPS` steps, the partial sums
-    (written and read once more) at most a quarter of the weight bytes, no
-    empty slice.  `block_rows` and `step_k` (default: the format's K step)
-    describe another kernel's blocks over the same weight."""
+    """The ragged route's slices of K across blocks (and K15f's): enough
+    that about `_TARGET_BLOCKS` blocks run, each slice at least
+    `_MIN_SPLIT_STEPS` steps, the partial sums (written and read once more)
+    at most a quarter of the weight bytes, no empty slice.  `block_rows`
+    and `step_k` (default: the format's K step) describe another kernel's
+    blocks over the same weight."""
     steps = _steps(K, bits) if step_k is None else -(-K // step_k)
     blocks = -(-R // block_rows) * -(-N // _BLOCK_COLS)
     weight_bytes = K * N // (2 if bits == 4 else 1)
@@ -354,6 +376,72 @@ def rows_fit(fmt: str, K: int, N: int, w_ptr: int) -> bool:
     return shape and w_ptr % 16 == 0
 
 
+@functools.lru_cache(maxsize=4096)
+def few_rows_tiling(R: int, K: int, N: int, bits: int = 4, bn: int = 128,
+                    ck: int | None = None):
+    """The few-row TMA body's grid: (columns a block, K split over a
+    cluster, ring stages), or None where x's slice cannot fit a block's
+    shared memory.  One rule for K10, K11a, K11b, K14 and K15a-e (`bits` 4
+    for the int4 formats, 8 for int8: a stage's k values).  A block holds
+    `bn` columns and 8 rows (16 above 8, a row block each), a ring of
+    `FEW_RING_BYTES` in stages of `FEW_TILE_K` (3 at least), x's K slice in
+    bf16 and, where K is split, the buffer that receives the ranks'
+    partials.  K is split over the largest cluster up to `FEW_MAX_CLUSTER`
+    (`ck` fixes it) whose ranks all hold a tile and whose block fits: on
+    an H100 the largest was the fastest at every Qwen3-14B projection, in
+    every format (PERF.md §6, `scripts/sweep_quant_rows.py`), whole waves
+    or not, since each block's stream is paced by its own latency and more,
+    shorter blocks overlap more of it."""
+    tile = FEW_TILE_K[bits]
+    tiles = -(-K // tile)
+    rows = 8 if R <= 8 else 16
+    stage = tile * bn * bits // 8
+    stages = max(3, FEW_RING_BYTES // stage)
+    units = rows * bn // 4                   # float4s of a block's partial
+    top = min(tiles, FEW_MAX_CLUSTER)
+    for c in range(top, 0, -1) if ck is None else (ck,):
+        per = -(-tiles // c)
+        if not 1 <= c <= top or (c - 1) * per >= tiles:
+            continue
+        recv = c * -(-units // c) * 16 if c > 1 else 0
+        smem = (1024 + stages * stage + recv
+                + rows * (per * 2 * tile + 64) + 16 * stages)
+        if smem <= FEW_SMEM:
+            return bn, c, stages
+    return None
+
+
+def few_fit(fmt: str, K: int, N: int, w_ptr: int) -> bool:
+    """The shape rule of the few-row TMA body: the many-row body's
+    (`rows_fit`: TMA boxes of 128-byte rows, row strides multiples of 16
+    bytes, whole 64-k tiles for the int4 formats, a 16-byte-aligned
+    weight), for the int4 formats N % 32 == 0 (planes' and pairs' stage is
+    one box of 32-word column groups; bytes follow, so that the three
+    formats take one route and one grid), and x's K slice of 16 rows within
+    a block's shared memory at some cluster (K up to ~44k).  Anything else
+    takes the ragged route."""
+    bits = _FORMATS[fmt][2]
+    return (rows_fit(fmt, K, N, w_ptr) and (bits == 8 or N % 32 == 0)
+            and few_rows_tiling(16, K, N, bits=bits) is not None)
+
+
+def route(fmt: str, R: int, K: int, N: int, w_ptr: int,
+          few_rows: bool = False) -> str:
+    """Which body a call takes, by its shape alone: "few" (the few-row TMA
+    body) up to `FEW_ROWS` rows (at any R with `few_rows`) where `few_fit`
+    holds, "rows" (the many-row body) above it where `rows_fit` holds, else
+    "ragged" (csrc/quant_matmul_ragged.cuh)."""
+    if few_rows or R <= FEW_ROWS:
+        return "few" if few_fit(fmt, K, N, w_ptr) else "ragged"
+    return "rows" if rows_fit(fmt, K, N, w_ptr) else "ragged"
+
+
+def _aligned(x):
+    """x itself when it is 16-byte aligned (the TMA bodies read it in 16-byte
+    runs), else an aligned copy."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -370,8 +458,7 @@ def rows_matmul(x, w_ptr: int, s_ptr: int | None, out, fmt: str,
     x is one TMA box)."""
     R, K = x.shape
     N = out.shape[1]
-    if x.data_ptr() % 16:
-        x = x.clone()
+    x = _aligned(x)
     bits, code = _FORMATS[fmt][2], _FORMATS[fmt][5]
     xp = torch.empty_like(x) if bits == 4 else None
     bm, bn, ck = tiling or rows_tiling(R, K, N,
@@ -384,22 +471,44 @@ def rows_matmul(x, w_ptr: int, s_ptr: int | None, out, fmt: str,
     return out
 
 
+def few_matmul(x, w_ptr: int, s_ptr: int, out, fmt: str, tiling=None):
+    """One launch of the few-row TMA body on weight format `fmt` (a key of
+    `_FORMATS`, where `few_fit` holds): x (R, K) f32 or bf16 (copied when
+    it is not 16-byte aligned), the weight's and scale's base pointers, out
+    (R, N) in x's dtype allocated by the caller; `tiling` (columns, cluster,
+    stages), default `few_rows_tiling`."""
+    R, K = x.shape
+    N = out.shape[1]
+    x = _aligned(x)
+    _, ck, stages = tiling or few_rows_tiling(R, K, N, _FORMATS[fmt][2])
+    err = _build.library().p2t_quant_matmul_few(
+        x.data_ptr(), w_ptr, s_ptr, out.data_ptr(), R, K, N,
+        _FORMATS[fmt][6], ck, stages, _build.dtype_code(x.dtype),
+        _build.stream_of(x))
+    _build.check(err, "p2t_quant_matmul_few")
+    return out
+
+
 def _launch(x, w, scale, fmt, layer, few_rows: bool = False):
-    """One kernel over layer `layer` of w/scale (layer None: unstacked):
-    the many-row body above `FEW_ROWS` rows where `rows_fit` holds (x
-    rounded to bf16 first, the output in x's dtype), else (or with
-    `few_rows`) the few-row body."""
+    """One kernel over layer `layer` of w/scale (layer None: unstacked), on
+    the body `route` names (`few_rows`: the few-row body or the ragged
+    route at any R): the few-row TMA body on `few_rows_tiling`'s grid, the
+    many-row body (x rounded to bf16 first, the output in x's dtype) on
+    `rows_tiling`'s, or the ragged route with `_splits` slices of K and
+    their fp32 scratch."""
     R, K = x.shape
     N = w.shape[-1]
     w_ptr, s_ptr = _pointers(w, scale, layer)
     bits, entry, code = _FORMATS[fmt][2:5]
-    if not few_rows and R > FEW_ROWS and rows_fit(fmt, K, N, w_ptr):
-        out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    way = route(fmt, R, K, N, w_ptr, few_rows)
+    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    if way == "rows":
         if x.dtype != torch.bfloat16:
             x = x.to(torch.bfloat16)
         return rows_matmul(x, w_ptr, s_ptr, out, fmt)
+    if way == "few":
+        return few_matmul(x, w_ptr, s_ptr, out, fmt)
     splits = _splits(R, K, N, bits)
-    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, R, N), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     err = getattr(_build.library(), entry)(
@@ -411,9 +520,10 @@ def _launch(x, w, scale, fmt, layer, few_rows: bool = False):
 
 
 def _few_rows(x, w, scale, fmt: str, layer: int | None = None):
-    """The few-row body at any R (no launch counted): the reference that
-    K15a (bc 128), K15b/K15e (the bytes) and K15d share their fragments
-    with, for the card checks that hold them bit for bit."""
+    """The few-row body at any R (the ragged route where `few_fit` fails;
+    no launch counted): the reference that K15a (bc 128), K15b/K15e (the
+    bytes) and K15d share their fragments and grid with, for the card
+    checks that hold them bit for bit."""
     _check("few-row body", x, w, scale, fmt, layer is not None, layer)
     return _launch(x, w, scale, fmt, layer, few_rows=True)
 

@@ -1,14 +1,17 @@
 """K10/K14/K11a/K11b's two bodies over rows and grids: where the many-row
-`wgmma` body (csrc/quant_matmul_rows.cuh) overtakes the few-row body
-(csrc/quant_matmul.cuh), and which grid of the many-row body is fastest,
-at Qwen3-14B's projections.
+`wgmma` body (csrc/quant_matmul_rows.cuh) overtakes the few-row TMA body
+(csrc/quant_matmul.cuh), which grid of the many-row body and which cluster
+of the few-row body is fastest, at Qwen3-14B's projections and LM head.
 
 For each projection (K, N), each weight format (int4 nibble planes, int8,
 int4 split-half bytes, int4 bf16-pair words) and each row count it times,
 device time per call from CUDA graphs that rotate through weight copies
 exceeding twice the L2 (`_timing.time_pass`):
 
-  few    the few-row body (`quant_matmul._few_rows`);
+  few    the few-row body (`quant_matmul._few_rows`) and, at
+         `--few_grid_rows`, at every K split over a cluster it can launch
+         (`quant_matmul.few_rows_tiling(ck=...)`) and at the rule's cluster
+         with `--few_stages` ring stages;
   rows   the many-row body at `quant_matmul.rows_tiling`'s grid and, for
          planes and int8 at `--grid_rows`, at every grid it can launch
          (rows a block fixed by R; columns 128/256, K split Ck; bytes and
@@ -19,11 +22,12 @@ exceeding twice the L2 (`_timing.time_pass`):
 
 Every output is held against the plain version (2e-2 · max|plain|).  One
 JSON line per timing goes to `--out`, and a summary names, per projection
-and format, the smallest R at which the many-row body beats the few-row
-body, and per (R, projection, format) the fastest grid.
+and format, the rows at which the many-row body beats the few-row body,
+and per (R, projection, format) the fastest grid.
 
     python -m prot2text_tpu_torch.scripts.sweep_quant_rows [--device cuda]
-        [--reps N] [--out sweep_quant_rows.jsonl]
+        [--reps N] [--out sweep_quant_rows.jsonl] [--grid_rows 40,64,128]
+        [--few_grid_rows 8] [--few_stages 3,5,6]
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from ._timing import bound, check_close, copies, parser, setup, time_pass
 
 # Qwen3-14B's projections (K, N)
 SHAPES = {"q/o": (5120, 5120), "k/v": (5120, 1024),
-          "gate/up": (5120, 17408), "down": (17408, 5120)}
+          "gate/up": (5120, 17408), "down": (17408, 5120),
+          "head": (5120, 151936)}
 # weight format → (leaf key, packer of (K, N) integers in [lo, hi), lo, hi,
 # plain twin)
 FORMATS = {
@@ -49,8 +54,12 @@ FORMATS = {
     "pairs": ("kernel_q4w", qm.pack_int4_pairs, -8, 8,
               qm.quant_matmul_int4_pairs_plain),
 }
-CROSS_ROWS = (8, 16, 24, 32, 40, 64)
+# bits of a weight format's integers
+FORMATS_BITS = {"planes": 4, "int8": 8, "bytes": 4, "pairs": 4}
+CROSS_ROWS = (1, 4, 8, 16, 24, 32, 40, 64)
 GRID_ROWS = (40, 64, 128)
+FEW_GRID_ROWS = (8,)
+FEW_STAGES = (3, 5, 6)
 INSTALL_ROWS = 3072                  # 8 requests x the 384-token bucket
 
 
@@ -71,12 +80,20 @@ def main(argv=None) -> list:
     p.add_argument("--out", default="sweep_quant_rows.jsonl")
     p.add_argument("--grid_rows", default=",".join(map(str, GRID_ROWS)),
                    help="rows at which every grid is timed")
+    p.add_argument("--few_grid_rows",
+                   default=",".join(map(str, FEW_GRID_ROWS)),
+                   help="rows at which every cluster of the few-row body "
+                        "is timed")
+    p.add_argument("--few_stages", default=",".join(map(str, FEW_STAGES)),
+                   help="ring stages timed at the few-row rule's cluster")
     args = p.parse_args(argv)
     dev, card = setup(args)
     if dev.type != "cuda":
         raise SystemExit("sweep_quant_rows times the card's kernels: "
                          "--device cuda")
     grid_rows = {int(r) for r in args.grid_rows.split(",") if r}
+    few_grid_rows = {int(r) for r in args.few_grid_rows.split(",") if r}
+    few_stages = [int(r) for r in args.few_stages.split(",") if r]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"sweep_quant_rows on {card}, {sms} SMs", flush=True)
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -117,6 +134,26 @@ def main(argv=None) -> list:
                                 qm._few_rows(x, w, scale, fmt), want, 2e-2)
                     runs.append(("few", None, lambda wi: qm._few_rows(
                         x, wi, scale, fmt)))
+                if R in few_grid_rows and qm.few_fit(fmt, K, N, 0):
+                    bits = FORMATS_BITS[fmt]
+                    rule_few = qm.few_rows_tiling(R, K, N, bits)
+                    others = [qm.few_rows_tiling(R, K, N, bits, ck=ck)
+                              for ck in range(1, qm.FEW_MAX_CLUSTER + 1)]
+                    others += [rule_few[:2] + (st,) for st in few_stages
+                               if st != rule_few[2]]
+                    for few in others:
+                        if few is None or few == rule_few:
+                            continue
+
+                        def fcall(wi, few=few):
+                            out = torch.empty((R, N), dtype=torch.bfloat16,
+                                              device=dev)
+                            return qm.few_matmul(x, wi.data_ptr(),
+                                                 scale.data_ptr(), out, fmt,
+                                                 few)
+                        check_close(f"few {name} {fmt} R={R} {few}",
+                                    fcall(w), want, 2e-2)
+                        runs.append(("fgrid", few, fcall))
                 rule = qm.rows_tiling(R, K, N, sms)
                 tilings = [rule]
                 if R in grid_rows and fmt in ("planes", "int8"):
@@ -153,8 +190,9 @@ def main(argv=None) -> list:
                 best = {}
                 for ln in lines:
                     if (ln["shape"], ln["R"], ln["fmt"]) == (name, R, fmt):
-                        best[ln["what"] if ln["what"] != "grid" else
-                             f"grid {tuple(ln['grid'])}"] = ln["ms"]
+                        best[ln["what"] if ln["what"] not in
+                             ("grid", "fgrid") else
+                             f"{ln['what']} {tuple(ln['grid'])}"] = ln["ms"]
                 top = sorted(best.items(), key=lambda kv: kv[1])[:4]
                 print(f"{name} {fmt} R={R}: rule {rule}; bound "
                       f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "

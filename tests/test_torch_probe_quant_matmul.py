@@ -188,13 +188,37 @@ def test_k15f_plain_exact_at_the_extremes():
     assert int(y.min()) == int(y.max()) == 128 * 128 * 4096
 
 
-def test_plane_splits():
-    assert pq.plane_splits(4096, 64, 16, 14336) == 8
-    assert pq.plane_splits(14336, 512, 16, 4096) == 4
-    assert pq.plane_splits(4096, None, 16, 14336) == qm._splits(
-        16, 4096, 14336, 4)
+@pytest.mark.parametrize("K,split_k8,want", [
+    (4096, 64, 8), (14336, 512, 4), (14336, 64, 8), (4096, 512, 1),
+    (4096, 4096, 1), (2368, 32, 7), (4096, None, "rule")])
+def test_plane_splits(K, split_k8, want):
+    """K15d's split of K on the few-row TMA body, mapped onto the cluster:
+    `split_k8` word rows a rank, capped at the body's cluster of 8 (K 14336
+    at 64 rows would ask for 28) and at ranks that all hold a tile (K 2368:
+    19 tiles, where 8 ranks of 3 would leave the last one none); None:
+    K10's grid rule; a split off the 4-row step raises."""
+    if want == "rule":
+        want = qm.few_rows_tiling(16, K, 14336, 4)[1]
+    assert pq.plane_splits(K, split_k8, 16, 14336) == want
+    tiles = -(-K // qm.FEW_TILE_K[4])
+    assert (want - 1) * -(-tiles // want) < tiles
     with pytest.raises(ValueError, match="split_k8"):
-        pq.plane_splits(4096, 6, 16, 14336)
+        pq.plane_splits(K, 6, 16, 14336)
+
+
+def test_probe_routes():
+    """K15a-e take the few-row TMA body where their format's shape rule
+    (`quant_matmul.few_fit`) holds: every probe shape (Llama-3.1-8B's and
+    Qwen3-14B's widths); int8 at N % 16 != 0 and the int4 formats at N %
+    32 != 0 take the same policies on the ragged route."""
+    for kid, (K, N) in (("K15a", (4096, 14336)), ("K15a", (4096, 128256)),
+                        ("K15b", (14336, 4096)), ("K15c", (4096, 14336)),
+                        ("K15d", (14336, 4096)), ("K15e", (5120, 17408))):
+        assert qm.few_fit(pq._VARIANTS[kid][3], K, N, 0), kid
+    for kid in ("K15a", "K15b", "K15c", "K15d", "K15e"):
+        assert not qm.few_fit(pq._VARIANTS[kid][3], 512, 1028, 0), kid
+    assert qm.few_fit(pq._VARIANTS["K15a"][3], 512, 1040, 0)
+    assert not qm.few_fit(pq._VARIANTS["K15d"][3], 512, 1040, 0)
 
 
 def test_mix_tiling():

@@ -196,15 +196,30 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     assert launch_counts() == before
 
 
-def test_splits_cover_k_without_empty_slices():
+@pytest.mark.parametrize("rule", ["ragged", "few_rows_tiling"])
+def test_splits_cover_k_without_empty_slices(rule):
+    """The ragged route's slices of K (`_splits`) and the few-row TMA
+    body's cluster (`few_rows_tiling`): every slice non-empty, together
+    covering K; the cluster within the portable 8, the ring at least three
+    stages of a tile."""
     for bits in (4, 8):
-        for R in (1, 8, 40, 256):
+        for R in (1, 8, 16, 40, 256):
             for K, N in ((5120, 5120), (5120, 1024), (5120, 17408),
                          (17408, 5120), (5120, 151936), (64, 24)):
-                steps = qm._steps(K, bits)
-                s = qm._splits(R, K, N, bits)
-                per = -(-steps // s)
-                assert 1 <= s <= steps and (s - 1) * per < steps
+                if rule == "ragged":
+                    steps = qm._steps(K, bits)
+                    s = qm._splits(R, K, N, bits)
+                    per = -(-steps // s)
+                    assert 1 <= s <= steps and (s - 1) * per < steps
+                    continue
+                bn, ck, stages = qm.few_rows_tiling(R, K, N, bits)
+                tiles = -(-K // qm.FEW_TILE_K[bits])
+                per = -(-tiles // ck)
+                assert bn == 128 and 1 <= ck <= qm.FEW_MAX_CLUSTER
+                assert (ck - 1) * per < tiles <= ck * per
+                assert stages >= 3
+                assert stages * qm.FEW_TILE_K[bits] * bn * bits // 8 >= (
+                    qm.FEW_RING_BYTES)
 
 
 @pytest.mark.cuda
@@ -320,6 +335,114 @@ def test_few_rows_threshold_and_shape_rule():
         assert not qm.rows_fit(fmt, 5120, 1024, 8)         # misaligned
         # N % 16: the bytes' rows are N bytes apart, the words' 4N
         assert qm.rows_fit(fmt, 1024, 1028, 16) == (fmt != "bytes")
+
+
+# ---------------------------------------------------------------------------
+# the few-row TMA body (csrc/quant_matmul.cuh): its grid rule, its shape
+# rule and the routes
+
+
+def test_few_rows_tiling():
+    """The few-row TMA body's grid, one rule for K10, K11a, K11b and K14:
+    K split over the largest cluster up to 8 whose ranks all hold a tile
+    (the fastest on the card at every Qwen3-14B projection), a ring of 4
+    stages of 8 KB (128 k of int4, 64 k of int8); every choice within a
+    block's shared memory; `ck` fixes the cluster, and none fits where x's
+    slice of 16 rows cannot."""
+    for K, N in ((5120, 17408), (17408, 5120), (5120, 5120), (5120, 1024),
+                 (5120, 151936)):
+        assert qm.few_rows_tiling(8, K, N) == (128, 8, 4)
+        assert qm.few_rows_tiling(8, K, N, bits=8) == (128, 8, 4)
+    assert qm.few_rows_tiling(8, 1152, 3456) == (128, 5, 4)   # 9 tiles: 5 x 2
+    assert qm.few_rows_tiling(8, 128, 3456) == (128, 1, 4)    # one tile
+    assert qm.few_rows_tiling(1, 5120, 17408) == qm.few_rows_tiling(
+        8, 5120, 17408)                        # 8 rows a block up to 8
+    assert qm.few_rows_tiling(8, 5120, 17408, ck=5) == (128, 5, 4)
+    assert qm.few_rows_tiling(8, 5120, 17408, ck=9) is None       # no rank
+    assert qm.few_rows_tiling(16, 65536, 1024) is None            # x slice
+    for R in (1, 4, 8, 9, 16, 40):
+        for bits in (4, 8):
+            for K, N in ((5120, 17408), (17408, 5120), (5120, 151936),
+                         (1152, 3456), (14336, 4096), (2368, 1168)):
+                bn, ck, stages = qm.few_rows_tiling(R, K, N, bits)
+                rows = 8 if R <= 8 else 16
+                tile = qm.FEW_TILE_K[bits]
+                tiles = -(-K // tile)
+                stage = tile * bn * bits // 8
+                recv = rows * bn * 4 + ck * 16 if ck > 1 else 0
+                smem = (1024 + stages * stage + recv
+                        + rows * (-(-tiles // ck) * 2 * tile + 64)
+                        + 16 * stages)
+                assert smem <= qm.FEW_SMEM
+                assert ck == min(8, tiles) or (ck * -(-tiles // (ck + 1))
+                                               >= tiles)
+
+
+def test_route_by_shape():
+    """Which body a call takes, by its shape alone: the few-row TMA body up
+    to `FEW_ROWS` rows (at any R when asked), the many-row body above, and
+    the ragged route wherever TMA cannot describe the weight (a row stride
+    off 16 bytes, an int4 K off the 64-value tile, an int8 K off 8, an
+    unaligned base; the int4 formats here also an N off 32) or x's slice of
+    16 rows cannot fit a block."""
+    F = qm.FEW_ROWS
+    for fmt in ("planes", "pairs", "bytes", "int8"):
+        assert qm.route(fmt, 1, 5120, 17408, 0) == "few"
+        assert qm.route(fmt, F, 5120, 17408, 0) == "few"
+        assert qm.route(fmt, F + 1, 5120, 17408, 0) == "rows"
+        assert qm.route(fmt, 300, 5120, 17408, 0, few_rows=True) == "few"
+        assert qm.route(fmt, 1, 5120, 17408, 8) == "ragged"     # misaligned
+        assert qm.route(fmt, 300, 5120, 17408, 8) == "ragged"
+        assert qm.route(fmt, 1, 5120, 1030, 0) == "ragged"      # N % 4
+        assert qm.few_fit(fmt, 32 * 1024, 1024, 0)
+        assert not qm.few_fit(fmt, 64 * 1024, 1024, 0)          # x slice
+    for fmt in ("planes", "pairs", "bytes"):
+        assert qm.route(fmt, 1, 5120 + 32, 1024, 0) == "ragged"  # K % 64
+    # N % 16 for int8 (its rows are N bytes apart); N % 32 for the int4
+    # formats (planes' stage is one box of 32-word groups; all three alike)
+    for fmt in ("planes", "pairs", "bytes"):
+        assert qm.route(fmt, 1, 1024, 1056, 0) == "few"
+        assert qm.route(fmt, 1, 1024, 1040, 0) == "ragged"
+        assert qm.route(fmt, 40, 1024, 1040, 0) == "rows"  # its N % 16
+    assert qm.route("int8", 1, 1024, 1040, 0) == "few"
+    assert qm.route("int8", 1, 1024, 1028, 0) == "ragged"
+    assert qm.route("int8", 1, 1000, 1040, 0) == "few"          # K % 8
+    assert qm.route("int8", 1, 999, 1040, 0) == "ragged"
+
+
+def _projections(model):
+    """(K, N) of every projection the port quantizes in `model`
+    (`models/quant.py DEFAULT_TARGETS`), at its published widths."""
+    from prot2text_tpu_torch.models.esmc import ESMCConfig
+    from prot2text_tpu_torch.models.llama import LlamaConfig
+    from prot2text_tpu_torch.models.qwen3 import Qwen3Config
+
+    if model == "ESMC-600M":
+        c = ESMCConfig.esmc_600m()
+        d, f = c.d_model, c.ffn_dim
+        return [(d, 3 * d), (d, d), (d, 2 * f), (f, d)]
+    c = (Qwen3Config.qwen3_14b() if model == "Qwen3-14B"
+         else LlamaConfig.llama_3_1_8b()).core()
+    H, D = c.hidden_size, c.head_dim
+    return [(H, c.num_heads * D), (H, c.num_kv_heads * D),
+            (c.num_heads * D, H), (H, c.intermediate_size),
+            (c.intermediate_size, H), (H, c.vocab_size)]
+
+
+@pytest.mark.parametrize("model", ["Qwen3-14B", "Llama-3.1-8B", "ESMC-600M"])
+def test_model_projections_take_the_tma_bodies(model):
+    """No projection of the port's models takes the ragged route, in any
+    weight format, at a decode step's rows or above: Qwen3-14B's and
+    Llama-3.1-8B's q, k/v, o, gate/up, down and LM head, ESMC-600M's qkv,
+    out_proj, ffn_in and ffn_out."""
+    shapes = _projections(model)
+    assert len(shapes) >= 4
+    for K, N in shapes:
+        for fmt in ("planes", "pairs", "bytes", "int8"):
+            for R in (1, 4, 8, 16, 40, 3072):
+                want = "few" if R <= qm.FEW_ROWS else "rows"
+                assert qm.route(fmt, R, K, N, 0) == want, (model, K, N, fmt,
+                                                           R)
 
 
 # weight format → the leaf's key, its packer from (K, N) integers, the
@@ -527,3 +650,73 @@ def test_rows_body_cluster_split_on_cuda(cuda, fmt):
     assert torch.equal(outs[0], outs[1])
     for o in (outs[0], outs[2]):
         assert (o.float() - want).abs().max().item() <= 2e-2 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
+@pytest.mark.parametrize("R", [1, 3, 8, 9, 16])
+def test_few_rows_body_matches_plain_on_cuda(cuda, fmt, R):
+    """The few-row TMA body (`_few_rows`, whatever the threshold: R 9 and
+    16 in two 8-row MMA tiles) at K 2368 (37 tiles: uneven K slices) and N
+    1184 (the last 128-column block past N), on the rule's grid and at
+    every cluster 1-8: f32 x within 1e-5 · max|plain|, bf16 x within 2e-2,
+    two launches bit-identical, the stacked entry at layer 2 of 3 equal to
+    the unstacked call on that layer's copy, and the route "few"."""
+    K, N = 2368, 1184
+    x, w, s, _ = _rows_operands(cuda, fmt, R, K, N, 70 + R + len(fmt), L=3)
+    assert qm.route(fmt, R, K, N, w[2].data_ptr(), few_rows=True) == "few"
+    want = FORMATS[fmt][2](x.float(), w[2], s[2])
+    top = want.abs().max().item()
+    bits = qm._FORMATS[fmt][2]
+    for xx, tol in ((x.float(), 1e-5), (x, 2e-2)):
+        got = qm._few_rows(xx, w, s, fmt, 2)
+        assert torch.equal(got, qm._few_rows(xx, w, s, fmt, 2))
+        assert torch.equal(got, qm._few_rows(xx, w[2].contiguous(), s[2],
+                                             fmt))
+        assert got.dtype == xx.dtype
+        assert (got.float() - want).abs().max().item() <= tol * top
+        for ck in range(1, qm.FEW_MAX_CLUSTER + 1):
+            tiling = qm.few_rows_tiling(R, K, N, bits=bits, ck=ck)
+            if tiling is None:
+                continue
+            outs = [qm.few_matmul(xx, w[2].data_ptr(), s[2].data_ptr(),
+                                  torch.empty((R, N), dtype=xx.dtype,
+                                              device=cuda), fmt, tiling)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0], outs[1]), (ck, xx.dtype)
+            err = (outs[0].float() - want).abs().max().item()
+            assert err <= tol * top, (ck, xx.dtype, err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
+def test_few_rows_ragged_route_on_cuda(cuda, fmt):
+    """Where TMA cannot describe the weight, the wrappers take the ragged
+    route (csrc/quant_matmul_ragged.cuh) by the shape rule: a row stride
+    off 16 bytes (N 1028 for int8, 1030 for the words), an int4 N off 32
+    (N 1040 for the bytes), an int4 K off the 64-value tile (K 1000) or an
+    int8 K off 8 (K 999), and
+    an unaligned base (a view one element into its buffer); each within
+    1e-5 (f32 x) and 2e-2 (bf16 x) of max|plain|, two launches
+    bit-identical."""
+    kern, plain = FORMATS[fmt][3], FORMATS[fmt][2]
+    n_bad = {"int8": 1028, "bytes": 1040}.get(fmt, 1030)
+    k_bad = 999 if fmt == "int8" else 1000
+    cases = [(1024, n_bad, 0), (k_bad, 1024, 0), (1024, 1024, 1)]
+    for K, N, offset in cases:
+        x, w, s, _ = _rows_operands(cuda, fmt, 8, K, N, K + N + offset)
+        w = w[0]
+        if offset:
+            buf = torch.empty(w.numel() + offset, dtype=w.dtype,
+                              device=cuda)
+            buf[offset:] = w.reshape(-1)
+            w = buf[offset:].view(w.shape)
+        assert qm.route(fmt, 8, K, N, w.data_ptr()) == "ragged", (K, N)
+        want = plain(x.float(), w, s[0])
+        top = want.abs().max().item()
+        for xx, tol in ((x.float(), 1e-5), (x, 2e-2)):
+            got = kern(xx, w, s[0])
+            assert torch.equal(got, kern(xx, w, s[0]))
+            err = (got.float() - want).abs().max().item()
+            assert err <= tol * top, (K, N, offset, xx.dtype, err)

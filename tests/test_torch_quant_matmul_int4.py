@@ -228,6 +228,26 @@ SHAPES = [(1, 64, 24), (4, 512, 1024), (16, 1024, 1030), (40, 2048, 640),
           (256, 256, 640), (3, 4096, 512), (5, 48, 128)]
 
 
+def test_int4_formats_share_the_few_rows_route_and_grid():
+    """The precondition of K11a's and K11b's bit identity with K10 at a
+    decode step's rows: on every shape where the three int4 formats take
+    the same route, the few-row TMA body gives them one grid (a rule of
+    R, K, N and the 4-bit stage alone, `few_rows_tiling`), so they run the same MMAs in the same
+    order and sum the same cluster partials; an N off 32 sends all three
+    to the ragged route alike."""
+    for R in (1, 4, 8):
+        for K, N in ((5120, 1024), (5120, 17408), (17408, 5120),
+                     (5120, 151936), (4096, 14336), (1152, 6144),
+                     (1024, 1056), (2368, 1184)):
+            ways = {qm.route(f, R, K, N, 0) for f in ("planes", "pairs",
+                                                      "bytes")}
+            assert ways == {"few"}, (R, K, N, ways)
+            assert qm.few_rows_tiling(R, K, N, 4) is not None
+        for N in (1028, 1040):            # N % 32 != 0: all ragged
+            assert {qm.route(f, R, 1024, N, 0) for f in (
+                "planes", "pairs", "bytes")} == {"ragged"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt,R,K,N", [("bytes",) + s for s in SHAPES]
                          + [("bytes", 2, 34, 40)]
@@ -257,12 +277,15 @@ def test_kernel_matches_plain_on_cuda(cuda, fmt, R, K, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,K,N", [(4, 5120, 1024), (16, 17408, 256),
-                                   (40, 2048, 640), (300, 1024, 640)])
+                                   (40, 2048, 640), (300, 1024, 640),
+                                   (1, 5120, 17408), (8, 5120, 17408),
+                                   (8, 17408, 5120), (5, 1024, 1040)])
 def test_kernels_against_k10_on_the_same_integers(cuda, R, K, N):
     """K11a and K11b build K10's fragments in both bodies and take K10's
     grid: bit-identical to K10's wrapper on the same integers at every R
-    (the few-row body at R 4, the many-row body at 16, 40 and 300), in f32
-    and bf16, unstacked and stacked."""
+    (the few-row TMA body at R 1-8, with K split over clusters of 2 and 7
+    at Qwen3-14B's gate/up and down; the many-row body at 16, 40 and 300),
+    in f32 and bf16, unstacked and stacked."""
     q, s, x = _cuda_case(cuda, "k10", R, K, N)
     for xx in (x, x.bfloat16()):
         planes = qm.quant_matmul_int4_planes_stacked(
