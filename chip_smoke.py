@@ -16,9 +16,13 @@ Phases (any failure raises and the script exits non-zero):
      ESMC-600M's SFT shapes (two launches bit-identical), K9a K4 over a
      shared prefix; on the int8
      cache K7 decode + slot write, K9b K7 over an int8 prefix, K8 chunk
-     verify + chunk write, K9c K8 over an int8 prefix (K9b/K9c on the
-     split body, K7/K8 on the SIMT body; each two launches bit-identical,
-     timed eagerly and from CUDA graphs);
+     verify + chunk write, K9c K8 over an int8 prefix (all four on the
+     split body's int8 policy, K7/K8 over its CacheCols columns and
+     K9b/K9c over PrefixCols, each route gated by the profiler's kernel
+     names; each two launches bit-identical, timed eagerly and from CUDA
+     graphs; K7/K8's eager times gated at half their SIMT body's, 0.2456
+     and 0.2647 ms on an H100 80GB HBM3 at 700 W), K7 also at
+     Llama-3.1-8B's lockstep shape with one scalar slot;
      K10 int4 and K14 int8 weight matmuls at Qwen3-14B's projections,
      K11a/K11b the int4 split-half-byte and bf16-pair-word matmuls at its
      gate/up (up to an install's 3072 rows), down and head, also bit for
@@ -98,7 +102,8 @@ Phases (any failure raises and the script exits non-zero):
      --spec_probe_every 2`, 8 x 32 (K8 per verify round and K7 per plain
      step of the controller's fallback); (d) `--prompt_lookup_tokens 4` on
      the bf16 pool, 8 x 32 (K6 per verify round); exact launch counts;
-     then two short profiled int8 runs, plain and speculative;
+     then three short profiled int8 runs, plain and speculative with the
+     prefix and the controller's without it (K7 and K8);
   4d. weight-quantized serving (the bf16 model freed first): the towers
      built by `build_server` with `--model_dtype int4` (bf16, then int4
      nibble planes) serve (e) `--kv_bits 8`, 16 x 128 (K10 per projection
@@ -1021,19 +1026,95 @@ def check_bias_bwd_kernel(torch, dev, card):
             fwd_times)
 
 
-def check_int8_kernels(torch, dev, card):
+# bf16 K7/K8's eager times on the SIMT body they left (an H100 80GB HBM3
+# at 700 W, PERF.md §6): the split body must take at most half
+INT8_SIMT_EAGER_MS = {"K7": 0.2456, "K8": 0.2647}
+# the kernel-name pattern of each int8 kernel's split route
+INT8_SPLIT_NAMES = {"K7": r"decode_split_kernel.*CacheCols.*Int8Cache",
+                    "K8": r"decode_split_kernel.*CacheCols.*Int8Cache",
+                    "K9b": r"decode_split_kernel.*PrefixCols.*Int8Cache",
+                    "K9c": r"decode_split_kernel.*PrefixCols.*Int8Cache"}
+
+
+def device_kernel_names(torch, fn) -> list | None:
+    """The device kernels one fn() launches, by name, from `torch.profiler`
+    (a session that records none is run again, up to three; then None)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return None
+
+
+def int8_case(torch, dev, g, B, Hkv, rep, G, D):
+    """bf16 qg (B, Hkv, G·rep, D) pre-scaled and the current tokens'
+    quantized k/v from `quantize_kv` ((B, Hkv, D) and (B, Hkv) for G 1)."""
+    from prot2text_tpu_torch.models.quant import quantize_kv
+
+    qg = (torch.randn(B, Hkv, G * rep, D, generator=g, device=dev)
+          * D ** -0.5).to(torch.bfloat16)
+    kq, ks = quantize_kv(torch.randn(B, Hkv, G, D, generator=g, device=dev))
+    vq, vs = quantize_kv(torch.randn(B, Hkv, G, D, generator=g, device=dev))
+    new = [kq, vq, ks, vs]
+    if G == 1:
+        new = [x[:, :, 0].contiguous() for x in new]
+    return qg, new
+
+
+def check_int8_case(torch, name, kern, plain, qg, cache, kv_mask, new,
+                    slots, pargs, layers) -> float:
+    """kern against plain on the same values (plain in fp32) at each of
+    `layers`: two launches bit-identical, the attention within atol/rtol
+    2e-2, the written int8 caches and scales bit-exact.  Returns the
+    largest |kernel - plain|."""
+    errs = []
+    for li in layers:
+        gcache = [t.clone() for t in cache]
+        a = kern(qg, *gcache, kv_mask, *new, li, slots, *pargs)
+        again = [t.clone() for t in cache]
+        a2 = kern(qg, *again, kv_mask, *new, li, slots, *pargs)
+        torch.cuda.synchronize()
+        require(torch.equal(a, a2) and all(
+            torch.equal(x, y) for x, y in zip(gcache, again)),
+            f"{name}: two launches differ")
+        del again, a2
+        wcache = [t.clone() for t in cache]
+        want = plain(qg.float(), *wcache, kv_mask, *new, li, slots, *pargs)
+        require(bool(torch.isfinite(a).all()), f"{name}: non-finite")
+        torch.testing.assert_close(a.float(), want, atol=2e-2, rtol=2e-2)
+        require(all(torch.equal(x, y) for x, y in zip(gcache, wcache)),
+                f"{name}: the written int8 cache or scales differ")
+        errs.append((a.float() - want).abs().max().item())
+        del gcache, wcache
+    return max(errs)
+
+
+def check_int8_kernels(torch, dev, card, gates: bool = True):
     """K7, K9b, K8 and K9c against their plain versions at the int8
     serving shapes of Qwen3-14B: B 8, Hkv 8, rep 5, D 128, T 1856 (the
     int8 pool under speculation with 128 new tokens), 535 valid columns per
     row, distinct slots and two inactive rows on one scratch slot (T - 1
     for decode, T - 64 for verify, the engine's rules), Pc 256 with 250
-    real tokens and row 6 gated off, G 5 (γ 4).  bf16 qg against the plain
-    version on the same values in fp32: attention atol/rtol 2e-2; the int8
-    caches and scales bit-exact after the write; two launches
-    bit-identical.  Times: eager CUDA events and the device time from CUDA
-    graphs (`graph_ms`) beside the bound and the plain version."""
+    real tokens and row 6 gated off, G 5 (γ 4); then K7 at Llama-3.1-8B's
+    lockstep shape (`generate_instruct.py --kv_bits 8`: L 32, B 4, Hkv 8,
+    rep 4, T 1280, left-padded rows, one scalar slot for every row).  bf16
+    qg against the plain version on the same values in fp32: attention
+    atol/rtol 2e-2; the int8 caches and scales bit-exact after the write;
+    two launches bit-identical.  Times: eager CUDA events and the device
+    time from CUDA graphs (`graph_ms`) beside the bound and the plain
+    version.  With `gates`, each call's route (the profiler's kernel names
+    against `INT8_SPLIT_NAMES`) and K7/K8's eager times against
+    `INT8_SIMT_EAGER_MS` must hold; without, the same checks and times
+    with the routes only printed (another tree's package, for an A/B)."""
     from prot2text_tpu_torch.kernels import decode_attention as da
-    from prot2text_tpu_torch.models.quant import quantize_kv
 
     g = torch.Generator(device=dev).manual_seed(8765)
     L, B, Hkv, rep, T, D, Pc, Ps = 40, 8, 8, 5, 1856, 128, 256, 250
@@ -1066,39 +1147,36 @@ def check_int8_kernels(torch, dev, card):
               da.decode_attention_stacked_verify_qc_plain, 5, False),
              ("K9c", da.decode_attention_stacked_verify_qc_prefix,
               da.decode_attention_stacked_verify_qc_prefix_plain, 5, True))
+
+    def route_of(name, fn, dtype, nrows, with_prefix):
+        """The body the call ran, by the profiler's kernel names: "split",
+        "SIMT" or, where the profiler recorded nothing, the rule's answer
+        (`int8_split_route`, which the C entry points apply too)."""
+        names = device_kernel_names(torch, fn)
+        rule = da.int8_split_route(dtype, nrows, with_prefix)
+        if names is None:
+            log(f"{name}: the profiler recorded no device kernel in three "
+                f"sessions; the route is the rule's, not measured")
+            route = "split" if rule else "SIMT"
+        elif any(re.search(INT8_SPLIT_NAMES[name], n) for n in names):
+            route = "split"
+        elif any("decode_attention_q_kernel" in n for n in names):
+            route = "SIMT"
+        else:
+            route = f"unknown {names}"
+        if gates:
+            require(route == "split" and rule,
+                    f"{name}: bf16 at {nrows} query rows must run the "
+                    f"split body's {INT8_SPLIT_NAMES[name]}, ran {route}")
+        return route
+
     for name, kern, plain, G, with_prefix in cases:
         slots = ends.to(torch.int32)
         slots[6:] = T - 1 if G == 1 else T - 64
-        qg = (torch.randn(B, Hkv, G * rep, D, generator=g, device=dev)
-              * D ** -0.5).to(torch.bfloat16)
-        kq, ks = quantize_kv(torch.randn(B, Hkv, G, D, generator=g,
-                                         device=dev))
-        vq, vs = quantize_kv(torch.randn(B, Hkv, G, D, generator=g,
-                                         device=dev))
-        new = [kq, vq, ks, vs]
-        if G == 1:
-            new = [x[:, :, 0].contiguous() for x in new]
+        qg, new = int8_case(torch, dev, g, B, Hkv, rep, G, D)
         pargs = (*prefix, pmask) if with_prefix else ()
-        errs = []
-        for li in (0, 23, L - 1):
-            gcache = [t.clone() for t in cache]
-            a = kern(qg, *gcache, kv_mask, *new, li, slots, *pargs)
-            again = [t.clone() for t in cache]
-            a2 = kern(qg, *again, kv_mask, *new, li, slots, *pargs)
-            torch.cuda.synchronize()
-            require(torch.equal(a, a2) and all(
-                torch.equal(x, y) for x, y in zip(gcache, again)),
-                f"{name}: two launches differ")
-            del again, a2
-            wcache = [t.clone() for t in cache]
-            want = plain(qg.float(), *wcache, kv_mask, *new, li, slots,
-                         *pargs)
-            require(bool(torch.isfinite(a).all()), f"{name}: non-finite")
-            torch.testing.assert_close(a.float(), want, atol=2e-2, rtol=2e-2)
-            require(all(torch.equal(x, y) for x, y in zip(gcache, wcache)),
-                    f"{name}: the written int8 cache or scales differ")
-            errs.append((a.float() - want).abs().max().item())
-            del gcache, wcache
+        err = check_int8_case(torch, name, kern, plain, qg, cache, kv_mask,
+                              new, slots, pargs, (0, 23, L - 1))
         # K8/K9c given the largest chunk start: no device→host read, so a
         # CUDA graph can hold the call
         kw = {} if G == 1 else {"slots_max": int(slots.max())}
@@ -1106,10 +1184,12 @@ def check_int8_kernels(torch, dev, card):
         def fn():
             return kern(qg, *cache, kv_mask, *new, 23, slots, *pargs, **kw)
 
-        ms = cuda_ms(torch, fn, iters=50)
+        # the eager time first: no profiler session just before it
+        ms = cuda_ms(torch, fn, iters=50, warmup=10)
         dev_ms = graph_ms(torch, fn)
         plain_ms = cuda_ms(torch, lambda: plain(qg, *cache, kv_mask, *new,
                                                 23, slots, *pargs), iters=20)
+        route = route_of(name, fn, qg.dtype, G * rep, with_prefix)
         # q, the output, the new tokens' values and scales (read, then
         # written into the cache as int8 + two fp32 scales), the masks
         fixed = (2 * nbytes(qg) + nbytes(*new, kv_mask, slots)
@@ -1117,22 +1197,79 @@ def check_int8_kernels(torch, dev, card):
                  + (nbytes(pmask) if with_prefix else 0))
         bd = decode_bound(torch, kv_mask, pmask if with_prefix else None,
                           Hkv, G * rep, D, 1, 8, fixed)
-        route = ("split" if da.int8_split_route(qg.dtype, G * rep,
-                                                with_prefix) else "SIMT")
         log(f"{name} int8 {'verify G=5' if G > 1 else 'decode'}"
             f"{' + prefix Pc=256 (row 6 gated off)' if with_prefix else ''}"
             f" L={L} B={B} Hkv={Hkv} rep={rep} T={T} D={D}, 535 valid "
             f"columns per row, rows 6-7 on one scratch slot, the {route} "
-            f"body: max|a-plain|={max(errs):.3e} (atol/rtol 2e-2), int8 "
+            f"body: max|a-plain|={err:.3e} (atol/rtol 2e-2), int8 "
             f"caches and scales bit-exact, two launches bit-identical; "
             f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs, "
             f"{bd['bound_ms'] / dev_ms:.1%} of the bound), plain "
             f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']}) per layer; no library call [{card}]")
-        rows[name] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+        if gates and name in INT8_SIMT_EAGER_MS:
+            simt = INT8_SIMT_EAGER_MS[name]
+            require(ms <= simt / 2, f"{name} eager {ms:.4f} ms > "
+                    f"{simt / 2:.4f} (half the SIMT body's {simt})")
+        rows[name] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                           bound_share=bd["bound_ms"] / dev_ms,
                           plain_ms=plain_ms, library_ms=None, **bd)
+    del cache, prefix
+    lock = check_int8_lockstep(torch, dev, card, g, route_of)
+    rows["K7"]["other_shapes"] = lock
+    rows["K7"]["max_abs_err"] = max(
+        rows["K7"]["max_abs_err"], *(r["max_abs_err"] for r in lock.values()))
     return rows
+
+
+def check_int8_lockstep(torch, dev, card, g, route_of) -> dict:
+    """K7 at Llama-3.1-8B's lockstep int8 shape: L 32, B 4, Hkv 8, rep 4,
+    T 1280, D 128 (32 clusters of 4, one block an SM), rows left-padded by
+    0-250 columns, every column before the step's one scalar slot 1100
+    valid, the slot broadcast to every row by the wrapper (checked with
+    the host int; timed on the broadcast (B,) slots, so that the times
+    hold the kernel and not the broadcast's fill)."""
+    from prot2text_tpu_torch.kernels import decode_attention as da
+
+    L, B, Hkv, rep, T, D, pos = 32, 4, 8, 4, 1280, 128, 1100
+    cache = [torch.randint(-127, 128, (L, B, Hkv, T, D), generator=g,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    cache += [torch.rand((L, B, Hkv, T), generator=g, device=dev) * 0.028
+              + 0.002 for _ in range(2)]
+    pads = torch.tensor([0, 17, 250, 3], device=dev)
+    cols = torch.arange(T, device=dev)
+    kv_mask = ((cols >= pads[:, None]) & (cols < pos)).to(torch.int32)
+    qg, new = int8_case(torch, dev, g, B, Hkv, rep, 1, D)
+    kern = da.decode_attention_stacked_write_q
+    plain = da.decode_attention_stacked_write_q_plain
+    err = check_int8_case(torch, "K7 lockstep", kern, plain, qg, cache,
+                          kv_mask, new, pos, (), (0, 17, L - 1))
+
+    slots = torch.full((B,), pos, dtype=torch.int32, device=dev)
+
+    def fn():
+        return kern(qg, *cache, kv_mask, *new, 17, slots)
+
+    ms = cuda_ms(torch, fn, iters=50, warmup=10)
+    dev_ms = graph_ms(torch, fn)
+    plain_ms = cuda_ms(torch, lambda: plain(qg, *cache, kv_mask, *new, 17,
+                                            slots), iters=20)
+    route = route_of("K7", fn, qg.dtype, rep, False)
+    fixed = (2 * nbytes(qg) + nbytes(*new, kv_mask, slots)
+             + B * Hkv * (2 * D + 8))
+    bd = decode_bound(torch, kv_mask, None, Hkv, rep, D, 1, 8, fixed)
+    log(f"K7 int8 decode, lockstep L={L} B={B} Hkv={Hkv} rep={rep} T={T} "
+        f"D={D}, slot {pos} for every row, 850-1100 valid columns a row, "
+        f"the {route} body: max|a-plain|={err:.3e} (atol/rtol 2e-2), int8 "
+        f"caches and scales bit-exact, two launches bit-identical; kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs, "
+        f"{bd['bound_ms'] / dev_ms:.1%} of the bound), plain "
+        f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}) per layer; no library call [{card}]")
+    return {"lockstep B4 Hkv8 rep4 T1280 D128": dict(
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bd["bound_ms"], bound_share=bd["bound_ms"] / dev_ms,
+        route=route)}
 
 
 # Qwen3-14B's projections (K, N) and the rows the serving path gives them:
@@ -2318,17 +2455,19 @@ def train_records(n: int, lengths, seed: int):
 
 TRAIN_FAMILIES = (("K1", K1_FWD), ("K5", K5_BWD), ("K6", K6_FWD),
                   ("K6b", K6B_BWD))
-# the profiled serving runs are bf16: K4, K9a and K9b/K9c run the split
-# body, told apart by its column and element policies, K7/K8 the SIMT
-# int8 body; K10/K14 are both of their bodies (the few-row
-# quant_mma/quant_matmul_reduce kernels, the many-row mm_rows kernel and
-# planes' x copy)
+# the profiled serving runs are bf16: K4, K9a, K7/K8 and K9b/K9c run the
+# split body, told apart by its column and element policies (K7/K8 over
+# CacheCols, K9b/K9c over PrefixCols); the SIMT int8 body (f32 q, or past
+# 32 query rows) keeps a family of its own; K10/K14 are both of their
+# bodies (the few-row quant_mma/quant_matmul_reduce kernels, the many-row
+# mm_rows kernel and planes' x copy)
 # the ragged route's kernels (csrc/quant_matmul_ragged.cuh; before the
 # few-row TMA body, every few-row call's)
 RAGGED_QUANT = "quant_mma_kernel|quant_matmul_reduce_kernel"
 SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
-                  ("K7/K8", "decode_attention_q_kernel"),
-                  ("K9b/K9c", r"decode_split_kernel.*Int8Cache"),
+                  ("K7/K8", r"decode_split_kernel.*CacheCols.*Int8Cache"),
+                  ("int8 SIMT", "decode_attention_q_kernel"),
+                  ("K9b/K9c", r"decode_split_kernel.*PrefixCols.*Int8Cache"),
                   ("K4", r"decode_split_kernel.*CacheCols.*SlotWrite"),
                   ("K9a", r"decode_split_kernel.*PrefixCols.*Bf16Cache"),
                   ("K10/K14 few-row", "few_rows_kernel"),
@@ -3002,24 +3141,58 @@ def run_serve_int8(torch, dev, card, tok, cfg, params, batches):
     require(dt == torch.bfloat16 and rounds > 0,
             f"run d: pool {dt}, {rounds} rounds")
 
-    # two short profiled runs of the int8 pool, plain decode and
-    # speculative: where a step's and a round's device time goes
+    # three short profiled runs of the int8 pool, plain decode and
+    # speculative with the prefix, and (c)'s controller without it: where
+    # a step's and a round's device time goes
+    for label, flags in INT8_WINDOWS:
+        serve_int8_window(torch, tok, cfg, params, dev, card, label, flags)
+    return paths
+
+
+# the profiled int8-pool serving windows, 8 x 12 tokens each: (label,
+# flags); the last is run (c)'s no-prefix controller (K7 and K8)
+INT8_WINDOWS = (
+    ("int8", ()),
+    ("int8 + prompt lookup 4", ("--prompt_lookup_tokens", "4")),
+    ("int8 + prompt lookup 4, no prefix, controller",
+     ("--shared_prefix", "false", "--prompt_lookup_tokens", "4",
+      "--spec_break_even", "100", "--spec_probe_every", "2")))
+
+
+def serve_int8_window(torch, tok, cfg, params, dev, card, label, flags):
+    """One short int8-pool serving run (8 x 12 tokens) under
+    torch.profiler on the model phase 4b built: its device time by kernel
+    family (`SERVE_FAMILIES`) and idle share, logged and returned."""
+    args_p = serve_args("--kv_bits", "8", "--max_new_tokens", "12", *flags)
+    batches_p = serve_batches(args_p, tok, 8, 7)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for label, flags in (("int8", ()), ("int8 + prompt lookup 4",
-                                        ("--prompt_lookup_tokens", "4"))):
-        args_p = serve_args("--kv_bits", "8", "--max_new_tokens", "12",
-                            *flags)
-        batches_p = serve_batches(args_p, tok, 8, 7)
-        with torch.profiler.profile(activities=acts) as prof:
-            run_p, _ = serve_once(torch, args_p, tok, cfg, params, batches_p,
-                                  dev, f"profiled {label}, 8 x 12 tokens",
-                                  card)
-        log(kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
-            + f" [{card}]")
-        del run_p, prof
-        gc.collect()
-    return paths
+    with torch.profiler.profile(activities=acts) as prof:
+        run_p, _ = serve_once(torch, args_p, tok, cfg, params, batches_p,
+                              dev, f"profiled {label}, 8 x 12 tokens", card)
+    text = kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
+    log(text + f" [{card}]")
+    del run_p, prof
+    gc.collect()
+    return text
+
+
+def serve_int8_windows(torch, dev, card, windows=INT8_WINDOWS[-1:]):
+    """`serve_int8_window` over `windows` (by default the no-prefix
+    controller's, K7 and K8) on a fresh bf16 server (the CLI's defaults):
+    for an A/B of two trees' packages (run this file's function with the
+    other tree first on `sys.path`).  Returns the breakdowns."""
+    from prot2text_tpu_torch.cli.serve import build_server
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+
+    tok = ByteTextTokenizer()
+    cfg, params = build_server(serve_args(), tok, dev)
+    out = [serve_int8_window(torch, tok, cfg, params, dev, card, label,
+                             flags) for label, flags in windows]
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def quant_launches(eng, cfg, batches) -> int:

@@ -74,9 +74,9 @@ SIGNATURES = {
     "p2t_decode_attention_write_q": [_P] * 17 + [_I] * 7 + [_P],
     # the same pointers, then B, Hkv, rep, G, T, Pc, D, dtype, stream
     "p2t_decode_attention_verify": [_P] * 17 + [_I] * 8 + [_P],
-    # rows (K9b/K9c) or prefix (K4/K9a), D, out int: the split body's
-    # resident clusters
-    "p2t_decode_split_int8_resident": [_I, _I, _P],
+    # the split body's resident clusters: prefix (K9b/K9c) or not (K7/K8),
+    # rows, D, out int; prefix (K9a) or not (K4), D, out int
+    "p2t_decode_split_int8_resident": [_I, _I, _I, _P],
     "p2t_decode_split_bf16_resident": [_I, _I, _P],
     # the ragged route: x, w (layer), scale (layer), out, partial, R, K, N,
     # bits, splits, dtype, stream

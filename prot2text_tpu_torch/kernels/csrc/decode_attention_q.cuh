@@ -2,10 +2,10 @@
 // stacked int8 (L, B, Hkv, T, D) KV cache with per-(head, token) fp32
 // scales, fused with the in-place write of the G current tokens' int8 k/v
 // and scales at columns [slots[b], slots[b] + G) — the SIMT body of K7
-// (G = 1, csrc/decode_attention_write_q.cu) and K8 (a G-token speculative
-// chunk, csrc/decode_attention_verify.cu) at every dtype, and of K9b/K9c
-// with f32 q or past the cluster-split body's 32 query rows (bf16 K9b/K9c
-// within them run decode_attention_split.cuh's Int8Cache policy).
+// (G = 1, csrc/decode_attention_write_q.cu), K8 (a G-token speculative
+// chunk, csrc/decode_attention_verify.cu), K9b and K9c for f32 q and for
+// calls past the cluster-split body's 32 query rows, its only users: bf16
+// K7-K9c within them run decode_attention_split.cuh's Int8Cache policy.
 // K9b/K9c add a read-only int8 shared-prefix operand (L, 1, Hkv, Pc, D)
 // with scales (L, 1, Hkv, Pc), gated per row by pmask.
 //
@@ -32,7 +32,7 @@
 // on 132 SMs, every column walked in series, and a verify call with 25
 // rows runs 4 row tiles, each re-reading the slab (from L2 at the serving
 // shape: a (b, head) slab is ~0.5 MB) — what the split body's Int8Cache
-// policy does away with for K9b/K9c, and K7/K8 are to take next.  Only
+// policy does away with for bf16 K7-K9c within 32 rows.  Only
 // row tile 0 writes the G new rows, after its last read; the written
 // columns have kv_mask 0, so no block of the same slab reads them, and no
 // other block touches the slab.  Registers (ptxas -v on sm_90a, logged by

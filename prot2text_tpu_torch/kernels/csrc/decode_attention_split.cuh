@@ -1,26 +1,28 @@
 // The decode attention whose key columns are split across a thread-block
 // cluster: the bf16 route of K2 (decode_attention.cu), K4 and K9a
-// (decode_attention_write.cu), and the bf16 route of K9b
-// (decode_attention_write_q.cu) and K9c (decode_attention_verify.cu) over
-// the int8 pool; their f32 routes, and K7/K8 at every dtype, keep the SIMT
-// bodies of those files (decode_attention_q.cuh for the int8 ones).  Three
-// policies make each kernel of the one body:
+// (decode_attention_write.cu), and the bf16 route, up to kMaxRows query
+// rows, of K7 and K9b (decode_attention_write_q.cu) and K8 and K9c
+// (decode_attention_verify.cu) over the int8 pool; f32 q, and an int8
+// call past kMaxRows rows, are the only users of the SIMT bodies of those
+// files (decode_attention_q.cuh for the int8 ones).  Three policies make
+// each kernel of the one body:
 //   - a column policy names the columns and counts their tiles:
-//     `CacheCols` (K2, K4) the slot cache's, `PrefixCols` (K9a, K9b, K9c)
-//     [shared prefix ‖ slot cache];
+//     `CacheCols` (K2, K4, K7, K8) the slot cache's, `PrefixCols` (K9a,
+//     K9b, K9c) [shared prefix ‖ slot cache];
 //   - an element policy: `Bf16Cache` (K2, K4, K9a) bf16 tiles and one bf16
-//     current column; `Int8Cache` (K9b, K9c) int8 tiles with per-column
-//     fp32 k and v scales, and G current columns (a verify chunk; G = 1 for
-//     K9b) as exact-integer fp32 rows with their scales;
+//     current column; `Int8Cache` (K7, K8, K9b, K9c) int8 tiles with
+//     per-column fp32 k and v scales, and G current columns (a verify
+//     chunk; G = 1 for K7/K9b) as exact-integer fp32 rows with their
+//     scales;
 //   - a write policy: `SlotWrite` (K4, K9a) stores row b's bf16 k/v into
-//     slot slots[b] after the reads, `ChunkWrite` (K9b, K9c) the G int8 k/v
-//     rows and their scales at [slots[b], slots[b] + G), `NoWrite` (K2)
-//     leaves the cache as it is (lockstep generation writes the slot with
-//     K3 after the layer loop).
+//     slot slots[b] after the reads, `ChunkWrite` (K7, K8, K9b, K9c) the G
+//     int8 k/v rows and their scales at [slots[b], slots[b] + G),
+//     `NoWrite` (K2) leaves the cache as it is (lockstep generation writes
+//     the slot with K3 after the layer loop).
 //
 // Contract (as the SIMT bodies and the TPU kernels): q pre-scaled, logits
 // fp32; a block holds all `rows` query rows of its kv head (K2/K4/K9a: the
-// rep heads; K9b/K9c: G·rep, row g·rep + r = chunk token g, replica r);
+// rep heads; K7-K9c: G·rep, row g·rep + r = chunk token g, replica r);
 // masked columns (kv_mask == 0, pmask == 0 for the prefix) take no weight
 // and are never read; the current columns are extra logit columns, chunk
 // column g visible to row i when g <= i / rep; the softmax runs over
@@ -28,23 +30,24 @@
 // and their sum stays fp32; m starts at -1e30 and stays finite, so a block
 // whose whole share is masked contributes l = 0 and no NaN, and a row with
 // no valid column gives the current columns' mix.  Int8Cache adds the TPU
-// kernels' rounding points (`_kernel_write_q_p`, `_kernel_verify_qc_p`):
+// kernels' rounding points (`_kernel_write_q[_p]`, `_kernel_verify_qc[_p]`):
 // int8 → bf16 is exact, so the products are the bf16 ones; a column's
 // logit is the fp32 q·k_int times its k scale, per key after the product;
 // its weight times its v scale is rounded to bf16 before it meets v_int;
-// the current columns stay fp32 (K9b: q·(kq·ks), dequantized first; K9c:
-// (q·kq)·ks), their weights times vs meet vq unrounded.  The write policy
-// runs after every read of its (b, kv head) slab (a slot whose kv_mask is
-// 1 is read as it was before the write); inactive rows may share a
-// scratch slot, since each row owns its slab.
+// the current columns stay fp32 (K7/K9b: q·(kq·ks), dequantized first;
+// K8/K9c: (q·kq)·ks), their weights times vs meet vq unrounded.  The write
+// policy runs after every read of its (b, kv head) slab (a slot whose
+// kv_mask is 1 is read as it was before the write); inactive rows may
+// share a scratch slot, since each row owns its slab.
 //
 // Bound: bytes.  A call reads each valid cache column of every (b, kv head)
 // once (K2 at Llama-3.1-8B's generation shape, B 4, Hkv 8, rep 4, D 128,
 // T 1280 with ~1040 valid columns a row: 5.1 us at 3.35 TB/s; K4/K9a at the
 // Qwen3-14B serving shape, B 8, Hkv 8, rep 5, T 1936 with ~500-800 valid
-// columns a row and, K9a, a 256-column prefix: 5.3-5.6 us; K9b/K9c on the
+// columns a row and, K9a, a 256-column prefix: 5.3-5.6 us; K7/K8 on the
 // int8 pool, T 1856, 535 valid columns, half the bytes and 8 of scales a
-// column: 2.9 and 3.2 us) for ~2 FLOP a byte a query row (K9c: 25 rows).
+// column: 2.8 and 3.1 us, K9b/K9c with the prefix 2.9 and 3.2 us) for ~2
+// FLOP a byte a query row (K8/K9c: 25 rows).
 // The SIMT bodies take one block per (b, kv head[, 8 query rows]), 64
 // blocks on 132 SMs at the serving shape (K9c: 4 row tiles, each reading
 // the slab again), and walk all columns in series in chunks of 256 with
@@ -68,7 +71,7 @@
 //     pass of all threads between two block barriers, so the products
 //     below read bf16 tiles either way.  The int8 ring is two stages deep
 //     so that a block stays under 76 KB of shared memory: three blocks an
-//     SM, and the H100 holds 92 clusters of 4
+//     SM, and the H100 holds 92 clusters of 4 of either column policy
 //     (cudaOccupancyMaxActiveClusters, scripts/sweep_decode_split.py), all
 //     64 of the serving shape at once.  Deeper rings (106-110 KB) fit two
 //     blocks an SM, fewer than 64 clusters, and two ran as a second wave
@@ -295,7 +298,9 @@ struct Int8Cache {
   static constexpr int kStages = 2;
   static constexpr int kMaxNew = kMaxRows;
   // the block that owns the fewest tiles (rank r owns (n - 1 - r) / 4 + 1
-  // of n) folds in the current columns
+  // of n, at every n) folds in the current columns; a row of fewer than
+  // kCluster tiles (CacheCols at T <= 192) leaves it none, and it only
+  // folds
   static constexpr int kFoldRank = kCluster - 1;
   const float* kq;
   const float* vq;
@@ -1094,17 +1099,51 @@ cudaError_t resident_clusters(int D, int rows, int* n) {
   return dispatch<E>(D, rows, Resident<Cols, E, Write>{n});
 }
 
-// K9b and K9c on bf16 q: whether the shape takes this body (the rule the
-// wrappers state as `decode_attention.int8_split_route`)
-inline bool int8_takes(int dtype, int Pc, int rows) {
-  return dtype == p2t::kBFloat16 && Pc > 0 && rows <= kMaxRows;
+// K7, K8, K9b and K9c's untyped arguments (as p2t_decode_attention_verify's,
+// G current rows of rep query heads each; dequant_first 1: K7/K9b's
+// q·(kq·ks), 0: K8/K9c's (q·kq)·ks) → the Int8Cache body over column
+// policy Cols (CacheCols reads no prefix pointer)
+template <class Cols>
+cudaError_t run_int8(const void* qg, void* ck, void* cv, void* sk, void* sv,
+                     const void* kv_mask, const void* kq, const void* vq,
+                     const void* ks, const void* vs, const void* slots,
+                     const void* pk, const void* pv, const void* psk,
+                     const void* psv, const void* pmask, void* out, int B,
+                     int Hkv, int rep, int G, int T_len, int Pc, int D,
+                     int dequant_first, cudaStream_t stream) {
+  const Params<int8_t> p = {
+      static_cast<const bf16*>(qg), static_cast<const int8_t*>(ck),
+      static_cast<const int8_t*>(cv), static_cast<const float*>(sk),
+      static_cast<const float*>(sv), static_cast<const int32_t*>(kv_mask),
+      static_cast<const int8_t*>(pk), static_cast<const int8_t*>(pv),
+      static_cast<const float*>(psk), static_cast<const float*>(psv),
+      static_cast<const int32_t*>(pmask), static_cast<bf16*>(out),
+      Hkv, rep, G * rep, T_len, Pc};
+  const Int8Cache e = {static_cast<const float*>(kq),
+                       static_cast<const float*>(vq),
+                       static_cast<const float*>(ks),
+                       static_cast<const float*>(vs), G, dequant_first};
+  const ChunkWrite w = {static_cast<int8_t*>(ck), static_cast<int8_t*>(cv),
+                        static_cast<float*>(sk), static_cast<float*>(sv),
+                        static_cast<const int32_t*>(slots)};
+  return run<Cols>(D, p, e, w, B, stream);
+}
+
+// K7, K8, K9b and K9c on bf16 q: whether the shape takes this body (the
+// rule the wrappers state as `decode_attention.int8_split_route`), with
+// the shared prefix (PrefixCols) or without it (CacheCols)
+inline bool int8_takes(int dtype, int rows) {
+  return dtype == p2t::kBFloat16 && rows <= kMaxRows;
 }
 
 }  // namespace split
 }  // namespace
 
-// bf16 K9b and K9c on this body's int8 policy, defined in
-// decode_attention_split_q.cu (the shapes `split::int8_takes` gives it)
+// bf16 K7, K8, K9b and K9c on this body's int8 policy, defined in
+// decode_attention_split_q.cu (the shapes `split::int8_takes` gives it):
+// Pc > 0 with the prefix's pointers over PrefixCols (K9b, K9c), Pc == 0
+// with null prefix pointers over CacheCols (K7, K8), whose instantiations
+// decode_attention_split_qc.cu holds (p2t_decode_split_int8_cache)
 extern "C" int p2t_decode_split_int8(
     const void* qg, void* ck, void* cv, void* sk, void* sv,
     const void* kv_mask, const void* kq, const void* vq, const void* ks,
@@ -1112,3 +1151,10 @@ extern "C" int p2t_decode_split_int8(
     const void* psk, const void* psv, const void* pmask, void* out, int B,
     int Hkv, int rep, int G, int T_len, int Pc, int D, int dequant_first,
     void* stream);
+extern "C" int p2t_decode_split_int8_cache(
+    const void* qg, void* ck, void* cv, void* sk, void* sv,
+    const void* kv_mask, const void* kq, const void* vq, const void* ks,
+    const void* vs, const void* slots, void* out, int B, int Hkv, int rep,
+    int G, int T_len, int D, int dequant_first, void* stream);
+extern "C" int p2t_decode_split_int8_cache_resident(int rows, int D,
+                                                    void* n);

@@ -14,15 +14,16 @@
 // artefacts: here exactly the G rows are stored, so the kernel needs only
 // slots[b] + G <= T (the wrapper checks it; the serving engine keeps the
 // TPU rule slots[b] <= T - 64 so the pools keep their shapes).  Bound:
-// bytes.  bf16 K9c with G·rep <= 32 query rows (`split::int8_takes`, the
-// wrappers' `int8_split_route`) runs the cluster-split tensor-core body of
-// decode_attention_split.cuh (policies PrefixCols, Int8Cache and
-// ChunkWrite, the chunk's key dot scaled after the product; all G·rep rows
-// in one block, so the slab is read once; its header states the design)
-// through decode_attention_split_q.cu.
-// K8, f32 K9c and a K9c past 32 rows run the SIMT body of
-// decode_attention_q.cuh, whose header states its numerics and design;
-// this is its G-token instance.
+// bytes.  bf16 K8 and K9c with G·rep <= 32 query rows
+// (`split::int8_takes`, the wrappers' `int8_split_route`) run the
+// cluster-split tensor-core body of decode_attention_split.cuh (policies
+// Int8Cache and ChunkWrite, the chunk's key dot scaled after the product;
+// K8 over CacheCols, K9c over PrefixCols; all G·rep rows in one block, so
+// the slab is read once; its header states the design) through
+// decode_attention_split_q.cu.  f32 q, and a call past 32 rows, run the
+// SIMT body of decode_attention_q.cuh, whose header states its numerics
+// and design; this is its G-token instance.  The route is the shape's: a
+// failure of the split body raises, it never falls back to the SIMT body.
 #include "decode_attention_q.cuh"
 #include "decode_attention_split.cuh"
 
@@ -33,7 +34,7 @@ extern "C" int p2t_decode_attention_verify(
     const void* psk, const void* psv, const void* pmask, void* out, int B,
     int Hkv, int rep, int G, int T_len, int Pc, int D, int dtype,
     void* stream) {
-  if (G > 0 && split::int8_takes(dtype, Pc, G * rep))
+  if (G > 0 && split::int8_takes(dtype, G * rep))
     return p2t_decode_split_int8(qg, ck, cv, sk, sv, kv_mask, kq, vq, ks, vs,
                                  slots, pk, pv, psk, psv, pmask, out, B, Hkv,
                                  rep, G, T_len, Pc, D,

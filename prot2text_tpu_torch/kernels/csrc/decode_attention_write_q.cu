@@ -11,15 +11,16 @@
 // TPU kernels rewrote the slot's 32-row int8 tile group and the layer's
 // whole scale rows through aliased outputs; here the kernel stores exactly
 // the one row and its two scales.  Bound: bytes (~540 valid columns × 2 ×
-// 128 bytes + 8 of scales per (b, kv head) at the serving shape).  bf16
-// K9b with at most 32 query rows (`split::int8_takes`, the wrappers'
-// `int8_split_route`) runs the cluster-split tensor-core body of
-// decode_attention_split.cuh (policies PrefixCols, Int8Cache and
-// ChunkWrite, G = 1, the current key dequantized before the dot; its
-// header states the design) through decode_attention_split_q.cu.  K7,
-// f32 K9b and a K9b past 32 rows run the SIMT body of
-// decode_attention_q.cuh, whose header states its numerics and design;
-// this is its G = 1 instance.
+// 128 bytes + 8 of scales per (b, kv head) at the serving shape).  bf16 K7
+// and K9b with at most 32 query rows (`split::int8_takes`, the wrappers'
+// `int8_split_route`) run the cluster-split tensor-core body of
+// decode_attention_split.cuh (policies Int8Cache and ChunkWrite, G = 1,
+// the current key dequantized before the dot; K7 over CacheCols, K9b over
+// PrefixCols; its header states the design) through
+// decode_attention_split_q.cu.  f32 q, and a call past 32 rows, run the
+// SIMT body of decode_attention_q.cuh, whose header states its numerics
+// and design; this is its G = 1 instance.  The route is the shape's: a
+// failure of the split body raises, it never falls back to the SIMT body.
 #include "decode_attention_q.cuh"
 #include "decode_attention_split.cuh"
 
@@ -32,7 +33,7 @@ extern "C" int p2t_decode_attention_write_q(
     const void* vs, const void* slots, const void* pk, const void* pv,
     const void* psk, const void* psv, const void* pmask, void* out, int B,
     int Hkv, int rep, int T_len, int Pc, int D, int dtype, void* stream) {
-  if (split::int8_takes(dtype, Pc, rep))
+  if (split::int8_takes(dtype, rep))
     return p2t_decode_split_int8(qg, ck, cv, sk, sv, kv_mask, kq, vq, ks, vs,
                                  slots, pk, pv, psk, psv, pmask, out, B, Hkv,
                                  rep, /*G=*/1, T_len, Pc, D,

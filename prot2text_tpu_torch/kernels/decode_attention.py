@@ -15,11 +15,11 @@ with a read-only shared-prefix operand (L, 1, Hkv, Pc, D) gated per row by
 one column-split cluster body, `csrc/decode_attention_split.cuh` (column
 policy `CacheCols` for K2 and K4, `PrefixCols` for K9a; K2 writes nothing),
 one launch a call; f32 runs the SIMT bodies of the two `.cu` files.  bf16
-K9b and K9c run the same body with int8 tiles (below).  A shape the body
-refuses (more column tiles than its blocks may own) raises; nothing falls
-back to another body.  Each kernel's header states what
-bounds it and what its design does about that.  The `_plain` functions are
-the plain PyTorch versions.
+K7, K8, K9b and K9c up to 32 query rows run the same body with int8 tiles
+(below).  A shape the body refuses (more column tiles than its blocks may
+own) raises; nothing falls back to another body.  Each kernel's header
+states what bounds it and what its design does about that.  The `_plain`
+functions are the plain PyTorch versions.
 
 Contract (as the JAX kernels): qg (B, Hkv, rep, D) pre-scaled; ck_all/
 cv_all (L, B, Hkv, T, D); kv_mask (B, T) 0/1 over already-written slots
@@ -278,14 +278,14 @@ def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
 # ---------------------------------------------------------------------------
 # int8 KV cache: K7 and K9b (one token per row), K8 and K9c (a G-token
 # speculative chunk per row), kernels csrc/decode_attention_write_q.cu and
-# csrc/decode_attention_verify.cu.  bf16 K9b and K9c with at most
-# SPLIT_ROWS query rows (`int8_split_route`) run the cluster-split
-# tensor-core body csrc/decode_attention_split.cuh (policies PrefixCols,
-# Int8Cache and ChunkWrite: int8 tiles converted to bf16 in shared memory,
-# all G·rep rows of a kv head in one block); K7 and K8 at every dtype, f32
-# K9b/K9c and a K9b/K9c past SPLIT_ROWS rows run the SIMT body
-# csrc/decode_attention_q.cuh.  The route is the shape's, never a launch's
-# outcome: a call on the card launches its body or raises.
+# csrc/decode_attention_verify.cu.  bf16 q with at most SPLIT_ROWS query
+# rows (`int8_split_route`) runs the cluster-split tensor-core body
+# csrc/decode_attention_split.cuh (policies Int8Cache and ChunkWrite: int8
+# tiles converted to bf16 in shared memory, all G·rep rows of a kv head in
+# one block; column policy CacheCols for K7/K8, PrefixCols for K9b/K9c);
+# f32 q, and a call past SPLIT_ROWS rows, run the SIMT body
+# csrc/decode_attention_q.cuh, its only users.  The route is the shape's,
+# never a launch's outcome: a call on the card launches its body or raises.
 #
 # Contract (as the JAX kernels): qg (B, Hkv, G·rep, D) pre-scaled, row
 # g·rep + r = chunk token g, head replica r (G = 1: (B, Hkv, rep, D));
@@ -318,25 +318,29 @@ SPLIT_ROWS = 32                 # the split body's rows (csrc split::kMaxRows)
 def int8_split_route(dtype, rows: int, prefix: bool) -> bool:
     """Whether an int8-pool attention call on the card runs the
     cluster-split tensor-core body (True) or the SIMT body (False): bf16
-    q, the shared prefix (K9b, K9c) and rows = G·rep <= SPLIT_ROWS query
-    rows; the rule `split::int8_takes` applies in the C entry points.
-    Past the body's column limit (more than 256 tiles of 64 columns a
-    block, a cluster of 4: Pc + T > 65536) the split route raises."""
-    return dtype == torch.bfloat16 and prefix and rows <= SPLIT_ROWS
+    q and rows = G·rep <= SPLIT_ROWS query rows, with the shared prefix
+    (K9b, K9c: column policy PrefixCols) or without it (K7, K8:
+    CacheCols); the rule `split::int8_takes` applies in the C entry
+    points.  Past the body's column limit (more than 256 tiles of 64
+    columns a block, a cluster of 4: Pc + T > 65536) the split route
+    raises."""
+    del prefix                  # either column policy takes the same rows
+    return dtype == torch.bfloat16 and rows <= SPLIT_ROWS
 
 
 def split_resident_clusters(int8: bool, rows: int, D: int,
                             prefix: bool = True) -> int:
     """How many clusters of the cluster-split body's instantiation the card
     holds at once (`cudaOccupancyMaxActiveClusters`): int8, bf16 K9b/K9c's
-    at `rows` query rows; else bf16 K9a's (prefix) or K4's.  A launch of
-    B·Hkv clusters above it runs the rest as a second wave.  Card only."""
+    (prefix) or K7/K8's at `rows` query rows; else bf16 K9a's (prefix) or
+    K4's.  A launch of B·Hkv clusters above it runs the rest as a second
+    wave.  Card only."""
     import ctypes
 
     n = ctypes.c_int()
     lib = _build.library()
     if int8:
-        err = lib.p2t_decode_split_int8_resident(rows, D,
+        err = lib.p2t_decode_split_int8_resident(int(prefix), rows, D,
                                                  ctypes.addressof(n))
     else:
         err = lib.p2t_decode_split_bf16_resident(int(prefix), D,
@@ -465,6 +469,11 @@ def decode_attention_stacked_verify_qc_prefix_plain(
 
 def _check_q(name, qg, ck_all, cv_all, sk_all, sv_all, kv_mask, kq, vq, ks,
              vs, layer, G, prefix):
+    """The CUDA wrappers' checks; G None: one token a row (K7, K9b), its
+    k/v (B, Hkv, D) and scales (B, Hkv), taken as they are (no view: the
+    host path is most of an eager call)."""
+    one = G is None
+    G = 1 if one else G
     dev = qg.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -480,15 +489,16 @@ def _check_q(name, qg, ck_all, cv_all, sk_all, sv_all, kv_mask, kq, vq, ks,
             or GR > MAX_ROWS:
         raise ValueError(f"{name}: qg {tuple(qg.shape)} vs cache "
                          f"{tuple(ck_all.shape)} and G={G}")
+    new = (B, Hkv) if one else (B, Hkv, G)
     want = [("ck_all", ck_all, torch.int8, (L, B, Hkv, T, D)),
             ("cv_all", cv_all, torch.int8, (L, B, Hkv, T, D)),
             ("sk_all", sk_all, torch.float32, (L, B, Hkv, T)),
             ("sv_all", sv_all, torch.float32, (L, B, Hkv, T)),
             ("kv_mask", kv_mask, torch.int32, (B, T)),
-            ("k_new_q", kq, torch.float32, (B, Hkv, G, D)),
-            ("v_new_q", vq, torch.float32, (B, Hkv, G, D)),
-            ("k_new_s", ks, torch.float32, (B, Hkv, G)),
-            ("v_new_s", vs, torch.float32, (B, Hkv, G))]
+            ("k_new_q", kq, torch.float32, new + (D,)),
+            ("v_new_q", vq, torch.float32, new + (D,)),
+            ("k_new_s", ks, torch.float32, new),
+            ("v_new_s", vs, torch.float32, new)]
     if prefix is not None:
         pk_all, pv_all, psk_all, psv_all, pmask = prefix
         Pc = pk_all.shape[3] if pk_all.dim() == 5 else 0
@@ -500,7 +510,7 @@ def _check_q(name, qg, ck_all, cv_all, sk_all, sv_all, kv_mask, kq, vq, ks,
                  ("psv_all", psv_all, torch.float32, (L, 1, Hkv, Pc)),
                  ("pmask", pmask, torch.int32, (B, Pc))]
     for n, t, dt, shape in want:
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+        if t.dtype != dt or t.shape != shape or t.device != dev \
                 or not t.is_contiguous():
             raise ValueError(f"{name}: {n} must be a contiguous {dt} tensor "
                              f"of shape {shape} on {dev}, got "
@@ -547,17 +557,18 @@ def decode_attention_stacked_write_q(qg, ck_all, cv_all, sk_all, sv_all,
     """K7: int8-cache decode attention + in-place int8 slot write of row
     b's current token at slots[b] (a scalar slot is broadcast: lockstep
     generation).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel (or raise).  A slot outside [0, T) is not written (the plain
+    the kernel (or raise): bf16 q within SPLIT_ROWS rows the split body's
+    CacheCols + Int8Cache instantiation (`int8_split_route`), f32 q or more
+    rows the SIMT body.  A slot outside [0, T) is not written (the plain
     version raises on one)."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_write_q_plain(
             qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,
             k_new_s, v_new_s, layer, slots)
     layer = int(layer)
-    args = (k_new_q[:, :, None], v_new_q[:, :, None], k_new_s[:, :, None],
-            v_new_s[:, :, None])
+    args = (k_new_q, v_new_q, k_new_s, v_new_s)
     _check_q("K7", qg, ck_all, cv_all, sk_all, sv_all, kv_mask, *args, layer,
-             1, None)
+             None, None)
     out = _launch_q("p2t_decode_attention_write_q", qg, ck_all, cv_all,
                     sk_all, sv_all, kv_mask, *args, layer,
                     _slots(slots, qg.shape[0], qg.device), None, 1)
@@ -582,11 +593,10 @@ def decode_attention_stacked_write_q_prefix(
             k_new_s, v_new_s, layer, slots, pk_all, pv_all, psk_all,
             psv_all, pmask)
     layer = int(layer)
-    args = (k_new_q[:, :, None], v_new_q[:, :, None], k_new_s[:, :, None],
-            v_new_s[:, :, None])
+    args = (k_new_q, v_new_q, k_new_s, v_new_s)
     prefix = (pk_all, pv_all, psk_all, psv_all, pmask)
     _check_q("K9b", qg, ck_all, cv_all, sk_all, sv_all, kv_mask, *args,
-             layer, 1, prefix)
+             layer, None, prefix)
     out = _launch_q("p2t_decode_attention_write_q", qg, ck_all, cv_all,
                     sk_all, sv_all, kv_mask, *args, layer,
                     _slots(slots, qg.shape[0], qg.device), prefix, 1)
@@ -616,7 +626,10 @@ def decode_attention_stacked_verify_qc(qg, ck_all, cv_all, sk_all, sv_all,
     """K8: chunk-verify attention over the int8 cache + in-place write of
     the chunk's G int8 rows and scales at [slots[b], slots[b] + G).  CPU
     tensors run the plain version; CUDA tensors launch the kernel (or
-    raise, also when a chunk would end past the cache)."""
+    raise, also when a chunk would end past the cache): bf16 q within
+    SPLIT_ROWS = G·rep rows the split body's CacheCols + Int8Cache
+    instantiation (`int8_split_route`), f32 q or more rows the SIMT
+    body."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_verify_qc_plain(
             qg, ck_all, cv_all, sk_all, sv_all, kv_mask, k_new_q, v_new_q,

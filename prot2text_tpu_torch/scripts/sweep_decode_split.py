@@ -2,19 +2,23 @@
 Qwen3-14B's int8 serving shape: where its time goes and how many of its
 clusters the card holds.
 
-bf16 K9b (G 1) and K9c run the body's int8 policy (Int8Cache), K9a its
-bf16 policy, on B 8 rows, Hkv 8, D 128, a pool of T 1856 columns (535
-valid a row at left pads 0-250), a 256-column shared prefix (250 live; row
-6 gated off), two inactive rows on one scratch slot: `check_int8_kernels`'
-and `check_serve_kernels`' operands in chip_smoke.py.  It times, device ms
-per call from CUDA graphs that rotate through the layers of a pool whose
-slabs exceed twice the L2 (so every call reads its slab from HBM):
+bf16 K9b (G 1) and K9c run the body's int8 policy (Int8Cache) over the
+shared prefix's columns and the pool's (PrefixCols), bf16 K7 (G 1) and K8
+the same policy over the pool's alone (CacheCols), K9a its bf16 policy,
+on B 8 rows, Hkv 8, D 128, a pool of T 1856 columns (535 valid a row at
+left pads 0-250), a 256-column shared prefix (250 live; row 6 gated off),
+two inactive rows on one scratch slot: `check_int8_kernels`' and
+`check_serve_kernels`' operands in chip_smoke.py.  It times, device ms per
+call from CUDA graphs that rotate through the layers of a pool whose slabs
+exceed twice the L2 (so every call reads its slab from HBM):
 
-  rows   K9b and K9c at each (G, rep) of ROWS: the query rows G·rep set
-         the body's n8 fragments (1, 2 or 4), G the chunk's own columns;
+  rows   K9b and K9c, then K7 and K8, at each (G, rep) of ROWS: the query
+         rows G·rep set the body's n8 fragments (1, 2 or 4), G the
+         chunk's own columns;
   live   K9b, K9c (G 5) and K9a with every column live, with the prefix
-         only (kv_mask 0), with nothing live (both masks 0): the fixed
-         cost of a launch beside the tiles' cost;
+         only (kv_mask 0), with nothing live (both masks 0), and K7 and
+         K8 with every column live and with none: the fixed cost of a
+         launch beside the tiles' cost;
 
 and reports each instantiation's resident clusters
 (`decode_attention.split_resident_clusters`) against the 64 a launch at B
@@ -73,6 +77,12 @@ def operands(dev, gen):
     return q8, p8, b16, p16, masks, (pads + VALID).to(torch.int32)
 
 
+def name(G: int, prefix: bool) -> str:
+    """K9b/K9c with the shared prefix, K7/K8 without; G 1 the decode."""
+    return ("K9b" if G == 1 else "K9c") if prefix else (
+        "K7" if G == 1 else "K8")
+
+
 def main(argv=None) -> list:
     p = parser(__doc__, reps=20)
     args = p.parse_args(argv)
@@ -85,7 +95,9 @@ def main(argv=None) -> list:
     q8, p8, b16, p16, masks, ends = operands(dev, gen)
     lines = []
 
-    def int8_call(G, rep, mask, pmask):
+    def int8_call(G, rep, mask, pmask, prefix=True):
+        """K9b/K9c (prefix) or K7/K8 at (G, rep): checked, then a pass over
+        the layers to time."""
         qg = (torch.randn(B, HKV, G * rep, D, generator=gen, device=dev)
               * D ** -0.5).to(torch.bfloat16)
         kq, ks = quantize_kv(torch.randn(B, HKV, G, D, generator=gen,
@@ -96,20 +108,27 @@ def main(argv=None) -> list:
         slots[6:] = T - 1 if G == 1 else T - 64
         if G == 1:
             args_ = [x[:, :, 0].contiguous() for x in (kq, vq, ks, vs)]
-            kern = da.decode_attention_stacked_write_q_prefix
-            plain = da.decode_attention_stacked_write_q_prefix_plain
+            kern, plain = (
+                (da.decode_attention_stacked_write_q_prefix,
+                 da.decode_attention_stacked_write_q_prefix_plain) if prefix
+                else (da.decode_attention_stacked_write_q,
+                      da.decode_attention_stacked_write_q_plain))
             kw = {}
         else:
             args_ = [kq, vq, ks, vs]
-            kern = da.decode_attention_stacked_verify_qc_prefix
-            plain = da.decode_attention_stacked_verify_qc_prefix_plain
+            kern, plain = (
+                (da.decode_attention_stacked_verify_qc_prefix,
+                 da.decode_attention_stacked_verify_qc_prefix_plain)
+                if prefix else (da.decode_attention_stacked_verify_qc,
+                                da.decode_attention_stacked_verify_qc_plain))
             kw = {"slots_max": T - 64}
+        pargs = (*p8, pmask) if prefix else ()
         want = plain(qg.float(), *[t.clone() for t in q8], mask, *args_, 0,
-                     slots, *p8, pmask)
-        check_close(f"K9{'b' if G == 1 else 'c'} G={G} rep={rep}",
+                     slots, *pargs)
+        check_close(f"{name(G, prefix)} G={G} rep={rep}",
                     kern(qg, *[t.clone() for t in q8], mask, *args_, 0,
-                         slots, *p8, pmask, **kw), want, 2e-2)
-        return lambda: [kern(qg, *q8, mask, *args_, li, slots, *p8, pmask,
+                         slots, *pargs, **kw), want, 2e-2)
+        return lambda: [kern(qg, *q8, mask, *args_, li, slots, *pargs,
                              **kw) for li in range(LAYERS)]
 
     def emit(what, t, **extra):
@@ -120,16 +139,22 @@ def main(argv=None) -> list:
               f"{t['host_ms']:.4f} ms/call", flush=True)
 
     mask, pmask = masks["all live"]
-    for G, rep in ROWS:
-        run = int8_call(G, rep, mask, pmask)
-        emit(f"K9{'b' if G == 1 else 'c'} G {G} rep {rep} "
-             f"({G * rep} rows)", time_pass(run, LAYERS, dev, args.reps),
-             G=G, rep=rep)
+    for prefix in (True, False):
+        for G, rep in ROWS:
+            run = int8_call(G, rep, mask, pmask, prefix)
+            emit(f"{name(G, prefix)} G {G} rep {rep} ({G * rep} rows)",
+                 time_pass(run, LAYERS, dev, args.reps), G=G, rep=rep,
+                 prefix=prefix)
     for label, (m, pm) in masks.items():
         for G in (1, 5):
             run = int8_call(G, REP, m, pm)
-            emit(f"K9{'b' if G == 1 else 'c'} {label}",
+            emit(f"{name(G, True)} {label}",
                  time_pass(run, LAYERS, dev, args.reps), G=G, live=label)
+            if label != "prefix only":
+                run = int8_call(G, REP, m, pm, prefix=False)
+                emit(f"{name(G, False)} {label}",
+                     time_pass(run, LAYERS, dev, args.reps), G=G,
+                     live=label, prefix=False)
         qg = (torch.randn(B, HKV, REP, D, generator=gen, device=dev)
               * D ** -0.5).to(torch.bfloat16)
         kn, vn = (torch.randn(B, HKV, D, generator=gen, device=dev).to(
@@ -143,6 +168,8 @@ def main(argv=None) -> list:
     for what, n in (
             [(f"K9b/K9c, {rows} rows", da.split_resident_clusters(
                 True, rows, D)) for rows in (5, 16, 25)]
+            + [(f"K7/K8, {rows} rows", da.split_resident_clusters(
+                True, rows, D, prefix=False)) for rows in (5, 16, 25)]
             + [("K9a", da.split_resident_clusters(False, REP, D)),
                ("K4", da.split_resident_clusters(False, REP, D,
                                                  prefix=False))]):

@@ -4,13 +4,17 @@ speculative chunk per row), whose plain versions are held against the JAX
 Pallas kernels in interpret mode (f32 qg: attention atol 1e-5; int8 caches
 and scales bit-exact after the write), also at the split body's edges (T
 off the 64-column grid, a row with no cache column and its prefix gated
-off, inactive rows on one scratch slot); K9b/K9c against K7/K8 on the same
-prefix physically placed in the cache; the route rule `int8_split_route`;
-the CUDA kernels against the plain versions on the card (bf16 2e-2, caches
-and scales bit-exact): both bodies, and bf16 K9b/K9c on the cluster-split
-body at the serving shape, every rep and G the rule takes, its edges, two
+off, inactive rows on one scratch slot), with the prefix and without it;
+K9b/K9c against K7/K8 on the same prefix physically placed in the cache;
+the route rule `int8_split_route`; the CUDA kernels against the plain
+versions on the card (bf16 2e-2, caches and scales bit-exact): both
+bodies, and bf16 K7-K9c on the cluster-split body (K7/K8 over CacheCols,
+K9b/K9c over PrefixCols) at the serving shape, every rep and G the rule
+takes, its edges, K7 at the lockstep shape with a scalar slot, two
 launches bit-identical, the route by the profiler's kernel names, and the
 column limit."""
+
+import re
 
 import numpy as np
 import pytest
@@ -345,8 +349,12 @@ def test_kernels_match_plain_on_cuda(cuda, G, rep, D, prefix):
     (torch.bfloat16, SPLIT_ROWS, True, True),
     (torch.bfloat16, SPLIT_ROWS + 1, True, False),
     (torch.bfloat16, 40, True, False),     # K9c at G 5, rep 8
-    (torch.bfloat16, 5, False, False),     # K7, K8: the SIMT body
+    (torch.bfloat16, 5, False, True),      # K7 at the serving shape
     (torch.float32, 5, True, False),       # f32 K9b/K9c: the SIMT body
+    (torch.bfloat16, 25, False, True),     # K8 at G 5, rep 5
+    (torch.bfloat16, SPLIT_ROWS, False, True),
+    (torch.bfloat16, SPLIT_ROWS + 1, False, False),
+    (torch.float32, 5, False, False),      # f32 K7/K8: the SIMT body
 ])
 def test_int8_split_route(dtype, rows, prefix, split):
     assert int8_split_route(dtype, rows, prefix) is split
@@ -354,11 +362,15 @@ def test_int8_split_route(dtype, rows, prefix, split):
 
 def test_sweep_decode_split_times_the_split_body():
     """Every (G, rep) that scripts/sweep_decode_split.py times takes the
-    split body, across 1, 2 and 4 row fragments."""
+    split body, with the prefix and without it, across 1, 2 and 4 row
+    fragments."""
     from prot2text_tpu_torch.scripts import sweep_decode_split as sweep
 
     rows = [G * rep for G, rep in sweep.ROWS]
-    assert all(int8_split_route(torch.bfloat16, r, True) for r in rows)
+    assert all(int8_split_route(torch.bfloat16, r, p) for r in rows
+               for p in (True, False))
+    assert [sweep.name(G, p) for G in (1, 5) for p in (True, False)] == [
+        "K9b", "K7", "K9c", "K8"]
     assert {-(-r // 8) for r in rows} >= {1, 2, 4}
     with pytest.raises(SystemExit, match="--device cuda"):
         sweep.main(["--device", "cpu"])
@@ -390,30 +402,45 @@ def _edge_case(rng, rep, D, G, Pc):
     return cache, prefix, q, new, mask, slots
 
 
-@pytest.mark.parametrize("G,rep,D", [(1, 5, 128), (1, 1, 64), (5, 5, 128),
-                                     (3, 2, 64)])
-def test_prefix_variants_plain_match_pallas_interpret_at_edges(G, rep, D):
-    """K9b (G 1) and K9c plain versions against the Pallas kernels in
-    interpret mode at the split body's edges; the row with nothing but
-    its current columns gets exactly their mix."""
+EDGE_SHAPES = ((1, 5, 128), (1, 1, 64), (5, 5, 128), (3, 2, 64),
+               (4, 4, 128))
+
+
+@pytest.mark.parametrize("G,rep,D,prefix", [
+    pytest.param(G, rep, D, True, id=f"{G}-{rep}-{D}")
+    for G, rep, D in EDGE_SHAPES] + [
+    pytest.param(G, rep, D, False, id=f"{G}-{rep}-{D}-no_prefix")
+    for G, rep, D in EDGE_SHAPES])
+def test_prefix_variants_plain_match_pallas_interpret_at_edges(G, rep, D,
+                                                               prefix):
+    """K9b (G 1) and K9c plain versions, and without the prefix K7 and K8,
+    against the Pallas kernels in interpret mode at the split body's edges
+    (T 544, G·rep 1-25); the row with nothing but its current columns
+    gets exactly their mix."""
     from prot2text_tpu.kernels import decode_attention as jda
 
     rng = np.random.default_rng([G, rep, D, 9])
     Pc = 64
-    cache, prefix, q, new, mask, slots = _edge_case(rng, rep, D, G, Pc)
+    cache, pfx, q, new, mask, slots = _edge_case(rng, rep, D, G, Pc)
     layer = 1
     if G == 1:
         new = [x[:, :, 0] for x in new]
-        j_fn = jda.decode_attention_stacked_write_q_prefix
-        fn = decode_attention_stacked_write_q_prefix
-    else:
-        j_fn = jda.decode_attention_stacked_verify_qc_prefix
-        fn = decode_attention_stacked_verify_qc_prefix
+    j_fn, fn = {
+        (1, True): (jda.decode_attention_stacked_write_q_prefix,
+                    decode_attention_stacked_write_q_prefix),
+        (1, False): (jda.decode_attention_stacked_write_q,
+                     decode_attention_stacked_write_q),
+        (0, True): (jda.decode_attention_stacked_verify_qc_prefix,
+                    decode_attention_stacked_verify_qc_prefix),
+        (0, False): (jda.decode_attention_stacked_verify_qc,
+                     decode_attention_stacked_verify_qc)}[(int(G == 1),
+                                                           prefix)]
+    pfx = pfx if prefix else []
     want = j_fn(*_j([q, *cache, mask, *new]), layer, np.asarray(slots),
-                *_j(prefix), interpret=True)
+                *_j(pfx), interpret=True)
     tc = _t(cache)
     got = fn(torch.from_numpy(q), *tc, torch.from_numpy(mask), *_t(new),
-             layer, torch.from_numpy(slots), *_t(prefix))
+             layer, torch.from_numpy(slots), *_t(pfx))
     _check(got, want, tc)
     # row 1: [chunk columns] only, causal by token
     kq, vq, ks, vs = (torch.from_numpy(np.array(x)) for x in new)
@@ -435,22 +462,32 @@ def _to(dev, arrays):
     return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
 
 
-def _run_split(cuda, G, cache, prefix, q, new, mask, slots, layer):
-    """bf16 K9b (G 1) or K9c on the card twice, on two copies of the
-    caches, and the plain version in f32 on the same values: the two
-    launches' outputs and whole caches bit-identical, the kernel's caches
-    bit-exact against the plain version's, the attention within 2e-2.
-    Returns max|kernel - plain|."""
+def _run_split(cuda, G, cache, prefix, q, new, mask, slots, layer,
+               with_prefix=True):
+    """bf16 K9b (G 1) or K9c, or without the prefix K7 or K8, on the card
+    twice, on two copies of the caches, and the plain version in f32 on
+    the same values: the two launches' outputs and whole caches
+    bit-identical, the kernel's caches bit-exact against the plain
+    version's, the attention within 2e-2.  `slots` may be a scalar (K7's
+    lockstep slot).  Returns max|kernel - plain|."""
     if G == 1:
         new = [x[:, :, 0] for x in new]
-        kern = decode_attention_stacked_write_q_prefix
-        plain = decode_attention_stacked_write_q_prefix_plain
-    else:
-        kern = decode_attention_stacked_verify_qc_prefix
-        plain = decode_attention_stacked_verify_qc_prefix_plain
+    kern, plain = {
+        (1, True): (decode_attention_stacked_write_q_prefix,
+                    decode_attention_stacked_write_q_prefix_plain),
+        (1, False): (decode_attention_stacked_write_q,
+                     decode_attention_stacked_write_q_plain),
+        (0, True): (decode_attention_stacked_verify_qc_prefix,
+                    decode_attention_stacked_verify_qc_prefix_plain),
+        (0, False): (decode_attention_stacked_verify_qc,
+                     decode_attention_stacked_verify_qc_plain)}[
+                         (int(G == 1), with_prefix)]
     tq = torch.from_numpy(q).to(cuda).bfloat16()
-    tn, tp = _to(cuda, new), _to(cuda, prefix)
-    tm, ts = torch.from_numpy(mask).to(cuda), torch.from_numpy(slots).to(cuda)
+    tn = _to(cuda, new)
+    tp = _to(cuda, prefix) if with_prefix else []
+    tm = torch.from_numpy(mask).to(cuda)
+    ts = (int(slots) if np.ndim(slots) == 0
+          else torch.from_numpy(slots).to(cuda))
     runs = []
     for _ in range(2):
         gc = _to(cuda, cache)
@@ -470,18 +507,25 @@ def _run_split(cuda, G, cache, prefix, q, new, mask, slots, layer):
     return (a.float() - want).abs().max().item()
 
 
+def _name(G, prefix):
+    return {(1, True): "K9b", (1, False): "K7", (0, True): "K9c",
+            (0, False): "K8"}[(int(G == 1), prefix)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize("G", [1, 5])
-def test_int8_split_body_at_the_serving_shape_on_cuda(cuda, G):
+def test_int8_split_body_at_the_serving_shape_on_cuda(cuda, G, prefix):
     """Qwen3-14B's int8 serving shape (B 8, Hkv 8, rep 5, D 128, T 1856,
-    Pc 256 with 250 real columns, row 6 gated off, 535 valid cache columns
-    a row, rows 6-7 on one scratch slot), one launch a call."""
+    535 valid cache columns a row, rows 6-7 on one scratch slot; with the
+    prefix Pc 256 with 250 real columns, row 6 gated off), one launch a
+    call: K7/K8 without the prefix, K9b/K9c with it."""
     rng = np.random.default_rng(15 + G)
     B_, Hkv_, rep, D, T_, Pc = 8, 8, 5, 128, 1856, 256
-    cache, prefix = _cache(rng, D, Pc, T=T_, B=B_, Hkv=Hkv_)
-    prefix[4][:] = (np.arange(Pc) >= Pc - 250).astype(np.int32)
-    prefix[4] = np.broadcast_to(prefix[4][:1], (B_, Pc)).copy()
-    prefix[4][6] = 0
+    cache, pfx = _cache(rng, D, Pc, T=T_, B=B_, Hkv=Hkv_)
+    pfx[4][:] = (np.arange(Pc) >= Pc - 250).astype(np.int32)
+    pfx[4] = np.broadcast_to(pfx[4][:1], (B_, Pc)).copy()
+    pfx[4][6] = 0
     q, new = _new(rng, rep, D, G, B=B_, Hkv=Hkv_)
     pads = np.array([0, 37, 100, 250, 5, 0, 60, 200])
     cols = np.arange(T_)
@@ -489,31 +533,58 @@ def test_int8_split_body_at_the_serving_shape_on_cuda(cuda, G):
         np.int32)
     slots = (pads + 535).astype(np.int32)
     slots[6:] = T_ - 1 if G == 1 else T_ - 64
-    err = _run_split(cuda, G, cache, prefix, q, new, mask, slots, L - 1)
-    print(f"K9{'b' if G == 1 else 'c'} serving shape: max|a-plain| {err:.3e}")
+    err = _run_split(cuda, G, cache, pfx, q, new, mask, slots, L - 1,
+                     prefix)
+    print(f"{_name(G, prefix)} serving shape: max|a-plain| {err:.3e}")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8])
-def test_int8_split_body_every_rep_and_chunk_on_cuda(cuda, rep):
+def test_int8_split_body_every_rep_and_chunk_on_cuda(cuda, rep, prefix):
     """rep 1-8 and G 1-6 wherever G·rep <= SPLIT_ROWS (1, 2 and 4 row
-    fragments), D 64 and 128, at the split body's edges."""
+    fragments), D 64 and 128, at the split body's edges, with the prefix
+    (K9b/K9c) and without it (K7/K8: row 0's one live tile is the folding
+    block's)."""
     for G in range(1, 7):
         if G * rep > SPLIT_ROWS:
             continue
         for D in (64, 128):
             rng = np.random.default_rng([rep, G, D])
-            cache, prefix, q, new, mask, slots = _edge_case(rng, rep, D, G,
-                                                            64)
-            err = _run_split(cuda, G, cache, prefix, q, new, mask, slots, 0)
-            print(f"rep {rep} G {G} D {D}: max|a-plain| {err:.3e}")
+            cache, pfx, q, new, mask, slots = _edge_case(rng, rep, D, G, 64)
+            err = _run_split(cuda, G, cache, pfx, q, new, mask, slots, 0,
+                             prefix)
+            print(f"{_name(G, prefix)} rep {rep} G {G} D {D}: "
+                  f"max|a-plain| {err:.3e}")
+
+
+@pytest.mark.cuda
+def test_int8_split_body_lockstep_scalar_slot_on_cuda(cuda):
+    """K7 at Llama-3.1-8B's lockstep shape (B 4, Hkv 8, rep 4, D 128, T
+    1280: 32 clusters, one block an SM): one scalar slot broadcast to
+    every row, left-padded prompts, every column before the slot valid;
+    and at a short T of 128 (2 tiles: two of a cluster's blocks own none,
+    the folding block among them)."""
+    for B_, T_, pos, pads in ((4, 1280, 1100, (0, 17, 250, 3)),
+                              (4, 128, 90, (0, 5, 60, 89))):
+        rng = np.random.default_rng(T_)
+        cache, pfx = _cache(rng, 128, 64, T=T_, B=B_, Hkv=8)
+        q, new = _new(rng, 4, 128, 1, B=B_, Hkv=8)
+        cols = np.arange(T_)
+        mask = ((cols >= np.array(pads)[:, None]) & (cols < pos)).astype(
+            np.int32)
+        err = _run_split(cuda, 1, cache, pfx, q, new, mask, np.int32(pos),
+                         L - 1, False)
+        print(f"K7 lockstep B {B_} T {T_} slot {pos}: max|a-plain| "
+              f"{err:.3e}")
 
 
 @pytest.mark.cuda
 def test_int8_route_by_kernel_name_on_cuda(cuda):
-    """The profiler names the body each call ran: bf16 K9b/K9c inside the
-    rule the split body's Int8Cache policy; past SPLIT_ROWS rows, f32 q
-    and K7/K8 the SIMT body."""
+    """The profiler names the body each call ran: bf16 K7/K8 inside the
+    rule the split body's CacheCols + Int8Cache instantiation, K9b/K9c its
+    PrefixCols + Int8Cache one; past SPLIT_ROWS rows, and f32 q, the SIMT
+    body."""
     from torch.profiler import ProfilerActivity, profile
 
     for G, rep, dtype, prefix in ((1, 5, torch.bfloat16, True),
@@ -522,7 +593,11 @@ def test_int8_route_by_kernel_name_on_cuda(cuda):
                                   (5, 7, torch.bfloat16, True),
                                   (5, 5, torch.float32, True),
                                   (5, 5, torch.bfloat16, False),
-                                  (1, 5, torch.bfloat16, False)):
+                                  (1, 5, torch.bfloat16, False),
+                                  (4, 8, torch.bfloat16, False),
+                                  (5, 7, torch.bfloat16, False),
+                                  (5, 5, torch.float32, False),
+                                  (1, 5, torch.float32, False)):
         rng = np.random.default_rng(G * rep)
         cache, pfx, q, new, mask, slots = _edge_case(rng, rep, 64, G, 64)
         if G == 1:
@@ -545,39 +620,45 @@ def test_int8_route_by_kernel_name_on_cuda(cuda):
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         split = int8_split_route(dtype, G * rep, prefix)
-        want = "Int8Cache" if split else "decode_attention_q_kernel"
-        assert any(want in n for n in names), (G, rep, dtype, prefix, names)
+        assert split == (dtype == torch.bfloat16 and G * rep <= SPLIT_ROWS)
+        cols = "PrefixCols" if prefix else "CacheCols"
+        want = (rf"decode_split_kernel.*{cols}.*Int8Cache" if split
+                else "decode_attention_q_kernel")
+        assert any(re.search(want, n) for n in names), (G, rep, dtype,
+                                                         prefix, names)
         assert not any(("decode_split_kernel" in n) != split for n in names
                        if "decode" in n), names
 
 
 @pytest.mark.cuda
-def test_int8_split_body_column_limit_on_cuda(cuda):
-    """At the body's column limit (Pc 64 + T 65472: 1024 tiles, 256 a
-    block) K9c runs and matches the plain version; one tile past it the
-    wrapper raises, launching nothing and writing nothing."""
-    from prot2text_tpu_torch.kernels.decode_attention import (
-        decode_attention_stacked_verify_qc_prefix as k9c,
-    )
-
+@pytest.mark.parametrize("prefix", [False, True])
+def test_int8_split_body_column_limit_on_cuda(cuda, prefix):
+    """At the body's column limit (1024 tiles, 256 a block: Pc 64 + T
+    65472 for K9c, T 65536 for K8) the kernel runs and matches the plain
+    version; one tile past it the wrapper raises, launching nothing and
+    writing nothing."""
+    kern = (decode_attention_stacked_verify_qc_prefix if prefix
+            else decode_attention_stacked_verify_qc)
     limit = 256 * 4 * 64
-    for T_ in (limit - 64, limit):
+    Pc = 64 if prefix else 0
+    for T_ in (limit - Pc, limit - Pc + 64):
         rng = np.random.default_rng(T_)
-        Hkv_, B_, D, Pc, G, rep = 1, 1, 16, 64, 2, 3
-        cache, prefix = _cache(rng, D, Pc, T=T_, B=B_, Hkv=Hkv_)
+        Hkv_, B_, D, G, rep = 1, 1, 16, 2, 3
+        cache, pfx = _cache(rng, D, 64, T=T_, B=B_, Hkv=Hkv_)
         q, new = _new(rng, rep, D, G, B=B_, Hkv=Hkv_)
         mask = (rng.random((B_, T_)) < 0.01).astype(np.int32)
         slots = np.array([T_ - 64], np.int32)
         mask[:, T_ - 64:T_ - 64 + G] = 0
-        if T_ < limit:
-            _run_split(cuda, G, cache, prefix, q, new, mask, slots, 1)
+        if T_ + Pc <= limit:
+            _run_split(cuda, G, cache, pfx, q, new, mask, slots, 1, prefix)
             continue
         gc = _to(cuda, cache)
-        n0 = k9c.launches
+        n0 = kern.launches
         with pytest.raises(RuntimeError, match="invalid argument"):
-            k9c(torch.from_numpy(q).to(cuda).bfloat16(), *gc,
-                torch.from_numpy(mask).to(cuda), *_to(cuda, new), 1,
-                torch.from_numpy(slots).to(cuda), *_to(cuda, prefix))
+            kern(torch.from_numpy(q).to(cuda).bfloat16(), *gc,
+                 torch.from_numpy(mask).to(cuda), *_to(cuda, new), 1,
+                 torch.from_numpy(slots).to(cuda),
+                 *(_to(cuda, pfx) if prefix else ()))
         torch.cuda.synchronize()
-        assert k9c.launches == n0
+        assert kern.launches == n0
         assert all(torch.equal(x, y) for x, y in zip(gc, _to(cuda, cache)))
