@@ -7,7 +7,10 @@ Phases (any failure raises and the script exits non-zero):
   1. setup: versions, the card's name and power limit, the CUDA kernels'
      build from `prot2text_tpu_torch/kernels/csrc` (timed);
   2. kernels: each hand-written kernel (K1 flash prefill, K2 decode
-     attention, K3 cache slot write, K12/K13 the same write on
+     attention and K3 cache slot write (no model path launches them since
+     the bf16 lockstep step writes its slot in K4, so these checks stand
+     in; K4 is also held at their shape, beside K2), K12/K13 the same
+     write on
      Llama-3.2-1B's tbkd cache (K13 k and v in one launch, also against
      two K12 launches; no path calls K13), K4 decode attention + per-row
      slot write, K5 flash backward (two launches bit-identical), K6 bias
@@ -29,7 +32,8 @@ Phases (any failure raises and the script exits non-zero):
      bit against K10's wrapper; K15a-K15g the probe scripts' quantized
      matmuls at their Llama-3.1-8B and Qwen3-14B shapes, K15a at bc 128
      against K14, K15b/K15e against K11a and K15d at K10's tiling against
-     K10 bit for bit (their few-row body), K15f exact; K15h-K15l the
+     K10 bit for bit (their few-row body), K15f exact on the many-row
+     body's s8 policy (by the profiler's kernel name); K15h-K15l the
      int8-KV probe operations, bit-exact, at the probe's sizes)
      against its plain PyTorch version on the same bf16 inputs computed in
      fp32, at the paths' own shapes, with median CUDA-event times of both,
@@ -50,9 +54,10 @@ Phases (any failure raises and the script exits non-zero):
   3. generation: ESM2-3B → adapter → Llama-3.1-8B (full width and depth,
      bf16, random weights from a seeded CUDA generator) generates 256
      tokens for 4 proteins through `Esm2LlamaInstructForCausalLM.generate`;
-     the launch counters must show every kernel on that path; then 16
-     tokens under torch.profiler: the decode window's device time by
-     kernel family (K1, K2, K3) and its idle share;
+     the launch counters must show every kernel on that path (K1 in the
+     prefill, K4 a layer a decode step, no K2 or K3); then 16 tokens under
+     torch.profiler: the decode window's device time by kernel family (K1,
+     K4), its device events a step and its idle share;
   3b. legacy generation: ESM2-8M → dense + LayerNorm → Llama-3.2-1B (full
      width and depth, bf16, random weights) built by
      `cli/generate_legacy.py build_model` generates 256 tokens for 4
@@ -114,7 +119,8 @@ Phases (any failure raises and the script exits non-zero):
      K10/K14 counts from the engine's counters (`quant_launches`), each
      build's and run's peak;
   5. plumbing: tiny f32 models on `cuda` (kernels) against the same models
-     on `cpu` (plain versions): prefill and first decode-step logits, one
+     on `cpu` (plain versions): prefill and first decode-step logits at
+     head dims 64 (the tbkd cache, K12) and 128 (K4's f32 body), one
      SFT step's loss and LoRA gradients at `--attn_impl` auto and flash
      (K6/K6b), one contrastive step's loss and adapter gradients (K1, K6),
      a serving engine's install logits
@@ -470,8 +476,11 @@ def check_kernels(torch, dev, card):
         f"{speed_text(sp)} [{card}]")
     require(ms <= 0.155, f"K2 eager {ms:.4f} ms > 0.155 (half the SIMT "
             f"body's)")
+    # no model path launches K2 (kernels.OFF_PATH): this check stands in
     rows["K2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                      library_ms=lib_ms, **bd, **sp)
+                      library_ms=lib_ms, checked=True, **bd, **sp)
+    rows["K4 lockstep"] = check_k4_lockstep(
+        torch, dev, card, qg, ck, cv, kv_mask, kn, vn, sp["device_ms"])
 
     # K3: slot write into the same cache, bit-exact
     new = randn(L, B, Hkv, D)
@@ -501,7 +510,7 @@ def check_kernels(torch, dev, card):
         f"({bd['bound_by']}) [{card}]")
     rows["K3"] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
                       plain_ms=plain_ms, library_ms=lib_ms,
-                      library_device_ms=lib_dev_ms, **bd)
+                      library_device_ms=lib_dev_ms, checked=True, **bd)
 
     # K1 again, then K5, at the Qwen3-14B training shape (rep 5, causal,
     # kv_start > 0 and a padded tail) for S = 1152, the S the training
@@ -600,6 +609,75 @@ def check_kernels(torch, dev, card):
     rows["K5"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                       library_ms=lib_ms, **bd, **sp)
     return rows
+
+
+def check_k4_lockstep(torch, dev, card, qg, ck, cv, kv_mask, kn, vn,
+                      k2_device_ms):
+    """K4 as the bf16 lockstep step runs it, at K2's generation shape
+    (Llama-3.1-8B, B 4, Hkv 8, rep 4, T 1280): one scalar slot broadcast
+    to every row (the first column kv_mask leaves 0, so the body never
+    reads what it writes), at layers 0, 7 and L - 1: the attention within
+    2e-2 of the plain version and beside K2's on the same inputs (bit for
+    bit or not, logged), the written cache bit-exact against K3's write of
+    those layers; the launch in one wave (the card's resident clusters of
+    the instantiation against B·Hkv); its device time per layer beside
+    K2's."""
+    from prot2text_tpu_torch.kernels.decode_attention import (
+        decode_attention_stacked, decode_attention_stacked_plain,
+        decode_attention_stacked_write, split_resident_clusters,
+    )
+
+    L, B, Hkv, T, D = ck.shape
+    rep = qg.shape[2]
+    # the step's slot: the column after the last one any row holds
+    slot = int(torch.nonzero(kv_mask.sum(dim=0))[-1]) + 1
+    require(slot < T, "K4 at the lockstep shape: no free column")
+    slots = torch.full((B,), slot, dtype=torch.int32, device=dev)
+    ck4, cv4 = ck.clone(), cv.clone()
+    want_k, want_v = ck.clone(), cv.clone()
+    errs, same = [], True
+    for li in (0, 7, L - 1):
+        a4 = decode_attention_stacked_write(qg, ck4, cv4, kv_mask, kn, vn,
+                                            li, slots)
+        a2 = decode_attention_stacked(qg, ck, cv, kv_mask, kn, vn, li)
+        torch.cuda.synchronize()
+        ref = decode_attention_stacked_plain(
+            qg.float(), ck.float(), cv.float(), kv_mask, kn.float(),
+            vn.float(), li)
+        torch.testing.assert_close(a4.float(), ref, atol=2e-2, rtol=2e-2)
+        errs.append((a4.float() - ref).abs().max().item())
+        same = same and torch.equal(a4, a2)
+        want_k[li, :, :, slot] = kn
+        want_v[li, :, :, slot] = vn
+    require(torch.equal(ck4, want_k) and torch.equal(cv4, want_v),
+            "K4 at the lockstep shape: the written cache is not K3's write")
+    resident = split_resident_clusters(False, rep, D, prefix=False)
+    require(B * Hkv <= resident, f"K4 at the lockstep shape: {B * Hkv} "
+            f"clusters, {resident} resident: a second wave")
+
+    def k4():
+        return decode_attention_stacked_write(qg, ck4, cv4, kv_mask, kn, vn,
+                                              7, slots)
+
+    ms = cuda_ms(torch, k4, iters=50)
+    dev_ms = graph_ms(torch, k4)
+    bd = decode_bound(torch, kv_mask, None, Hkv, rep, D, 2, 0,
+                      2 * nbytes(qg) + nbytes(kn, vn, kv_mask, slots)
+                      + nbytes(kn, vn))
+    log(f"K4 at the lockstep shape L={L} B={B} Hkv={Hkv} rep={rep} T={T} "
+        f"D={D} bf16, slot {slot} for every row: max|a-plain|="
+        f"{max(errs):.3e} (atol/rtol 2e-2) at layers 0, 7, {L - 1}, "
+        f"{'bit-identical to' if same else 'not bit-identical to'} K2's "
+        f"attention, the written cache = K3's write bit for bit; "
+        f"{B * Hkv} clusters of {resident} resident (one wave); kernel "
+        f"{ms:.4f} ms, device {dev_ms:.4f} ms per layer from CUDA graphs "
+        f"(K2 {k2_device_ms:.4f} ms: {dev_ms / k2_device_ms:.3f}x), bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
+        f"{bd['bound_ms'] / dev_ms:.1%} [{card}]")
+    return dict(ms=ms, device_ms=dev_ms, k2_device_ms=k2_device_ms,
+                x_k2_device=dev_ms / k2_device_ms, max_abs_err=max(errs),
+                bit_identical_to_k2=same, resident_clusters=resident,
+                clusters=B * Hkv, **bd)
 
 
 # the legacy arc's shapes: protein bucket 512, 256 new tokens
@@ -1555,6 +1633,8 @@ def check_k11_kernels(torch, dev, card):
 
 # K15a-g at their probes' shapes: (kernel id, the probe's (K, N) shapes,
 # rows, the shape the row keeps the times of)
+# K15f's kernel: the many-row body's integer policy
+K15F_NAME = r"mm_rows_kernel.*S8W"
 PROBE_MM_SHAPES = (
     ("K15a", ((4096, 4096), (4096, 14336), (14336, 4096), (4096, 128256)),
      16, (4096, 14336)),
@@ -1593,10 +1673,38 @@ def probe_operands(torch, dev, g, kid, K, N, R):
     return x, w, scale, deq
 
 
-def check_probe_kernels(torch, dev, card):
-    """K15a-K15g against their plain versions at their probes' shapes
-    (`PROBE_MM_SHAPES`): bf16 outputs within 2e-2 · max|plain| (K15a-e),
-    K15f's int32 product exact, K15g's f32 within 1e-5 · max|plain|.  Each
+def k15f_kernel_names(torch, dev, gates: bool = True) -> None:
+    """The kernels one K15f call at the probe's shape launches, by the
+    profiler's names: the many-row body's s8 policy (`K15F_NAME`).  `main`
+    runs it first in phase 2: in a whole run the profiler recorded nothing
+    for this call in three sessions each at the head and in the body of
+    `check_probe_kernels` (H100 80GB HBM3, 700 W), while in a fresh
+    process it saw the kernel every time.  Where it records nothing, the
+    body is the entry's only one (`p2t_int8_mma` runs `rows::run<S8W>`),
+    logged as not measured.  `gates=False` prints the names of another
+    tree's K15f."""
+    from prot2text_tpu_torch.kernels import probe_quant_matmul as pq
+
+    g = torch.Generator(device=dev).manual_seed(8643)
+    x, w, _, _ = probe_operands(torch, dev, g, "K15f", 4096, 14336, 128)
+    names = device_kernel_names(torch, lambda: pq.mm_i8i8(x, w))
+    if names is None:
+        log("K15f: the profiler recorded no device kernel in three "
+            "sessions; its body is p2t_int8_mma's only one, not measured")
+        return
+    body = [n for n in names if re.search(K15F_NAME, n)]
+    log(f"K15f R=128 K=4096 N=14336 kernels: "
+        f"{sorted(set(n[:90] for n in names))}")
+    require(bool(body) or not gates,
+            f"K15f: no {K15F_NAME!r} kernel among {names}")
+
+
+def check_probe_kernels(torch, dev, card, kids=None):
+    """K15a-K15g (`kids`: those alone) against their plain versions at
+    their probes' shapes (`PROBE_MM_SHAPES`): bf16 outputs within 2e-2 ·
+    max|plain| (K15a-e), K15f's int32 product exact and two launches
+    bit-identical (its kernel's name: `k15f_kernel_names`), K15g's f32
+    within 1e-5 · max|plain|.  Each
     variant's control: K15a at bc 128 is K14 bit for bit (its other chunks
     within 2e-2); K15b and K15e (K11a's bytes, two other unpacks) are K11a
     bit for bit; K15d at K10's tiling is K10 bit for bit (256 columns and K
@@ -1625,6 +1733,8 @@ def check_probe_kernels(torch, dev, card):
     g = torch.Generator(device=dev).manual_seed(8642)
     rows = {}
     for kid, shapes, R, timed in PROBE_MM_SHAPES:
+        if kids is not None and kid not in kids:
+            continue
         kern, plain = fns[kid]
         worst = 0.0
         for K, N in shapes:
@@ -1666,6 +1776,13 @@ def check_probe_kernels(torch, dev, card):
                         f"{kid} is not K11a's few-row body bit for bit (K={K} "
                         f"N={N})")
                 ctrl = "; = K11a's few-row body bit for bit"
+            elif kid == "K15f":
+                require(torch.equal(y, kern(*args)),
+                        f"K15f K={K} N={N}: two launches differ")
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                ctrl = (f"; two launches bit-identical; (rows, columns, "
+                        f"cluster) a block {pq.i8_tiling(R, K, N, sms)}")
             elif kid == "K15g":
                 require(torch.equal(y, kern(*args)),
                         f"K15g K={K} N={N}: two launches differ")
@@ -1894,7 +2011,10 @@ def generate(torch, model, batch, max_new_tokens: int):
     return toks, stats
 
 
-def run_slice(torch, dev, card):
+def run_slice(torch, dev, card, check: bool = True):
+    """Phase 3 (the module's docstring); `check=False` logs the launch
+    counts without requiring them: how the verify skill's A/B recipe times
+    another tree's package."""
     from prot2text_tpu_torch.data.chat import ByteTextTokenizer
     from prot2text_tpu_torch.infer.generate import decode_steps_taken
     from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1926,8 +2046,9 @@ def run_slice(torch, dev, card):
     require(steps == st["steps"],
             f"tokens imply {steps} decode steps, generate ran {st['steps']}")
     L = model.config.llama_config.num_layers
-    want = expect(K1=L, K2=L * steps, K3=2 * steps)
-    require(counts == want, f"launch counts {counts} != expected {want}")
+    want = expect(K1=L, K4=L * steps)
+    require(counts == want or not check,
+            f"launch counts {counts} != expected {want}")
     require(steps > 0, "no decode step ran")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1946,7 +2067,8 @@ def run_slice(torch, dev, card):
     log(f"slice peak device memory {peak:.2f} GiB [{card}]")
     log(f"first tokens row 0: {toks[0, :12].tolist()}")
     # a short run under the profiler: the decode window after the
-    # prefill's last K1 launch, K2's share of it and the idle share
+    # prefill's last K1 launch, K4's share of it, its device events a step
+    # and the idle share
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1954,7 +2076,7 @@ def run_slice(torch, dev, card):
     log(f"slice, {st3['steps']} decode steps at "
         f"{st3['decode_s'] / st3['steps'] * 1e3:.3f} ms/step, decode "
         + kernel_breakdown(torch, prof, st3["decode_s"], GEN_FAMILIES,
-                           after=K1_FWD) + f" [{card}]")
+                           after=K1_FWD, steps=st3["steps"]) + f" [{card}]")
     return counts
 
 
@@ -2008,8 +2130,8 @@ K5_BWD = r"flash_masked_bwd_(dq|dkv)_kernel|flash_masked_bwd.*RunMask"
 K6B_BWD = r"flash_bias_bwd|flash_masked_bwd.*BiasMask"
 LEGACY_FAMILIES = (("K1", K1_FWD), ("K12", "slab_write"))
 GEN_FAMILIES = (("K1", K1_FWD),
-                ("K2", r"decode_split_kernel.*NoWrite|decode_attention_kernel"),
-                ("K3", "slot_write_kernel"))
+                ("K4", r"decode_split_kernel.*SlotWrite|"
+                       r"decode_attention_write_kernel"))
 
 
 def run_legacy_generation(torch, dev, card):
@@ -2263,6 +2385,34 @@ def light_compare(refs: dict, fmt: str, logits: list) -> None:
                 f"{' (reported)' if limit is None else f' ({limit})'}")
 
 
+LIGHT_FAMILIES = (("K1", K1_FWD),
+                  ("K4", r"decode_split_kernel.*SlotWrite|"
+                         r"decode_attention_write_kernel"),
+                  ("K10 few-row", "few_rows_kernel"),
+                  ("K10 many-row", "mm_rows_kernel|planes_x_kernel"))
+
+
+def light_profile(torch, lcli, args, tok, model, batch, dev, card) -> None:
+    """16 tokens of phase 3c's generation under torch.profiler: the decode
+    window after the prefill's last K1 by kernel family, its device events
+    a step and its idle share."""
+    import copy
+
+    a16 = copy.copy(args)
+    a16.max_new_tokens = 16
+    stats = []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        lcli.generate_batches(a16, tok, model, [batch], dev, stats=stats)
+        torch.cuda.synchronize()
+    (st,) = stats
+    log(f"light planes, {st['steps']} decode steps at "
+        f"{st['decode_s'] / st['steps'] * 1e3:.3f} ms/step, decode "
+        + kernel_breakdown(torch, prof, st["decode_s"], LIGHT_FAMILIES,
+                           after=K1_FWD, steps=st["steps"]) + f" [{card}]")
+
+
 def run_light_generation(torch, dev, card, check: bool = True):
     """Phase 3c: ESMC-600M + adapter + Qwen3-14B (full width and depth,
     random weights from `--random_seed 0`) through
@@ -2270,7 +2420,7 @@ def run_light_generation(torch, dev, card, check: bool = True):
     CLI's `build_model` once at `--model_dtype bf16`, then its
     towers quantized by `quantize_params(int4_format=)` in planes, bytes
     and pairs in turn, each tree freed before the next, each run through
-    the CLI's batch loop on 4 records: exact K1/K2/K3 and K10/K11a/K11b
+    the CLI's batch loop on 4 records: exact K1/K4 and K10/K11a/K11b
     counts (each format's kernel at every row count), finite logits, the
     prefill's and first step's logits (the first step on the rows whose
     first token agrees) against `LIGHT_AGAINST`'s references: planes
@@ -2280,11 +2430,12 @@ def run_light_generation(torch, dev, card, check: bool = True):
     (`planes_first_layers`); bytes and pairs (K10's fragments and grids)
     bit-identical to planes, with the same tokens; encode+adapter ms,
     prefill ms, decode ms/step, descriptions/hour, peak memory and the
-    towers' bytes; (2) the CLI's
+    towers' bytes; planes' decode window profiled (`light_profile`); (2)
+    the CLI's
     `main` at `--model_dtype int4` (nibble planes) over a CSV of those 4
     and 2 more records at `--batch_size 4` (the last batch padded): the
-    JSON checked, exact K1/K2/K10 counts (its decode steps from K3's two
-    writes per step).  `check=False` runs (1)'s generations and their
+    JSON checked, exact K1/K4/K10 counts (its decode steps from K4's L
+    launches per step).  `check=False` runs (1)'s generations and their
     times alone (no counts, references or (2)): how the verify skill's A/B
     recipe times another tree's package."""
     import csv
@@ -2356,7 +2507,7 @@ def run_light_generation(torch, dev, card, check: bool = True):
         require(len(results) == 4 and steps > 0, f"{fmt}: {len(results)} "
                 f"results, {steps} decode steps")
         require(st["logits_finite"], f"{fmt}: non-finite logits")
-        want = expect(K1=L, K2=L * steps, K3=2 * steps,
+        want = expect(K1=L, K4=L * steps,
                       **{kid: light_launches(cfg, [batch], steps)})
         require(counts == want or not check, f"light {fmt}: launch counts "
                 f"{counts} != expected {want}")
@@ -2386,6 +2537,8 @@ def run_light_generation(torch, dev, card, check: bool = True):
             f" {peak:.2f} GiB")
         log(f"light {fmt} launches: {counts}")
         paths[f"light_{fmt}"] = counts
+        if fmt == "planes":
+            light_profile(torch, lcli, args, tok, model, batch, dev, card)
         del params, model, results, stats, st
         gc.collect()
         torch.cuda.empty_cache()
@@ -2417,9 +2570,9 @@ def run_light_generation(torch, dev, card, check: bool = True):
         r["AlphaFoldDB"] for r in records), f"JSON names {sorted(saved)}")
     require(all(set(v) == {"true", "pred"} and isinstance(v["pred"], str)
                 for v in saved.values()), "JSON entries")
-    steps = counts["K3"] // 2
+    steps = counts["K4"] // L
     batches = [batch, collate(records[4:])]
-    want = expect(K1=2 * L, K2=L * steps, K3=2 * steps,
+    want = expect(K1=2 * L, K4=L * steps,
                   K10=light_launches(cfg, batches, steps))
     require(steps > 0 and counts == want,
             f"light main: launch counts {counts} != expected {want}")
@@ -2476,13 +2629,15 @@ SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
 
 
 def kernel_breakdown(torch, prof, wall_s: float,
-                     families=TRAIN_FAMILIES, after: str | None = None) -> str:
+                     families=TRAIN_FAMILIES, after: str | None = None,
+                     steps: int | None = None) -> str:
     """Device time of a profiled window by kernel family (the port's kernels
     by a name pattern each, cuBLAS GEMMs, the rest), from the CUDA kernel
     events of `torch.profiler`, and the host's CUDA API calls (launches,
     synchronisations, copies) that pace it.  With `after`, the window
     starts where the last device event matching that pattern ends (`wall_s`
-    is then that window's wall time)."""
+    is then that window's wall time); with `steps`, the window's device
+    events are also given per step."""
     fam = {label: 0.0 for label, _ in families}
     fam.update(GEMM=0.0, rest=0.0)
     by_name, api = {}, {}
@@ -2515,7 +2670,10 @@ def kernel_breakdown(torch, prof, wall_s: float,
         return "profiled window: the profiler recorded no device kernels"
     lines = [f"profiled window: wall {wall_s * 1e3:.1f} ms, device busy "
              f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall_s:.3f}, "
-             f"{n_kernels} device events; " +
+             f"{n_kernels} device events"
+             + ("" if steps is None else
+                f" ({n_kernels / steps:.1f} a step over {steps})")
+             + "; " +
              ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e6 / busy:.1%})"
                        for k, v in fam.items())]
     lines.append("  host CUDA API: " + ", ".join(
@@ -3636,30 +3794,42 @@ def f32_round_logits(torch, eng):
 
 
 def run_plumbing(torch, dev):
+    """Tiny f32 generation on `dev` against the CPU: prefill and first
+    decode-step logits within 1e-4, at head dim 64 (the tbkd cache: plain
+    attention, K12) and 128 (the bktd cache: K4's f32 body a layer, its
+    launches counted)."""
     from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
     from prot2text_tpu_torch.models import ESM2Config, LlamaConfig
 
     tok = ByteTextTokenizer()
     esm_cfg = ESM2Config(hidden_size=64, num_layers=2, num_heads=4,
                          intermediate_size=128)
-    llama_cfg = LlamaConfig(vocab_size=tok.vocab_size, hidden_size=256,
-                            num_layers=2, num_heads=4, num_kv_heads=2,
-                            intermediate_size=512, rope_theta=1e4,
-                            tie_word_embeddings=False, rope_scaling=None)
     cpu = torch.device("cpu")
-    model = build_model(torch, cpu, tok, esm_cfg, llama_cfg, torch.float32,
-                        seed=1)
-    batch = make_batch(torch, cpu, tok, 2, (20, 60), seed=1)
-    _, st_cpu = generate(torch, model, batch, 2)
-    model.to(dev)
-    _, st_gpu = generate(torch, model, {k: v.to(dev) for k, v in
-                                        batch.items()}, 2)
-    for i, name in enumerate(("prefill", "first decode step")):
-        a, b = st_gpu["logits"][i].cpu(), st_cpu["logits"][i]
-        err = (a - b).abs().max().item()
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=0.0)
-        log(f"plumbing f32 cuda vs cpu, {name} logits: max abs diff "
-            f"{err:.3e} (atol 1e-4)")
+    for hidden, layout in ((256, "tbkd"), (512, "bktd")):
+        llama_cfg = LlamaConfig(vocab_size=tok.vocab_size, hidden_size=hidden,
+                                num_layers=2, num_heads=4, num_kv_heads=2,
+                                intermediate_size=512, rope_theta=1e4,
+                                tie_word_embeddings=False, rope_scaling=None)
+        model = build_model(torch, cpu, tok, esm_cfg, llama_cfg,
+                            torch.float32, seed=1)
+        batch = make_batch(torch, cpu, tok, 2, (20, 60), seed=1)
+        _, st_cpu = generate(torch, model, batch, 2)
+        model.to(dev)
+        reset_launch_counts()
+        _, st_gpu = generate(torch, model, {k: v.to(dev) for k, v in
+                                            batch.items()}, 2)
+        k4 = launch_counts()["K4"]
+        want = (2 * st_gpu["steps"] if layout == "bktd"
+                and dev.type == "cuda" else 0)     # plain versions count 0
+        require(k4 == want, f"plumbing D {hidden // 4}: K4 launched {k4} "
+                f"times, expected {want}")
+        for i, name in enumerate(("prefill", "first decode step")):
+            a, b = st_gpu["logits"][i].cpu(), st_cpu["logits"][i]
+            err = (a - b).abs().max().item()
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0.0)
+            log(f"plumbing f32 cuda vs cpu, D {hidden // 4} ({layout}, K4 "
+                f"{k4}x), {name} logits: max abs diff {err:.3e} (atol 1e-4)")
 
 
 def run_train_plumbing(torch, dev):
@@ -3907,7 +4077,7 @@ def run_probes(torch, dev, card):
 SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
               "useful_tbps", "bound_share", "x_library", "x_library_device",
               "device_ms_profiler", "library_device_source", "other_shapes",
-              "sources", "at_rows")
+              "sources", "at_rows", "lockstep")
 
 
 def count_routes(qm):
@@ -3957,9 +4127,11 @@ def main() -> int:
             elif fn and "Used" in line:
                 log(f"  {fn}: {line.split(':', 1)[1].strip()}")
 
+    k15f_kernel_names(torch, dev)
     rows = check_kernels(torch, dev, card)
     rows.update(check_tbkd_kernels(torch, dev, card))
     rows.update(check_serve_kernels(torch, dev, card))
+    rows["K4"]["lockstep"] = rows.pop("K4 lockstep")
     bwd_rows, k6_err, k6_esmc = check_bias_bwd_kernel(torch, dev, card)
     rows.update(bwd_rows)
     # the K6 row keeps the worst error over its serving and training shapes
@@ -4035,12 +4207,12 @@ def main() -> int:
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
         entry = {}
         if kid in OFF_PATH:
-            # no path of either package launches it: phase 2's checks
-            # against its plain version and against K12 stand in
+            # no model path launches it: phase 2's checks against its plain
+            # version stand in
             require(r.get("checked") and sum(by_path.values()) == 0,
                     f"{kid} is off-path: phase 2 must check it and no path "
                     f"may launch it")
-            entry["off_path"] = f"no path; its JAX caller {OFF_PATH[kid]}"
+            entry["off_path"] = OFF_PATH[kid]
         else:
             require(sum(by_path.values()) > 0,
                     f"{kid} was launched no time on any path")

@@ -6,8 +6,8 @@ ESMC + adapter + Qwen3 (`models/composed.py ESMCQwen`) encode each batch
 of CSV rows (collated by the serve CLI's `LightCollator`, JAX's buckets)
 into prompt embeddings, which `ESMCQwen.generate` decodes in lockstep: one
 prefill (K1, or the plain function under --attn_impl xla) into a
-preallocated cache, then one decode step per token (K2 + K3 on Qwen3-14B's
-head dim 128).  The final partial batch is padded by repeating its last
+preallocated cache, then one decode step per token (K4 per layer on
+Qwen3-14B's head dim 128).  The final partial batch is padded by repeating its last
 row, as JAX pads it, and only the real rows are written: one JSON file
 {name: {"true", "pred"}} and a descriptions/hour line.
 

@@ -7,11 +7,12 @@ t, tokens after EOS are pad, greedy = argmax over fp32 logits, sampling
 applies temperature → top-k → top-p.
 
 The decode loop is a host-driven Python loop: one prefill (K1 inside), then
-one `decoder_decode_step` per token (K2 per layer, K3 once per step; on
-the tbkd cache of a head dim off the 128 grid, plain attention and K12
-twice per step; K7 per layer on an int8 cache) and one host sync per token
-for the all-finished check.  The slot written at
-step t is still 0 in `kv_mask` while K2 runs; it is set afterwards.
+one `decoder_decode_step` per token (K4 per layer, which attends and writes
+the token's k/v into the step's slot of that layer; on the tbkd cache of a
+head dim off the 128 grid, plain attention and K12 twice per step; K7 per
+layer on an int8 cache) and one host sync per token for the all-finished
+check.  The slot written at step t is still 0 in `kv_mask` while the
+attention runs; it is set afterwards.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Two layouts, as in the JAX package (`models/decoder.kv_cache_layout`):
   * "bktd" (L, B, Hkv, T, D), batch dims leading: a layer's (B, Hkv, T, D)
-    block and every (b, kv-head) row run are contiguous for K2/K4 and
-    every slot row for K3.  The dense cache of a head dim on the 128 grid
+    block and every (b, kv-head) row run are contiguous for K4 and its
+    slot write.  The dense cache of a head dim on the 128 grid
     (Llama-3.1-8B, Qwen3-14B), every int8 cache, and the serving pool at
     every head dim;
   * "tbkd" (L, T, B, Hkv, D), sequence leading: the dense lockstep cache of

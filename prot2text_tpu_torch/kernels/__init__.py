@@ -155,9 +155,19 @@ KERNELS = {
              "scripts/probe_int8_kv.py:116"),
 }
 
-# kernels that no path of either package launches, each with its only JAX
-# caller: held against their plain versions, but no path counts them
-OFF_PATH = {"K13": "tests/test_flash_attention.py:142"}
+# kernels that no model path of the port launches, each with why: held
+# against their plain versions, but no path counts them
+OFF_PATH = {
+    "K2": ("no model path: the bf16 lockstep step attends and writes its "
+           "slot in K4 per layer (JAX's P2T_FUSED_CACHE_WRITE route, "
+           "prot2text_tpu/models/decoder.py:992-1027); JAX's default "
+           "lockstep step still calls it (:1059)"),
+    "K3": ("no model path: the bf16 lockstep step writes its slot in K4's "
+           "epilogue per layer; JAX's default lockstep step still calls it "
+           "(prot2text_tpu/models/decoder.py:1129-1131)"),
+    "K13": ("no path of either package; its only JAX caller is "
+            "tests/test_flash_attention.py:142"),
+}
 
 
 def _wrappers(w) -> tuple:

@@ -94,8 +94,8 @@ SIGNATURES = {
     "p2t_probe_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # x, w, scale, out, R, K, N, variant, param, ck, stages, stream
     "p2t_probe_quant_matmul_few": [_P] * 4 + [_I] * 7 + [_P],
-    # x, w, out, partial, R, K, N, splits, stream
-    "p2t_int8_mma": [_P] * 4 + [_I] * 4 + [_P],
+    # x, w, out, R, K, N, bm, bn, ck, stream
+    "p2t_int8_mma": [_P] * 3 + [_I] * 6 + [_P],
     # x, out, n, mult, stream
     "p2t_int8_quantize_store": [_P, _P, _L, _F, _P],
     # a, b, out, rows, cols, row, stream

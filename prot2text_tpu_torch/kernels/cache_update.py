@@ -3,7 +3,10 @@
 
 * K3, `cache_slot_write_bkt`: the (L, B, Hkv, T, D) cache.  Replaces
   prot2text_tpu/kernels/cache_update.py `cache_slot_write_bkt`
-  (`_write_group_kernel`).
+  (`_write_group_kernel`).  No model path of the port calls it: the bf16
+  lockstep step writes its slot inside K4 per layer (JAX's fused-write
+  route); JAX's default lockstep step still calls it
+  (prot2text_tpu/models/decoder.py:1008-1011).
 * K12, `cache_slot_write`: the sequence-leading (L, T, B, Hkv, D) cache of
   D=64 decoders.  Replaces `cache_slot_write` (`_write_kernel`).
 * K13, `cache_slot_write_kv`: K12 for the k and v caches in one launch.

@@ -10,7 +10,9 @@
 //
 // Bound: bytes.  It reads and writes L*B*Hkv*D*itemsize bytes each (256 KiB
 // at the 8B shape: L=32, B=4, Hkv=8, D=128, bf16) and is launch-latency
-// bound at that size.
+// bound at that size.  So the port's bf16 lockstep step does not call it:
+// K4's epilogue (decode_attention_split.cuh SlotWrite) writes each layer's
+// slot in the launch that already holds the token's k and v.
 // Design: one 16-byte word per thread over the flattened (row, word) index,
 // so every warp stores 512 contiguous bytes of slot rows; a byte-wise
 // variant covers rows whose size is not a multiple of 16 bytes.

@@ -17,8 +17,9 @@
 //   - a write policy: `SlotWrite` (K4, K9a) stores row b's bf16 k/v into
 //     slot slots[b] after the reads, `ChunkWrite` (K7, K8, K9b, K9c) the G
 //     int8 k/v rows and their scales at [slots[b], slots[b] + G),
-//     `NoWrite` (K2) leaves the cache as it is (lockstep generation writes
-//     the slot with K3 after the layer loop).
+//     `NoWrite` (K2) leaves the cache as it is (JAX's default lockstep
+//     step writes the slot with K3 after the layer loop; the port's bf16
+//     lockstep step takes K4's SlotWrite per layer instead).
 //
 // Contract (as the SIMT bodies and the TPU kernels): q pre-scaled, logits
 // fp32; a block holds all `rows` query rows of its kv head (K2/K4/K9a: the

@@ -13,173 +13,214 @@
 // and the int32 output 7.3 MB: 19.9 us at 3.35 TB/s; its 15.0 G operations
 // take 7.6 us at the int8 dense rate (1979 TOP/s).  A product reaches the
 // int8 rate only from about 2R operations per weight byte = 590, R ~ 300.
-// Design: the ragged route's layout (csrc/quant_matmul_ragged.cuh), on
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32: the product is computed
-// transposed, y^T = w^T x^T; a warp owns 32 output columns (two MMA tiles of
-// 16 rows) and up to 16 tiles of 8 x rows (the MMA's 8 columns), so at R 128
-// one block holds every row and the weight streams once.  Thread (g, t) owns
-// columns 4g .. 4g+3 of its warp; a K step covers 32 k values: the thread
-// loads 4 bytes (its 4 columns) of rows 32 step + 8t + i, i < 8, and a 4x4
-// byte transpose (__byte_perm) turns each 4 rows x 4 columns into one A
-// register per column (MMA k 4t .. 4t+3 are rows 8t .. 8t+3, MMA k 16 + 4t
-// .. are rows 8t + 4 ..), so a B fragment is 8 contiguous bytes of an x row,
-// staged in shared memory in plain k order.  int32 accumulation is exact
-// and order-free: a split of K across blocks is summed into the same
-// integers by quant_matmul_ragged.cuh's second pass.
-#include "quant_matmul_ragged.cuh"
+// So the weight has to stream at the memory's rate, as K15g's does on the
+// many-row body (quant_matmul_rows.cuh) over the same weight; this is that
+// body with an integer policy, `S8W`:
+//   - the product runs transposed, y^T = w^T x^T, on wgmma
+//     m64nBMk32.s32.s8.s8: 8-bit operands have no transpose bit, so both
+//     shared-memory operands would have to be K-major.  x (R, K) row-major
+//     is: it is B, one TMA box of BM rows x 128 bytes (128 k values) a
+//     tile in the 128-byte swizzle, read by the body's descriptor, whose
+//     k32 step moves 32 bytes as a bf16 k16 step does.  The weight (K, N)
+//     is N-major, so A comes from registers, as for every weight policy of
+//     the body: a tile is 128 k rows x BN columns, BN / 128 boxes of 128
+//     rows x 128 bytes;
+//   - an A register of the m64k32 8-bit fragment holds 4 consecutive k of
+//     one MMA row: a0 (row g, k 4t .. 4t+3), a1 (row g + 8), a2 and a3 the
+//     same at k 16 + 4t.  Row g stands for column 2g of the warp's 16 and
+//     row g + 8 for column 2g + 1 (the body's epilogue layout).  One
+//     ldmatrix.x4.trans of 16-bit units a k32 step gives thread (g, t), in
+//     matrix m, the two columns' bytes of the two k rows its lanes 8m + 2t
+//     and 8m + 2t + 1 address; so lanes choose k rows 4t + h + 2((m & 1)
+//     ^ (t >> 1)) (+ 16 for m >= 2): matrices 0 and 1 hold k 4t .. 4t+3
+//     between them (swapped for t >= 2, so that each matrix's eight rows
+//     fall on eight distinct 16-byte chunks of the swizzle: no bank
+//     conflict), and one byte permute a register builds each column's
+//     four k values;
+//   - int32 sums are exact in any order: the cluster's split of K sums its
+//     partials as int32 through distributed shared memory, one launch, and
+//     two launches give the same bits.
+// The weight is read once (BM 128 holds the probe's 128 rows); no int8 ->
+// bf16 conversion runs, and a tile needs half of K15g's MMAs per k.
+// Contract: any R >= 1, K % 16 == 0 and N % 16 == 0 (TMA's row strides;
+// kernels/probe_quant_matmul.py pads N % 4 == 0 to it), x and w 16-byte
+// aligned.
+#include "quant_matmul_rows.cuh"
 
 namespace {
+namespace rows {
 
-constexpr int kI8Stage = 256;          // k values (bytes) staged per fill
-constexpr int kI8Stride = kI8Stage + 32;   // bytes: conflict-free 8B reads
-constexpr int kI8Unroll = 4;           // K steps loaded ahead
+// d (the warpgroup's 64 weight columns x N rows, int32) += a (64 x 32 s8,
+// registers) · b (32 x N s8 of x, K-major in shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int32_t (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// rows v[0..3] (4 bytes each: columns 0..3) -> columns c[0..3] (4 bytes
-// each: rows 0..3)
-__device__ __forceinline__ void transpose4(const uint32_t* v, uint32_t* c) {
-  const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140);
-  const uint32_t t1 = __byte_perm(v[0], v[1], 0x7362);
-  const uint32_t t2 = __byte_perm(v[2], v[3], 0x5140);
-  const uint32_t t3 = __byte_perm(v[2], v[3], 0x7362);
-  c[0] = __byte_perm(t0, t2, 0x5410);
-  c[1] = __byte_perm(t0, t2, 0x7632);
-  c[2] = __byte_perm(t1, t3, 0x5410);
-  c[3] = __byte_perm(t1, t3, 0x7632);
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int32_t (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int kRT>
-__global__ void __launch_bounds__(kThreads)
-int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                int32_t* __restrict__ out, int32_t* __restrict__ partial,
-                int R, int K, int N, int steps_per_split) {
-  constexpr int kRows = kRT * kTileRows;
-  __shared__ __align__(16) int8_t xs[kRows * kI8Stride];
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int32_t (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * kRows;
-  const int nc = blockIdx.y * kBlockCols + warp * kWarpCols + 4 * g;
-  const int nsteps = (K + 31) / 32;
-  const int s_begin = blockIdx.z * steps_per_split;
-  const int s_end = min(nsteps, s_begin + steps_per_split);
-
-  int acc[kRT][2][4];
-#pragma unroll
-  for (int i = 0; i < kRT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][h][c] = 0;
-
-  constexpr int kFill = kI8Stage / 32;
-  for (int sb = s_begin; sb < s_end; sb += kFill) {
-    const int ns = min(kFill, s_end - sb);
-    // stage x[r0 .. r0 + kRows, 32 sb .. + kI8Stage) in 16-byte pieces (K %
-    // 16 == 0: a piece is in or out whole)
-    for (int e = threadIdx.x; e < kRows * (kI8Stage / 16); e += kThreads) {
-      const int r = e / (kI8Stage / 16), q = e % (kI8Stage / 16);
-      const int k = 32 * sb + 16 * q;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < R && k < K)
-        v = *reinterpret_cast<const uint4*>(x + (int64_t)(r0 + r) * K + k);
-      *reinterpret_cast<uint4*>(&xs[r * kI8Stride + 16 * q]) = v;
-    }
-    __syncthreads();
-    for (int s0 = 0; s0 < ns; s0 += kI8Unroll) {
-      uint32_t wv[kI8Unroll][8];
-#pragma unroll
-      for (int u = 0; u < kI8Unroll; ++u) {
-        if (s0 + u >= ns) break;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int k = 32 * (sb + s0 + u) + 8 * t + i;
-          wv[u][i] = load_row4<true>(w, k, k < K, nc, N);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kI8Unroll; ++u) {
-        if (s0 + u >= ns) break;
-        const int sl = s0 + u;
-        uint32_t lo[4], hi[4];           // columns 0..3: rows 0..3, 4..7
-        transpose4(&wv[u][0], lo);
-        transpose4(&wv[u][4], hi);
-        uint32_t a[2][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {    // tile h: columns 2h, 2h + 1
-          a[h][0] = lo[2 * h];
-          a[h][1] = lo[2 * h + 1];
-          a[h][2] = hi[2 * h];
-          a[h][3] = hi[2 * h + 1];
-        }
-#pragma unroll
-        for (int i = 0; i < kRT; ++i) {
-          const uint2 b = *reinterpret_cast<const uint2*>(
-              &xs[(i * kTileRows + g) * kI8Stride + 32 * sl + 8 * t]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) mma_s8(acc[i][h], a[h], b.x, b.y);
-        }
-      }
-    }
-    __syncthreads();
+// The int8 x int8 policy (K15f): x int8, 128 k values a tile, int32 sums.
+struct S8W {
+  using Acc = int32_t;
+  static constexpr CUtensorMapDataType kXType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int kXElem = 1;
+  static constexpr int kTileK = 128;
+  static constexpr bool kXTiled = false;
+  template <int N>
+  __device__ static void mma(int32_t (&d)[N / 2], const uint32_t (&a)[4],
+                             uint64_t b) {
+    wgmma_s8<N>(d, a, b);
   }
-  int32_t* dst = gridDim.z > 1 ? partial + (int64_t)blockIdx.z * R * N : out;
+  static bool fits(int K, int N) { return K % 16 == 0 && N % 16 == 0; }
+  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
+    return make_wmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, 128,
+                        kTileK);
+  }
+  template <int kBN>
+  __host__ __device__ static constexpr int bytes() {
+    return kTileK * kBN;
+  }
+  __host__ __device__ static int tiles(int K) {
+    return (K + kTileK - 1) / kTileK;
+  }
+  template <int kBN>
+  __device__ static void load(unsigned char* xs, unsigned char* ws,
+                              const CUtensorMap* xmap,
+                              const CUtensorMap* wmap, int kt, int r0,
+                              int n0, uint64_t* bar) {
+    tma_2d(xs, xmap, kt * kTileK, r0, bar);
 #pragma unroll
-  for (int i = 0; i < kRT; ++i)
+    for (int h = 0; h < kBN / 128; ++h)
+      tma_2d(ws + h * 128 * kTileK, wmap, n0 + 128 * h, kt * kTileK, bar);
+  }
+  // the A fragments of k32 steps 0 .. 3 of the tile at the warp's 16
+  // columns col .. col + 15
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    const int m = lane >> 3, tq = (lane >> 1) & 3, h = lane & 1;
+    const int kl = 16 * (m >> 1) + 4 * tq + h + 2 * ((m & 1) ^ (tq >> 1));
+    const unsigned char* box = ws + (col >> 7) * 128 * kTileK;
+    const int chunk = (col & 127) >> 4;
+    // k 4t .. 4t+3 of column 2g from registers 0 and 1 (bytes 0 and 2 of
+    // each), of column 2g + 1 bytes 1 and 3; swapped for t >= 2
+    const int t = lane & 3;
+    const uint32_t sel = (t & 2) ? 0x2064u : 0x6420u;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = r0 + i * kTileRows + 2 * t + (c & 1);
-        const int n = nc + 2 * h + (c >> 1);
-        if (r < R && n < N) dst[(int64_t)r * N + n] = acc[i][h][c];
-      }
-}
+    for (int s = 0; s < 4; ++s) {
+      const int k = 32 * s + kl;
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, box + k * 128 + ((chunk ^ (k & 7)) << 4));
+      a[s][0] = __byte_perm(r[0], r[1], sel);
+      a[s][1] = __byte_perm(r[0], r[1], sel + 0x1111u);
+      a[s][2] = __byte_perm(r[2], r[3], sel);
+      a[s][3] = __byte_perm(r[2], r[3], sel + 0x1111u);
+    }
+  }
+};
 
-template <int kRT>
-void launch_i8_rt(const int8_t* x, const int8_t* w, int32_t* out,
-                  int32_t* partial, int R, int K, int N, int splits, int per,
-                  cudaStream_t stream) {
-  constexpr int kRows = kRT * kTileRows;
-  const dim3 grid((R + kRows - 1) / kRows,
-                  (N + kBlockCols - 1) / kBlockCols, splits);
-  int8_mma_kernel<kRT><<<grid, kThreads, 0, stream>>>(x, w, out, partial, R,
-                                                      K, N, per);
-}
-
+}  // namespace rows
 }  // namespace
 
-// x (R, K) int8, w (K, N) int8, out (R, N) int32; K % 16 == 0, N % 4 == 0,
-// x and w 16-byte aligned; splits >= 1 slices of K in steps of 32, with
-// `partial` an (splits, R, N) int32 scratch buffer when splits > 1
-extern "C" int p2t_int8_mma(const void* x, const void* w, void* out,
-                            void* partial, int R, int K, int N, int splits,
+// x (R, K) int8, w (K, N) int8, out (R, N) int32: bm rows and bn columns
+// a block, K split over ck blocks of a cluster (kernels/
+// probe_quant_matmul.py i8_tiling picks them); K % 16 == 0, N % 16 == 0,
+// x and w 16-byte aligned, else cudaErrorInvalidValue
+extern "C" int p2t_int8_mma(const void* x, const void* w, void* out, int R,
+                            int K, int N, int bm, int bn, int ck,
                             void* stream) {
-  if (R <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || N % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 || splits <= 0 ||
-      splits > 65535 || (splits > 1 && partial == nullptr) ||
-      splits > (K + 31) / 32 || (N + kBlockCols - 1) / kBlockCols > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xi = static_cast<const int8_t*>(x);
-  const int8_t* wi = static_cast<const int8_t*>(w);
-  int32_t* o = static_cast<int32_t*>(out);
-  int32_t* pt = static_cast<int32_t*>(partial);
-  const int per = ((K + 31) / 32 + splits - 1) / splits;
-  if (R <= 32)
-    launch_i8_rt<4>(xi, wi, o, pt, R, K, N, splits, per, s);
-  else
-    launch_i8_rt<16>(xi, wi, o, pt, R, K, N, splits, per, s);
-  if (splits > 1)
-    launch_reduce<int32_t, int32_t>(pt, nullptr, o, R, N, splits, s);
-  return (int)cudaGetLastError();
+  return rows::run<rows::S8W, int32_t>(x, nullptr, w, nullptr, out, R, K, N,
+                                       bm, bn, ck,
+                                       static_cast<cudaStream_t>(stream));
 }

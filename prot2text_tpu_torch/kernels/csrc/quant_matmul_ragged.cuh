@@ -32,8 +32,7 @@
 // else byte loads), and stages x in shared memory 256 k values at a time;
 // K is split across blocks and the splits' fp32 partials are summed in
 // split order by quant_matmul_reduce_kernel, a second launch (no atomics,
-// so the result does not change from run to run).  K15f's int8 x int8
-// product (int8_mma.cu) shares that reduction.
+// so the result does not change from run to run).
 //
 // The fragment builders.  Thread (g, t) of a warp owns the four adjacent
 // columns 4g .. 4g+3 (MMA rows g and g + 8 of tile 0 are columns 4g and
@@ -51,8 +50,6 @@
 // integers.  (JAX's TPU pairs kernel subtracts 136 * rowsum(x) in its fp32
 // epilogue instead; these kernels are exact.)
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -362,31 +359,28 @@ quant_mma_kernel(const T* __restrict__ x, const void* __restrict__ w,
 }
 
 // out[r, n] = (sum over splits, in order, of partial) * scale[n]; no scale
-// (nullptr): the sum.  Acc int32 (K15f): the exact integer sum, no scale.
-template <typename Acc, typename To>
+// (nullptr): the sum
+template <typename To>
 __global__ void __launch_bounds__(256)
-quant_matmul_reduce_kernel(const Acc* __restrict__ partial,
+quant_matmul_reduce_kernel(const float* __restrict__ partial,
                            const float* __restrict__ scale,
                            To* __restrict__ out, int R, int N, int splits) {
   const int64_t total = (int64_t)R * N;
   for (int64_t i = blockIdx.x * 256LL + threadIdx.x; i < total;
        i += (int64_t)gridDim.x * 256) {
-    Acc s = 0;
+    float s = 0.f;
     for (int p = 0; p < splits; ++p) s += partial[p * total + i];
-    if constexpr (std::is_same<Acc, float>::value)
-      out[i] = from_float<To>(scale ? s * scale[i % N] : s);
-    else
-      out[i] = s;
+    out[i] = from_float<To>(scale ? s * scale[i % N] : s);
   }
 }
 
-template <typename Acc, typename To>
-void launch_reduce(const Acc* partial, const float* scale, To* out, int R,
+template <typename To>
+void launch_reduce(const float* partial, const float* scale, To* out, int R,
                    int N, int splits, cudaStream_t stream) {
   const int64_t total = (int64_t)R * N;
   const int64_t blocks64 = (total + 255) / 256;
   const int blocks = (int)(blocks64 < 4096 ? blocks64 : 4096);
-  quant_matmul_reduce_kernel<Acc, To><<<blocks, 256, 0, stream>>>(
+  quant_matmul_reduce_kernel<To><<<blocks, 256, 0, stream>>>(
       partial, scale, out, R, N, splits);
 }
 
@@ -425,8 +419,8 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
     launch_rt<P, T, To, 8, kW>(x, w, scale, out, partial, R, K, N,
                                       splits, per, stream);
   if (splits > 1)
-    launch_reduce<float, To>(partial, scale, static_cast<To*>(out), R, N,
-                             splits, stream);
+    launch_reduce<To>(partial, scale, static_cast<To*>(out), R, N, splits,
+                      stream);
   return cudaGetLastError();
 }
 

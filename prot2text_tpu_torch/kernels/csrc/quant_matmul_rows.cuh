@@ -4,6 +4,11 @@
 //
 //   y[r, n] = (sum_k x[r, k] * q[k, n]) * scale[n]     (no scale: the sum)
 //
+// and K15f's int8 x int8 product, exact in int32 with no scale (its policy
+// `S8W`, instantiated in int8_mma.cu, whose header states its fragments:
+// x (R, K) int8 as it is, 128 k values a tile, s32 accumulators on wgmma
+// m64nBMk32.s8.s8, int32 sums in the cluster's exchange and in y).
+//
 // x (R, K) bf16 row-major; q the integer weight in a format policy's layout
 // (`Int8W`: (K, N) int8, K14's and K15g's; `PlanesW`: (K/8, N) int32 nibble
 // planes, K10's: nibble j of word [k8, n] holds q[k8 + j*K/8, n];
@@ -117,7 +122,7 @@ using p2t::ldmatrix_x4_trans;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBK = 64;                // k values per tile
+constexpr int kBK = 64;                // k values per tile of a bf16 x
 constexpr int kMaxCluster = 8;         // the portable cluster
 constexpr int kMaxStages = 8;
 
@@ -135,7 +140,7 @@ struct Tile {
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 32;
   static constexpr int kPerSM = per_sm<kWG, kBM>();
-  static constexpr int kXBytes = 128 * kBM;       // kBM rows x 64 bf16
+  static constexpr int kXBytes = 128 * kBM;       // kBM rows x 128 bytes
   static constexpr int kWBytes = W::template bytes<kBN>();
   static constexpr int kStage = kXBytes + kWBytes;  // multiples of 1024
   static constexpr int kBudget = kPerSM == 2 ? 104 * 1024 : 224 * 1024;
@@ -143,7 +148,7 @@ struct Tile {
       kBudget / kStage < kMaxStages ? kBudget / kStage : kMaxStages;
   static constexpr int kRing = kStages * kStage;
   static constexpr int kBytes = kRing + 2 * kStages * 8;  // + the mbarriers
-  // the cluster's exchange: fp32 [kBM][kAccStride] over the ring
+  // the cluster's exchange: Acc [kBM][kAccStride] over the ring
   static constexpr int kAccStride = kBN + 4;
   static_assert(kStage % 1024 == 0, "128-byte swizzle atoms");
   static_assert(kStages >= 3, "a ring of at least three stages");
@@ -243,261 +248,7 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
 }
 
 // ---------------------------------------------------------------------------
-// weight formats.  A policy W states: kXTiled (x is read in the int4
-// formats' tile order, written first by planes_x_kernel), fits(K, N) (its
-// shape rule), wmap() (the weight's tensor map), bytes<kBN>() (a tile's
-// weight bytes), tiles(K), load() (the producer's copies of tile kt) and
-// frags() (a consumer warp's A fragments of the tile's four k16 steps).
-
-// int8 bytes i and i + 2 of u (flipped: q + 128) → their bf16 pair (byte i
-// in the low half), exactly: u's byte sits in the fp32 2^23 + u, one add
-// takes 2^23 + 128 off, and the high halves of the two fp32 values are the
-// bf16s (an integer of at most 8 significant bits has zero low halves)
-__device__ __forceinline__ uint32_t int8_pair(uint32_t u, int i) {
-  const float lo =
-      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f;
-  const float hi =
-      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542 + i)) - 8388736.f;
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// nibbles u0, u1 in bits [0, 4) and [16, 20) of t, already biased (u =
-// q + 8) → their exact bf16 pair: 0x4300 | u is the bf16 of 128 + u, and
-// 136 off
-__device__ __forceinline__ uint32_t biased_pair(uint32_t t) {
-  t = (t & 0x000F000Fu) | 0x43004300u;
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t),
-                                   __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// two's complement nibbles in bits [0, 4) and [16, 20) of v → their exact
-// bf16 pair: bit 3 flipped (q + 8), then biased_pair's arithmetic
-__device__ __forceinline__ uint32_t nibble_pair(uint32_t v) {
-  uint32_t t = (v & 0x000F000Fu) ^ 0x43084308u;
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t),
-                                   __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// the weight's 2-D map: dims (cols, rows) of `type`, a row `pitch` bytes
-// apart, boxes (box_cols, box_rows)
-inline bool make_wmap_2d(CUtensorMap* map, CUtensorMapDataType type,
-                         const void* w, int cols, int rows, int pitch,
-                         int box_cols, int box_rows) {
-  const cuuint64_t d[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t st[1] = {(cuuint64_t)pitch};
-  const cuuint32_t b[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  return make_map(map, type, 2, w, d, st, b);
-}
-
-// The int8 weight (K, N): a tile is kBK rows x kBN columns, kBN / 128
-// boxes of 64 rows x 128 bytes (the weight's map: dims (N, K), boxes (128,
-// 64)).  x's tile is one box of its map (dims (K, R), boxes (64, kBM)) at
-// k 64kt.  half() turns one ldmatrix.x4.trans of 16-bit units over k rows
-// 32kp .. 32kp + 31 of the warp's 16 columns (matrices: k 0-7, 8-15, 16-23,
-// 24-31) into the A fragments of k16 steps 2kp and 2kp + 1: register r of
-// a matrix holds bytes (k 2t, col 2g), (k 2t, col 2g+1), (k 2t+1, col 2g),
-// (k 2t+1, col 2g+1), so the MMA's row g is column 2g (bytes 0, 2) and row
-// g + 8 column 2g + 1 (bytes 1, 3).
-struct Int8W {
-  static constexpr bool kXTiled = false;
-  static bool fits(int K, int N) { return K % 8 == 0 && N % 16 == 0; }
-  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
-    return make_wmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, 128,
-                        64);
-  }
-  template <int kBN>
-  __host__ __device__ static constexpr int bytes() {
-    return kBK * kBN;
-  }
-  __host__ __device__ static int tiles(int K) { return (K + kBK - 1) / kBK; }
-  template <int kBN>
-  __device__ static void load(unsigned char* xs, unsigned char* ws,
-                              const CUtensorMap* xmap,
-                              const CUtensorMap* wmap, int kt, int r0,
-                              int n0, uint64_t* bar) {
-    tma_2d(xs, xmap, kt * kBK, r0, bar);
-#pragma unroll
-    for (int h = 0; h < kBN / 128; ++h)
-      tma_2d(ws + h * 128 * kBK, wmap, n0 + 128 * h, kt * kBK, bar);
-  }
-  __device__ static void half(const unsigned char* ws, int col, int lane,
-                              int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
-    const int k = 32 * kp + (lane & 7) + 8 * (lane >> 3);
-    uint32_t m[4];
-    ldmatrix_x4_trans(m, ws + (col >> 7) * 128 * kBK + k * 128 +
-                             ((((col & 127) >> 4) ^ (k & 7)) << 4));
-    uint32_t u[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) u[i] = m[i] ^ 0x80808080u;
-    a0[0] = int8_pair(u[0], 0);
-    a0[1] = int8_pair(u[0], 1);
-    a0[2] = int8_pair(u[1], 0);
-    a0[3] = int8_pair(u[1], 1);
-    a1[0] = int8_pair(u[2], 0);
-    a1[1] = int8_pair(u[2], 1);
-    a1[2] = int8_pair(u[3], 0);
-    a1[3] = int8_pair(u[3], 1);
-  }
-  __device__ static void frags(const unsigned char* ws, int col, int lane,
-                               uint32_t (&a)[4][4]) {
-    half(ws, col, lane, 0, a[0], a[1]);
-    half(ws, col, lane, 1, a[2], a[3]);
-  }
-};
-
-// The nibble planes (K/8, N) int32: a tile is 8 word rows x kBN words,
-// kBN / 32 boxes of 8 rows x 128 bytes (the weight's map: dims (N, K/8),
-// boxes (32, 8)).  The tile-local k of (word row i, nibble j) is 8j + i:
-// `planes_x_kernel` writes x in that order (xp[r, 64kt + 8j + i] = x[r,
-// j*K/8 + 8kt + i]), and x's tile is one box of xp's map at k 64kt, as for
-// Int8W.  half() for k16 steps 2kp and 2kp + 1: the MMA's row g is column
-// 2g and row g + 8 column 2g + 1, as for Int8W; words (2t, col) and (2t +
-// 1, col) give k 2t, 2t + 1 (nibble 2s) and 2t + 8, 2t + 9 (nibble 2s + 1)
-// of step s.
-struct PlanesW {
-  static constexpr bool kXTiled = true;
-  static bool fits(int K, int N) { return K % 64 == 0 && N % 4 == 0; }
-  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
-    return make_wmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_INT32, w, N, K / 8,
-                        4 * N, 32, 8);
-  }
-  template <int kBN>
-  __host__ __device__ static constexpr int bytes() {
-    return 8 * 4 * kBN;
-  }
-  __host__ __device__ static int tiles(int K) { return K / kBK; }
-  template <int kBN>
-  __device__ static void load(unsigned char* xs, unsigned char* ws,
-                              const CUtensorMap* xmap,
-                              const CUtensorMap* wmap, int kt, int r0,
-                              int n0, uint64_t* bar) {
-    tma_2d(xs, xmap, kt * kBK, r0, bar);
-#pragma unroll
-    for (int h = 0; h < kBN / 32; ++h)
-      tma_2d(ws + h * 1024, wmap, n0 + 32 * h, 8 * kt, bar);
-  }
-  // words (2t, column 2g), (2t, 2g + 1) in u0 and (2t + 1, ...) in u1 (the
-  // box of 32 words holding column c, word w of it)
-  __device__ static void words(const unsigned char* ws, int col, int lane,
-                               uint2* u0, uint2* u1) {
-    const int g = lane >> 2, t = lane & 3;
-    const int c = col + 2 * g, w = c & 31;        // box c / 32, word w
-    const unsigned char* box = ws + (c >> 5) * 1024 + (w & 3) * 4;
-    *u0 = *reinterpret_cast<const uint2*>(
-        box + 2 * t * 128 + (((w >> 2) ^ (2 * t)) << 4));
-    *u1 = *reinterpret_cast<const uint2*>(
-        box + (2 * t + 1) * 128 + (((w >> 2) ^ (2 * t + 1)) << 4));
-  }
-  __device__ static void half(const unsigned char* ws, int col, int lane,
-                              int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
-    uint2 u0, u1;
-    words(ws, col, lane, &u0, &u1);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int s = 2 * kp + h;
-      // byte s of row 2t in byte 0, of row 2t + 1 in byte 2
-      const uint32_t sel = s | ((4 + s) << 8);
-      const uint32_t c0 = __byte_perm(u0.x, u1.x, sel);  // column 2g
-      const uint32_t c1 = __byte_perm(u0.y, u1.y, sel);  // column 2g + 1
-      uint32_t (&a)[4] = h ? a1 : a0;
-      a[0] = nibble_pair(c0);
-      a[1] = nibble_pair(c1);
-      a[2] = nibble_pair(c0 >> 4);
-      a[3] = nibble_pair(c1 >> 4);
-    }
-  }
-  __device__ static void frags(const unsigned char* ws, int col, int lane,
-                               uint32_t (&a)[4][4]) {
-    half(ws, col, lane, 0, a[0], a[1]);
-    half(ws, col, lane, 1, a[2], a[3]);
-  }
-};
-
-// The split-half bytes (K/2, N) int8, viewed as (4, K/8, N): group g's
-// byte row k8 holds plane g (k = g*K/8 + k8) low and plane g + 4 (k = K/2
-// + g*K/8 + k8) high.  A tile is word rows 8kt .. 8kt + 7 of the four
-// groups, 32 byte rows x kBN bytes, PlanesW's k values in PlanesW's
-// bytes: kBN / 128 boxes of (4, 8, 128) bytes (the weight's map: dims (N,
-// K/8, 4), strides N and K/8 * N bytes), byte row 8g + i of a box at
-// 128(8g + i), in the 128-byte swizzle.  x as for PlanesW.  frags(): one
-// ldmatrix.x4.trans of 16-bit units, lane l addressing row l of the box
-// (group l / 8, word row l % 8) at the warp's 16 columns: register g holds
-// bytes (2t, 2g), (2t, 2g + 1), (2t + 1, 2g), (2t + 1, 2g + 1) of group g,
-// so k16 step s's planes 2s, 2s + 1 are groups 2(s % 2) and 2(s % 2) + 1,
-// low nibbles for s < 2 and high ones above: one load for the four steps.
-struct BytesW {
-  static constexpr bool kXTiled = true;
-  static bool fits(int K, int N) { return K % 64 == 0 && N % 16 == 0; }
-  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
-    const cuuint64_t d[3] = {(cuuint64_t)N, (cuuint64_t)(K / 8), 4};
-    const cuuint64_t st[2] = {(cuuint64_t)N, (cuuint64_t)(K / 8) * N};
-    const cuuint32_t b[3] = {128, 8, 4};
-    return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, w, d, st, b);
-  }
-  template <int kBN>
-  __host__ __device__ static constexpr int bytes() {
-    return 32 * kBN;
-  }
-  __host__ __device__ static int tiles(int K) { return K / kBK; }
-  template <int kBN>
-  __device__ static void load(unsigned char* xs, unsigned char* ws,
-                              const CUtensorMap* xmap,
-                              const CUtensorMap* wmap, int kt, int r0,
-                              int n0, uint64_t* bar) {
-    tma_2d(xs, xmap, kt * kBK, r0, bar);
-#pragma unroll
-    for (int h = 0; h < kBN / 128; ++h)
-      tma_3d(ws + h * 4096, wmap, n0 + 128 * h, 8 * kt, 0, bar);
-  }
-  __device__ static void frags(const unsigned char* ws, int col, int lane,
-                               uint32_t (&a)[4][4]) {
-    uint32_t m[4];
-    ldmatrix_x4_trans(m, ws + (col >> 7) * 4096 + lane * 128 +
-                             ((((col & 127) >> 4) ^ (lane & 7)) << 4));
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int sh = 4 * (s >> 1);              // high nibbles from step 2
-      const uint32_t lo = m[2 * (s & 1)] >> sh;   // plane 2s
-      const uint32_t hi = m[2 * (s & 1) + 1] >> sh;  // plane 2s + 1
-      a[s][0] = nibble_pair(lo);                // column 2g
-      a[s][1] = nibble_pair(lo >> 8);           // column 2g + 1
-      a[s][2] = nibble_pair(hi);
-      a[s][3] = nibble_pair(hi >> 8);
-    }
-  }
-};
-
-// The bf16-pair words (K/8, N) int32: PlanesW's word rows, tile, boxes and
-// map; only the bits differ.  Plane 2p sits in bits [4p, 4p + 4) (byte p /
-// 2, nibble p % 2), plane 2p + 1 in bits [16 + 4p, 20 + 4p) (byte 2 + p /
-// 2), both biased by +8.  For steps 2kp and 2kp + 1 one byte permute a
-// column puts bytes kp, 2 + kp of row 2t and kp, 2 + kp of row 2t + 1 in
-// bytes 0-3: step 2kp's planes are the low nibbles of bytes (0, 2) and (1,
-// 3), step 2kp + 1's the high ones.
-struct PairsW : PlanesW {
-  __device__ static void frags(const unsigned char* ws, int col, int lane,
-                               uint32_t (&a)[4][4]) {
-    uint2 u0, u1;
-    words(ws, col, lane, &u0, &u1);
-#pragma unroll
-    for (int kp = 0; kp < 2; ++kp) {
-      const uint32_t sel = kp | ((2 + kp) << 4) | ((4 + kp) << 8) |
-                           ((6 + kp) << 12);
-      const uint32_t c0 = __byte_perm(u0.x, u1.x, sel);  // column 2g
-      const uint32_t c1 = __byte_perm(u0.y, u1.y, sel);  // column 2g + 1
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t (&f)[4] = a[2 * kp + h];
-        f[0] = biased_pair(c0 >> (4 * h));
-        f[1] = biased_pair(c1 >> (4 * h));
-        f[2] = biased_pair(c0 >> (8 + 4 * h));
-        f[3] = biased_pair(c1 >> (8 + 4 * h));
-      }
-    }
-  }
-};
+// the MMA
 
 // a shared-memory matrix descriptor for a K-major tile in the 128-byte
 // swizzle: the start address, 1024 bytes between 8-row groups, swizzle
@@ -611,6 +362,281 @@ __device__ __forceinline__ void wgmma_n<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ---------------------------------------------------------------------------
+// weight formats.  A policy W states: Acc (the accumulators' type), x's
+// element (kXType, kXElem: a tile of x is kTileK of them, 128 bytes a
+// row), mma<N>() (one of the tile's four MMA steps), kXTiled (x is read in
+// the int4 formats' tile order, written first by planes_x_kernel),
+// fits(K, N) (its shape rule), wmap() (the weight's tensor map),
+// bytes<kBN>() (a tile's weight bytes), tiles(K), load() (the producer's
+// copies of tile kt) and frags() (a consumer warp's A fragments of the
+// tile's four MMA steps).
+
+// what the formats of a bf16 x share: fp32 sums, x's tile 64 bf16 a row,
+// an MMA step of k16
+struct Bf16X {
+  using Acc = float;
+  static constexpr CUtensorMapDataType kXType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int kXElem = 2;
+  static constexpr int kTileK = kBK;
+  template <int N>
+  __device__ static void mma(float (&d)[N / 2], const uint32_t (&a)[4],
+                             uint64_t b) {
+    wgmma_n<N>(d, a, b);
+  }
+};
+
+// int8 bytes i and i + 2 of u (flipped: q + 128) → their bf16 pair (byte i
+// in the low half), exactly: u's byte sits in the fp32 2^23 + u, one add
+// takes 2^23 + 128 off, and the high halves of the two fp32 values are the
+// bf16s (an integer of at most 8 significant bits has zero low halves)
+__device__ __forceinline__ uint32_t int8_pair(uint32_t u, int i) {
+  const float lo =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542 + i)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// nibbles u0, u1 in bits [0, 4) and [16, 20) of t, already biased (u =
+// q + 8) → their exact bf16 pair: 0x4300 | u is the bf16 of 128 + u, and
+// 136 off
+__device__ __forceinline__ uint32_t biased_pair(uint32_t t) {
+  t = (t & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t),
+                                   __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// two's complement nibbles in bits [0, 4) and [16, 20) of v → their exact
+// bf16 pair: bit 3 flipped (q + 8), then biased_pair's arithmetic
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t v) {
+  uint32_t t = (v & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t),
+                                   __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// the weight's 2-D map: dims (cols, rows) of `type`, a row `pitch` bytes
+// apart, boxes (box_cols, box_rows)
+inline bool make_wmap_2d(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* w, int cols, int rows, int pitch,
+                         int box_cols, int box_rows) {
+  const cuuint64_t d[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t st[1] = {(cuuint64_t)pitch};
+  const cuuint32_t b[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return make_map(map, type, 2, w, d, st, b);
+}
+
+// The int8 weight (K, N): a tile is kBK rows x kBN columns, kBN / 128
+// boxes of 64 rows x 128 bytes (the weight's map: dims (N, K), boxes (128,
+// 64)).  x's tile is one box of its map (dims (K, R), boxes (64, kBM)) at
+// k 64kt.  half() turns one ldmatrix.x4.trans of 16-bit units over k rows
+// 32kp .. 32kp + 31 of the warp's 16 columns (matrices: k 0-7, 8-15, 16-23,
+// 24-31) into the A fragments of k16 steps 2kp and 2kp + 1: register r of
+// a matrix holds bytes (k 2t, col 2g), (k 2t, col 2g+1), (k 2t+1, col 2g),
+// (k 2t+1, col 2g+1), so the MMA's row g is column 2g (bytes 0, 2) and row
+// g + 8 column 2g + 1 (bytes 1, 3).
+struct Int8W : Bf16X {
+  static constexpr bool kXTiled = false;
+  static bool fits(int K, int N) { return K % 8 == 0 && N % 16 == 0; }
+  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
+    return make_wmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, 128,
+                        64);
+  }
+  template <int kBN>
+  __host__ __device__ static constexpr int bytes() {
+    return kBK * kBN;
+  }
+  __host__ __device__ static int tiles(int K) { return (K + kBK - 1) / kBK; }
+  template <int kBN>
+  __device__ static void load(unsigned char* xs, unsigned char* ws,
+                              const CUtensorMap* xmap,
+                              const CUtensorMap* wmap, int kt, int r0,
+                              int n0, uint64_t* bar) {
+    tma_2d(xs, xmap, kt * kBK, r0, bar);
+#pragma unroll
+    for (int h = 0; h < kBN / 128; ++h)
+      tma_2d(ws + h * 128 * kBK, wmap, n0 + 128 * h, kt * kBK, bar);
+  }
+  __device__ static void half(const unsigned char* ws, int col, int lane,
+                              int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+    const int k = 32 * kp + (lane & 7) + 8 * (lane >> 3);
+    uint32_t m[4];
+    ldmatrix_x4_trans(m, ws + (col >> 7) * 128 * kBK + k * 128 +
+                             ((((col & 127) >> 4) ^ (k & 7)) << 4));
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) u[i] = m[i] ^ 0x80808080u;
+    a0[0] = int8_pair(u[0], 0);
+    a0[1] = int8_pair(u[0], 1);
+    a0[2] = int8_pair(u[1], 0);
+    a0[3] = int8_pair(u[1], 1);
+    a1[0] = int8_pair(u[2], 0);
+    a1[1] = int8_pair(u[2], 1);
+    a1[2] = int8_pair(u[3], 0);
+    a1[3] = int8_pair(u[3], 1);
+  }
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    half(ws, col, lane, 0, a[0], a[1]);
+    half(ws, col, lane, 1, a[2], a[3]);
+  }
+};
+
+// The nibble planes (K/8, N) int32: a tile is 8 word rows x kBN words,
+// kBN / 32 boxes of 8 rows x 128 bytes (the weight's map: dims (N, K/8),
+// boxes (32, 8)).  The tile-local k of (word row i, nibble j) is 8j + i:
+// `planes_x_kernel` writes x in that order (xp[r, 64kt + 8j + i] = x[r,
+// j*K/8 + 8kt + i]), and x's tile is one box of xp's map at k 64kt, as for
+// Int8W.  half() for k16 steps 2kp and 2kp + 1: the MMA's row g is column
+// 2g and row g + 8 column 2g + 1, as for Int8W; words (2t, col) and (2t +
+// 1, col) give k 2t, 2t + 1 (nibble 2s) and 2t + 8, 2t + 9 (nibble 2s + 1)
+// of step s.
+struct PlanesW : Bf16X {
+  static constexpr bool kXTiled = true;
+  static bool fits(int K, int N) { return K % 64 == 0 && N % 4 == 0; }
+  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
+    return make_wmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_INT32, w, N, K / 8,
+                        4 * N, 32, 8);
+  }
+  template <int kBN>
+  __host__ __device__ static constexpr int bytes() {
+    return 8 * 4 * kBN;
+  }
+  __host__ __device__ static int tiles(int K) { return K / kBK; }
+  template <int kBN>
+  __device__ static void load(unsigned char* xs, unsigned char* ws,
+                              const CUtensorMap* xmap,
+                              const CUtensorMap* wmap, int kt, int r0,
+                              int n0, uint64_t* bar) {
+    tma_2d(xs, xmap, kt * kBK, r0, bar);
+#pragma unroll
+    for (int h = 0; h < kBN / 32; ++h)
+      tma_2d(ws + h * 1024, wmap, n0 + 32 * h, 8 * kt, bar);
+  }
+  // words (2t, column 2g), (2t, 2g + 1) in u0 and (2t + 1, ...) in u1 (the
+  // box of 32 words holding column c, word w of it)
+  __device__ static void words(const unsigned char* ws, int col, int lane,
+                               uint2* u0, uint2* u1) {
+    const int g = lane >> 2, t = lane & 3;
+    const int c = col + 2 * g, w = c & 31;        // box c / 32, word w
+    const unsigned char* box = ws + (c >> 5) * 1024 + (w & 3) * 4;
+    *u0 = *reinterpret_cast<const uint2*>(
+        box + 2 * t * 128 + (((w >> 2) ^ (2 * t)) << 4));
+    *u1 = *reinterpret_cast<const uint2*>(
+        box + (2 * t + 1) * 128 + (((w >> 2) ^ (2 * t + 1)) << 4));
+  }
+  __device__ static void half(const unsigned char* ws, int col, int lane,
+                              int kp, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+    uint2 u0, u1;
+    words(ws, col, lane, &u0, &u1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = 2 * kp + h;
+      // byte s of row 2t in byte 0, of row 2t + 1 in byte 2
+      const uint32_t sel = s | ((4 + s) << 8);
+      const uint32_t c0 = __byte_perm(u0.x, u1.x, sel);  // column 2g
+      const uint32_t c1 = __byte_perm(u0.y, u1.y, sel);  // column 2g + 1
+      uint32_t (&a)[4] = h ? a1 : a0;
+      a[0] = nibble_pair(c0);
+      a[1] = nibble_pair(c1);
+      a[2] = nibble_pair(c0 >> 4);
+      a[3] = nibble_pair(c1 >> 4);
+    }
+  }
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    half(ws, col, lane, 0, a[0], a[1]);
+    half(ws, col, lane, 1, a[2], a[3]);
+  }
+};
+
+// The split-half bytes (K/2, N) int8, viewed as (4, K/8, N): group g's
+// byte row k8 holds plane g (k = g*K/8 + k8) low and plane g + 4 (k = K/2
+// + g*K/8 + k8) high.  A tile is word rows 8kt .. 8kt + 7 of the four
+// groups, 32 byte rows x kBN bytes, PlanesW's k values in PlanesW's
+// bytes: kBN / 128 boxes of (4, 8, 128) bytes (the weight's map: dims (N,
+// K/8, 4), strides N and K/8 * N bytes), byte row 8g + i of a box at
+// 128(8g + i), in the 128-byte swizzle.  x as for PlanesW.  frags(): one
+// ldmatrix.x4.trans of 16-bit units, lane l addressing row l of the box
+// (group l / 8, word row l % 8) at the warp's 16 columns: register g holds
+// bytes (2t, 2g), (2t, 2g + 1), (2t + 1, 2g), (2t + 1, 2g + 1) of group g,
+// so k16 step s's planes 2s, 2s + 1 are groups 2(s % 2) and 2(s % 2) + 1,
+// low nibbles for s < 2 and high ones above: one load for the four steps.
+struct BytesW : Bf16X {
+  static constexpr bool kXTiled = true;
+  static bool fits(int K, int N) { return K % 64 == 0 && N % 16 == 0; }
+  static bool wmap(CUtensorMap* map, const void* w, int K, int N) {
+    const cuuint64_t d[3] = {(cuuint64_t)N, (cuuint64_t)(K / 8), 4};
+    const cuuint64_t st[2] = {(cuuint64_t)N, (cuuint64_t)(K / 8) * N};
+    const cuuint32_t b[3] = {128, 8, 4};
+    return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, w, d, st, b);
+  }
+  template <int kBN>
+  __host__ __device__ static constexpr int bytes() {
+    return 32 * kBN;
+  }
+  __host__ __device__ static int tiles(int K) { return K / kBK; }
+  template <int kBN>
+  __device__ static void load(unsigned char* xs, unsigned char* ws,
+                              const CUtensorMap* xmap,
+                              const CUtensorMap* wmap, int kt, int r0,
+                              int n0, uint64_t* bar) {
+    tma_2d(xs, xmap, kt * kBK, r0, bar);
+#pragma unroll
+    for (int h = 0; h < kBN / 128; ++h)
+      tma_3d(ws + h * 4096, wmap, n0 + 128 * h, 8 * kt, 0, bar);
+  }
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    uint32_t m[4];
+    ldmatrix_x4_trans(m, ws + (col >> 7) * 4096 + lane * 128 +
+                             ((((col & 127) >> 4) ^ (lane & 7)) << 4));
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int sh = 4 * (s >> 1);              // high nibbles from step 2
+      const uint32_t lo = m[2 * (s & 1)] >> sh;   // plane 2s
+      const uint32_t hi = m[2 * (s & 1) + 1] >> sh;  // plane 2s + 1
+      a[s][0] = nibble_pair(lo);                // column 2g
+      a[s][1] = nibble_pair(lo >> 8);           // column 2g + 1
+      a[s][2] = nibble_pair(hi);
+      a[s][3] = nibble_pair(hi >> 8);
+    }
+  }
+};
+
+// The bf16-pair words (K/8, N) int32: PlanesW's word rows, tile, boxes and
+// map; only the bits differ.  Plane 2p sits in bits [4p, 4p + 4) (byte p /
+// 2, nibble p % 2), plane 2p + 1 in bits [16 + 4p, 20 + 4p) (byte 2 + p /
+// 2), both biased by +8.  For steps 2kp and 2kp + 1 one byte permute a
+// column puts bytes kp, 2 + kp of row 2t and kp, 2 + kp of row 2t + 1 in
+// bytes 0-3: step 2kp's planes are the low nibbles of bytes (0, 2) and (1,
+// 3), step 2kp + 1's the high ones.
+struct PairsW : PlanesW {
+  __device__ static void frags(const unsigned char* ws, int col, int lane,
+                               uint32_t (&a)[4][4]) {
+    uint2 u0, u1;
+    words(ws, col, lane, &u0, &u1);
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      const uint32_t sel = kp | ((2 + kp) << 4) | ((4 + kp) << 8) |
+                           ((6 + kp) << 12);
+      const uint32_t c0 = __byte_perm(u0.x, u1.x, sel);  // column 2g
+      const uint32_t c1 = __byte_perm(u0.y, u1.y, sel);  // column 2g + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t (&f)[4] = a[2 * kp + h];
+        f[0] = biased_pair(c0 >> (4 * h));
+        f[1] = biased_pair(c1 >> (4 * h));
+        f[2] = biased_pair(c0 >> (8 + 4 * h));
+        f[3] = biased_pair(c1 >> (8 + 4 * h));
+      }
+    }
+  }
+};
+
 // grid (Ck, column blocks, row blocks) in clusters of the Ck blocks that
 // split one output tile's K; block kx sums K tiles [kx * per, (kx + 1) *
 // per).  Warps 0 .. 4kWG-1 consume, warp 4kWG produces.
@@ -650,9 +676,10 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
   }
   __syncthreads();
 
-  float acc[kBM / 2];
+  using Acc = typename W::Acc;
+  Acc acc[kBM / 2];
 #pragma unroll
-  for (int e = 0; e < kBM / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < kBM / 2; ++e) acc[e] = 0;
 
   if (warp == 4 * kWG) {
     // the producer: tile i into stage i % kS once the consumers released
@@ -666,7 +693,7 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
       }
     __syncwarp();
   } else {
-    // a consumer warp: tile i's A fragments (4 k16 steps) are built while
+    // a consumer warp: tile i's A fragments (4 MMA steps) are built while
     // tile i - 1's wgmmas run; its 4 wgmmas issue as one batch; once tile
     // i - 1's completed, its stage is released
     const int col = 64 * wg + 16 * wq;
@@ -676,7 +703,7 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int s = 0; s < 4; ++s)
-        wgmma_n<kBM>(acc, a[s], smem_desc(xs_of(i) + 32 * s));
+        W::template mma<kBM>(acc, a[s], smem_desc(xs_of(i) + 32 * s));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
       if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % kS]);
@@ -690,6 +717,7 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 
   // acc[4j + e]: column 64wg + 16wq + 2g + (e >> 1), row 8j + 2t + (e & 1)
+  constexpr bool kInt = std::is_same<To, int32_t>::value;  // no scale
   const int cl = 64 * wg + 16 * wq + 2 * g;
   if (Ck == 1) {
     const int col = n0 + cl;
@@ -702,44 +730,55 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int h = 0; h < 2; ++h) {
           const int row = r0 + 8 * j + 2 * t + h;
           if (row >= R) continue;
-          const float y0 = acc[4 * j + h] * s0, y1 = acc[4 * j + 2 + h] * s1;
           To* o = out + (int64_t)row * N + col;
-          if constexpr (std::is_same<To, float>::value)
-            *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(o) =
-                __floats2bfloat162_rn(y0, y1);
+          if constexpr (kInt) {
+            *reinterpret_cast<int2*>(o) =
+                make_int2(acc[4 * j + h], acc[4 * j + 2 + h]);
+          } else {
+            const float y0 = acc[4 * j + h] * s0;
+            const float y1 = acc[4 * j + 2 + h] * s1;
+            if constexpr (std::is_same<To, float>::value)
+              *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(o) =
+                  __floats2bfloat162_rn(y0, y1);
+          }
         }
     }
     return;
   }
 
+  // the exchange in the accumulators' type: 4 of them a vector
+  using V4 = typename std::conditional<kInt, int4, float4>::type;
+  using V2 = typename std::conditional<kInt, int2, float2>::type;
   cg::cluster_group cluster = cg::this_cluster();
   __syncthreads();                 // every warp is done with the ring
-  float* xs = reinterpret_cast<float*>(smem);
+  Acc* xs = reinterpret_cast<Acc*>(smem);
   if (warp < 4 * kWG)
 #pragma unroll
     for (int j = 0; j < kBM / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(xs + (8 * j + 2 * t + h) * T::kAccStride +
-                                   cl) =
-            make_float2(acc[4 * j + h], acc[4 * j + 2 + h]);
+      for (int h = 0; h < 2; ++h) {
+        V2 v;
+        v.x = acc[4 * j + h];
+        v.y = acc[4 * j + 2 + h];
+        *reinterpret_cast<V2*>(xs + (8 * j + 2 * t + h) * T::kAccStride +
+                               cl) = v;
+      }
   cluster.sync();                  // every block's partial is in place
 
-  // block kx sums every Ck-th run of kThreads float4s over the ranks in
+  // block kx sums every Ck-th run of kThreads vectors over the ranks in
   // order 0 .. Ck-1 (the map of an offset in this block's shared memory
   // is the same offset in the other's: every block aligns its ring alike)
-  constexpr int kPer = kBN / 4;                 // float4s per row
+  constexpr int kPer = kBN / 4;                 // vectors per row
   for (int i = kx * T::kThreads + tid; i < kBM * kPer;
        i += Ck * T::kThreads) {
     const int row = i / kPer, c = 4 * (i % kPer);
-    float* src = xs + row * T::kAccStride + c;
-    float4 s =
-        *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, 0));
+    Acc* src = xs + row * T::kAccStride + c;
+    V4 s = *reinterpret_cast<const V4*>(cluster.map_shared_rank(src, 0));
     for (int q = 1; q < Ck; ++q) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, q));
+      const V4 v =
+          *reinterpret_cast<const V4*>(cluster.map_shared_rank(src, q));
       s.x += v.x;
       s.y += v.y;
       s.z += v.z;
@@ -747,20 +786,24 @@ mm_rows_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     const int col = n0 + c;
     if (r0 + row < R && col < N) {              // N % 4 == 0: all 4 or none
-      if (scale) {
-        s.x *= scale[col];
-        s.y *= scale[col + 1];
-        s.z *= scale[col + 2];
-        s.w *= scale[col + 3];
-      }
       To* o = out + (int64_t)(r0 + row) * N + col;
-      if constexpr (std::is_same<To, float>::value) {
-        *reinterpret_cast<float4*>(o) = s;
+      if constexpr (kInt) {
+        *reinterpret_cast<int4*>(o) = s;
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(o) =
-            __floats2bfloat162_rn(s.x, s.y);
-        *reinterpret_cast<__nv_bfloat162*>(o + 2) =
-            __floats2bfloat162_rn(s.z, s.w);
+        if (scale) {
+          s.x *= scale[col];
+          s.y *= scale[col + 1];
+          s.z *= scale[col + 2];
+          s.w *= scale[col + 3];
+        }
+        if constexpr (std::is_same<To, float>::value) {
+          *reinterpret_cast<float4*>(o) = s;
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(o) =
+              __floats2bfloat162_rn(s.x, s.y);
+          *reinterpret_cast<__nv_bfloat162*>(o + 2) =
+              __floats2bfloat162_rn(s.z, s.w);
+        }
       }
     }
   }
@@ -787,10 +830,9 @@ template <class W>
 bool make_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
                const void* w, int R, int K, int N, int bm) {
   const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)R};
-  const cuuint64_t xs[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t xb[2] = {64, (cuuint32_t)bm};
-  return make_map(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xd, xs,
-                  xb) &&
+  const cuuint64_t xs[1] = {(cuuint64_t)K * W::kXElem};
+  const cuuint32_t xb[2] = {(cuuint32_t)W::kTileK, (cuuint32_t)bm};
+  return make_map(xmap, W::kXType, 2, x, xd, xs, xb) &&
          W::wmap(wmap, w, K, N);
 }
 
@@ -871,14 +913,19 @@ cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& wmap,
 // 256) and bn columns (128 or 256; 128 at bm 256) a block, K split over Ck
 // blocks of a cluster (1 .. 8, at most one K tile each); a format with
 // kXTiled first writes x in its tile-local order to xp (R x K bf16,
-// 16-byte aligned); cudaErrorInvalidValue for anything else, or for
-// operands outside the contract.  The caller's rule picks them
-// (kernels/quant_matmul.py rows_tiling).
+// 16-byte aligned); an integer format (int32 sums) writes them as they are,
+// with no scale; cudaErrorInvalidValue for anything else, or for operands
+// outside the contract.  The caller's rule picks them (kernels/
+// quant_matmul.py rows_tiling).
 template <class W, typename To>
 int run(const void* x, void* xp, const void* w, const float* scale,
         void* out, int R, int K, int N, int bm, int bn, int Ck,
         cudaStream_t s) {
+  constexpr bool kInt = std::is_same<typename W::Acc, int32_t>::value;
+  static_assert(kInt == std::is_same<To, int32_t>::value,
+                "int32 sums are written as int32, and only they");
   if (R <= 0 || K <= 0 || N <= 0 || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (kInt && scale != nullptr) ||
       (reinterpret_cast<uintptr_t>(w) & 15) ||
       (W::kXTiled &&
        (xp == nullptr || (reinterpret_cast<uintptr_t>(xp) & 15))) ||

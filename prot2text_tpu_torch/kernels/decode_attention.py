@@ -5,7 +5,8 @@ bf16 section below).
 K2 replaces prot2text_tpu/kernels/decode_attention.py
 `decode_attention_stacked` (`_kernel`), kernel `csrc/decode_attention.cu`:
 the cache is read-only and the slot write is K3's, after the layer loop
-(lockstep generation).  K4 replaces `decode_attention_stacked_write`
+(JAX's default lockstep step; the port's lockstep step takes K4 per layer,
+JAX's fused-write route, so no model path of the port calls K2).  K4 replaces `decode_attention_stacked_write`
 (`_kernel_write`) and K9a `decode_attention_stacked_write_prefix`
 (`_kernel_write_p`), kernel `csrc/decode_attention_write.cu`: the same
 attention fused with the in-place write of each row's current k/v into its

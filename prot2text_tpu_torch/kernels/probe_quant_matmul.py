@@ -26,8 +26,11 @@ ragged route (`csrc/quant_matmul_ragged.cuh`), as K10/K14 do.  K15g runs
 K14's many-row body `csrc/quant_matmul_rows.cuh` (wgmma, 128 rows of a
 block, the grid from `quant_matmul.rows_tiling`)
 with no scale and an f32 output, at any K and N % 4 == 0 (a shape its TMA
-boxes cannot take runs on a zero-padded copy); the sources state what
-bounds them.
+boxes cannot take runs on a zero-padded copy); K15f runs the same body's
+integer policy (`S8W` in `csrc/int8_mma.cu`: int8 x as it is, s8 wgmma,
+int32 sums), on the same rule at 128 k values a tile (`i8_tiling`), its
+weight zero-padded to N % 16 == 0 where needed (`_i8_weight`); the
+sources state what bounds them.
 
 Contract (as the probes' kernels): x (R, K) bfloat16 (the plain versions
 take any float x and round it to bf16 first); y = (x @ q) * scale in fp32,
@@ -54,6 +57,7 @@ from .quant_matmul import _splits, unpack_int4_planes
 CHUNK_ROWS = (32, 64, 128, 256)     # K15a's bc: k rows converted per chunk
 PLANE_BLOCK_COLS = (128, 256)       # K15d: output columns per block
 MIX_BLOCK_ROWS = 128                # K15g: rows a block of the many-row body
+I8_TILE_K = 128                     # K15f: k values a tile (128 int8 bytes)
 # variant → (C variant code, weight dtype, k values per stored row, the
 # quant_matmul format whose shape rule and bits it takes)
 _VARIANTS = {
@@ -371,29 +375,49 @@ def mm_mix(x, w):
 mm_mix.launches = 0
 
 
-def mm_i8i8(x, w):
+def i8_tiling(R: int, K: int, N: int, sms: int = 132):
+    """K15f's grid on the many-row body: (rows a block, columns a block, K
+    split over a cluster) by K14's rule (`quant_matmul.rows_tiling`, rows
+    following R) at `I8_TILE_K` k values a tile."""
+    return qm.rows_tiling(R, K, N, sms, tile_k=I8_TILE_K)
+
+
+def _i8_weight(w):
+    """K15f's weight as the body's TMA box takes it: as it is where N % 16
+    == 0 (the row stride), else zero-padded to the next multiple of 16
+    columns (the zero columns' sums are dropped by the caller)."""
+    K, N = w.shape
+    if N % 16 == 0:
+        return w
+    wp = w.new_zeros((K, -(-N // 16) * 16))
+    wp[:, :N] = w
+    return wp
+
+
+def mm_i8i8(x, w, tiling=None):
     """K15f: x (R, K) int8 · w (K, N) int8 → (R, N) int32, exact, on the
-    int8 tensor cores (K % 16 == 0, N % 4 == 0).  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (or raise)."""
+    many-row body's s8 wgmma policy (K % 16 == 0, N % 4 == 0; `tiling`
+    (bm, bn, ck), default `i8_tiling`).  CPU tensors run the plain version;
+    CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return mm_i8i8_plain(x, w)
     _check("K15f", x, w, None, "K15f", xdtype=torch.int8)
     R, K = x.shape
-    N = w.shape[1]
     if K % 16 or x.data_ptr() % 16:
         raise ValueError(f"K15f: K must be a multiple of 16 and x 16-byte "
                          f"aligned (K={K})")
-    splits = _splits(R, K, N, 8, block_rows=128, step_k=32)
-    out = torch.empty((R, N), dtype=torch.int32, device=x.device)
-    partial = (torch.empty((splits, R, N), dtype=torch.int32,
-                           device=x.device) if splits > 1 else None)
+    N = w.shape[1]
+    wk = _i8_weight(w)
+    Np = wk.shape[1]
+    bm, bn, ck = tiling or i8_tiling(R, K, Np,
+                                     qm._sm_count(x.device.index or 0))
+    out = torch.empty((R, Np), dtype=torch.int32, device=x.device)
     err = _build.library().p2t_int8_mma(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), R, K, N, splits,
+        x.data_ptr(), wk.data_ptr(), out.data_ptr(), R, K, Np, bm, bn, ck,
         _build.stream_of(x))
     _build.check(err, "p2t_int8_mma")
     mm_i8i8.launches += 1
-    return out
+    return out if Np == N else out[:, :N].contiguous()
 
 
 mm_i8i8.launches = 0

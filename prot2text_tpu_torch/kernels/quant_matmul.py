@@ -252,16 +252,13 @@ def _steps(K: int, bits: int) -> int:
     return -(-K // _STEP_K[bits])
 
 
-def _splits(R: int, K: int, N: int, bits: int,
-            block_rows: int = _BLOCK_ROWS, step_k: int | None = None) -> int:
-    """The ragged route's slices of K across blocks (and K15f's): enough
-    that about `_TARGET_BLOCKS` blocks run, each slice at least
-    `_MIN_SPLIT_STEPS` steps, the partial sums (written and read once more)
-    at most a quarter of the weight bytes, no empty slice.  `block_rows`
-    and `step_k` (default: the format's K step) describe another kernel's
-    blocks over the same weight."""
-    steps = _steps(K, bits) if step_k is None else -(-K // step_k)
-    blocks = -(-R // block_rows) * -(-N // _BLOCK_COLS)
+def _splits(R: int, K: int, N: int, bits: int) -> int:
+    """The ragged route's slices of K across blocks: enough that about
+    `_TARGET_BLOCKS` blocks run, each slice at least `_MIN_SPLIT_STEPS`
+    steps, the partial sums (written and read once more) at most a quarter
+    of the weight bytes, no empty slice."""
+    steps = _steps(K, bits)
+    blocks = -(-R // _BLOCK_ROWS) * -(-N // _BLOCK_COLS)
     weight_bytes = K * N // (2 if bits == 4 else 1)
     s = max(1, min(-(-_TARGET_BLOCKS // blocks), steps // _MIN_SPLIT_STEPS,
                    weight_bytes // (16 * R * N)))
@@ -323,10 +320,12 @@ def _pointers(w, scale, layer):
 
 @functools.lru_cache(maxsize=4096)
 def rows_tiling(R: int, K: int, N: int, sms: int = 132,
-                bm: int | None = None) -> tuple[int, int, int]:
+                bm: int | None = None,
+                tile_k: int = ROWS_TILE_K) -> tuple[int, int, int]:
     """The many-row body's grid: (rows a block, columns a block, K split
-    over a cluster), the one rule for K10, K14 and K15g, fitted to the card
-    (PERF.md §6, `scripts/sweep_quant_rows.py`).  Rows: 64 up to 64 rows (a
+    over a cluster), the one rule for K10, K14, K15f and K15g, fitted to
+    the card (PERF.md §6, `scripts/sweep_quant_rows.py`); `tile_k` is a
+    tile's k values (K15f's int8 x: 128).  Rows: 64 up to 64 rows (a
     verify round), 128 up to 128, above that 256 unless 128 pads fewer
     rows (`bm` fixes them).  Columns: 128 at 64 rows (two blocks fit an
     SM), 256 at 128 rows where that still gives `sms` / 8 blocks (x is
@@ -334,7 +333,7 @@ def rows_tiling(R: int, K: int, N: int, sms: int = 132,
     over the largest cluster whose ranks keep `ROWS_MIN_TILES` K tiles
     each, within one wave at 128 rows and up to four at 64; where that
     leaves fewer than `sms` / 2 blocks, ranks of half as many tiles."""
-    tiles = -(-K // ROWS_TILE_K)
+    tiles = -(-K // tile_k)
     if bm is None:
         if R <= 64:
             bm = 64

@@ -64,7 +64,7 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
     `attn_impl` routes the encoder and the prefill as `apply` does
     ("auto": plain ESM2 attention, K1 in the prefill; "flash": K6 in ESM2
     too; "xla": the plain function everywhere); decode has one route per
-    cache (K2 + K3, or K12 on the tbkd cache)."""
+    cache (K4 per layer, or K12 on the tbkd cache)."""
 
     def __init__(self, config: Esm2LlamaInstructConfig, params=None, *,
                  device="cpu", dtype=torch.float32, generator=None,

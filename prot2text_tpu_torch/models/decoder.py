@@ -22,17 +22,22 @@ the JAX XLA route `_xla_attention`):
     `flash_attention_bias`, the counterpart of the JAX
     `attention(impl="flash")` that reaches `flash_attention_tpu` on the TPU
     (prot2text_tpu/kernels/attention.py:226-236);
-  * single-token decode with a host-int slot (lockstep generation) → K2
-    (`kernels/decode_attention.py`) reads the stacked (L, B, Hkv, T, D)
-    cache READ-ONLY and folds the current token in as an extra logit
-    column; after the layer loop K3 (`kernels/cache_update.py`) writes slot
-    `cache_index` of all L layers at once.  Writing a layer's slot before
-    K2 runs would count the token twice.  This is the JAX default split
-    write for scalar slots (prot2text_tpu/models/decoder.py:1008-1011).
-    On the sequence-leading (L, T, B, Hkv, D) "tbkd" cache (`kv_cache_
-    layout`: head dims off the 128 grid, e.g. Llama-3.2-1B's 64) the
-    attention is plain torch and K12 writes the slot, once for k and once
-    for v (prot2text_tpu/models/decoder.py:1063-1090, :1138-1143);
+  * single-token decode with a host-int slot (lockstep generation) → K4
+    (`kernels/decode_attention.py decode_attention_stacked_write`) per
+    layer, with one (B,) slots tensor of `cache_index` a step: it reads
+    the stacked (L, B, Hkv, T, D) cache, folds the current token in as an
+    extra logit column and writes the token's k/v into the slot after
+    every read of the slab (the slot is still 0 in `kv_mask`, so it is
+    never read).  This is the JAX fused-write route
+    (`P2T_FUSED_CACHE_WRITE=1`, prot2text_tpu/models/decoder.py:992-1027),
+    taken at every T: the JAX default, K2 per layer then K3 for all L
+    layers after the loop (`:1008-1011`), saves the TPU a carried cache,
+    which an in-place update does not have, and costs a staging copy of
+    each layer's k and v and two launches a step.  On the sequence-leading
+    (L, T, B, Hkv, D) "tbkd" cache (`kv_cache_layout`: head dims off the
+    128 grid, e.g. Llama-3.2-1B's 64) the attention is plain torch and K12
+    writes the slot after the loop, once for k and once for v
+    (prot2text_tpu/models/decoder.py:1063-1090, :1138-1143);
   * single-token decode with per-row slots (continuous batching) → K4,
     attention fused with each row's in-place slot write per layer; with a
     batch-broadcast shared prefix → K9a (prot2text_tpu/models/decoder.py:
@@ -65,10 +70,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import IMPLS, dot_product_attention
-from ..kernels.cache_update import cache_slot_write, cache_slot_write_bkt
+from ..kernels.cache_update import cache_slot_write
 from ..kernels.decode_attention import (
-    HEAD_DIMS, MAX_CHUNK, MAX_ROWS, decode_attention_stacked,
-    decode_attention_stacked_verify_qc,
+    HEAD_DIMS, MAX_CHUNK, MAX_ROWS, decode_attention_stacked_verify_qc,
     decode_attention_stacked_verify_qc_prefix, decode_attention_stacked_write,
     decode_attention_stacked_write_prefix, decode_attention_stacked_write_q,
     decode_attention_stacked_write_q_prefix,
@@ -465,11 +469,12 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     (the slot being written must still be 0 — the current token is the
     attention's extra column); positions (B, 1) rope positions.
     `cache_index` picks the route:
-      * a host int (lockstep: every row writes that slot) → K2 per layer,
-        then K3 writes slot `cache_index` of every layer; on a tbkd cache
-        (`layout`, as in `decoder_forward`) the attention is
-        `_tbkd_decode_attention` and K12 writes the slot, once for k and
-        once for v;
+      * a host int (lockstep: every row writes that slot) → K4 per layer on
+        one (B,) slots tensor built once a step, which attends and writes
+        the token's k/v into slot `cache_index` of that layer in place; on
+        a tbkd cache (`layout`, as in `decoder_forward`) the attention is
+        `_tbkd_decode_attention` and, after the layer loop, K12 writes the
+        slot of every layer, once for k and once for v;
       * a (B,) integer tensor (per-row slots, continuous batching) → K4 per
         layer, which attends and writes row b's k/v into slot
         cache_index[b] of that layer in place.
@@ -506,10 +511,14 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
     cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
     scaling = D ** -0.5
-    if lockstep:
+    slots = cache_index
+    if lockstep and tbkd:
         k_new = torch.empty((L, B, Hkv, D), dtype=ck_all.dtype,
                             device=ck_all.device)
         v_new = torch.empty_like(k_new)
+    elif lockstep:              # one fill a step, not one a layer
+        slots = torch.full((B,), cache_index, dtype=torch.int32,
+                           device=ck_all.device)
     x = token_embeds
     for li, lp in enumerate(layers):
         xn = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
@@ -542,25 +551,19 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
                 a = decode_attention_stacked_write_prefix(
                     qg, ck_all, cv_all, kv_mask, k, v, li, cache_index,
                     prefix_kv["k"], prefix_kv["v"], pmask)
-            elif lockstep:
-                if tbkd:
-                    a = _tbkd_decode_attention(qg, ck_all[li], cv_all[li],
-                                               kv_mask, k, v)
-                else:
-                    a = decode_attention_stacked(qg, ck_all, cv_all,
-                                                 kv_mask, k, v, li)
+            elif lockstep and tbkd:
+                a = _tbkd_decode_attention(qg, ck_all[li], cv_all[li],
+                                           kv_mask, k, v)
                 k_new[li] = k
                 v_new[li] = v
             else:
                 a = decode_attention_stacked_write(qg, ck_all, cv_all,
-                                                   kv_mask, k, v, li,
-                                                   cache_index)
+                                                   kv_mask, k, v, li, slots)
         x = x + linear(lp["o_proj"], a.to(x.dtype).reshape(B, 1, H * D))
         x = _mlp(cfg, lp, x)
-    if lockstep:
-        write = cache_slot_write if tbkd else cache_slot_write_bkt
-        write(ck_all, k_new, cache_index)
-        write(cv_all, v_new, cache_index)
+    if lockstep and tbkd:
+        cache_slot_write(ck_all, k_new, cache_index)
+        cache_slot_write(cv_all, v_new, cache_index)
     h = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
     return h, kv_cache
 

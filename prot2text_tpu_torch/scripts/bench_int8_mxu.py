@@ -8,7 +8,8 @@ weights (4096, 14336) int8 (470 MB a pass), it times:
      no mixed-dtype product);
   B  torch._int_mm, int8 x int8 -> int32 (the library's int8 product);
   C  K15f, the port's int8 x int8 -> int32 kernel on the int8 tensor cores
-     (mma.sync m16n8k32 s8), exact (the TPU probe's `mm_i8i8`);
+     (the many-row body's s8 wgmma policy), exact (the TPU probe's
+     `mm_i8i8`);
   D  K15g, bf16 x int8 -> f32 on the bf16 tensor cores, no scale (the TPU
      probe's `mm_mix`);
      K14, the port's shipped int8 weight matmul (bf16 out, unit scale).

@@ -2,7 +2,8 @@
 port against the JAX class on the same weights and the same batch (f32 on
 the CPU).  Greedy tokens must be identical and the prefill logits within
 1e-4, both where JAX takes its XLA paths (head_dim 16) and where it runs
-its Pallas kernels K1/K2/K3 in interpret mode (head_dim 128)."""
+its Pallas kernels in interpret mode (head_dim 128): K1, then K2/K3 (its
+default decode route) or K4 (its fused-write route, the port's)."""
 
 import dataclasses
 import importlib
@@ -114,13 +115,19 @@ def test_greedy_matches_jax_xla_path():
                                                      EOS)
 
 
-def test_greedy_matches_jax_pallas_interpret_path(monkeypatch):
-    """head_dim 128, B*Hkv = 8, T % 8 == 0: with the Pallas gates forced
-    open (interpret mode) the JAX reference runs K1 in the prefill and K2 +
-    K3 in every decode step — counted below — and the port must still
-    produce its exact greedy tokens."""
+def _greedy_pallas_interpret(monkeypatch, fused: bool):
+    """head_dim 128, B*Hkv = 8, T % 16 == 0: with the Pallas gates forced
+    open (interpret mode) the JAX reference runs K1 in the prefill and, in
+    every decode step, K2 + K3 (its default) or K4 (`fused`:
+    `P2T_FUSED_CACHE_WRITE=1`, set for the JAX side only), counted below;
+    the port (K4 a layer, whatever the environment) must produce its exact
+    greedy tokens.  JAX reads the environment when it traces, so its
+    traces are cleared first."""
+    jax.clear_caches()
     monkeypatch.setenv("P2T_PALLAS_FORCE_INTERPRET", "1")
     monkeypatch.setenv("P2T_PAD_FLASH", "1")
+    if fused:
+        monkeypatch.setenv("P2T_FUSED_CACHE_WRITE", "1")
     import prot2text_tpu.kernels.attention as j_attn
     import prot2text_tpu.kernels.cache_update as j_cu
     import prot2text_tpu.kernels.decode_attention as j_da
@@ -138,6 +145,7 @@ def test_greedy_matches_jax_pallas_interpret_path(monkeypatch):
 
     count(j_attn, "masked_flash_padded")
     count(j_da, "decode_attention_stacked")
+    count(j_da, "decode_attention_stacked_write")
     count(j_cu, "cache_slot_write_bkt")
     llama = jl.LlamaConfig(vocab_size=264, hidden_size=512, num_layers=2,
                            num_heads=4, num_kv_heads=2, intermediate_size=256,
@@ -146,13 +154,25 @@ def test_greedy_matches_jax_pallas_interpret_path(monkeypatch):
     jcfg, tcfg = _configs(llama)
     batch = _batch(B=4, P=24, seed=1)
     jm, want, got, stats = _run_both(jcfg, tcfg, batch, N=8, seed=1)
-    assert set(calls) == {"masked_flash_padded", "decode_attention_stacked",
-                          "cache_slot_write_bkt"}, calls
+    decode = ({"decode_attention_stacked_write"} if fused else
+              {"decode_attention_stacked", "cache_slot_write_bkt"})
+    assert set(calls) == {"masked_flash_padded"} | decode, calls
     np.testing.assert_array_equal(got, want)
     monkeypatch.delenv("P2T_PALLAS_FORCE_INTERPRET")
+    monkeypatch.delenv("P2T_FUSED_CACHE_WRITE", raising=False)
     np.testing.assert_allclose(stats["logits"][0].numpy(),
                                _jax_prefill_logits(jcfg, jm.params, batch),
                                atol=LOGIT_ATOL, rtol=0)
+
+
+def test_greedy_matches_jax_pallas_interpret_path(monkeypatch):
+    """Against JAX's default split write (K2 per layer, K3 a step)."""
+    _greedy_pallas_interpret(monkeypatch, fused=False)
+
+
+def test_greedy_matches_jax_pallas_interpret_fused_write_path(monkeypatch):
+    """Against JAX's fused write (K4 per layer), the port's own route."""
+    _greedy_pallas_interpret(monkeypatch, fused=True)
 
 
 @pytest.mark.parametrize("kw", [

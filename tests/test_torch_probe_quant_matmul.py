@@ -264,6 +264,44 @@ def test_mix_operands_pad_to_the_body(K, N):
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
 
 
+def test_i8_tiling():
+    """K15f's grid: K14's many-row rule at 128 k values a tile
+    (`pq.i8_tiling`).  At the probe's shape 128 rows and 256 columns a
+    block, K over clusters of 2, as K15g (the weight streams once); rows
+    follow R (64 up to 64, 256 at 200); a short K splits nothing; every K
+    rank keeps at least half of `ROWS_MIN_TILES` tiles of 128."""
+    assert pq.i8_tiling(128, 4096, 14336) == (128, 256, 2)
+    assert pq.i8_tiling(1, 64, 32) == (64, 128, 1)
+    assert pq.i8_tiling(200, 256, 128) == (256, 128, 1)
+    assert pq.i8_tiling(128, 14336, 4096)[2] == 8
+    for R, K, N in ((1, 16, 16), (77, 4096, 1024), (300, 1008, 1040),
+                    (128, 128 * 33, 20000)):
+        bm, bn, ck = pq.i8_tiling(R, K, N)
+        assert bm in qm.ROWS_BLOCK_ROWS and bn in qm.ROWS_BLOCK_COLS
+        assert (bm, bn) != (256, 256) and ck in qm.ROWS_CLUSTERS
+        assert ck == 1 or -(-K // pq.I8_TILE_K) >= (
+            ck * qm.ROWS_MIN_TILES // 2)
+
+
+@pytest.mark.parametrize("N", [24, 1028, 32, 1040])
+def test_i8_weight_pads_to_the_body(N):
+    """K15f's weight as the body's TMA box takes it: as given where N % 16
+    == 0, else zero-padded to the next multiple of 16 columns; the product
+    over the padded weight holds the exact product in its first N
+    columns and zeros after."""
+    g = torch.Generator().manual_seed(N)
+    K = 64
+    x = torch.randint(-128, 128, (5, K), generator=g).to(torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g).to(torch.int8)
+    wk = pq._i8_weight(w)
+    assert (wk is w) == (N % 16 == 0)
+    assert wk.shape == (K, -(-N // 16) * 16) and wk.dtype == torch.int8
+    assert torch.equal(wk[:, :N], w) and not wk[:, N:].any()
+    got = pq.mm_i8i8_plain(x, wk)
+    assert torch.equal(got[:, :N], pq.mm_i8i8_plain(x, w))
+    assert not got[:, N:].any()
+
+
 def test_wrappers_run_plain_on_cpu_and_count_nothing():
     rng = np.random.default_rng(9)
     x = torch.from_numpy(_x(rng, 4, 64)).bfloat16()
@@ -432,3 +470,43 @@ def test_k15g_every_tiling_on_cuda(cuda, R, K, N):
             assert err <= 1e-5 * top, (bn, ck, err)
     err = (pq.mm_mix(x, w) - want).abs().max().item()
     assert err <= 1e-5 * top
+
+
+@pytest.mark.cuda
+def test_k15f_probe_shape_bit_identical_on_cuda(cuda):
+    """K15f at the probe's shape (R 128, K 4096, N 14336: 256 columns a
+    block, K over clusters of 2) exact, and two launches bit-identical."""
+    x, w, _ = _cuda_operands("K15f", 128, 4096, 14336, cuda, 31)
+    assert pq.i8_tiling(128, 4096, 14336) == (128, 256, 2)
+    got = pq.mm_i8i8(x, w)
+    again = pq.mm_i8i8(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, pq.mm_i8i8_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K,N", [(1, 4096, 1028), (77, 4096, 1024),
+                                   (200, 1008, 1040), (128, 2064, 24)])
+def test_k15f_every_tiling_on_cuda(cuda, R, K, N):
+    """Every grid of the s8 policy forced past the rule, exact: rows 64,
+    128 and 256 a block, 128 and 256 columns (not 256 at 256 rows), K over
+    every cluster up to its tiles; R 1 to 200, ragged N (a multiple of 4:
+    the padded weight), K off the 128-k tile (a zero-filled last tile);
+    two launches of each bit-identical."""
+    x, w, _ = _cuda_operands("K15f", R, K, N, cuda, R + K + N)
+    want = pq.mm_i8i8_plain(x, w)
+    tiles = -(-K // pq.I8_TILE_K)
+    for bm in qm.ROWS_BLOCK_ROWS:
+        for bn in qm.ROWS_BLOCK_COLS:
+            if (bm, bn) == (256, 256):
+                continue
+            for ck in qm.ROWS_CLUSTERS:
+                if ck > tiles:
+                    continue
+                got = pq.mm_i8i8(x, w, tiling=(bm, bn, ck))
+                again = pq.mm_i8i8(x, w, tiling=(bm, bn, ck))
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (bm, bn, ck)
+                assert torch.equal(again, got), (bm, bn, ck)
+    assert torch.equal(pq.mm_i8i8(x, w), want)

@@ -268,8 +268,9 @@ def test_decode_step_per_row_slots_matches_jax(jax_route, prefix):
 
 
 def test_decode_step_scalar_slot_keeps_lockstep_split_write():
-    """A host-int slot keeps K2 + K3 (lockstep generation); a tensor slot
-    takes K4; the same step writes the same cache either way."""
+    """A host-int slot (lockstep generation: one (B,) slots tensor a step)
+    and a tensor slot both take K4, which attends and writes the slot; the
+    same step gives the same h and writes the same cache either way."""
     (_, tcfg, params, cache, kv_mask, _, tok, pos, _,
      _) = _decode_setup(seed=4)
     kv_mask[:, 21] = 0
@@ -296,8 +297,7 @@ def test_decode_step_int8_cache_names_its_kernels(monkeypatch):
 
     _, tcfg, params = _qwen(16)
     calls = []
-    for name in ("decode_attention_stacked",
-                 "decode_attention_stacked_write",
+    for name in ("decode_attention_stacked_write",
                  "decode_attention_stacked_write_prefix",
                  "decode_attention_stacked_write_q",
                  "decode_attention_stacked_write_q_prefix"):
