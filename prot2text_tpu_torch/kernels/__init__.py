@@ -165,6 +165,9 @@ OFF_PATH = {
     "K3": ("no model path: the bf16 lockstep step writes its slot in K4's "
            "epilogue per layer; JAX's default lockstep step still calls it "
            "(prot2text_tpu/models/decoder.py:1129-1131)"),
+    "K12": ("no model path: the tbkd lockstep step writes its slot in K4's "
+            "epilogue per layer, at the tbkd strides; JAX's tbkd step "
+            "still calls it (prot2text_tpu/models/decoder.py:1139-1143)"),
     "K13": ("no path of either package; its only JAX caller is "
             "tests/test_flash_attention.py:142"),
 }

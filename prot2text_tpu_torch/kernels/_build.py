@@ -59,8 +59,9 @@ SIGNATURES = {
     # cache0, src0, cache1, src1, n_caches, L, T, index, run_bytes, stream
     "p2t_cache_slab_write": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
     # qg, ck(layer), cv(layer), kv_mask, k_new, v_new, slots, pk(layer),
-    # pv(layer), pmask, out, B, Hkv, rep, T, Pc, D, dtype, stream
-    "p2t_decode_attention_write": [_P] * 11 + [_I] * 7 + [_P],
+    # pv(layer), pmask, out, B, Hkv, rep, T, Pc, D, slab stride, column
+    # stride, dtype, stream
+    "p2t_decode_attention_write": [_P] * 11 + [_I] * 6 + [_L, _L, _I, _P],
     # q, k, v, bias, o, lse, strides[15], B, H, Hkv, Sq, Skv, D, dtype,
     # stream
     "p2t_flash_bias_fwd": [_P] * 7 + [_I] * 7 + [_P],

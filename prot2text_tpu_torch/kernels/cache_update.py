@@ -8,11 +8,15 @@
   route); JAX's default lockstep step still calls it
   (prot2text_tpu/models/decoder.py:1008-1011).
 * K12, `cache_slot_write`: the sequence-leading (L, T, B, Hkv, D) cache of
-  D=64 decoders.  Replaces `cache_slot_write` (`_write_kernel`).
+  D=64 decoders.  Replaces `cache_slot_write` (`_write_kernel`).  No model
+  path of the port calls it: the tbkd lockstep step writes each layer's
+  slot in K4's epilogue at the tbkd strides (`decode_attention_stacked_
+  write(..., layout="tbkd")`); JAX's tbkd step still writes k and v with
+  two K12 calls after the layer loop (prot2text_tpu/models/decoder.py:
+  1139-1143).
 * K13, `cache_slot_write_kv`: K12 for the k and v caches in one launch.
   Replaces `cache_slot_write_kv` (`_write_kv_kernel`).  No path of either
-  package calls it (JAX: tests/test_flash_attention.py:142); the lockstep
-  decode step writes k and v with two K12 calls, as JAX's does.
+  package calls it (JAX: tests/test_flash_attention.py:142).
 
 The kernels are `csrc/cache_update.cu`; its comments state what bounds them
 (bytes and launch latency) and their design.  Each `*_plain` function is

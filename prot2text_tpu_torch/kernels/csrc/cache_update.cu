@@ -63,7 +63,11 @@ cudaError_t launch(void* cache, const void* src, int64_t n_rows,
 //
 // Bound: bytes.  It reads and writes L*N*itemsize bytes per cache (64 KiB
 // at Llama-3.2-1B's lockstep shape: L=16, B=4, Hkv=8, D=64, bf16), so at
-// the path's shapes it is launch-latency bound.
+// the path's shapes it is launch-latency bound.  So the port's tbkd
+// lockstep step does not call it (nor K13): K4's epilogue (decode_
+// attention_split.cuh SlotWrite, the SIMT body in f32) writes each layer's
+// slot at the tbkd strides in the launch that already holds the token's k
+// and v.  JAX's tbkd step still calls it twice a step.
 // Design: blockIdx.y is the layer, blockIdx.z the cache (k, v), blockIdx.x
 // strides the run in 16-byte words, one per thread, so every warp stores
 // 512 contiguous bytes; no index division per element.  A byte-wise variant

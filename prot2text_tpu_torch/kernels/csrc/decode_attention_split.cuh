@@ -20,6 +20,16 @@
 //     `NoWrite` (K2) leaves the cache as it is (JAX's default lockstep
 //     step writes the slot with K3 after the layer loop; the port's bf16
 //     lockstep step takes K4's SlotWrite per layer instead).
+// The cache is read, and SlotWrite/ChunkWrite write it, at two element
+// strides of `Params`: `slab_stride` from one (b, kv head) slab to the
+// next and `col_stride` from one column to the next, (T·D, D) for the
+// bktd (B, Hkv, T, D) layer and (D, B·Hkv·D) for the tbkd (T, B, Hkv, D)
+// one, which the D = 64 lockstep step takes with K4 (its slot then written
+// in K4's epilogue, where JAX's tbkd step calls K12 after the loop).  A
+// tbkd tile row is still one contiguous run of D elements (128 bytes at
+// D 64, bf16), at a B·Hkv·D stride, so the 16-byte cp.async copies read it
+// whole; the same data in either layout gives the same bits.  The scales
+// (B, Hkv, T) and the prefix (Hkv, Pc, D) keep their own layouts.
 //
 // Contract (as the SIMT bodies and the TPU kernels): q pre-scaled, logits
 // fp32; a block holds all `rows` query rows of its kv head (K2/K4/K9a: the
@@ -150,7 +160,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <class T>
 struct Params {
   const bf16* qg;            // (B, Hkv, rows, D), pre-scaled
-  const T* ck;               // layer slice (B, Hkv, T, D)
+  const T* ck;               // layer slice, (B, Hkv, T, D) or (T, B, Hkv, D)
   const T* cv;
   const float* sk;           // layer slice (B, Hkv, T); Int8Cache
   const float* sv;
@@ -162,6 +172,11 @@ struct Params {
   const int32_t* pmask;      // (B, Pc) 0/1; PrefixCols
   bf16* out;                 // (B, Hkv, rows, D)
   int Hkv, rep, rows, T_len, Pc;
+  // the cache's element strides: from one (b, kv head) slab to the next
+  // (bktd T·D, tbkd D) and from one column to the next (bktd D, tbkd
+  // B·Hkv·D); the scales (B, Hkv, T) and the prefix (Hkv, Pc, D) keep
+  // their own
+  int64_t slab_stride, col_stride;
 };
 
 // K2/K4/K9a's untyped arguments → Params (pk, pv and pmask may be null:
@@ -170,17 +185,19 @@ inline Params<bf16> make_params(const void* qg, const void* ck,
                                 const void* cv, const void* kv_mask,
                                 const void* pk, const void* pv,
                                 const void* pmask, void* out, int Hkv,
-                                int rep, int T_len, int Pc) {
+                                int rep, int T_len, int Pc,
+                                int64_t slab_stride, int64_t col_stride) {
   return {static_cast<const bf16*>(qg), static_cast<const bf16*>(ck),
           static_cast<const bf16*>(cv), nullptr, nullptr,
           static_cast<const int32_t*>(kv_mask), static_cast<const bf16*>(pk),
           static_cast<const bf16*>(pv), nullptr, nullptr,
           static_cast<const int32_t*>(pmask), static_cast<bf16*>(out),
-          Hkv, rep, rep, T_len, Pc};
+          Hkv, rep, rep, T_len, Pc, slab_stride, col_stride};
 }
 
-// a tile's first key and value rows (row stride D), their scales (null
-// for bf16), its mask and its count of columns
+// a tile's first key and value rows, their scales (null for bf16), its
+// mask, its count of columns and the element stride of its key and value
+// rows (the cache's column stride, or D for the prefix)
 template <class T>
 struct Tile {
   const T* k;
@@ -189,6 +206,7 @@ struct Tile {
   const float* sv;
   const int32_t* mask;
   int n;
+  int64_t ld;
 };
 
 // A column policy: `tiles(p)` counts a row's column tiles, `tile<D>(p, b,
@@ -205,10 +223,12 @@ struct CacheCols {
   template <int D, class T>
   __device__ Tile<T> tile(const Params<T>& p, int b, int h, int i) const {
     const int c0 = i * kBT;
-    const int64_t c = ((int64_t)b * p.Hkv + h) * p.T_len + c0;
-    return {p.ck + c * D, p.cv + c * D, p.sk ? p.sk + c : nullptr,
+    const int64_t bg = (int64_t)b * p.Hkv + h;
+    const int64_t kv = bg * p.slab_stride + c0 * p.col_stride;
+    const int64_t c = bg * p.T_len + c0;
+    return {p.ck + kv, p.cv + kv, p.sk ? p.sk + c : nullptr,
             p.sv ? p.sv + c : nullptr, p.kv_mask + (int64_t)b * p.T_len + c0,
-            min(kBT, p.T_len - c0)};
+            min(kBT, p.T_len - c0), p.col_stride};
   }
 };
 
@@ -231,7 +251,7 @@ struct PrefixCols {
       const int64_t c = (int64_t)h * p.Pc + c0;
       return {p.pk + c * D, p.pv + c * D, p.psk ? p.psk + c : nullptr,
               p.psv ? p.psv + c : nullptr, p.pmask + (int64_t)b * p.Pc + c0,
-              min(kBT, p.Pc - c0)};
+              min(kBT, p.Pc - c0), D};
     }
     return CacheCols(p).tile<D>(p, b, h, i - nP);
   }
@@ -426,7 +446,9 @@ __device__ __forceinline__ uint32_t s8x2_bf16x2(uint32_t w, int i) {
 
 struct NothingAhead {};
 
-// K4, K9a: row b's k/v into slot slots[b] of its own (b, kv head) slab.
+// K4, K9a: row b's k/v into slot slots[b] of its own (b, kv head) slab
+// (on a tbkd layer, the slab's column slots[b] is the D elements at
+// (slots[b], b, kv head)).
 struct SlotWrite {
   bf16* ck;                  // Params' layer slices, written
   bf16* cv;
@@ -443,7 +465,7 @@ struct SlotWrite {
     constexpr int kCols = D / kCluster;
     const int slot = slots[b];
     if (slot < 0 || slot >= p.T_len) return;
-    const int64_t row = ((int64_t)bg * p.T_len + slot) * D;
+    const int64_t row = bg * p.slab_stride + slot * p.col_stride;
     for (int i = tid; i < 2 * kCols; i += kThreads) {
       const int d = rank * kCols + (i < kCols ? i : i - kCols);
       if (i < kCols)
@@ -515,7 +537,7 @@ struct ChunkWrite {
       const int g = j / kCols, d = rank * kCols + j % kCols;
       const int col = a.slot + g;
       if (col < 0 || col >= p.T_len) continue;
-      (half ? cv : ck)[((int64_t)bg * p.T_len + col) * D + d] =
+      (half ? cv : ck)[bg * p.slab_stride + col * p.col_stride + d] =
           static_cast<int8_t>(__float2int_rn(a.v[u]));
     }
     if (rank == 0 && tid < 2 * e.G) {
@@ -678,7 +700,7 @@ decode_split_kernel(const Params<typename E::T> p, const E e,
       for (int i = tid; i < kBT * kChunks; i += kThreads) {
         const int r = i / kChunks, c = i % kChunks;
         const bool ok = valid(r);
-        const int64_t o = ok ? (int64_t)r * D + 16 * c : 0;
+        const int64_t o = ok ? r * tl.ld + 16 * c : 0;
         cp_async16(ks + r * D + 16 * c, tl.k + o, ok ? 16 : 0);
         cp_async16(vs + r * D + 16 * c, tl.v + o, ok ? 16 : 0);
       }
@@ -696,7 +718,7 @@ decode_split_kernel(const Params<typename E::T> p, const E e,
         const int i = tid + it * kThreads;
         const int r = i / kChunks, c = i % kChunks;
         const bool ok = valid(r);
-        const int64_t o = ok ? (int64_t)r * D + 8 * c : 0;
+        const int64_t o = ok ? r * tl.ld + 8 * c : 0;
         cp_async16(ks + r * L::kStride + 8 * c, tl.k + o, ok ? 16 : 0);
         cp_async16(vs + r * L::kStride + 8 * c, tl.v + o, ok ? 16 : 0);
       }
@@ -1089,7 +1111,9 @@ cudaError_t run(int D, const Params<typename E::T>& p, const E& e,
                 const Write& w, int B, cudaStream_t s) {
   if (owned(Cols(p).tiles(p), 0) > kMaxLocal) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(p.ck) | reinterpret_cast<uintptr_t>(p.cv) |
-       reinterpret_cast<uintptr_t>(p.pk) | reinterpret_cast<uintptr_t>(p.pv)) &
+       reinterpret_cast<uintptr_t>(p.pk) | reinterpret_cast<uintptr_t>(p.pv) |
+       static_cast<uintptr_t>((p.slab_stride | p.col_stride) *
+                              sizeof(typename E::T))) &
       15)
     return cudaErrorMisalignedAddress;
   return dispatch<E>(D, p.rows, Launch<Cols, E, Write>{p, e, w, B, s});
@@ -1119,7 +1143,7 @@ cudaError_t run_int8(const void* qg, void* ck, void* cv, void* sk, void* sv,
       static_cast<const int8_t*>(pk), static_cast<const int8_t*>(pv),
       static_cast<const float*>(psk), static_cast<const float*>(psv),
       static_cast<const int32_t*>(pmask), static_cast<bf16*>(out),
-      Hkv, rep, G * rep, T_len, Pc};
+      Hkv, rep, G * rep, T_len, Pc, (int64_t)T_len * D, D};
   const Int8Cache e = {static_cast<const float*>(kq),
                        static_cast<const float*>(vq),
                        static_cast<const float*>(ks),

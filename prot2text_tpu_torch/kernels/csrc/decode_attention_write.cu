@@ -49,8 +49,8 @@ constexpr int kMaxRep = kWarps;      // query heads per kv head (GQA group)
 
 struct WriteParams {
   const float* qg;      // (B, Hkv, rep, D), pre-scaled
-  float* ck;            // layer slice (B, Hkv, T, D), slot row written
-  float* cv;
+  float* ck;            // layer slice (B, Hkv, T, D) or (T, B, Hkv, D),
+  float* cv;            // slot row written
   const int32_t* kv_mask;   // (B, T) 0/1
   const float* k_new;   // (B, Hkv, D)
   const float* v_new;
@@ -60,6 +60,8 @@ struct WriteParams {
   const int32_t* pmask; // (B, Pc) 0/1; K9a only
   float* out;           // (B, Hkv, rep, D)
   int Hkv, rep, T_len, Pc;
+  int64_t slab_stride;  // the cache's: (b, kv head) slab to slab, bktd T·D,
+  int64_t col_stride;   // tbkd D; column to column, bktd D, tbkd B·Hkv·D
 };
 
 template <int D, bool kPrefix>
@@ -111,8 +113,8 @@ decode_attention_write_kernel(const WriteParams p) {
     acc[i] = r < rep ? p.v_new[(int64_t)bg * D + d] : 0.f;
   }
 
-  float* kb = p.ck + (int64_t)bg * p.T_len * D;
-  float* vb = p.cv + (int64_t)bg * p.T_len * D;
+  float* kb = p.ck + bg * p.slab_stride;
+  float* vb = p.cv + bg * p.slab_stride;
   const int32_t* mb = p.kv_mask + (int64_t)b * p.T_len;
   const float* pkb = kPrefix ? p.pk + (int64_t)h * Pc * D : nullptr;
   const float* pvb = kPrefix ? p.pv + (int64_t)h * Pc * D : nullptr;
@@ -128,7 +130,7 @@ decode_attention_write_kernel(const WriteParams p) {
         krow = pkb + (int64_t)t * D;
       } else {
         valid = mb[t - Pc] != 0;
-        krow = kb + (int64_t)(t - Pc) * D;
+        krow = kb + (t - Pc) * p.col_stride;
       }
     }
     valid_s[tid] = valid;
@@ -194,7 +196,7 @@ decode_attention_write_kernel(const WriteParams p) {
       if (!valid_s[c]) continue;             // block-uniform branch
       const int tc = t0 + c;
       const float* vrow = (kPrefix && tc < Pc) ? pvb + (int64_t)tc * D
-                                               : vb + (int64_t)(tc - Pc) * D;
+                                               : vb + (tc - Pc) * p.col_stride;
       const float v = vrow[d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
@@ -220,9 +222,9 @@ decode_attention_write_kernel(const WriteParams p) {
   if (slot >= 0 && slot < p.T_len) {
     for (int i = tid; i < 2 * D; i += kThreads) {
       if (i < D)
-        kb[(int64_t)slot * D + i] = p.k_new[(int64_t)bg * D + i];
+        kb[slot * p.col_stride + i] = p.k_new[(int64_t)bg * D + i];
       else
-        vb[(int64_t)slot * D + i - D] = p.v_new[(int64_t)bg * D + i - D];
+        vb[slot * p.col_stride + i - D] = p.v_new[(int64_t)bg * D + i - D];
     }
   }
 }
@@ -249,23 +251,29 @@ cudaError_t dispatch_d(int D, const WriteParams& p, int B, cudaStream_t s) {
 
 }  // namespace
 
-// ck/cv: the layer's (B, Hkv, T, D) slice; pk/pv: the layer's (Hkv, Pc, D)
-// prefix slice and pmask (B, Pc), all ignored when Pc == 0 (K4).  bf16 runs
-// the split body (K4: CacheCols, K9a: PrefixCols; both SlotWrite), f32 the
-// SIMT body.
+// ck/cv: the layer's slice at element strides slab_stride (from one (b, kv
+// head) slab to the next) and col_stride (from one column to the next):
+// (T·D, D) for a bktd (B, Hkv, T, D) slice, (D, B·Hkv·D) for a tbkd
+// (T, B, Hkv, D) one; pk/pv: the layer's (Hkv, Pc, D) prefix slice and
+// pmask (B, Pc), all ignored when Pc == 0 (K4; K9a takes bktd only).  bf16
+// runs the split body (K4: CacheCols, K9a: PrefixCols; both SlotWrite),
+// f32 the SIMT body.
 extern "C" int p2t_decode_attention_write(
     const void* qg, void* ck, void* cv, const void* kv_mask,
     const void* k_new, const void* v_new, const void* slots, const void* pk,
     const void* pv, const void* pmask, void* out, int B, int Hkv, int rep,
-    int T_len, int Pc, int D, int dtype, void* stream) {
+    int T_len, int Pc, int D, int64_t slab_stride, int64_t col_stride,
+    int dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || rep <= 0 || rep > kMaxRep || T_len <= 0 ||
       Pc < 0 || (Pc > 0 && (pk == nullptr || pv == nullptr ||
-                            pmask == nullptr)))
+                            pmask == nullptr)) ||
+      slab_stride <= 0 || col_stride <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == p2t::kBFloat16) {
     const split::Params<split::bf16> p = split::make_params(
-        qg, ck, cv, kv_mask, pk, pv, pmask, out, Hkv, rep, T_len, Pc);
+        qg, ck, cv, kv_mask, pk, pv, pmask, out, Hkv, rep, T_len, Pc,
+        slab_stride, col_stride);
     const split::Bf16Cache e = {static_cast<const split::bf16*>(k_new),
                                 static_cast<const split::bf16*>(v_new)};
     const split::SlotWrite w = {static_cast<split::bf16*>(ck),
@@ -288,6 +296,7 @@ extern "C" int p2t_decode_attention_write(
     p.pmask = static_cast<const int32_t*>(pmask);
     p.out = static_cast<float*>(out);
     p.Hkv = Hkv; p.rep = rep; p.T_len = T_len; p.Pc = Pc;
+    p.slab_stride = slab_stride; p.col_stride = col_stride;
     return (int)dispatch_d(D, p, B, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -12,10 +12,16 @@ JAX's fused-write route, so no model path of the port calls K2).  K4 replaces `d
 attention fused with the in-place write of each row's current k/v into its
 own slot `slots[b]` of layer `layer` (continuous-batching serving), K9a
 with a read-only shared-prefix operand (L, 1, Hkv, Pc, D) gated per row by
-`pmask`, columns ordered [prefix ‖ cache ‖ current].  On bf16 all three run
-one column-split cluster body, `csrc/decode_attention_split.cuh` (column
-policy `CacheCols` for K2 and K4, `PrefixCols` for K9a; K2 writes nothing),
-one launch a call; f32 runs the SIMT bodies of the two `.cu` files.  bf16
+`pmask`, columns ordered [prefix ‖ cache ‖ current].  K4 also takes the
+sequence-leading (L, T, B, Hkv, D) "tbkd" cache (`layout="tbkd"`), read
+and written at its strides: the D = 64 lockstep step's attention and slot
+write, where JAX's tbkd step attends by einsum and writes with K12 after
+the layer loop; its plain version on tbkd is that einsum route
+(`_tbkd_decode_attention`) followed by the layer's slot write.  On bf16
+all three run one column-split cluster body,
+`csrc/decode_attention_split.cuh` (column policy `CacheCols` for K2 and
+K4, `PrefixCols` for K9a; K2 writes nothing), one launch a call; f32 runs
+the SIMT bodies of the two `.cu` files.  bf16
 K7, K8, K9b and K9c up to 32 query rows run the same body with int8 tiles
 (below).  A shape the body refuses (more column tiles than its blocks may
 own) raises; nothing falls back to another body.  Each kernel's header
@@ -45,6 +51,7 @@ from . import _build
 NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_REP = 8
+LAYOUTS = ("bktd", "tbkd")      # K4's cache layouts (K2, K9a: bktd)
 
 
 def _attend_plain(qg, ck, cv, mask, k_new, v_new):
@@ -73,7 +80,19 @@ def decode_attention_stacked_plain(qg, ck_all, cv_all, kv_mask, k_new, v_new,
                          v_new)
 
 
-def _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer):
+def _dims(ck_all, layout: str):
+    """(L, B, Hkv, T, D) of a bktd (L, B, Hkv, T, D) or tbkd (L, T, B, Hkv,
+    D) stacked cache."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if layout == "tbkd":
+        L, T, B, Hkv, D = ck_all.shape
+        return L, B, Hkv, T, D
+    return tuple(ck_all.shape)
+
+
+def _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer,
+           layout: str = "bktd"):
     dev = qg.device
     if dev.type != "cuda":
         raise ValueError(f"decode attention (K2/K4/K9a) needs CUDA tensors, "
@@ -91,9 +110,11 @@ def _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer):
         if t.dtype != qg.dtype:
             raise TypeError(f"{name} is {t.dtype}, qg is {qg.dtype}")
     if qg.dim() != 4 or ck_all.dim() != 5 or cv_all.shape != ck_all.shape:
-        raise ValueError("qg must be (B, Hkv, rep, D) and ck_all/cv_all "
-                         "(L, B, Hkv, T, D) alike")
-    L, B, Hkv, T, D = ck_all.shape
+        shape = "(L, T, B, Hkv, D)" if layout == "tbkd" else \
+            "(L, B, Hkv, T, D)"
+        raise ValueError(f"qg must be (B, Hkv, rep, D) and ck_all/cv_all "
+                         f"{shape} alike")
+    L, B, Hkv, T, D = _dims(ck_all, layout)
     rep = qg.shape[2]
     if qg.shape != (B, Hkv, rep, D):
         raise ValueError(f"qg {tuple(qg.shape)} vs cache "
@@ -155,21 +176,55 @@ def _slots(slots, B: int, device):
     return slots.to(device=device, dtype=torch.int32).contiguous()
 
 
-def _write_slots_plain(ck_all, cv_all, k_new, v_new, layer, slots):
+def _write_slots_plain(ck_all, cv_all, k_new, v_new, layer, slots,
+                       layout: str = "bktd"):
     B = k_new.shape[0]
     bidx = torch.arange(B, device=ck_all.device)
     slots = _slots(slots, B, ck_all.device).long()
-    ck_all[layer, bidx, :, slots] = k_new.to(ck_all.dtype)
-    cv_all[layer, bidx, :, slots] = v_new.to(cv_all.dtype)
+    at = ((layer, slots, bidx) if layout == "tbkd"
+          else (layer, bidx, slice(None), slots))
+    ck_all[at] = k_new.to(ck_all.dtype)
+    cv_all[at] = v_new.to(cv_all.dtype)
+
+
+def _tbkd_decode_attention(qg, ck, cv, kv_mask, k, v):
+    """Grouped decode attention over a stale tbkd layer cache (T, B, Hkv, D)
+    plus the current token's logit, as JAX's einsum route over that layout
+    (prot2text_tpu/models/decoder.py:1063-1090): fp32 logits with the
+    finfo.min bias of unwritten slots, fp32 softmax, the stale weights cast
+    to the cache's dtype and the current one to v's.  The body of plain K4
+    on a tbkd cache (`decode_attention_stacked_write_plain(...,
+    layout="tbkd")`), so the port's tbkd lockstep step computes on the CPU
+    what JAX's computes.  Returns (B, Hkv, rep, D) in qg's dtype."""
+    T = ck.shape[0]
+    neg = torch.finfo(torch.float32).min
+    bias = torch.where(kv_mask > 0, 0.0, neg)[:, None, None, :]
+    logits_old = torch.einsum("bkrd,tbkd->bkrt", qg.float(), ck.float())
+    logit_new = torch.einsum("bkrd,bkd->bkr", qg.float(),
+                             k.to(qg.dtype).float())[..., None]
+    w = torch.softmax(torch.cat([logits_old + bias, logit_new], dim=-1),
+                      dim=-1)
+    a = torch.einsum("bkrt,tbkd->bkrd", w[..., :T].to(cv.dtype).float(),
+                     cv.float()).to(qg.dtype)
+    return a + (w[..., T:].to(v.dtype) * v[:, :, None, :]).to(qg.dtype)
 
 
 def decode_attention_stacked_write_plain(qg, ck_all, cv_all, kv_mask, k_new,
-                                         v_new, layer: int, slots):
+                                         v_new, layer: int, slots, *,
+                                         layout: str = "bktd"):
     """Plain K4: K2's attention, then ck_all/cv_all[layer, b, :, slots[b]]
-    = k_new/v_new[b] in place."""
-    a = decode_attention_stacked_plain(qg, ck_all, cv_all, kv_mask, k_new,
-                                       v_new, layer)
-    _write_slots_plain(ck_all, cv_all, k_new, v_new, layer, slots)
+    = k_new/v_new[b] in place.  On a tbkd cache (L, T, B, Hkv, D):
+    `_tbkd_decode_attention` over layer `layer`, then ck_all/cv_all[layer,
+    slots[b], b] = k_new/v_new[b] (the lockstep step's scalar slot: K12's
+    write of that layer)."""
+    _dims(ck_all, layout)
+    if layout == "tbkd":
+        a = _tbkd_decode_attention(qg, ck_all[layer], cv_all[layer],
+                                   kv_mask, k_new, v_new)
+    else:
+        a = decode_attention_stacked_plain(qg, ck_all, cv_all, kv_mask,
+                                           k_new, v_new, layer)
+    _write_slots_plain(ck_all, cv_all, k_new, v_new, layer, slots, layout)
     return a
 
 
@@ -190,19 +245,26 @@ def decode_attention_stacked_write_prefix_plain(qg, ck_all, cv_all, kv_mask,
 
 
 def decode_attention_stacked_write(qg, ck_all, cv_all, kv_mask, k_new, v_new,
-                                   layer: int, slots):
+                                   layer: int, slots, *,
+                                   layout: str = "bktd"):
     """K4: decode attention + in-place write of row b's k/v into slot
-    slots[b] (a scalar slot is broadcast) of layer `layer`.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel (or raise): bf16 the
-    column-split cluster body, f32 the SIMT body."""
+    slots[b] (a scalar slot is broadcast) of layer `layer`.  `layout`
+    "tbkd" takes the sequence-leading (L, T, B, Hkv, D) cache of the D = 64
+    lockstep step (JAX's K4 takes bktd only; its tbkd step attends by
+    einsum and writes with K12 after the layer loop): the kernels read and
+    write the layer at its strides, and the output is bit-identical to the
+    bktd launch on the permuted cache.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel (or raise): bf16 the column-split
+    cluster body, f32 the SIMT body."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_write_plain(
-            qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots)
+            qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
+            layout=layout)
     layer = int(layer)
     slots = _slots(slots, qg.shape[0], qg.device)
-    _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer)
+    _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, layout)
     out = _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer,
-                        slots, None, None, None)
+                        slots, None, None, None, layout)
     decode_attention_stacked_write.launches += 1
     return out
 
@@ -254,8 +316,10 @@ decode_attention_stacked_write_prefix.launches = 0
 
 
 def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
-                  pk_all, pv_all, pmask):
-    L, B, Hkv, T, D = ck_all.shape
+                  pk_all, pv_all, pmask, layout: str = "bktd"):
+    L, B, Hkv, T, D = _dims(ck_all, layout)
+    # element strides of the layer slice: (b, kv head) slab, column
+    slab, col = (D, B * Hkv * D) if layout == "tbkd" else (T * D, D)
     out = torch.empty_like(qg)
     off = layer * ck_all.stride(0) * ck_all.element_size()
     if pk_all is None:
@@ -271,7 +335,8 @@ def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
         qg.data_ptr(), ck_all.data_ptr() + off, cv_all.data_ptr() + off,
         kv_mask.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         slots.data_ptr(), pk, pv, pm, out.data_ptr(), B, Hkv, qg.shape[2],
-        T, Pc, D, _build.dtype_code(qg.dtype), _build.stream_of(qg))
+        T, Pc, D, slab, col, _build.dtype_code(qg.dtype),
+        _build.stream_of(qg))
     _build.check(err, "p2t_decode_attention_write")
     return out
 

@@ -8,7 +8,8 @@ C++, `csrc/probe_int8_kv.cu`), with their plain PyTorch versions.
 - K15j `int8_group_rmw` (`:62 p3_dynamic_int8_group_rmw`): in place,
   cache[b, h, slot, :] = kn[b, h, :] on an int8 (B, Hkv, T, D) cache;
 - K15k `int8_to_bf16_matmul` (`:96 p4_int8_to_bf16_matmul`): logits = (q @
-  bf16(c)ᵀ) · s, q (Q, D) bf16, c (T, D) int8, s (1, T) f32 → (Q, T) f32;
+  bf16(c)ᵀ) · s, q (Q, D) bf16, c (T, D) int8, s (1, T) f32 → (Q, T) f32,
+  on the tensor cores (`mma.sync`, D a multiple of 16);
 - K15l `f32_scale_row_rmw` (`:116 p5_f32_scale_row_rmw`): in place,
   s[b, h, slot] = sn[b, h] on an f32 (B, Hkv, T) scale row.
 
@@ -152,10 +153,14 @@ def int8_group_rmw(cache, kn, slot):
 int8_group_rmw.launches = 0
 
 
+LOGITS_MAX_D = 512          # csrc kLogitMaxD
+
+
 def int8_to_bf16_matmul(q, c, s):
     """K15k: (q (Q, D) bf16 @ bf16(c (T, D) int8)ᵀ) · s (T values, f32) →
     (Q, T) f32.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel (or raise)."""
+    tensor-core kernel (or raise: D a multiple of 16 up to LOGITS_MAX_D, q
+    and c 16-byte aligned)."""
     if q.device.type == "cpu":
         return int8_to_bf16_matmul_plain(q, c, s)
     _cuda("K15k", q, c, s)
@@ -168,6 +173,13 @@ def int8_to_bf16_matmul(q, c, s):
                          f"{tuple(c.shape)}, {s.dtype} {tuple(s.shape)}")
     Q, D = q.shape
     T = c.shape[0]
+    if D % 16 or D > LOGITS_MAX_D:
+        raise ValueError(f"K15k: D must be a multiple of 16 up to "
+                         f"{LOGITS_MAX_D} (16-byte c rows), got {D}")
+    for name, t in (("q", q), ("c", c)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"K15k: {name} must be 16-byte aligned "
+                             f"(cp.async), got address {t.data_ptr():#x}")
     out = torch.empty((Q, T), dtype=torch.float32, device=q.device)
     err = _build.library().p2t_int8_kv_logits(
         q.data_ptr(), c.data_ptr(), s.data_ptr(), out.data_ptr(), Q, T, D,

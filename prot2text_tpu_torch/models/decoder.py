@@ -35,9 +35,13 @@ the JAX XLA route `_xla_attention`):
     which an in-place update does not have, and costs a staging copy of
     each layer's k and v and two launches a step.  On the sequence-leading
     (L, T, B, Hkv, D) "tbkd" cache (`kv_cache_layout`: head dims off the
-    128 grid, e.g. Llama-3.2-1B's 64) the attention is plain torch and K12
-    writes the slot after the loop, once for k and once for v
-    (prot2text_tpu/models/decoder.py:1063-1090, :1138-1143);
+    128 grid, e.g. Llama-3.2-1B's 64) the step runs K4 too, at that
+    layout's strides (`layout="tbkd"`), once a layer; JAX's tbkd step
+    attends by einsum and writes the slot with K12 after the loop
+    (prot2text_tpu/models/decoder.py:1063-1090, :1138-1143), because its
+    Pallas decode kernels take bktd only.  The same function: K4's plain
+    version on tbkd is that einsum route followed by the layer's slot
+    write;
   * single-token decode with per-row slots (continuous batching) → K4,
     attention fused with each row's in-place slot write per layer; with a
     batch-broadcast shared prefix → K9a (prot2text_tpu/models/decoder.py:
@@ -70,7 +74,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import IMPLS, dot_product_attention
-from ..kernels.cache_update import cache_slot_write
 from ..kernels.decode_attention import (
     HEAD_DIMS, MAX_CHUNK, MAX_ROWS, decode_attention_stacked_verify_qc,
     decode_attention_stacked_verify_qc_prefix, decode_attention_stacked_write,
@@ -438,27 +441,6 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
     return rms_norm(params["final_ln"], h, cfg.rms_norm_eps), kv_cache
 
 
-def _tbkd_decode_attention(qg, ck, cv, kv_mask, k, v):
-    """Grouped decode attention over a stale tbkd layer cache (T, B, Hkv, D)
-    plus the current token's logit, as JAX's einsum route over that layout
-    (prot2text_tpu/models/decoder.py:1063-1090): fp32 logits with the
-    finfo.min bias of unwritten slots, fp32 softmax, the stale weights cast
-    to the cache's dtype and the current one to v's.  JAX takes its Pallas
-    decode attention only on bktd, so on tbkd this plain function is its
-    counterpart, not a fallback.  Returns (B, Hkv, rep, D) in qg's dtype."""
-    T = ck.shape[0]
-    neg = torch.finfo(torch.float32).min
-    bias = torch.where(kv_mask > 0, 0.0, neg)[:, None, None, :]
-    logits_old = torch.einsum("bkrd,tbkd->bkrt", qg.float(), ck.float())
-    logit_new = torch.einsum("bkrd,bkd->bkr", qg.float(),
-                             k.to(qg.dtype).float())[..., None]
-    w = torch.softmax(torch.cat([logits_old + bias, logit_new], dim=-1),
-                      dim=-1)
-    a = torch.einsum("bkrt,tbkd->bkrd", w[..., :T].to(cv.dtype).float(),
-                     cv.float()).to(qg.dtype)
-    return a + (w[..., T:].to(v.dtype) * v[:, :, None, :]).to(qg.dtype)
-
-
 def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
                         kv_mask, positions, kv_cache, cache_index,
                         layers=None, prefix_kv=None, prefix_bias=None,
@@ -471,10 +453,12 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     `cache_index` picks the route:
       * a host int (lockstep: every row writes that slot) → K4 per layer on
         one (B,) slots tensor built once a step, which attends and writes
-        the token's k/v into slot `cache_index` of that layer in place; on
-        a tbkd cache (`layout`, as in `decoder_forward`) the attention is
-        `_tbkd_decode_attention` and, after the layer loop, K12 writes the
-        slot of every layer, once for k and once for v;
+        the token's k/v into slot `cache_index` of that layer in place, on
+        a bktd or a tbkd cache (`layout`, as in `decoder_forward`) alike.
+        The write of layer li's slot follows every read of that layer's
+        slab, and the slot is 0 in `kv_mask`, so it is never read in this
+        step: the cache ends as JAX's tbkd step leaves it with K12 after
+        the loop;
       * a (B,) integer tensor (per-row slots, continuous batching) → K4 per
         layer, which attends and writes row b's k/v into slot
         cache_index[b] of that layer in place.
@@ -502,8 +486,8 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         layers = layer_views(params["layers"], L)
     lockstep = (isinstance(cache_index, int) and prefix_kv is None
                 and not quantized)
-    tbkd = resolve_layout(cfg, quantized, layout) == "tbkd"
-    if tbkd and not lockstep:
+    layout = resolve_layout(cfg, quantized, layout)
+    if layout == "tbkd" and not lockstep:
         raise ValueError("a tbkd cache takes the lockstep step only: a "
                          "host-int cache_index, no shared prefix (per-row "
                          "slots are the serving pool's, layout bktd)")
@@ -512,11 +496,7 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
     scaling = D ** -0.5
     slots = cache_index
-    if lockstep and tbkd:
-        k_new = torch.empty((L, B, Hkv, D), dtype=ck_all.dtype,
-                            device=ck_all.device)
-        v_new = torch.empty_like(k_new)
-    elif lockstep:              # one fill a step, not one a layer
+    if lockstep:                # one fill a step, not one a layer
         slots = torch.full((B,), cache_index, dtype=torch.int32,
                            device=ck_all.device)
     x = token_embeds
@@ -551,19 +531,12 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
                 a = decode_attention_stacked_write_prefix(
                     qg, ck_all, cv_all, kv_mask, k, v, li, cache_index,
                     prefix_kv["k"], prefix_kv["v"], pmask)
-            elif lockstep and tbkd:
-                a = _tbkd_decode_attention(qg, ck_all[li], cv_all[li],
-                                           kv_mask, k, v)
-                k_new[li] = k
-                v_new[li] = v
             else:
-                a = decode_attention_stacked_write(qg, ck_all, cv_all,
-                                                   kv_mask, k, v, li, slots)
+                a = decode_attention_stacked_write(
+                    qg, ck_all, cv_all, kv_mask, k, v, li, slots,
+                    layout=layout)
         x = x + linear(lp["o_proj"], a.to(x.dtype).reshape(B, 1, H * D))
         x = _mlp(cfg, lp, x)
-    if lockstep and tbkd:
-        cache_slot_write(ck_all, k_new, cache_index)
-        cache_slot_write(cv_all, v_new, cache_index)
     h = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
     return h, kv_cache
 

@@ -5,8 +5,9 @@ against the JAX decoder's `dynamic_update_slice` fallback where it does
 not (the port's kernels take any N); K13 against two K12 writes; all
 bit-exact.  The CUDA kernels bit-exact against the plain versions on the
 card, with their launch counts, and lockstep generation on a D=64 decoder
-writing through K12 twice per decode step (JAX is imported only by the
-tests that use it, so the card's tests run without it)."""
+launching K1 and K4 only: the tbkd step writes its slot in K4, so no model
+path calls K12 (`kernels.OFF_PATH`).  JAX is imported only by the tests
+that use it, so the card's tests run without it."""
 
 import numpy as np
 import pytest
@@ -96,14 +97,15 @@ def test_k13_plain_matches_jax_and_two_k12(shape):
 
 
 def test_k13_is_marked_off_path():
-    """K13 is off-path, beside K2 and K3, which the bf16 lockstep step
-    replaced by K4's slot write; each entry names its reason and where JAX
-    still calls it."""
-    assert set(OFF_PATH) == {"K2", "K3", "K13"}
+    """K13 is off-path, beside K2, K3 and K12, which the bf16 lockstep step
+    (bktd) and the tbkd lockstep step replaced by K4's slot write; each
+    entry names its reason and where JAX still calls it."""
+    assert set(OFF_PATH) == {"K2", "K3", "K12", "K13"}
     assert "tests/test_flash_attention.py:142" in OFF_PATH["K13"]
-    for kid in ("K2", "K3"):
+    for kid in ("K2", "K3", "K12"):
         assert "K4" in OFF_PATH[kid]
         assert "prot2text_tpu/models/decoder.py" in OFF_PATH[kid]
+    assert "tbkd" in OFF_PATH["K12"]
 
 
 @pytest.mark.cuda
@@ -147,10 +149,11 @@ def test_kernels_refuse_bad_operands_on_cuda(cuda):
 
 
 @pytest.mark.cuda
-def test_lockstep_generate_launches_k12_twice_per_step_on_cuda(cuda):
+def test_lockstep_generate_launches_k1_and_k4_only_on_cuda(cuda):
     """A D=64 decoder (the tbkd cache): the prefill runs K1 per layer,
-    every decode step K12 for k and for v, nothing else; the tokens equal
-    the CPU's (f32)."""
+    every decode step K4 per layer at the tbkd strides (its slot write in
+    K4's epilogue), no K12 and nothing else; the tokens equal the CPU's
+    (f32)."""
     from prot2text_tpu_torch.infer.generate import GenerationConfig, generate
     from prot2text_tpu_torch.kernels import reset_launch_counts
     from prot2text_tpu_torch.models.decoder import (
@@ -179,7 +182,8 @@ def test_lockstep_generate_launches_k12_twice_per_step_on_cuda(cuda):
                    inputs_embeds=emb.to(cuda), attention_mask=mask.to(cuda),
                    gen_cfg=gcfg, stats=stats)
     counts = launch_counts()
-    assert counts["K12"] == 2 * stats["steps"] > 0
+    assert counts["K4"] == cfg.num_layers * stats["steps"] > 0
     assert counts["K1"] == cfg.num_layers
-    assert sum(counts.values()) == counts["K1"] + counts["K12"]
+    assert counts["K12"] == 0
+    assert sum(counts.values()) == counts["K1"] + counts["K4"]
     assert torch.equal(got.cpu(), want)

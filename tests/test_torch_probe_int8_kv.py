@@ -229,3 +229,43 @@ def test_kernels_match_plain_on_cuda(cuda):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     with pytest.raises(ValueError, match="slot"):
         pk.int8_group_rmw(cache, kn, torch.tensor([1], device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q, Tc", [(8, T), (13, 200), (1, 64)])
+def test_k15k_tensor_core_kernel_matches_plain_on_cuda(cuda, Q, Tc):
+    """K15k on the tensor cores at the probe's shape and two ragged ones
+    (query rows off the n8 fragment, c rows off the 64-row block): within
+    1e-5 of max|plain|, one launch a call, two launches bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(Q * 1000 + Tc)
+    q = torch.randn((Q, D), generator=g, device=cuda).to(torch.bfloat16)
+    c = torch.randint(-128, 128, (Tc, D), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand((1, Tc), generator=g, device=cuda)
+    n = launch_counts()["K15k"]
+    got = pk.int8_to_bf16_matmul(q, c, s)
+    again = pk.int8_to_bf16_matmul(q, c, s)
+    want = pk.int8_to_bf16_matmul_plain(q, c, s)
+    assert launch_counts()["K15k"] == n + 2
+    assert got.shape == (Q, Tc) and torch.equal(got, again)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_k15k_refuses_unsupported_operands_on_cuda(cuda):
+    """A head dim off the 16-byte grid, and q or c off a 16-byte address
+    (cp.async), raise before any launch and name what is wrong."""
+    q = torch.ones((8, 40), dtype=torch.bfloat16, device=cuda)
+    c = torch.ones((64, 40), dtype=torch.int8, device=cuda)
+    s = torch.ones((64,), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pk.int8_to_bf16_matmul(q, c, s)
+    qb = torch.ones((8 * D + 1,), dtype=torch.bfloat16, device=cuda)
+    cb = torch.ones((64 * D + 1,), dtype=torch.int8, device=cuda)
+    q, c = qb[:8 * D].view(8, D), cb[:64 * D].view(64, D)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        pk.int8_to_bf16_matmul(qb[1:].view(8, D), c, s)
+    with pytest.raises(ValueError, match="c must be 16-byte aligned"):
+        pk.int8_to_bf16_matmul(q, cb[1:].view(64, D), s)
+    with pytest.raises(ValueError, match="K15k"):
+        pk.int8_to_bf16_matmul(q, c, s[:63])
