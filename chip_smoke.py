@@ -16,7 +16,10 @@ Phases (any failure raises and the script exits non-zero):
      step writes its slot in K4, so these checks stand in; K4 is also
      held there at the tbkd strides: bit-identical to the bktd K4 on the
      permuted cache, its slot write bit-exact, timed beside the bktd
-     launch and the plain tbkd route), K4 decode attention + per-row
+     launch and the plain tbkd route; so are K4 at per-row slots and
+     K9a with a sequence-leading Pc 256 prefix there, as the tbkd decode
+     step runs them, bit-identical to the bktd launches on the permuted
+     cache and prefix), K4 decode attention + per-row
      slot write, K5 flash backward (two launches bit-identical), K6 bias
      flash prefill, also at
      ESMC-600M's training shapes (timed there too), K6b its backward at
@@ -40,7 +43,9 @@ Phases (any failure raises and the script exits non-zero):
      body's s8 policy (by the profiler's kernel name); K15h-K15l the
      int8-KV probe operations, bit-exact (K15k on the tensor cores within
      1e-5 of max, also at two ragged shapes, its kernel by the profiler's
-     name), at the probe's sizes)
+     name), at the probe's sizes; K15j and K15l also at the legacy
+     cache's (4, 8, 842) at D 64 and 72, and timed from CUDA graphs of
+     one call beside ten)
      against its plain PyTorch version on the same bf16 inputs computed in
      fp32, at the paths' own shapes, with median CUDA-event times of both,
      the bound (the larger of the bytes at the HBM rate and the operations
@@ -208,6 +213,32 @@ def graph_ms(torch, fn, calls: int = 10) -> float:
         for _ in range(calls):
             fn()
     return cuda_ms(torch, graph.replay) / calls
+
+
+def busy_graph_ms(torch, fn, calls: int = 10, iters: int = 30) -> float:
+    """Device time of one fn() in milliseconds from a CUDA graph of
+    `calls` calls replayed behind a sleep kernel (~0.1 ms): the replay is
+    submitted while the device is busy, so the window holds the calls'
+    own device time.  `graph_ms`'s window also holds the graph's
+    submission, which buries a microsecond kernel even spread over 10
+    calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200000)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times) / calls
 
 
 def cold_ms(torch, fn, w, dev, reps: int = 10) -> float:
@@ -769,6 +800,7 @@ def check_tbkd_kernels(torch, dev, card):
                          library_device_ms=lib_dev_ms, **bd)
     rows["K12"]["checked"] = rows["K13"]["checked"] = True
     rows["K4 tbkd"] = check_k4_tbkd(torch, dev, card, g, L, T, B, Hkv, D)
+    rows.update(check_tbkd_rows(torch, dev, card, g, L, T, B, Hkv, D))
     return rows
 
 
@@ -873,6 +905,130 @@ def check_k4_tbkd(torch, dev, card, g, L, T, B, Hkv, D, rep=4):
                 x_bktd_device=dev_ms / b_dev_ms, plain_ms=plain_ms,
                 plain_device_ms=plain_dev_ms, max_abs_err=max(errs),
                 resident_clusters=resident, clusters=B * Hkv, **bd)
+
+
+TBKD_PREFIX = 256           # the tbkd K9a's prefix columns (serving's Pc)
+
+
+def check_tbkd_rows(torch, dev, card, g, L, T, B, Hkv, D, rep=4,
+                    Pc=TBKD_PREFIX):
+    """K4 with per-row (B,) slots and K9a with the sequence-leading prefix
+    (L, Pc, 1, Hkv, D) on the tbkd cache at Llama-3.2-1B's generation shape
+    (L 16, T 842, B 4, Hkv 8, rep 4, D 64, bf16; Pc 256), as the tbkd
+    decode step runs them (no CLI does: the serving pool is bktd): slots
+    distinct per row, one row with no written column, the prefix gated per
+    row.  At layers 0, 7 and L - 1 each output is bit-identical to the
+    bktd launch on the cache (and prefix) permuted to (L, B, Hkv, T, D)
+    ((L, 1, Hkv, Pc, D)) and within 2e-2 of the plain tbkd route; the
+    written slots are bit-exact, every other cache byte unchanged, the
+    bktd launch's written cache the same once permuted.  Device time per
+    layer from CUDA graphs beside the bktd launch's and the plain route's,
+    with the bound."""
+    from prot2text_tpu_torch.kernels.decode_attention import (
+        decode_attention_stacked_write, decode_attention_stacked_write_plain,
+        decode_attention_stacked_write_prefix,
+        decode_attention_stacked_write_prefix_plain,
+    )
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def bktd(t):
+        return t.permute(0, 2, 3, 1, 4).contiguous()
+
+    ck, cv = randn(L, T, B, Hkv, D), randn(L, T, B, Hkv, D)
+    pk, pv = randn(L, Pc, 1, Hkv, D), randn(L, Pc, 1, Hkv, D)
+    bpk, bpv = bktd(pk), bktd(pv)
+    qg = (randn(B, Hkv, rep, D).float() * D ** -0.5).to(torch.bfloat16)
+    kn, vn = randn(B, Hkv, D), randn(B, Hkv, D)
+    pads = torch.tensor([0, 37, 100, 5], device=dev)[:B]
+    slots = torch.tensor([T - 142, 37, T - 41, T - 1], dtype=torch.int32,
+                         device=dev)[:B]           # row 1: nothing written
+    cols = torch.arange(T, device=dev)
+    kv_mask = ((cols >= pads[:, None]) & (cols < slots[:, None])).to(
+        torch.int32)
+    pmask = torch.ones((B, Pc), dtype=torch.int32, device=dev)
+    pmask[2, :100] = 0
+    pmask[3] = 0
+    rows_ = torch.arange(B, device=dev)
+    out = {}
+    for kid, wrapper, plain, pre in (
+            ("K4 tbkd rows", decode_attention_stacked_write,
+             decode_attention_stacked_write_plain, ()),
+            ("K9a tbkd", decode_attention_stacked_write_prefix,
+             decode_attention_stacked_write_prefix_plain, (pk, pv, pmask))):
+        bpre = (bpk, bpv, pmask) if pre else ()
+        tk, tv = ck.clone(), cv.clone()
+        bk, bv = bktd(ck), bktd(cv)
+        rk, rv = ck.clone(), cv.clone()       # the plain route's caches
+        errs, layers = [], (0, 7, L - 1)
+        for li in layers:
+            n = wrapper.launches
+            a_t = wrapper(qg, tk, tv, kv_mask, kn, vn, li, slots, *pre,
+                          layout="tbkd")
+            a_b = wrapper(qg, bk, bv, kv_mask, kn, vn, li, slots, *bpre)
+            ref = plain(qg, rk, rv, kv_mask, kn, vn, li, slots, *pre,
+                        layout="tbkd")
+            torch.cuda.synchronize()
+            require(wrapper.launches == n + 2, f"{kid}: one launch a call")
+            require(torch.equal(a_t, a_b), f"{kid} at layer {li} is not "
+                    f"bit-identical to the bktd launch on the permuted "
+                    f"cache{' and prefix' if pre else ''}")
+            torch.testing.assert_close(a_t.float(), ref.float(), atol=2e-2,
+                                       rtol=2e-2)
+            errs.append((a_t.float() - ref.float()).abs().max().item())
+        want_k, want_v = ck.clone(), cv.clone()
+        for li in layers:
+            want_k[li, slots.long(), rows_] = kn
+            want_v[li, slots.long(), rows_] = vn
+        require(torch.equal(tk, want_k) and torch.equal(tv, want_v),
+                f"{kid}: the written slots are not bit-exact, or another "
+                f"cache byte moved")
+        require(torch.equal(bk, tk.permute(0, 2, 3, 1, 4))
+                and torch.equal(bv, tv.permute(0, 2, 3, 1, 4)),
+                f"{kid}: the bktd launch's written cache differs from the "
+                f"tbkd one permuted")
+        require(torch.equal(rk, tk) and torch.equal(rv, tv),
+                f"{kid}: the plain tbkd route's written cache differs")
+        del want_k, want_v
+
+        def k_t():
+            return wrapper(qg, tk, tv, kv_mask, kn, vn, 7, slots, *pre,
+                           layout="tbkd")
+
+        def k_b():
+            return wrapper(qg, bk, bv, kv_mask, kn, vn, 7, slots, *bpre)
+
+        def route():
+            return plain(qg, rk, rv, kv_mask, kn, vn, 7, slots, *pre,
+                         layout="tbkd")
+
+        ms = cuda_ms(torch, k_t, iters=50)
+        plain_ms = cuda_ms(torch, route, iters=20)
+        dev_ms, b_dev_ms = graph_ms(torch, k_t), graph_ms(torch, k_b)
+        plain_dev_ms = graph_ms(torch, route)
+        bd = decode_bound(torch, kv_mask, pmask if pre else None, Hkv, rep,
+                          D, 2, 0, 2 * nbytes(qg) + 2 * nbytes(kn, vn)
+                          + nbytes(kv_mask, slots)
+                          + (nbytes(pmask) if pre else 0))
+        what = f", prefix Pc={Pc} (L, Pc, 1, Hkv, D)" if pre else ""
+        log(f"{kid} at the legacy shape L={L} T={T} B={B} Hkv={Hkv} "
+            f"rep={rep} D={D} bf16{what}, per-row slots {slots.tolist()}: "
+            f"bit-identical to the bktd launch on the permuted operands at "
+            f"layers {layers}, "
+            f"max|a - plain tbkd route|={max(errs):.3e} (atol/rtol 2e-2), "
+            f"the slots bit-exact, no other byte moved; kernel {ms:.4f} ms, "
+            f"device {dev_ms:.4f} ms per layer from CUDA graphs (bktd "
+            f"{b_dev_ms:.4f} ms: {dev_ms / b_dev_ms:.3f}x; plain tbkd route "
+            f"{plain_dev_ms:.4f} ms, eager {plain_ms:.4f} ms), bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) = "
+            f"{bd['bound_ms'] / dev_ms:.1%} [{card}]")
+        out[kid] = dict(ms=ms, device_ms=dev_ms, bktd_device_ms=b_dev_ms,
+                        x_bktd_device=dev_ms / b_dev_ms, plain_ms=plain_ms,
+                        plain_device_ms=plain_dev_ms, max_abs_err=max(errs),
+                        **bd)
+        del tk, tv, bk, bv, rk, rv
+    return out
 
 
 def check_serve_kernels(torch, dev, card):
@@ -1995,6 +2151,93 @@ def check_probe_kernels(torch, dev, card, kids=None):
 K15K_SHAPES = ((13, 200), (1, 64))
 
 
+PROBE_KV_SHAPES = ((4, 8, 842, 64), (4, 8, 842, 72))
+# K15j's and K15l's device times behind a busy device: the kernel's from
+# graphs of 10 and of 1 call, then the library call's
+BUSY_KEYS = ("device_busy_ms", "device_busy1_ms", "library_device_busy_ms",
+             "library_device_busy1_ms")
+
+
+def check_slot_writes(torch, dev, card, g, B, Hkv, T, D):
+    """K15j on an int8 (B, Hkv, T, D) cache and K15l on an f32 (B, Hkv, T)
+    scale row at slot T - 242 (D 64 takes 16-byte words, D 72 8-byte
+    ones): bit-exact against the plain version over the whole buffer, only
+    the slot's row or column moved; eager and device times (CUDA graphs of
+    10 calls, and behind a busy device of 10 and of 1) beside
+    `index_copy_`'s, the plain version's and the bound."""
+    from prot2text_tpu_torch.kernels import probe_int8_kv as pk
+
+    slot = T - 242
+    idx = torch.tensor([slot], dtype=torch.int32, device=dev)
+    idx64 = idx.long()
+    cache = torch.randint(-128, 128, (B, Hkv, T, D), generator=g, device=dev,
+                          dtype=torch.int8)
+    kn = torch.randint(-128, 128, (B, Hkv, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    srow = torch.rand((B, Hkv, T), generator=g, device=dev)
+    sn = torch.rand((B, Hkv), generator=g, device=dev) + 1
+    kn4, sn3 = kn.reshape(B, Hkv, 1, D), sn.reshape(B, Hkv, 1)
+    out = {}
+    for kid, buf, fn, plain, lib, src in (
+            ("K15j", cache, lambda: pk.int8_group_rmw(cache, kn, idx),
+             lambda: pk.int8_group_rmw_plain(cache, kn, idx),
+             lambda: cache.index_copy_(2, idx64, kn4), kn),
+            ("K15l", srow, lambda: pk.f32_scale_row_rmw(srow, sn, idx),
+             lambda: pk.f32_scale_row_rmw_plain(srow, sn, idx),
+             lambda: srow.index_copy_(2, idx64, sn3), sn)):
+        before = buf.clone()
+        y = fn().clone()
+        torch.cuda.synchronize()
+        buf.copy_(before)
+        want = plain().clone()
+        buf.copy_(before)
+        require(torch.equal(y, want), f"{kid} at {tuple(buf.shape)} is not "
+                f"bit-exact")
+        moved_at = (y != before).nonzero()[:, 2].unique().tolist()
+        require(moved_at == [slot], f"{kid} at {tuple(buf.shape)} changed "
+                f"slots {moved_at}, not only {slot}")
+        ms = cuda_ms(torch, fn, iters=50)
+        plain_ms = cuda_ms(torch, plain, iters=50)
+        lib_ms = cuda_ms(torch, lib, iters=50)
+        dev_ms, lib_dev_ms = graph_ms(torch, fn), graph_ms(torch, lib)
+        busy = [busy_graph_ms(torch, f, calls=n) for f in (fn, lib)
+                for n in (10, 1)]
+        bd = bound(0.0, 2 * nbytes(src) + 4)
+        log(f"{kid} slot write {tuple(buf.shape)} slot {slot}: bit-exact, "
+            f"only the slot moved; kernel {ms:.4f} ms (device {dev_ms:.4f} "
+            f"ms from CUDA graphs; behind a busy device {busy[0]:.4f} ms of "
+            f"10, {busy[1]:.4f} ms of 1), plain {plain_ms:.4f} ms, "
+            f"index_copy_ {lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms; "
+            f"{busy[2]:.4f} / {busy[3]:.4f} ms), bound "
+            f"{bd['bound_ms']:.7f} ms ({bd['bound_by']}) [{card}]")
+        out[kid] = dict(shape=tuple(buf.shape), ms=ms, device_ms=dev_ms,
+                        plain_ms=plain_ms, library_ms=lib_ms,
+                        library_device_ms=lib_dev_ms, **dict(zip(BUSY_KEYS,
+                                                                busy)), **bd)
+    return out
+
+
+def stream_of_us(torch, dev, calls: int = 20000) -> tuple:
+    """Host µs a call of `_build.stream_of` (the raw current stream) and of
+    `torch.cuda.current_stream(dev).cuda_stream` (a `Stream` object built
+    a call), timed in one process; every kernel wrapper reads the stream
+    on every launch."""
+    from prot2text_tpu_torch.kernels import _build
+
+    t = torch.empty(1, device=dev)
+    out = []
+    for fn in (lambda: _build.stream_of(t),
+               lambda: torch.cuda.current_stream(t.device).cuda_stream):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    require(_build.stream_of(t) == torch.cuda.current_stream(dev).cuda_stream,
+            "stream_of is not the current stream")
+    return tuple(out)
+
+
 def check_probe_kv_kernels(torch, dev, card):
     """K15h-K15l against their plain versions on random inputs at the int8
     KV probe's sizes (Hkv 8, T 192, D 128, slot 77): K15h, K15i, K15j and
@@ -2006,7 +2249,12 @@ def check_probe_kv_kernels(torch, dev, card):
     graphs beside them, the plain versions', and the library yardstick
     where one PyTorch call computes the function (`torch.where` for K15i,
     `index_copy_` for K15j and K15l); K15k's share of its bound on the
-    device time, at every shape."""
+    device time, at every shape.  K15j and K15l (chained launches) also
+    from graphs replayed behind a busy device (`busy_graph_ms`) of 10
+    calls and of one call, which no launch before overlaps, beside
+    `index_copy_`'s; and at the legacy cache's (B, Hkv, T) = (4, 8, 842),
+    D 64 and 72 (`PROBE_KV_SHAPES`: K15j's 16- and 8-byte words), the same
+    checks and times."""
     from prot2text_tpu_torch.kernels import probe_int8_kv as pk
 
     g = torch.Generator(device=dev).manual_seed(9753)
@@ -2076,13 +2324,29 @@ def check_probe_kv_kernels(torch, dev, card):
                 if kid == "K15k" else "bit-exact")
         lib_txt = ("none" if lib_ms is None else
                    f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms)")
+        one = ""
+        if kid in ("K15j", "K15l"):
+            busy = [busy_graph_ms(torch, f, calls=n) for f in (fn, lib)
+                    for n in (10, 1)]
+            one = (f"; behind a busy device, graphs of 10 and of 1 call: "
+                   f"kernel {busy[0]:.4f} / {busy[1]:.4f} ms, library "
+                   f"{busy[2]:.4f} / {busy[3]:.4f} ms")
         log(f"{kid} int8-KV probe op Hkv={Hkv} T={T} D={D}: {what}; kernel "
             f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), plain "
             f"{plain_ms:.4f} ms, library {lib_txt}, bound "
-            f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}) [{card}]")
+            f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}){one} [{card}]")
         rows[kid] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          library_device_ms=lib_dev_ms, **bd)
+        if one:
+            rows[kid].update(zip(BUSY_KEYS, busy), other_shapes=[])
+    us = stream_of_us(torch, dev)
+    log(f"_build.stream_of {us[0]:.3f} us a call, "
+        f"torch.cuda.current_stream().cuda_stream {us[1]:.3f} us [{card}]")
+    for B, H, Tw, Dw in PROBE_KV_SHAPES:
+        for kid, row in check_slot_writes(torch, dev, card, g, B, H, Tw,
+                                          Dw).items():
+            rows[kid]["other_shapes"].append(row)
     rows["K15k"]["other_shapes"] = []
     for Q, Tk in K15K_SHAPES:
         qk = torch.randn((Q, D), generator=g, device=dev).to(torch.bfloat16)
@@ -4266,7 +4530,8 @@ def run_probes(torch, dev, card):
 SPEED_KEYS = ("device_ms", "library_device_ms", "useful_tflops",
               "useful_tbps", "bound_share", "x_library", "x_library_device",
               "device_ms_profiler", "library_device_source", "other_shapes",
-              "sources", "at_rows", "lockstep")
+              "sources", "at_rows", "lockstep", "tbkd", "tbkd_rows") \
+    + BUSY_KEYS
 
 
 def count_routes(qm):
@@ -4323,6 +4588,8 @@ def main() -> int:
     rows.update(check_serve_kernels(torch, dev, card))
     rows["K4"]["lockstep"] = rows.pop("K4 lockstep")
     rows["K4"]["tbkd"] = rows.pop("K4 tbkd")
+    rows["K4"]["tbkd_rows"] = rows.pop("K4 tbkd rows")
+    rows["K9a"]["tbkd"] = rows.pop("K9a tbkd")
     bwd_rows, k6_err, k6_esmc = check_bias_bwd_kernel(torch, dev, card)
     rows.update(bwd_rows)
     # the K6 row keeps the worst error over its serving and training shapes

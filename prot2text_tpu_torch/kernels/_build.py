@@ -29,6 +29,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -59,9 +61,9 @@ SIGNATURES = {
     # cache0, src0, cache1, src1, n_caches, L, T, index, run_bytes, stream
     "p2t_cache_slab_write": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
     # qg, ck(layer), cv(layer), kv_mask, k_new, v_new, slots, pk(layer),
-    # pv(layer), pmask, out, B, Hkv, rep, T, Pc, D, slab stride, column
-    # stride, dtype, stream
-    "p2t_decode_attention_write": [_P] * 11 + [_I] * 6 + [_L, _L, _I, _P],
+    # pv(layer), pmask, out, B, Hkv, rep, T, Pc, D, the cache's slab and
+    # column strides, the prefix's head and column strides, dtype, stream
+    "p2t_decode_attention_write": [_P] * 11 + [_I] * 6 + [_L] * 4 + [_I, _P],
     # q, k, v, bias, o, lse, strides[15], B, H, Hkv, Sq, Skv, D, dtype,
     # stream
     "p2t_flash_bias_fwd": [_P] * 7 + [_I] * 7 + [_P],
@@ -218,7 +220,8 @@ def dtype_code(dtype) -> int:
 
 
 def stream_of(t) -> int:
-    """Raw cudaStream_t of the current PyTorch stream on t's device."""
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw cudaStream_t of the current PyTorch stream on t's device, read
+    by one call into PyTorch's C extension (`torch.cuda.current_stream`
+    builds a `torch.cuda.Stream` object on every call; every kernel wrapper
+    calls this on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -167,6 +167,44 @@ __host__ inline bool aligned16(const void* ptr, int64_t sb, int64_t sh,
          ((sb | sh | ss) & 7) == 0;
 }
 
+// ---------------------------------------------------------------------------
+// Chained launches: programmatic dependent launch (sm_90).  A kernel
+// launched by `launch_chained` may begin while the kernel before it on the
+// stream is still running: its blocks run their index arithmetic, then
+// `grid_dependency_wait()` holds them until that kernel has finished and
+// its writes are visible, so no global memory may be read (or written)
+// before that wait.  `launch_dependents()`, after a kernel's stores, lets
+// the next chained launch begin once every block of this grid has called
+// it (or exited); that launch still waits for this grid's end in its own
+// `grid_dependency_wait()`.  Stream capture keeps the dependency as a
+// programmatic edge of the graph.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// launch kernel<<<grid, block, 0, stream>>>(args...) with the programmatic
+// stream serialization attribute; returns the launch's error
+template <typename... Params, typename... Args>
+inline cudaError_t launch_chained(void (*kernel)(Params...), dim3 grid,
+                                  dim3 block, cudaStream_t stream,
+                                  Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 // 2^x (MUFU; -inf → +0)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;

@@ -222,7 +222,8 @@ extern "C" int p2t_decode_attention(const void* qg, const void* ck,
     return (int)split::run<split::CacheCols>(
         D,
         split::make_params(qg, ck, cv, kv_mask, nullptr, nullptr, nullptr,
-                           out, Hkv, rep, T_len, 0, (int64_t)T_len * D, D),
+                           out, Hkv, rep, T_len, 0, (int64_t)T_len * D, D,
+                           0, D),
         split::Bf16Cache{static_cast<const split::bf16*>(k_new),
                          static_cast<const split::bf16*>(v_new)},
         split::NoWrite{}, B, s);

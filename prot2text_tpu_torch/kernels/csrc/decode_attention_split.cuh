@@ -24,12 +24,16 @@
 // strides of `Params`: `slab_stride` from one (b, kv head) slab to the
 // next and `col_stride` from one column to the next, (T·D, D) for the
 // bktd (B, Hkv, T, D) layer and (D, B·Hkv·D) for the tbkd (T, B, Hkv, D)
-// one, which the D = 64 lockstep step takes with K4 (its slot then written
-// in K4's epilogue, where JAX's tbkd step calls K12 after the loop).  A
-// tbkd tile row is still one contiguous run of D elements (128 bytes at
-// D 64, bf16), at a B·Hkv·D stride, so the 16-byte cp.async copies read it
-// whole; the same data in either layout gives the same bits.  The scales
-// (B, Hkv, T) and the prefix (Hkv, Pc, D) keep their own layouts.
+// one, which the D = 64 step takes with K4 (its slot then written in K4's
+// epilogue, where JAX's tbkd step writes after the loop).  The prefix is
+// read at two strides of its own, `pfx_head_stride` from one kv head to
+// the next and `pfx_col_stride` from one column to the next: (Pc·D, D) for
+// the bktd (1, Hkv, Pc, D) layer and (D, Hkv·D) for the sequence-leading
+// tbkd (Pc, 1, Hkv, D) one, which K9a takes on the tbkd cache.  A tbkd
+// tile row is still one contiguous run of D elements (128 bytes at D 64,
+// bf16), at a B·Hkv·D (prefix: Hkv·D) stride, so the 16-byte cp.async
+// copies read it whole; the same data in either layout gives the same
+// bits.  The scales (B, Hkv, T) and (Hkv, Pc) keep their own layouts.
 //
 // Contract (as the SIMT bodies and the TPU kernels): q pre-scaled, logits
 // fp32; a block holds all `rows` query rows of its kv head (K2/K4/K9a: the
@@ -165,7 +169,7 @@ struct Params {
   const float* sk;           // layer slice (B, Hkv, T); Int8Cache
   const float* sv;
   const int32_t* kv_mask;    // (B, T) 0/1
-  const T* pk;               // prefix layer slice (Hkv, Pc, D); PrefixCols
+  const T* pk;               // prefix layer slice; PrefixCols
   const T* pv;
   const float* psk;          // (Hkv, Pc); Int8Cache with PrefixCols
   const float* psv;
@@ -174,9 +178,12 @@ struct Params {
   int Hkv, rep, rows, T_len, Pc;
   // the cache's element strides: from one (b, kv head) slab to the next
   // (bktd T·D, tbkd D) and from one column to the next (bktd D, tbkd
-  // B·Hkv·D); the scales (B, Hkv, T) and the prefix (Hkv, Pc, D) keep
-  // their own
+  // B·Hkv·D); the scales (B, Hkv, T) keep their own
   int64_t slab_stride, col_stride;
+  // the prefix's: from one kv head to the next (bktd Pc·D, tbkd D) and
+  // from one column to the next (bktd D, tbkd Hkv·D); its scales (Hkv, Pc)
+  // keep their own
+  int64_t pfx_head_stride, pfx_col_stride;
 };
 
 // K2/K4/K9a's untyped arguments → Params (pk, pv and pmask may be null:
@@ -186,18 +193,21 @@ inline Params<bf16> make_params(const void* qg, const void* ck,
                                 const void* pk, const void* pv,
                                 const void* pmask, void* out, int Hkv,
                                 int rep, int T_len, int Pc,
-                                int64_t slab_stride, int64_t col_stride) {
+                                int64_t slab_stride, int64_t col_stride,
+                                int64_t pfx_head_stride,
+                                int64_t pfx_col_stride) {
   return {static_cast<const bf16*>(qg), static_cast<const bf16*>(ck),
           static_cast<const bf16*>(cv), nullptr, nullptr,
           static_cast<const int32_t*>(kv_mask), static_cast<const bf16*>(pk),
           static_cast<const bf16*>(pv), nullptr, nullptr,
           static_cast<const int32_t*>(pmask), static_cast<bf16*>(out),
-          Hkv, rep, rep, T_len, Pc, slab_stride, col_stride};
+          Hkv, rep, rep, T_len, Pc, slab_stride, col_stride,
+          pfx_head_stride, pfx_col_stride};
 }
 
 // a tile's first key and value rows, their scales (null for bf16), its
 // mask, its count of columns and the element stride of its key and value
-// rows (the cache's column stride, or D for the prefix)
+// rows (the cache's or the prefix's column stride)
 template <class T>
 struct Tile {
   const T* k;
@@ -248,10 +258,11 @@ struct PrefixCols {
   __device__ Tile<T> tile(const Params<T>& p, int b, int h, int i) const {
     if (i < nP) {
       const int c0 = i * kBT;
+      const int64_t kv = h * p.pfx_head_stride + c0 * p.pfx_col_stride;
       const int64_t c = (int64_t)h * p.Pc + c0;
-      return {p.pk + c * D, p.pv + c * D, p.psk ? p.psk + c : nullptr,
+      return {p.pk + kv, p.pv + kv, p.psk ? p.psk + c : nullptr,
               p.psv ? p.psv + c : nullptr, p.pmask + (int64_t)b * p.Pc + c0,
-              min(kBT, p.Pc - c0), D};
+              min(kBT, p.Pc - c0), p.pfx_col_stride};
     }
     return CacheCols(p).tile<D>(p, b, h, i - nP);
   }
@@ -1112,7 +1123,8 @@ cudaError_t run(int D, const Params<typename E::T>& p, const E& e,
   if (owned(Cols(p).tiles(p), 0) > kMaxLocal) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(p.ck) | reinterpret_cast<uintptr_t>(p.cv) |
        reinterpret_cast<uintptr_t>(p.pk) | reinterpret_cast<uintptr_t>(p.pv) |
-       static_cast<uintptr_t>((p.slab_stride | p.col_stride) *
+       static_cast<uintptr_t>((p.slab_stride | p.col_stride |
+                               p.pfx_head_stride | p.pfx_col_stride) *
                               sizeof(typename E::T))) &
       15)
     return cudaErrorMisalignedAddress;
@@ -1143,7 +1155,8 @@ cudaError_t run_int8(const void* qg, void* ck, void* cv, void* sk, void* sv,
       static_cast<const int8_t*>(pk), static_cast<const int8_t*>(pv),
       static_cast<const float*>(psk), static_cast<const float*>(psv),
       static_cast<const int32_t*>(pmask), static_cast<bf16*>(out),
-      Hkv, rep, G * rep, T_len, Pc, (int64_t)T_len * D, D};
+      Hkv, rep, G * rep, T_len, Pc, (int64_t)T_len * D, D,
+      (int64_t)Pc * D, D};
   const Int8Cache e = {static_cast<const float*>(kq),
                        static_cast<const float*>(vq),
                        static_cast<const float*>(ks),

@@ -1,7 +1,8 @@
 // K4 and K9a: grouped-query decode attention over layer `li` of the stacked
 // (L, B, Hkv, T, D) KV cache, fused with the in-place write of each row's
 // current k/v into its own cache slot `slots[b]`; K9a adds a read-only
-// shared-prefix operand (L, 1, Hkv, Pc, D) that every row may attend.
+// shared-prefix operand (L, 1, Hkv, Pc, D), or (L, Pc, 1, Hkv, D) beside a
+// tbkd (L, T, B, Hkv, D) cache, that every row may attend.
 //
 // Replaces prot2text_tpu/kernels/decode_attention.py
 // decode_attention_stacked_write (_kernel_write, K4) and
@@ -55,13 +56,15 @@ struct WriteParams {
   const float* k_new;   // (B, Hkv, D)
   const float* v_new;
   const int32_t* slots; // (B,) slot per row
-  const float* pk;      // prefix layer slice (Hkv, Pc, D); K9a only
+  const float* pk;      // prefix layer slice; K9a only
   const float* pv;
   const int32_t* pmask; // (B, Pc) 0/1; K9a only
   float* out;           // (B, Hkv, rep, D)
   int Hkv, rep, T_len, Pc;
   int64_t slab_stride;  // the cache's: (b, kv head) slab to slab, bktd T·D,
   int64_t col_stride;   // tbkd D; column to column, bktd D, tbkd B·Hkv·D
+  int64_t pfx_head_stride;  // the prefix's: kv head to kv head, bktd Pc·D,
+  int64_t pfx_col_stride;   // tbkd D; column to column, bktd D, tbkd Hkv·D
 };
 
 template <int D, bool kPrefix>
@@ -116,8 +119,8 @@ decode_attention_write_kernel(const WriteParams p) {
   float* kb = p.ck + bg * p.slab_stride;
   float* vb = p.cv + bg * p.slab_stride;
   const int32_t* mb = p.kv_mask + (int64_t)b * p.T_len;
-  const float* pkb = kPrefix ? p.pk + (int64_t)h * Pc * D : nullptr;
-  const float* pvb = kPrefix ? p.pv + (int64_t)h * Pc * D : nullptr;
+  const float* pkb = kPrefix ? p.pk + h * p.pfx_head_stride : nullptr;
+  const float* pvb = kPrefix ? p.pv + h * p.pfx_head_stride : nullptr;
   const int32_t* pmb = kPrefix ? p.pmask + (int64_t)b * Pc : nullptr;
 
   for (int t0 = 0; t0 < n_cols; t0 += kChunk) {
@@ -127,7 +130,7 @@ decode_attention_write_kernel(const WriteParams p) {
     if (t < n_cols) {
       if (kPrefix && t < Pc) {
         valid = pmb[t] != 0;
-        krow = pkb + (int64_t)t * D;
+        krow = pkb + t * p.pfx_col_stride;
       } else {
         valid = mb[t - Pc] != 0;
         krow = kb + (t - Pc) * p.col_stride;
@@ -195,7 +198,7 @@ decode_attention_write_kernel(const WriteParams p) {
     for (int c = 0; c < n; ++c) {
       if (!valid_s[c]) continue;             // block-uniform branch
       const int tc = t0 + c;
-      const float* vrow = (kPrefix && tc < Pc) ? pvb + (int64_t)tc * D
+      const float* vrow = (kPrefix && tc < Pc) ? pvb + tc * p.pfx_col_stride
                                                : vb + (tc - Pc) * p.col_stride;
       const float v = vrow[d];
 #pragma unroll
@@ -254,26 +257,30 @@ cudaError_t dispatch_d(int D, const WriteParams& p, int B, cudaStream_t s) {
 // ck/cv: the layer's slice at element strides slab_stride (from one (b, kv
 // head) slab to the next) and col_stride (from one column to the next):
 // (T·D, D) for a bktd (B, Hkv, T, D) slice, (D, B·Hkv·D) for a tbkd
-// (T, B, Hkv, D) one; pk/pv: the layer's (Hkv, Pc, D) prefix slice and
-// pmask (B, Pc), all ignored when Pc == 0 (K4; K9a takes bktd only).  bf16
-// runs the split body (K4: CacheCols, K9a: PrefixCols; both SlotWrite),
-// f32 the SIMT body.
+// (T, B, Hkv, D) one; pk/pv: the layer's prefix slice at element strides
+// pfx_head_stride (kv head to kv head) and pfx_col_stride (column to
+// column): (Pc·D, D) for a bktd (1, Hkv, Pc, D) slice, (D, Hkv·D) for a
+// tbkd (Pc, 1, Hkv, D) one; pmask (B, Pc); all four ignored when Pc == 0
+// (K4).  bf16 runs the split body (K4: CacheCols, K9a: PrefixCols; both
+// SlotWrite), f32 the SIMT body.
 extern "C" int p2t_decode_attention_write(
     const void* qg, void* ck, void* cv, const void* kv_mask,
     const void* k_new, const void* v_new, const void* slots, const void* pk,
     const void* pv, const void* pmask, void* out, int B, int Hkv, int rep,
     int T_len, int Pc, int D, int64_t slab_stride, int64_t col_stride,
-    int dtype, void* stream) {
+    int64_t pfx_head_stride, int64_t pfx_col_stride, int dtype,
+    void* stream) {
   if (B <= 0 || Hkv <= 0 || rep <= 0 || rep > kMaxRep || T_len <= 0 ||
       Pc < 0 || (Pc > 0 && (pk == nullptr || pv == nullptr ||
-                            pmask == nullptr)) ||
+                            pmask == nullptr || pfx_head_stride <= 0 ||
+                            pfx_col_stride <= 0)) ||
       slab_stride <= 0 || col_stride <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == p2t::kBFloat16) {
     const split::Params<split::bf16> p = split::make_params(
         qg, ck, cv, kv_mask, pk, pv, pmask, out, Hkv, rep, T_len, Pc,
-        slab_stride, col_stride);
+        slab_stride, col_stride, pfx_head_stride, pfx_col_stride);
     const split::Bf16Cache e = {static_cast<const split::bf16*>(k_new),
                                 static_cast<const split::bf16*>(v_new)};
     const split::SlotWrite w = {static_cast<split::bf16*>(ck),
@@ -297,6 +304,7 @@ extern "C" int p2t_decode_attention_write(
     p.out = static_cast<float*>(out);
     p.Hkv = Hkv; p.rep = rep; p.T_len = T_len; p.Pc = Pc;
     p.slab_stride = slab_stride; p.col_stride = col_stride;
+    p.pfx_head_stride = pfx_head_stride; p.pfx_col_stride = pfx_col_stride;
     return (int)dispatch_d(D, p, B, s);
   }
   return (int)cudaErrorInvalidValue;

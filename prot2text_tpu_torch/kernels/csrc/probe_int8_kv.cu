@@ -15,9 +15,32 @@
 // writes nothing.  rint rounds half to even, as jnp.round and torch.round.
 //
 // Bound: bytes, and a few microseconds of launch at the probes' sizes
-// ((192, 128) int8 is 24.6 KB: 0.01 us at 3.35 TB/s).  Design: one thread
-// per output element (K15h, K15i), one thread per written byte or value
-// (K15j, K15l); nothing is staged.
+// ((192, 128) int8 is 24.6 KB: 0.01 us at 3.35 TB/s).  K15h and K15i: one
+// thread per output element; nothing is staged.
+//
+// K15j and K15l write 1 KB and 32 bytes at the probe's shape, so what
+// bounds them is a launch and one memory round trip, not bytes.  So:
+//   - one round trip: a thread issues its source load (kn, sn; always in
+//     bounds) together with the slot's, both by volatile loads that the
+//     compiler can neither sink behind the slot's branch nor reorder, so
+//     the two latencies overlap (the kernels before read the slot,
+//     branched, then read kn: two dependent trips);
+//   - few, wide accesses in one block: K15j moves W bytes a thread, W the
+//     widest of 16, 8, 4, 2, 1 that divides D and both addresses (a
+//     template choice of the launcher: 16 at D 128 and 64, 8 at D 72), so
+//     the probe's B·Hkv·D = 1024 bytes are 64 threads of one 16-byte load
+//     and one store; K15l writes B·Hkv floats at a T-float stride, which
+//     no vector covers, one warp per 32 values; a block takes up to
+//     kWriteThreads, and more blocks come only past that;
+//   - chained launches (`p2t::launch_chained`, programmatic dependent
+//     launch): before `grid_dependency_wait` a block does only index
+//     arithmetic, since the slot, the source and the buffer may all be the
+//     previous kernel's output; after its store it calls
+//     `launch_dependents`, so in a run of launches (a CUDA graph of calls)
+//     each launch's set-up overlaps the kernel before it.  chip_smoke.py
+//     times a graph of 10 calls and of 1 call (no launch before it to
+//     overlap) behind a busy device: the launch is the cost, and only the
+//     chain moves it.
 //
 // K15k runs on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
 // accumulate), the product transposed, Sᵀ = C·qᵀ: the c rows are the m
@@ -59,18 +82,73 @@ __global__ void select_row_kernel(const int8_t* __restrict__ a,
     out[i] = i / cols == row ? a[i] : b[i];
 }
 
-__global__ void group_row_write_kernel(int8_t* __restrict__ cache,
-                                       const int8_t* __restrict__ kn,
-                                       const int32_t* __restrict__ slot,
-                                       int heads, int T, int D) {
-  const int s = *slot;
-  if (s < 0 || s >= T) return;
-  const int64_t n = (int64_t)heads * D;
-  for (int64_t i = blockIdx.x * 256LL + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * 256) {
-    const int64_t h = i / D, d = i % D;
-    cache[(h * T + s) * D + d] = kn[i];
+constexpr int kWriteThreads = 1024;   // K15j/K15l: threads a block at most
+
+// one W-byte word: its type, and a volatile global load of it (issued
+// where it stands: never sunk behind a branch nor reordered with another)
+template <int W> struct Word;
+template <> struct Word<16> {
+  using T = uint4;
+  static __device__ __forceinline__ T load(const void* p) {
+    T v;
+    asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+    return v;
   }
+};
+template <> struct Word<8> {
+  using T = uint2;
+  static __device__ __forceinline__ T load(const void* p) {
+    T v;
+    asm volatile("ld.global.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(v.x), "=r"(v.y) : "l"(p));
+    return v;
+  }
+};
+template <> struct Word<4> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T load(const void* p) {
+    T v;
+    asm volatile("ld.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
+    return v;
+  }
+};
+template <> struct Word<2> {
+  using T = uint16_t;
+  static __device__ __forceinline__ T load(const void* p) {
+    T v;
+    asm volatile("ld.global.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
+    return v;
+  }
+};
+template <> struct Word<1> {
+  using T = uint8_t;
+  static __device__ __forceinline__ T load(const void* p) {
+    uint16_t v;
+    asm volatile("ld.global.u8 %0, [%1];\n" : "=h"(v) : "l"(p));
+    return static_cast<T>(v);
+  }
+};
+
+// K15j: word i of kn (W bytes of head i / words, words = D / W a head) →
+// cache[head, *slot]; n = heads · words
+template <int W>
+__global__ void __launch_bounds__(kWriteThreads)
+group_row_write_kernel(int8_t* __restrict__ cache,
+                       const int8_t* __restrict__ kn,
+                       const int32_t* __restrict__ slot, int64_t n,
+                       int words, int T) {
+  using V = typename Word<W>::T;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t h = i / words, c = i - h * words;
+  p2t::grid_dependency_wait();
+  if (i < n) {
+    const int s = static_cast<int>(Word<4>::load(slot));
+    const V v = Word<W>::load(kn + i * W);
+    if (s >= 0 && s < T)
+      reinterpret_cast<V*>(cache)[(h * T + s) * words + c] = v;
+  }
+  p2t::launch_dependents();
 }
 
 constexpr int kLogitRows = 64;        // c rows a K15k block (4 warps x 16)
@@ -153,14 +231,30 @@ kv_logits_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-__global__ void scale_column_write_kernel(float* __restrict__ s,
-                                          const float* __restrict__ sn,
-                                          const int32_t* __restrict__ slot,
-                                          int heads, int T) {
-  const int col = *slot;
-  const int h = blockIdx.x * 256 + threadIdx.x;
-  if (col < 0 || col >= T || h >= heads) return;
-  s[(int64_t)h * T + col] = sn[h];
+// K15l: sn[h] → s[h, *slot], a thread a value
+__global__ void __launch_bounds__(kWriteThreads)
+scale_column_write_kernel(float* __restrict__ s,
+                          const float* __restrict__ sn,
+                          const int32_t* __restrict__ slot, int heads,
+                          int T) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  p2t::grid_dependency_wait();
+  if (h < heads) {
+    const int col = static_cast<int>(Word<4>::load(slot));
+    const float v = __uint_as_float(Word<4>::load(sn + h));
+    if (col >= 0 && col < T) s[(int64_t)h * T + col] = v;
+  }
+  p2t::launch_dependents();
+}
+
+// n threads in blocks of at most kWriteThreads, whole warps, one block up
+// to kWriteThreads
+void write_grid(int64_t n, dim3* grid, dim3* block) {
+  const int64_t warps = (n + 31) / 32;
+  const int64_t threads = warps * 32 < kWriteThreads ? warps * 32
+                                                     : kWriteThreads;
+  *block = dim3(static_cast<unsigned>(threads));
+  *grid = dim3(static_cast<unsigned>((n + threads - 1) / threads));
 }
 
 int blocks_for(int64_t n) {
@@ -193,16 +287,37 @@ extern "C" int p2t_int8_select_row(const void* a, const void* b, void* out,
 }
 
 // K15j: cache (heads, T, D) int8 in place, kn (heads, D) int8, slot a
-// device int32
+// device int32; W bytes a thread, the widest word that divides D and both
+// addresses
 extern "C" int p2t_int8_group_row_write(void* cache, const void* kn,
                                         const void* slot, int heads, int T,
                                         int D, void* stream) {
   if (heads <= 0 || T <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  group_row_write_kernel<<<blocks_for((int64_t)heads * D), 256, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(cache), static_cast<const int8_t*>(kn),
-      static_cast<const int32_t*>(slot), heads, T, D);
-  return (int)cudaGetLastError();
+  const uintptr_t a = reinterpret_cast<uintptr_t>(cache) |
+                      reinterpret_cast<uintptr_t>(kn) |
+                      static_cast<uintptr_t>(D);
+  const int W = (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4
+              : (a & 1) == 0 ? 2 : 1;
+  const int64_t n = (int64_t)heads * (D / W);
+  dim3 grid, block;
+  write_grid(n, &grid, &block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* c = static_cast<int8_t*>(cache);
+  const int8_t* k = static_cast<const int8_t*>(kn);
+  const int32_t* i = static_cast<const int32_t*>(slot);
+  switch (W) {
+    case 16: return (int)p2t::launch_chained(group_row_write_kernel<16>,
+                                             grid, block, s, c, k, i, n,
+                                             D / 16, T);
+    case 8: return (int)p2t::launch_chained(group_row_write_kernel<8>, grid,
+                                            block, s, c, k, i, n, D / 8, T);
+    case 4: return (int)p2t::launch_chained(group_row_write_kernel<4>, grid,
+                                            block, s, c, k, i, n, D / 4, T);
+    case 2: return (int)p2t::launch_chained(group_row_write_kernel<2>, grid,
+                                            block, s, c, k, i, n, D / 2, T);
+    default: return (int)p2t::launch_chained(group_row_write_kernel<1>, grid,
+                                             block, s, c, k, i, n, D, T);
+  }
 }
 
 // K15k: q (Q, D) bf16, c (T, D) int8, s (T,) f32 -> out (Q, T) f32; D a
@@ -232,9 +347,11 @@ extern "C" int p2t_scale_column_write(void* s, const void* sn,
                                       const void* slot, int heads, int T,
                                       void* stream) {
   if (heads <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  scale_column_write_kernel<<<(heads + 255) / 256, 256, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(s), static_cast<const float*>(sn),
-      static_cast<const int32_t*>(slot), heads, T);
-  return (int)cudaGetLastError();
+  dim3 grid, block;
+  write_grid(heads, &grid, &block);
+  return (int)p2t::launch_chained(
+      scale_column_write_kernel, grid, block,
+      static_cast<cudaStream_t>(stream), static_cast<float*>(s),
+      static_cast<const float*>(sn), static_cast<const int32_t*>(slot),
+      heads, T);
 }

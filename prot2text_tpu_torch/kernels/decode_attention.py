@@ -12,11 +12,13 @@ JAX's fused-write route, so no model path of the port calls K2).  K4 replaces `d
 attention fused with the in-place write of each row's current k/v into its
 own slot `slots[b]` of layer `layer` (continuous-batching serving), K9a
 with a read-only shared-prefix operand (L, 1, Hkv, Pc, D) gated per row by
-`pmask`, columns ordered [prefix ‖ cache ‖ current].  K4 also takes the
-sequence-leading (L, T, B, Hkv, D) "tbkd" cache (`layout="tbkd"`), read
-and written at its strides: the D = 64 lockstep step's attention and slot
-write, where JAX's tbkd step attends by einsum and writes with K12 after
-the layer loop; its plain version on tbkd is that einsum route
+`pmask`, columns ordered [prefix ‖ cache ‖ current].  K4 and K9a also take
+the sequence-leading (L, T, B, Hkv, D) "tbkd" cache (`layout="tbkd"`),
+read and written at its strides, K9a with the sequence-leading prefix
+(L, Pc, 1, Hkv, D) read at its own: the D = 64 decode step's attention and
+slot write, where JAX's tbkd step attends by einsum (the prefix
+concatenated, prot2text_tpu/models/decoder.py:789-812) and writes after
+the layer loop; their plain versions on tbkd are that einsum route
 (`_tbkd_decode_attention`) followed by the layer's slot write.  On bf16
 all three run one column-split cluster body,
 `csrc/decode_attention_split.cuh` (column policy `CacheCols` for K2 and
@@ -51,7 +53,7 @@ from . import _build
 NEG = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_REP = 8
-LAYOUTS = ("bktd", "tbkd")      # K4's cache layouts (K2, K9a: bktd)
+LAYOUTS = ("bktd", "tbkd")      # K4's and K9a's cache layouts (K2: bktd)
 
 
 def _attend_plain(qg, ck, cv, mask, k_new, v_new):
@@ -230,17 +232,30 @@ def decode_attention_stacked_write_plain(qg, ck_all, cv_all, kv_mask, k_new,
 
 def decode_attention_stacked_write_prefix_plain(qg, ck_all, cv_all, kv_mask,
                                                 k_new, v_new, layer: int,
-                                                slots, pk_all, pv_all, pmask):
+                                                slots, pk_all, pv_all, pmask,
+                                                *, layout: str = "bktd"):
     """Plain K9a: the prefix's columns broadcast to every row and
     concatenated before the cache's, one softmax over [prefix ‖ cache ‖
-    current], then K4's slot write."""
+    current], then K4's slot write.  On a tbkd cache the prefix is
+    sequence-leading (L, Pc, 1, Hkv, D), concatenated along T as JAX's
+    `_pfx_cat` does (prot2text_tpu/models/decoder.py:805-812), and the
+    attention is `_tbkd_decode_attention`'s."""
+    _dims(ck_all, layout)
     B = qg.shape[0]
-    pk = pk_all[layer].to(ck_all.dtype).expand(B, -1, -1, -1)
-    pv = pv_all[layer].to(cv_all.dtype).expand(B, -1, -1, -1)
-    a = _attend_plain(qg, torch.cat([pk, ck_all[layer]], dim=2),
-                      torch.cat([pv, cv_all[layer]], dim=2),
-                      torch.cat([pmask, kv_mask], dim=1), k_new, v_new)
-    _write_slots_plain(ck_all, cv_all, k_new, v_new, layer, slots)
+    mask = torch.cat([pmask, kv_mask], dim=1)
+    if layout == "tbkd":
+        pk = pk_all[layer].to(ck_all.dtype).expand(-1, B, -1, -1)
+        pv = pv_all[layer].to(cv_all.dtype).expand(-1, B, -1, -1)
+        a = _tbkd_decode_attention(qg, torch.cat([pk, ck_all[layer]]),
+                                   torch.cat([pv, cv_all[layer]]), mask,
+                                   k_new, v_new)
+    else:
+        pk = pk_all[layer].to(ck_all.dtype).expand(B, -1, -1, -1)
+        pv = pv_all[layer].to(cv_all.dtype).expand(B, -1, -1, -1)
+        a = _attend_plain(qg, torch.cat([pk, ck_all[layer]], dim=2),
+                          torch.cat([pv, cv_all[layer]], dim=2), mask,
+                          k_new, v_new)
+    _write_slots_plain(ck_all, cv_all, k_new, v_new, layer, slots, layout)
     return a
 
 
@@ -274,25 +289,33 @@ decode_attention_stacked_write.launches = 0
 
 def decode_attention_stacked_write_prefix(qg, ck_all, cv_all, kv_mask, k_new,
                                           v_new, layer: int, slots, pk_all,
-                                          pv_all, pmask):
-    """K9a: K4 plus the shared prefix pk_all/pv_all (L, 1, Hkv, Pc, D),
-    read-only, gated per row by pmask (B, Pc) int32.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel (or raise): bf16 the
-    column-split cluster body, f32 the SIMT body."""
+                                          pv_all, pmask, *,
+                                          layout: str = "bktd"):
+    """K9a: K4 plus the shared prefix pk_all/pv_all, read-only, gated per
+    row by pmask (B, Pc) int32.  The prefix follows the cache's `layout`:
+    (L, 1, Hkv, Pc, D) beside a bktd cache, sequence-leading (L, Pc, 1,
+    Hkv, D) beside a tbkd one (JAX's, prot2text_tpu/models/decoder.py:
+    805-812), read in place at its strides, and the output is
+    bit-identical to the bktd launch on the permuted cache and prefix.
+    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    raise): bf16 the column-split cluster body, f32 the SIMT body."""
     if qg.device.type == "cpu":
         return decode_attention_stacked_write_prefix_plain(
             qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots, pk_all,
-            pv_all, pmask)
+            pv_all, pmask, layout=layout)
     layer = int(layer)
     slots = _slots(slots, qg.shape[0], qg.device)
-    _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer)
-    L, B, Hkv, T, D = ck_all.shape
-    if pk_all.dim() != 5 or pk_all.shape[:3] != (L, 1, Hkv) \
-            or pk_all.shape[4] != D or pv_all.shape != pk_all.shape:
-        raise ValueError(f"prefix must be (L, 1, Hkv, Pc, D) = ({L}, 1, "
-                         f"{Hkv}, Pc, {D}), got {tuple(pk_all.shape)} and "
+    _check(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, layout)
+    L, B, Hkv, T, D = _dims(ck_all, layout)
+    tbkd = layout == "tbkd"
+    Pc = (pk_all.shape[1] if tbkd else pk_all.shape[3]) \
+        if pk_all.dim() == 5 else -1
+    want = (L, Pc, 1, Hkv, D) if tbkd else (L, 1, Hkv, Pc, D)
+    if pk_all.shape != want or pv_all.shape != want:
+        shape = "(L, Pc, 1, Hkv, D)" if tbkd else "(L, 1, Hkv, Pc, D)"
+        raise ValueError(f"prefix must be {shape} with (L, Hkv, D) = ({L}, "
+                         f"{Hkv}, {D}), got {tuple(pk_all.shape)} and "
                          f"{tuple(pv_all.shape)}")
-    Pc = pk_all.shape[3]
     for name, t in (("pk_all", pk_all), ("pv_all", pv_all)):
         if t.device != qg.device or t.dtype != qg.dtype \
                 or not t.is_contiguous() or Pc == 0:
@@ -307,7 +330,7 @@ def decode_attention_stacked_write_prefix(qg, ck_all, cv_all, kv_mask, k_new,
         # the bf16 body copies prefix rows in 16-byte chunks (cp.async)
         raise ValueError("K9a: bf16 prefix buffers must be 16-byte aligned")
     out = _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer,
-                        slots, pk_all, pv_all, pmask)
+                        slots, pk_all, pv_all, pmask, layout)
     decode_attention_stacked_write_prefix.launches += 1
     return out
 
@@ -318,15 +341,18 @@ decode_attention_stacked_write_prefix.launches = 0
 def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
                   pk_all, pv_all, pmask, layout: str = "bktd"):
     L, B, Hkv, T, D = _dims(ck_all, layout)
-    # element strides of the layer slice: (b, kv head) slab, column
-    slab, col = (D, B * Hkv * D) if layout == "tbkd" else (T * D, D)
+    tbkd = layout == "tbkd"
+    # element strides of the layer slice: (b, kv head) slab, column; of the
+    # prefix's: kv head, column
+    slab, col = (D, B * Hkv * D) if tbkd else (T * D, D)
     out = torch.empty_like(qg)
     off = layer * ck_all.stride(0) * ck_all.element_size()
     if pk_all is None:
         pk = pv = pm = None
-        Pc = 0
+        Pc = phead = pcol = 0
     else:
-        Pc = pk_all.shape[3]
+        Pc = pmask.shape[1]
+        phead, pcol = (D, Hkv * D) if tbkd else (Pc * D, D)
         poff = layer * pk_all.stride(0) * pk_all.element_size()
         pk, pv = pk_all.data_ptr() + poff, pv_all.data_ptr() + poff
         pm = pmask.data_ptr()
@@ -335,7 +361,7 @@ def _launch_write(qg, ck_all, cv_all, kv_mask, k_new, v_new, layer, slots,
         qg.data_ptr(), ck_all.data_ptr() + off, cv_all.data_ptr() + off,
         kv_mask.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         slots.data_ptr(), pk, pv, pm, out.data_ptr(), B, Hkv, qg.shape[2],
-        T, Pc, D, slab, col, _build.dtype_code(qg.dtype),
+        T, Pc, D, slab, col, phead, pcol, _build.dtype_code(qg.dtype),
         _build.stream_of(qg))
     _build.check(err, "p2t_decode_attention_write")
     return out

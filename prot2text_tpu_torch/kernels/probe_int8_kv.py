@@ -16,9 +16,12 @@ C++, `csrc/probe_int8_kv.cu`), with their plain PyTorch versions.
 K15j and K15l take `slot` as a one-element int32 tensor on the buffer's
 device, read by the kernel (the Pallas kernels prefetched it as a scalar):
 the wrappers never sync it to the host.  A slot outside [0, T) writes
-nothing.  The probes' TPU kernels p3 and p5 alias operand 1 (`kn`, `sn`)
-to the output where the cache is operand 2, so under JAX 0.9 they raise
-before running; the port writes the cache, as the probes' asserts intend.
+nothing.  Both kernels are a launch and one memory round trip, so their
+wrappers keep the host path short: one device comparison a tensor, shape
+arithmetic instead of a view, and the launch on the raw stream.  The
+probes' TPU kernels p3 and p5 alias operand 1 (`kn`, `sn`) to the output
+where the cache is operand 2, so under JAX 0.9 they raise before running;
+the port writes the cache, as the probes' asserts intend.
 """
 
 from __future__ import annotations
@@ -135,13 +138,13 @@ def int8_group_rmw(cache, kn, slot):
         return int8_group_rmw_plain(cache, kn, slot)
     _cuda("K15j", cache, kn)
     _slot("K15j", slot, cache.device)
+    shape = cache.shape
     if cache.dtype != torch.int8 or kn.dtype != torch.int8 or \
-            cache.dim() != 4 or kn.numel() != cache[..., 0, :].numel():
+            len(shape) != 4 or kn.numel() != shape[0] * shape[1] * shape[3]:
         raise ValueError(f"K15j: cache must be (B, Hkv, T, D) int8 and kn "
                          f"its B·Hkv·D int8 values, got {cache.dtype} "
-                         f"{tuple(cache.shape)}, {kn.dtype} "
-                         f"{tuple(kn.shape)}")
-    B, H, T, D = cache.shape
+                         f"{tuple(shape)}, {kn.dtype} {tuple(kn.shape)}")
+    B, H, T, D = shape
     err = _build.library().p2t_int8_group_row_write(
         cache.data_ptr(), kn.data_ptr(), slot.data_ptr(), B * H, T, D,
         _build.stream_of(cache))
@@ -201,12 +204,13 @@ def f32_scale_row_rmw(s, sn, slot):
         return f32_scale_row_rmw_plain(s, sn, slot)
     _cuda("K15l", s, sn)
     _slot("K15l", slot, s.device)
+    shape = s.shape
     if (s.dtype != torch.float32 or sn.dtype != torch.float32
-            or s.dim() != 3 or sn.numel() != s.shape[0] * s.shape[1]):
+            or len(shape) != 3 or sn.numel() != shape[0] * shape[1]):
         raise ValueError(f"K15l: s must be (B, Hkv, T) f32 and sn its B·Hkv "
-                         f"f32 values, got {s.dtype} {tuple(s.shape)}, "
+                         f"f32 values, got {s.dtype} {tuple(shape)}, "
                          f"{sn.dtype} {tuple(sn.shape)}")
-    B, H, T = s.shape
+    B, H, T = shape
     err = _build.library().p2t_scale_column_write(
         s.data_ptr(), sn.data_ptr(), slot.data_ptr(), B * H, T,
         _build.stream_of(s))

@@ -45,7 +45,10 @@ the JAX XLA route `_xla_attention`):
   * single-token decode with per-row slots (continuous batching) → K4,
     attention fused with each row's in-place slot write per layer; with a
     batch-broadcast shared prefix → K9a (prot2text_tpu/models/decoder.py:
-    1012-1054);
+    1012-1054); both on a tbkd cache too, at its strides, the prefix then
+    sequence-leading (L, Pc, 1, Hkv, D), where JAX's tbkd step attends by
+    einsum over the concatenated prefix and scatters the rows' slots after
+    the loop (:789-812, :1110-1122);
   * on an int8 cache (`init_kv_cache(kv_bits=8)`): forward passes quantize
     each layer's k/v and attend the dequantized cache through K1/K6;
     single-token decode, per-row or lockstep, runs K7 (K9b with the
@@ -245,26 +248,28 @@ def _mlp(cfg, lp, x, proj=None):
 def _write_columns(kv_cache, li, vals, cache_index, S, layout):
     """Layer `li` of every cache tensor (k, v and, int8, their scales)
     takes `vals` at columns [cache_index, cache_index + S): a host int
-    writes one slab for all rows; a (B,) tensor writes row b's chunk at
-    [cache_index[b], cache_index[b] + S) by scatter (the JAX one-hot
-    einsum is a TPU workaround for per-row dynamic indices).  A tbkd
-    cache takes the (S, B, Hkv, D) slab at a host int (the JAX
-    `dynamic_update_slice`, prot2text_tpu/models/decoder.py:346-362)."""
-    if layout == "tbkd":
-        for name, x in vals.items():             # x (B, Hkv, S, D)
-            kv_cache[name][li, cache_index:cache_index + S] = \
-                x.permute(2, 0, 1, 3)
-        return
+    writes one slab for all rows (on tbkd the (S, B, Hkv, D) slab, the JAX
+    `dynamic_update_slice`, prot2text_tpu/models/decoder.py:346-362); a
+    (B,) tensor writes row b's chunk at [cache_index[b], cache_index[b] +
+    S) by scatter, along T of either layout (the JAX one-hot einsum and
+    select, :277-300 and :346-355, is a TPU workaround for per-row dynamic
+    indices)."""
+    tbkd = layout == "tbkd"
     if isinstance(cache_index, int):
-        for name, x in vals.items():
-            kv_cache[name][li, :, :, cache_index:cache_index + S] = x
+        for name, x in vals.items():             # x (B, Hkv, S[, D])
+            if tbkd:
+                kv_cache[name][li, cache_index:cache_index + S] = \
+                    x.permute(2, 0, 1, 3)
+            else:
+                kv_cache[name][li, :, :, cache_index:cache_index + S] = x
         return
     B = vals["k"].shape[0]
     dev = vals["k"].device
     bidx = torch.arange(B, device=dev)[:, None]
     cols = cache_index.long()[:, None] + torch.arange(S, device=dev)
     for name, x in vals.items():                 # x (B, Hkv, S[, D])
-        kv_cache[name][li, bidx, :, cols] = x.transpose(1, 2)
+        at = (li, cols, bidx) if tbkd else (li, bidx, slice(None), cols)
+        kv_cache[name][at] = x.transpose(1, 2)
 
 
 def _dequant(q, scale, dtype):
@@ -324,8 +329,11 @@ def _block(cfg: DecoderConfig, lp, ll, lora_scale, h, cos, sin,
     if prefix_kv is not None:
         # the batch-broadcast shared prefix's columns go first, in ONE
         # concatenation, so the softmax is that of a physically seeded
-        # prefix
-        pk, pv = prefix_kv["k"][li], prefix_kv["v"][li]   # (1, Hkv, Pc, D)
+        # prefix; a tbkd prefix layer (Pc, 1, Hkv, D) is read through a
+        # (1, Hkv, Pc, D) view (JAX transposes, decoder.py:241-250)
+        pk, pv = prefix_kv["k"][li], prefix_kv["v"][li]
+        if layout == "tbkd":
+            pk, pv = pk.permute(1, 2, 0, 3), pv.permute(1, 2, 0, 3)
         if "k_scale" in prefix_kv:
             pk = _dequant(pk, prefix_kv["k_scale"][li], k.dtype)
             pv = _dequant(pv, prefix_kv["v_scale"][li], v.dtype)
@@ -367,14 +375,14 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
         prefix install, prot2text_tpu/infer/serving.py:172-185).  A (B,)
         `cache_index` writes row b's chunk at its own columns (the bf16
         speculative verify, prot2text_tpu/infer/serving.py:503-515).
-        `prefix_kv` ({"k","v"[, scales]} (L, 1, Hkv, Pc, D)) with
-        `prefix_bias` (B, 1, 1, Pc) prepends the batch-broadcast shared
-        prefix's columns to every layer's attention operand and bias.
-        The serving paths that take it run forward only.
+        `prefix_kv` ({"k","v"[, scales]} (L, 1, Hkv, Pc, D); beside a
+        tbkd cache (L, Pc, 1, Hkv, D)) with `prefix_bias` (B, 1, 1, Pc)
+        prepends the batch-broadcast shared prefix's columns to every
+        layer's attention operand and bias.  The serving paths that take
+        it run forward only.
     `layout` names the cache's layout ("bktd" (L, B, Hkv, T, D) or "tbkd"
     (L, T, B, Hkv, D)); None takes `resolve_layout`'s: tbkd for a dense
-    cache of a head dim off the 128 grid.  A tbkd cache takes a host-int
-    `cache_index` and no shared prefix.
+    cache of a head dim off the 128 grid.
     An int8 `kv_cache` ({"k","v","k_scale","v_scale"}, `init_kv_cache(
     kv_bits=8)`) stores each layer's k/v quantized per (head, token) and
     attends over its dequantized copy in the activations' dtype.
@@ -398,11 +406,6 @@ def decoder_forward(cfg: DecoderConfig, params, *, inputs_embeds, positions,
                          "cache_index 0")
     if kv_cache is not None:
         layout = resolve_layout(cfg, "k_scale" in kv_cache, layout)
-        if layout == "tbkd" and not (isinstance(cache_index, int)
-                                     and prefix_kv is None):
-            raise ValueError("a tbkd cache takes a host-int cache_index and "
-                             "no shared prefix (per-row slots and prefixes "
-                             "are the serving pool's, layout bktd)")
     if bias is not None:
         if kv_cache is None:
             raise ValueError("bias attends a cache's columns: pass kv_cache")
@@ -462,10 +465,15 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
       * a (B,) integer tensor (per-row slots, continuous batching) → K4 per
         layer, which attends and writes row b's k/v into slot
         cache_index[b] of that layer in place.
-    `prefix_kv` ({"k","v"} (L, 1, Hkv, Pc, D)), the batch-broadcast shared
-    prefix, with `prefix_bias` (B, 1, 1, Pc) fp32 additive over its columns,
-    routes either kind of slot through K9a; the per-row prefix mask is
-    `prefix_bias >= -1e30`, as in the JAX step.
+    Either kind runs on a tbkd cache too (`layout`), at its strides, where
+    JAX's tbkd step scatters the rows' slots after the loop
+    (prot2text_tpu/models/decoder.py:1110-1122).
+    `prefix_kv` ({"k","v"} (L, 1, Hkv, Pc, D); beside a tbkd cache the
+    sequence-leading (L, Pc, 1, Hkv, D), JAX's `_pfx_cat` layout, :805-812),
+    the batch-broadcast shared prefix, with `prefix_bias` (B, 1, 1, Pc)
+    fp32 additive over its columns, routes either kind of slot through K9a
+    at the cache's layout; the per-row prefix mask is `prefix_bias >=
+    -1e30`, as in the JAX step.
     An int8 cache ("k_scale" in kv_cache) quantizes each layer's current
     k/v per head (`models/quant.quantize_kv`) and runs K7 per layer — K9b
     with an int8 prefix (which then carries its scales) — for either kind
@@ -484,19 +492,14 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     L = ck_all.shape[0]
     if layers is None:
         layers = layer_views(params["layers"], L)
-    lockstep = (isinstance(cache_index, int) and prefix_kv is None
-                and not quantized)
     layout = resolve_layout(cfg, quantized, layout)
-    if layout == "tbkd" and not lockstep:
-        raise ValueError("a tbkd cache takes the lockstep step only: a "
-                         "host-int cache_index, no shared prefix (per-row "
-                         "slots are the serving pool's, layout bktd)")
     if prefix_kv is not None:
         pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
     cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
     scaling = D ** -0.5
     slots = cache_index
-    if lockstep:                # one fill a step, not one a layer
+    if isinstance(cache_index, int) and not quantized:
+        # one fill a step, not one a layer
         slots = torch.full((B,), cache_index, dtype=torch.int32,
                            device=ck_all.device)
     x = token_embeds
@@ -529,8 +532,8 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
             k, v = k.to(qg.dtype), v.to(qg.dtype)
             if prefix_kv is not None:
                 a = decode_attention_stacked_write_prefix(
-                    qg, ck_all, cv_all, kv_mask, k, v, li, cache_index,
-                    prefix_kv["k"], prefix_kv["v"], pmask)
+                    qg, ck_all, cv_all, kv_mask, k, v, li, slots,
+                    prefix_kv["k"], prefix_kv["v"], pmask, layout=layout)
             else:
                 a = decode_attention_stacked_write(
                     qg, ck_all, cv_all, kv_mask, k, v, li, slots,

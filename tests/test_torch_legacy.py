@@ -272,24 +272,46 @@ def test_kv_cache_layout_matches_jax():
 
 
 def test_tbkd_cache_refuses_per_row_slots():
+    """Per-row (B,) slots on the legacy model's tbkd cache, which the port
+    once refused: JAX's decode step and forward take them on tbkd
+    (prot2text_tpu/models/decoder.py:1110-1122, :346-355), and so does the
+    port now.  The decode step and the forward at per-row slots (one row
+    at column 0 in the step) compute what they compute on the same cache
+    permuted to bktd: h and the caches, once permuted, within 1e-5, and
+    each row's slots the only columns that moved.  (Against JAX itself:
+    tests/test_torch_tbkd_rows.py.  The name is kept from when this test
+    held the refusal, so its history stays one test's.)"""
     _, tm = _models()
     core = tm.config.llama_config.core()
+    params = tm.params()["llama_decoder"]
     cache = tkv.init_kv_cache(core, 2, 8, device="cpu")
     assert cache["k"].shape == (2, 8, 2, 1, 64)
-    with pytest.raises(ValueError, match="tbkd"):
-        td.decoder_decode_step(
-            core, tm.params()["llama_decoder"],
-            token_embeds=torch.zeros(2, 1, 128),
-            kv_mask=torch.zeros(2, 8, dtype=torch.int32),
-            positions=torch.zeros(2, 1, dtype=torch.long), kv_cache=cache,
-            cache_index=torch.tensor([1, 2]))
-    with pytest.raises(ValueError, match="tbkd"):
-        td.decoder_forward(
-            core, tm.params()["llama_decoder"],
-            inputs_embeds=torch.zeros(2, 1, 128),
-            positions=torch.zeros(2, 1, dtype=torch.long),
-            bias=torch.zeros(2, 1, 1, 8), kv_cache=cache,
-            cache_index=torch.tensor([1, 2]))
+    g = torch.Generator().manual_seed(3)
+    for n in cache:
+        cache[n].normal_(generator=g)
+    old = {n: v.clone() for n, v in cache.items()}
+    bk = {n: v.permute(0, 2, 3, 1, 4).contiguous() for n, v in cache.items()}
+    emb = torch.randn(2, 1, 128, generator=g)
+    slots = torch.tensor([0, 2])
+    mask = (torch.arange(8)[None] < slots[:, None]).to(torch.int32)
+    step = dict(token_embeds=emb, kv_mask=mask,
+                positions=slots[:, None].long(), cache_index=slots)
+    h_t, _ = td.decoder_decode_step(core, params, kv_cache=cache, **step)
+    h_b, _ = td.decoder_decode_step(core, params, kv_cache=bk,
+                                    layout="bktd", **step)
+    torch.testing.assert_close(h_t, h_b, atol=1e-5, rtol=0)
+    starts = torch.tensor([3, 5])
+    fwd = dict(inputs_embeds=emb, positions=starts[:, None].long(),
+               bias=torch.zeros(2, 1, 1, 8), cache_index=starts)
+    h_t, _ = td.decoder_forward(core, params, kv_cache=cache, **fwd)
+    h_b, _ = td.decoder_forward(core, params, kv_cache=bk, layout="bktd",
+                                **fwd)
+    torch.testing.assert_close(h_t, h_b, atol=1e-5, rtol=0)
+    for n in cache:
+        torch.testing.assert_close(cache[n].permute(0, 2, 3, 1, 4), bk[n],
+                                   atol=1e-5, rtol=0)
+        moved = (cache[n] != old[n]).any(dim=(0, 3, 4))        # (T, B)
+        assert moved.nonzero().tolist() == [[0, 0], [2, 1], [3, 0], [5, 1]]
 
 
 def _lockstep_inputs(seed):

@@ -3,14 +3,15 @@ K15k held against the JAX probe's own kernel bodies run by `pallas_call` in
 interpret mode on the same seeded numpy inputs (K15h and K15i bit for bit,
 K15k at the probe's rtol 1e-2, with a floor of 1e-2 · max|logit| for the
 logits near zero, where only the order of the fp32 sums differs); K15j
-and K15l against the semantics the
-probes assert, over the whole buffer (only the slot's row or column
-changes).  The JAX probes p3 and p5 cannot pass as written: with one
-scalar-prefetch operand they alias operand 1 (`kn`, `sn`) to the output,
-not the cache (operand 2), and JAX refuses the alias before running; with
-the cache aliased they pass.  The wrappers run the plain versions on CPU
-tensors without counting a launch; on the card each kernel against its
-plain version.
+and K15l against the probes' kernel bodies p3 and p5 with the cache
+aliased, at B 1 and 4 and every kind of slot, over the whole buffer (only
+the slot's row or column changes).  The JAX probes p3 and p5 cannot pass
+as written: with one scalar-prefetch operand they alias operand 1 (`kn`,
+`sn`) to the output, not the cache (operand 2), and JAX refuses the alias
+before running; with the cache aliased they pass.  The wrappers run the
+plain versions on CPU tensors without counting a launch; on the card each
+kernel against its plain version (K15j at every word width), their chained
+launches inside a CUDA graph, and `_build.stream_of` on a side stream.
 
 The probe script runs nothing at import, but is loaded the way the other
 probes are (`ast`), so that no test depends on a script's import-time
@@ -147,6 +148,73 @@ def test_jax_probes_p3_p5_alias_the_wrong_operand(probe):
         _probe_ns(fix_aliases=True)[probe]()
 
 
+def _batched_probe(probe: str, B: int):
+    """The probe's kernel body (p3 or p5) under its own grid spec with a
+    leading batch axis of B (grid (B,), the source's batch dim squeezed)
+    and the cache aliased, operand 2: the corrected `{2: 0}`."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    if probe == "p3_dynamic_int8_group_rmw":
+        src = pl.BlockSpec((None, Hkv, D), lambda b, idx: (b, 0, 0))
+        buf = pl.BlockSpec((1, Hkv, 32, D),
+                           lambda b, idx: (b, 0, idx[0] // 32, 0))
+        shape, dtype = (B, Hkv, T, D), jnp.int8
+    else:
+        src = pl.BlockSpec((None, Hkv, 1), lambda b, idx: (b, 0, 0))
+        buf = pl.BlockSpec((1, Hkv, T), lambda b, idx: (b, 0, 0))
+        shape, dtype = (B, Hkv, T), jnp.float32
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(B,), in_specs=[src, buf],
+        out_specs=buf)
+    kernel = _kernel_body(probe)
+
+    def run(slot, src_, buf_):
+        with pltpu.force_tpu_interpret_mode():
+            call = pl.pallas_call(
+                kernel, grid_spec=grid_spec,
+                out_shape=jax.ShapeDtypeStruct(shape, dtype),
+                input_output_aliases={2: 0},
+                compiler_params=pltpu.CompilerParams(
+                    dimension_semantics=("arbitrary",)))
+            return np.asarray(call(jnp.array([slot], jnp.int32), src_, buf_))
+    return run
+
+
+@pytest.mark.parametrize("slot", [0, 77, T - 1, T])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("probe", ["p3_dynamic_int8_group_rmw",
+                                   "p5_f32_scale_row_rmw"])
+def test_k15j_k15l_plain_match_jax_probes(probe, B, slot):
+    """Plain K15j (p3) and K15l (p5) against the probes' kernel bodies in
+    interpret mode with the cache aliased (operand 2), at B 1 and 4 and
+    slots 0, 77 and T - 1: the whole buffer bit for bit, only the slot's
+    row or column moved.  An out-of-range slot (T) writes nothing: p5's
+    body selects no column there; p3's block index would leave the cache
+    (interpret mode refuses it), so the buffer as it was is the
+    reference."""
+    rng = np.random.default_rng(B * 1000 + slot)
+    if probe == "p3_dynamic_int8_group_rmw":
+        buf = rng.integers(-128, 128, (B, Hkv, T, D)).astype(np.int8)
+        src = rng.integers(-128, 128, (B, Hkv, D)).astype(np.int8)
+        plain, src_t = pk.int8_group_rmw_plain, src
+    else:
+        buf = rng.uniform(0.01, 1.0, (B, Hkv, T)).astype(np.float32)
+        src = rng.uniform(2.0, 3.0, (B, Hkv, 1)).astype(np.float32)
+        plain, src_t = pk.f32_scale_row_rmw_plain, src[..., 0]
+    if probe == "p3_dynamic_int8_group_rmw" and slot >= T:
+        want = buf
+    else:
+        want = _batched_probe(probe, B)(slot, src, buf.copy())
+    got = plain(torch.from_numpy(buf.copy()), torch.from_numpy(src_t),
+                torch.tensor([slot], dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    moved = np.unique(np.argwhere(got.numpy() != buf)[:, 2]).tolist()
+    assert moved == ([] if slot >= T else [slot])
+
+
 def test_k15j_plain_writes_only_the_slot_row():
     rng = np.random.default_rng(4)
     cache = torch.from_numpy(rng.integers(-128, 128, (2, Hkv, T, D)).astype(
@@ -196,6 +264,59 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing():
     pk.f32_scale_row_rmw(sr, torch.full((Hkv, 1), 9.0), slot)
     assert float(sr[0, 0, 77]) == 9.0 and float(sr[0, 0, 76]) == 0.25
     assert launch_counts() == before
+
+
+def test_k15j_k15l_refuse_a_device_neither_cpu_nor_cuda():
+    """The wrappers run the plain version on the CPU and launch on CUDA;
+    any other device raises the same message as before the fast path."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="K15j needs CUDA tensors, got meta"):
+        pk.int8_group_rmw(torch.empty((1, Hkv, T, D), dtype=torch.int8,
+                                      device=meta),
+                          torch.empty((Hkv, D), dtype=torch.int8,
+                                      device=meta),
+                          torch.empty((1,), dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="K15l needs CUDA tensors, got meta"):
+        pk.f32_scale_row_rmw(torch.empty((1, Hkv, T), device=meta),
+                             torch.empty((Hkv, 1), device=meta),
+                             torch.empty((1,), dtype=torch.int32,
+                                         device=meta))
+
+
+@pytest.mark.cuda
+def test_k15j_k15l_refusals_on_cuda(cuda):
+    """Every check of the two wrappers raises its own message before any
+    launch: an operand off the card or not contiguous, a slot that is not
+    one int32 on the card, a buffer of the wrong dtype or rank, a source
+    of the wrong size."""
+    n = launch_counts()
+    cache = torch.zeros((2, Hkv, T, D), dtype=torch.int8, device=cuda)
+    kn = torch.zeros((2, Hkv, D), dtype=torch.int8, device=cuda)
+    s = torch.zeros((2, Hkv, T), device=cuda)
+    sn = torch.zeros((2, Hkv), device=cuda)
+    slot = torch.tensor([3], dtype=torch.int32, device=cuda)
+    bad = [
+        ("K15j", (cache, kn.cpu(), slot), "contiguous tensor on cuda"),
+        ("K15j", (cache, kn.transpose(1, 2).contiguous().transpose(1, 2),
+                  slot), "contiguous tensor on cuda"),
+        ("K15j", (cache, kn, slot.long()), "slot must be one int32"),
+        ("K15j", (cache, kn, slot.cpu()), "slot must be one int32"),
+        ("K15j", (cache, kn, slot.repeat(2)), "slot must be one int32"),
+        ("K15j", (cache.float(), kn, slot), r"\(B, Hkv, T, D\) int8"),
+        ("K15j", (cache[0], kn, slot), r"\(B, Hkv, T, D\) int8"),
+        ("K15j", (cache, kn[:1], slot), r"B·Hkv·D int8 values"),
+        ("K15l", (s, sn.cpu(), slot), "contiguous tensor on cuda"),
+        ("K15l", (s.transpose(1, 2).contiguous().transpose(1, 2), sn, slot),
+         "contiguous tensor on cuda"),
+        ("K15l", (s, sn, slot.long()), "slot must be one int32"),
+        ("K15l", (s.double(), sn, slot), r"\(B, Hkv, T\) f32"),
+        ("K15l", (s, sn[:1], slot), r"B·Hkv f32 values"),
+    ]
+    for kid, args, msg in bad:
+        fn = pk.int8_group_rmw if kid == "K15j" else pk.f32_scale_row_rmw
+        with pytest.raises(ValueError, match=msg):
+            fn(*args)
+    assert launch_counts() == n
 
 
 @pytest.mark.cuda
@@ -269,3 +390,103 @@ def test_k15k_refuses_unsupported_operands_on_cuda(cuda):
         pk.int8_to_bf16_matmul(q, cb[1:].view(64, D), s)
     with pytest.raises(ValueError, match="K15k"):
         pk.int8_to_bf16_matmul(q, c, s[:63])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 64, 72])
+@pytest.mark.parametrize("B", [1, 4])
+def test_k15j_k15l_bit_exact_on_cuda(cuda, B, D):
+    """K15j at D 128 and 64 (16-byte words) and 72 (8-byte words), and on
+    a kn one byte off a word (1-byte words), and K15l, against their plain
+    versions over the whole buffer at slots 0, 77, T - 1 and T (nothing
+    written): bit for bit, only the slot's row or column moved, one launch
+    a call."""
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + D)
+    for slot in (0, 77, T - 1, T):
+        idx = torch.tensor([slot], dtype=torch.int32, device=cuda)
+        cache = torch.randint(-128, 128, (B, Hkv, T, D), generator=g,
+                              device=cuda, dtype=torch.int8)
+        raw = torch.randint(-128, 128, (B * Hkv * D + 1,), generator=g,
+                            device=cuda, dtype=torch.int8)
+        for kn in (raw[:-1].view(B, Hkv, D), raw[1:].view(B, Hkv, D)):
+            before = cache.clone()
+            want = pk.int8_group_rmw_plain(cache.clone(), kn, idx)
+            n = launch_counts()["K15j"]
+            got = pk.int8_group_rmw(cache, kn, idx)
+            torch.cuda.synchronize()
+            assert launch_counts()["K15j"] == n + 1
+            assert got is cache and torch.equal(got, want)
+            moved = (got != before).nonzero()[:, 2].unique().tolist()
+            assert moved == ([] if slot >= T else [slot])
+        s = torch.rand((B, Hkv, T), generator=g, device=cuda)
+        sn = torch.rand((B, Hkv), generator=g, device=cuda) + 2
+        before = s.clone()
+        want = pk.f32_scale_row_rmw_plain(s.clone(), sn, idx)
+        got = pk.f32_scale_row_rmw(s, sn, idx)
+        torch.cuda.synchronize()
+        assert got is s and torch.equal(got, want)
+        moved = (got != before).nonzero()[:, 2].unique().tolist()
+        assert moved == ([] if slot >= T else [slot])
+
+
+@pytest.mark.cuda
+def test_k15j_k15l_chained_launches_in_a_cuda_graph(cuda):
+    """Chained launches (programmatic dependent launch) captured in one
+    CUDA graph and replayed: ten K15j calls, call i copying row i (the row
+    call i - 1 wrote) into row i + 1 at a slot a PyTorch kernel raised just
+    before it; then ten K15l calls back to back, column i into column
+    i + 1.  Every hop waits for the one before: the first row and column
+    reach the eleventh, nothing past it moves."""
+    hops = 10
+    cache = torch.zeros((1, 1, T, D), dtype=torch.int8, device=cuda)
+    first = torch.arange(D, device=cuda).to(torch.int8)
+    cache[0, 0, 0] = first
+    rows = [cache[0, 0, i].view(1, 1, D) for i in range(hops)]
+    slots = [torch.full((1,), i, dtype=torch.int32, device=cuda)
+             for i in range(hops)]
+    one = torch.ones((1,), dtype=torch.int32, device=cuda)
+    s = torch.zeros((1, 1, T), device=cuda)
+    s[0, 0, 0] = 7.5
+    cols = [s[0, 0, i:i + 1] for i in range(hops)]
+
+    def k15j():
+        for i in range(hops):
+            slots[i].add_(one)              # slot i + 1, on the device
+            pk.int8_group_rmw(cache, rows[i], slots[i])
+
+    def k15l():
+        for i in range(hops):
+            pk.f32_scale_row_rmw(s, cols[i], slots[i])
+
+    for fn in (k15j, k15l):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    for i in range(hops + 1):
+        assert torch.equal(cache[0, 0, i], first)
+    assert int(cache[0, 0, hops + 1:].abs().sum()) == 0
+    assert torch.equal(s[0, 0, :hops + 1],
+                       torch.full((hops + 1,), 7.5, device=cuda))
+    assert int((s[0, 0, hops + 1:] != 0).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_stream_of_is_the_current_stream_on_cuda(cuda):
+    """`_build.stream_of` gives the raw handle of the current stream of
+    the tensor's device, on the default stream and inside a
+    `torch.cuda.stream` context, and a launch there runs on it."""
+    from prot2text_tpu_torch.kernels import _build
+
+    t = torch.zeros((1, Hkv, T), device=cuda)
+    assert _build.stream_of(t) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_of(t) == side.cuda_stream
+        assert _build.stream_of(t) != torch.cuda.default_stream(
+            cuda).cuda_stream
+        idx = torch.tensor([5], dtype=torch.int32, device=cuda)
+        pk.f32_scale_row_rmw(t, torch.ones((1, Hkv), device=cuda), idx)
+    side.synchronize()
+    assert float(t[0, 3, 5]) == 1.0
