@@ -1036,7 +1036,10 @@ def check_serve_kernels(torch, dev, card):
     of Qwen3-14B (B 8, Hkv 8, rep 5, D 128; the pool's T for the CLI's
     default 256 new tokens; the byte tokenizer's 250-token shared prefix
     padded to Pc 256, and Pc 128), bf16: attention atol/rtol 2e-2, written
-    caches bit-exact."""
+    caches bit-exact.  K4 and K9a are timed on int32 slots, the one tensor
+    the decode step builds a step, with the eager time on the serving
+    engine's int64 `write_idx` (converted by the wrapper a call) beside;
+    K4's eager gate reads the int32 call."""
     from prot2text_tpu_torch.kernels.decode_attention import (
         decode_attention_stacked_write, decode_attention_stacked_write_plain,
         decode_attention_stacked_write_prefix,
@@ -1065,21 +1068,25 @@ def check_serve_kernels(torch, dev, card):
     cols = torch.arange(T, device=dev)
     kv_mask = ((cols >= pads[:, None]) & (cols < ends[:, None])).to(
         torch.int32)
-    slots = ends.clone()
-    slots[6:] = T - 1
-    kv_mask[torch.arange(B, device=dev), slots] = 0
+    # the decode step's one int32 tensor a step; the serving engine's
+    # write_idx is int64, which each wrapper converted a layer before
+    slots64 = ends.clone()
+    slots64[6:] = T - 1
+    kv_mask[torch.arange(B, device=dev), slots64] = 0
+    slots = slots64.to(torch.int32)
 
-    def k4(ck_, cv_, li):
+    def k4(ck_, cv_, li, slots_=slots):
         return decode_attention_stacked_write(qg, ck_, cv_, kv_mask, kn, vn,
-                                              li, slots)
+                                              li, slots_)
 
     def k4_plain(ck_, cv_, li):
         return decode_attention_stacked_write_plain(
             qg.float(), ck_, cv_, kv_mask, kn.float(), vn.float(), li, slots)
 
     def check_write(name, kern, plain, plain_bf16, wrapper):
-        """The worst max|kernel - plain|, that over max|plain|, and the
-        kernel's and the plain version's eager times."""
+        """The worst max|kernel - plain|, that over max|plain|, the
+        kernel's eager time on int32 slots (the decode step's) and on the
+        int64 ones (converted by the wrapper), and the plain version's."""
         errs, top = [], 0.0
         for li in (0, 23, L - 1):
             gk, gv = ck.clone(), cv.clone()
@@ -1096,10 +1103,11 @@ def check_serve_kernels(torch, dev, card):
             top = max(top, want.abs().max().item())
             del gk, gv, wk, wv
         ms = cuda_ms(torch, lambda: kern(ck, cv, 23), iters=50)
+        ms64 = cuda_ms(torch, lambda: kern(ck, cv, 23, slots64), iters=50)
         plain_ms = cuda_ms(torch, lambda: plain_bf16(ck, cv, 23), iters=20)
-        return max(errs), max(errs) / top, ms, plain_ms
+        return max(errs), max(errs) / top, ms, ms64, plain_ms
 
-    err, rel, ms, plain_ms = check_write(
+    err, rel, ms, ms64, plain_ms = check_write(
         "K4", k4, k4_plain,
         lambda ck_, cv_, li: decode_attention_stacked_write_plain(
             qg, ck_, cv_, kv_mask, kn, vn, li, slots),
@@ -1114,13 +1122,14 @@ def check_serve_kernels(torch, dev, card):
         f"T={T} D={D} bf16 (slots distinct, two rows on the scratch "
         f"column): max|a-plain|={err:.3e} (atol/rtol 2e-2; {rel:.2e} of "
         f"max|plain|), caches bit-exact, one launch a call; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer; "
+        f"{ms:.4f} ms on int32 slots (int64, converted by the wrapper: "
+        f"{ms64:.4f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer; "
         f"{speed_text(sp)} [{card}]")
     require(ms <= 0.123, f"K4 eager {ms:.4f} ms > 0.123 (half the SIMT "
             f"body's)")
-    rows["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      library_ms=lib_ms, **bd, **sp)
+    rows["K4"] = dict(max_abs_err=err, ms=ms, ms_int64_slots=ms64,
+                      plain_ms=plain_ms, library_ms=lib_ms, **bd, **sp)
 
     for Pc in (128, 256):
         pk, pv = randn(L, 1, Hkv, Pc, D), randn(L, 1, Hkv, Pc, D)
@@ -1128,16 +1137,16 @@ def check_serve_kernels(torch, dev, card):
             torch.int32).expand(B, Pc).clone()
         pmask[6] = 0                      # a full-prompt row in the pool
 
-        def k9(ck_, cv_, li):
+        def k9(ck_, cv_, li, slots_=slots):
             return decode_attention_stacked_write_prefix(
-                qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask)
+                qg, ck_, cv_, kv_mask, kn, vn, li, slots_, pk, pv, pmask)
 
         def k9_plain(ck_, cv_, li):
             return decode_attention_stacked_write_prefix_plain(
                 qg.float(), ck_, cv_, kv_mask, kn.float(), vn.float(), li,
                 slots, pk.float(), pv.float(), pmask)
 
-        err, rel, ms, plain_ms = check_write(
+        err, rel, ms, ms64, plain_ms = check_write(
             "K9a", k9, k9_plain,
             lambda ck_, cv_, li: decode_attention_stacked_write_prefix_plain(
                 qg, ck_, cv_, kv_mask, kn, vn, li, slots, pk, pv, pmask),
@@ -1152,15 +1161,16 @@ def check_serve_kernels(torch, dev, card):
             f"(row 6 gated off) L={L} B={B} T={T} bf16: "
             f"max|a-plain|={err:.3e} (atol/rtol 2e-2; {rel:.2e} of "
             f"max|plain|), caches bit-exact, one launch a call; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-            f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}) per layer; {speed_text(sp)} [{card}]")
+            f"kernel {ms:.4f} ms on int32 slots (int64: {ms64:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) per layer; "
+            f"{speed_text(sp)} [{card}]")
         require(ms <= 0.18, f"K9a eager {ms:.4f} ms > 0.18 (half the SIMT "
                 f"body's)")
         # the row keeps the worst error and the serving shape's times
         worst = max(err, rows.get("K9a", {}).get("max_abs_err", 0.0))
-        rows["K9a"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, **bd, **sp)
+        rows["K9a"] = dict(max_abs_err=worst, ms=ms, ms_int64_slots=ms64,
+                           plain_ms=plain_ms, library_ms=lib_ms, **bd, **sp)
     del ck, cv
 
     # K6: the prefix install's attention, R 8 rows, Sq 512 suffix columns
@@ -2238,6 +2248,96 @@ def stream_of_us(torch, dev, calls: int = 20000) -> tuple:
     return tuple(out)
 
 
+# K15h/K15i where the bytes bound them: one layer of a serving install's
+# keys, 8 requests x 1024 columns x 8 kv heads of D 128
+STORE_SELECT_ROWS, STORE_SELECT_COLS = 8 * 1024 * 8, 128
+
+
+def check_store_select(torch, dev, card, g) -> dict:
+    """K15h and K15i at (65536, 128), one layer of a serving install's
+    keys: K15h over 33.5 MB of f32 in and 8.4 MB out, K15i over 8.4 MB
+    each of a, b and out (row 40000 inside the tile); bit-exact against
+    the plain version over the whole output; device times from CUDA
+    graphs (`graph_ms`: L2-warm, the operands fit the card's 50 MB L2 in
+    part or whole) and HBM-cold (`cold_ms`: a pass over copies past twice
+    the L2) beside the plain version's and, for K15i, `torch.where`'s,
+    and the share of the bytes bound on both.  Then ragged tiles: K15h at
+    (37, 71) with x 4 bytes into its storage (1-byte words, a tail), K15i
+    at (842, 72) (8-byte words) with row 841 and -1: bit-exact, eager and
+    device times.  Returns each kernel's rows for `other_shapes`."""
+    from prot2text_tpu_torch.kernels import probe_int8_kv as pk
+
+    R, C, row = STORE_SELECT_ROWS, STORE_SELECT_COLS, 40000
+    x = torch.randn((R, C), generator=g, device=dev) * 40
+    ab = torch.randint(-128, 128, (2, R, C), generator=g, device=dev,
+                       dtype=torch.int8)
+    pick = (torch.arange(R, device=dev) == row)[:, None]
+    cases = (  # id, kernel, plain, library (each of the operand), operand,
+               # the bytes the function must move
+        ("K15h", pk.f32_to_int8_store, pk.f32_to_int8_store_plain, None, x,
+         nbytes(x) + x.numel()),
+        ("K15i", lambda w: pk.int8_select(w[0], w[1], row),
+         lambda w: pk.int8_select_plain(w[0], w[1], row),
+         lambda w: torch.where(pick, w[0], w[1]), ab,
+         2 * nbytes(ab[1]) + C))
+    out = {}
+    for kid, fn, plain, lib, w, moved in cases:
+        y = fn(w)
+        torch.cuda.synchronize()
+        require(torch.equal(y, plain(w)), f"{kid} at ({R}, {C}) is not "
+                f"bit-exact")
+        del y
+        ms = cuda_ms(torch, lambda: fn(w), iters=50)
+        warm = [None if f is None else graph_ms(torch, lambda f=f: f(w))
+                for f in (fn, plain, lib)]
+        cold = [None if f is None else cold_ms(torch, f, w, dev)
+                for f in (fn, plain, lib)]
+        bd = bound(0.0, moved)
+        log(f"{kid} int8-KV probe op at ({R}, {C}) (a serving layer's keys"
+            f"{f', row {row}' if kid == 'K15i' else ''}): bit-exact; kernel "
+            f"{ms:.4f} ms eager, device {warm[0]:.4f} ms L2-warm "
+            f"({bd['bound_ms'] / warm[0]:.1%} of the bound), "
+            f"{cold[0]:.4f} ms HBM-cold ({bd['bound_ms'] / cold[0]:.1%}); "
+            f"plain {warm[1]:.4f} / {cold[1]:.4f} ms; "
+            + ("" if lib is None else
+               f"torch.where {warm[2]:.4f} / {cold[2]:.4f} ms; ")
+            + f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}) [{card}]")
+        out[kid] = [dict(shape=(R, C), ms=ms, device_ms=warm[0],
+                         cold_ms=cold[0], plain_device_ms=warm[1],
+                         plain_cold_ms=cold[1], library_device_ms=warm[2],
+                         library_cold_ms=cold[2],
+                         bound_share=bd["bound_ms"] / warm[0],
+                         cold_bound_share=bd["bound_ms"] / cold[0], **bd)]
+    del x, ab
+    # ragged: x 4 bytes into its storage, cols off the 16-byte grid
+    raw = torch.randn((37 * 71 + 1,), generator=g, device=dev) * 40
+    xr = raw[1:].view(37, 71)
+    a, b = torch.randint(-128, 128, (2, 842, 72), generator=g, device=dev,
+                         dtype=torch.int8)
+    for kid, shape, what, fn, plain, moved in (
+            ("K15h", (37, 71), "x 4 bytes into its storage",
+             lambda: pk.f32_to_int8_store(xr),
+             lambda: pk.f32_to_int8_store_plain(xr),
+             nbytes(xr) + xr.numel()),
+            ("K15i", (842, 72), "row 841",
+             lambda: pk.int8_select(a, b, 841),
+             lambda: pk.int8_select_plain(a, b, 841), 2 * nbytes(b) + 72),
+            ("K15i", (842, 72), "row -1",
+             lambda: pk.int8_select(a, b, -1),
+             lambda: pk.int8_select_plain(a, b, -1), 2 * nbytes(b))):
+        require(torch.equal(fn(), plain()), f"{kid} at {shape}, {what}, is "
+                f"not bit-exact")
+        ms = cuda_ms(torch, fn, iters=50)
+        dev_ms = graph_ms(torch, fn)
+        bd = bound(0.0, moved)
+        log(f"{kid} int8-KV probe op at {shape}, {what}: bit-exact; kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), bound "
+            f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}) [{card}]")
+        out[kid].append(dict(shape=shape, case=what, ms=ms,
+                             device_ms=dev_ms, **bd))
+    return out
+
+
 def check_probe_kv_kernels(torch, dev, card):
     """K15h-K15l against their plain versions on random inputs at the int8
     KV probe's sizes (Hkv 8, T 192, D 128, slot 77): K15h, K15i, K15j and
@@ -2249,12 +2349,14 @@ def check_probe_kv_kernels(torch, dev, card):
     graphs beside them, the plain versions', and the library yardstick
     where one PyTorch call computes the function (`torch.where` for K15i,
     `index_copy_` for K15j and K15l); K15k's share of its bound on the
-    device time, at every shape.  K15j and K15l (chained launches) also
-    from graphs replayed behind a busy device (`busy_graph_ms`) of 10
-    calls and of one call, which no launch before overlaps, beside
-    `index_copy_`'s; and at the legacy cache's (B, Hkv, T) = (4, 8, 842),
-    D 64 and 72 (`PROBE_KV_SHAPES`: K15j's 16- and 8-byte words), the same
-    checks and times."""
+    device time, at every shape.  K15h, K15i, K15j and K15l (chained
+    launches) also from graphs replayed behind a busy device
+    (`busy_graph_ms`) of 10 calls and of one call, which no launch before
+    overlaps, beside `torch.where`'s and `index_copy_`'s; K15j and K15l at
+    the legacy cache's (B, Hkv, T) = (4, 8, 842), D 64 and 72
+    (`PROBE_KV_SHAPES`: K15j's 16- and 8-byte words), the same checks and
+    times; K15h and K15i where the bytes bound them and at ragged tiles
+    (`check_store_select`)."""
     from prot2text_tpu_torch.kernels import probe_int8_kv as pk
 
     g = torch.Generator(device=dev).manual_seed(9753)
@@ -2281,7 +2383,7 @@ def check_probe_kv_kernels(torch, dev, card):
          nbytes(x) + x.numel(), 0.0),
         ("K15i", lambda: pk.int8_select(a, b, 7),
          lambda: pk.int8_select_plain(a, b, 7),
-         lambda: torch.where(first, a, b), 3 * nbytes(a), 0.0),
+         lambda: torch.where(first, a, b), 2 * nbytes(b) + D, 0.0),
         ("K15j", lambda: pk.int8_group_rmw(cache, kn, idx),
          lambda: pk.int8_group_rmw_plain(cache, kn, idx),
          lambda: cache.index_copy_(2, idx64, kn4), 2 * nbytes(kn) + 4, 0.0),
@@ -2325,12 +2427,13 @@ def check_probe_kv_kernels(torch, dev, card):
         lib_txt = ("none" if lib_ms is None else
                    f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms)")
         one = ""
-        if kid in ("K15j", "K15l"):
-            busy = [busy_graph_ms(torch, f, calls=n) for f in (fn, lib)
-                    for n in (10, 1)]
+        if kid != "K15k":
+            busy = [None if f is None else busy_graph_ms(torch, f, calls=n)
+                    for f in (fn, lib) for n in (10, 1)]
             one = (f"; behind a busy device, graphs of 10 and of 1 call: "
                    f"kernel {busy[0]:.4f} / {busy[1]:.4f} ms, library "
-                   f"{busy[2]:.4f} / {busy[3]:.4f} ms")
+                   + ("none" if lib is None else
+                      f"{busy[2]:.4f} / {busy[3]:.4f} ms"))
         log(f"{kid} int8-KV probe op Hkv={Hkv} T={T} D={D}: {what}; kernel "
             f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), plain "
             f"{plain_ms:.4f} ms, library {lib_txt}, bound "
@@ -2343,6 +2446,8 @@ def check_probe_kv_kernels(torch, dev, card):
     us = stream_of_us(torch, dev)
     log(f"_build.stream_of {us[0]:.3f} us a call, "
         f"torch.cuda.current_stream().cuda_stream {us[1]:.3f} us [{card}]")
+    for kid, more in check_store_select(torch, dev, card, g).items():
+        rows[kid]["other_shapes"] += more
     for B, H, Tw, Dw in PROBE_KV_SHAPES:
         for kid, row in check_slot_writes(torch, dev, card, g, B, H, Tw,
                                           Dw).items():

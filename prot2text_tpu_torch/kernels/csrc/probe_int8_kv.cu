@@ -14,9 +14,29 @@
 // prefetched it: nothing is synced to the host; a slot outside [0, T)
 // writes nothing.  rint rounds half to even, as jnp.round and torch.round.
 //
-// Bound: bytes, and a few microseconds of launch at the probes' sizes
-// ((192, 128) int8 is 24.6 KB: 0.01 us at 3.35 TB/s).  K15h and K15i: one
-// thread per output element; nothing is staged.
+// K15h and K15i move bytes: 24.6 KB out at the probe's (192, 128), which
+// a launch outweighs, and 8.4 MB at one layer of a serving install's keys,
+// (65536, 128), where the bytes bound them.  So both move W-byte words:
+//   - K15h: a thread loads W floats (at W 16 four 16-byte loads, all in
+//     flight before the first convert) and stores its W int8 as one word,
+//     the bytes packed in registers (`__byte_perm`).  W is the widest of
+//     16, 8, 4, 2, 1 that both addresses allow (x at 4·min(W, 4) bytes,
+//     out at W); the n mod W elements past the last word are written by
+//     the first threads of the same launch.  fmaxf before fminf, as the
+//     kernel before this design: NaN → -127, ±inf → ±127;
+//   - K15i: a thread copies one word of b, or of a where the word lies in
+//     row `row`: one unsigned compare of the word's index against that
+//     row's word range, which the launcher computes (32-bit indices where
+//     the words allow), so a is read in that row only.  W is the widest
+//     that divides cols and all three addresses: no word straddles rows;
+//   - one word a thread (two words a thread measured slower, at both
+//     sizes); one block up to kWriteThreads threads, past that blocks of
+//     128-1024 threads, as many as cover the words and at least two an SM
+//     where the words allow (`word_grid`);
+//   - chained launches, as K15j's and K15l's below: only index arithmetic
+//     before `grid_dependency_wait` (x, a and b may be the previous
+//     kernel's output, and out may be memory that kernel still reads),
+//     the trigger after the stores.
 //
 // K15j and K15l write 1 KB and 32 bytes at the probe's shape, so what
 // bounds them is a launch and one memory round trip, not bytes.  So:
@@ -59,30 +79,14 @@
 // 0.4 MFLOP and one 24.6 KB read at the probe's shape, so a launch and one
 // load latency set the time; a warpgroup's 64-row tiles and the TMA
 // descriptors they want would add set-up and no speed.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-__global__ void quantize_store_kernel(const float* __restrict__ x,
-                                      int8_t* __restrict__ out, int64_t n,
-                                      float mult) {
-  for (int64_t i = blockIdx.x * 256LL + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * 256)
-    out[i] = static_cast<int8_t>(fminf(fmaxf(rintf(x[i] * mult), -127.f),
-                                       127.f));
-}
-
-__global__ void select_row_kernel(const int8_t* __restrict__ a,
-                                  const int8_t* __restrict__ b,
-                                  int8_t* __restrict__ out, int rows,
-                                  int cols, int row) {
-  const int64_t n = (int64_t)rows * cols;
-  for (int64_t i = blockIdx.x * 256LL + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * 256)
-    out[i] = i / cols == row ? a[i] : b[i];
-}
-
-constexpr int kWriteThreads = 1024;   // K15j/K15l: threads a block at most
+constexpr int kWriteThreads = 1024;   // threads a block at most
+constexpr int kSMs = 132;             // the H100 SXM's
 
 // one W-byte word: its type, and a volatile global load of it (issued
 // where it stands: never sunk behind a branch nor reordered with another)
@@ -129,6 +133,112 @@ template <> struct Word<1> {
     return static_cast<T>(v);
   }
 };
+
+// the word width's kernel: f(std::integral_constant<int, W>) for W one of
+// 16, 8, 4, 2, 1
+template <typename F>
+cudaError_t by_width(int W, F&& f) {
+  switch (W) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    default: return f(std::integral_constant<int, 1>{});
+  }
+}
+
+// the widest of 16, 8, 4, 2, 1 that divides a (an address or a length)
+int widest(uintptr_t a) {
+  return (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4
+       : (a & 1) == 0 ? 2 : 1;
+}
+
+// K15h: int8(clip(rint(mult·x), -127, 127)) in the low byte of the result:
+// r + 1.5·2^23 is exact for the clamped integer r and holds r's two's
+// complement byte in the low 8 bits of its mantissa
+__device__ __forceinline__ uint32_t s8_low(float x, float mult) {
+  const float r = fminf(fmaxf(rintf(x * mult), -127.f), 127.f);
+  return __float_as_uint(r + 12582912.f);
+}
+
+// W floats from p (aligned to 4·min(W, 4) bytes), min(W, 4) a load
+template <int W>
+__device__ __forceinline__ void load_floats(const float* p, float (&v)[W]) {
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int k = 0; k < W / 4; ++k) {
+      const float4 f = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = f.x; v[4 * k + 1] = f.y; v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+    }
+  } else if constexpr (W == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x; v[1] = f.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// W floats → their W int8 as one word, element 0 in byte 0
+template <int W>
+__device__ __forceinline__ typename Word<W>::T quantize_word(
+    const float (&v)[W], float mult) {
+  uint32_t w[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) w[k] = s8_low(v[k], mult);
+  if constexpr (W == 1) {
+    return static_cast<uint8_t>(w[0]);
+  } else if constexpr (W == 2) {
+    return static_cast<uint16_t>(__byte_perm(w[0], w[1], 0x0040));
+  } else {
+    uint32_t p[W / 4];
+#pragma unroll
+    for (int k = 0; k < W / 4; ++k)
+      p[k] = __byte_perm(__byte_perm(w[4 * k], w[4 * k + 1], 0x0040),
+                         __byte_perm(w[4 * k + 2], w[4 * k + 3], 0x0040),
+                         0x5410);
+    if constexpr (W == 4) return p[0];
+    else if constexpr (W == 8) return make_uint2(p[0], p[1]);
+    else return make_uint4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// K15h: x (words·W + tail,) f32 → out int8, word i of W elements by
+// thread i; the tail (< W elements) by threads 0 .. tail - 1
+template <int W>
+__global__ void __launch_bounds__(kWriteThreads)
+quantize_store_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
+                      int64_t words, int tail, float mult) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  p2t::grid_dependency_wait();
+  if (t < words) {
+    float v[W];
+    load_floats<W>(x + t * W, v);
+    reinterpret_cast<typename Word<W>::T*>(out)[t] =
+        quantize_word<W>(v, mult);
+  }
+  if (t < tail) {
+    const int64_t e = words * W + t;
+    out[e] = static_cast<int8_t>(s8_low(x[e], mult));
+  }
+  p2t::launch_dependents();
+}
+
+// K15i: word i of out ← word i of a if lo <= i < lo + span (row `row`'s
+// words; span 0 for a row outside the tile), else of b
+template <int W, typename I>
+__global__ void __launch_bounds__(kWriteThreads)
+select_row_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                  int8_t* __restrict__ out, I words, I lo, I span) {
+  using V = typename Word<W>::T;
+  using U = std::make_unsigned_t<I>;
+  const I i = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  p2t::grid_dependency_wait();
+  if (i < words)
+    reinterpret_cast<V*>(out)[i] = reinterpret_cast<const V*>(
+        static_cast<U>(i - lo) < static_cast<U>(span) ? a : b)[i];
+  p2t::launch_dependents();
+}
 
 // K15j: word i of kn (W bytes of head i / words, words = D / W a head) →
 // cache[head, *slot]; n = heads · words
@@ -257,9 +367,17 @@ void write_grid(int64_t n, dim3* grid, dim3* block) {
   *grid = dim3(static_cast<unsigned>((n + threads - 1) / threads));
 }
 
-int blocks_for(int64_t n) {
-  const int64_t b = (n + 255) / 256;
-  return (int)(b < 4096 ? (b > 0 ? b : 1) : 4096);
+// K15h/K15i: one thread a word, and at least `least` threads: one block
+// up to kWriteThreads threads; past that blocks of 128-1024 threads, as
+// many as cover the words and at least two an SM where 128-thread blocks
+// allow it
+void word_grid(int64_t words, int least, dim3* grid, dim3* block) {
+  const int64_t n = words > least ? words : least;
+  if (n <= kWriteThreads) return write_grid(n, grid, block);
+  int64_t t = ((n + 2 * kSMs - 1) / (2 * kSMs) + 31) / 32 * 32;
+  t = t < 128 ? 128 : t > kWriteThreads ? kWriteThreads : t;
+  *block = dim3(static_cast<unsigned>(t));
+  *grid = dim3(static_cast<unsigned>((n + t - 1) / t));
 }
 
 }  // namespace
@@ -268,22 +386,54 @@ int blocks_for(int64_t n) {
 extern "C" int p2t_int8_quantize_store(const void* x, void* out, int64_t n,
                                        float mult, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  quantize_store_kernel<<<blocks_for(n), 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(out), n, mult);
-  return (int)cudaGetLastError();
+  // x's loads are min(W, 4) floats wide: W 4-16 want it at 16 bytes
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const int wo = widest(reinterpret_cast<uintptr_t>(out));
+  const int wx = (xa & 15) == 0 ? 16 : (xa & 7) == 0 ? 2 : 1;
+  const int W = wo < wx ? wo : wx;
+  const int64_t words = n / W;
+  const int tail = static_cast<int>(n - words * W);
+  dim3 grid, block;
+  word_grid(words, tail, &grid, &block);
+  const float* xs = static_cast<const float*>(x);
+  int8_t* o = static_cast<int8_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)by_width(W, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return p2t::launch_chained(quantize_store_kernel<kW>, grid, block, s, xs,
+                               o, words, tail, mult);
+  });
 }
 
-// K15i: a, b, out (rows, cols) int8
+// K15i: a, b, out (rows, cols) int8; a row outside [0, rows) gives b
 extern "C" int p2t_int8_select_row(const void* a, const void* b, void* out,
                                    int rows, int cols, int row,
                                    void* stream) {
   if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  select_row_kernel<<<blocks_for((int64_t)rows * cols), 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-      static_cast<int8_t*>(out), rows, cols, row);
-  return (int)cudaGetLastError();
+  const int W = widest(reinterpret_cast<uintptr_t>(a) |
+                       reinterpret_cast<uintptr_t>(b) |
+                       reinterpret_cast<uintptr_t>(out) |
+                       static_cast<uintptr_t>(cols));
+  const int64_t per_row = cols / W, words = (int64_t)rows * per_row;
+  const bool in = row >= 0 && row < rows;
+  const int64_t lo = in ? row * per_row : 0, span = in ? per_row : 0;
+  dim3 grid, block;
+  word_grid(words, 1, &grid, &block);
+  const int8_t* pa = static_cast<const int8_t*>(a);
+  const int8_t* pb = static_cast<const int8_t*>(b);
+  int8_t* o = static_cast<int8_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 32-bit indices while every thread's index fits
+  const bool narrow = (int64_t)grid.x * block.x <= INT32_MAX;
+  return (int)by_width(W, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return narrow
+        ? p2t::launch_chained(select_row_kernel<kW, int>, grid, block, s,
+                              pa, pb, o, static_cast<int>(words),
+                              static_cast<int>(lo), static_cast<int>(span))
+        : p2t::launch_chained(select_row_kernel<kW, int64_t>, grid, block,
+                              s, pa, pb, o, words, lo, span);
+  });
 }
 
 // K15j: cache (heads, T, D) int8 in place, kn (heads, D) int8, slot a
@@ -293,11 +443,9 @@ extern "C" int p2t_int8_group_row_write(void* cache, const void* kn,
                                         const void* slot, int heads, int T,
                                         int D, void* stream) {
   if (heads <= 0 || T <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(cache) |
-                      reinterpret_cast<uintptr_t>(kn) |
-                      static_cast<uintptr_t>(D);
-  const int W = (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4
-              : (a & 1) == 0 ? 2 : 1;
+  const int W = widest(reinterpret_cast<uintptr_t>(cache) |
+                       reinterpret_cast<uintptr_t>(kn) |
+                       static_cast<uintptr_t>(D));
   const int64_t n = (int64_t)heads * (D / W);
   dim3 grid, block;
   write_grid(n, &grid, &block);
@@ -305,19 +453,11 @@ extern "C" int p2t_int8_group_row_write(void* cache, const void* kn,
   int8_t* c = static_cast<int8_t*>(cache);
   const int8_t* k = static_cast<const int8_t*>(kn);
   const int32_t* i = static_cast<const int32_t*>(slot);
-  switch (W) {
-    case 16: return (int)p2t::launch_chained(group_row_write_kernel<16>,
-                                             grid, block, s, c, k, i, n,
-                                             D / 16, T);
-    case 8: return (int)p2t::launch_chained(group_row_write_kernel<8>, grid,
-                                            block, s, c, k, i, n, D / 8, T);
-    case 4: return (int)p2t::launch_chained(group_row_write_kernel<4>, grid,
-                                            block, s, c, k, i, n, D / 4, T);
-    case 2: return (int)p2t::launch_chained(group_row_write_kernel<2>, grid,
-                                            block, s, c, k, i, n, D / 2, T);
-    default: return (int)p2t::launch_chained(group_row_write_kernel<1>, grid,
-                                             block, s, c, k, i, n, D, T);
-  }
+  return (int)by_width(W, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return p2t::launch_chained(group_row_write_kernel<kW>, grid, block, s, c,
+                               k, i, n, D / kW, T);
+  });
 }
 
 // K15k: q (Q, D) bf16, c (T, D) int8, s (T,) f32 -> out (Q, T) f32; D a

@@ -16,9 +16,11 @@ C++, `csrc/probe_int8_kv.cu`), with their plain PyTorch versions.
 K15j and K15l take `slot` as a one-element int32 tensor on the buffer's
 device, read by the kernel (the Pallas kernels prefetched it as a scalar):
 the wrappers never sync it to the host.  A slot outside [0, T) writes
-nothing.  Both kernels are a launch and one memory round trip, so their
+nothing.  K15h, K15i, K15j and K15l move words of up to 16 bytes in
+chained launches; at the probes' sizes each is about a launch, so their
 wrappers keep the host path short: one device comparison a tensor, shape
-arithmetic instead of a view, and the launch on the raw stream.  The
+arithmetic instead of a view, `empty_like` for an output (no shape,
+dtype and device to parse), and the launch on the raw stream.  The
 probes' TPU kernels p3 and p5 alias operand 1 (`kn`, `sn`) to the output
 where the cache is operand 2, so under JAX 0.9 they raise before running;
 the port writes the cache, as the probes' asserts intend.
@@ -87,16 +89,16 @@ def f32_to_int8_store(x, mult: float = 4.0):
     """K15h: int8(clip(round(mult·x), -127, 127)) of an f32 tensor.  CPU
     tensors run the plain version; CUDA tensors launch the kernel (or
     raise)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return f32_to_int8_store_plain(x, mult)
     _cuda("K15h", x)
-    if x.dtype != torch.float32 or x.numel() == 0:
+    n = x.numel()
+    if x.dtype != torch.float32 or n == 0:
         raise TypeError(f"K15h: x must be a non-empty float32 tensor, got "
                         f"{x.dtype} {tuple(x.shape)}")
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    out = torch.empty_like(x, dtype=torch.int8)     # x is contiguous
     err = _build.library().p2t_int8_quantize_store(
-        x.data_ptr(), out.data_ptr(), x.numel(), float(mult),
-        _build.stream_of(x))
+        x.data_ptr(), out.data_ptr(), n, float(mult), _build.stream_of(x))
     _build.check(err, "p2t_int8_quantize_store")
     f32_to_int8_store.launches += 1
     return out
@@ -106,21 +108,24 @@ f32_to_int8_store.launches = 0
 
 
 def int8_select(a, b, row: int = 7):
-    """K15i: row `row` of a, every other row of b, (rows, cols) int8.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel (or
-    raise)."""
-    if a.device.type == "cpu":
+    """K15i: row `row` of a, every other row of b, (rows, cols) int8 (a
+    row outside [0, rows) gives b).  CPU tensors run the plain version;
+    CUDA tensors launch the kernel (or raise)."""
+    if a.is_cpu:
         return int8_select_plain(a, b, row)
     _cuda("K15i", a, b)
-    if (a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2
-            or a.shape != b.shape or a.numel() == 0):
+    shape = a.shape
+    if (a.dtype != torch.int8 or b.dtype != torch.int8 or len(shape) != 2
+            or b.shape != shape or shape[0] * shape[1] == 0):
         raise ValueError(f"K15i: a and b must be (rows, cols) int8 of one "
-                         f"shape, got {a.dtype} {tuple(a.shape)}, {b.dtype} "
+                         f"shape, got {a.dtype} {tuple(shape)}, {b.dtype} "
                          f"{tuple(b.shape)}")
-    out = torch.empty_like(a)
+    rows, cols = shape
+    row = int(row)
+    out = torch.empty_like(a)                       # a is contiguous
     err = _build.library().p2t_int8_select_row(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1],
-        int(row), _build.stream_of(a))
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, cols,
+        row if 0 <= row < rows else -1, _build.stream_of(a))
     _build.check(err, "p2t_int8_select_row")
     int8_select.launches += 1
     return out

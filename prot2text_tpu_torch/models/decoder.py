@@ -81,7 +81,7 @@ from ..kernels.decode_attention import (
     HEAD_DIMS, MAX_CHUNK, MAX_ROWS, decode_attention_stacked_verify_qc,
     decode_attention_stacked_verify_qc_prefix, decode_attention_stacked_write,
     decode_attention_stacked_write_prefix, decode_attention_stacked_write_q,
-    decode_attention_stacked_write_q_prefix,
+    decode_attention_stacked_write_q_prefix, _slots,
 )
 from ..kernels.flash_attention import (
     flash_attention_bias, flash_attention_masked,
@@ -454,10 +454,10 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
     (the slot being written must still be 0 — the current token is the
     attention's extra column); positions (B, 1) rope positions.
     `cache_index` picks the route:
-      * a host int (lockstep: every row writes that slot) → K4 per layer on
-        one (B,) slots tensor built once a step, which attends and writes
-        the token's k/v into slot `cache_index` of that layer in place, on
-        a bktd or a tbkd cache (`layout`, as in `decoder_forward`) alike.
+      * a host int (lockstep: every row writes that slot) → K4 per layer,
+        which attends and writes the token's k/v into slot `cache_index`
+        of that layer in place, on a bktd or a tbkd cache (`layout`, as in
+        `decoder_forward`) alike.
         The write of layer li's slot follows every read of that layer's
         slab, and the slot is 0 in `kv_mask`, so it is never read in this
         step: the cache ends as JAX's tbkd step leaves it with K12 after
@@ -465,9 +465,11 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
       * a (B,) integer tensor (per-row slots, continuous batching) → K4 per
         layer, which attends and writes row b's k/v into slot
         cache_index[b] of that layer in place.
-    Either kind runs on a tbkd cache too (`layout`), at its strides, where
-    JAX's tbkd step scatters the rows' slots after the loop
-    (prot2text_tpu/models/decoder.py:1110-1122).
+    Either kind becomes one contiguous (B,) int32 tensor on the cache's
+    device once a step (an int32 tensor there passes as it is), which every
+    layer's kernel takes.  Either kind runs on a tbkd cache too (`layout`),
+    at its strides, where JAX's tbkd step scatters the rows' slots after
+    the loop (prot2text_tpu/models/decoder.py:1110-1122).
     `prefix_kv` ({"k","v"} (L, 1, Hkv, Pc, D); beside a tbkd cache the
     sequence-leading (L, Pc, 1, Hkv, D), JAX's `_pfx_cat` layout, :805-812),
     the batch-broadcast shared prefix, with `prefix_bias` (B, 1, 1, Pc)
@@ -497,11 +499,10 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
         pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
     cos, sin = decoder_rope_cos_sin(cfg, positions)        # (B, 1, D)
     scaling = D ** -0.5
-    slots = cache_index
-    if isinstance(cache_index, int) and not quantized:
-        # one fill a step, not one a layer
-        slots = torch.full((B,), cache_index, dtype=torch.int32,
-                           device=ck_all.device)
+    # one (B,) int32 slots tensor a step for every layer's kernel, not one
+    # conversion a layer (a contiguous int32 tensor on the cache's device
+    # passes as it is)
+    slots = _slots(cache_index, B, ck_all.device)
     x = token_embeds
     for li, lp in enumerate(layers):
         xn = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
@@ -521,7 +522,7 @@ def decoder_decode_step(cfg: DecoderConfig, params, *, token_embeds,
             qargs = (qg, ck_all, cv_all, kv_cache["k_scale"],
                      kv_cache["v_scale"], kv_mask, kq.contiguous(),
                      vq.contiguous(), ks.contiguous(), vs.contiguous(), li,
-                     cache_index)
+                     slots)
             if prefix_kv is not None:
                 a = decode_attention_stacked_write_q_prefix(
                     *qargs, prefix_kv["k"], prefix_kv["v"],
@@ -580,9 +581,10 @@ def decoder_verify_chunk(cfg: DecoderConfig, params, *, token_embeds,
     rep = H // Hkv
     if layers is None:
         layers = layer_views(params["layers"], cfg.num_layers)
-    slots = torch.as_tensor(cache_index).to(token_embeds.device)
-    # the largest chunk start, read once per call for every layer's bound
+    # one (B,) int32 tensor of chunk starts a call for every layer's kernel,
+    # and its largest start, read once per call for every layer's bound
     # check (one device→host read instead of one per layer)
+    slots = _slots(torch.as_tensor(cache_index), B, kv_cache["k"].device)
     slots_max = int(slots.max())
     if prefix_kv is not None:
         pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)

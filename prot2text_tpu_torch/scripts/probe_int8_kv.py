@@ -56,8 +56,9 @@ def p2(dev):
     b = torch.full((T, D), -5, dtype=torch.int8, device=dev)
     want = b.clone()
     want[7] = 3
+    # bytes the function must move: b, row 7 of a, the output
     return (lambda: int8_select(a, b, 7),
-            lambda out: torch.equal(out, want), 0, 3 * T * D)
+            lambda out: torch.equal(out, want), 0, 2 * T * D + D)
 
 
 def p3(dev):

@@ -50,8 +50,9 @@ def _probe_ns(fix_aliases: bool = False) -> dict:
     return ns
 
 
-def _kernel_body(probe: str):
-    """The inner `kernel` of one of the probe's functions, as a function."""
+def _kernel_body(probe: str, rows: int = T, cols: int = D):
+    """The inner `kernel` of one of the probe's functions, as a function,
+    with the probe's (T, D) set to (rows, cols) in its namespace."""
     tree = ast.parse(SCRIPT.read_text())
     fn = next(n for n in tree.body
               if isinstance(n, ast.FunctionDef) and n.name == probe)
@@ -60,7 +61,7 @@ def _kernel_body(probe: str):
     import jax
     import jax.numpy as jnp
 
-    ns = {"jax": jax, "jnp": jnp, "Hkv": Hkv, "T": T, "D": D}
+    ns = {"jax": jax, "jnp": jnp, "Hkv": Hkv, "T": rows, "D": cols}
     exec(compile(ast.Module(body=[body], type_ignores=[]), str(SCRIPT),
                  "exec"), ns)
     return ns["kernel"]
@@ -104,6 +105,34 @@ def test_k15i_plain_matches_jax_kernel():
     want = _interpret(_kernel_body("p2_int8_select"),
                       jax.ShapeDtypeStruct((T, D), jnp.int8), a, b)
     got = pk.int8_select_plain(torch.from_numpy(a), torch.from_numpy(b), 7)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kid, rows, cols", [("K15h", 37, 71),
+                                             ("K15i", 842, 72)])
+def test_k15h_k15i_plain_match_jax_kernels_at_ragged_tiles(kid, rows, cols):
+    """K15h's and K15i's plain versions against the probe's kernel bodies
+    at a second tile each, off the (8, 128) grid, with the extremes K15h
+    keeps (halves to even, the clip at ±127) in its first row."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(rows * cols)
+    out = jax.ShapeDtypeStruct((rows, cols), jnp.int8)
+    if kid == "K15h":
+        x = (rng.standard_normal((rows, cols)) * 12).astype(np.float32)
+        x[0, :8] = [0.125, 0.375, -0.125, -0.375, 31.875, -31.875, 40.0,
+                    -40.0]
+        want = _interpret(_kernel_body("p1_f32_to_int8_store", rows, cols),
+                          out, x)
+        got = pk.f32_to_int8_store_plain(torch.from_numpy(x))
+    else:
+        a = rng.integers(-128, 128, (rows, cols)).astype(np.int8)
+        b = rng.integers(-128, 128, (rows, cols)).astype(np.int8)
+        want = _interpret(_kernel_body("p2_int8_select", rows, cols), out,
+                          a, b)
+        got = pk.int8_select_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                   7)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -281,6 +310,20 @@ def test_k15j_k15l_refuse_a_device_neither_cpu_nor_cuda():
                              torch.empty((Hkv, 1), device=meta),
                              torch.empty((1,), dtype=torch.int32,
                                          device=meta))
+
+
+@pytest.mark.parametrize("kid", ["K15h", "K15i"])
+def test_k15h_k15i_refuse_a_device_neither_cpu_nor_cuda(kid):
+    """As K15j and K15l: the plain version on the CPU, the kernel on CUDA,
+    and any other device raises."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match=f"{kid} needs CUDA tensors, got "
+                                         f"meta"):
+        if kid == "K15h":
+            pk.f32_to_int8_store(torch.empty((T, D), device=meta))
+        else:
+            pk.int8_select(*(torch.empty((T, D), dtype=torch.int8,
+                                         device=meta) for _ in range(2)))
 
 
 @pytest.mark.cuda
@@ -490,3 +533,148 @@ def test_stream_of_is_the_current_stream_on_cuda(cuda):
         pk.f32_scale_row_rmw(t, torch.ones((1, Hkv), device=cuda), idx)
     side.synchronize()
     assert float(t[0, 3, 5]) == 1.0
+
+
+def _ints(g, *shape):
+    return torch.randint(-128, 128, shape, generator=g, device=g.device,
+                         dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("rows, cols", [(T, D), (T, 72), (37, 71), (3, 5),
+                                        (1, 1)])
+def test_k15h_bit_exact_at_every_word_width_on_cuda(cuda, rows, cols,
+                                                    offset):
+    """K15h on x `offset` floats into its storage (16-byte words at 0 and
+    4, 2-byte at 2, 1-byte at 1 and 3) at tiles whose element count is a
+    multiple of 16 or leaves a tail of 1-15 elements (or has no whole
+    word): bit for bit the plain version over the whole output, halves
+    and the clip included, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(rows * cols + offset)
+    raw = torch.randn((rows * cols + offset,), generator=g,
+                      device=cuda) * 40
+    raw[offset::7] = torch.round(raw[offset::7] * 8) / 8
+    x = raw[offset:].view(rows, cols)
+    n = launch_counts()["K15h"]
+    got = pk.f32_to_int8_store(x)
+    assert launch_counts()["K15h"] == n + 1
+    assert got.shape == (rows, cols) and got.dtype == torch.int8
+    assert torch.equal(got, pk.f32_to_int8_store_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_k15h_keeps_its_bytes_for_inf_and_nan_on_cuda(cuda, offset):
+    """±inf → ±127 and NaN → -127, as the kernel before 16-byte words gave
+    (fmaxf before fminf), at 16-, 1- and 2-byte words and in the tail:
+    held to those bytes, not to the plain version, whose NaN cast is
+    undefined; a NaN from the product (0·inf) too."""
+    inf, nan = float("inf"), float("nan")
+    vals = [inf, -inf, nan, 1.0, -0.0, 126.6, -126.6, 127.5]
+    raw = torch.tensor([0.0] * offset + vals * 4 + [nan, inf, -inf],
+                       device=cuda)
+    got = pk.f32_to_int8_store(raw[offset:])
+    assert got.tolist() == [127, -127, -127, 4, 0, 127, -127, 127] * 4 + [
+        -127, 127, -127]
+    prod = pk.f32_to_int8_store(torch.full((16,), inf, device=cuda), 0.0)
+    assert prod.tolist() == [-127] * 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 8])
+@pytest.mark.parametrize("rows, cols", [(T, D), (842, 72), (T, 71),
+                                        (5, 3)])
+def test_k15i_bit_exact_at_every_word_width_on_cuda(cuda, rows, cols,
+                                                    offset):
+    """K15i at cols 128 and 72 (16- and 8-byte words), 71 and 3 (1-byte),
+    a and b `offset` bytes into their storage (1: 1-byte words, 8: 8-byte
+    ones at most), at rows -1, 0, 7, the last and past the end: bit for
+    bit the plain version, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(rows * cols + offset)
+    a = _ints(g, rows * cols + offset)[offset:].view(rows, cols)
+    b = _ints(g, rows * cols + offset)[offset:].view(rows, cols)
+    for row in (-1, 0, 7, rows - 1, rows, 2**40):
+        n = launch_counts()["K15i"]
+        got = pk.int8_select(a, b, row)
+        assert launch_counts()["K15i"] == n + 1
+        assert torch.equal(got, pk.int8_select_plain(a, b, row)), row
+
+
+@pytest.mark.cuda
+def test_k15h_k15i_bit_exact_at_a_serving_layer_on_cuda(cuda):
+    """One layer of a serving install's keys, (8·1024·8, 128): K15h over
+    33.5 MB of f32 and K15i over 8.4 MB tiles (row inside the tile, and
+    -1), bit for bit their plain versions over the whole output."""
+    g = torch.Generator(device=cuda).manual_seed(65536)
+    x = torch.randn((65536, 128), generator=g, device=cuda) * 40
+    assert torch.equal(pk.f32_to_int8_store(x),
+                       pk.f32_to_int8_store_plain(x))
+    a, b = _ints(g, 65536, 128), _ints(g, 65536, 128)
+    for row in (40000, -1):
+        assert torch.equal(pk.int8_select(a, b, row),
+                           pk.int8_select_plain(a, b, row))
+
+
+@pytest.mark.cuda
+def test_k15h_k15i_chained_launches_in_a_cuda_graph(cuda):
+    """Ten chained calls of each inside one CUDA graph, each reading the
+    previous call's output, and no output kept, so the allocator may hand
+    a call memory the call before it still reads: K15h on the previous
+    int8 output round-tripped through `.float()` plus 1 (mult 1: each hop
+    adds one), K15i with call i taking row i of a into the previous
+    output.  A read before `grid_dependency_wait`, or a store, would
+    show: the results equal the hops done one by one."""
+    hops = 10
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x0 = torch.randint(-120, 100, (T, D), generator=g, device=cuda).float()
+    a, b0 = _ints(g, T, D), _ints(g, T, D)
+    outs = {}
+
+    def k15h():
+        y = pk.f32_to_int8_store(x0, 1.0)
+        for _ in range(hops):
+            y = pk.f32_to_int8_store(y.float() + 1, 1.0)
+        outs["K15h"] = y
+
+    def k15i():
+        y = b0
+        for i in range(hops):
+            y = pk.int8_select(a, y, i)
+        outs["K15i"] = y
+
+    for fn in (k15h, k15i):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(outs["K15h"], torch.clamp(x0 + hops, -127, 127).to(
+        torch.int8))
+    want = b0.clone()
+    want[:hops] = a[:hops]
+    assert torch.equal(outs["K15i"], want)
+
+
+@pytest.mark.cuda
+def test_k15h_k15i_refusals_on_cuda(cuda):
+    """Every check of the two wrappers raises before any launch: an
+    operand off the card or not contiguous, a wrong dtype, rank or shape,
+    an empty tensor."""
+    n = launch_counts()
+    x = torch.zeros((T, D), device=cuda)
+    a = torch.zeros((T, D), dtype=torch.int8, device=cuda)
+    for args, msg in (((x.t(),), "contiguous tensor on cuda"),
+                      ((x.double(),), "non-empty float32"),
+                      ((x[:0],), "non-empty float32")):
+        with pytest.raises((ValueError, TypeError), match=msg):
+            pk.f32_to_int8_store(*args)
+    for args, msg in (((a, a.cpu()), "contiguous tensor on cuda"),
+                      ((a, a.t()), "contiguous tensor on cuda"),
+                      ((a, a.float()), r"\(rows, cols\) int8"),
+                      ((a[0], a[0]), r"\(rows, cols\) int8"),
+                      ((a, a[:5]), r"\(rows, cols\) int8"),
+                      ((a[:0], a[:0]), r"\(rows, cols\) int8")):
+        with pytest.raises(ValueError, match=msg):
+            pk.int8_select(*args)
+    assert launch_counts() == n
