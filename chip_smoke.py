@@ -160,6 +160,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -738,15 +739,20 @@ def check_tbkd_kernels(torch, dev, card):
     """K12 and K13 against their plain versions, bit for bit, on
     Llama-3.2-1B's lockstep cache (bf16 (16, T, 4, 8, 64), T = protein 512
     + prompt + 256 new tokens), at the first, a decode and the last slot;
-    K13 also against two K12 launches.  Times: eager CUDA events (the
-    kernels are launch-bound) and, for the device alone, CUDA graphs.  No
-    model path launches either (`kernels.OFF_PATH`): these checks stand
-    in.  Then K4 at the tbkd strides on that cache (`check_k4_tbkd`), the
-    launch that took K12's work."""
+    K13 also against two K12 launches; then at every word width
+    (`check_slab_widths`) and ten chained K13 calls in one CUDA graph
+    (`check_slab_chain`).  Times (`scripts/time_slab_write.py`): eager CUDA
+    events, CUDA graphs of 10 calls, and behind a busy device graphs of 10
+    and of 1 call, beside `copy_` into the slot's view (one a cache), and
+    K13 HBM-cold where the bytes bound it, (16, 64, 256, 8, 64).  No model
+    path launches either (`kernels.OFF_PATH`): these checks stand in.
+    Then K4 at the tbkd strides on that cache (`check_k4_tbkd`), the launch
+    that took K12's work."""
     from prot2text_tpu_torch.kernels.cache_update import (
         cache_slot_write, cache_slot_write_kv, cache_slot_write_kv_plain,
         cache_slot_write_plain,
     )
+    from prot2text_tpu_torch.scripts import time_slab_write as tsw
 
     g = torch.Generator(device=dev).manual_seed(4321)
     L, B, Hkv, D = 16, 4, 8, 64
@@ -774,34 +780,143 @@ def check_tbkd_kernels(torch, dev, card):
                 f"{index}")
         require(torch.equal(gk, two[0]) and torch.equal(gv, two[1]),
                 f"K13 differs from two K12 launches at slot {index}")
+    del ck, cv, nk, nv, got, gk, gv, two, want
+    check_slab_widths(torch, dev)
+    check_slab_chain(torch, dev)
+    times = {r["call"]: r for r in tsw.legacy_times(dev, (L, T, B, Hkv, D))}
     rows = {}
-    vk, vv = ck[:, idx], cv[:, idx]          # the library's views, prebuilt
-    for kid, fn, plain, lib, news in (
-            ("K12", lambda: cache_slot_write(ck, nk, idx),
-             lambda: cache_slot_write_plain(ck, nk, idx),
-             lambda: vk.copy_(nk), (nk,)),
-            ("K13", lambda: cache_slot_write_kv(ck, cv, nk, nv, idx),
-             lambda: cache_slot_write_kv_plain(ck, cv, nk, nv, idx),
-             lambda: (vk.copy_(nk), vv.copy_(nv)), (nk, nv))):
-        ms = cuda_ms(torch, fn, iters=50)
-        plain_ms = cuda_ms(torch, plain, iters=50)
-        lib_ms = cuda_ms(torch, lib, iters=50)
-        dev_ms = graph_ms(torch, fn)
-        lib_dev_ms = graph_ms(torch, lib)
-        bd = bound(0.0, 2 * nbytes(*news))   # read the new rows, write them
+    for kid, lib, plain in (("K12", "copy_", "K12 plain"),
+                            ("K13", "copy_ x2", "K13 plain")):
+        k, lb, pl = times[kid], times[lib], times[plain]
         log(f"{kid} tbkd slot write L={L} T={T} B={B} Hkv={Hkv} D={D} "
             f"bf16{' (k and v)' if kid == 'K13' else ''}: bit-exact; kernel "
-            f"{ms:.4f} ms (device {dev_ms:.4f} ms from CUDA graphs), plain "
-            f"{plain_ms:.4f} ms, copy_ {lib_ms:.4f} ms (device "
-            f"{lib_dev_ms:.4f} ms), bound {bd['bound_ms']:.5f} ms "
-            f"({bd['bound_by']}) [{card}]")
-        rows[kid] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         library_device_ms=lib_dev_ms, **bd)
-    rows["K12"]["checked"] = rows["K13"]["checked"] = True
+            f"{k['ms']:.4f} ms eager, device {k['graph_ms']:.4f} ms from "
+            f"CUDA graphs, behind a busy device {k['busy_ms']:.4f} ms of 10, "
+            f"{k['busy1_ms']:.4f} ms of 1; plain {pl['ms']:.4f} ms; {lib} "
+            f"{lb['ms']:.4f} ms eager, {lb['graph_ms']:.4f} ms, "
+            f"{lb['busy_ms']:.4f} / {lb['busy1_ms']:.4f} ms; bound "
+            f"{k['bound_ms']:.5f} ms ({k['bound_by']}) [{card}]")
+        rows[kid] = dict(
+            max_abs_err=0.0, ms=k["ms"], device_ms=k["graph_ms"],
+            plain_ms=pl["ms"], library_ms=lb["ms"],
+            library_device_ms=lb["graph_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], checked=True, **dict(zip(BUSY_KEYS, (
+                k["busy_ms"], k["busy1_ms"], lb["busy_ms"],
+                lb["busy1_ms"]))))
+    k13, two = times["K13"], times["copy_ x2"]
+    log(f"K13 goals [{card}]: busy 10-call {k13['busy_ms']:.4f} ms <= "
+        f"0.0020 and below two copy_s' {two['busy_ms']:.4f}: "
+        + ("met" if k13["busy_ms"] <= 0.002 and k13["busy_ms"] < two[
+            "busy_ms"] else "missed")
+        + f"; eager {k13['ms']:.4f} ms vs two copy_s' {two['ms']:.4f}: "
+        + ("at or below" if k13["ms"] <= two["ms"] else "above"))
+    cold = {r["call"]: r for r in tsw.cold_times(dev, reps=10)}
+    kc, lc = cold["K13"], cold["copy_ x2"]
+    log(f"K13 at the bytes-bound shape {kc['shape']} bf16, HBM-cold over "
+        f"{kc['calls']} slots and copies of the new rows: {kc['cold_ms']:.4f}"
+        f" ms ({kc['bound_share']:.1%} of the {kc['bound_ms']:.4f} ms bytes "
+        f"bound; goal >= 50% and no slower than two copy_s: "
+        + ("met" if kc["bound_share"] >= 0.5 and kc["cold_ms"] <= lc[
+            "cold_ms"] else "missed")
+        + f"), two copy_s {lc['cold_ms']:.4f} ms ({lc['bound_share']:.1%}) "
+        f"[{card}]")
+    rows["K13"]["other_shapes"] = [dict(
+        shape=kc["shape"], cold_ms=kc["cold_ms"],
+        library_cold_ms=lc["cold_ms"], bound_ms=kc["bound_ms"],
+        bound_share=kc["bound_share"],
+        library_bound_share=lc["bound_share"])]
     rows["K4 tbkd"] = check_k4_tbkd(torch, dev, card, g, L, T, B, Hkv, D)
     rows.update(check_tbkd_rows(torch, dev, card, g, L, T, B, Hkv, D))
     return rows
+
+
+def check_slab_widths(torch, dev):
+    """K13 bit-exact against its plain version and two K12 launches where
+    the widest word is W = 16, 8, 4, 2 or 1 bytes: set by the run (uint8
+    caches, B 1, Hkv 3, D W: a run of 3·W bytes) or by the addresses
+    (every operand W bytes into its allocation, a 48-byte run), at the
+    first and last slot; a ragged bf16 run of 30 bytes too."""
+    from prot2text_tpu_torch.kernels.cache_update import (
+        cache_slot_write, cache_slot_write_kv, cache_slot_write_kv_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4323)
+
+    def flat(n, off, dtype):
+        item = torch.empty((), dtype=dtype).element_size()
+        raw = torch.randint(0, 256, (n * item + off + 16,), generator=g,
+                            dtype=torch.uint8, device=dev)
+        return raw[off:off + n * item].view(dtype)
+
+    cases = [(w, by, torch.uint8, 1) for w in (16, 8, 4, 2, 1)
+             for by in ("run", "address")]
+    cases.append((2, "ragged", torch.bfloat16, 2))
+    for w, by, dtype, item in cases:
+        L, T, B, Hkv = 3, 10, (5 if by == "ragged" else 1), 3
+        D = {"run": w, "address": 16, "ragged": 2}[by] // item
+        off = w if by == "address" and w < 16 else 0
+        ck, cv = (flat(L * T * B * Hkv * D, off, dtype).view(L, T, B, Hkv, D)
+                  for _ in range(2))
+        nk, nv = (flat(L * B * Hkv * D, off, dtype).view(L, B, Hkv, D)
+                  for _ in range(2))
+        for index in (0, T - 1):
+            gk, gv = cache_slot_write_kv(ck.clone(), cv.clone(), nk, nv,
+                                         index)
+            two = (cache_slot_write(ck.clone(), nk, index),
+                   cache_slot_write(cv.clone(), nv, index))
+            want = cache_slot_write_kv_plain(ck.clone(), cv.clone(), nk, nv,
+                                             index)
+            require(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                        for a, b in ((gk, want[0]), (gv, want[1]),
+                                     (two[0], want[0]), (two[1], want[1]))),
+                    f"K13/K12 not bit-exact at {w}-byte words set by the "
+                    f"{by}, slot {index}")
+    log(f"K13/K12 bit-exact at every word width (16, 8, 4, 2, 1 bytes, set "
+        f"by the run and by the addresses) and on a ragged 30-byte run")
+
+
+def check_slab_chain(torch, dev):
+    """Ten K13 calls to ten slots, each with its own new rows, captured in
+    one CUDA graph (chained launches): every slot holds its call's rows
+    after a replay, and after a second replay over changed rows."""
+    from prot2text_tpu_torch.kernels.cache_update import (
+        cache_slot_write_kv, cache_slot_write_kv_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4324)
+    L, T, B, Hkv, D = 16, 40, 4, 8, 64
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    ck, cv = randn(L, T, B, Hkv, D), randn(L, T, B, Hkv, D)
+    start = (ck.clone(), cv.clone())
+    news = [(randn(L, B, Hkv, D), randn(L, B, Hkv, D)) for _ in range(10)]
+    slots = [3 * i + 1 for i in range(10)]
+    cache_slot_write_kv(ck, cv, *news[0], slots[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for (nk, nv), s in zip(news, slots):
+            cache_slot_write_kv(ck, cv, nk, nv, s)
+    for rnd in range(2):
+        ck.copy_(start[0])
+        cv.copy_(start[1])
+        if rnd:
+            for nk, nv in news:
+                nk.neg_()
+                nv.add_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        wk, wv = start[0].clone(), start[1].clone()
+        for (nk, nv), s in zip(news, slots):
+            cache_slot_write_kv_plain(wk, wv, nk, nv, s)
+        require(torch.equal(ck, wk) and torch.equal(cv, wv),
+                f"ten chained K13 calls in one CUDA graph: a slot is wrong "
+                f"(replay {rnd})")
+    del graph
+    log("K13: ten chained calls to ten slots in one CUDA graph, every slot "
+        "bit-exact over two replays")
 
 
 def check_k4_tbkd(torch, dev, card, g, L, T, B, Hkv, D, rep=4):
@@ -2683,10 +2798,162 @@ LEGACY_FAMILIES = GEN_FAMILIES + (("K12", "slab_write"),)
 LEGACY_PROFILED_NEW = 8  # the profiled run's new tokens: 7 decode steps
 
 
+# safetensors dtype names of the towers chip_smoke writes
+ST_NAMES = {"torch.bfloat16": "BF16", "torch.float32": "F32",
+            "torch.float16": "F16"}
+
+
+def write_safetensors(torch, directory: str, tensors: dict) -> str:
+    """`tensors` as `model.safetensors` in `directory` (made): an 8-byte
+    little-endian header length, the JSON header of each tensor's dtype,
+    shape and byte offsets, then the raw bytes, one tensor copied to the
+    host at a time.  The card's machine has no `safetensors` package: this
+    is the format as HF checkpoints store it."""
+    os.makedirs(directory, exist_ok=True)
+    header, offset = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": ST_NAMES[str(t.dtype)], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(os.path.join(directory, "model.safetensors"), "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(-1).view(
+                torch.uint8).numpy())
+    return directory
+
+
+def hf_layers(tree: dict, L: int, names: dict, pre: str) -> dict:
+    """{HF name: tensor} of stacked layer leaves, kernels back to (out,
+    in): `names` maps the tree's sub-module to its HF name under
+    `pre.{i}.`."""
+    out = {}
+    for mod, hf in names.items():
+        for leaf, t in tree[mod].items():
+            suffix = "weight" if leaf in ("kernel", "scale") else leaf
+            for i in range(L):
+                out[f"{pre}.{i}.{hf}.{suffix}"] = (
+                    t[i].T if leaf == "kernel" else t[i])
+    return out
+
+
+def hf_esm2_tensors(tree: dict, L: int) -> dict:
+    """The port's ESM2 tree under `EsmModel`'s names."""
+    sd = {"embeddings.word_embeddings.weight": tree["word_embeddings"]}
+    sd.update(hf_layers(tree["layers"], L, {
+        "attn_ln": "attention.LayerNorm", "query": "attention.self.query",
+        "key": "attention.self.key", "value": "attention.self.value",
+        "attn_out": "attention.output.dense", "mlp_ln": "LayerNorm",
+        "intermediate": "intermediate.dense", "output": "output.dense",
+    }, "encoder.layer"))
+    sd["encoder.emb_layer_norm_after.weight"] = tree["final_ln"]["scale"]
+    sd["encoder.emb_layer_norm_after.bias"] = tree["final_ln"]["bias"]
+    return sd
+
+
+def hf_llama_tensors(tree: dict, L: int) -> dict:
+    """The port's Llama tree under `LlamaForCausalLM`'s names (a tied
+    model has no `lm_head.weight`)."""
+    sd = {"model.embed_tokens.weight": tree["embed_tokens"],
+          "model.norm.weight": tree["final_ln"]["scale"]}
+    sd.update(hf_layers(tree["layers"], L, {
+        "input_ln": "input_layernorm", "q_proj": "self_attn.q_proj",
+        "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
+        "o_proj": "self_attn.o_proj",
+        "post_attn_ln": "post_attention_layernorm",
+        "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+        "down_proj": "mlp.down_proj"}, "model.layers"))
+    if "lm_head" in tree:
+        sd["lm_head.weight"] = tree["lm_head"]["kernel"].T
+    return sd
+
+
+def same_tree(torch, a, b) -> bool:
+    """Nested dicts of tensors with the same keys, dtypes, shapes and
+    bits."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and sorted(a) == sorted(b)
+                and all(same_tree(torch, a[k], b[k]) for k in a))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a, b))
+
+
+def legacy_from_hf(torch, dev, card, args, model):
+    """Phase 3b's model through the HF weight loader: its randomly built
+    ESM2-8M and Llama-3.2-1B towers written as bf16 safetensors under HF's
+    names (weights (out, in); `write_safetensors`) into a temporary
+    directory, the model rebuilt by `Esm2LlamaForCausalLM.from_pretrained(
+    esm_checkpoint_dir=..., llama_checkpoint_dir=...)` on the card (its
+    adapter drawn from the CLI's seed, as the built model's), every leaf
+    required bit-identical; the write and load seconds and the load's
+    peak device memory logged.  Then `cli/convert_checkpoint.py --esm2_dir
+    ... --device cuda` on the ESM2 directory, its restored tree required
+    bit-identical to the tower.  Returns the loaded model."""
+    import tempfile
+
+    from prot2text_tpu_torch.cli import convert_checkpoint
+    from prot2text_tpu_torch.core.checkpoint import restore_checkpoint
+    from prot2text_tpu_torch.models.composed import Esm2LlamaForCausalLM
+
+    cfg, params = model.config, model.params()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        esm_dir = write_safetensors(
+            torch, os.path.join(tmp, "esm2"), hf_esm2_tensors(
+                params["esm_encoder"], cfg.esm_config.num_layers))
+        llama_dir = write_safetensors(
+            torch, os.path.join(tmp, "llama"), hf_llama_tensors(
+                params["llama_decoder"], cfg.llama_config.num_layers))
+        write_s = time.perf_counter() - t0
+        gb = sum(os.path.getsize(os.path.join(d, "model.safetensors"))
+                 for d in (esm_dir, llama_dir)) / 1e9
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loaded = Esm2LlamaForCausalLM.from_pretrained(
+            cfg, esm_checkpoint_dir=esm_dir, llama_checkpoint_dir=llama_dir,
+            dtype=args.model_dtype, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(
+                args.random_seed), attn_impl=args.attn_impl)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        require(same_tree(torch, loaded.params(), params),
+                "the model loaded from bf16 HF safetensors is not "
+                "bit-identical to the model it was written from")
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "converted")
+        convert_checkpoint.main(["--output_dir", out, "--esm2_dir", esm_dir,
+                                 "--device", str(dev)])
+        conv = restore_checkpoint(out, map_location=dev)
+        conv_s = time.perf_counter() - t0
+        require(sorted(conv) == ["esm_encoder"] and same_tree(
+            torch, conv["esm_encoder"], params["esm_encoder"]),
+            "convert_checkpoint --esm2_dir is not bit-identical to the "
+            "ESM2 tower")
+    log(f"legacy model through the HF loader [{card}]: ESM2-8M + "
+        f"Llama-3.2-1B written as bf16 safetensors ({gb:.3f} GB) in "
+        f"{write_s:.2f} s, loaded by from_pretrained in {load_s:.2f} s "
+        f"(peak device memory {peak:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held), every leaf bit-identical; "
+        f"convert_checkpoint --esm2_dir on {dev} and restore in "
+        f"{conv_s:.2f} s, bit-identical")
+    return loaded
+
+
 def run_legacy_generation(torch, dev, card, check: bool = True):
     """Phase 3b: ESM2-8M → dense 320→2048 + LayerNorm → Llama-3.2-1B (all
     16 layers, bf16, random weights from a seeded CUDA generator), built
-    by `cli/generate_legacy.py build_model` at the CLI's defaults; 4
+    by `cli/generate_legacy.py build_model` at the CLI's defaults, then
+    written as bf16 HF safetensors and read back through the weight
+    loader (`legacy_from_hf`; the rest of the phase runs on the loaded
+    model); 4
     proteins of 380-500 residues collated as the CLI does; 256 greedy new
     tokens through `Esm2LlamaForCausalLM.generate`.  Head dim 64: the
     lockstep cache is tbkd, so exact counts K1 = 16 (prefill), K4 = 16 per
@@ -2694,8 +2961,9 @@ def run_legacy_generation(torch, dev, card, check: bool = True):
     K12 = 0, nothing else; the output includes the prompt.  Then one short
     profiled run: the decode window after the prefill's last K1 by kernel
     family, its device events and device busy time a step and its idle
-    share.  `check=False` logs the launch counts without requiring them:
-    how the verify skill's A/B recipe runs another tree's package."""
+    share.  `check=False` logs the launch counts without requiring them
+    and skips the loader (a parent tree's package may have none): how the
+    verify skill's A/B recipe runs another tree's package."""
     from prot2text_tpu_torch.cli import generate_legacy as gcli
     from prot2text_tpu_torch.data.chat import ByteTextTokenizer
     from prot2text_tpu_torch.infer.generate import decode_steps_taken
@@ -2716,6 +2984,8 @@ def run_legacy_generation(torch, dev, card, check: bool = True):
     log(f"legacy model ESM2-8M + adapter + Llama-3.2-1B bf16: "
         f"{n_params / 1e9:.3f} B params, random init on {dev} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if check:
+        model = legacy_from_hf(torch, dev, card, args, model)
     batch = legacy_batch(torch, dev, legacy_records(B, (380, 501), seed=21),
                          "inference", gcli.BUCKETS)
     P = batch["input_ids"].shape[1]

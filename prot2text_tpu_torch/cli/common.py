@@ -20,6 +20,7 @@ from ..models.adapters import (
 from ..models.composed import Esm2LlamaConfig
 from ..models.esm2 import ESM2Config
 from ..models.esmc import ESMCConfig, esmc_params_from_torch, init_esmc_params
+from ..models.hf_import import load_state_dict_dir, qwen3_params_from_hf
 from ..models.llama import LlamaConfig
 from ..models.quant import quantize_params
 from ..models.qwen3 import Qwen3Config, init_qwen3_params
@@ -153,8 +154,9 @@ def legacy_config(args, tok) -> Esm2LlamaConfig:
 def build_models(args, tok, device):
     """(esm_cfg, llm_cfg, adapter_cfg, {"esm_encoder", "llm_decoder"},
     adapter): ESMC + Qwen3 towers in `--model_dtype` (random N(0, 0.02)
-    from `--random_seed`, or ESMC from `--esm_checkpoint_path`) and an f32
-    modality adapter, all on `device`.  For --model_dtype int8/int4 the
+    from `--random_seed`, or ESMC from `--esm_checkpoint_path` and Qwen3
+    from the HF directory `--llm_checkpoint_dir`) and an f32 modality
+    adapter, all on `device`.  For --model_dtype int8/int4 the
     towers are built in bf16 and the caller quantizes them with
     `quantize_towers` (the serve CLI after merging a LoRA, train_contrast
     at once); `args` is left as it is."""
@@ -182,7 +184,13 @@ def build_models(args, tok, device):
                                             device=device, dtype=dtype)
     else:
         esm_params = init_esmc_params(esm_cfg, dtype=dtype, **kw)
-    llm_params = init_qwen3_params(llm_cfg, dtype=dtype, **kw)
+    if args.llm_checkpoint_dir:
+        llm_params = qwen3_params_from_hf(
+            load_state_dict_dir(args.llm_checkpoint_dir), llm_cfg.num_layers,
+            device=device, dtype=dtype,
+            tie_word_embeddings=llm_cfg.tie_word_embeddings)
+    else:
+        llm_params = init_qwen3_params(llm_cfg, dtype=dtype, **kw)
     adapter = init_modality_adapter_params(adapter_cfg, **kw)  # f32
     return (esm_cfg, llm_cfg, adapter_cfg,
             {"esm_encoder": esm_params, "llm_decoder": llm_params}, adapter)

@@ -8,7 +8,10 @@ plus --device (default "cuda"; a missing GPU is an error, never a silent
 CPU run).  Unlike the JAX CLI, --model_dtype is applied to the weights
 (bf16 by default).  --attn_impl routes the encoder and the prefill as the
 JAX CLI does: "auto" and "flash" take K1 in the prefill, "xla" the plain
-function; "flash" also sends ESM2's attention through K6.  Values this
+function; "flash" also sends ESM2's attention through K6.
+--load_checkpoint_dir restores the port's `step_N/checkpoint.pt`;
+--esm_checkpoint_dir/--llama_checkpoint_dir load HF directories
+(`models/hf_import.py`) over it or over the random weights.  Values this
 port does not have yet raise NotImplementedError naming the ROADMAP item.
 
     python -m prot2text_tpu_torch.cli.generate_instruct \\
@@ -27,14 +30,17 @@ import torch
 from ..data.collate import Buckets, InstructCollator
 from ..data.sampler import DataLoader, ShardedSampler
 
+from ..core.checkpoint import restore_checkpoint
 from ..core.device import resolve_device
 from ..core.dtypes import str2bool
 from ..models.adapters import ModalityAdapterConfig
 from ..models.composed import (
-    Esm2LlamaInstructConfig, Esm2LlamaInstructForCausalLM,
+    Esm2LlamaInstructConfig, Esm2LlamaInstructForCausalLM, hf_towers,
+    init_instruct_params,
 )
 from ..models.esm2 import ESM2Config
 from ..models.llama import LlamaConfig
+from ..models.weights import tree_map
 from .common import (
     add_common_args, common_unported, pad_rows, refuse, text_tokenizer,
 )
@@ -83,12 +89,6 @@ def refuse_unported(args) -> None:
         (args.prompt_lookup_tokens > 0,
          "--prompt_lookup_tokens (lockstep infer/speculative.py)",
          "§1 item 7"),
-        (args.load_checkpoint_dir is not None, "--load_checkpoint_dir",
-         "§1 item 6, checkpoints"),
-        (args.esm_checkpoint_dir is not None
-         or args.llama_checkpoint_dir is not None,
-         "--esm_checkpoint_dir/--llama_checkpoint_dir (HF weight loader)",
-         "§1 item 6"),
         *common_unported(args),
     ])
 
@@ -114,10 +114,38 @@ def build_model(args, tok, device) -> Esm2LlamaInstructForCausalLM:
         adapter_config=ModalityAdapterConfig(esm_cfg.hidden_size, 2048,
                                              llama_cfg.hidden_size),
         llama_config=llama_cfg, placeholder_id=placeholder_id)
-    gen = torch.Generator(device=device).manual_seed(args.random_seed)
-    return Esm2LlamaInstructForCausalLM(cfg, device=device,
-                                        dtype=args.model_dtype, generator=gen,
-                                        attn_impl=args.attn_impl)
+    return Esm2LlamaInstructForCausalLM(
+        cfg, instruct_params(args, cfg, device), attn_impl=args.attn_impl)
+
+
+def instruct_params(args, cfg: Esm2LlamaInstructConfig, device) -> dict:
+    """The model's tree in --model_dtype on `device`: the port's
+    `step_N/checkpoint.pt` under --load_checkpoint_dir (its "model" tree if
+    it has one, else the tree itself, as the JAX CLI reads it), else
+    random weights from --random_seed; then the towers of
+    --esm_checkpoint_dir/--llama_checkpoint_dir in their place (the JAX
+    CLI declares both flags and reads neither)."""
+    dtype = args.model_dtype
+    if args.load_checkpoint_dir:
+        restored = restore_checkpoint(args.load_checkpoint_dir,
+                                      map_location=device)
+        params = tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                          else t, restored.get("model", restored))
+        missing = [p for p in Esm2LlamaInstructForCausalLM.PARTS
+                   if p not in params]
+        if missing:
+            raise ValueError(f"{args.load_checkpoint_dir} holds "
+                             f"{sorted(params)}, not {missing}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.random_seed)
+        params = init_instruct_params(cfg, generator=gen, device=device,
+                                      dtype=dtype)
+    params.update(hf_towers(
+        cfg.esm_config, cfg.llama_config,
+        esm_checkpoint_dir=args.esm_checkpoint_dir,
+        llama_checkpoint_dir=args.llama_checkpoint_dir, device=device,
+        dtype=dtype))
+    return params
 
 
 def main(argv=None):

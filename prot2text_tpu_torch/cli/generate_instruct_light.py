@@ -23,8 +23,9 @@ the towers `build_model` gives at --model_dtype bf16, then
 `generate_batches`.
 
 Same flags as the JAX CLI, plus --device (default "cuda"; a missing GPU is
-an error, never a silent CPU run).  Values the port does not have yet raise
-NotImplementedError naming their ROADMAP item.
+an error, never a silent CPU run).  --llm_checkpoint_dir loads Qwen3 from
+an HF directory (`models/hf_import.py`).  Values the port does not have
+yet raise NotImplementedError naming their ROADMAP item.
 
     python -m prot2text_tpu_torch.cli.generate_instruct_light \\
         --test_csv test.csv --device cuda --model_dtype int4
@@ -101,8 +102,6 @@ def refuse_unported(args) -> None:
          "§1 item 7"),
         (args.load_peft_adapter_dir is not None,
          "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 9"),
-        (args.llm_checkpoint_dir is not None,
-         "--llm_checkpoint_dir (HF weight loader)", "§1 item 6"),
         *common_unported(args, quantized=True),
     ])
 

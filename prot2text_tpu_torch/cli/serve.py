@@ -30,7 +30,9 @@ the towers, built in --model_dtype (bf16 for int8/int4) first and
 quantized after (the JAX CLI merges after its quantize step and fails;
 ROADMAP.md §3).  --attn_impl routes the ESMC encoder as the JAX CLI
 does (K6 forward under "flash", plain under "auto" and "xla"); the
-engine's decoder keeps its own routes, as JAX serving fixes them.  Values
+engine's decoder keeps its own routes, as JAX serving fixes them.
+--llm_checkpoint_dir loads Qwen3 from an HF directory (`models/
+hf_import.py`) before the LoRA merge and the quantization.  Values
 the port does not have yet raise NotImplementedError naming their ROADMAP
 item.  Output: one JSON file
 {name: {"true", "pred"}} and a descriptions/hour line.
@@ -147,8 +149,6 @@ def refuse_unported(args) -> None:
          "§1 item 8, Medusa serving with cli/train_draft.py"),
         (args.load_peft_adapter_dir is not None,
          "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 9"),
-        (args.llm_checkpoint_dir is not None,
-         "--llm_checkpoint_dir (HF weight loader)", "§1 item 6"),
         *common_unported(args, quantized=True),
     ])
 

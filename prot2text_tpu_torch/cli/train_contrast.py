@@ -12,8 +12,9 @@ output channel (`models/quant.quantize_params`); they run forward only.
 --attn_impl routes attention as `train/contrastive.py` says ("flash": K6
 in ESMC; the text tower takes K1 under "auto" and "flash").  Values the
 port does not have yet raise NotImplementedError naming their ROADMAP
-item: --llm_checkpoint_dir (item 6, HF loader), --fsdp/--tp/--sp > 1 and
---attn_impl ring (item 14).  Checkpoints {"adapter", "opt_state", "step"}
+item: --fsdp/--tp/--sp > 1 and --attn_impl ring (item 14).
+--llm_checkpoint_dir loads the Qwen3 text tower from an HF directory
+(`models/hf_import.py`).  Checkpoints {"adapter", "opt_state", "step"}
 are the port's own `torch.save` format (`core/checkpoint.py`).
 
     python -m prot2text_tpu_torch.cli.train_contrast \\
@@ -93,8 +94,6 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     refuse([
-        (args.llm_checkpoint_dir is not None,
-         "--llm_checkpoint_dir (HF weight loader)", "§1 item 6"),
         *common_unported(args, quantized=True),
     ])
 

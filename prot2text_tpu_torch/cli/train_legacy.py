@@ -5,12 +5,13 @@ Trains every parameter of `Esm2LlamaForCausalLM` (ESM2-8M + adapter +
 Llama-3.2-1B, concat fusion) on the preprocessed instruct dataset through
 the derived collator, with AdamW at optax's defaults + StepLR(gamma) per
 epoch (`train/optim.py step_lr`) and the port's legacy step
-(`train/legacy.py`).  Parameters are f32, as the JAX CLI builds them:
---model_dtype would only type imported HF weights, and
---esm_checkpoint_dir/--llama_checkpoint_dir (the HF weight loader) raise
-until ROADMAP.md §1 item 6.  --attn_impl routes attention as in the other
-training CLIs ("auto": plain ESM2 attention, K1/K5 in the decoder; "flash"
-also K6/K6b in ESM2; "xla" the plain function).  Same flags and loop as
+(`train/legacy.py`).  Parameters are f32, as the JAX CLI builds them,
+except the towers read from HF directories by --esm_checkpoint_dir and
+--llama_checkpoint_dir (`models/hf_import.py`), which take --model_dtype,
+as there (`prot2text_tpu/cli/train_legacy.py:104-117`).  --attn_impl
+routes attention as in the other training CLIs ("auto": plain ESM2
+attention, K1/K5 in the decoder; "flash" also K6/K6b in ESM2; "xla" the
+plain function).  Same flags and loop as
 the JAX CLI, plus --device (default "cuda"; a missing GPU is an error,
 never a silent CPU run); --eval_csv is accepted and unused, as there.
 Checkpoints are the port's `torch.save` format (`core/checkpoint.py`):
@@ -40,7 +41,9 @@ from ..core.dtypes import str2bool
 from ..core.observe import trace
 from ..data.collate import Buckets, DerivedCollator
 from ..data.sampler import DataLoader, ShardedSampler, prefetch
-from ..models.composed import Esm2LlamaConfig, init_esm2llama_params
+from ..models.composed import (
+    Esm2LlamaConfig, hf_towers, init_esm2llama_params,
+)
 from ..models.weights import tree_leaves
 from ..train.legacy import make_legacy_train_step
 from ..train.optim import AdamW, TrainState, step_lr
@@ -86,13 +89,7 @@ def build_parser():
 
 
 def refuse_unported(args) -> None:
-    refuse([
-        (args.esm_checkpoint_dir is not None
-         or args.llama_checkpoint_dir is not None,
-         "--esm_checkpoint_dir/--llama_checkpoint_dir (HF weight loader)",
-         "§1 item 6"),
-        *common_unported(args),
-    ])
+    refuse(common_unported(args))
     accum = args.gradient_accumulation_steps
     if accum < 1 or args.batch_size % accum:
         raise ValueError(f"--batch_size {args.batch_size} must split into "
@@ -112,9 +109,11 @@ class Training:
 
 
 def build_training(args, tok, device, *, steps_per_epoch: int) -> Training:
-    """Configuration, f32 parameters (random from --random_seed, or the
-    --resume_checkpoint_dir state), StepLR AdamW and the legacy step as
-    `main` builds them (also the entry point of the chip smoke test)."""
+    """Configuration, f32 parameters (random from --random_seed, the towers
+    of --esm_checkpoint_dir/--llama_checkpoint_dir in --model_dtype in
+    their place; or the --resume_checkpoint_dir state), StepLR AdamW and
+    the legacy step as `main` builds them (also the entry point of the chip
+    smoke test)."""
     config = legacy_config(args, tok)
     tx = step_lr(args.learning_rate, args.scheduler_gamma, steps_per_epoch,
                  grad_clip=args.gradient_clipping)
@@ -127,8 +126,14 @@ def build_training(args, tok, device, *, steps_per_epoch: int) -> Training:
         print(f"resumed from step {state.step}")
     else:
         gen = torch.Generator(device=device).manual_seed(args.random_seed)
-        state = TrainState.create(init_esm2llama_params(
-            config, generator=gen, device=device, dtype=torch.float32), tx)
+        params = init_esm2llama_params(config, generator=gen, device=device,
+                                       dtype=torch.float32)
+        params.update(hf_towers(
+            config.esm_config, config.llama_config,
+            esm_checkpoint_dir=args.esm_checkpoint_dir,
+            llama_checkpoint_dir=args.llama_checkpoint_dir, device=device,
+            dtype=args.model_dtype))
+        state = TrainState.create(params, tx)
     for t in tree_leaves(state.params):
         t.requires_grad_(True)
     step_fn = make_legacy_train_step(

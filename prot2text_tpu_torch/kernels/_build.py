@@ -225,3 +225,15 @@ def stream_of(t) -> int:
     builds a `torch.cuda.Stream` object on every call; every kernel wrapper
     calls this on every launch)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """The lean wrappers' operand check: every tensor contiguous on the
+    first one's CUDA device (one device comparison a tensor)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: every operand must be a contiguous "
+                             f"tensor on {dev}")

@@ -21,7 +21,10 @@
 The kernels are `csrc/cache_update.cu`; its comments state what bounds them
 (bytes and launch latency) and their design.  Each `*_plain` function is
 the plain PyTorch version (slice assignment); kernel and plain version are
-bit-identical.
+bit-identical.  At the path's shapes K12/K13 are about a launch, so their
+wrappers keep the host path short, as `probe_int8_kv`'s: one device
+comparison a tensor (`_build.require_cuda`), shape arithmetic, one ctypes
+call on the raw stream.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ def cache_slot_write_kv_plain(cache_k, cache_v, new_k, new_v, index: int):
 
 def _check(cache, new, index, kid, slot_dim):
     """Device, rank, shape, dtype, contiguity and slot of one cache and its
-    new rows: (L, B, Hkv, T, D) with slot_dim 3 (K3) or (L, T, B, Hkv, D)
-    with slot_dim 1 (K12/K13); new is the cache's shape without T."""
+    new rows: (L, B, Hkv, T, D) with slot_dim 3 (K3); new is the cache's
+    shape without T."""
     if cache.device.type != "cuda" or new.device != cache.device:
         raise ValueError(f"{kid} kernel needs CUDA tensors on one device, "
                          f"got {cache.device} and {new.device}")
@@ -89,15 +92,21 @@ def cache_slot_write_bkt(cache, new, index: int):
 cache_slot_write_bkt.launches = 0
 
 
-def _slab_write(caches, news, index):
-    L, T, B, Hkv, D = caches[0].shape
-    pairs = [(c.data_ptr(), n.data_ptr()) for c, n in zip(caches, news)]
-    c1, s1 = pairs[1] if len(pairs) == 2 else (None, None)
-    err = _build.library().p2t_cache_slab_write(
-        *pairs[0], c1, s1, len(pairs), L, T, index,
-        B * Hkv * D * caches[0].element_size(),
-        _build.stream_of(caches[0]))
-    _build.check(err, "p2t_cache_slab_write")
+def _tbkd_shape(kid, cache, new, index):
+    """(L, T, run bytes) of a (L, T, B, Hkv, D) cache and its (L, B, Hkv, D)
+    new rows of one dtype, the slot in [0, T); raises otherwise.  Devices
+    and contiguity are `_build.require_cuda`'s, checked after this."""
+    shape = cache.shape
+    if len(shape) != 5 or new.dim() != 4 or new.shape[0] != shape[0] \
+            or new.shape[1:] != shape[2:]:
+        raise ValueError(f"{kid}: new {tuple(new.shape)} vs cache "
+                         f"{tuple(shape)}")
+    if new.dtype != cache.dtype:
+        raise TypeError(f"{kid}: new is {new.dtype}, cache is {cache.dtype}")
+    L, T = shape[0], shape[1]
+    if not 0 <= index < T:
+        raise ValueError(f"{kid}: slot {index} out of range [0, {T})")
+    return L, T, shape[2] * shape[3] * shape[4] * new.element_size()
 
 
 def cache_slot_write(cache, new, index: int):
@@ -105,11 +114,15 @@ def cache_slot_write(cache, new, index: int):
     dtype, index a host int: cache[:, index] = new, in place; returns cache.
     CPU tensors run the plain version; CUDA tensors launch the kernel (or
     raise)."""
-    if cache.device.type == "cpu":
+    if cache.is_cpu:
         return cache_slot_write_plain(cache, new, index)
     index = int(index)
-    _check(cache, new, index, "K12", 1)
-    _slab_write((cache,), (new,), index)
+    L, T, run = _tbkd_shape("K12", cache, new, index)
+    _build.require_cuda("K12", cache, new)
+    err = _build.library().p2t_cache_slab_write(
+        cache.data_ptr(), new.data_ptr(), None, None, 1, L, T, index, run,
+        _build.stream_of(cache))
+    _build.check(err, "p2t_cache_slab_write")
     cache_slot_write.launches += 1
     return cache
 
@@ -120,17 +133,22 @@ cache_slot_write.launches = 0
 def cache_slot_write_kv(cache_k, cache_v, new_k, new_v, index: int):
     """K13: `cache_slot_write` of both caches in one launch; returns
     (cache_k, cache_v).  The two caches share one shape and dtype."""
-    if cache_k.device.type == "cpu":
+    if cache_k.is_cpu:
         return cache_slot_write_kv_plain(cache_k, cache_v, new_k, new_v,
                                          index)
-    index = int(index)
-    _check(cache_k, new_k, index, "K13", 1)
-    _check(cache_v, new_v, index, "K13", 1)
-    if (cache_v.shape != cache_k.shape or cache_v.dtype != cache_k.dtype
-            or cache_v.device != cache_k.device):
+    if cache_v.shape != cache_k.shape or cache_v.dtype != cache_k.dtype:
         raise ValueError("K13: the k and v caches must share shape, dtype "
                          "and device")
-    _slab_write((cache_k, cache_v), (new_k, new_v), index)
+    index = int(index)
+    L, T, run = _tbkd_shape("K13", cache_k, new_k, index)
+    if new_v.shape != new_k.shape or new_v.dtype != new_k.dtype:
+        raise ValueError(f"K13: new_v {new_v.dtype} {tuple(new_v.shape)} "
+                         f"vs new_k {new_k.dtype} {tuple(new_k.shape)}")
+    _build.require_cuda("K13", cache_k, cache_v, new_k, new_v)
+    err = _build.library().p2t_cache_slab_write(
+        cache_k.data_ptr(), new_k.data_ptr(), cache_v.data_ptr(),
+        new_v.data_ptr(), 2, L, T, index, run, _build.stream_of(cache_k))
+    _build.check(err, "p2t_cache_slab_write")
     cache_slot_write_kv.launches += 1
     return cache_k, cache_v
 

@@ -63,72 +63,90 @@ cudaError_t launch(void* cache, const void* src, int64_t n_rows,
 //
 // Bound: bytes.  It reads and writes L*N*itemsize bytes per cache (64 KiB
 // at Llama-3.2-1B's lockstep shape: L=16, B=4, Hkv=8, D=64, bf16), so at
-// the path's shapes it is launch-latency bound.  So the port's tbkd
-// lockstep step does not call it (nor K13): K4's epilogue (decode_
+// the path's shapes a launch, not the bytes, is its cost.  So the port's
+// tbkd lockstep step does not call it (nor K13): K4's epilogue (decode_
 // attention_split.cuh SlotWrite, the SIMT body in f32) writes each layer's
 // slot at the tbkd strides in the launch that already holds the token's k
 // and v.  JAX's tbkd step still calls it twice a step.
-// Design: blockIdx.y is the layer, blockIdx.z the cache (k, v), blockIdx.x
-// strides the run in 16-byte words, one per thread, so every warp stores
-// 512 contiguous bytes; no index division per element.  A byte-wise variant
-// covers runs or pointers that are not 16-byte aligned.
+// Design, as K15h/K15i's (probe_int8_kv.cu):
+//   - one W-byte word a thread over the flattened (cache, layer, word)
+//     index, W the widest of 16, 8, 4, 2, 1 that divides the run's bytes
+//     and all four addresses, so every result is bit-exact at any N; the
+//     legacy shape is 2 x 16 x 256 16-byte words;
+//   - `p2t::word_grid`: one block up to kWriteThreads words, past that
+//     blocks of 128-1024 threads, at least two an SM where the words allow;
+//     32-bit word indices while they fit;
+//   - chained launches (`p2t::launch_chained`): only index arithmetic
+//     before `grid_dependency_wait` (the new rows may be the previous
+//     kernel's output and the cache memory that kernel still reads), the
+//     trigger after the store, so in a run of launches each one's set-up
+//     overlaps the kernel before it.
 
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-slab_write_kernel(W* __restrict__ cache0, const W* __restrict__ src0,
-                  W* __restrict__ cache1, const W* __restrict__ src1,
-                  int64_t run_words, int64_t T, int64_t index) {
-  W* cache = blockIdx.z ? cache1 : cache0;
-  const W* src = blockIdx.z ? src1 : src0;
-  const int64_t l = blockIdx.y;
-  W* dst = cache + (l * T + index) * run_words;
-  const W* s = src + l * run_words;
-  for (int64_t w = blockIdx.x * (int64_t)kThreads + threadIdx.x;
-       w < run_words; w += (int64_t)gridDim.x * kThreads)
-    dst[w] = s[w];
-}
-
-template <typename W>
-cudaError_t launch_slab(void* c0, const void* s0, void* c1, const void* s1,
-                        int n_caches, int64_t L, int64_t run_words,
-                        int64_t T, int64_t index, cudaStream_t stream) {
-  const int64_t blocks64 = (run_words + kThreads - 1) / kThreads;
-  const dim3 grid((unsigned)(blocks64 < 1024 ? blocks64 : 1024),
-                  (unsigned)L, (unsigned)n_caches);
-  slab_write_kernel<W><<<grid, kThreads, 0, stream>>>(
-      static_cast<W*>(c0), static_cast<const W*>(s0), static_cast<W*>(c1),
-      static_cast<const W*>(s1), run_words, T, index);
-  return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// word i of n = n_caches * L * run words: cache i / per_cache (per_cache =
+// L * run), layer (i mod per_cache) / run, word (i mod per_cache) mod run
+template <int W, typename I>
+__global__ void __launch_bounds__(p2t::kWriteThreads)
+slab_write_kernel(unsigned char* __restrict__ cache0,
+                  const unsigned char* __restrict__ src0,
+                  unsigned char* __restrict__ cache1,
+                  const unsigned char* __restrict__ src1, I n, I per_cache,
+                  I run, int64_t T, int64_t index) {
+  using V = typename p2t::Word<W>::T;
+  const I i = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool second = i >= per_cache;
+  const I j = second ? i - per_cache : i;
+  const I l = j / run;
+  const int64_t dst = (l * T + index) * run + (j - l * run);
+  V* cache = reinterpret_cast<V*>(second ? cache1 : cache0);
+  const V* src = reinterpret_cast<const V*>(second ? src1 : src0);
+  p2t::grid_dependency_wait();
+  if (i < n) cache[dst] = src[j];
+  p2t::launch_dependents();
 }
 
 }  // namespace
 
 // cache1/src1 may be null (n_caches 1: K12); with n_caches 2 (K13) both
-// caches share L, T and the run size.
+// caches share L, T and the run size
 extern "C" int p2t_cache_slab_write(void* cache0, const void* src0,
                                     void* cache1, const void* src1,
                                     int n_caches, int64_t L, int64_t T,
                                     int64_t index, int64_t run_bytes,
                                     void* stream) {
-  if (n_caches < 1 || n_caches > 2 || L <= 0 || L > 65535 ||
-      run_bytes <= 0 || index < 0 || index >= T)
+  if (n_caches < 1 || n_caches > 2 || L <= 0 || run_bytes <= 0 ||
+      index < 0 || index >= T)
     return (int)cudaErrorInvalidValue;
   if (n_caches == 1) {
     cache1 = cache0;
     src1 = src0;
   }
+  const int W = p2t::widest(reinterpret_cast<uintptr_t>(cache0) |
+                            reinterpret_cast<uintptr_t>(src0) |
+                            reinterpret_cast<uintptr_t>(cache1) |
+                            reinterpret_cast<uintptr_t>(src1) |
+                            static_cast<uintptr_t>(run_bytes));
+  const int64_t run = run_bytes / W, per_cache = L * run;
+  const int64_t n = n_caches * per_cache;
+  dim3 grid, block;
+  p2t::word_grid(n, 1, &grid, &block);
+  auto* c0 = static_cast<unsigned char*>(cache0);
+  auto* c1 = static_cast<unsigned char*>(cache1);
+  const auto* s0 = static_cast<const unsigned char*>(src0);
+  const auto* s1 = static_cast<const unsigned char*>(src1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = run_bytes % 16 == 0 && aligned16(cache0) &&
-                    aligned16(src0) && aligned16(cache1) && aligned16(src1);
-  if (wide)
-    return (int)launch_slab<uint4>(cache0, src0, cache1, src1, n_caches, L,
-                                   run_bytes / 16, T, index, s);
-  return (int)launch_slab<uint8_t>(cache0, src0, cache1, src1, n_caches, L,
-                                   run_bytes, T, index, s);
+  // 32-bit word indices while every thread's index fits
+  const bool narrow = (int64_t)grid.x * block.x <= INT32_MAX;
+  return (int)p2t::by_width(W, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return narrow
+        ? p2t::launch_chained(slab_write_kernel<kW, int>, grid, block, s, c0,
+                              s0, c1, s1, static_cast<int>(n),
+                              static_cast<int>(per_cache),
+                              static_cast<int>(run), T, index)
+        : p2t::launch_chained(slab_write_kernel<kW, int64_t>, grid, block,
+                              s, c0, s0, c1, s1, n, per_cache, run, T,
+                              index);
+  });
 }
 
 extern "C" int p2t_cache_slot_write(void* cache, const void* src,

@@ -79,79 +79,16 @@
 // 0.4 MFLOP and one 24.6 KB read at the probe's shape, so a launch and one
 // load latency set the time; a warpgroup's 64-row tiles and the TMA
 // descriptors they want would add set-up and no speed.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWriteThreads = 1024;   // threads a block at most
-constexpr int kSMs = 132;             // the H100 SXM's
-
-// one W-byte word: its type, and a volatile global load of it (issued
-// where it stands: never sunk behind a branch nor reordered with another)
-template <int W> struct Word;
-template <> struct Word<16> {
-  using T = uint4;
-  static __device__ __forceinline__ T load(const void* p) {
-    T v;
-    asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
-    return v;
-  }
-};
-template <> struct Word<8> {
-  using T = uint2;
-  static __device__ __forceinline__ T load(const void* p) {
-    T v;
-    asm volatile("ld.global.v2.u32 {%0, %1}, [%2];\n"
-                 : "=r"(v.x), "=r"(v.y) : "l"(p));
-    return v;
-  }
-};
-template <> struct Word<4> {
-  using T = uint32_t;
-  static __device__ __forceinline__ T load(const void* p) {
-    T v;
-    asm volatile("ld.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
-    return v;
-  }
-};
-template <> struct Word<2> {
-  using T = uint16_t;
-  static __device__ __forceinline__ T load(const void* p) {
-    T v;
-    asm volatile("ld.global.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
-    return v;
-  }
-};
-template <> struct Word<1> {
-  using T = uint8_t;
-  static __device__ __forceinline__ T load(const void* p) {
-    uint16_t v;
-    asm volatile("ld.global.u8 %0, [%1];\n" : "=h"(v) : "l"(p));
-    return static_cast<T>(v);
-  }
-};
-
-// the word width's kernel: f(std::integral_constant<int, W>) for W one of
-// 16, 8, 4, 2, 1
-template <typename F>
-cudaError_t by_width(int W, F&& f) {
-  switch (W) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    case 2: return f(std::integral_constant<int, 2>{});
-    default: return f(std::integral_constant<int, 1>{});
-  }
-}
-
-// the widest of 16, 8, 4, 2, 1 that divides a (an address or a length)
-int widest(uintptr_t a) {
-  return (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4
-       : (a & 1) == 0 ? 2 : 1;
-}
+using p2t::by_width;
+using p2t::kWriteThreads;
+using p2t::widest;
+using p2t::Word;
+using p2t::word_grid;
+using p2t::write_grid;
 
 // K15h: int8(clip(rint(mult·x), -127, 127)) in the low byte of the result:
 // r + 1.5·2^23 is exact for the clamped integer r and holds r's two's
@@ -355,29 +292,6 @@ scale_column_write_kernel(float* __restrict__ s,
     if (col >= 0 && col < T) s[(int64_t)h * T + col] = v;
   }
   p2t::launch_dependents();
-}
-
-// n threads in blocks of at most kWriteThreads, whole warps, one block up
-// to kWriteThreads
-void write_grid(int64_t n, dim3* grid, dim3* block) {
-  const int64_t warps = (n + 31) / 32;
-  const int64_t threads = warps * 32 < kWriteThreads ? warps * 32
-                                                     : kWriteThreads;
-  *block = dim3(static_cast<unsigned>(threads));
-  *grid = dim3(static_cast<unsigned>((n + threads - 1) / threads));
-}
-
-// K15h/K15i: one thread a word, and at least `least` threads: one block
-// up to kWriteThreads threads; past that blocks of 128-1024 threads, as
-// many as cover the words and at least two an SM where 128-thread blocks
-// allow it
-void word_grid(int64_t words, int least, dim3* grid, dim3* block) {
-  const int64_t n = words > least ? words : least;
-  if (n <= kWriteThreads) return write_grid(n, grid, block);
-  int64_t t = ((n + 2 * kSMs - 1) / (2 * kSMs) + 31) / 32 * 32;
-  t = t < 128 ? 128 : t > kWriteThreads ? kWriteThreads : t;
-  *block = dim3(static_cast<unsigned>(t));
-  *grid = dim3(static_cast<unsigned>((n + t - 1) / t));
 }
 
 }  // namespace

@@ -67,16 +67,6 @@ def f32_scale_row_rmw_plain(s, sn, slot):
     return s
 
 
-def _cuda(name, *tensors):
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: every operand must be a contiguous "
-                             f"tensor on {dev}")
-
-
 def _slot(name, slot, dev):
     if (slot.dtype != torch.int32 or slot.numel() != 1
             or slot.device != dev):
@@ -91,7 +81,7 @@ def f32_to_int8_store(x, mult: float = 4.0):
     raise)."""
     if x.is_cpu:
         return f32_to_int8_store_plain(x, mult)
-    _cuda("K15h", x)
+    _build.require_cuda("K15h", x)
     n = x.numel()
     if x.dtype != torch.float32 or n == 0:
         raise TypeError(f"K15h: x must be a non-empty float32 tensor, got "
@@ -113,7 +103,7 @@ def int8_select(a, b, row: int = 7):
     CUDA tensors launch the kernel (or raise)."""
     if a.is_cpu:
         return int8_select_plain(a, b, row)
-    _cuda("K15i", a, b)
+    _build.require_cuda("K15i", a, b)
     shape = a.shape
     if (a.dtype != torch.int8 or b.dtype != torch.int8 or len(shape) != 2
             or b.shape != shape or shape[0] * shape[1] == 0):
@@ -141,7 +131,7 @@ def int8_group_rmw(cache, kn, slot):
     version; CUDA tensors launch the kernel (or raise)."""
     if cache.device.type == "cpu":
         return int8_group_rmw_plain(cache, kn, slot)
-    _cuda("K15j", cache, kn)
+    _build.require_cuda("K15j", cache, kn)
     _slot("K15j", slot, cache.device)
     shape = cache.shape
     if cache.dtype != torch.int8 or kn.dtype != torch.int8 or \
@@ -171,7 +161,7 @@ def int8_to_bf16_matmul(q, c, s):
     and c 16-byte aligned)."""
     if q.device.type == "cpu":
         return int8_to_bf16_matmul_plain(q, c, s)
-    _cuda("K15k", q, c, s)
+    _build.require_cuda("K15k", q, c, s)
     if (q.dtype != torch.bfloat16 or c.dtype != torch.int8
             or s.dtype != torch.float32 or q.dim() != 2 or c.dim() != 2
             or q.shape[1] != c.shape[1] or s.numel() != c.shape[0]
@@ -207,7 +197,7 @@ def f32_scale_row_rmw(s, sn, slot):
     launch the kernel (or raise)."""
     if s.device.type == "cpu":
         return f32_scale_row_rmw_plain(s, sn, slot)
-    _cuda("K15l", s, sn)
+    _build.require_cuda("K15l", s, sn)
     _slot("K15l", slot, s.device)
     shape = s.shape
     if (s.dtype != torch.float32 or sn.dtype != torch.float32

@@ -30,6 +30,25 @@ def init_modality_adapter_params(cfg: ModalityAdapterConfig, *, generator,
             "fc2": dense(cfg.intermediate_dim, cfg.output_dim, **kw)}
 
 
+def modality_adapter_params_from_torch(sd, *, device="cpu",
+                                       dtype=torch.float32,
+                                       prefix: str = "") -> dict:
+    """A reference ModalityAdapter state dict (the adapter-only checkpoints
+    of the reference's train_contrast.py) → {"fc1", "fc2"}: kernels
+    transposed to (in, out), biases, contiguous on `device` in `dtype`
+    (prot2text_tpu/models/adapters.py:71).  The deprecated ln1/ln2
+    LayerNorms such state dicts keep are never applied, and are
+    ignored."""
+    def dense(name):
+        w, b = sd[prefix + name + ".weight"], sd[prefix + name + ".bias"]
+        return {"kernel": w.detach().to(device=device, dtype=dtype).T
+                .contiguous(),
+                "bias": b.detach().to(device=device, dtype=dtype)
+                .contiguous()}
+
+    return {"fc1": dense("fc1"), "fc2": dense("fc2")}
+
+
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     """torch F.normalize parity: x / max(||x||, eps), in fp32."""
     x32 = x.float()

@@ -53,6 +53,18 @@ class Esm2LlamaInstructConfig:
     placeholder_id: int = 128003
 
 
+def init_instruct_params(config: Esm2LlamaInstructConfig, *, generator,
+                         device, dtype=torch.float32) -> dict:
+    """{"esm_encoder", "adapter", "llama_decoder"} drawn on `device` from
+    `generator` (N(0, 0.02), as the JAX init)."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "esm_encoder": init_esm2_params(config.esm_config, **kw),
+        "adapter": init_modality_adapter_params(config.adapter_config, **kw),
+        "llama_decoder": init_llama_params(config.llama_config, **kw),
+    }
+
+
 class Esm2LlamaInstructForCausalLM(nn.Module):
     """ESM2 + ModalityAdapter + Llama with placeholder-token fusion.
 
@@ -66,6 +78,8 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
     too; "xla": the plain function everywhere); decode has one route per
     cache (K4 per layer, or K12 on the tbkd cache)."""
 
+    PARTS = ("esm_encoder", "adapter", "llama_decoder")
+
     def __init__(self, config: Esm2LlamaInstructConfig, params=None, *,
                  device="cpu", dtype=torch.float32, generator=None,
                  attn_impl: str = "auto"):
@@ -75,20 +89,14 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
-            kw = dict(generator=generator, device=device, dtype=dtype)
-            params = {
-                "esm_encoder": init_esm2_params(config.esm_config, **kw),
-                "adapter": init_modality_adapter_params(
-                    config.adapter_config, **kw),
-                "llama_decoder": init_llama_params(config.llama_config, **kw),
-            }
+            params = init_instruct_params(config, generator=generator,
+                                          device=device, dtype=dtype)
         tree = params if isinstance(params, ParamTree) else ParamTree(params)
-        for name in ("esm_encoder", "adapter", "llama_decoder"):
+        for name in self.PARTS:
             self.add_module(name, getattr(tree, name))
 
     def params(self) -> dict:
-        return {name: getattr(self, name).tree()
-                for name in ("esm_encoder", "adapter", "llama_decoder")}
+        return {name: getattr(self, name).tree() for name in self.PARTS}
 
     @staticmethod
     def apply(config: Esm2LlamaInstructConfig, params, *, input_ids=None,
@@ -355,6 +363,30 @@ class Esm2LlamaConfig:
     eos_token_id: int = 128001  # base (non-instruct) eos
 
 
+def hf_towers(esm_config: ESM2Config, llama_config: LlamaConfig, *,
+              esm_checkpoint_dir=None, llama_checkpoint_dir=None,
+              device="cpu", dtype=torch.float32) -> dict:
+    """{"esm_encoder"?, "llama_decoder"?}: the towers whose HF directory is
+    given, read by `models/hf_import.py` onto `device` in `dtype` (the
+    Llama tower ties its embeddings as `llama_config` says); the keys of
+    `Esm2LlamaForCausalLM` and `Esm2LlamaInstructForCausalLM` alike."""
+    from .hf_import import (
+        decoder_params_from_hf, esm2_params_from_hf, load_state_dict_dir,
+    )
+
+    out = {}
+    if esm_checkpoint_dir:
+        out["esm_encoder"] = esm2_params_from_hf(
+            load_state_dict_dir(esm_checkpoint_dir), esm_config.num_layers,
+            device=device, dtype=dtype)
+    if llama_checkpoint_dir:
+        out["llama_decoder"] = decoder_params_from_hf(
+            load_state_dict_dir(llama_checkpoint_dir),
+            llama_config.num_layers, device=device, dtype=dtype,
+            tie_word_embeddings=llama_config.tie_word_embeddings)
+    return out
+
+
 def init_esm2llama_params(config: Esm2LlamaConfig, *, generator, device,
                           dtype=torch.float32) -> dict:
     """{"esm_encoder", "llama_decoder"[, "encoder_adapter"]} drawn on
@@ -414,15 +446,21 @@ class Esm2LlamaForCausalLM(nn.Module):
         """The JAX loading modes: a combined checkpoint (the port's
         `step_N/checkpoint.pt`, its "model" tree; `dtype` casts its float
         leaves when given), else random weights in `dtype` (f32 by
-        default).  The HF-directory modes need the weight loader, which is
-        not ported yet."""
-        if esm_checkpoint_dir or llama_checkpoint_dir:
-            raise NotImplementedError(
-                "esm_checkpoint_dir/llama_checkpoint_dir (HF weight loader) "
-                "is not ported yet (ROADMAP.md §1 item 6)")
+        default) with the towers of the HF directories given
+        (`esm_checkpoint_dir` and/or `llama_checkpoint_dir`, `hf_towers`)
+        in their place; a tower not given stays random."""
         if not combined_checkpoint_dir:
-            return cls(config, device=device, dtype=dtype or torch.float32,
-                       generator=generator, attn_impl=attn_impl)
+            dtype = dtype or torch.float32
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            params = init_esm2llama_params(config, generator=generator,
+                                           device=device, dtype=dtype)
+            params.update(hf_towers(
+                config.esm_config, config.llama_config,
+                esm_checkpoint_dir=esm_checkpoint_dir,
+                llama_checkpoint_dir=llama_checkpoint_dir, device=device,
+                dtype=dtype))
+            return cls(config, params, attn_impl=attn_impl)
         from ..core.checkpoint import restore_checkpoint
 
         restored = restore_checkpoint(combined_checkpoint_dir,

@@ -146,6 +146,150 @@ def test_kernels_refuse_bad_operands_on_cuda(cuda):
         cache_slot_write(cache, new.bfloat16(), 0)
     with pytest.raises(ValueError, match="share"):
         cache_slot_write_kv(cache, cache.bfloat16(), new, new.bfloat16(), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cache_slot_write_kv(cache, cache.clone(), new.transpose(1, 2), new,
+                            0)
+    with pytest.raises(ValueError, match="out of range"):
+        cache_slot_write_kv(cache, cache.clone(), new, new, -1)
+    with pytest.raises(ValueError, match="CUDA|contiguous"):
+        cache_slot_write_kv(cache, cache.clone(), new, new.cpu(), 0)
+
+
+def test_refusals_on_cpu_tensors():
+    """The checks the CUDA path runs, on CPU tensors: a wrong shape, a
+    wrong dtype, a slot outside [0, T), a CPU operand, a non-contiguous one
+    (`_build.require_cuda`); the CPU wrappers run the plain version, whose
+    slice assignment refuses what it cannot write."""
+    from prot2text_tpu_torch.kernels import _build
+    from prot2text_tpu_torch.kernels.cache_update import _tbkd_shape
+
+    cache = torch.zeros(2, 8, 2, 3, 16)
+    new = torch.zeros(2, 2, 3, 16)
+    assert _tbkd_shape("K13", cache, new, 7) == (2, 8, 2 * 3 * 16 * 4)
+    with pytest.raises(ValueError, match="K13: new"):
+        _tbkd_shape("K13", cache, new[:, :1], 0)
+    with pytest.raises(ValueError, match="K12: new"):
+        _tbkd_shape("K12", cache, new.transpose(1, 2), 0)
+    with pytest.raises(ValueError, match="new"):
+        _tbkd_shape("K12", cache[0], new, 0)
+    with pytest.raises(TypeError, match="is torch.bfloat16"):
+        _tbkd_shape("K13", cache, new.bfloat16(), 0)
+    for index in (8, -1):
+        with pytest.raises(ValueError, match="out of range"):
+            _tbkd_shape("K13", cache, new, index)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        _build.require_cuda("K13", cache, cache, new, new)
+    with pytest.raises(RuntimeError):
+        cache_slot_write(cache.clone(), new[:, :1, :1, :3], 0)
+    with pytest.raises(IndexError):
+        cache_slot_write_kv(cache.clone(), cache.clone(), new, new, 8)
+
+
+def _flat(n, offset, dtype, dev, gen):
+    """A contiguous tensor of n elements starting `offset` bytes into a
+    fresh allocation (the caching allocator's blocks are 512-byte
+    aligned), filled with random bits."""
+    item = torch.empty((), dtype=dtype).element_size()
+    raw = torch.randint(0, 256, (n * item + offset + 16,), generator=gen,
+                        dtype=torch.uint8, device=dev)
+    return raw[offset:offset + n * item].view(dtype)
+
+
+# (word width, what sets it): the run's bytes (the addresses at 16), or
+# the addresses (offset views; the run's bytes at 16)
+WIDTHS = [(w, by) for w in (16, 8, 4, 2, 1) for by in ("run", "address")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,by", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16])
+def test_k13_every_word_width_on_cuda(cuda, width, by, dtype):
+    """K13 bit-exact against its plain version and against two K12
+    launches where the widest word is `width` bytes: a run of 3·width
+    bytes (B 1, Hkv 3), or a run of 48 bytes with every operand `width`
+    bytes into its allocation; the first, a middle and the last slot;
+    nothing else of the caches moves."""
+    item = torch.empty((), dtype=dtype).element_size()
+    if width < item:
+        pytest.skip(f"{dtype} has no {width}-byte word")
+    L, T, B, Hkv = 3, 10, 1, 3
+    D = (width if by == "run" else 16) // item
+    off = width if by == "address" and width < 16 else 0
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    cshape, nshape = (L, T, B, Hkv, D), (L, B, Hkv, D)
+    n_c, n_n = L * T * B * Hkv * D, L * B * Hkv * D
+    ck, cv = (_flat(n_c, off, dtype, cuda, gen).view(cshape)
+              for _ in range(2))
+    nk, nv = (_flat(n_n, off, dtype, cuda, gen).view(nshape)
+              for _ in range(2))
+    if off:
+        assert all(t.data_ptr() % (2 * width) == width
+                   for t in (ck, cv, nk, nv))
+    for index in (0, T // 2, T - 1):
+        gk, gv = cache_slot_write_kv(ck.clone(), cv.clone(), nk, nv, index)
+        two = (cache_slot_write(ck.clone(), nk, index),
+               cache_slot_write(cv.clone(), nv, index))
+        want = cache_slot_write_kv_plain(ck.clone(), cv.clone(), nk, nv,
+                                         index)
+        torch.cuda.synchronize()
+        for got, pair, w, old in ((gk, two[0], want[0], ck),
+                                  (gv, two[1], want[1], cv)):
+            assert torch.equal(got.view(torch.uint8), w.view(torch.uint8))
+            assert torch.equal(pair.view(torch.uint8), w.view(torch.uint8))
+            moved = (got.view(torch.uint8) != old.view(torch.uint8))
+            assert moved.nonzero()[:, 1].unique().tolist() in ([], [index])
+
+
+@pytest.mark.cuda
+def test_k13_ragged_run_on_cuda(cuda):
+    """N·itemsize not a multiple of 16 bytes (bf16 B 3, Hkv 1, D 5: 30
+    bytes, 2-byte words) and an f32 run of 12 bytes (4-byte words)."""
+    for dtype, shape in ((torch.bfloat16, (2, 9, 3, 1, 5)),
+                         (torch.float32, (4, 7, 1, 1, 3))):
+        ck, nk, cv, nv = (torch.from_numpy(a).to(cuda, dtype)
+                          for a in _inputs(*shape, seed=5, n=2))
+        for index in (0, shape[1] - 1):
+            gk, gv = cache_slot_write_kv(ck.clone(), cv.clone(), nk, nv,
+                                         index)
+            want = cache_slot_write_kv_plain(ck.clone(), cv.clone(), nk, nv,
+                                             index)
+            assert torch.equal(gk, want[0]) and torch.equal(gv, want[1])
+
+
+@pytest.mark.cuda
+def test_k13_chained_calls_in_one_graph_on_cuda(cuda):
+    """Ten K13 calls to ten slots, each with its own new rows, captured in
+    one CUDA graph (chained launches: each may start before the one before
+    it ends): after a replay every slot holds its call's rows and every
+    other slot is untouched; a second replay over changed new rows too."""
+    L, T, B, Hkv, D = 16, 40, 4, 8, 64
+    ck, cv = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+              for a in _inputs(L, T, B, Hkv, D, seed=6)[:1] * 2)
+    ck, cv = ck.clone(), (cv + 1).clone()
+    news = [(torch.randn(L, B, Hkv, D, device=cuda).bfloat16(),
+             torch.randn(L, B, Hkv, D, device=cuda).bfloat16())
+            for _ in range(10)]
+    slots = [3 * i + 1 for i in range(10)]
+    start = (ck.clone(), cv.clone())
+    cache_slot_write_kv(ck, cv, *news[0], slots[0])    # warm the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for (nk, nv), s in zip(news, slots):
+            cache_slot_write_kv(ck, cv, nk, nv, s)
+    for rnd in range(2):
+        ck.copy_(start[0])
+        cv.copy_(start[1])
+        if rnd:
+            for nk, nv in news:
+                nk.mul_(-1)
+                nv.add_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        wk, wv = start[0].clone(), start[1].clone()
+        for (nk, nv), s in zip(news, slots):
+            cache_slot_write_kv_plain(wk, wv, nk, nv, s)
+        assert torch.equal(ck, wk) and torch.equal(cv, wv)
 
 
 @pytest.mark.cuda
@@ -187,3 +331,20 @@ def test_lockstep_generate_launches_k1_and_k4_only_on_cuda(cuda):
     assert counts["K12"] == 0
     assert sum(counts.values()) == counts["K1"] + counts["K4"]
     assert torch.equal(got.cpu(), want)
+
+
+def test_time_slab_write_runs_on_cpu(capsys):
+    """`scripts/time_slab_write.py` at its tiny CPU shape: the plain
+    versions' host times, no device time (a CPU run has none), one JSON
+    line per row."""
+    from prot2text_tpu_torch.scripts import time_slab_write as tsw
+
+    rows = tsw.main(["--device", "cpu", "--reps", "1", "--tag", "t"])
+    assert [r["call"] for r in rows] == [
+        "K13", "K12", "copy_ x2", "copy_", "K13 plain", "K12 plain", "K13",
+        "copy_ x2"]
+    for r in rows:
+        assert r["host_ms"] > 0 and r["tag"] == "t"
+        assert r.get("ms") is None and r.get("cold_ms") is None
+        assert r["bound_by"] == "bytes" and r["bound_ms"] > 0
+    assert len(capsys.readouterr().out.splitlines()) == len(rows)

@@ -8,10 +8,16 @@ import importlib.util
 import json
 import pathlib
 
+import hf_dirs
 import pytest
 import torch
 
-from prot2text_tpu_torch.cli.generate_instruct import main
+from prot2text_tpu_torch.cli.common import text_tokenizer
+from prot2text_tpu_torch.cli.generate_instruct import (
+    build_model, build_parser, main,
+)
+from prot2text_tpu_torch.core.checkpoint import save_checkpoint
+from prot2text_tpu_torch.models.composed import init_instruct_params
 
 CSV_ROWS = """AlphaFoldDB,Full Name,taxon,sequence,function
 P00001,Cytochrome c,Homo sapiens,MGDVEKGKKIFIMKCSQCHTVEK,Electron carrier protein.
@@ -103,6 +109,32 @@ def test_generate_instruct_cuda_end_to_end(instruct_root, csv_path,
 
 BASE = ["--data_root", "unused", "--test_csv", "unused.csv",
         "--device", "cpu"]
+LOADS = ("--load_checkpoint_dir", "--esm_checkpoint_dir",
+         "--llama_checkpoint_dir")
+
+
+def _load_case(flag, run, tmp_path):
+    """(the flag with a path, the part of the model it loads (None: all),
+    the tree written there): random weights of the tiny model's shapes
+    from a seed other than the CLI's."""
+    args = build_parser().parse_args(run)
+    cfg = build_model(args, text_tokenizer(args),
+                      torch.device("cpu")).config
+    gen = torch.Generator().manual_seed(3)
+    tree = init_instruct_params(cfg, generator=gen, device="cpu")
+    if flag == "--load_checkpoint_dir":
+        save_checkpoint(str(tmp_path / "ckpt"), 0, {"model": tree,
+                                                    "step": 0})
+        return [flag, str(tmp_path / "ckpt")], None, tree
+    if flag == "--esm_checkpoint_dir":
+        sd = hf_dirs.esm2_state_dict(tree["esm_encoder"],
+                                     cfg.esm_config.num_layers)
+        return ([flag, hf_dirs.write(sd, tmp_path / "esm")], "esm_encoder",
+                tree["esm_encoder"])
+    sd = hf_dirs.decoder_state_dict(tree["llama_decoder"],
+                                    cfg.llama_config.num_layers)
+    return ([flag, hf_dirs.write(sd, tmp_path / "llama")], "llama_decoder",
+            tree["llama_decoder"])
 
 
 @pytest.mark.parametrize("flags", [
@@ -125,7 +157,27 @@ def test_unported_flags_raise(flags, instruct_root, csv_path, tmp_path):
     and flash are ported: those two cases now generate on the CPU (the
     plain attention function in ESM2 and the prefill under "xla"; K6's and
     K1's plain versions under "flash") and give the "auto" route's
-    predictions."""
+    predictions.  So are the loading flags: --load_checkpoint_dir restores
+    a `step_0/checkpoint.pt` {"model": tree}, --esm_checkpoint_dir and
+    --llama_checkpoint_dir read tiny HF directories; the built model holds
+    those weights, and the CLI generates with them."""
+    if flags[0] in LOADS:
+        run = ["--data_root", instruct_root, "--test_csv", csv_path,
+               "--device", "cpu", "--debug_tiny_model", "true",
+               "--model_dtype", "fp32", "--batch_size", "2",
+               "--max_new_tokens", "4", "--output_dir",
+               str(tmp_path / "res")]
+        flags, part, tree = _load_case(flags[0], run, tmp_path)
+        args = build_parser().parse_args(run + flags)
+        model = build_model(args, text_tokenizer(args), torch.device("cpu"))
+        if part is None:
+            hf_dirs.assert_tree_equal(model.params(), tree)
+        else:
+            hf_dirs.assert_tree_equal(model.params()[part], tree)
+        out = main(run + flags)
+        assert len(out) == 4
+        assert all(set(v) == {"true", "pred"} for v in out.values())
+        return
     if flags[:1] != ["--attn_impl"] or flags[1] == "ring":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(BASE + flags)

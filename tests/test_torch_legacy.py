@@ -15,6 +15,7 @@ tests/test_torch_training_modules.py test_adamw_matches_optax_three_steps)."""
 
 import importlib
 
+import hf_dirs
 import numpy as np
 import pytest
 import torch
@@ -220,13 +221,27 @@ def test_generate_matches_jax_prompt_included(default_prompt):
     assert stats["logits_finite"]
 
 
-def test_model_surface():
+def test_model_surface(tmp_path):
+    """The contact head raises; each HF mode of `from_pretrained` loads its
+    tower from a directory written from the model's own tree (equal to
+    it), the other tower staying at the random init; the parameter names
+    are JAX's tree paths."""
     jm, tm = _models()
     with pytest.raises(NotImplementedError, match="contact"):
         tm.predict_contacts()
-    for kw in ({"esm_checkpoint_dir": "e"}, {"llama_checkpoint_dir": "l"}):
-        with pytest.raises(NotImplementedError, match="§1 item 6"):
-            tc.Esm2LlamaForCausalLM.from_pretrained(tm.config, **kw)
+    params = tm.params()
+    fresh = tc.Esm2LlamaForCausalLM.from_pretrained(tm.config).params()
+    for part, kw, sd in (
+            ("esm_encoder", "esm_checkpoint_dir", hf_dirs.esm2_state_dict(
+                params["esm_encoder"], 2)),
+            ("llama_decoder", "llama_checkpoint_dir",
+             hf_dirs.decoder_state_dict(params["llama_decoder"], 2))):
+        d = hf_dirs.write(sd, tmp_path / part)
+        got = tc.Esm2LlamaForCausalLM.from_pretrained(tm.config,
+                                                      **{kw: d}).params()
+        hf_dirs.assert_tree_equal(got[part], params[part])
+        for other in set(got) - {part}:
+            hf_dirs.assert_tree_equal(got[other], fresh[other])
     assert tm.parts == ["esm_encoder", "llama_decoder", "encoder_adapter"]
     assert {n for n, _ in tm.named_parameters()} == {
         ".".join(str(k.key) for k in path) for path, _ in

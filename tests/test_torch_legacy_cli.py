@@ -2,8 +2,10 @@
 (built by the shared data pipeline on synthetic helix PDBs):
 `train_legacy` (tiny ESM2 + Llama, f32, StepLR, gradient accumulation),
 resumed from its own checkpoint, then that checkpoint into
-`generate_legacy --load_checkpoint_dir` and its JSON; the flags both
-refuse; the missing-GPU error; on the card, the kernels' launches."""
+`generate_legacy --load_checkpoint_dir` and its JSON; train_legacy from
+tiny HF directories (--esm_checkpoint_dir, --llama_checkpoint_dir); the
+flags both refuse; the missing-GPU error; on the card, the kernels'
+launches."""
 
 import glob
 import importlib.util
@@ -11,10 +13,14 @@ import json
 import os
 import pathlib
 
+import hf_dirs
 import pytest
 import torch
 
 from prot2text_tpu_torch.cli import generate_legacy, train_legacy
+from prot2text_tpu_torch.cli.common import legacy_config, text_tokenizer
+from prot2text_tpu_torch.models.composed import init_esm2llama_params
+from prot2text_tpu_torch.models.weights import tree_map
 from prot2text_tpu_torch.core.checkpoint import latest_step, restore_checkpoint
 
 CSV_ROWS = """AlphaFoldDB,Full Name,taxon,sequence,function
@@ -148,9 +154,38 @@ GEN_BASE = ["--data_root", "unused", "--test_csv", "unused.csv",
     ["--attn_impl", "ring"],
     ["--model_dtype", "int8"],
 ])
-def test_train_legacy_refuses_unported_flags(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_legacy.main(TRAIN_BASE + flags)
+def test_train_legacy_refuses_unported_flags(flags, data_root, csv_path,
+                                            tmp_path, capsys):
+    """Each unported flag raises, naming its ROADMAP item.
+    --esm_checkpoint_dir and --llama_checkpoint_dir are ported: those
+    cases read a tiny HF directory as that tower, in --model_dtype (bf16
+    by default: the JAX CLI types imported towers so, the rest stays f32),
+    equal to the tree it was written from, and train one epoch."""
+    if flags[0] not in ("--esm_checkpoint_dir", "--llama_checkpoint_dir"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            train_legacy.main(TRAIN_BASE + flags)
+        return
+    run = _train_args(data_root, csv_path, str(tmp_path / "ckpt"),
+                      "--num_epochs", "1")
+    args = train_legacy.build_parser().parse_args(run)
+    cfg = legacy_config(args, text_tokenizer(args))
+    tree = init_esm2llama_params(cfg, generator=torch.Generator()
+                                 .manual_seed(3), device="cpu")
+    if flags[0] == "--esm_checkpoint_dir":
+        part, sd = "esm_encoder", hf_dirs.esm2_state_dict(
+            tree["esm_encoder"], cfg.esm_config.num_layers)
+    else:
+        part, sd = "llama_decoder", hf_dirs.decoder_state_dict(
+            tree["llama_decoder"], cfg.llama_config.num_layers)
+    run += [flags[0], hf_dirs.write(sd, tmp_path / "hf")]
+    built = train_legacy.build_training(
+        train_legacy.build_parser().parse_args(run), text_tokenizer(args),
+        torch.device("cpu"), steps_per_epoch=2)
+    hf_dirs.assert_tree_equal(built.state.params[part], tree_map(
+        lambda t: t.to(torch.bfloat16), tree[part]))
+    state = train_legacy.main(run)
+    assert state.step == 2
+    assert "epoch 1: train_loss=" in capsys.readouterr().out
 
 
 def test_train_legacy_needs_whole_micro_batches():

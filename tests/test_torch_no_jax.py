@@ -37,6 +37,7 @@ MODULES = [
     "prot2text_tpu_torch.models.esm2",
     "prot2text_tpu_torch.models.esmc",
     "prot2text_tpu_torch.models.fusion",
+    "prot2text_tpu_torch.models.hf_import",
     "prot2text_tpu_torch.models.llama",
     "prot2text_tpu_torch.models.lora",
     "prot2text_tpu_torch.models.quant",
@@ -53,6 +54,7 @@ MODULES = [
     "prot2text_tpu_torch.train.optim",
     "prot2text_tpu_torch.train.sft",
     "prot2text_tpu_torch.cli.common",
+    "prot2text_tpu_torch.cli.convert_checkpoint",
     "prot2text_tpu_torch.cli.generate_instruct",
     "prot2text_tpu_torch.cli.generate_instruct_light",
     "prot2text_tpu_torch.cli.generate_legacy",
@@ -70,6 +72,7 @@ MODULES = [
     "prot2text_tpu_torch.scripts.probe_int8_kv",
     "prot2text_tpu_torch.scripts.sweep_decode_split",
     "prot2text_tpu_torch.scripts.sweep_quant_rows",
+    "prot2text_tpu_torch.scripts.time_slab_write",
     "chip_smoke",
 ]
 

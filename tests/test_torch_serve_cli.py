@@ -11,6 +11,7 @@ the missing-GPU error."""
 import json
 import os
 
+import hf_dirs
 import pytest
 import torch
 
@@ -199,7 +200,21 @@ def test_unported_flags_raise(csv_path, tmp_path, capsys, flags, item):
     """Each unported flag raises, naming its ROADMAP item.  --model_dtype
     int8/int4 (weight-quantized serving) is ported: those two cases now run
     a tiny CPU serve that quantizes both towers, prints their bytes and
-    writes its JSON."""
+    writes its JSON.  So is --llm_checkpoint_dir: that case serves Qwen3
+    from a tiny HF directory (the built tower equal to the tree it was
+    written from)."""
+    if flags[0] == "--llm_checkpoint_dir":
+        hf_dir, tree = hf_dirs.qwen3_cli_dir(tmp_path / "qwen3")
+        args = _args(csv_path, tmp_path, flags[0], hf_dir)
+        _, params = cli.build_server(cli.build_parser().parse_args(args),
+                                     ByteTextTokenizer(),
+                                     torch.device("cpu"))
+        hf_dirs.assert_tree_equal(params["llm_decoder"], tree)
+        results = cli.main(args)
+        assert "descriptions/hour" in capsys.readouterr().out
+        with open(tmp_path / "generation_serve_0.json") as f:
+            assert json.load(f) == results and len(results) == 5
+        return
     if flags[0] != "--model_dtype":
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md §1 {item}"):

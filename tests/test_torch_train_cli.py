@@ -6,10 +6,14 @@ the --attn_impl routes, the flags it refuses, the missing-GPU error."""
 import json
 import os
 
+import hf_dirs
 import pytest
 import torch
 
-from prot2text_tpu_torch.cli.train_instruct import main
+from prot2text_tpu_torch.cli.train_instruct import (
+    build_parser, build_training, main,
+)
+from prot2text_tpu_torch.data.chat import ByteTextTokenizer
 from prot2text_tpu_torch.core.checkpoint import latest_step, restore_checkpoint
 
 CSV_ROWS = """AlphaFoldDB,Full Name,taxon,sequence,function
@@ -128,8 +132,18 @@ def test_unported_flags_raise(flags, csv_path, tmp_path, capsys):
     """Each unported flag raises, naming its ROADMAP item.  --attn_impl
     xla and flash are ported: those two cases now train two steps on the
     CPU (the plain versions of K6/K6b and K1/K5 under "flash", the plain
-    attention function under "xla")."""
-    if flags[:1] != ["--attn_impl"] or flags[1] == "ring":
+    attention function under "xla").  So is --llm_checkpoint_dir: that
+    case loads a tiny HF Qwen3 directory as the frozen text tower (equal
+    to the tree it was written from) and trains two steps."""
+    if flags[0] == "--llm_checkpoint_dir":
+        hf_dir, tree = hf_dirs.qwen3_cli_dir(tmp_path / "qwen3")
+        flags = [flags[0], hf_dir]
+        args = build_parser().parse_args(_args(csv_path, tmp_path / "ck",
+                                               *flags))
+        run = build_training(args, ByteTextTokenizer(), torch.device("cpu"),
+                             total_steps=2)
+        hf_dirs.assert_tree_equal(run.frozen["llm_decoder"], tree)
+    elif flags[:1] != ["--attn_impl"] or flags[1] == "ring":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(BASE + flags)
         return

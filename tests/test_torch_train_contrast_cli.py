@@ -7,6 +7,7 @@ logger's positivity guard, the missing-GPU error."""
 import json
 import os
 
+import hf_dirs
 import pytest
 import torch
 
@@ -138,9 +139,25 @@ BASE = ["--train_csv", "unused.csv", "--device", "cpu"]
     (["--sp", "2"], "item 14"),
     (["--attn_impl", "ring"], "item 14"),
 ])
-def test_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-        cli.main(BASE + flags)
+def test_unported_flags_raise(flags, item, csv_path, tmp_path, capsys):
+    """Each unported flag raises, naming its ROADMAP item.
+    --llm_checkpoint_dir is ported: that case now loads a tiny HF Qwen3
+    directory as the text tower (equal to the tree it was written from)
+    and trains two steps on the CPU."""
+    if flags[0] != "--llm_checkpoint_dir":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md §1 {item}"):
+            cli.main(BASE + flags)
+        return
+    hf_dir, tree = hf_dirs.qwen3_cli_dir(tmp_path / "qwen3")
+    args = _args(csv_path, tmp_path / "ck", flags[0], hf_dir)
+    run = cli.build_contrast(cli.build_parser().parse_args(args),
+                             ByteTextTokenizer(), torch.device("cpu"),
+                             steps_per_epoch=2)
+    hf_dirs.assert_tree_equal(run.frozen["llm_decoder"], tree)
+    state = cli.main(args)
+    assert state.step == 2
+    assert "2 steps" in capsys.readouterr().out
 
 
 def test_loss_logger_flags_non_positive_losses(capsys):
