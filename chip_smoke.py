@@ -95,13 +95,25 @@ Phases (any failure raises and the script exits non-zero):
      under `torch.profiler` for the device-time breakdown; then
      `--attn_impl flash` on the same towers: one micro-batch's loss and
      LoRA-ESM gradients against "auto" (and ESMC's alone against an f32
-     copy of the tower), 2 steps with exact K1/K5/K6/K6b counts, one
-     profiled micro-step;
+     copy of the tower), 2 steps with exact K1/K5/K6/K6b counts;
   4e. stage-1 contrastive training through `cli/train_contrast.py`'s
      `build_contrast` on phase 4's towers at the CLI's defaults (batch 8
      x accumulation 8, 2 segments, text tower layer 16) and `--attn_impl
      flash`: 2 steps with exact K1/K6 counts, the adapter moved, the
      towers untouched, one profiled step;
+  4q. QLoRA: phase 4's bf16 towers quantized to int4 nibble planes and
+     freed, then `cli/train_instruct.py build_training` at `--model_dtype
+     int4` and the CLI's defaults (r 32, f32 LoRA and adapter): one
+     micro-batch's loss and LoRA gradients through K10 against the plain
+     twins on the card, layer 0's up_proj alone (K10 under grad against
+     its plain twin, dX against the fp32 product), 2 AdamW steps of 4
+     B=1 micro-batches at S >= 1024 with exact K1/K5/K10 counts, every
+     packed leaf byte-identical, LoRA B moved at a kernel_q4p leaf of each
+     tower, the peak under phase 4's bf16 peak by at least half the
+     towers' byte difference, the trained LoRA-LLM through
+     `save_peft_dir` and `lora_params_from_peft_dir` bit-identical, one
+     profiled micro-step (K10's share, the `_QuantLinear` backwards'
+     dequantize and dX products);
   4f. legacy full fine-tuning through `cli/train_legacy.py build_training`
      at its defaults (f32, every parameter trained, StepLR, B 4, S =
      protein 512 + prompt + description 128): 2 steps with exact K1/K5
@@ -137,7 +149,10 @@ Phases (any failure raises and the script exits non-zero):
      head dims 64 (the tbkd cache) and 128 (the bktd cache), K4's f32
      body at either layout's strides, one
      SFT step's loss and LoRA gradients at `--attn_impl` auto and flash
-     (K6/K6b), one contrastive step's loss and adapter gradients (K1, K6),
+     (K6/K6b), one QLoRA SFT step over int8 and int4 planes / bytes /
+     pairs towers in f32 (the dequantized f32 products) and in bf16 (K14,
+     K10, K11a, K11b forward under grad, exact counts), one contrastive
+     step's loss and adapter gradients (K1, K6),
      a serving engine's install logits
      and tokens (K1, K4, K6, K9a), a speculative bf16-pool engine's tokens,
      an int8 engine's decode-step and verify-round logits (K7, K8), and
@@ -158,6 +173,7 @@ last line is the device contract `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -2798,32 +2814,16 @@ LEGACY_FAMILIES = GEN_FAMILIES + (("K12", "slab_write"),)
 LEGACY_PROFILED_NEW = 8  # the profiled run's new tokens: 7 decode steps
 
 
-# safetensors dtype names of the towers chip_smoke writes
-ST_NAMES = {"torch.bfloat16": "BF16", "torch.float32": "F32",
-            "torch.float16": "F16"}
-
-
 def write_safetensors(torch, directory: str, tensors: dict) -> str:
-    """`tensors` as `model.safetensors` in `directory` (made): an 8-byte
-    little-endian header length, the JSON header of each tensor's dtype,
-    shape and byte offsets, then the raw bytes, one tensor copied to the
-    host at a time.  The card's machine has no `safetensors` package: this
-    is the format as HF checkpoints store it."""
+    """`tensors` as `model.safetensors` in `directory` (made), by the
+    port's writer (`models/hf_import.write_safetensors`): the card's
+    machine has no `safetensors` package."""
+    from prot2text_tpu_torch.models.hf_import import (
+        write_safetensors as write,
+    )
+
     os.makedirs(directory, exist_ok=True)
-    header, offset = {}, 0
-    for k, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[k] = {"dtype": ST_NAMES[str(t.dtype)], "shape": list(t.shape),
-                     "data_offsets": [offset, offset + n]}
-        offset += n
-    raw = json.dumps(header).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(os.path.join(directory, "model.safetensors"), "wb") as f:
-        f.write(len(raw).to_bytes(8, "little"))
-        f.write(raw)
-        for t in tensors.values():
-            f.write(t.detach().contiguous().cpu().view(-1).view(
-                torch.uint8).numpy())
+    write(os.path.join(directory, "model.safetensors"), tensors)
     return directory
 
 
@@ -2873,12 +2873,14 @@ def hf_llama_tensors(tree: dict, L: int) -> dict:
 
 
 def same_tree(torch, a, b) -> bool:
-    """Nested dicts of tensors with the same keys, dtypes, shapes and
-    bits."""
+    """Nested dicts of tensors (or None leaves) with the same keys, dtypes,
+    shapes and bits."""
     if isinstance(a, dict) or isinstance(b, dict):
         return (isinstance(a, dict) and isinstance(b, dict)
                 and sorted(a) == sorted(b)
                 and all(same_tree(torch, a[k], b[k]) for k in a))
+    if a is None or b is None:
+        return a is None and b is None
     return (a.dtype == b.dtype and a.shape == b.shape
             and torch.equal(a, b))
 
@@ -3592,7 +3594,8 @@ def run_training(torch, dev, card):
           for x in _lora_b(params[name])]
     require(all(b.abs().max().item() > 0 for b in bs),
             "a LoRA B is still zero after a step with lr > 0")
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    PEAKS["train"] = torch.cuda.max_memory_allocated()
+    peak = PEAKS["train"] / 2**30
     positions = accum * S
     for i, (dt, loss) in enumerate(zip(times, losses)):
         valid = int(batches[i]["attention_mask"].sum())
@@ -3628,8 +3631,9 @@ def run_training_flash(torch, run, batches, gen, accum, stamp, card):
     one micro-batch's loss and LoRA-ESM gradients at "flash" against
     "auto" from one state (both compute the same function; bf16 towers,
     so they agree to the bf16 rounding of the attention outputs), then
-    len(batches) - 1 steps with exact launch counts and one profiled
-    micro-step."""
+    len(batches) - 1 steps with exact launch counts.  (Its profiled
+    micro-step went for phase 4q's time: it read as "auto"'s within 4%,
+    K6 and K6b under 1% of the device time.)"""
     from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
     from prot2text_tpu_torch.models.esmc import esmc_encode
     from prot2text_tpu_torch.models.weights import tree_leaves, tree_map
@@ -3729,17 +3733,6 @@ def run_training_flash(torch, run, batches, gen, accum, stamp, card):
             f"{loss:.4f}, {dt:.3f} s = {accum * S / dt:.1f} positions/s")
     log(f"train --attn_impl flash peak device memory {peak:.2f} GiB "
         f"[{card}]; frozen towers bit-identical")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    prof_fn = make_sft_train_step(tx=run.tx, **step_kw)
-    mb = {k: v[0] for k, v in batches[steps].items()}
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, loss = prof_fn(state, run.frozen, mb, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    log("train --attn_impl flash, one micro-step "
-        + kernel_breakdown(torch, prof, wall) + f" [{card}]")
     run.state = state
     return counts
 
@@ -3839,6 +3832,287 @@ def run_contrast(torch, dev, card, models, stamp):
         wall = time.perf_counter() - t0
     log("contrast " + kernel_breakdown(torch, prof, wall, CONTRAST_FAMILIES)
         + f" [{card}]")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4q: QLoRA at full width: LoRA over int4 towers through K10
+
+
+# the bf16 peak of phase 4's "auto" steps, which phase 4q's must undercut
+PEAKS = {}
+# the quantized matmuls' kernels (both bodies; the training rows take the
+# many-row one)
+K10_KERNELS = "few_rows_kernel|mm_rows_kernel|planes_x_kernel"
+QLORA_FAMILIES = (("K1", K1_FWD), ("K5", K5_BWD), ("K10", K10_KERNELS))
+# one micro-batch through the kernels against the plain twins on the card:
+# both sum exact products in fp32 (in other orders) and round to bf16, so
+# they agree to the bf16 noise of 76 random layers, which phase 4's flash
+# against auto reads at the same size (gross-error gates, as there)
+QLORA_LOSS_GATE = 1e-2           # |loss diff| / |loss|
+QLORA_GRAD_GATE = 0.25           # ||g_kernel - g_plain|| / ||g_plain||
+# one projection alone carries the precision: K10's output against its
+# plain twin (phase 2's gate) and `_QuantLinear`'s dX against the fp32
+# product of the scaled dY and the integer weight (the bf16 rounding of
+# dY·s and of dX; ROADMAP §3)
+QLORA_Y_GATE = 2e-2              # max|y_K10 - y_plain| / max|y_plain|
+QLORA_DX_GATE = 1e-2             # max|dX - dX_f32| / max|dX_f32|
+
+
+def qlora_backward_split(prof) -> tuple:
+    """(count, device ms, the product's device ms) of every
+    `_QuantLinear` backward in a profiled window: the dequantize of the
+    integer weight and the scaled dY, then the dX product (aten::matmul)."""
+    n, total, product = 0, 0.0, 0.0
+    for e in prof.events():
+        if e.name != "_QuantLinearBackward":
+            continue
+        n += 1
+        total += e.device_time_total
+        product += sum(c.device_time_total for c in e.cpu_children
+                       if c.name == "aten::matmul")
+    return n, total / 1e3, product / 1e3
+
+
+@contextlib.contextmanager
+def plain_quant_kernels():
+    """`models/transformer.py`'s quantized matmuls on their plain twins (on
+    the card too) inside the block, the kernels after it."""
+    from prot2text_tpu_torch.kernels import quant_matmul as qm
+    from prot2text_tpu_torch.models import transformer as tt
+
+    names = ("quant_matmul_int4_planes", "quant_matmul_int4",
+             "quant_matmul_int4_pairs", "quant_matmul_int8")
+    kept = {n: getattr(tt, n) for n in names}
+    try:
+        for n in names:
+            setattr(tt, n, getattr(qm, n + "_plain"))
+        yield
+    finally:
+        for n, f in kept.items():
+            setattr(tt, n, f)
+
+
+def qlora_projection(torch, dev, card, decoder, rows: int) -> None:
+    """Layer 0's up_proj of the int4 decoder alone on `rows` bf16 rows that
+    require grad: K10's output (through `_QuantLinear`) against its plain
+    twin's, and dX against the fp32 product of dY·s and the integer
+    weight; the plain route's dX is the same backward, bit for bit."""
+    from prot2text_tpu_torch.models.quant import unpack_kernel
+    from prot2text_tpu_torch.models.transformer import linear
+
+    leaf = {k: v[0] for k, v in decoder["layers"]["up_proj"].items()}
+    K, N = leaf["kernel_q4p"].shape[0] * 8, leaf["kernel_q4p"].shape[1]
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((rows, K), generator=g, device=dev).bfloat16()
+    dy = torch.randn((rows, N), generator=g, device=dev).bfloat16()
+    out = {}
+    for label in ("kernels", "plain"):
+        with (plain_quant_kernels() if label == "plain"
+              else contextlib.nullcontext()):
+            xg = x.clone().requires_grad_()
+            y = linear(leaf, xg)
+            y.backward(dy)
+        out[label] = (y.detach().float(), xg.grad)
+    (y_k, dx_k), (y_p, dx_p) = out["kernels"], out["plain"]
+    ref = (dy.float() * leaf["scale"].reshape(-1)) @ unpack_kernel(
+        leaf).float().T
+    y_err = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
+    dx_err = ((dx_k.float() - ref).abs().max() / ref.abs().max()).item()
+    log(f"qlora up_proj alone (R {rows} K {K} N {N} int4 planes, x requires "
+        f"grad): K10 against its plain twin {y_err:.3e} of max|y| (gate "
+        f"{QLORA_Y_GATE}); dX against fp32 (dY·s)·Qᵀ {dx_err:.3e} of max|dX| "
+        f"(gate {QLORA_DX_GATE}); the plain route's dX bit-identical "
+        f"[{card}]")
+    require(y_err <= QLORA_Y_GATE, f"qlora K10 under grad vs plain {y_err}")
+    require(dx_err <= QLORA_DX_GATE, f"qlora dX vs fp32 {dx_err}")
+    require(torch.equal(dx_k, dx_p), "qlora dX differs between the routes")
+
+
+def run_qlora(torch, dev, card, holder):
+    """Phase 4q: `train_instruct --model_dtype int4` at the CLI's defaults
+    (r 32, f32 LoRA and adapter) through its `build_training`, on phase
+    4's bf16 towers (`holder`, a one-item list, gives them up: the bf16
+    trees are freed once quantized to int4 nibble planes).  One
+    micro-batch's loss and LoRA gradients through K10 against the same
+    with every quantized linear on its plain twin; 2 AdamW steps of 4
+    accumulated B=1 micro-batches at S >= 1024 with exact K1/K5/K10
+    counts (remat: every layer's projections twice a micro-step, the head
+    once); every frozen leaf byte-identical, LoRA B moved at a kernel_q4p
+    leaf of each tower; the peak against phase 4's bf16 peak; the trained
+    LoRA-LLM through `save_peft_dir` and back; one profiled micro-step.
+    `qlora_projection` holds one projection's forward and dX."""
+    import tempfile
+
+    from prot2text_tpu_torch.cli.train_instruct import (
+        BUCKETS as TRAIN_BUCKETS, build_parser, build_training, to_device,
+    )
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.data.collate import Buckets, LightCollator
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.lora import lora_at
+    from prot2text_tpu_torch.models.peft_interop import (
+        lora_params_from_peft_dir, save_peft_dir,
+    )
+    from prot2text_tpu_torch.models.quant import quantized_bytes
+    from prot2text_tpu_torch.models.weights import tree_leaves
+    from prot2text_tpu_torch.train.sft import make_sft_train_step, sft_loss
+
+    accum, steps = 4, 2
+    tok = ByteTextTokenizer()
+    args = build_parser().parse_args([
+        "--train_csv", "unused", "--device", "cuda", "--random_seed", "0",
+        "--model_dtype", "int4", "--gradient_accumulation_steps",
+        str(accum), "--learning_rate", "2e-4", "--weight_decay", "0.01"])
+    models = holder.pop()
+    bf16_bytes = sum(quantized_bytes(t) for t in models[3].values())
+    t0 = time.perf_counter()
+    run = build_training(args, tok, dev, total_steps=steps, models=models)
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    towers = {k: run.frozen[k] for k in ("esm_encoder", "llm_decoder")}
+    q_bytes = {k: quantized_bytes(t) for k, t in towers.items()}
+    log(f"qlora build (int4 planes from phase 4's bf16 towers, LoRA r "
+        f"{args.lora_rank} over the packed leaves) in {build_s:.1f} s: "
+        f"towers ESMC {q_bytes['esm_encoder']} + Qwen3 "
+        f"{q_bytes['llm_decoder']} bytes = {sum(q_bytes.values()) / 1e9:.3f} "
+        f"GB against {bf16_bytes / 1e9:.3f} GB in bf16")
+    frozen = tree_leaves(towers)
+    host = [t.cpu() for t in frozen]              # every byte, on the host
+    versions = [t._version for t in frozen]
+
+    collater = LightCollator(
+        tokenizer=tok, mode="train", placeholder_token=tok.placeholder_token,
+        buckets=Buckets(**TRAIN_BUCKETS))
+    records = train_records(accum * (steps + 1), (380, 451), seed=7)
+    batches = [to_device(collater(records[i * accum:(i + 1) * accum]), dev,
+                         accum) for i in range(steps + 1)]
+    S = batches[0]["input_ids"].shape[-1]
+    require(S >= 1024, f"qlora sequence {S} < 1024")
+
+    # one micro-batch through the kernels and through their plain twins
+    params = run.state.params
+    kw = {k: v for k, v in run.step_kw.items() if k != "attn_impl"}
+    mb = {k: v[0] for k, v in batches[0].items()}
+    lora = tree_leaves({k: params[k] for k in ("lora_esm", "lora_llm")})
+    res = {}
+    for label in ("kernels", "plain"):
+        with (plain_quant_kernels() if label == "plain"
+              else contextlib.nullcontext()):
+            loss = sft_loss(params, run.frozen, mb, deterministic=True, **kw)
+            grads = torch.autograd.grad(loss, lora)
+        res[label] = (loss.item(), torch.cat([g.flatten() for g in grads]))
+        del loss, grads
+    (l_k, g_k), (l_p, g_p) = res["kernels"], res["plain"]
+    r_grad = ((g_k - g_p).norm() / g_p.norm()).item()
+    log(f"qlora one micro-batch, K10 against its plain twin on the card: "
+        f"loss {l_k:.6f} vs {l_p:.6f} (|diff| {abs(l_k - l_p):.3e}, gate "
+        f"{QLORA_LOSS_GATE} * |loss|), LoRA gradients ||g_K10 - g_plain|| / "
+        f"||g_plain|| = {r_grad:.3e} (gate {QLORA_GRAD_GATE}) over "
+        f"{g_p.numel()} entries [{card}]")
+    require(abs(l_k - l_p) <= QLORA_LOSS_GATE * abs(l_p),
+            f"qlora loss through K10 {l_k} vs plain {l_p}")
+    require(r_grad <= QLORA_GRAD_GATE,
+            f"qlora LoRA gradient rel. diff {r_grad}")
+    del res, g_k, g_p
+    qlora_projection(torch, dev, card, run.frozen["llm_decoder"], S)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = run.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = run.step_fn(state, run.frozen, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = run.step_kw["decoder_core"].num_layers
+    L_esm = run.step_kw["esm_config"].n_layers
+    micro = steps * accum
+    want = expect(K1=2 * L * micro, K5=L * micro,
+                  K10=(2 * (7 * L + 4 * L_esm) + 1) * micro)
+    log(f"launches in the qlora run: {counts} (K1 = forward + "
+        f"recomputation per layer and micro-step, K5 = one per layer and "
+        f"micro-step, K10 = every projection of both towers twice, the "
+        f"head once, per micro-step)")
+    require(counts == want, f"launch counts {counts} != expected {want}")
+    require(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
+            f"non-finite loss {losses}")
+    require(state.step == steps, f"step counter {state.step}")
+    require(all(t._version == v and torch.equal(t.cpu(), h)
+                for t, v, h in zip(frozen, versions, host)),
+            "a frozen (packed) tower leaf changed")
+    del host
+    params = state.params
+    for name, proj in (("lora_esm", "qkv"), ("lora_llm", "q_proj")):
+        node = params[name]["layers"][proj]
+        require(node.get("kernel_q4p") is not None
+                and node["kernel_q4p"]["B"].abs().max().item() > 0,
+                f"{name}/{proj}: LoRA B did not move at kernel_q4p")
+    bs = _lora_b({k: params[k] for k in ("lora_esm", "lora_llm")})
+    require(all(b.abs().max().item() > 0 for b in bs),
+            "a LoRA B is still zero after a step with lr > 0")
+    for i, (dt, loss) in enumerate(zip(times, losses)):
+        log(f"qlora step {i + 1} [{card}]: loss {loss:.4f}, {dt:.3f} s = "
+            f"{accum * S / dt:.1f} positions/s")
+    bf16_peak = PEAKS["train"]
+    limit = bf16_peak - (bf16_bytes - sum(q_bytes.values())) / 2
+    log(f"qlora peak device memory {peak / 2**30:.2f} GiB against phase "
+        f"4's bf16 {bf16_peak / 2**30:.2f} GiB (limit: bf16 peak - half the "
+        f"towers' bf16 - int4 bytes = {limit / 2**30:.2f} GiB) [{card}]; "
+        f"every packed leaf byte-identical; LoRA B moved in all {len(bs)} "
+        f"targets, kernel_q4p in both towers")
+    require(peak <= limit, f"qlora peak {peak} > {limit}")
+
+    # the trained LoRA-LLM as a PEFT adapter directory and back
+    lcfg = run.step_kw["cfg"].lora
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_peft_dir(d, params["lora_llm"], lcfg)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+        t0 = time.perf_counter()
+        back, back_cfg = lora_params_from_peft_dir(d, run.frozen[
+            "llm_decoder"])
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    require((back_cfg.r, back_cfg.alpha) == (lcfg.r, lcfg.alpha)
+            and same_tree(torch, back, params["lora_llm"]),
+            "the PEFT round trip of the QLoRA LoRA-LLM is not bit-identical")
+    n_ab = sum(lora_at(v) is not None
+               for v in params["lora_llm"]["layers"].values())
+    log(f"qlora LoRA-LLM ({n_ab} projections x {L} layers) through "
+        f"save_peft_dir: {nbytes} bytes written in {t_save:.2f} s, read back "
+        f"against the int4 base in {t_load:.2f} s, bit-identical")
+    del back
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof_fn = make_sft_train_step(tx=run.tx, **run.step_kw)
+    mb = {k: v[0] for k, v in batches[steps].items()}
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, loss = prof_fn(state, run.frozen, mb, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n, bwd_ms, mm_ms = qlora_backward_split(prof)
+    log("qlora one micro-step " + kernel_breakdown(
+        torch, prof, wall, QLORA_FAMILIES) + f"\n  the {n} _QuantLinear "
+        f"backwards: {bwd_ms:.1f} ms of device time, the dX products "
+        f"{mm_ms:.1f} ms, the integer weights' dequantize and dY·s "
+        f"{bwd_ms - mm_ms:.1f} ms [{card}]")
+    del prof
     return counts
 
 
@@ -4718,6 +4992,88 @@ def run_train_plumbing(torch, dev):
             out.append((loss.item(), [p.grad.cpu() for p in
                                       tree_leaves(params)]))
         _cuda_cpu_gate(f"SFT step --attn_impl {impl}", out)
+    run_qlora_plumbing(torch, dev, frozen, trainable["adapter"], step_kw,
+                       host)
+
+
+# phase 5's bf16 QLoRA step, cuda against cpu: both sides run every
+# product in bf16 (kernels and cuBLAS against the plain twins and the
+# CPU's GEMMs), so they agree to bf16 rounding
+QLORA_PLUMBING_LOSS = 1e-2       # |loss diff| / |loss|
+QLORA_PLUMBING_GRAD = 5e-2       # each leaf's ||g_cuda - g_cpu|| / ||g_cpu||
+
+
+def run_qlora_plumbing(torch, dev, frozen, adapter, step_kw, host):
+    """One QLoRA SFT step of run_train_plumbing's tiny f32 ESMC + Qwen3,
+    both towers quantized in each format (int8: K14; int4 planes, bytes,
+    pairs: K10, K11a, K11b), on cuda and on cpu from the same weights, LoRA
+    trees and batch.  f32 towers: every trained product takes the f32
+    dequantized weight, no quantized kernel launches, and the SFT gates
+    hold (loss atol 1e-4, gradients rtol 1e-3).  bf16 towers: the kernels
+    forward and `_QuantLinear`'s backward, exact launch counts (every
+    projection twice under remat, the head once), loss and gradients
+    within bf16 gates."""
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.cli.train_instruct import to_device
+    from prot2text_tpu_torch.models.lora import init_lora_params
+    from prot2text_tpu_torch.models.quant import quantize_params
+    from prot2text_tpu_torch.models.weights import tree_leaves, tree_map
+    from prot2text_tpu_torch.train.optim import TrainState, adamw_constant
+    from prot2text_tpu_torch.train.sft import make_sft_train_step
+
+    cpu = torch.device("cpu")
+    lora = step_kw["cfg"].lora
+    L = step_kw["decoder_core"].num_layers
+    L_esm = step_kw["esm_config"].n_layers
+    launches = 2 * (7 * L + 4 * L_esm) + 1
+    for fmt, bits, kid in (("int8", 8, "K14"), ("planes", 4, "K10"),
+                           ("bytes", 4, "K11a"), ("pairs", 4, "K11b")):
+        for dt in (torch.float32, torch.bfloat16):
+            qfrozen = {k: quantize_params(tree_map(lambda t: t.to(dt), v),
+                                          bits=bits, int4_format=fmt
+                                          if bits == 4 else "planes")
+                       for k, v in frozen.items()}
+            g = torch.Generator().manual_seed(4)
+            trainable = {"lora_esm": init_lora_params(
+                             lora, qfrozen["esm_encoder"], generator=g),
+                         "lora_llm": init_lora_params(
+                             lora, qfrozen["llm_decoder"], generator=g),
+                         "adapter": adapter}
+            for b in _lora_b(trainable):
+                b.normal_(0.0, 0.05, generator=g)
+            out, n = [], 0
+            for d in (cpu, dev):
+                params = tree_map(
+                    lambda t: t.to(d, copy=True).requires_grad_(), trainable)
+                fz = tree_map(lambda t: t.to(d), qfrozen)
+                step = make_sft_train_step(tx=adamw_constant(1e-3), **step_kw)
+                reset_launch_counts()
+                _, loss = step(TrainState.create(params, adamw_constant(1e-3)),
+                               fz, to_device(host, d, 1),
+                               torch.Generator(device=d).manual_seed(0))
+                n = launch_counts()[kid]
+                out.append((loss.item(), [p.grad.float().cpu() for p in
+                                          tree_leaves(params)]))
+            label = f"QLoRA SFT step, {fmt} towers in {str(dt)[6:]}"
+            want = (launches if dev.type == "cuda" and dt == torch.bfloat16
+                    else 0)
+            require(n == want, f"{label}: {kid} launched {n} times, "
+                    f"expected {want}")
+            if dt == torch.float32:
+                _cuda_cpu_gate(label, out)
+                continue
+            (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+            worst = max(((a - b).norm() / b.norm()).item()
+                        for a, b in zip(g_gpu, g_cpu))
+            log(f"plumbing {label} cuda vs cpu ({kid} {n}x): loss "
+                f"{l_gpu:.6f} vs {l_cpu:.6f} (gate {QLORA_PLUMBING_LOSS} * "
+                f"|loss|), worst of {len(g_cpu)} gradient leaves "
+                f"||g_cuda - g_cpu|| / ||g_cpu|| = {worst:.3e} (gate "
+                f"{QLORA_PLUMBING_GRAD})")
+            require(abs(l_gpu - l_cpu) <= QLORA_PLUMBING_LOSS * abs(l_cpu),
+                    f"{label}: loss cuda {l_gpu} vs cpu {l_cpu}")
+            require(worst <= QLORA_PLUMBING_GRAD,
+                    f"{label}: gradient rel. diff {worst}")
 
 
 def _cuda_cpu_gate(label, out):
@@ -5004,7 +5360,13 @@ def main() -> int:
     train_paths, models, stamp = run_training(torch, dev, card)
     paths.update(train_paths)
     paths["contrast"] = run_contrast(torch, dev, card, models, stamp)
-    del models, stamp
+    del stamp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 4q at {time.time() - t_start:.1f} s")
+    holder = [models]            # run_qlora frees the bf16 towers
+    del models
+    paths["qlora"] = run_qlora(torch, dev, card, holder)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 4f at {time.time() - t_start:.1f} s")

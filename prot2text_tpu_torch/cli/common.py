@@ -54,18 +54,36 @@ def refuse(todo) -> None:
                 f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def common_unported(args, quantized: bool = False) -> list:
-    """The common flags' unported values, for `refuse`.  `quantized=True`
-    (serve, train_contrast, generate_instruct_light: frozen towers run
-    forward only) accepts --model_dtype int8/int4."""
+def common_unported(args) -> list:
+    """The common flags' unported values, for `refuse`.  --model_dtype
+    int8/int4 is not among them: the ESMC + Qwen3 CLIs quantize their
+    towers, and the others refuse it with `refuse_integer_dtype`."""
     return [
         (max(args.fsdp, args.tp, args.sp) > 1, "--fsdp/--tp/--sp > 1",
          "§1 item 14"),
         (args.attn_impl == "ring", "--attn_impl ring", "§1 item 14"),
-        (isinstance(args.model_dtype, str) and not quantized,
-         f"--model_dtype {args.model_dtype} (LoRA over quantized towers: "
-         f"QLoRA)", "§1 item 4"),
     ]
+
+
+# why a CLI without weight quantization refuses --model_dtype int8/int4
+NO_INTEGER_DTYPE = {
+    "generate_instruct": (
+        "JAX's generate_instruct ignores --model_dtype, so its ESM2 + Llama "
+        "model has no quantized route to match"),
+    "legacy": (
+        "the legacy arc casts its towers to --model_dtype (JAX's "
+        "train_legacy does so to the HF towers it loads), and an integer "
+        "dtype would truncate the weights"),
+}
+
+
+def refuse_integer_dtype(args, why: str) -> None:
+    """NotImplementedError for --model_dtype int8/int4 on a CLI whose model
+    has no weight quantization, naming `why` and ROADMAP.md §3."""
+    if isinstance(args.model_dtype, str):
+        raise NotImplementedError(
+            f"--model_dtype {args.model_dtype}: {why}; weight quantization "
+            f"belongs to the ESMC + Qwen3 CLIs (ROADMAP.md §3)")
 
 
 class LossLogger:

@@ -42,7 +42,8 @@ from ..models.esm2 import ESM2Config
 from ..models.llama import LlamaConfig
 from ..models.weights import tree_map
 from .common import (
-    add_common_args, common_unported, pad_rows, refuse, text_tokenizer,
+    NO_INTEGER_DTYPE, add_common_args, common_unported, pad_rows, refuse,
+    refuse_integer_dtype, text_tokenizer,
 )
 
 
@@ -91,6 +92,7 @@ def refuse_unported(args) -> None:
          "§1 item 7"),
         *common_unported(args),
     ])
+    refuse_integer_dtype(args, NO_INTEGER_DTYPE["generate_instruct"])
 
 
 def build_model(args, tok, device) -> Esm2LlamaInstructForCausalLM:

@@ -12,10 +12,12 @@ row, as JAX pads it, and only the real rows are written: one JSON file
 {name: {"true", "pred"}} and a descriptions/hour line.
 
 The model is built as `cli/serve.py build_server` builds it: the towers in
-bf16 (or --model_dtype fp32), then the LoRA of a `cli/train_instruct.py`
-checkpoint (--load_sft_checkpoint_dir) merged into them and its adapter in
-place of the random one, then, for --model_dtype int8/int4, both towers
-quantized (int4: nibble planes, K10; int8: K14).  The JAX CLI quantizes
+bf16 (or --model_dtype fp32), then a PEFT adapter directory's LoRA
+(--load_peft_adapter_dir) merged into the decoder and the LoRA of a
+`cli/train_instruct.py` checkpoint (--load_sft_checkpoint_dir, a QLoRA one
+too) into both towers, its adapter in place of the random one, then, for
+--model_dtype int8/int4, both towers quantized (int4: nibble planes, K10;
+int8: K14).  The JAX CLI quantizes
 first and then fails in `merge_lora` (ROADMAP.md §3).  The other int4
 formats (bf16-pair words, K11b; split-half bytes, K11a) are reached through
 the API, as in JAX: `models.quant.quantize_params(..., int4_format=)` on
@@ -100,9 +102,7 @@ def refuse_unported(args) -> None:
          "--prompt_lookup_tokens/--speculative_gamma/"
          "--self_speculative_layers (lockstep infer/speculative.py)",
          "§1 item 7"),
-        (args.load_peft_adapter_dir is not None,
-         "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 9"),
-        *common_unported(args, quantized=True),
+        *common_unported(args),
     ])
 
 

@@ -34,8 +34,8 @@ from ..data.collate import Buckets, DerivedCollator
 from ..data.sampler import DataLoader, ShardedSampler
 from ..models.composed import Esm2LlamaForCausalLM
 from .common import (
-    add_common_args, common_unported, legacy_config, pad_rows, refuse,
-    text_tokenizer,
+    NO_INTEGER_DTYPE, add_common_args, common_unported, legacy_config,
+    pad_rows, refuse, refuse_integer_dtype, text_tokenizer,
 )
 
 # the CLI's collation buckets (prot2text_tpu/cli/generate_legacy.py:72-74)
@@ -84,6 +84,7 @@ def build_model(args, tok, device) -> Esm2LlamaForCausalLM:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse(common_unported(args))
+    refuse_integer_dtype(args, NO_INTEGER_DTYPE["legacy"])
     device = resolve_device(args.device)
     tok = text_tokenizer(args)
     dist = torch.distributed.is_available() and \

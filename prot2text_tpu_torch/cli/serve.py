@@ -25,10 +25,12 @@ KV pool stay in bf16, and the decoder's projections at few rows run K14
 
 Same flags as the JAX CLI, plus --device (default "cuda"; a missing GPU is
 an error, never a silent CPU run).  --load_sft_checkpoint_dir restores a
-checkpoint of the port's `cli/train_instruct.py` and merges its LoRA into
-the towers, built in --model_dtype (bf16 for int8/int4) first and
-quantized after (the JAX CLI merges after its quantize step and fails;
-ROADMAP.md §3).  --attn_impl routes the ESMC encoder as the JAX CLI
+checkpoint of the port's `cli/train_instruct.py` (a QLoRA one too) and
+merges its LoRA into the towers, and --load_peft_adapter_dir a PEFT
+adapter directory's into the decoder (`models/peft_interop.py`), the
+towers built in --model_dtype (bf16 for int8/int4) first and quantized
+after (the JAX CLI merges after its quantize step and fails; ROADMAP.md
+§3).  --attn_impl routes the ESMC encoder as the JAX CLI
 does (K6 forward under "flash", plain under "auto" and "xla"); the
 engine's decoder keeps its own routes, as JAX serving fixes them.
 --llm_checkpoint_dir loads Qwen3 from an HF directory (`models/
@@ -65,6 +67,7 @@ from ..infer.generate import GenerationConfig
 from ..infer.serving import ContinuousBatcher
 from ..models.composed import ESMCQwen, ESMCQwenConfig
 from ..models.lora import LoraConfig, merge_lora
+from ..models.peft_interop import lora_params_from_peft_dir
 from ..models.quant import quantized_bytes
 from .common import (
     add_common_args, build_models, common_unported, quantize_towers, refuse,
@@ -147,20 +150,26 @@ def refuse_unported(args) -> None:
         (args.medusa_path is not None,
          "--medusa_path (Medusa speculative serving)",
          "§1 item 8, Medusa serving with cli/train_draft.py"),
-        (args.load_peft_adapter_dir is not None,
-         "--load_peft_adapter_dir (models/peft_interop.py)", "§1 item 9"),
-        *common_unported(args, quantized=True),
+        *common_unported(args),
     ])
 
 
 def build_server(args, tok, device):
     """(ESMCQwenConfig, params {"esm_encoder", "adapter", "llm_decoder"}) as
     `main` builds them from its flags: the towers in --model_dtype (bf16
-    for int8/int4) through `cli/common.py build_models`, then the SFT
-    checkpoint's LoRA merged into them and its adapter in place of the
-    random one, then, for int8/int4, both towers quantized."""
+    for int8/int4) through `cli/common.py build_models`, then a PEFT
+    adapter directory's LoRA (--load_peft_adapter_dir, `models/
+    peft_interop.py`) merged into the decoder, then the SFT checkpoint's
+    LoRA merged into both towers (a QLoRA checkpoint's A/B, kept at the
+    quantized keys, merge into the same linears) and its adapter in place
+    of the random one, then, for int8/int4, both towers quantized."""
     esm_cfg, llm_cfg, adapter_cfg, frozen, adapter = build_models(
         args, tok, device)
+    if args.load_peft_adapter_dir:
+        lora_tree, lcfg = lora_params_from_peft_dir(
+            args.load_peft_adapter_dir, frozen["llm_decoder"])
+        frozen["llm_decoder"] = merge_lora(lcfg, frozen["llm_decoder"],
+                                           lora_tree)
     if args.load_sft_checkpoint_dir:
         sft = restore_checkpoint(args.load_sft_checkpoint_dir,
                                  map_location=device)

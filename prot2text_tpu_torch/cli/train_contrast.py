@@ -94,7 +94,7 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     refuse([
-        *common_unported(args, quantized=True),
+        *common_unported(args),
     ])
 
 

@@ -10,13 +10,19 @@ attention, at every sequence length, to K1 forward and K5 backward (the
 JAX package's S >= 1024 switch to its Pallas kernel is a TPU measurement
 and has no counterpart here) and keeps ESMC's bidirectional attention
 plain; "flash" also sends ESMC's attention to K6 forward and K6b backward;
-"xla" sends every attention to the plain function.  Values the port does
-not have yet raise NotImplementedError naming their ROADMAP item:
---fsdp/--tp/--sp > 1 and --attn_impl ring (item 14), --model_dtype
-int8/int4 (item 4, QLoRA).  --llm_checkpoint_dir loads Qwen3 from an HF
+"xla" sends every attention to the plain function.  --model_dtype
+int8/int4 trains QLoRA: both towers are built in bf16, quantized per output
+channel (`cli/common.py quantize_towers`: int8, or int4 nibble planes) and
+the bf16 trees dropped; the LoRA trees sit at the quantized leaves
+(`models/lora.py`), and every quantized projection runs its kernel (K14,
+K10) forward, its dX from the integer weight (`models/transformer.py
+_QuantLinear`).  Values the port does not have yet raise
+NotImplementedError naming their ROADMAP item: --fsdp/--tp/--sp > 1 and
+--attn_impl ring (item 14).  --llm_checkpoint_dir loads Qwen3 from an HF
 directory (`models/hf_import.py`; bf16 safetensors need no `safetensors`
 package).
-Checkpoints are the port's own `torch.save` format (`core/checkpoint.py`).
+Checkpoints are the port's own `torch.save` format (`core/checkpoint.py`);
+a QLoRA checkpoint's LoRA trees keep the quantized leaves' keys.
 
     python -m prot2text_tpu_torch.cli.train_instruct \\
         --train_csv train.csv --device cuda
@@ -41,15 +47,16 @@ from ..core.checkpoint import (
     restore_checkpoint, save_checkpoint, timestamped_dir,
 )
 from ..core.device import resolve_device
-from ..core.dtypes import str2bool
+from ..core.dtypes import QUANTIZED, str2bool
 from ..core.observe import trace
 from ..models.lora import LoraConfig, init_lora_params
+from ..models.quant import quantized_bytes
 from ..models.weights import tree_leaves, tree_map
 from ..train.optim import AdamW, TrainState, adamw_cosine_warmup
 from ..train.sft import SFTConfig, make_sft_eval_step, make_sft_train_step
 from .common import (
-    LossLogger, add_common_args, build_models, common_unported, refuse,
-    text_tokenizer,
+    LossLogger, add_common_args, build_models, common_unported,
+    quantize_towers, refuse, text_tokenizer,
 )
 
 # the CLI's collation buckets (prot2text_tpu/cli/train_instruct.py:81-83)
@@ -130,9 +137,12 @@ def build_training(args, tok, device, *, total_steps: int,
     """Towers, LoRA trees, adapter, optimizer and SFT step as `main` builds
     them from its flags (also the entry point of the chip smoke test).
     `models` is `build_models(args, tok, device)`'s result when the caller
-    already holds it (the same args and seed build the same towers)."""
+    already holds it (the same args and seed build the same towers; for
+    --model_dtype int8/int4 its bf16 towers are quantized here, and the
+    caller drops its reference to free them)."""
     esm_cfg, llm_cfg, adapter_cfg, frozen_models, adapter = (
         models if models is not None else build_models(args, tok, device))
+    frozen_models = quantize_towers(frozen_models, args.model_dtype)
     if args.load_adapter_checkpoint_dir:
         adapter = restore_checkpoint(args.load_adapter_checkpoint_dir,
                                      map_location=device)["adapter"]
@@ -201,6 +211,11 @@ def main(argv=None):
     run = build_training(args, tok, device,
                          total_steps=args.num_epochs * steps_per_epoch)
     state, frozen, step_fn = run.state, run.frozen, run.step_fn
+    if args.model_dtype in QUANTIZED:
+        print(f"[train_instruct] --model_dtype {args.model_dtype}: towers "
+              f"{quantized_bytes(frozen['esm_encoder'])} + "
+              f"{quantized_bytes(frozen['llm_decoder'])} bytes (ESMC + "
+              f"decoder)")
 
     eval_loader = None
     if args.eval_csv:

@@ -48,8 +48,8 @@ from ..models.weights import tree_leaves
 from ..train.legacy import make_legacy_train_step
 from ..train.optim import AdamW, TrainState, step_lr
 from .common import (
-    LossLogger, add_common_args, common_unported, legacy_config, refuse,
-    text_tokenizer,
+    NO_INTEGER_DTYPE, LossLogger, add_common_args, common_unported,
+    legacy_config, refuse, refuse_integer_dtype, text_tokenizer,
 )
 from .train_instruct import to_device
 
@@ -90,6 +90,7 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     refuse(common_unported(args))
+    refuse_integer_dtype(args, NO_INTEGER_DTYPE["legacy"])
     accum = args.gradient_accumulation_steps
     if accum < 1 or args.batch_size % accum:
         raise ValueError(f"--batch_size {args.batch_size} must split into "

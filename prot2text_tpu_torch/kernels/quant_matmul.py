@@ -57,9 +57,11 @@ each body and take the same grid, so on the same integers K11a and K11b
 equal K10 bit for bit wherever they take the same route (the ragged one:
 K % 8 == 0).
 
-The decoder calls all four on a bf16 x at every row count, and on an f32
-x for at most `QUANT_KERNEL_ROWS` rows (`models/transformer.py linear`);
-the kernels themselves take any R and any N.
+The decoder calls all four on a bf16 x at every row count (under grad
+too, through `models/transformer.py _QuantLinear`, whose backward needs no
+kernel), and on an f32 x for at most `QUANT_KERNEL_ROWS` rows outside
+training (`models/transformer.py linear`); the kernels themselves take
+any R and any N.
 """
 
 from __future__ import annotations
@@ -278,8 +280,8 @@ def _check(name, x, w, scale, fmt, stacked, layer):
                          f"tensor, got {tuple(x.shape)}")
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError(f"{name} has no backward: a product whose x "
-                         f"requires grad takes the dequantized weight "
-                         f"(models/transformer.py linear)")
+                         f"requires grad reaches it through "
+                         f"models/transformer.py _QuantLinear")
     wdt, per = _FORMATS[fmt][:2]
     lead = 1 if stacked else 0
     if w.dtype != wdt or w.dim() != 2 + lead or not w.is_contiguous():

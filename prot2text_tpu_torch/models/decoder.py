@@ -62,8 +62,9 @@ stacked buffers, read in place; a quantized LM head gives the fp32 logits
 of its x-dtype output.
 The layer loop is a Python loop over views of the stacked weights (no
 per-layer copies).  Training adds LoRA side paths on the seven projections
-(`lora=`) and per-layer recomputation (`remat=True`, the JAX
-`jax.checkpoint` around each block).
+(`lora=`; over quantized towers too, QLoRA: `transformer.linear`'s kernels
+forward and `_QuantLinear`'s dX) and per-layer recomputation
+(`remat=True`, the JAX `jax.checkpoint` around each block).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ prot2text_tpu/models/hf_import.py).
 
 `load_state_dict_dir` reads a directory of `*.safetensors` files (read by
 this module, no `safetensors` package needed) or, failing those, of
-`*.bin` files (`torch.load`).  The converters turn an HF `EsmModel`,
+`*.bin` files (`torch.load`); `write_safetensors` writes the format.  The
+converters turn an HF `EsmModel`,
 `LlamaForCausalLM` or `Qwen3ForCausalLM` state dict into the tree the
 port's `init_*_params` build: kernels stored (in, out), per-layer tensors
 stacked along a leading (num_layers, ...) axis, every leaf contiguous on
@@ -82,6 +83,30 @@ def read_safetensors(path: str) -> dict:
             out[name] = torch.frombuffer(buf, dtype=dtype, count=numel,
                                          offset=base + begin).view(shape)
     return out
+
+
+def write_safetensors(path: str, tensors: Mapping) -> str:
+    """`tensors` {name: tensor} as the safetensors file `path`, the format
+    `read_safetensors` reads (and HF's `safetensors` package): the 8-byte
+    header length, the JSON header of each tensor's dtype, shape and
+    offsets (padded with spaces to 8 bytes), then the raw bytes in the
+    header's order, one tensor copied to the host at a time."""
+    names = {v: k for k, v in ST_DTYPES.items()}
+    header, offset = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(-1).view(
+                torch.uint8).numpy())
+    return path
 
 
 def load_state_dict_dir(path: str) -> dict:

@@ -42,11 +42,12 @@ DEFAULT_TARGETS = (
     r"(qkv|out_proj|ffn_in|ffn_out|attn_out|query|key|value|intermediate"
     r"|output)/kernel$",
 )
-# int4 leaf key → (packer, unpacker); each format's din rule is `_int4_key`
+# int4 leaf key → (packer, unpacker, contraction rows a stored row holds);
+# each format's din rule is `_int4_key`, its inverse `unpacked_in_dim`
 INT4_FORMATS = {
-    "kernel_q4p": (pack_int4_planes, unpack_int4_planes),
-    "kernel_q4w": (pack_int4_pairs, unpack_int4_pairs),
-    "kernel_q4": (pack_int4, unpack_int4),
+    "kernel_q4p": (pack_int4_planes, unpack_int4_planes, 8),
+    "kernel_q4w": (pack_int4_pairs, unpack_int4_pairs, 8),
+    "kernel_q4": (pack_int4, unpack_int4, 2),
 }
 # layers of a stacked (L, ...) kernel leaf quantized at once: bounds the
 # fp32 transient (a whole (40, 5120, 17408) leaf is 14.3 GB in fp32)
@@ -88,6 +89,14 @@ def _int4_key(din: int, int4_format: str) -> str:
     if din % 8 == 0 and int4_format in ("planes", "pairs"):
         return "kernel_q4p" if int4_format == "planes" else "kernel_q4w"
     return "kernel_q4" if din % 2 == 0 else "kernel_q"
+
+
+def unpacked_in_dim(key: str, shape) -> int:
+    """The contraction dim din of a kernel leaf stored under `key` with
+    `shape` (..., rows, dout): rows · 8 for the int4 words (`kernel_q4p`,
+    `kernel_q4w`), rows · 2 for the split-half bytes (`kernel_q4`), rows
+    for `kernel_q` and `kernel`; the inverse of `_int4_key`'s packing."""
+    return shape[-2] * (INT4_FORMATS[key][2] if key in INT4_FORMATS else 1)
 
 
 def _quantize_kernel(w, bits: int, int4_format: str) -> dict:
@@ -151,12 +160,18 @@ def dequantize_leaf(q, scale, dtype=torch.bfloat16):
     return (q.float() * scale).to(dtype)
 
 
+def unpack_kernel(p: dict) -> torch.Tensor:
+    """The integer (…, din, dout) int8 weight of a quantized linear leaf
+    dict ({kernel_q | kernel_q4p | kernel_q4w | kernel_q4, scale}), its
+    scale not applied."""
+    key = next((k for k in INT4_FORMATS if k in p), None)
+    return p["kernel_q"] if key is None else INT4_FORMATS[key][1](p[key])
+
+
 def dequantize_kernel(p: dict, dtype) -> torch.Tensor:
     """The float (…, din, dout) kernel of a quantized linear leaf dict
     ({kernel_q | kernel_q4p | kernel_q4w | kernel_q4, scale}) in `dtype`."""
-    key = next((k for k in INT4_FORMATS if k in p), None)
-    q = p["kernel_q"] if key is None else INT4_FORMATS[key][1](p[key])
-    return dequantize_leaf(q, p["scale"], dtype)
+    return dequantize_leaf(unpack_kernel(p), p["scale"], dtype)
 
 
 def quantized_bytes(params: Any) -> int:

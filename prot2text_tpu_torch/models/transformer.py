@@ -15,66 +15,100 @@ from ..kernels.quant_matmul import (
     QUANT_KERNEL_ROWS, quant_matmul_int4, quant_matmul_int4_pairs,
     quant_matmul_int4_planes, quant_matmul_int8,
 )
-from .quant import dequantize_kernel
+from .quant import dequantize_kernel, unpack_kernel
 
 
-def linear(p, x):
+def linear(p, x, train: bool = False):
     """y = x @ kernel (+ bias) (prot2text_tpu/models/transformer.py:35).
 
     Quantized leaves (`models/quant.quantize_params`): activations are
     flattened to rows first (`:69-79`).  On a bf16 x all four formats take
-    their kernel at every row count: int4 nibble planes (`kernel_q4p`,
-    K10), split-half bytes (`kernel_q4`, K11a), bf16-pair words
-    (`kernel_q4w`, K11b) and int8 (`kernel_q`, K14), the few-row body up
-    to `FEW_ROWS` rows and the many-row body above.  Each rounds x to bf16
-    and applies the scale in an fp32 epilogue: JAX's Pallas kernels at
-    <= 256 rows, its XLA route (`:160-176`, an integer weight in the dot,
-    the scale after it) above.  Two calls take `torch.matmul` on the
-    weight dequantized to x's dtype instead: an f32 x above
-    `QUANT_KERNEL_ROWS` rows (JAX's XLA route keeps it unrounded), and any
-    call whose x requires grad (the kernels have no backward;
-    `torch.matmul` on the dequantized weight carries dX).  The
-    tensor-parallel repacks (`*_tp{n}`) raise."""
+    their kernel at every row count, with or without grad: int4 nibble
+    planes (`kernel_q4p`, K10), split-half bytes (`kernel_q4`, K11a),
+    bf16-pair words (`kernel_q4w`, K11b) and int8 (`kernel_q`, K14), the
+    few-row body up to `FEW_ROWS` rows and the many-row body above.  Each
+    rounds x to bf16 and applies the scale in an fp32 epilogue: JAX's
+    Pallas kernels at <= 256 rows, its XLA route (`:160-176`, an integer
+    weight in the dot, the scale after it) above.  A bf16 x that requires
+    grad goes through `_QuantLinear`: the same kernel call in its forward
+    (bit-identical to the call without grad), dX from the integer weight
+    in its backward (QLoRA: the base is frozen, so no dW).  An f32 x takes
+    `torch.matmul` on the weight dequantized to f32, JAX's XLA numerics,
+    above `QUANT_KERNEL_ROWS` rows and whenever the product trains: x
+    requires grad, or `train` (the linear's LoRA side path trains, as
+    `linear_lora` says).  The tensor-parallel repacks (`*_tp{n}`)
+    raise."""
     if "kernel" in p:
         y = torch.matmul(x, p["kernel"].to(x.dtype))
     else:
-        y = _quant_linear(p, x)
+        y = _quant_linear(p, x, train)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
 
 
-def _quant_linear(p, x):
+class _QuantLinear(torch.autograd.Function):
+    """A quantized product whose bf16 x requires grad.  Forward: the
+    kernel's own call on x (K10/K11a/K11b/K14, their plain versions on the
+    CPU), so the result is the no-grad call's bit for bit.  Backward: dX =
+    bf16(dY · s) · Qᵀ by `torch.matmul` (fp32 accumulation, bf16 out), Q
+    the integer weight unpacked to bf16 (exact: |q| <= 127) inside the
+    backward and dropped after it; JAX's XLA transpose keeps dY · s in fp32
+    (ROADMAP.md §3).  Saved: the packed weight and its scale only, which
+    the frozen tower holds anyway: no dequantized copy outlives a call."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, kernel, key):
+        ctx.save_for_backward(w, scale)
+        ctx.key = key
+        return kernel(x.detach(), w, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, scale = ctx.saved_tensors
+        q = unpack_kernel({ctx.key: w}).to(torch.bfloat16)
+        g = (dy.float() * scale.reshape(-1)).to(torch.bfloat16)
+        return torch.matmul(g, q.transpose(-1, -2)), None, None, None, None
+
+
+def _quant_linear(p, x, train: bool = False):
     found = [k for k in p if k.startswith("kernel")]
     if any("_tp" in k for k in found):
         raise NotImplementedError(
             f"tensor-parallel int4 leaves {found} are not ported yet "
             "(ROADMAP.md §1 item 14)")
     if "kernel_q4p" in p:
-        kernel, w = quant_matmul_int4_planes, p["kernel_q4p"]
+        kernel, key = quant_matmul_int4_planes, "kernel_q4p"
     elif "kernel_q4w" in p:
-        kernel, w = quant_matmul_int4_pairs, p["kernel_q4w"]
+        kernel, key = quant_matmul_int4_pairs, "kernel_q4w"
     elif "kernel_q4" in p:
-        kernel, w = quant_matmul_int4, p["kernel_q4"]
+        kernel, key = quant_matmul_int4, "kernel_q4"
     else:
-        kernel, w = quant_matmul_int8, p["kernel_q"]
+        kernel, key = quant_matmul_int8, "kernel_q"
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if (torch.is_grad_enabled() and x.requires_grad) or (
-            x.dtype != torch.bfloat16 and x2.shape[0] > QUANT_KERNEL_ROWS):
+    grad = torch.is_grad_enabled() and x.requires_grad
+    if x.dtype != torch.bfloat16 and (
+            grad or train or x2.shape[0] > QUANT_KERNEL_ROWS):
         y = torch.matmul(x2, dequantize_kernel(p, x.dtype))
+    elif grad:
+        y = _QuantLinear.apply(x2.contiguous(), p[key], p["scale"], kernel,
+                               key)
     else:
-        y = kernel(x2.contiguous(), w, p["scale"])
+        y = kernel(x2.contiguous(), p[key], p["scale"])
     return y.reshape(*lead, y.shape[-1])
 
 
 def linear_lora(p, lora, x, scale: float = 1.0):
     """y = x·W (+ bias) + scale·(x·A)·B — the LoRA low-rank side path
     (prot2text_tpu/models/transformer.py:184).  `lora` is None or {"A": (din,
-    r), "B": (r, dout)}, cast to x's dtype as in JAX; W+ΔW never exists."""
-    y = linear(p, x)
+    r), "B": (r, dout)}, cast to x's dtype as in JAX; W+ΔW never exists.  A
+    side path that trains (A requires grad, grad enabled) makes the
+    product a training one for `linear`'s routes."""
     if lora is None:
-        return y
+        return linear(p, x)
+    y = linear(p, x, train=torch.is_grad_enabled()
+               and lora["A"].requires_grad)
     xa = torch.matmul(x, lora["A"].to(x.dtype))
     return y + scale * torch.matmul(xa, lora["B"].to(x.dtype))
 

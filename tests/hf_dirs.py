@@ -104,3 +104,45 @@ def qwen3_cli_dir(path, seed: int = 11):
                                         torch.device("cpu"))
     tree = towers["llm_decoder"]
     return write(decoder_state_dict(tree, cfg.num_layers), path), tree
+
+
+def peft_cli_dir(path, seed: int = 5):
+    """A PEFT adapter directory over the CLIs' `--debug_tiny_model` Qwen3
+    (every q/k/v/o/gate/up/down projection, r 4, B non-zero, random from
+    `seed`), written by the port's `save_peft_dir`; returns (the
+    directory, the LoRA tree, its LoraConfig)."""
+    from types import SimpleNamespace
+
+    from prot2text_tpu_torch.cli.common import build_models
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.models.lora import LoraConfig, init_lora_params
+    from prot2text_tpu_torch.models.peft_interop import save_peft_dir
+
+    args = SimpleNamespace(debug_tiny_model=True, model_dtype=torch.float32,
+                           random_seed=seed, esm_checkpoint_path=None,
+                           llm_checkpoint_dir=None)
+    _, _, _, towers, _ = build_models(args, ByteTextTokenizer(),
+                                      torch.device("cpu"))
+    cfg = LoraConfig(r=4, alpha=8)
+    g = torch.Generator().manual_seed(seed)
+    tree = init_lora_params(cfg, towers["llm_decoder"], generator=g)
+    for sub in tree["layers"].values():
+        if sub.get("kernel") is not None:
+            sub["kernel"]["B"].normal_(0.0, 0.05, generator=g)
+    return save_peft_dir(str(path), tree, cfg), tree, cfg
+
+
+def decoder_logits_of(cfg, params, seed: int = 0, S: int = 12):
+    """The fp32 logits of a decoder tree on S random tokens (no cache)."""
+    from prot2text_tpu_torch.models.decoder import (
+        contiguous_lengths, decoder_forward, decoder_logits,
+    )
+
+    ids = torch.randint(3, 250, (1, S),
+                        generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        h, _ = decoder_forward(
+            cfg, params, inputs_embeds=params["embed_tokens"][ids],
+            positions=torch.arange(S)[None],
+            attn_lengths=contiguous_lengths(torch.ones_like(ids)))
+        return decoder_logits(cfg, params, h)

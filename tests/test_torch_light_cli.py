@@ -199,7 +199,29 @@ def test_unported_flags_raise(flags, item, csv_path, tmp_path):
     """Each unported flag raises, naming its ROADMAP item.
     --llm_checkpoint_dir is ported: that case generates with Qwen3 from a
     tiny HF directory (the built tower equal to the tree it was written
-    from)."""
+    from).  So is --load_peft_adapter_dir: that case merges a PEFT adapter
+    directory into the decoder (its logits those of the LoRA merged, not
+    the base's) and generates."""
+    if flags[0] == "--load_peft_adapter_dir":
+        from prot2text_tpu_torch.models.lora import merge_lora
+
+        peft_dir, lora, lcfg = hf_dirs.peft_cli_dir(tmp_path / "peft")
+        args = _args(csv_path, tmp_path / "res", flags[0], peft_dir)
+        tok, cpu = ByteTextTokenizer(), torch.device("cpu")
+        model = cli.build_model(cli.build_parser().parse_args(args), tok,
+                                cpu)
+        plain = cli.build_model(cli.build_parser().parse_args(
+            _args(csv_path, tmp_path / "res")), tok, cpu).params()
+        core = model.config.llm_config.core()
+        got = hf_dirs.decoder_logits_of(core, model.params()["llm_decoder"])
+        want = hf_dirs.decoder_logits_of(core, merge_lora(
+            lcfg, plain["llm_decoder"], lora))
+        assert torch.equal(got, want)
+        assert not torch.equal(got, hf_dirs.decoder_logits_of(
+            core, plain["llm_decoder"]))
+        results = cli.main(args)
+        assert len(results) == 5
+        return
     if flags[0] != "--llm_checkpoint_dir":
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             cli.main(BASE + flags)

@@ -40,6 +40,7 @@ MODULES = [
     "prot2text_tpu_torch.models.hf_import",
     "prot2text_tpu_torch.models.llama",
     "prot2text_tpu_torch.models.lora",
+    "prot2text_tpu_torch.models.peft_interop",
     "prot2text_tpu_torch.models.quant",
     "prot2text_tpu_torch.models.qwen3",
     "prot2text_tpu_torch.models.transformer",

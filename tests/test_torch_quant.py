@@ -235,8 +235,9 @@ def test_linear_quantized_matches_jax(bits, lead):
 def test_linear_dequantized_route_runs_in_x_dtype():
     """The routes that still dequantize meet the weight in x's dtype: an
     f32 x above 256 rows (every format: JAX's XLA route leaves it
-    unrounded), and a call whose x requires grad (every format, at any row
-    count, where the kernels would have no backward)."""
+    unrounded), and a call whose f32 x requires grad (every format, at any
+    row count: JAX's XLA numerics under grad).  A bf16 x that requires
+    grad runs its kernel (`_QuantLinear`; tests/test_torch_qlora.py)."""
     rng = np.random.default_rng(2)
     w = torch.from_numpy((rng.standard_normal((64, 16)) * 0.02).astype(
         np.float32))
@@ -252,10 +253,10 @@ def test_linear_dequantized_route_runs_in_x_dtype():
         p = tquant.quantize_params({"q_proj": {"kernel": w}},
                                    bits=bits)["q_proj"]
         for R in (5, 300):
-            xg = x[:R].bfloat16().requires_grad_()
+            xg = x[:R].clone().requires_grad_()
             y = tt.linear(p, xg)
-            want = xg @ tquant.dequantize_kernel(p, torch.bfloat16)
-            assert y.dtype == torch.bfloat16 and torch.equal(y, want), (
+            want = xg @ tquant.dequantize_kernel(p, torch.float32)
+            assert y.dtype == torch.float32 and torch.equal(y, want), (
                 bits, R)
 
 

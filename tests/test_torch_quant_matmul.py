@@ -491,12 +491,12 @@ def test_linear_takes_the_kernel_at_every_row_count(fmt, R):
 
 @pytest.mark.parametrize("fmt", ["planes", "int8", "bytes", "pairs"])
 def test_linear_under_grad_skips_the_kernels(fmt, monkeypatch):
-    """A call whose x requires grad takes the dequantized weight at every
-    row count and format (the kernels have no backward, so on the card dX
-    would be lost): the kernel wrappers are not called, and dX equals the
-    dequantized product's.  Without grad the same leaves call them, but
-    for an f32 x above `QUANT_KERNEL_ROWS` rows (JAX's XLA route leaves it
-    unrounded)."""
+    """Under grad an f32 x skips the kernels at every row count and format
+    (JAX's XLA numerics: the dequantized weight, whose product carries
+    dX), while a bf16 x calls its kernel once, through `_QuantLinear`,
+    whose dX is bf16(dY·s)·Qᵀ from the integer weight.  Without grad the
+    same leaves call them, but for an f32 x above `QUANT_KERNEL_ROWS` rows
+    (JAX's XLA route leaves it unrounded)."""
     from prot2text_tpu_torch.models import quant as tquant
     from prot2text_tpu_torch.models import transformer as tt
 
@@ -513,6 +513,7 @@ def test_linear_under_grad_skips_the_kernels(fmt, monkeypatch):
     p = tquant.quantize_params(
         {"q_proj": {"kernel": w}}, bits=8 if fmt == "int8" else 4,
         **({} if fmt == "int8" else {"int4_format": fmt}))["q_proj"]
+    q = tquant.unpack_kernel(p).to(torch.bfloat16)
     for R, dt in ((5, torch.bfloat16), (300, torch.bfloat16),
                   (300, torch.float32)):
         x = torch.from_numpy(rng.standard_normal((R, 64)).astype(
@@ -521,10 +522,17 @@ def test_linear_under_grad_skips_the_kernels(fmt, monkeypatch):
         g = torch.from_numpy(rng.standard_normal((R, 16)).astype(
             np.float32)).to(dt)
         tt.linear(p, xg).backward(g)
-        assert calls == [], (fmt, R)
-        xd = x.clone().requires_grad_()
-        (xd @ tquant.dequantize_kernel(p, dt)).backward(g)
-        assert torch.equal(xg.grad, xd.grad), (fmt, R)
+        bf16 = dt == torch.bfloat16
+        assert len(calls) == bf16, (fmt, R, dt, calls)
+        calls.clear()
+        if bf16:
+            gs = (g.float() * p["scale"].reshape(-1)).to(torch.bfloat16)
+            want = gs @ q.T
+        else:
+            xd = x.clone().requires_grad_()
+            (xd @ tquant.dequantize_kernel(p, dt)).backward(g)
+            want = xd.grad
+        assert torch.equal(xg.grad, want), (fmt, R)
         with torch.no_grad():
             tt.linear(p, xg)
         tt.linear(p, x)

@@ -202,7 +202,28 @@ def test_unported_flags_raise(csv_path, tmp_path, capsys, flags, item):
     a tiny CPU serve that quantizes both towers, prints their bytes and
     writes its JSON.  So is --llm_checkpoint_dir: that case serves Qwen3
     from a tiny HF directory (the built tower equal to the tree it was
-    written from)."""
+    written from).  So is --load_peft_adapter_dir: that case merges a PEFT
+    adapter directory into the decoder (its logits those of the LoRA
+    merged, not the base's) and serves."""
+    if flags[0] == "--load_peft_adapter_dir":
+        peft_dir, lora, lcfg = hf_dirs.peft_cli_dir(tmp_path / "peft")
+        args = _args(csv_path, tmp_path, flags[0], peft_dir)
+        cfg, params = cli.build_server(cli.build_parser().parse_args(args),
+                                       ByteTextTokenizer(),
+                                       torch.device("cpu"))
+        _, plain = cli.build_server(cli.build_parser().parse_args(
+            _args(csv_path, tmp_path)), ByteTextTokenizer(),
+            torch.device("cpu"))
+        core = cfg.llm_config.core()
+        got = hf_dirs.decoder_logits_of(core, params["llm_decoder"])
+        want = hf_dirs.decoder_logits_of(core, merge_lora(
+            lcfg, plain["llm_decoder"], lora))
+        assert torch.equal(got, want)
+        assert not torch.equal(got, hf_dirs.decoder_logits_of(
+            core, plain["llm_decoder"]))
+        results = cli.main(args)
+        assert len(results) == 5
+        return
     if flags[0] == "--llm_checkpoint_dir":
         hf_dir, tree = hf_dirs.qwen3_cli_dir(tmp_path / "qwen3")
         args = _args(csv_path, tmp_path, flags[0], hf_dir)

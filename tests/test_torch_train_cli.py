@@ -134,7 +134,9 @@ def test_unported_flags_raise(flags, csv_path, tmp_path, capsys):
     CPU (the plain versions of K6/K6b and K1/K5 under "flash", the plain
     attention function under "xla").  So is --llm_checkpoint_dir: that
     case loads a tiny HF Qwen3 directory as the frozen text tower (equal
-    to the tree it was written from) and trains two steps."""
+    to the tree it was written from) and trains two steps.  So is
+    --model_dtype int8/int4 (QLoRA): those cases quantize both towers,
+    train two steps, and LoRA B moves at a quantized leaf of each."""
     if flags[0] == "--llm_checkpoint_dir":
         hf_dir, tree = hf_dirs.qwen3_cli_dir(tmp_path / "qwen3")
         flags = [flags[0], hf_dir]
@@ -143,15 +145,19 @@ def test_unported_flags_raise(flags, csv_path, tmp_path, capsys):
         run = build_training(args, ByteTextTokenizer(), torch.device("cpu"),
                              total_steps=2)
         hf_dirs.assert_tree_equal(run.frozen["llm_decoder"], tree)
-    elif flags[:1] != ["--attn_impl"] or flags[1] == "ring":
+    elif flags[0] != "--model_dtype" and (
+            flags[:1] != ["--attn_impl"] or flags[1] == "ring"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(BASE + flags)
         return
     state = main(_args(csv_path, tmp_path / "ck", *flags))
     assert state.step == 2 and state.opt_state["count"] == 2
     assert "2 steps" in capsys.readouterr().out
-    b = state.params["lora_esm"]["layers"]["qkv"]["kernel"]["B"]
-    assert b.abs().max() > 0          # the ESMC LoRA got a gradient
+    for tree, proj in (("lora_esm", "qkv"), ("lora_llm", "q_proj")):
+        node = state.params[tree]["layers"][proj]
+        (key,) = [k for k, v in node.items() if v is not None]
+        assert (key != "kernel") == (flags[0] == "--model_dtype"), key
+        assert node[key]["B"].abs().max() > 0      # the LoRA got a gradient
 
 
 def test_cuda_without_gpu_raises():
