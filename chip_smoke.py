@@ -87,6 +87,23 @@ Phases (any failure raises and the script exits non-zero):
      logits against its plain twins, bytes' and pairs' logits and tokens
      bit-identical to planes'), then its `main` at `--model_dtype int4`
      over a 6-record CSV at batch 4;
+  3d. lockstep speculative decoding and beam search, 4 x 64 tokens each:
+     (a)-(c) on phase 3's model right after it (held through 3b and 3c,
+     its 22 GiB beside 3c's bf16 Qwen3-14B build would near the card's 80
+     GB): `generate(prompt_lookup_tokens=4)` (exact K1 = 32, K6 = 32 a
+     verify round), the same with `kv_bits=8` (K8 = 32 a round, 20 query
+     rows), `num_beams=4` (K1 = 32, K4 = 32 a step at 16 rows; the cache
+     reorder's device time from a profiled window, and alone in 8-byte
+     words beside the element gather); (d)-(e) after 3c on its int4
+     planes towers through the light CLI's `generate_batches` at
+     `--speculative_gamma 4`: `--self_speculative_layers 10` (K4 = 10 a
+     draft step, K6 = 40 a round, K10 counted at the few-row and many-row
+     bodies) and `--draft_checkpoint_dir` of a random Qwen3-0.6B written as
+     bf16 safetensors (loaded back bit-identical; K1 = 40 + 28, K4 = 28 a
+     draft step, K6 = 40 a round); every run's first tokens equal the
+     plain run's (one K1 prefill), its tokens are vocabulary ids with pad
+     after EOS, at most one target forward a token; acceptance, ms a
+     round or a beam step and descriptions/hour are printed;
   4. training: stage-2 LoRA SFT of ESMC-600M + adapter + Qwen3-14B (full
      width and depth, bf16 towers, f32 LoRA r=32 and adapter) built and
      stepped as `cli/train_instruct.py` does: 2 AdamW steps of 4
@@ -159,7 +176,11 @@ Phases (any failure raises and the script exits non-zero):
      int4 (planes, bytes, pairs) and int8 weight engines' decode-step and
      verify-round logits and tokens (K10, K11a, K11b, K14), a legacy
      model's generation (K1, K4 on tbkd) and one
-     legacy train step (K1, K5).
+     legacy train step (K1, K5); phase 3d's strategies on tiny f32
+     decoders at head dims 64 and 128 (prompt lookup on the f32 and the
+     int8 cache, the self-draft, a draft model, beams with and without
+     early_stopping): tokens identical on both devices, speculative ones
+     equal to plain greedy (K1, K4, K6, K7, K8).
   6. probes: the six scripts of `prot2text_tpu_torch/scripts/` through
      their `main()` at their own shapes (R 16 or 128 rows; Llama-3.1-8B's
      q/o, gate/up, down and vocab; Qwen3-14B's MLP), replays cut to 5:
@@ -2674,7 +2695,7 @@ def build_model(torch, dev, tok, esm_cfg, llama_cfg, dtype, seed: int):
                                         generator=gen)
 
 
-def generate(torch, model, batch, max_new_tokens: int):
+def generate(torch, model, batch, max_new_tokens: int, **gen_kwargs):
     stats = {}
     if batch["input_ids"].is_cuda:
         torch.cuda.synchronize()
@@ -2683,15 +2704,16 @@ def generate(torch, model, batch, max_new_tokens: int):
         batch["input_ids"], attention_mask=batch["attention_mask"],
         protein_input_ids=batch["protein_input_ids"],
         protein_attention_mask=batch["protein_attention_mask"],
-        max_new_tokens=max_new_tokens, stats=stats)
+        max_new_tokens=max_new_tokens, stats=stats, **gen_kwargs)
     stats["total_s"] = time.perf_counter() - t0
     return toks, stats
 
 
-def run_slice(torch, dev, card, check: bool = True):
+def run_slice(torch, dev, card, check: bool = True, keep=None):
     """Phase 3 (the module's docstring); `check=False` logs the launch
     counts without requiring them: how the verify skill's A/B recipe times
-    another tree's package."""
+    another tree's package.  A `keep` dict gets the model and its batch,
+    for phase 3d."""
     from prot2text_tpu_torch.data.chat import ByteTextTokenizer
     from prot2text_tpu_torch.infer.generate import decode_steps_taken
     from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -2754,6 +2776,8 @@ def run_slice(torch, dev, card, check: bool = True):
         f"{st3['decode_s'] / st3['steps'] * 1e3:.3f} ms/step, decode "
         + kernel_breakdown(torch, prof, st3["decode_s"], GEN_FAMILIES,
                            after=K1_FWD, steps=st3["steps"]) + f" [{card}]")
+    if keep is not None:
+        keep.update(model=model, batch=batch)
     return counts
 
 
@@ -2856,17 +2880,21 @@ def hf_esm2_tensors(tree: dict, L: int) -> dict:
 
 
 def hf_llama_tensors(tree: dict, L: int) -> dict:
-    """The port's Llama tree under `LlamaForCausalLM`'s names (a tied
-    model has no `lm_head.weight`)."""
+    """The port's Llama or Qwen3 tree under `LlamaForCausalLM`'s or
+    `Qwen3ForCausalLM`'s names (a tied model has no `lm_head.weight`)."""
     sd = {"model.embed_tokens.weight": tree["embed_tokens"],
           "model.norm.weight": tree["final_ln"]["scale"]}
-    sd.update(hf_layers(tree["layers"], L, {
+    names = {
         "input_ln": "input_layernorm", "q_proj": "self_attn.q_proj",
         "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
         "o_proj": "self_attn.o_proj",
         "post_attn_ln": "post_attention_layernorm",
         "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
-        "down_proj": "mlp.down_proj"}, "model.layers"))
+        "down_proj": "mlp.down_proj", "q_norm": "self_attn.q_norm",
+        "k_norm": "self_attn.k_norm"}
+    sd.update(hf_layers(tree["layers"], L, {
+        k: v for k, v in names.items() if k in tree["layers"]},
+        "model.layers"))
     if "lm_head" in tree:
         sd["lm_head.weight"] = tree["lm_head"]["kernel"].T
     return sd
@@ -3241,7 +3269,7 @@ def light_profile(torch, lcli, args, tok, model, batch, dev, card) -> None:
                            after=K1_FWD, steps=st["steps"]) + f" [{card}]")
 
 
-def run_light_generation(torch, dev, card, check: bool = True):
+def run_light_generation(torch, dev, card, check: bool = True, keep=None):
     """Phase 3c: ESMC-600M + adapter + Qwen3-14B (full width and depth,
     random weights from `--random_seed 0`) through
     `cli/generate_instruct_light.py`, `LIGHT_NEW` greedy tokens: (1) the
@@ -3265,7 +3293,9 @@ def run_light_generation(torch, dev, card, check: bool = True):
     JSON checked, exact K1/K4/K10 counts (its decode steps from K4's L
     launches per step).  `check=False` runs (1)'s generations and their
     times alone (no counts, references or (2)): how the verify skill's A/B
-    recipe times another tree's package."""
+    recipe times another tree's package.  A `keep` dict gets the planes
+    model, its batch, the CLI's argv and the planes run's first tokens, for
+    phase 3d."""
     import csv
     import os
     import tempfile
@@ -3367,6 +3397,9 @@ def run_light_generation(torch, dev, card, check: bool = True):
         paths[f"light_{fmt}"] = counts
         if fmt == "planes":
             light_profile(torch, lcli, args, tok, model, batch, dev, card)
+            if keep is not None:
+                keep.update(model=model, batch=batch, argv=list(argv),
+                            first=logits[0].argmax(-1))
         del params, model, results, stats, st
         gc.collect()
         torch.cuda.empty_cache()
@@ -3409,6 +3442,257 @@ def run_light_generation(torch, dev, card, check: bool = True):
         f"build, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {counts}")
     paths["light_main_int4"] = counts
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: lockstep speculative decoding and beam search at full width
+
+DECODE_NEW = 64          # new tokens of each phase 3d run
+DECODE_GAMMA = 4         # drafts a verify round
+SELF_DRAFT_LAYERS = 10   # Qwen3-14B's first layers that draft in (d)
+BEAM_FAMILIES = (("K1", K1_FWD),
+                 ("K4", r"decode_split_kernel.*SlotWrite|"
+                        r"decode_attention_write_kernel"),
+                 ("reorder", r"indexSelect|index_select"))
+
+
+def decoding_gates(torch, label, toks, st, first, vocab, eos, pad):
+    """Phase 3d's checks of one run: (B, DECODE_NEW) tokens, each a
+    vocabulary id or pad, only pad after a row's first EOS; the prefill's
+    greedy token bit-identical to the plain run's `first` (the same K1
+    prefill), and so the output's first token where it is greedy
+    (speculative runs); at most one target forward a token."""
+    B = first.shape[0]
+    require(tuple(toks.shape) == (B, DECODE_NEW), f"{label}: tokens "
+            f"{tuple(toks.shape)}")
+    t = toks.cpu()
+    require(bool(((t >= 0) & (t < vocab) | (t == pad)).all()),
+            f"{label}: a token outside the vocabulary")
+    after = (torch.cumsum((t == eos).int(), dim=1) - (t == eos).int()) > 0
+    require(bool((t[after] == pad).all()), f"{label}: a token after EOS")
+    lead = st["logits"][0].argmax(-1).cpu()
+    require(torch.equal(lead, first.cpu()), f"{label}: the prefill's greedy "
+            f"tokens {lead.tolist()} differ from the plain run's "
+            f"{first.tolist()}")
+    if "rounds" in st:
+        require(torch.equal(t[:, 0], first.cpu()), f"{label}: first tokens")
+        require(st["n_target_forwards"] == st["rounds"] + 1 <= DECODE_NEW,
+                f"{label}: {st['n_target_forwards']} target forwards for "
+                f"{DECODE_NEW} tokens")
+
+
+def decoding_line(label, st, B: int, total_s: float, card) -> str:
+    """A run's readings: per verify round (acceptance: tokens a round) or
+    per beam step, prefill, descriptions/hour."""
+    if "rounds" in st:
+        r = st["rounds"]
+        per = (f"{r} verify rounds, {(r + st['accepted']) / r:.3f} tokens a "
+               f"round ({st['accepted']} drafts accepted), "
+               f"{st['decode_s'] / r * 1e3:.3f} ms a round")
+    else:
+        per = (f"{st['steps']} beam steps, {st['decode_s'] / st['steps'] * 1e3:.3f}"
+               f" ms a step")
+    return (f"{label} [{card}]: prefill {st['prefill_s'] * 1e3:.2f} ms, "
+            f"{per}, total {total_s:.3f} s = {B / total_s * 3600:.0f} "
+            f"descriptions/hour")
+
+
+def beam_reorder_window(torch, model, batch, card) -> None:
+    """4 new tokens of 4 beams under torch.profiler: the decode window after
+    the prefill's last K1 by kernel family, and the cache reorder's
+    (`index_select` into the spare buffer) device time a step and share of
+    the busy time; then the reorder of one cache tensor of (c)'s shape
+    alone, in 8-byte words (`beam_search._reorder`) beside the element
+    gather, CUDA-event ms against the bound of its bytes read and
+    written."""
+    from prot2text_tpu_torch.infer import beam_search as bs
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, st = generate(torch, model, batch, 4, num_beams=4)
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in events_of(prof) if e.device_type == cuda]
+    t0 = max((e.end for e in evs if re.search(K1_FWD, e.name)), default=None)
+    if t0 is None:
+        log(f"beams (c) reorder: not measured (no device events) [{card}]")
+    else:
+        evs = [e for e in evs if e.start >= t0]
+        busy = sum(e.us for e in evs) / 1e3
+        reorder = sum(e.us for e in evs
+                      if re.search(BEAM_FAMILIES[-1][1], e.name)) / 1e3
+        n = st["steps"]
+        log(f"beams (c) reorder, {n} steps profiled: "
+            f"{reorder / max(n - 1, 1):.3f} ms a step (the last step has "
+            f"none), {reorder / max(busy, 1e-9):.1%} of the device busy "
+            f"time, " + kernel_breakdown(torch, prof, st["decode_s"],
+                                         BEAM_FAMILIES, after=K1_FWD,
+                                         steps=n) + f" [{card}]")
+    lc = model.config.llama_config
+    rows = 4 * batch["input_ids"].shape[0]
+    shape = (lc.num_layers, rows, lc.num_kv_heads,
+             batch["input_ids"].shape[1] + DECODE_NEW, lc.head_dim)
+    src = torch.randn(shape, device=batch["input_ids"].device,
+                      dtype=torch.bfloat16)
+    dst = torch.empty_like(src)
+    sel = torch.randint(0, rows, (rows,), device=src.device)
+    words = cuda_ms(torch, lambda: bs._reorder({"k": src}, {"k": dst}, 1,
+                                               sel))
+    elems = cuda_ms(torch, lambda: torch.index_select(src, 1, sel, out=dst))
+    bd = 2 * nbytes(src) / PEAK_BYTES * 1e3
+    log(f"beams (c) reorder of one cache tensor {tuple(shape)} bf16 "
+        f"({nbytes(src)} bytes): 8-byte words {words:.4f} ms, elements "
+        f"{elems:.4f} ms, bound {bd:.4f} ms (read + write at 3.35 TB/s) "
+        f"[{card}]")
+    del src, dst
+
+
+def run_decoding(torch, dev, card, model, batch):
+    """Phase 3d (a)-(c) on phase 3's ESM2-3B + Llama-3.1-8B bf16 model and
+    batch, `DECODE_NEW` tokens each through `model.generate`: (a)
+    `prompt_lookup_tokens=DECODE_GAMMA` (exact K1 = L, K6 = L a verify
+    round, no K4), (b) the same over the int8 cache (`kv_bits=8`: K8 = L a
+    round, 20 query rows on the split body), (c) `num_beams=4` (K1 = L, K4
+    = L a step at 16 rows), each against `decoding_gates` (the plain run's
+    first tokens from a one-token `generate`, at kv_bits 8 for (b)); then
+    (c)'s reorder in a profiled window (`beam_reorder_window`)."""
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    lc = model.config.llama_config
+    L, B = lc.num_layers, batch["input_ids"].shape[0]
+    runs = (("(a) prompt lookup", dict(prompt_lookup_tokens=DECODE_GAMMA),
+             None),
+            ("(b) prompt lookup int8", dict(prompt_lookup_tokens=DECODE_GAMMA,
+                                            kv_bits=8), 8),
+            ("(c) beams", dict(num_beams=4), None))
+    paths = {}
+    for label, kw, kv_bits in runs:
+        first = generate(torch, model, batch, 1, kv_bits=kv_bits)[0][:, 0]
+        reset_launch_counts()
+        toks, st = generate(torch, model, batch, DECODE_NEW, **kw)
+        counts = launch_counts()
+        decoding_gates(torch, f"decoding {label}", toks, st, first,
+                       lc.vocab_size, lc.eos_token_id, lc.pad_token_id)
+        if "rounds" in st:
+            per = "K8" if kv_bits else "K6"
+            want = expect(K1=L, **{per: L * st["rounds"]})
+        else:
+            want = expect(K1=L, K4=L * st["steps"])
+        require(counts == want, f"decoding {label}: launch counts {counts} "
+                f"!= expected {want}")
+        log(decoding_line(f"decoding {label}, B={B}", st, B, st["total_s"],
+                          card) + f"; launches {dict((k, v) for k, v in counts.items() if v)}")
+        paths[f"decode_{label[1]}"] = counts
+    beam_reorder_window(torch, model, batch, card)
+    return paths
+
+
+def random_qwen3_draft_dir(torch, dev, directory: str, card) -> dict:
+    """A random Qwen3-0.6B (seed 1) written as bf16 safetensors under HF's
+    names; returns its tree."""
+    from prot2text_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3_params
+
+    cfg = Qwen3Config.qwen3_0_6b()
+    tree = init_qwen3_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    sd = hf_llama_tensors(tree, cfg.num_layers)
+    write_safetensors(torch, directory, {k: v.contiguous().cpu()
+                                         for k, v in sd.items()})
+    nb = sum(v.numel() * v.element_size() for v in sd.values())
+    log(f"draft Qwen3-0.6B: {nb} bytes of bf16 safetensors written in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    return tree
+
+
+def run_light_decoding(torch, dev, card, held, routes):
+    """Phase 3d (d)-(e) on phase 3c's int4-planes ESMC-600M + Qwen3-14B
+    towers and batch through the light CLI's `generate_batches`,
+    `DECODE_NEW` tokens: (d) `--speculative_gamma DECODE_GAMMA
+    --self_speculative_layers SELF_DRAFT_LAYERS` (K4 = N a draft step, K6
+    = L a verify round, K10 at the few-row body for the draft steps' 4
+    rows and the prefill's head, at the many-row body for the prefill and
+    ESMC and the verify's 20 rows, counted from `quant_matmul.route`'s
+    answers); (e) `--speculative_gamma DECODE_GAMMA --draft_checkpoint_dir
+    DIR`, DIR a random Qwen3-0.6B as bf16 safetensors
+    (`random_qwen3_draft_dir`) loaded back through the flag by the CLI's
+    `build_draft` before the timed window, bit-identical (K1 = L + 28, K4 = 28 a draft step, K6 = L a round, K10 the target's
+    projections only); each against `decoding_gates` with the planes run's
+    first tokens."""
+    import tempfile
+
+    from prot2text_tpu_torch.cli import generate_instruct_light as lcli
+    from prot2text_tpu_torch.data.chat import ByteTextTokenizer
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    model, batch, argv, first = (held[k] for k in ("model", "batch", "argv",
+                                                    "first"))
+    tok = ByteTextTokenizer()
+    cfg = model.config
+    qc = cfg.llm_config
+    L, N, G = qc.num_layers, SELF_DRAFT_LAYERS, DECODE_GAMMA + 1
+    esm_rows = light_launches(cfg, [batch], 0) - 7 * L - 1
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        draft_tree = None
+        for label, extra in (
+                ("(d) self-draft", ["--self_speculative_layers", str(N)]),
+                ("(e) draft model", ["--draft_checkpoint_dir", tmp])):
+            if label.startswith("(e)"):
+                draft_tree = random_qwen3_draft_dir(torch, dev, tmp, card)
+            args = lcli.build_parser().parse_args(
+                argv + ["--max_new_tokens", str(DECODE_NEW),
+                        "--speculative_gamma", str(DECODE_GAMMA)] + extra)
+            # the CLI's `main` builds the draft once before its batch loop;
+            # the timed window holds the decoding only
+            t0 = time.perf_counter()
+            draft = lcli.build_draft(args, model, dev)
+            if draft_tree is not None:
+                dcfg, loaded = draft
+                torch.cuda.synchronize()
+                require(same_tree(torch, loaded, draft_tree),
+                        "the draft loaded through --draft_checkpoint_dir "
+                        "differs from the tree written")
+                log(f"draft Qwen3-0.6B loaded through the flag in "
+                    f"{time.perf_counter() - t0:.2f} s, bit-identical")
+                del loaded
+            stats = []
+            before = dict(routes)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lcli.generate_batches(args, tok, model, [batch], dev,
+                                  draft=draft, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del draft
+            counts = launch_counts()
+            (st,) = stats
+            r = st["rounds"]
+            decoding_gates(torch, f"decoding {label}", st["tokens"], st,
+                           first, qc.vocab_size, tok.eos_token_id,
+                           tok.pad_token_id)
+            k10 = light_launches(cfg, [batch], 0) + r * (7 * L + 1)
+            if draft_tree is None:
+                few = 1 + r * (G * 7 * N + DECODE_GAMMA)
+                k10 += r * (G * 7 * N + DECODE_GAMMA)
+                want = expect(K1=L, K4=N * G * r, K6=L * r, K10=k10)
+            else:
+                few = 1
+                DL = dcfg.num_layers
+                want = expect(K1=L + DL, K4=DL * G * r, K6=L * r, K10=k10)
+            require(counts == want, f"decoding {label}: launch counts "
+                    f"{counts} != expected {want}")
+            seen = {k: routes.get(k, 0) - before.get(k, 0) for k in routes}
+            many = esm_rows + 7 * L + r * (7 * L + 1)
+            require(seen.get("few", 0) == few and seen.get("rows", 0) == many
+                    and sum(seen.values()) == k10, f"decoding {label}: K10 "
+                    f"bodies {seen}, expected few {few}, rows {many}")
+            log(decoding_line(f"decoding {label}, B=4", st, 4, wall, card)
+                + f"; K10 by body {seen}; launches "
+                f"{dict((k, v) for k, v in counts.items() if v)}")
+            paths[f"decode_{label[1]}"] = counts
     return paths
 
 
@@ -3456,6 +3740,28 @@ SERVE_FAMILIES = (("K1", K1_FWD), ("K6", K6_FWD),
                   ("K10/K14 many-row", "mm_rows_kernel|planes_x_kernel"))
 
 
+class Event:
+    """One profiled event: name, device type, start and end in µs."""
+
+    __slots__ = ("name", "device_type", "start", "end")
+
+    def __init__(self, e):
+        self.name, self.device_type = e.name(), e.device_type()
+        self.start, self.end = e.start_ns() / 1e3, e.end_ns() / 1e3
+
+    @property
+    def us(self) -> float:
+        return self.end - self.start
+
+
+def events_of(prof) -> list:
+    """A profiled window's events, read from the profiler's kineto results
+    as they are.  `prof.events()` first builds the tree of function events,
+    ~70 µs an event: half a minute for a serving window's ~500,000."""
+    return [Event(e) for e in prof.profiler.kineto_results.events()
+            if not e.is_hidden_event()]
+
+
 def kernel_breakdown(torch, prof, wall_s: float,
                      families=TRAIN_FAMILIES, after: str | None = None,
                      steps: int | None = None) -> str:
@@ -3470,15 +3776,15 @@ def kernel_breakdown(torch, prof, wall_s: float,
     fam.update(GEMM=0.0, rest=0.0)
     by_name, api = {}, {}
     n_kernels = 0
-    events = prof.events()
+    events = events_of(prof)
     if after is not None:
-        t0 = max((e.time_range.end for e in events
+        t0 = max((e.end for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and re.search(after, e.name)), default=None)
         require(t0 is not None, f"no device event matches {after!r}")
-        events = [e for e in events if e.time_range.start >= t0]
+        events = [e for e in events if e.start >= t0]
     for e in events:
-        us = e.time_range.elapsed_us()
+        us = e.us
         if e.device_type != torch.autograd.DeviceType.CUDA:
             if e.name.startswith(("cuda", "cu")) and not e.name.startswith(
                     "cudnn"):
@@ -4581,7 +4887,7 @@ def serve_quant_profile(torch, tok, cfg, params, dev, card):
                               dev, "profiled int4 + int8 pool, 8 x 12", card)
     text = kernel_breakdown(torch, prof, run_p.seconds, SERVE_FAMILIES)
     log(text + f" [{card}]")
-    ragged = sorted({e.name for e in prof.events()
+    ragged = sorted({e.name for e in events_of(prof)
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and re.search(RAGGED_QUANT, e.name)})
     del run_p, prof
@@ -4931,6 +5237,100 @@ def run_plumbing(torch, dev):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=0.0)
             log(f"plumbing f32 cuda vs cpu, D {hidden // 4} ({layout}, K4 "
                 f"{k4}x), {name} logits: max abs diff {err:.3e} (atol 1e-4)")
+
+
+def run_decoding_plumbing(torch, dev):
+    """Phase 3d's strategies on tiny f32 decoders on `dev` (kernels) against
+    the same on the CPU (plain versions), at head dims 64 (the tbkd cache)
+    and 128 (bktd), 12 tokens: prompt lookup (γ 3, the prompt ids those of
+    plain greedy, so drafts are accepted) on the f32 and the int8 cache,
+    the self-draft (1 of 2 layers) and a one-layer draft model, beams (K 3)
+    with and without early_stopping (an EOS that fires).  Every run's
+    tokens are identical on the two devices, and each speculative run's
+    those of plain greedy generation on its device (over the int8 cache,
+    of plain int8 generation).  The int8 runs take a decisive decoder (the
+    embeddings 20 times larger, the head mapping each token to a
+    successor): int8 rounding may land one level apart on the two devices,
+    which would flip a near-tied argmax."""
+    from prot2text_tpu_torch.infer.beam_search import beam_search
+    from prot2text_tpu_torch.infer.generate import GenerationConfig
+    from prot2text_tpu_torch.infer.generate import generate as plain
+    from prot2text_tpu_torch.infer.speculative import (
+        prompt_lookup_generate, self_speculative_generate,
+        speculative_generate,
+    )
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.decoder import (
+        DecoderConfig, init_decoder_params,
+    )
+    from prot2text_tpu_torch.models.weights import tree_map
+
+    cpu, V, H = torch.device("cpu"), 300, 128
+    for D in (64, 128):
+        cfg = DecoderConfig(vocab_size=V, hidden_size=H, num_layers=2,
+                            num_heads=4, num_kv_heads=2, head_dim=D,
+                            intermediate_size=256, rope_theta=1e4)
+        dcfg = DecoderConfig(vocab_size=V, hidden_size=64, num_layers=1,
+                             num_heads=2, num_kv_heads=1, head_dim=D,
+                             intermediate_size=128, rope_theta=1e4)
+        g = torch.Generator().manual_seed(D)
+        rand = init_decoder_params(cfg, generator=g, device=cpu)
+        draft = init_decoder_params(dcfg, generator=g, device=cpu)
+        E = rand["embed_tokens"]
+        head = torch.zeros((H, V))
+        head[:, torch.randperm(V, generator=g)] = E.T * 20.0
+        succ = dict(rand, embed_tokens=E * 20.0, lm_head={"kernel": head})
+        emb = torch.randn(2, 7, H, generator=g)
+        demb = torch.randn(2, 7, 64, generator=g)
+        semb = succ["embed_tokens"][torch.randint(0, V, (2, 7), generator=g)]
+        mask = torch.ones(2, 7, dtype=torch.int64)
+        mask[0, :3] = 0
+        gen_cfg = GenerationConfig(max_new_tokens=12, eos_token_id=-1,
+                                   pad_token_id=0)
+
+        def runs(device, eos):
+            to = (lambda t: tree_map(lambda x: x.to(device), t))
+            p, sp, dp = to(rand), to(succ), to(draft)
+            kw = dict(inputs_embeds=emb.to(device),
+                      attention_mask=mask.to(device), gen_cfg=gen_cfg)
+            skw = dict(kw, inputs_embeds=semb.to(device))
+            out = {"plain": plain(cfg, p, **kw)}
+            out["lookup"] = prompt_lookup_generate(
+                cfg, p, prompt_ids=out["plain"], gamma=3, **kw)[0]
+            out["self-draft"] = self_speculative_generate(
+                cfg, p, draft_layers=1, gamma=3, **kw)[0]
+            out["draft model"] = speculative_generate(
+                cfg, p, dcfg, dp, draft_inputs_embeds=demb.to(device),
+                gamma=3, **kw)[0]
+            out["plain int8"] = plain(cfg, sp, kv_bits=8, **skw)
+            out["lookup int8"] = prompt_lookup_generate(
+                cfg, sp, prompt_ids=out["plain int8"], kv_bits=8, gamma=3,
+                **skw)[0]
+            for name, early in (("beams", False), ("beams early", True)):
+                out[name] = beam_search(cfg, p, **dict(
+                    kw, gen_cfg=GenerationConfig(
+                        max_new_tokens=12, eos_token_id=eos, pad_token_id=0,
+                        num_beams=3, early_stopping=early)))
+            return {k: v.cpu() for k, v in out.items()}
+
+        eos = int(plain(cfg, rand, inputs_embeds=emb, attention_mask=mask,
+                        gen_cfg=gen_cfg)[0, 3])
+        want = runs(cpu, eos)
+        reset_launch_counts()
+        got = runs(dev, eos)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        for name in want:
+            require(torch.equal(got[name], want[name]), f"decoding plumbing "
+                    f"D {D} {name}: cuda tokens {got[name].tolist()} != cpu "
+                    f"{want[name].tolist()}")
+        for name, ref in (("lookup", "plain"), ("self-draft", "plain"),
+                          ("draft model", "plain"),
+                          ("lookup int8", "plain int8")):
+            require(torch.equal(got[name], got[ref]), f"decoding plumbing D "
+                    f"{D}: {name} tokens differ from {ref}'s")
+        log(f"decoding plumbing f32 cuda vs cpu, D {D}: tokens identical "
+            f"({', '.join(want)}), speculative = plain greedy; launches "
+            f"{counts}")
 
 
 def run_train_plumbing(torch, dev):
@@ -5343,7 +5743,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3 at {time.time() - t_start:.1f} s")
-    paths = {"generate": run_slice(torch, dev, card)}
+    held = {}
+    paths = {"generate": run_slice(torch, dev, card, keep=held)}
+    # phase 3d's runs (a)-(c) on phase 3's model here: held through phases
+    # 3b and 3c, its 22 GiB beside 3c's bf16 Qwen3-14B build would bring
+    # the peak near the card's 80 GB
+    log(f"phase 3d (a)-(c) at {time.time() - t_start:.1f} s")
+    paths.update(run_decoding(torch, dev, card, **held))
+    held.clear()
     gc.collect()                 # free the generation model before training
     torch.cuda.empty_cache()
     log(f"phase 3b at {time.time() - t_start:.1f} s")
@@ -5353,7 +5760,10 @@ def main() -> int:
     log(f"phase 3c at {time.time() - t_start:.1f} s")
     from prot2text_tpu_torch.kernels import quant_matmul as qm
     routes, restore_route = count_routes(qm)
-    paths.update(run_light_generation(torch, dev, card))
+    paths.update(run_light_generation(torch, dev, card, keep=held))
+    log(f"phase 3d (d)-(e) at {time.time() - t_start:.1f} s")
+    paths.update(run_light_decoding(torch, dev, card, held, routes))
+    held.clear()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 4 at {time.time() - t_start:.1f} s")
@@ -5388,6 +5798,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 5 at {time.time() - t_start:.1f} s")
     run_plumbing(torch, dev)
+    run_decoding_plumbing(torch, dev)
     run_train_plumbing(torch, dev)
     run_contrast_plumbing(torch, dev)
     run_serve_plumbing(torch, dev)

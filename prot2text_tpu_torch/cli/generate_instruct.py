@@ -9,6 +9,9 @@ CPU run).  Unlike the JAX CLI, --model_dtype is applied to the weights
 (bf16 by default).  --attn_impl routes the encoder and the prefill as the
 JAX CLI does: "auto" and "flash" take K1 in the prefill, "xla" the plain
 function; "flash" also sends ESM2's attention through K6.
+--num_beams > 1 decodes by beam search (`infer/beam_search.py`) and
+--prompt_lookup_tokens by prompt-lookup speculative decoding
+(`infer/speculative.py`), over the int8 cache too under --kv_bits 8.
 --load_checkpoint_dir restores the port's `step_N/checkpoint.pt`;
 --esm_checkpoint_dir/--llama_checkpoint_dir load HF directories
 (`models/hf_import.py`) over it or over the random weights.  Values this
@@ -86,10 +89,6 @@ def refuse_unported(args) -> None:
     """NotImplementedError for every flag value the port lacks."""
     refuse([
         (args.use_graph, "--use_graph (RGCN arc)", "§1 item 12"),
-        (args.num_beams > 1, "--num_beams > 1 (beam search)", "§1 item 10"),
-        (args.prompt_lookup_tokens > 0,
-         "--prompt_lookup_tokens (lockstep infer/speculative.py)",
-         "§1 item 7"),
         *common_unported(args),
     ])
     refuse_integer_dtype(args, NO_INTEGER_DTYPE["generate_instruct"])
@@ -190,6 +189,11 @@ def main(argv=None):
     gen_kwargs = dict(max_new_tokens=args.max_new_tokens,
                       do_sample=args.do_sample, temperature=args.temperature,
                       top_k=args.top_k, top_p=args.top_p,
+                      num_beams=args.num_beams,
+                      length_penalty=args.length_penalty,
+                      early_stopping=args.early_stopping,
+                      prompt_lookup_tokens=args.prompt_lookup_tokens,
+                      prompt_lookup_ngram=args.prompt_lookup_ngram,
                       kv_bits=args.kv_bits)
     pad_id = model.config.llama_config.pad_token_id
 

@@ -26,8 +26,13 @@ the towers `build_model` gives at --model_dtype bf16, then
 
 Same flags as the JAX CLI, plus --device (default "cuda"; a missing GPU is
 an error, never a silent CPU run).  --llm_checkpoint_dir loads Qwen3 from
-an HF directory (`models/hf_import.py`).  Values the port does not have
-yet raise NotImplementedError naming their ROADMAP item.
+an HF directory (`models/hf_import.py`).  Every decoding flag runs:
+--num_beams > 1 (`infer/beam_search.py`), --prompt_lookup_tokens, and
+--speculative_gamma with a self-draft (--self_speculative_layers) or a
+draft model (--draft_checkpoint_dir, Qwen3-0.6B; under --debug_tiny_model
+a random copy of the target), all lockstep (`infer/speculative.py`).
+Values the port does not have yet raise NotImplementedError naming their
+ROADMAP item.
 
     python -m prot2text_tpu_torch.cli.generate_instruct_light \\
         --test_csv test.csv --device cuda --model_dtype int4
@@ -45,9 +50,13 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.dtypes import QUANTIZED, str2bool
+from ..core.dtypes import QUANTIZED, compute_dtype, str2bool
 from ..data.dataset import Prot2TextLightDataset
 from ..data.sampler import DataLoader, ShardedSampler
+from ..infer.generate import GenerationConfig
+from ..infer.speculative import (
+    self_speculative_generate, speculative_generate,
+)
 from ..models.composed import ESMCQwen
 from ..models.quant import quantized_bytes
 from .common import (
@@ -95,15 +104,49 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     """NotImplementedError for every flag value the port lacks."""
-    refuse([
-        (args.num_beams > 1, "--num_beams > 1 (beam search)", "§1 item 10"),
-        (args.prompt_lookup_tokens > 0 or args.speculative_gamma > 0
-         or args.self_speculative_layers > 0,
-         "--prompt_lookup_tokens/--speculative_gamma/"
-         "--self_speculative_layers (lockstep infer/speculative.py)",
-         "§1 item 7"),
-        *common_unported(args),
-    ])
+    refuse(common_unported(args))
+
+
+def check_decoding_flags(args) -> None:
+    """JAX's SystemExit for decoding flags that do not go together
+    (prot2text_tpu/cli/generate_instruct_light.py:156-178)."""
+    if args.prompt_lookup_tokens > 0 and args.speculative_gamma > 0:
+        raise SystemExit("--prompt_lookup_tokens and --speculative_gamma "
+                         "are mutually exclusive draft sources")
+    if ((args.prompt_lookup_tokens > 0 or args.speculative_gamma > 0)
+            and (args.do_sample or args.num_beams > 1)):
+        raise SystemExit("speculative decoding is greedy-only")
+    if (args.speculative_gamma > 0 and args.self_speculative_layers <= 0
+            and not args.debug_tiny_model and not args.draft_checkpoint_dir):
+        raise SystemExit("--speculative_gamma needs --draft_checkpoint_dir")
+
+
+def build_draft(args, model: ESMCQwen, device):
+    """The draft of --speculative_gamma: None without it; "self" with
+    --self_speculative_layers (the target's first N layers); else (Qwen3
+    config, tree) in the towers' float dtype: under --debug_tiny_model a
+    random copy of the target's config from --random_seed + 1, otherwise
+    Qwen3-0.6B from the HF directory --draft_checkpoint_dir."""
+    if args.speculative_gamma <= 0:
+        return None
+    if args.self_speculative_layers > 0:
+        return "self"
+    from ..models.qwen3 import Qwen3Config, init_qwen3_params
+
+    dtype = compute_dtype(args.model_dtype)
+    if args.debug_tiny_model:
+        llm_cfg = model.config.llm_config
+        draft_cfg = type(llm_cfg)(**llm_cfg.__dict__)
+        gen = torch.Generator(device=device).manual_seed(args.random_seed + 1)
+        return draft_cfg, init_qwen3_params(draft_cfg, generator=gen,
+                                            device=device, dtype=dtype)
+    from ..models.hf_import import load_state_dict_dir, qwen3_params_from_hf
+
+    draft_cfg = Qwen3Config.qwen3_0_6b()
+    return draft_cfg, qwen3_params_from_hf(
+        load_state_dict_dir(args.draft_checkpoint_dir), draft_cfg.num_layers,
+        device=device, dtype=dtype,
+        tie_word_embeddings=draft_cfg.tie_word_embeddings)
 
 
 def build_model(args, tok, device) -> ESMCQwen:
@@ -119,14 +162,28 @@ AKEYS = ("input_ids", "attention_mask", "protein_input_ids",
 
 
 def generate_batches(args, tok, model: ESMCQwen, batches: Iterable[dict],
-                     device, stats: list = None) -> dict:
+                     device, draft=None, stats: list = None) -> dict:
     """The CLI's batch loop: each collated batch, its last partial one
-    padded to --batch_size, through `model.generate` → {name: {"true",
-    "pred"}} for the real rows.  With `stats`, one `generate` stats dict
-    per batch is appended to it."""
+    padded to --batch_size, decoded → {name: {"true", "pred"}} for the real
+    rows.  JAX's four branches (prot2text_tpu/cli/generate_instruct_light.
+    py:217-253): prompt lookup, plain decoding and beams through
+    `model.generate`; with a `draft` (`build_draft`'s, which `main` builds
+    once before the loop, as JAX does), `self_speculative_generate` or
+    `speculative_generate` (the draft's prompt: the raw `input_ids` in its
+    own embedding) on the decoder inputs of `model.forward`.  With
+    `stats`, one stats dict per batch is appended to it, its "tokens" the
+    batch's (B, max_new_tokens) output."""
     cfg = model.config.llm_config
     eos_id = getattr(tok, "eos_token_id", cfg.eos_token_id)
     pad_id = getattr(tok, "pad_token_id", cfg.pad_token_id)
+    gen_cfg = GenerationConfig(
+        max_new_tokens=args.max_new_tokens, eos_token_id=eos_id,
+        pad_token_id=pad_id, do_sample=args.do_sample,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        num_beams=args.num_beams, length_penalty=args.length_penalty,
+        early_stopping=args.early_stopping,
+        prompt_lookup_tokens=args.prompt_lookup_tokens,
+        prompt_lookup_ngram=args.prompt_lookup_ngram)
     generator = None
     if args.do_sample:
         generator = torch.Generator(device=device).manual_seed(
@@ -139,15 +196,33 @@ def generate_batches(args, tok, model: ESMCQwen, batches: Iterable[dict],
         t = {k: torch.as_tensor(a, dtype=torch.int64, device=device)
              for k, a in arrays.items()}
         st = {} if stats is not None else None
-        toks = model.generate(
-            t["input_ids"], attention_mask=t["attention_mask"],
-            protein_input_ids=t["protein_input_ids"],
-            protein_attention_mask=t["protein_attention_mask"],
-            generator=generator, max_new_tokens=args.max_new_tokens,
-            eos_token_id=eos_id, pad_token_id=pad_id,
-            do_sample=args.do_sample, temperature=args.temperature,
-            top_k=args.top_k, top_p=args.top_p, stats=st)
+        if draft is None:
+            toks = model.generate(
+                t["input_ids"], attention_mask=t["attention_mask"],
+                protein_input_ids=t["protein_input_ids"],
+                protein_attention_mask=t["protein_attention_mask"],
+                generator=generator, generation_config=gen_cfg, stats=st)
+        else:
+            embeds, attn = model.forward(
+                protein_input_ids=t["protein_input_ids"],
+                protein_attention_mask=t["protein_attention_mask"],
+                input_ids=t["input_ids"], attention_mask=t["attention_mask"],
+                return_decoder_inputs=True)
+            kw = dict(inputs_embeds=embeds, attention_mask=attn,
+                      gen_cfg=gen_cfg, gamma=args.speculative_gamma,
+                      attn_impl=args.attn_impl, stats=st)
+            if draft == "self":
+                toks, _ = self_speculative_generate(
+                    cfg.core(), model.llm_decoder.tree(),
+                    draft_layers=args.self_speculative_layers, **kw)
+            else:
+                draft_cfg, draft_params = draft
+                toks, _ = speculative_generate(
+                    cfg.core(), model.llm_decoder.tree(), draft_cfg.core(),
+                    draft_params, draft_inputs_embeds=draft_params[
+                        "embed_tokens"][t["input_ids"]], **kw)
         if stats is not None:
+            st["tokens"] = toks
             stats.append(st)
         toks = toks.cpu().numpy()
         for i, name in enumerate(names):
@@ -164,6 +239,7 @@ def generate_batches(args, tok, model: ESMCQwen, batches: Iterable[dict],
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
+    check_decoding_flags(args)
     device = resolve_device(args.device)
     tok = text_tokenizer(args)
     dataset = Prot2TextLightDataset(args.test_csv)
@@ -181,8 +257,9 @@ def main(argv=None):
               f"towers {quantized_bytes(params['esm_encoder'])} + "
               f"{quantized_bytes(params['llm_decoder'])} bytes (ESMC + "
               f"decoder)")
+    draft = build_draft(args, model, device)
     t0 = time.time()
-    results = generate_batches(args, tok, model, loader, device)
+    results = generate_batches(args, tok, model, loader, device, draft=draft)
     dt = time.time() - t0
 
     os.makedirs(args.output_dir, exist_ok=True)

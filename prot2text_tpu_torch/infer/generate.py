@@ -8,11 +8,12 @@ applies temperature → top-k → top-p.
 
 The decode loop is a host-driven Python loop: one prefill (K1 inside), then
 one `decoder_decode_step` per token (K4 per layer, which attends and writes
-the token's k/v into the step's slot of that layer; on the tbkd cache of a
-head dim off the 128 grid, plain attention and K12 twice per step; K7 per
-layer on an int8 cache) and one host sync per token for the all-finished
-check.  The slot written at step t is still 0 in `kv_mask` while the
-attention runs; it is set afterwards.
+the token's k/v into the step's slot of that layer, at the tbkd strides on
+the cache of a head dim off the 128 grid; K7 per layer on an int8 cache)
+and one host sync per token for the all-finished check.  The slot written
+at step t is still 0 in `kv_mask` while the attention runs; it is set
+afterwards.  `run_generation` sends beams to `infer/beam_search.py` and
+prompt lookup to `infer/speculative.py`.
 """
 
 from __future__ import annotations
@@ -88,18 +89,36 @@ def run_generation(cfg, params, *, inputs_embeds, attention_mask, gen_cfg,
                    generator=None, cache_dtype=None, kv_bits=None,
                    stats=None, attn_impl: str = "auto", prompt_ids=None,
                    prompt_ids_mask=None):
-    """Greedy/sampling generation; beam search and prompt-lookup decoding
-    are not ported yet.  `prompt_ids`/`prompt_ids_mask` are the text
-    prompt's ids, which JAX's prompt lookup drafts from
-    (prot2text_tpu/infer/generate.py:124); plain decoding does
-    not read them."""
+    """Dispatch as JAX does (prot2text_tpu/infer/generate.py:116-160):
+    `gen_cfg.num_beams > 1` → `beam_search.beam_search` (bf16 or f32 cache
+    only), `gen_cfg.prompt_lookup_tokens > 0` → `speculative.
+    prompt_lookup_generate` (greedy only; it drafts from `prompt_ids`/
+    `prompt_ids_mask`, the text prompt's ids), else `generate`.  `stats`
+    is passed on to whichever runs."""
+    if kv_bits is not None and gen_cfg.num_beams > 1:
+        raise ValueError("kv_bits quantized KV cache does not support "
+                         "beam search")
     if gen_cfg.num_beams > 1:
-        raise NotImplementedError("beam search (num_beams > 1) is not ported "
-                                  "yet (ROADMAP.md §1 item 10)")
+        from .beam_search import beam_search
+
+        return beam_search(
+            cfg, params, inputs_embeds=inputs_embeds,
+            attention_mask=attention_mask, gen_cfg=gen_cfg,
+            attn_impl=attn_impl, cache_dtype=cache_dtype, generator=generator, stats=stats)
     if gen_cfg.prompt_lookup_tokens > 0:
-        raise NotImplementedError("lockstep prompt-lookup speculative "
-                                  "decoding (infer/speculative.py) is not "
-                                  "ported yet (ROADMAP.md §1 item 7)")
+        if gen_cfg.do_sample:
+            raise ValueError("prompt_lookup_tokens is greedy-only "
+                             "(speculative decoding)")
+        from .speculative import prompt_lookup_generate
+
+        toks, _ = prompt_lookup_generate(
+            cfg, params, inputs_embeds=inputs_embeds,
+            attention_mask=attention_mask, gen_cfg=gen_cfg,
+            prompt_ids=prompt_ids, prompt_ids_mask=prompt_ids_mask,
+            gamma=gen_cfg.prompt_lookup_tokens,
+            ngram=gen_cfg.prompt_lookup_ngram, attn_impl=attn_impl,
+            cache_dtype=cache_dtype, kv_bits=kv_bits, stats=stats)
+        return toks
     return generate(cfg, params, inputs_embeds=inputs_embeds,
                     attention_mask=attention_mask, gen_cfg=gen_cfg,
                     generator=generator, cache_dtype=cache_dtype,

@@ -42,3 +42,10 @@ def init_kv_cache(cfg: DecoderConfig, batch_size: int, max_length: int, *,
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
             "k_scale": torch.ones(shape[:-1], device=device),
             "v_scale": torch.ones(shape[:-1], device=device)}
+
+
+def batch_axis(cfg: DecoderConfig) -> int:
+    """The batch axis of the bf16 cache tensors `init_kv_cache(cfg)`
+    allocates (prot2text_tpu/infer/kvcache.py:53): 1 in bktd, 2 in tbkd
+    (beam expansion and reorder)."""
+    return 1 if resolve_layout(cfg, False) == "bktd" else 2

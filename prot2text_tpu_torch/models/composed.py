@@ -147,7 +147,8 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
                  generator=None, **gen_kwargs):
         """Prompt-only inputs; returns ONLY the new tokens (B,
         max_new_tokens).  A `stats` dict is passed on to
-        `infer.generate.generate`.  Raises ValueError when a row's
+        `infer.generate.run_generation`, and so are the prompt's ids (which
+        prompt lookup drafts from).  Raises ValueError when a row's
         placeholder count differs from its protein-token count."""
         from ..infer.generate import resolve_generation_config, run_generation
 
@@ -157,6 +158,8 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
             raise ValueError("Number of placeholder tokens must match number "
                              "of protein tokens")
         params = self.params()
+        # the text prompt's ids, which prompt lookup drafts from
+        text_ids, text_mask = inputs, attention_mask
         inputs_embeds, attention_mask = self.apply(
             self.config, params, input_ids=inputs,
             attention_mask=attention_mask,
@@ -173,7 +176,8 @@ class Esm2LlamaInstructForCausalLM(nn.Module):
             lc.core(), params["llama_decoder"], inputs_embeds=inputs_embeds,
             attention_mask=attention_mask, gen_cfg=gen_cfg,
             generator=generator, kv_bits=kv_bits, stats=stats,
-            attn_impl=self.attn_impl)
+            attn_impl=self.attn_impl, prompt_ids=text_ids,
+            prompt_ids_mask=text_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -320,10 +324,9 @@ class ESMCQwen(nn.Module):
                  generator=None, **gen_kwargs):
         """Lockstep generation (prot2text_tpu/models/composed.py:578-604):
         `forward(return_decoder_inputs=True)`, then `run_generation` with
-        `kv_bits` from the keyword arguments and the prompt ids (for prompt
-        lookup, which is not ported: ROADMAP.md §1 item 7).  Returns ONLY
-        the new tokens (B, max_new_tokens); a `stats` dict is passed on to
-        `infer.generate.generate`."""
+        `kv_bits` from the keyword arguments and the prompt ids (which
+        prompt lookup drafts from).  Returns ONLY the new tokens (B,
+        max_new_tokens); a `stats` dict is passed on to `run_generation`."""
         from ..infer.generate import resolve_generation_config, run_generation
 
         if protein_sequences is None and protein_input_ids is None:
@@ -536,8 +539,8 @@ class Esm2LlamaForCausalLM(nn.Module):
         """Output INCLUDES the prompt ids (reference
         modeling_esm2llama_legacy.py:505-507, :574): (B, prompt +
         max_new_tokens).  The default prompt is one bos per row
-        (:553-560).  `kv_bits` and `stats` are passed on to
-        `infer.generate.generate`."""
+        (:553-560).  `kv_bits`, `stats` and the prompt's ids (which prompt
+        lookup drafts from) are passed on to `infer.generate.run_generation`."""
         from ..infer.generate import resolve_generation_config, run_generation
 
         params = self.params()
@@ -563,5 +566,6 @@ class Esm2LlamaForCausalLM(nn.Module):
         new_tokens = run_generation(
             lc.core(), params["llama_decoder"], inputs_embeds=inputs_embeds,
             attention_mask=full_mask, gen_cfg=gen_cfg, generator=generator,
-            kv_bits=kv_bits, stats=stats, attn_impl=self.attn_impl)
+            kv_bits=kv_bits, stats=stats, attn_impl=self.attn_impl,
+            prompt_ids=inputs, prompt_ids_mask=attention_mask)
         return torch.cat([inputs.to(new_tokens.dtype), new_tokens], dim=1)

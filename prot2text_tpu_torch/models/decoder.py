@@ -565,7 +565,8 @@ def decoder_verify_chunk(cfg: DecoderConfig, params, *, token_embeds,
     """Fused G-token chunk verify for speculative serving over an int8
     cache (prot2text_tpu/models/decoder.py:1209-1398): token_embeds
     (B, G, H); kv_mask (B, T) over already-written columns (the chunk's own
-    must be 0); positions (B, G); cache_index (B,) chunk starts.  Per
+    must be 0); positions (B, G); cache_index (B,) chunk starts, or a
+    host int every row starts at (lockstep prompt lookup).  Per
     layer, the chunk's k/v are quantized and K8 (K9c with the int8
     `prefix_kv` and `prefix_bias`) attends [prefix ‖ cache ‖ causal chunk]
     for all G·rep query rows (row g·rep + r) and writes the chunk's G int8
@@ -583,10 +584,11 @@ def decoder_verify_chunk(cfg: DecoderConfig, params, *, token_embeds,
     if layers is None:
         layers = layer_views(params["layers"], cfg.num_layers)
     # one (B,) int32 tensor of chunk starts a call for every layer's kernel,
-    # and its largest start, read once per call for every layer's bound
-    # check (one device→host read instead of one per layer)
-    slots = _slots(torch.as_tensor(cache_index), B, kv_cache["k"].device)
-    slots_max = int(slots.max())
+    # and its largest start for every layer's bound check: a host int is
+    # its own, a tensor's is read once per call (not once per layer)
+    slots = _slots(cache_index, B, kv_cache["k"].device)
+    slots_max = (cache_index if isinstance(cache_index, int)
+                 else int(slots.max()))
     if prefix_kv is not None:
         pmask = (prefix_bias[:, 0, 0, :] >= -1e30).to(torch.int32)
         pargs = (prefix_kv["k"], prefix_kv["v"], prefix_kv["k_scale"],

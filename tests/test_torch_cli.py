@@ -151,6 +151,7 @@ def _load_case(flag, run, tmp_path):
     ["--attn_impl", "flash"],
     ["--attn_impl", "ring"],
     ["--model_dtype", "int8"],
+    ["--prompt_lookup_tokens", "3", "--kv_bits", "8"],
 ])
 def test_unported_flags_raise(flags, instruct_root, csv_path, tmp_path):
     """Each unported flag raises, naming its ROADMAP item.  --attn_impl xla
@@ -160,13 +161,25 @@ def test_unported_flags_raise(flags, instruct_root, csv_path, tmp_path):
     predictions.  So are the loading flags: --load_checkpoint_dir restores
     a `step_0/checkpoint.pt` {"model": tree}, --esm_checkpoint_dir and
     --llama_checkpoint_dir read tiny HF directories; the built model holds
-    those weights, and the CLI generates with them."""
+    those weights, and the CLI generates with them.  So are the decoding
+    flags: --num_beams 2 writes its JSON file (beam search), and
+    --prompt_lookup_tokens the plain greedy predictions, over the int8
+    cache too."""
+    run = ["--data_root", instruct_root, "--test_csv", csv_path,
+           "--device", "cpu", "--debug_tiny_model", "true",
+           "--model_dtype", "fp32", "--batch_size", "2",
+           "--max_new_tokens", "4", "--output_dir", str(tmp_path / "res")]
+    if flags[0] == "--num_beams":
+        out = main(run + flags)
+        with open(tmp_path / "res" / "generation_instruct_0.json") as f:
+            assert json.load(f) == out
+        assert len(out) == 4
+        assert all(set(v) == {"true", "pred"} for v in out.values())
+        return
+    if flags[0] == "--prompt_lookup_tokens":
+        assert main(run + flags) == main(run + flags[2:])
+        return
     if flags[0] in LOADS:
-        run = ["--data_root", instruct_root, "--test_csv", csv_path,
-               "--device", "cpu", "--debug_tiny_model", "true",
-               "--model_dtype", "fp32", "--batch_size", "2",
-               "--max_new_tokens", "4", "--output_dir",
-               str(tmp_path / "res")]
         flags, part, tree = _load_case(flags[0], run, tmp_path)
         args = build_parser().parse_args(run + flags)
         model = build_model(args, text_tokenizer(args), torch.device("cpu"))
@@ -188,10 +201,6 @@ def test_unported_flags_raise(flags, instruct_root, csv_path, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(BASE + flags)
         return
-    run = ["--data_root", instruct_root, "--test_csv", csv_path,
-           "--device", "cpu", "--debug_tiny_model", "true",
-           "--model_dtype", "fp32", "--batch_size", "2",
-           "--max_new_tokens", "4", "--output_dir", str(tmp_path / "res")]
     assert main(run + flags) == main(run)
 
 

@@ -151,10 +151,17 @@ def test_generate_refusals():
     ids, mask = _prompts()
     with pytest.raises(ValueError, match="protein_sequences"):
         tm.generate(torch.from_numpy(ids), torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError, match=r"§1 item 7"):
+    # prompt lookup is ported (tests/test_torch_speculative.py): it gives
+    # the plain greedy tokens, and refuses sampling as JAX does
+    kw = dict(protein_sequences=SEQS, max_new_tokens=3)
+    assert torch.equal(
         tm.generate(torch.from_numpy(ids), torch.from_numpy(mask),
-                    protein_sequences=SEQS, max_new_tokens=3,
-                    prompt_lookup_tokens=2)
+                    prompt_lookup_tokens=2, **kw),
+        tm.generate(torch.from_numpy(ids), torch.from_numpy(mask), **kw))
+    with pytest.raises(ValueError, match="greedy-only"):
+        tm.generate(torch.from_numpy(ids), torch.from_numpy(mask),
+                    prompt_lookup_tokens=2, do_sample=True,
+                    generator=torch.Generator().manual_seed(0), **kw)
     bad = ids.copy()
     bad[0, np.flatnonzero(bad[0] == PH)[0]] = 65
     with pytest.raises(ValueError, match="placeholder tokens"):

@@ -215,10 +215,16 @@ def test_sampling_is_seeded_and_unported_modes_raise():
 
     a, b = sample(0), sample(0)
     assert torch.equal(a, b) and int(a.max()) < 264
-    with pytest.raises(NotImplementedError, match="beam"):
-        tm.generate(**batch, max_new_tokens=3, num_beams=2)
-    with pytest.raises(NotImplementedError, match="prompt-lookup"):
-        tm.generate(**batch, max_new_tokens=3, prompt_lookup_tokens=2)
+    # beams and prompt lookup are ported (tests/test_torch_beam_search.py,
+    # tests/test_torch_speculative.py): they decode, prompt lookup to the
+    # plain greedy tokens; beams refuse the int8 cache, as JAX does
+    beams = tm.generate(**batch, max_new_tokens=3, num_beams=2)
+    assert beams.shape == (2, 3) and int(beams.max()) < 264
+    with pytest.raises(ValueError, match="beam search"):
+        tm.generate(**batch, max_new_tokens=3, num_beams=2, kv_bits=8)
+    assert torch.equal(
+        tm.generate(**batch, max_new_tokens=3, prompt_lookup_tokens=2),
+        tm.generate(**batch, max_new_tokens=3))
     # the int8 KV cache is ported: it decodes (K7's plain version here)
     t8 = tm.generate(**batch, max_new_tokens=3, kv_bits=8)
     assert t8.shape == (2, 3) and int(t8.max()) < 264

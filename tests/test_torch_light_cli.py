@@ -9,7 +9,10 @@
     training CLI merged in bf16 before the int4 quantization, and the
     bytes and pairs int4 formats through the API on `build_model`'s bf16
     towers (`build_model` at --model_dtype bf16);
-  * every refused flag names its ROADMAP item; a missing GPU is an error;
+  * every refused flag names its ROADMAP item; the decoding flags (beams,
+    prompt lookup, a self-draft, a draft model from an HF directory) run,
+    speculative ones to the plain greedy predictions, and conflicting ones
+    raise JAX's SystemExit; a missing GPU is an error;
   * on the card: the launch counts of K10 (--model_dtype int4) and, through
     the API, K11a and K11b."""
 
@@ -201,7 +204,8 @@ def test_unported_flags_raise(flags, item, csv_path, tmp_path):
     tiny HF directory (the built tower equal to the tree it was written
     from).  So is --load_peft_adapter_dir: that case merges a PEFT adapter
     directory into the decoder (its logits those of the LoRA merged, not
-    the base's) and generates."""
+    the base's) and generates.  So are the §1 item 7 and item 10 decoding
+    flags: those cases generate (see below) or raise JAX's ValueError."""
     if flags[0] == "--load_peft_adapter_dir":
         from prot2text_tpu_torch.models.lora import merge_lora
 
@@ -222,6 +226,22 @@ def test_unported_flags_raise(flags, item, csv_path, tmp_path):
         results = cli.main(args)
         assert len(results) == 5
         return
+    if item in ("§1 item 7", "§1 item 10"):
+        # the decoding flags are ported: beams write their JSON file,
+        # speculative decoding (a random draft under --debug_tiny_model)
+        # gives the plain greedy predictions; a self-draft of 4 of the
+        # tiny decoder's 2 layers raises JAX's own ValueError
+        args = _args(csv_path, tmp_path / "res", *flags)
+        if "--self_speculative_layers" in flags:
+            with pytest.raises(ValueError, match="draft_layers"):
+                cli.main(args)
+            return
+        results = cli.main(args)
+        with open(tmp_path / "res" / "generation_light_0.json") as f:
+            assert json.load(f) == results and len(results) == 5
+        if flags[0] != "--num_beams":
+            assert results == cli.main(_args(csv_path, tmp_path / "plain"))
+        return
     if flags[0] != "--llm_checkpoint_dir":
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             cli.main(BASE + flags)
@@ -234,6 +254,56 @@ def test_unported_flags_raise(flags, item, csv_path, tmp_path):
     results = cli.main(args)
     assert len(results) == 5
     assert all(set(v) == {"true", "pred"} for v in results.values())
+
+
+@pytest.mark.parametrize("flags,exit_message", [
+    (["--speculative_gamma", "2", "--self_speculative_layers", "1"], None),
+    (["--prompt_lookup_tokens", "3", "--speculative_gamma", "2"],
+     "mutually exclusive"),
+    (["--prompt_lookup_tokens", "3", "--num_beams", "2"], "greedy-only"),
+    (["--speculative_gamma", "2", "--do_sample", "true"], "greedy-only"),
+    (["--speculative_gamma", "2", "--debug_tiny_model", "false"],
+     "needs --draft_checkpoint_dir"),
+])
+def test_speculative_flags(flags, exit_message, csv_path, tmp_path):
+    """A self-draft of the tiny decoder's first layer gives the plain
+    greedy predictions; JAX's SystemExit for flags that do not go
+    together."""
+    args = _args(csv_path, tmp_path / "res", *flags)
+    if exit_message is not None:
+        with pytest.raises(SystemExit, match=exit_message):
+            cli.main(args)
+        return
+    assert cli.main(args) == cli.main(_args(csv_path, tmp_path / "plain"))
+
+
+def test_draft_checkpoint_dir(csv_path, tmp_path, monkeypatch):
+    """--speculative_gamma with --draft_checkpoint_dir (no
+    --debug_tiny_model): the draft is Qwen3-0.6B's config (here the tiny
+    Qwen3's, by monkeypatch) loaded from the HF directory, its tree equal
+    to the one written, and the tiny model's predictions with that draft
+    are the plain greedy ones."""
+    from prot2text_tpu_torch.models.qwen3 import Qwen3Config
+
+    hf_dir, tree = hf_dirs.qwen3_cli_dir(tmp_path / "draft", seed=12)
+    tok, cpu = ByteTextTokenizer(), torch.device("cpu")
+    plain_args = cli.build_parser().parse_args(_args(csv_path, tmp_path))
+    model = cli.build_model(plain_args, tok, cpu)
+    tiny = model.config.llm_config
+    monkeypatch.setattr(Qwen3Config, "qwen3_0_6b", classmethod(
+        lambda cls: tiny))
+    args = cli.build_parser().parse_args(_args(
+        csv_path, tmp_path, "--speculative_gamma", "3",
+        "--draft_checkpoint_dir", hf_dir, "--debug_tiny_model", "false"))
+    draft_cfg, draft = cli.build_draft(args, model, cpu)
+    assert draft_cfg == tiny
+    hf_dirs.assert_tree_equal(draft, tree)
+    batches = _batches(plain_args, tok)
+    stats = []
+    got = cli.generate_batches(args, tok, model, batches, cpu,
+                               draft=(draft_cfg, draft), stats=stats)
+    assert got == cli.generate_batches(plain_args, tok, model, batches, cpu)
+    assert all(s["rounds"] > 0 for s in stats)
 
 
 def test_cuda_without_gpu_raises():

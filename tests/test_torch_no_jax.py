@@ -49,6 +49,8 @@ MODULES = [
     "prot2text_tpu_torch.infer.generate",
     "prot2text_tpu_torch.infer.kvcache",
     "prot2text_tpu_torch.infer.serving",
+    "prot2text_tpu_torch.infer.speculative",
+    "prot2text_tpu_torch.infer.beam_search",
     "prot2text_tpu_torch.train",
     "prot2text_tpu_torch.train.contrastive",
     "prot2text_tpu_torch.train.legacy",
