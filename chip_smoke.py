@@ -152,6 +152,21 @@ Phases (any failure raises and the script exits non-zero):
      the bf16 pool, 8 x 32 (K6 per verify round); exact launch counts;
      then three short profiled int8 runs, plain and speculative with the
      prefix and the controller's without it (K7 and K8);
+  4m. Medusa draft heads on the same model: (a) 2 AdamW steps of
+     `train/draft.py` over `cli/train_draft.py`'s description collate at
+     the CLI's defaults (K 4, batch 8, S 256, lr 1e-3) on the frozen bf16
+     Qwen3-14B (exact K1 = 40 a step, no K5; every decoder leaf
+     bit-unchanged, the heads moved; s/step, TFLOP/s, peak), the heads
+     saved by the CLI's writer; (b) `cli/serve.py serve --medusa_path`
+     with them, 8 x 32, on the bf16 pool (K6 a verify round) and the int8
+     pool (K9c), both with the dedup prefix: exact counts, no plain step,
+     acceptance >= 1, every first token that of a plain install,
+     vocabulary ids; (c) `cli/train_draft.py main` under
+     `--debug_tiny_model`, its npz read back bit-identical by the serve
+     CLI's loader; (d) `cli/benchmark.py main` on phase 3c's light JSON
+     and (b)'s bf16 one with neither `sacrebleu` nor `rouge_score`
+     imported, the references against themselves 1.0, BERTScore on random
+     embeddings against its formula;
   4d. weight-quantized serving (the bf16 model freed first): the towers
      built by `build_server` with `--model_dtype int4` (bf16, then int4
      nibble planes) serve (e) `--kv_bits 8`, 16 x 128 (K10 per projection
@@ -172,6 +187,9 @@ Phases (any failure raises and the script exits non-zero):
      step's loss and adapter gradients (K1, K6),
      a serving engine's install logits
      and tokens (K1, K4, K6, K9a), a speculative bf16-pool engine's tokens,
+     Medusa engines with random heads on the f32 pool (K6) and on a
+     decisive decoder's int8 pool (K8; plain K7): tokens identical on both
+     devices and equal to plain greedy,
      an int8 engine's decode-step and verify-round logits (K7, K8), and
      int4 (planes, bytes, pairs) and int8 weight engines' decode-step and
      verify-round logits and tokens (K10, K11a, K11b, K14), a legacy
@@ -3429,6 +3447,7 @@ def run_light_generation(torch, dev, card, check: bool = True, keep=None):
             saved = json.load(f)
     require(saved == results and sorted(saved) == sorted(
         r["AlphaFoldDB"] for r in records), f"JSON names {sorted(saved)}")
+    LIGHT_RESULTS["light"] = saved
     require(all(set(v) == {"true", "pred"} and isinstance(v["pred"], str)
                 for v in saved.values()), "JSON entries")
     steps = counts["K4"] // L
@@ -4560,7 +4579,8 @@ def serve_once(torch, args, tok, cfg, params, batches, dev, label, card):
     log(f"serve {label} [{card}]: {n} requests in {run.seconds:.3f} s = "
         f"{n / run.seconds * 3600:.0f} descriptions/hour; decode "
         f"{'; '.join(parts)} at B={args.max_slots} ("
-        f"{sum(run.n_tokens.values()) / eng.decode_s:.1f} tokens/s); "
+        f"{sum(map(len, run.tokens.values())) / eng.decode_s:.1f} "
+        f"tokens/s); "
         f"prefill {eng.install_s / installs * 1e3:.2f} ms per install over "
         f"{installs} installs {eng.installs}; encode + prefix prefill + "
         f"host {encode_s * 1e3:.1f} ms; peak device memory "
@@ -4570,8 +4590,10 @@ def serve_once(torch, args, tok, cfg, params, batches, dev, label, card):
         f"{eng.state['kv_mask'].shape[1]}")
     require(n == sum(len(b["name"]) for b in batches),
             f"served {n} of the submitted requests")
-    require(all(1 <= c <= args.max_new_tokens for c in run.n_tokens.values()),
-            f"token counts out of range: {run.n_tokens}")
+    counts_by_name = {k: len(t) for k, t in run.tokens.items()}
+    require(all(1 <= c <= args.max_new_tokens
+                for c in counts_by_name.values()),
+            f"token counts out of range: {counts_by_name}")
     require(not bool(eng.state["active"].any()), "a slot is still active")
     return run, counts
 
@@ -4621,6 +4643,7 @@ def run_serve(torch, dev, card):
     del run_p, prof
     gc.collect()
     paths.update(run_serve_int8(torch, dev, card, tok, cfg, params, batches))
+    paths.update(run_medusa(torch, dev, card, tok, cfg, params))
     return paths
 
 
@@ -4758,6 +4781,307 @@ def serve_int8_windows(torch, dev, card, windows=INT8_WINDOWS[-1:]):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4m: Medusa draft heads at full width on phase 4b's model: two draft
+# steps at `cli/train_draft.py`'s defaults, serving with the saved heads on
+# the bf16 and the int8 pool, the CLI's main on a tiny model, scoring
+
+MEDUSA_RECORDS = 16          # two steps at the CLI's batch of 8
+MEDUSA_NEW = 32              # new tokens a request in (b)
+# phase 3c's light `main` results, scored in phase 4m (d)
+LIGHT_RESULTS = {}
+
+
+def leaf_bits(torch, t) -> tuple:
+    """A contiguous tensor's version counter and the sum of its bit
+    patterns read as integers: an in-place op, or a changed bit, shows.
+    Summed 2^26 elements at a time (an int64 sum of a whole Qwen3-14B leaf
+    would hold a copy 4 times its size)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = t.reshape(-1).view(ints[t.element_size()])
+    return t._version, sum(int(c.sum(dtype=torch.int64))
+                           for c in flat.split(1 << 26))
+
+
+def run_medusa(torch, dev, card, tok, cfg, params):
+    """Phase 4m on the bf16 model phase 4b built: (a) `medusa_train`, (b)
+    `medusa_serve`, (c) `medusa_cli`, (d) `score_results`.  Returns the
+    launch counts by path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "medusa.npz")
+        paths["medusa_train"] = medusa_train(torch, dev, card, tok, cfg,
+                                             params, npz)
+        served, results = medusa_serve(torch, dev, card, tok, cfg, params,
+                                       npz)
+        paths.update(served)
+        paths["train_draft_main"] = medusa_cli(torch, dev, card, tmp)
+        score_results(card, tmp, results)
+    log(f"phase 4m took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def medusa_train(torch, dev, card, tok, cfg, params, npz):
+    """(a) Two AdamW steps of `train/draft.py`'s step over `cli/
+    train_draft.py`'s description collate at the CLI's defaults (K 4,
+    batch 8, S 256, lr 1e-3) on the frozen bf16 Qwen3-14B: exact K1 = L a
+    step and no K5 (the frozen forward runs without gradients), every
+    decoder leaf bit-unchanged, both head leaves moved; s/step and the
+    peak; the heads saved by the CLI's writer to `npz`."""
+    from prot2text_tpu_torch.cli.train_draft import (
+        DescriptionCollator, build_draft_training, build_parser, save_heads,
+        to_device,
+    )
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.weights import tree_leaves
+
+    args = build_parser().parse_args(["--train_csv", "unused", "--device",
+                                      "cuda", "--random_seed", "0"])
+    models = (cfg.esm_config, cfg.llm_config, cfg.adapter_config,
+              {"esm_encoder": params["esm_encoder"],
+               "llm_decoder": params["llm_decoder"]}, params["adapter"])
+    core, decoder, state, step = build_draft_training(args, tok, dev,
+                                                      models=models)
+    require(decoder is params["llm_decoder"],
+            "the bf16 draft trainer must train over phase 4b's decoder")
+    frozen = tree_leaves(decoder)
+    stamp = [leaf_bits(torch, t) for t in frozen]
+    n_dec = sum(t.numel() for t in frozen)
+    collate = DescriptionCollator(tok, args.max_sequence_length)
+    records = train_records(MEDUSA_RECORDS, (200, 451), seed=11)
+    B = args.batch_size
+    batches = [to_device(collate(records[i:i + B]), dev)
+               for i in range(0, MEDUSA_RECORDS, B)]
+    S, L = batches[0]["input_ids"].shape[1], core.num_layers
+    K, H, V = args.num_heads, core.hidden_size, core.vocab_size
+    # the frozen forward's 2·params a position, and each head's logits
+    # forward and their input gradient (2·H·V each a position)
+    flops = B * S * (2 * n_dec + K * 4 * H * V)
+    log(f"medusa draft setup [{card}]: K {K} heads over the frozen bf16 "
+        f"Qwen3-14B ({n_dec / 1e9:.3f} B params), batch {B} x S {S}, lr "
+        f"{args.learning_rate}; {len(batches)} steps, valid tokens "
+        f"{[int(b['attention_mask'].sum()) for b in batches]}; "
+        f"{flops / 1e12:.1f} TFLOP a step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, loss = step(state, decoder, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = launch_counts()
+    want = expect(K1=L * len(batches))
+    require(counts == want, f"medusa draft steps: launch counts {counts} != "
+            f"expected {want}")
+    require(all(x == x and 0 < x < float("inf") for x in losses),
+            f"medusa losses {losses}")
+    require(state.step == len(batches), f"step counter {state.step}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(leaf_bits(torch, t) == s for t, s in zip(frozen, stamp)),
+            "a frozen decoder weight changed in the draft steps")
+    moved = {k: state.params[k].abs().max().item() for k in ("w", "b")}
+    require(all(v > 0 for v in moved.values()),
+            f"a head leaf did not move from zero: {moved}")
+    for i, (dt, loss) in enumerate(zip(times, losses)):
+        log(f"medusa draft step {i + 1} [{card}]: loss {loss:.4f}, "
+            f"{dt:.3f} s = {B * S / dt:.0f} positions/s, "
+            f"{flops / dt / 1e12:.1f} TFLOP/s")
+    log(f"medusa draft steps [{card}]: peak device memory {peak:.2f} GiB; "
+        f"launches {counts}; decoder bit-unchanged ({len(frozen)} leaves); "
+        f"heads moved (max |w| {moved['w']:.3e}, |b| {moved['b']:.3e})")
+    save_heads(npz, state.params)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def medusa_serve(torch, dev, card, tok, cfg, params, npz):
+    """(b) `cli/serve.py serve --medusa_path` with (a)'s heads, 8 x 32, on
+    the bf16 pool (verify K6) and on the int8 pool (K9c), both with the
+    dedup prefix: exact counts from the engine's counters, no plain step,
+    at most one target forward a token (a verify round emits at least one
+    token a slot), acceptance >= 1, every request's first token that of a
+    plain run's install (the same flags at --max_new_tokens 1), vocabulary
+    ids.  Returns (launch counts by path, the bf16 run's results)."""
+    from prot2text_tpu_torch.cli.serve import serve
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    L, V = cfg.llm_config.num_layers, cfg.llm_config.vocab_size
+    paths, results = {}, None
+    for label, path, flags in (("bf16", "serve_medusa", ()),
+                               ("int8", "serve_medusa_kv8",
+                                ("--kv_bits", "8"))):
+        args = serve_args("--max_new_tokens", str(MEDUSA_NEW),
+                          "--medusa_path", npz, *flags)
+        batches = serve_batches(args, tok, 8, 8)
+        reset_launch_counts()
+        first = serve(serve_args("--max_new_tokens", "1", *flags), tok, cfg,
+                      params, batches, dev)
+        paths[path + "_first"] = launch_counts()
+        fi = first.engine.installs
+        require(paths[path + "_first"] == expect(
+            K1=L * (1 + fi["full"]), K6=L * fi["prefix"]),
+            f"{path}: the installs-only run launched "
+            f"{paths[path + '_first']}")
+        run, counts = serve_once(
+            torch, args, tok, cfg, params, batches, dev,
+            f"Medusa K 4 ({label} pool, shared prefix + dedup), 8 x "
+            f"{MEDUSA_NEW} tokens", card)
+        eng = run.engine
+        rounds, pfx = L * eng.verify_rounds, L * eng.installs["prefix"]
+        verify = ({"K6": pfx + rounds} if label == "bf16" else
+                  {"K6": pfx, "K9c": rounds})
+        want = expect(K1=L * (1 + eng.installs["full"]), **verify)
+        require(counts == want, f"{path}: launch counts {counts} != "
+                f"expected {want}")
+        require(eng.spec_gamma == 4 and eng.plain_steps == 0
+                and eng.verify_rounds > 0 and eng.installs["prefix"] > 0,
+                f"{path}: gamma {eng.spec_gamma}, {eng.plain_steps} plain "
+                f"steps, {eng.verify_rounds} rounds, {eng.installs}")
+        require(eng.spec_slot_rounds <= eng.spec_tokens
+                and eng.acceptance() >= 1.0,
+                f"{path}: {eng.spec_slot_rounds} slot-rounds for "
+                f"{eng.spec_tokens} tokens")
+        firsts = {k: t[0] for k, t in first.tokens.items()}
+        require(sorted(firsts) == sorted(run.tokens) and all(
+            run.tokens[k][0] == firsts[k] for k in firsts),
+            f"{path}: first tokens differ from the plain installs'")
+        require(all(0 <= t < V for ts in run.tokens.values() for t in ts),
+                f"{path}: a token outside the vocabulary")
+        round_ms = eng.verify_s / eng.verify_rounds * 1e3
+        log(f"serve {path} [{card}]: {round_ms:.3f} ms a verify round, "
+            f"acceptance {eng.acceptance():.3f}, "
+            f"{len(run.results) / run.seconds * 3600:.0f} descriptions/hour;"
+            f" first tokens of all {len(firsts)} requests the plain "
+            f"installs'")
+        paths[path] = counts
+        if results is None:
+            results = run.results
+        del run, eng, first
+        gc.collect()
+    return paths, results
+
+
+def medusa_cli(torch, dev, card, tmp):
+    """(c) `cli/train_draft.py main` on the card under --debug_tiny_model
+    (bf16, K 3, batch 2 over 6 records: 3 steps, K1 = 2 a step): the npz
+    it writes reads back through the serve CLI's loader bit-identical to
+    the heads it returns, in f32 and in bf16."""
+    import csv
+
+    from prot2text_tpu_torch.cli import train_draft
+    from prot2text_tpu_torch.cli.serve import load_medusa_heads
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    records = train_records(6, (20, 41), seed=12)
+    csv_path = os.path.join(tmp, "draft.csv")
+    with open(csv_path, "w", newline="") as f:
+        wr = csv.DictWriter(f, fieldnames=list(records[0]))
+        wr.writeheader()
+        wr.writerows(records)
+    npz = os.path.join(tmp, "tiny_medusa.npz")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    heads = train_draft.main([
+        "--train_csv", csv_path, "--debug_tiny_model", "true",
+        "--batch_size", "2", "--max_sequence_length", "64", "--num_heads",
+        "3", "--output_path", npz])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    require(counts == expect(K1=2 * 3),
+            f"train_draft main: launch counts {counts}")
+    for dtype in (torch.float32, torch.bfloat16):
+        loaded = load_medusa_heads(npz, dtype, dev)
+        require(all(loaded[k].dtype == dtype and torch.equal(
+            loaded[k], heads[k].detach().to(dtype)) for k in ("w", "b")),
+            f"the heads npz read back in {dtype} differs")
+    log(f"train_draft main --debug_tiny_model [{card}]: 3 steps in "
+        f"{wall:.3f} s with the build, launches {counts}; npz read back "
+        f"bit-identical in f32 and bf16")
+    return counts
+
+
+def score_results(card, tmp, served):
+    """(d) `cli/benchmark.py main` on phase 3c's light JSON and on (b)'s
+    bf16 serving JSON with neither `sacrebleu` nor `rouge_score` imported;
+    the references scored against themselves (exact match and every ROUGE
+    1.0, BLEU-2 and BLEU-4 1.0 over the references of at least four
+    tokens); `bert_score_from_embeddings` on seeded random embeddings
+    against a direct evaluation of its formula."""
+    import io
+
+    import numpy as np
+
+    from prot2text_tpu_torch.cli import benchmark
+    from prot2text_tpu_torch.eval_metrics.metrics import (
+        _tokenize_13a, bert_score_from_embeddings, compute_bleu,
+        compute_metrics,
+    )
+
+    require("light" in LIGHT_RESULTS, "phase 3c's light results are missing")
+    d = os.path.join(tmp, "scores")
+    os.makedirs(d)
+    sets = {"light": LIGHT_RESULTS["light"], "serve_medusa": served}
+    for name, res in sets.items():
+        with open(os.path.join(d, f"generation_{name}_0.json"), "w") as f:
+            json.dump(res, f)
+    t0 = time.perf_counter()
+    scores = {}
+    for name in sets:
+        with contextlib.redirect_stdout(io.StringIO()):
+            scores[name] = benchmark.main(["--results_dir", d, "--identifier",
+                                           name])
+    wall = time.perf_counter() - t0
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("sacrebleu", "rouge_score"))
+    require(not loaded, f"scoring imported {loaded}")
+    for name, m in scores.items():
+        vals = [m["exact_match"], m["bleu2"]["bleu"], m["bleu4"]["bleu"],
+                *m["rouge"].values()]
+        require(all(0.0 <= v <= 1.0 for v in vals), f"{name} scores {m}")
+    refs = [r["true"] for res in sets.values() for r in res.values()]
+    same = compute_metrics(refs, refs)
+    long = [r for r in refs if len(_tokenize_13a(r)) >= 4]
+    require(same["exact_match"] == 1.0
+            and all(v == 1.0 for v in same["rouge"].values())
+            and long and all(compute_bleu(long, long, n)["bleu"] == 1.0
+                             for n in (2, 4)),
+            f"references against themselves: {same}")
+    rng = np.random.default_rng(26)
+    pe = [rng.standard_normal((n, 32)) for n in (5, 3, 7)]
+    re_ = [rng.standard_normal((n, 32)) for n in (4, 6, 2)]
+    wp = [rng.random(len(x)) for x in pe]
+    wr = [rng.random(len(x)) for x in re_]
+    got = bert_score_from_embeddings(pe, re_, wp, wr)
+    ps, rs = [], []
+    for a, b, u, v in zip(pe, re_, wp, wr):
+        cos = [[float(x @ y) / float(np.linalg.norm(x) * np.linalg.norm(y))
+                for y in b] for x in a]
+        ps.append(sum(w * max(row) for w, row in zip(u, cos)) / sum(u))
+        rs.append(sum(w * max(col) for w, col in zip(v, zip(*cos))) / sum(v))
+    fs = [2 * p * r / (p + r) for p, r in zip(ps, rs)]
+    want = {"precision": sum(ps) / 3, "recall": sum(rs) / 3,
+            "f1": sum(fs) / 3}
+    require(all(abs(got[k] - want[k]) <= 1e-12 for k in want),
+            f"BERTScore {got} != the direct formula's {want}")
+    log(f"scoring [{card}]: light (phase 3c main) bleu4 "
+        f"{scores['light']['bleu4']['bleu']:.4f}, rougeL "
+        f"{scores['light']['rouge']['rougeL']:.4f}; serve_medusa bleu4 "
+        f"{scores['serve_medusa']['bleu4']['bleu']:.4f}, rougeL "
+        f"{scores['serve_medusa']['rouge']['rougeL']:.4f}; {wall:.3f} s, "
+        f"no sacrebleu or rouge_score imported; {len(refs)} references "
+        f"against themselves 1.0 (BLEU over the {len(long)} of >= 4 "
+        f"tokens); BERTScore on random embeddings = the direct formula")
 
 
 def quant_launches(eng, cfg, batches) -> int:
@@ -5026,6 +5350,79 @@ def run_serve_plumbing(torch, dev):
                 f"x max|logit| {top}")
         log(f"plumbing int8 pool {name} logits cuda vs cpu: max abs diff "
             f"{err:.3e} (<= 5e-2 x max|logit| {top:.3e})")
+
+
+def run_medusa_plumbing(torch, dev):
+    """A tiny decoder with nonzero random Medusa heads (K 3) serving on
+    `dev` (kernels) and on the CPU (plain versions): on the f32 pool (K1
+    installs, K6 verify rounds; the plain engine K4) and on the int8 pool
+    (K8 verify rounds; the plain engine K7), every request's tokens
+    identical on both devices and equal to the plain engine's greedy
+    tokens on each.  The int8 pool computes in bf16, so it serves a
+    decisive decoder (the embeddings 20 times larger, the head mapping
+    each token to a successor) over prompts of token embeddings."""
+    import numpy as np
+
+    from prot2text_tpu_torch.infer.serving import ContinuousBatcher
+    from prot2text_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from prot2text_tpu_torch.models.decoder import (
+        DecoderConfig, init_decoder_params,
+    )
+    from prot2text_tpu_torch.models.medusa import (
+        MedusaConfig, init_medusa_params,
+    )
+    from prot2text_tpu_torch.models.weights import tree_map
+
+    cpu, V, H = torch.device("cpu"), 300, 128
+    cfg = DecoderConfig(vocab_size=V, hidden_size=H, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=64,
+                        intermediate_size=256, rope_theta=1e4)
+    g = torch.Generator().manual_seed(26)
+    rand = init_decoder_params(cfg, generator=g, device=cpu)
+    E = rand["embed_tokens"]
+    head = torch.zeros((H, V))
+    head[:, torch.randperm(V, generator=g)] = E.T * 20.0
+    succ = dict(rand, embed_tokens=E * 20.0, lm_head={"kernel": head})
+    heads = init_medusa_params(MedusaConfig(H, 3), g, scale=0.05)
+    heads["b"] = 0.05 * torch.randn(3, H, generator=g)
+    rng = np.random.default_rng(26)
+    lens = ((5, 12), (17, 9), (30, 14), (3, 10), (11, 8))
+    for label, params, kw in (("f32", rand, {}), ("int8", succ,
+                                                  {"kv_bits": 8})):
+        reqs = [(f"r{i}", (succ["embed_tokens"][rng.integers(0, V, n)]
+                           .numpy() if kw else rng.standard_normal(
+                               (n, H)).astype(np.float32)), m)
+                for i, (n, m) in enumerate(lens)]
+        toks = []
+        for d in (cpu, dev):
+            def serve(**more):
+                eng = ContinuousBatcher(
+                    cfg, tree_map(lambda t: t.to(d), params), max_slots=3,
+                    max_len=32 + 16, prompt_pad=32, eos_token_id=-1,
+                    cache_dtype=torch.float32, sync_every=4, **kw, **more)
+                for rid, e, m in reqs:
+                    eng.submit(rid, e, max_new_tokens=m)
+                return dict(eng.run()), eng
+
+            reset_launch_counts()
+            got, eng = serve(medusa_params=tree_map(lambda t: t.to(d),
+                                                    heads))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            plain, _ = serve()
+            require(got == plain, f"medusa plumbing {label} on {d}: tokens "
+                    f"differ from plain greedy")
+            require(eng.verify_rounds > 0 and eng.plain_steps == 0
+                    and eng._spec_fused == bool(kw),
+                    f"medusa plumbing {label}: {eng.verify_rounds} rounds, "
+                    f"{eng.plain_steps} plain steps, fused "
+                    f"{eng._spec_fused}")
+            toks.append(got)
+        require(toks[1] == toks[0], f"medusa plumbing {label}: cuda tokens "
+                f"{toks[1]} != cpu {toks[0]}")
+        log(f"medusa plumbing {label} pool cuda vs cpu: tokens of "
+            f"{len(reqs)} requests identical and equal to plain greedy; "
+            f"acceptance {eng.acceptance():.3f} on {d}; Medusa launches "
+            f"{counts}")
 
 
 def int8_round_logits(torch, eng):
@@ -5802,6 +6199,7 @@ def main() -> int:
     run_train_plumbing(torch, dev)
     run_contrast_plumbing(torch, dev)
     run_serve_plumbing(torch, dev)
+    run_medusa_plumbing(torch, dev)
     run_serve_quant_plumbing(torch, dev)
     run_legacy_plumbing(torch, dev)
     log(f"phase 6 at {time.time() - t_start:.1f} s")

@@ -15,7 +15,11 @@ decode reads its one copy (K9a); otherwise decode is K4.  --kv_bits 8 keeps
 the pool in int8 (decode K9b with the deduplicated prefix, K7 without);
 --prompt_lookup_tokens γ verifies γ n-gram drafts per slot per round (K9c
 or K8 on the int8 pool, K6 on the bf16 one), and --spec_break_even turns
-on the controller that falls back to plain rounds.
+on the controller that falls back to plain rounds.  --medusa_path loads
+Medusa draft heads (the npz `cli/train_draft.py` writes, {"w" (K, H, H),
+"b" (K, H)}) in the float compute dtype — the model dtype, bf16 under
+int8/int4, never an integer cast — and verifies their K drafts a round the
+same way.
 
 --model_dtype int8 or int4 quantizes both frozen towers' projections per
 output channel (`models/quant.quantize_params`: int8, or int4 nibble
@@ -115,7 +119,9 @@ def build_parser():
                         "verified per row (greedy only; 0 = off)")
     p.add_argument("--prompt_lookup_ngram", type=int, default=2)
     p.add_argument("--medusa_path", type=str, default=None,
-                   help="Medusa draft heads (not ported yet)")
+                   help="npz of trained Medusa draft heads (keys w (K,H,H) "
+                        "and b (K,H), from cli/train_draft.py); drafts K "
+                        "tokens per slot per round (greedy only)")
     p.add_argument("--spec_break_even", type=float, default=0.0,
                    help="adaptive speculation: fall back to plain decode "
                         "while accepted tokens per verify round and active "
@@ -146,12 +152,17 @@ def build_parser():
 
 def refuse_unported(args) -> None:
     """NotImplementedError for every flag value the port lacks."""
-    refuse([
-        (args.medusa_path is not None,
-         "--medusa_path (Medusa speculative serving)",
-         "§1 item 8, Medusa serving with cli/train_draft.py"),
-        *common_unported(args),
-    ])
+    refuse(common_unported(args))
+
+
+def load_medusa_heads(path: str, model_dtype, device) -> dict:
+    """{"w" (K, H, H), "b" (K, H)} from a heads npz on `device` in the
+    float compute dtype: the model dtype, or bf16 under --model_dtype
+    int8/int4 (an integer cast would truncate the trained heads)."""
+    z = np.load(path)
+    dtype = compute_dtype(model_dtype)
+    return {k: torch.as_tensor(z[k]).to(device=device, dtype=dtype)
+            for k in ("w", "b")}
 
 
 def build_server(args, tok, device):
@@ -242,7 +253,7 @@ def encode_batch(cfg: ESMCQwenConfig, params, batch, device,
 @dataclasses.dataclass
 class ServeRun:
     results: dict            # name -> {"true", "pred"}
-    n_tokens: dict           # name -> tokens generated (EOS included)
+    tokens: dict             # name -> generated token ids (EOS included)
     engine: ContinuousBatcher
     seconds: float           # host wall time of the whole loop
     prefix_len: int          # shared prefix tokens (0: none)
@@ -253,7 +264,8 @@ def serve(args, tok, cfg: ESMCQwenConfig, params, batches: Iterable[dict],
     """The CLI's serving loop over collated `batches`: encode each batch,
     discover the shared prefix from the first one, then interleave submit
     with `pump` backpressure and drain with `run`.  Ends with the last
-    request's tokens on the host."""
+    request's tokens on the host.  --medusa_path's heads load before the
+    timed loop."""
     llm_cfg = cfg.llm_config
     eos_id = getattr(tok, "eos_token_id", llm_cfg.eos_token_id)
     pad_id = getattr(tok, "pad_token_id", llm_cfg.pad_token_id)
@@ -263,11 +275,13 @@ def serve(args, tok, cfg: ESMCQwenConfig, params, batches: Iterable[dict],
             do_sample=True, temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, eos_token_id=eos_id, pad_token_id=pad_id)
     buckets = tuple(int(b) for b in str(args.prompt_pad).split(","))
+    medusa = (load_medusa_heads(args.medusa_path, args.model_dtype, device)
+              if args.medusa_path else None)
 
     def encode(batch):
         return encode_batch(cfg, params, batch, device, args.attn_impl)
 
-    trues, results, n_tokens = {}, {}, {}
+    trues, results, tokens = {}, {}, {}
     t0 = time.time()
     batch_it = iter(batches)
     first = next(batch_it, None)
@@ -300,13 +314,13 @@ def serve(args, tok, cfg: ESMCQwenConfig, params, batches: Iterable[dict],
         kv_bits=args.kv_bits,
         prompt_lookup_tokens=args.prompt_lookup_tokens,
         prompt_lookup_ngram=args.prompt_lookup_ngram,
-        spec_break_even=args.spec_break_even,
+        medusa_params=medusa, spec_break_even=args.spec_break_even,
         spec_probe_every=args.spec_probe_every,
         shared_prefix_embeds=prefix_embeds,
         prefix_dedup=args.prefix_dedup and prefix_embeds is not None)
 
     def finish(name, toks):
-        n_tokens[name] = len(toks)
+        tokens[name] = toks
         pred = tok.decode([t for t in toks if t not in (pad_id, eos_id)],
                           skip_special_tokens=True)
         results[name] = {"true": trues.pop(name), "pred": pred}
@@ -346,7 +360,7 @@ def serve(args, tok, cfg: ESMCQwenConfig, params, batches: Iterable[dict],
             finish(name, toks)
     for name, toks in eng.run():
         finish(name, toks)
-    return ServeRun(results=results, n_tokens=n_tokens, engine=eng,
+    return ServeRun(results=results, tokens=tokens, engine=eng,
                     seconds=time.time() - t0,
                     prefix_len=0 if shared_ids is None else len(shared_ids))
 

@@ -18,6 +18,12 @@ the shared prefix); otherwise `decoder_forward` with an explicit bias over
 the pool (K6).  `spec_break_even` > 0 turns on the adaptive controller that
 falls back to plain rounds while too few drafts are accepted.
 
+Medusa speculative serving (`medusa_params`, K heads of `models/medusa.py`)
+takes the drafts from learned heads instead: γ = K, each round's drafts are
+`medusa_drafts` of every slot's frontier hidden state (`last_hidden`, kept
+fresh at install, on every plain step and after every verify round), and
+the verify is the same chunk forward.
+
 What carries over from the JAX engine, and what does not:
   * the same state (pool KV cache + per-slot metadata), the same
     install/decode semantics, the scratch-column rule and the T rounding
@@ -37,8 +43,7 @@ What carries over from the JAX engine, and what does not:
     synchronise the device, so they add no synchronisation of their own;
   * the engine counts its plain decode steps (`plain_steps`) and its
     verify rounds (`verify_rounds`) apart, beside JAX's `steps` which sums
-    both, so that kernel launch counts can be asserted exactly;
-  * Medusa speculative serving is not ported yet (ROADMAP.md §1 item 8).
+    both, so that kernel launch counts can be asserted exactly.
 
 Typical use:
 
@@ -63,6 +68,7 @@ from ..models.decoder import (
     decoder_logits, decoder_verify_chunk, layer_views,
     supports_verify_chunk_step,
 )
+from ..models.medusa import medusa_drafts
 from .generate import _sample_token
 from .kvcache import init_kv_cache
 
@@ -215,6 +221,8 @@ def _prefill_install_pool(cfg: DecoderConfig, state, params, emb, mask,
         state["hist"][slots] = -1
         state["hist"][slots, 0] = tok0
         state["hist_len"][slots] = 1
+    if "last_hidden" in state:     # Medusa's draft source: frontier hidden
+        state["last_hidden"][slots] = h[:n, -1].to(state["last_hidden"].dtype)
     return tok0, logits
 
 
@@ -284,6 +292,10 @@ def _decode_all(cfg: DecoderConfig, state, params, generator, pkv=None, *,
             state["hist"][bidx, hpos] = torch.where(
                 active, tok, state["hist"][bidx, hpos])
             state["hist_len"].add_(active.to(state["hist_len"].dtype))
+        if "last_hidden" in state:      # Medusa's frontier stays fresh
+            state["last_hidden"].copy_(torch.where(
+                active[:, None], h[:, 0].to(state["last_hidden"].dtype),
+                state["last_hidden"]))
         state["active"].copy_(active & ~finished)
     return packed
 
@@ -335,10 +347,12 @@ def ngram_drafts(hist, hist_len, *, gamma: int, ngram: int,
 @torch.no_grad()
 def _spec_rounds(cfg: DecoderConfig, state, params, pkv=None, *,
                  eos_token_id: int, gamma: int, ngram: int, rounds: int = 1,
-                 use_fused: bool = False, prefix_len: int = 0, layers=None):
-    """`rounds` prompt-lookup verify rounds with per-row acceptance
+                 use_fused: bool = False, medusa=None, prefix_len: int = 0,
+                 layers=None):
+    """`rounds` speculative verify rounds with per-row acceptance
     (prot2text_tpu/infer/serving.py:434-575): every slot drafts `gamma`
-    tokens from its own history, one G = gamma + 1 token chunk forward
+    tokens from its own history (or, with `medusa` heads, from its frontier
+    hidden state `last_hidden`), one G = gamma + 1 token chunk forward
     verifies all slots at per-row cache columns, and each row advances by
     its own accepted length (0..gamma drafts + the bonus token), clamped by
     its budget and its first EOS.  Rejected drafts' k/v land past the
@@ -351,7 +365,6 @@ def _spec_rounds(cfg: DecoderConfig, state, params, pkv=None, *,
     B = state["pos"].shape[0]
     G = gamma + 1
     T = state["kv_mask"].shape[1]
-    HW = state["hist"].shape[1]
     dev = state["pos"].device
     colsG = torch.arange(G, device=dev)[None, :]
     colsT = torch.arange(T, device=dev)[None, :]
@@ -362,8 +375,12 @@ def _spec_rounds(cfg: DecoderConfig, state, params, pkv=None, *,
     packed = torch.empty((3, rounds, G, B), dtype=torch.int64, device=dev)
     for r in range(rounds):
         active = state["active"].clone()
-        drafts = ngram_drafts(state["hist"], state["hist_len"], gamma=gamma,
-                              ngram=ngram)
+        if medusa is not None:
+            drafts = medusa_drafts(cfg, params, medusa,
+                                   state["last_hidden"].to(cdt))
+        else:
+            drafts = ngram_drafts(state["hist"], state["hist_len"],
+                                  gamma=gamma, ngram=ngram)
         chunk = torch.cat([state["last_tok"][:, None], drafts], dim=1)
         emb = params["embed_tokens"][chunk].to(cdt)          # (B, G, H)
         start = torch.where(active, state["next_slot"], scratch)
@@ -402,10 +419,19 @@ def _spec_rounds(cfg: DecoderConfig, state, params, pkv=None, *,
         newly = (colsT >= start[:, None]) & (colsT < (start + n)[:, None])
         state["kv_mask"].masked_fill_(newly & active[:, None], 1)
         emit = colsG < n[:, None]                            # (B, G)
-        hpos = (state["hist_len"][:, None] + colsG).clamp(0, HW - 1)
-        hvals = torch.gather(state["hist"], 1, hpos)
-        state["hist"].scatter_(1, hpos, torch.where(emit, out, hvals))
-        state["hist_len"].add_(n.to(state["hist_len"].dtype))
+        if "hist" in state:
+            hpos = (state["hist_len"][:, None] + colsG).clamp(
+                0, state["hist"].shape[1] - 1)
+            hvals = torch.gather(state["hist"], 1, hpos)
+            state["hist"].scatter_(1, hpos, torch.where(emit, out, hvals))
+            state["hist_len"].add_(n.to(state["hist_len"].dtype))
+        if "last_hidden" in state:
+            # the new frontier: the chunk hidden state that emitted the
+            # last accepted token (position n-1 generated out[n-1])
+            hn = h[torch.arange(B, device=dev), (n - 1).clamp(0, G - 1)]
+            state["last_hidden"].copy_(torch.where(
+                (n > 0)[:, None], hn.to(state["last_hidden"].dtype),
+                state["last_hidden"]))
         state["budget"].sub_(n)
         state["pos"].add_(n)
         state["next_slot"].copy_(torch.clamp(state["next_slot"] + n,
@@ -438,13 +464,16 @@ class ContinuousBatcher:
         (`prompt_lookup_ngram`-gram drafts, greedy only); spec_break_even >
         0 turns on the adaptive controller, which re-probes every
         spec_probe_every plain dispatches.
+    medusa_params: {"w" (K, H, H), "b" (K, H)} Medusa heads on the engine's
+        device (`models/medusa.py`): γ = K drafts a round from each slot's
+        frontier hidden state, verified like prompt lookup's (greedy only;
+        not with prompt_lookup_tokens).
     shared_prefix_embeds: (Ps, H) embeddings of a prompt prefix shared by
         every request (the chat template's header): its KV is computed once
         and prefills cover only each request's suffix.  prefix_dedup keeps
         ONE copy of that KV, read by every slot through K9a (K9b, K9c on an
         int8 pool), instead of replicating it into each slot's cache.
-    max_prefill_rows: cap on requests per prefill dispatch.
-    medusa_params raises NotImplementedError (ROADMAP.md §1 item 8)."""
+    max_prefill_rows: cap on requests per prefill dispatch."""
 
     def __init__(self, cfg: DecoderConfig, params, *, max_slots: int,
                  max_len: int, prompt_pad=64, eos_token_id: int = 128009,
@@ -454,10 +483,6 @@ class ContinuousBatcher:
                  medusa_params=None, spec_break_even: float = 0.0,
                  spec_probe_every: int = 8, shared_prefix_embeds=None,
                  prefix_dedup: bool = False, max_prefill_rows: int = 16):
-        if medusa_params is not None:
-            raise NotImplementedError(
-                "Medusa speculative serving is not ported yet (ROADMAP.md "
-                "§1 item 8: Medusa serving with cli/train_draft.py)")
         buckets = ((prompt_pad,) if isinstance(prompt_pad, int)
                    else tuple(sorted(prompt_pad)))
         if not buckets or buckets[-1] >= max_len:
@@ -485,6 +510,15 @@ class ContinuousBatcher:
                           torch.Generator(device=self.device).manual_seed(0))
         self.spec_gamma = int(prompt_lookup_tokens)
         self.spec_ngram = int(prompt_lookup_ngram)
+        # learned draft heads: γ = the number of heads, never beside the
+        # n-gram draft source
+        self.medusa = medusa_params
+        if medusa_params is not None:
+            if self.spec_gamma:
+                raise ValueError(
+                    "medusa_params and prompt_lookup_tokens are mutually "
+                    "exclusive draft sources")
+            self.spec_gamma = int(medusa_params["w"].shape[0])
         if self.spec_gamma and gen_cfg is not None and gen_cfg.do_sample:
             raise ValueError("speculative serving is greedy-only")
         # adaptive controller (prot2text_tpu/infer/serving.py:637-646): an
@@ -551,13 +585,18 @@ class ContinuousBatcher:
         }
         if self.dedup:
             self.state["use_pfx"] = zeros(torch.int32)
-        if self.spec_gamma:
+        if self.spec_gamma and self.medusa is None:
             # per-slot generated-token history, the n-gram match source
             HW = max_len - buckets[0] + self.spec_gamma + 2
             self.state["hist"] = torch.full((max_slots, HW), -1,
                                             dtype=torch.int64,
                                             device=self.device)
             self.state["hist_len"] = zeros()
+        if self.medusa is not None:
+            # each slot's frontier hidden state, the heads' draft input
+            self.state["last_hidden"] = torch.zeros(
+                (max_slots, cfg.hidden_size), dtype=cache_dtype,
+                device=self.device)
         # fused verify (K8/K9c) on an eligible int8 pool with the 64-column
         # scratch tail; the bf16 pool verifies through decoder_forward (K6)
         self._spec_fused = bool(
@@ -737,9 +776,9 @@ class ContinuousBatcher:
         return False
 
     def _spec_decode_round(self) -> Iterator[tuple]:
-        """Prompt-lookup speculative rounds (per-row acceptance): each
-        dispatch runs max(1, sync_every // G) verify rounds, each emitting
-        1..G tokens per active slot."""
+        """Speculative rounds (per-row acceptance) with the n-gram or the
+        Medusa drafts: each dispatch runs max(1, sync_every // G) verify
+        rounds, each emitting 1..G tokens per active slot."""
         G = self.spec_gamma + 1
         rounds = max(1, self.sync_every // G)
         t0 = time.perf_counter()
@@ -748,6 +787,7 @@ class ContinuousBatcher:
             self.prefix_kv if self.dedup else None,
             eos_token_id=self.eos_token_id, gamma=self.spec_gamma,
             ngram=self.spec_ngram, rounds=rounds, use_fused=self._spec_fused,
+            medusa=self.medusa,
             prefix_len=self.prefix_len if self.dedup else 0,
             layers=self.layers)
         self.steps += rounds               # one target forward per round

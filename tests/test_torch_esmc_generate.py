@@ -10,8 +10,9 @@ against the JAX class on the same weights (JAX init → numpy →
     prompt, and over the prompt and the first token), at `attn_impl` auto,
     xla and flash, on head dim 16 (tbkd lockstep cache) and 128 (bktd);
   * `kv_bits=8` (the int8 cache, bktd at head dim 128) with JAX's tokens;
-  * generation without proteins raises, and prompt lookup raises naming
-    ROADMAP.md §1 item 7."""
+  * generation without proteins raises; prompt lookup gives the plain
+    greedy tokens and refuses sampling with JAX's "greedy-only"
+    ValueError."""
 
 import importlib
 

@@ -277,33 +277,59 @@ def test_speculative_flags(flags, exit_message, csv_path, tmp_path):
     assert cli.main(args) == cli.main(_args(csv_path, tmp_path / "plain"))
 
 
-def test_draft_checkpoint_dir(csv_path, tmp_path, monkeypatch):
-    """--speculative_gamma with --draft_checkpoint_dir (no
-    --debug_tiny_model): the draft is Qwen3-0.6B's config (here the tiny
-    Qwen3's, by monkeypatch) loaded from the HF directory, its tree equal
-    to the one written, and the tiny model's predictions with that draft
-    are the plain greedy ones."""
+def _draft_run(csv_path, tmp_path, monkeypatch, dtype):
+    """--speculative_gamma 3 with --draft_checkpoint_dir (no
+    --debug_tiny_model) at --model_dtype `dtype`: the draft is Qwen3-0.6B's
+    config (here the tiny Qwen3's, by monkeypatch) loaded from an HF
+    directory.  Returns (the draft tree, the tree written, the predictions
+    with the draft, the plain args, the model, the batches)."""
     from prot2text_tpu_torch.models.qwen3 import Qwen3Config
 
     hf_dir, tree = hf_dirs.qwen3_cli_dir(tmp_path / "draft", seed=12)
     tok, cpu = ByteTextTokenizer(), torch.device("cpu")
-    plain_args = cli.build_parser().parse_args(_args(csv_path, tmp_path))
+    plain_args = cli.build_parser().parse_args(_args(csv_path, tmp_path,
+                                                     dtype=dtype))
     model = cli.build_model(plain_args, tok, cpu)
     tiny = model.config.llm_config
     monkeypatch.setattr(Qwen3Config, "qwen3_0_6b", classmethod(
         lambda cls: tiny))
     args = cli.build_parser().parse_args(_args(
         csv_path, tmp_path, "--speculative_gamma", "3",
-        "--draft_checkpoint_dir", hf_dir, "--debug_tiny_model", "false"))
+        "--draft_checkpoint_dir", hf_dir, "--debug_tiny_model", "false",
+        dtype=dtype))
     draft_cfg, draft = cli.build_draft(args, model, cpu)
     assert draft_cfg == tiny
-    hf_dirs.assert_tree_equal(draft, tree)
     batches = _batches(plain_args, tok)
     stats = []
     got = cli.generate_batches(args, tok, model, batches, cpu,
                                draft=(draft_cfg, draft), stats=stats)
-    assert got == cli.generate_batches(plain_args, tok, model, batches, cpu)
     assert all(s["rounds"] > 0 for s in stats)
+    return draft, tree, got, plain_args, model, batches
+
+
+def test_draft_checkpoint_dir(csv_path, tmp_path, monkeypatch):
+    """The draft's tree equals the one written, and the tiny model's
+    predictions with that draft are the plain greedy ones."""
+    draft, tree, got, plain_args, model, batches = _draft_run(
+        csv_path, tmp_path, monkeypatch, "fp32")
+    hf_dirs.assert_tree_equal(draft, tree)
+    assert got == cli.generate_batches(plain_args, ByteTextTokenizer(),
+                                       model, batches, torch.device("cpu"))
+
+
+def test_draft_checkpoint_dir_int4(csv_path, tmp_path, monkeypatch):
+    """At --model_dtype int4 every leaf of the draft is bf16, the written
+    values rounded, never truncated to integers (JAX's light CLI builds
+    its draft in the int4 dtype itself, ROADMAP.md §3); its batches
+    decode."""
+    from prot2text_tpu_torch.models.weights import tree_leaves, tree_map
+
+    draft, tree, got, *_ = _draft_run(csv_path, tmp_path, monkeypatch,
+                                      "int4")
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(draft))
+    hf_dirs.assert_tree_equal(draft, tree_map(
+        lambda t: t.to(torch.bfloat16), tree))
+    assert len(got) == 5
 
 
 def test_cuda_without_gpu_raises():

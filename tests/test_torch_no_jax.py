@@ -18,9 +18,12 @@ MODULES = [
     "prot2text_tpu_torch.data",
     "prot2text_tpu_torch.data.chat",
     "prot2text_tpu_torch.data.collate",
+    "prot2text_tpu_torch.data.dataloaders",
     "prot2text_tpu_torch.data.dataset",
     "prot2text_tpu_torch.data.sampler",
     "prot2text_tpu_torch.data.tokenization",
+    "prot2text_tpu_torch.eval_metrics",
+    "prot2text_tpu_torch.eval_metrics.metrics",
     "prot2text_tpu_torch.kernels",
     "prot2text_tpu_torch.kernels._build",
     "prot2text_tpu_torch.kernels.attention",
@@ -40,6 +43,7 @@ MODULES = [
     "prot2text_tpu_torch.models.hf_import",
     "prot2text_tpu_torch.models.llama",
     "prot2text_tpu_torch.models.lora",
+    "prot2text_tpu_torch.models.medusa",
     "prot2text_tpu_torch.models.peft_interop",
     "prot2text_tpu_torch.models.quant",
     "prot2text_tpu_torch.models.qwen3",
@@ -53,9 +57,11 @@ MODULES = [
     "prot2text_tpu_torch.infer.beam_search",
     "prot2text_tpu_torch.train",
     "prot2text_tpu_torch.train.contrastive",
+    "prot2text_tpu_torch.train.draft",
     "prot2text_tpu_torch.train.legacy",
     "prot2text_tpu_torch.train.optim",
     "prot2text_tpu_torch.train.sft",
+    "prot2text_tpu_torch.cli.benchmark",
     "prot2text_tpu_torch.cli.common",
     "prot2text_tpu_torch.cli.convert_checkpoint",
     "prot2text_tpu_torch.cli.generate_instruct",
@@ -63,6 +69,7 @@ MODULES = [
     "prot2text_tpu_torch.cli.generate_legacy",
     "prot2text_tpu_torch.cli.serve",
     "prot2text_tpu_torch.cli.train_contrast",
+    "prot2text_tpu_torch.cli.train_draft",
     "prot2text_tpu_torch.cli.train_instruct",
     "prot2text_tpu_torch.cli.train_legacy",
     "prot2text_tpu_torch.scripts",

@@ -186,7 +186,6 @@ BASE = ["--test_csv", "unused.csv", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--medusa_path", "heads.npz"], "item 8, Medusa serving"),
     (["--load_peft_adapter_dir", "peft"], "item 9"),
     (["--llm_checkpoint_dir", "qwen3"], "item 6"),
     (["--tp", "2"], "item 14"),

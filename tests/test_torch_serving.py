@@ -261,9 +261,10 @@ def test_engine_refusals():
     ).tree()
     kw = dict(max_slots=1, max_len=12, prompt_pad=8,
               cache_dtype=torch.float32)
-    # the int8 pool and prompt-lookup speculation are ported: they build
-    # the JAX engine's state (T a multiple of 32, 64 scratch columns under
-    # speculation on an int8 pool); Medusa still refuses
+    # the int8 pool, prompt-lookup speculation and Medusa heads are
+    # ported: they build the JAX engine's state (T a multiple of 32, 64
+    # scratch columns under speculation on an int8 pool; Medusa's K heads
+    # set γ and keep a frontier hidden state a slot, no history)
     eng = tserv.ContinuousBatcher(tcfg, tparams, **kw, kv_bits=8)
     assert eng.state["k"].dtype == torch.int8
     assert eng.state["k_scale"].shape == eng.state["k"].shape[:4]
@@ -275,9 +276,14 @@ def test_engine_refusals():
                                   prompt_lookup_tokens=3)
     assert eng.state["hist"].shape == (1, 12 - 8 + 3 + 2)
     assert not eng._spec_fused
-    with pytest.raises(NotImplementedError, match="item 8: Medusa"):
-        tserv.ContinuousBatcher(tcfg, tparams, **kw,
-                                medusa_params={"w": None})
+    heads = {"w": torch.zeros(3, tcfg.hidden_size, tcfg.hidden_size),
+             "b": torch.zeros(3, tcfg.hidden_size)}
+    eng = tserv.ContinuousBatcher(tcfg, tparams, **kw, medusa_params=heads)
+    assert eng.spec_gamma == 3 and "hist" not in eng.state
+    assert eng.state["last_hidden"].shape == (1, tcfg.hidden_size)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tserv.ContinuousBatcher(tcfg, tparams, **kw, medusa_params=heads,
+                                prompt_lookup_tokens=3)
     with pytest.raises(ValueError, match="greedy-only"):
         tserv.ContinuousBatcher(
             tcfg, tparams, **kw, prompt_lookup_tokens=3,
